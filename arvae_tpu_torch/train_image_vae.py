@@ -1,0 +1,113 @@
+"""Train the dSprites AR-VAE with the PyTorch port.
+
+Flag names follow the root ``train_image_vae.py`` for what the port
+supports. Run as a module:
+
+    python -m arvae_tpu_torch.train_image_vae -d dsprites --short --rand 0 \\
+        -r all --beta 1.0 --num_epochs 2 --batch_size 128
+
+``--device`` defaults to ``cuda``; without a card the script raises
+unless ``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import List, Optional, Sequence
+
+import torch
+
+from arvae_tpu_torch.core.config import expand_reg_dims
+from arvae_tpu_torch.data.dsprites import (FULL_FACTOR_SIZES,
+                                           SHORT_FACTOR_SIZES, DspritesDataset)
+from arvae_tpu_torch.models.image_vae import DspritesVAE
+from arvae_tpu_torch.training.image_trainer import (DSPRITES_REG_TYPE,
+                                                    ImageVAETrainer)
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--dataset_type", "-d", default="dsprites",
+                   help="dataset to be used; the port supports `dsprites`")
+    p.add_argument("--batch_size", type=int, default=128,
+                   help="training batch size")
+    p.add_argument("--num_epochs", type=int, default=100,
+                   help="number of training epochs")
+    p.add_argument("--lr", type=float, default=1e-4, help="learning rate")
+    p.add_argument("--beta", type=float, default=4.0,
+                   help="parameter for weighting KLD loss")
+    p.add_argument("--capacity", type=float, default=0.0,
+                   help="parameter for beta-VAE capacity")
+    p.add_argument("--gamma", type=float, default=10.0,
+                   help="parameter for weighting regularization loss")
+    p.add_argument("--delta", type=float, default=1.0,
+                   help="parameter for controlling the spread")
+    p.add_argument("--resume", action="store_true",
+                   help="restore the run's checkpoint (params, optimizer "
+                        "state, step) before training")
+    p.add_argument("--rand", type=int, default=None,
+                   help="random seed; without it seeds 0-9 are trained")
+    p.add_argument("--reg_type", "-r", action="append", default=None,
+                   help="attribute name to regularize (repeatable), or `all`")
+    p.add_argument("--short", dest="short", action="store_true", default=False,
+                   help="use the reduced dSprites factor grid for quick runs")
+    p.add_argument("--full", dest="short", action="store_false",
+                   help="use the full dSprites factor grid (default)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; `cpu` must be asked for explicitly")
+    return p.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> List[ImageVAETrainer]:
+    """Runs the CLI; returns the trainers, one per seed."""
+    args = parse_args(argv)
+    if args.dataset_type == "mnist":
+        raise NotImplementedError(
+            "MNIST is not ported yet (MnistVAE and pandas-free MNIST data "
+            "are queued in ROADMAP.md); use -d dsprites")
+    if args.dataset_type != "dsprites":
+        raise ValueError("Invalid dataset_type. Choose dsprites")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass --device cpu to "
+                           "train on the CPU")
+
+    dataset = DspritesDataset(
+        factor_sizes=SHORT_FACTOR_SIZES if args.short else FULL_FACTOR_SIZES)
+    reg_type = tuple(args.reg_type or ())
+    if reg_type:
+        unknown = [r for r in reg_type if r != "all" and r not in DSPRITES_REG_TYPE]
+        if unknown or ("all" in reg_type and len(reg_type) != 1):
+            raise ValueError(
+                f"unknown reg_type {unknown or list(reg_type)}; choose from "
+                f"{sorted(DSPRITES_REG_TYPE)} or 'all' (alone)")
+        reg_dim = expand_reg_dims(reg_type, DSPRITES_REG_TYPE)
+    else:
+        reg_dim = (0,)
+
+    seeds = range(0, 10) if args.rand is None else [args.rand]
+    trainers = []
+    for r in seeds:
+        trainer = ImageVAETrainer(
+            dataset=dataset,
+            model=DspritesVAE(seed=r),
+            device=device,
+            lr=args.lr,
+            reg_type=reg_type,
+            reg_dim=reg_dim,
+            beta=args.beta,
+            gamma=args.gamma,
+            capacity=args.capacity,
+            delta=args.delta,
+            rand=r,
+        )
+        if args.resume:
+            trainer.maybe_resume()
+        trainer.train_model(batch_size=args.batch_size,
+                            num_epochs=args.num_epochs)
+        trainers.append(trainer)
+    return trainers
+
+
+if __name__ == "__main__":
+    main()

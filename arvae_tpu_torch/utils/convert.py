@@ -1,0 +1,89 @@
+"""Flax → PyTorch parameter conversion for ``DspritesVAE``.
+
+The exact inverse of ``convert_dsprites_vae`` in
+``arvae_tpu/utils/torch_convert.py``, so a test can load the same
+weights into both packages. Per layer kind:
+
+- conv kernels: flax HWIO → torch OIHW;
+- transposed-conv kernels: flax HWIO → torch IOHW, spatially rotated
+  180° (flax's ``ConvTranspose`` correlates with the kernel, torch's is
+  the adjoint of a conv);
+- linear weights: (in, out) → (out, in);
+- the dense layers next to the conv stack also undo the flatten order:
+  flax flattens a conv map as (H, W, C), torch as (C, H, W).
+
+Input is the nested ``{name: {"kernel", "bias"}}`` parameter mapping of
+arrays (anything ``np.asarray`` accepts); output is a ``state_dict``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _chw_to_hwc_perm(c: int, h: int, w: int) -> np.ndarray:
+    """Index permutation taking a (C,H,W)-flattened vector to the (H,W,C)
+    flattening."""
+    idx = np.arange(c * h * w).reshape(c, h, w)
+    return np.transpose(idx, (1, 2, 0)).reshape(-1)
+
+
+def _t(x: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, order="C"))
+
+
+def _linear(p: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    return {
+        f"{prefix}.weight": _t(np.asarray(p["kernel"]).T),
+        f"{prefix}.bias": _t(np.asarray(p["bias"])),
+    }
+
+
+def _linear_flatten_in(p, prefix, c, h, w):
+    """Linear consuming a flattened conv map: input rows HWC → CHW."""
+    inv = np.argsort(_chw_to_hwc_perm(c, h, w))
+    k = np.asarray(p["kernel"])[inv, :]
+    return {f"{prefix}.weight": _t(k.T), f"{prefix}.bias": _t(np.asarray(p["bias"]))}
+
+
+def _linear_flatten_out(p, prefix, c, h, w):
+    """Linear producing a flattened conv map: output columns HWC → CHW."""
+    inv = np.argsort(_chw_to_hwc_perm(c, h, w))
+    k = np.asarray(p["kernel"])[:, inv]
+    return {
+        f"{prefix}.weight": _t(k.T),
+        f"{prefix}.bias": _t(np.asarray(p["bias"])[inv]),
+    }
+
+
+def _conv(p, prefix):
+    # flax (H, W, I, O) -> torch Conv2d (O, I, H, W)
+    return {
+        f"{prefix}.weight": _t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1))),
+        f"{prefix}.bias": _t(np.asarray(p["bias"])),
+    }
+
+
+def _convtranspose(p, prefix):
+    # flax (H, W, I, O) -> torch ConvTranspose2d (I, O, H, W), rotated 180°
+    w = np.transpose(np.asarray(p["kernel"]), (2, 3, 0, 1))[:, :, ::-1, ::-1]
+    return {f"{prefix}.weight": _t(w), f"{prefix}.bias": _t(np.asarray(p["bias"]))}
+
+
+def dsprites_vae_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``DspritesVAE`` params → ``state_dict`` of the port's model."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, idx in enumerate((0, 2, 4, 6)):
+        sd.update(_conv(params[f"enc_convs_{i}"], f"enc_conv.{idx}"))
+        sd.update(_convtranspose(params[f"dec_convs_{i}"], f"dec_conv.{idx}"))
+    sd.update(_linear_flatten_in(params["enc_denses_0"], "enc_lin.0", 32, 4, 4))
+    sd.update(_linear(params["enc_denses_1"], "enc_lin.2"))
+    sd.update(_linear(params["enc_mean"], "enc_mean"))
+    sd.update(_linear(params["enc_log_std"], "enc_log_std"))
+    sd.update(_linear(params["dec_denses_0"], "dec_lin.0"))
+    sd.update(_linear(params["dec_denses_1"], "dec_lin.2"))
+    sd.update(_linear_flatten_out(params["dec_denses_2"], "dec_lin.4", 32, 4, 4))
+    return sd

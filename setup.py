@@ -11,7 +11,8 @@ setup(
     description=(
         "TPU-native attribute-based regularization for VAE latent spaces"
     ),
-    packages=find_packages(include=["arvae_tpu", "arvae_tpu.*"]),
+    packages=find_packages(include=["arvae_tpu", "arvae_tpu.*",
+                                    "arvae_tpu_torch", "arvae_tpu_torch.*"]),
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -1,0 +1,45 @@
+"""The port imports on a machine without jax: every ``arvae_tpu_torch``
+module imports in a subprocess where ``import jax`` fails, and no
+module names jax or the JAX package in an import."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PKG = REPO / "arvae_tpu_torch"
+
+_PROBE = """
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "arvae_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import arvae_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(arvae_tpu_torch.__path__,
+                                               "arvae_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(len(names))
+"""
+
+
+def _module_files():
+    return sorted(p for p in PKG.rglob("*.py") if "_build" not in p.parts)
+
+
+def test_every_module_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         cwd=str(REPO), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    expected = len(_module_files()) - 1  # the package __init__ itself
+    assert int(out.stdout.strip().splitlines()[-1]) == expected
+
+
+def test_no_jax_or_reference_package_imports():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|arvae_tpu)\b",
+                     re.M)
+    offenders = [str(p) for p in _module_files() if pat.search(p.read_text())]
+    assert not offenders
