@@ -36,29 +36,38 @@ class DeviceSplit:
     ``kind``:
     - ``'packed'``: rows are bit-packed uint8 → float32 images of
       ``image_shape``;
-    - ``'bytes'``: rows are raw uint8 pixels → /255 float32 images.
+    - ``'bytes'``: rows are raw uint8 pixels → /255 float32 images;
+    - ``'tokens'``: rows are int token sequences with no labels (the
+      music splits), and a batch is ``(score, score)``: the labels ARE
+      the score.
     """
 
-    def __init__(self, rows: np.ndarray, labels: np.ndarray,
+    def __init__(self, rows: np.ndarray, labels: Optional[np.ndarray],
                  image_shape: Tuple[int, ...], kind: str,
                  device: torch.device):
-        if kind not in ("packed", "bytes"):
+        if kind not in ("packed", "bytes", "tokens"):
             raise ValueError(f"unknown split kind {kind!r}")
-        if len(rows) != len(labels):
+        if (labels is None) != (kind == "tokens"):
+            raise ValueError("a 'tokens' split takes no labels; the others need them")
+        if labels is not None and len(rows) != len(labels):
             raise ValueError(f"{len(rows)} rows but {len(labels)} labels")
         self.n = len(rows)
         self.image_shape = tuple(image_shape)
         self.kind = kind
         self.device = torch.device(device)
         self.images = torch.from_numpy(np.ascontiguousarray(rows)).to(self.device)
-        self.labels = torch.from_numpy(np.ascontiguousarray(labels)).to(self.device)
+        self.labels = (None if labels is None else
+                       torch.from_numpy(np.ascontiguousarray(labels)).to(self.device))
 
     def num_batches(self, batch_size: int) -> int:
         return self.n // batch_size
 
     def gather_batch(self, idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(images (B, *image_shape) float32, labels (B, L)) for row ids idx."""
+        """(images (B, *image_shape) float32, labels (B, L)) for row ids
+        idx; (score, score) for a 'tokens' split."""
         rows = self.images.index_select(0, idx)
+        if self.kind == "tokens":
+            return rows, rows
         labs = self.labels.index_select(0, idx)
         n_px = int(np.prod(self.image_shape))
         if self.kind == "packed":

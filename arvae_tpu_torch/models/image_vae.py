@@ -8,9 +8,10 @@ reference PyTorch module's (``enc_conv.{0,2,4,6}``, ``enc_lin.{0,2}``,
 ``dec_lin.{0,2,4}``, ``dec_conv.{0,2,4,6}``), so
 ``utils/convert.py`` maps Flax parameters onto it one to one.
 
-The reparametrisation takes its noise as tensors (``eps``,
-``eps_prior``), so a test can hand both packages the same draws;
-:func:`draw_noise` makes them from a ``torch.Generator``.
+The reparametrisation (:func:`reparametrize`, shared with the
+MeasureVAE) takes its noise as tensors (``eps``, ``eps_prior``), so a
+test can hand both packages the same draws; :func:`draw_noise` makes
+them from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,15 @@ class VAEOutput(NamedTuple):
     z_log_std: torch.Tensor  # (B, z_dim)
     z_tilde: torch.Tensor  # reparametrised sample, (B, z_dim)
     z_prior: torch.Tensor  # sample from N(0, I), (B, z_dim)
+
+
+def reparametrize(z_mean: torch.Tensor, z_log_std: torch.Tensor,
+                  eps: torch.Tensor, eps_prior: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The one reparametrisation convention, shared by every model
+    family (``reparametrize_keys`` in the JAX package): z̃ = μ + exp(log σ)·ε,
+    and the prior sample z_prior = ε_prior. Returns (z_tilde, z_prior)."""
+    return z_mean + torch.exp(z_log_std) * eps, eps_prior
 
 
 def draw_noise(batch: int, z_dim: int, generator: torch.Generator,
@@ -91,11 +101,11 @@ class DspritesVAE(nn.Module):
     def forward(self, x: torch.Tensor, eps: torch.Tensor,
                 eps_prior: torch.Tensor) -> VAEOutput:
         z_mean, z_log_std = self.encode(x)
-        z_tilde = z_mean + torch.exp(z_log_std) * eps
+        z_tilde, z_prior = reparametrize(z_mean, z_log_std, eps, eps_prior)
         return VAEOutput(
             logits=self.decode(z_tilde),
             z_mean=z_mean,
             z_log_std=z_log_std,
             z_tilde=z_tilde,
-            z_prior=eps_prior,
+            z_prior=z_prior,
         )

@@ -1,0 +1,206 @@
+"""Whole-sequence GRU recurrence: hand-written CUDA kernel pair + plain version.
+
+Replaces the Pallas TPU kernel ``arvae_tpu/ops/gru_pallas.py::gru_chain``.
+Layout (directions batched on a leading axis; any time flip for a
+backward direction happens in the caller, ``ops/gru.py``)::
+
+    gi   (T, D, B, 3H)  precomputed x @ w_ih + b_ih  (gates r, z, n)
+    w_hh (D, H, 3H), b_hh (D, 3H), h0 (D, B, H)
+    -> outs (T, D, B, H)     (the final hidden state is outs[-1])
+
+Gate math is torch-exact: ``n = tanh(i_n + r * (h w_hn + b_hn))``.
+
+On a CUDA tensor, :func:`gru_chain` launches the kernels of
+``csrc/gru_chain.cu`` (forward in the autograd Function's forward,
+backward in its backward) or raises; on a CPU tensor it runs
+:func:`gru_chain_reference`, a Python loop over T whose backward is
+autograd through the loop. There is no fallback from one to the other.
+
+What bounds it on the card: a T-long chain of dependent
+(rows x H) @ (H x 3H) products, small enough that latency, not bytes or
+arithmetic, sets the time. The kernel runs the whole chain in one launch
+(a block per tile of batch rows, looping over t, the hidden state in
+shared memory); the backward recomputes the gates from h_{t-1} and sums
+dW_hh / db_hh in fixed-order reduction launches, so its results repeat
+bitwise. See the source's header for the design.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from arvae_tpu_torch.ops import _build
+
+_NAME = "gru_chain"
+
+# Kernel launches by the wrapper, one per call of each direction.
+LAUNCHES = {"fwd": 0, "bwd": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version (CPU path, and the golden model on the card)
+# ---------------------------------------------------------------------------
+
+
+def gru_gates(gi: torch.Tensor, gh: torch.Tensor):
+    """(r, z, n) from the input- and hidden-side pre-activations, each
+    (..., 3H) in gate order (r, z, n)."""
+    i_r, i_z, i_n = gi.chunk(3, dim=-1)
+    h_r, h_z, h_n = gh.chunk(3, dim=-1)
+    r = torch.sigmoid(i_r + h_r)
+    z = torch.sigmoid(i_z + h_z)
+    n = torch.tanh(i_n + r * h_n)
+    return r, z, n
+
+
+def gru_chain_reference(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+                        h0: torch.Tensor) -> torch.Tensor:
+    """The recurrence as a Python loop over T (same layout as the kernel)."""
+    h = h0
+    outs = []
+    for t in range(gi.shape[0]):
+        gh = torch.bmm(h, w_hh) + b_hh[:, None, :]
+        r, z, n = gru_gates(gi[t], gh)
+        h = (1.0 - z) * n + z * h
+        outs.append(h)
+    return torch.stack(outs)
+
+
+# ---------------------------------------------------------------------------
+# Build and bind
+# ---------------------------------------------------------------------------
+
+
+_bound = False
+
+
+def _library() -> ctypes.CDLL:
+    global _bound
+    lib = _build.load(_NAME)
+    if not _bound:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.gru_chain_rows_fwd, lib.gru_chain_rows_bwd):
+            fn.argtypes = [i]
+            fn.restype = i
+        lib.gru_chain_fwd.argtypes = [p, p, p, p, i, i, i, i, p, p]
+        lib.gru_chain_fwd.restype = i
+        lib.gru_chain_reduce_floats.argtypes = [i] * 4
+        lib.gru_chain_reduce_floats.restype = ctypes.c_longlong
+        lib.gru_chain_bwd.argtypes = [p] * 6 + [i] * 4 + [p] * 7
+        lib.gru_chain_bwd.restype = i
+        _bound = True
+    return lib
+
+
+def _check(named, dev: torch.device) -> None:
+    for name, t in named:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name} must lie on {dev}, got {t.device}")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32")
+
+
+def _dims(gi, w_hh, b_hh, h0) -> Tuple[int, int, int, int]:
+    if gi.ndim != 4 or gi.shape[-1] % 3:
+        raise ValueError(f"gi must be (T, D, B, 3H), got {tuple(gi.shape)}")
+    t, d, b, h3 = gi.shape
+    h = h3 // 3
+    want = {"w_hh": (d, h, h3), "b_hh": (d, h3), "h0": (d, b, h)}
+    for name, x in (("w_hh", w_hh), ("b_hh", b_hh), ("h0", h0)):
+        if tuple(x.shape) != want[name]:
+            raise ValueError(f"{name} must be {want[name]}, got {tuple(x.shape)}")
+    if not (1 <= d <= 65535 and t >= 1 and b >= 1 and h >= 1):
+        raise ValueError(f"unsupported shape (T={t}, D={d}, B={b}, H={h})")
+    return t, d, b, h
+
+
+def _check_rows(lib: ctypes.CDLL, h: int) -> None:
+    if lib.gru_chain_rows_bwd(h) == 0 or lib.gru_chain_rows_fwd(h) == 0:
+        raise ValueError(f"H={h} is too wide: one batch row of the backward "
+                         "needs 32·H bytes of shared memory, at most 227 KB")
+
+
+def gru_chain_fwd_cuda(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+                       h0: torch.Tensor) -> torch.Tensor:
+    """Launches the forward kernel → outs (T, D, B, H)."""
+    t, d, b, h = _dims(gi, w_hh, b_hh, h0)
+    _check((("gi", gi), ("w_hh", w_hh), ("b_hh", b_hh), ("h0", h0)), gi.device)
+    lib = _library()
+    _check_rows(lib, h)
+    outs = torch.empty((t, d, b, h), dtype=torch.float32, device=gi.device)
+    with torch.cuda.device(gi.device):
+        err = lib.gru_chain_fwd(gi.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+                                h0.data_ptr(), t, d, b, h, outs.data_ptr(),
+                                _build.stream_of(gi))
+    _build.raise_on(lib, _NAME, err, "gru_chain_fwd")
+    LAUNCHES["fwd"] += 1
+    return outs
+
+
+def gru_chain_bwd_cuda(
+    gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, h0: torch.Tensor,
+    outs: torch.Tensor, douts: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launches the backward kernels → (dgi, dw_hh, db_hh, dh0)."""
+    t, d, b, h = _dims(gi, w_hh, b_hh, h0)
+    _check((("gi", gi), ("w_hh", w_hh), ("b_hh", b_hh), ("h0", h0),
+            ("outs", outs), ("douts", douts)), gi.device)
+    if outs.shape != (t, d, b, h) or douts.shape != (t, d, b, h):
+        raise ValueError(f"outs and douts must be {(t, d, b, h)}")
+    lib = _library()
+    _check_rows(lib, h)
+    dgi = torch.empty_like(gi)
+    dh0 = torch.empty_like(h0)
+    dw = torch.empty_like(w_hh)
+    db = torch.empty_like(b_hh)
+    # scratch: dgh_t, and the partial sums of the dW reduction
+    dgh = torch.empty_like(gi)
+    red = torch.empty(lib.gru_chain_reduce_floats(t, d, b, h), dtype=torch.float32,
+                      device=gi.device)
+    with torch.cuda.device(gi.device):
+        err = lib.gru_chain_bwd(gi.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+                                h0.data_ptr(), outs.data_ptr(), douts.data_ptr(),
+                                t, d, b, h, dgi.data_ptr(), dh0.data_ptr(),
+                                dw.data_ptr(), db.data_ptr(), dgh.data_ptr(),
+                                red.data_ptr(), _build.stream_of(gi))
+    _build.raise_on(lib, _NAME, err, "gru_chain_bwd")
+    LAUNCHES["bwd"] += 1
+    return dgi, dw, db, dh0
+
+
+# ---------------------------------------------------------------------------
+# Public op
+# ---------------------------------------------------------------------------
+
+
+class GruChainFn(torch.autograd.Function):
+    """The recurrence with the kernel backward (CUDA tensors only)."""
+
+    @staticmethod
+    def forward(ctx, gi, w_hh, b_hh, h0):
+        outs = gru_chain_fwd_cuda(gi, w_hh, b_hh, h0)
+        ctx.save_for_backward(gi, w_hh, b_hh, h0, outs)
+        return outs
+
+    @staticmethod
+    def backward(ctx, douts):
+        gi, w_hh, b_hh, h0, outs = ctx.saved_tensors
+        return gru_chain_bwd_cuda(gi, w_hh, b_hh, h0, outs, douts.contiguous())
+
+
+def gru_chain(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+              h0: torch.Tensor) -> torch.Tensor:
+    """Runs the full T-step recurrence → outs (T, D, B, H): the kernels
+    for CUDA tensors, the plain loop for CPU tensors."""
+    if gi.is_cuda:
+        return GruChainFn.apply(gi.float().contiguous(), w_hh.float().contiguous(),
+                                b_hh.float().contiguous(), h0.float().contiguous())
+    return gru_chain_reference(gi, w_hh, b_hh, h0)

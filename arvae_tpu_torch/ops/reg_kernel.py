@@ -19,32 +19,20 @@ scratch buffer summed in a fixed order by a second small launch, so a
 call is two launches and its result is bitwise repeatable (no float
 atomics).
 
-The library is built on first use with ``nvcc`` for ``sm_90a`` into
-``arvae_tpu_torch/_build/<hash of source and flags>/`` and bound with
-``ctypes``; importing this module builds nothing.
+The library is built on first use by ``ops/_build.py`` (``nvcc`` for
+``sm_90a``, bound with ``ctypes``); importing this module builds
+nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "reg_loss.cu"
-BUILD_ROOT = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
-)
+from arvae_tpu_torch.ops import _build
 
 # Kernel launches by the wrapper, one per call of each direction.
 LAUNCHES = {"fwd": 0, "bwd": 0}
@@ -94,61 +82,37 @@ def reg_loss_bwd_reference(
 # Build and bind
 # ---------------------------------------------------------------------------
 
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME/bin")
+_NAME = "reg_loss"
+SOURCE = _build.source(_NAME)
+BUILD_ROOT = _build.BUILD_ROOT
+NVCC_FLAGS = _build.NVCC_FLAGS
 
 
 def library_path() -> Path:
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_ROOT / key.hexdigest()[:16] / "libreg_loss.so"
+    return _build.library_path(_NAME)
 
 
 def build() -> Tuple[Path, float, str]:
-    """Compiles the library if it is not built yet.
-
-    Returns (path, build seconds (0.0 when already built), nvcc's
-    output, which holds ptxas's register and spill report)."""
-    out = library_path()
-    if out.exists():
-        return out, 0.0, ""
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, time.perf_counter() - t0, proc.stdout + proc.stderr
+    """Compiles the library if it is not built yet; see ``_build.build``."""
+    return _build.build(_NAME)
 
 
-_lib: Optional[ctypes.CDLL] = None
+_bound = False
 
 
 def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()[0]))
+    global _bound
+    lib = _build.load(_NAME)
+    if not _bound:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.reg_loss_threads.argtypes = []
         lib.reg_loss_threads.restype = i
-        lib.reg_loss_error_string.argtypes = [i]
-        lib.reg_loss_error_string.restype = ctypes.c_char_p
         lib.reg_loss_fwd.argtypes = [p, p, p, i, i, p, p, p]
         lib.reg_loss_fwd.restype = i
         lib.reg_loss_bwd.argtypes = [p, p, p, p, i, i, p, p, p, p]
         lib.reg_loss_bwd.restype = i
-        _lib = lib
-    return _lib
+        _bound = True
+    return lib
 
 
 def _check_inputs(z: torch.Tensor, a: torch.Tensor, delta: torch.Tensor) -> None:
@@ -165,12 +129,6 @@ def _check_inputs(z: torch.Tensor, a: torch.Tensor, delta: torch.Tensor) -> None
     r, b = z.shape
     if not (1 <= r <= 65535 and 1 <= b):
         raise ValueError(f"unsupported shape (R={r}, B={b})")
-
-
-def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
-    if err != 0:
-        msg = lib.reg_loss_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: {msg} ({err})")
 
 
 def _scratch(lib: ctypes.CDLL, z: torch.Tensor) -> torch.Tensor:
@@ -193,7 +151,7 @@ def reg_loss_fwd_cuda(z: torch.Tensor, a: torch.Tensor,
         err = lib.reg_loss_fwd(z.data_ptr(), a.data_ptr(), delta.data_ptr(),
                                r, b, partials.data_ptr(), out.data_ptr(),
                                stream)
-    _raise_on(lib, err, "reg_loss_fwd")
+    _build.raise_on(lib, _NAME, err, "reg_loss_fwd")
     LAUNCHES["fwd"] += 1
     return out
 
@@ -215,7 +173,7 @@ def reg_loss_bwd_cuda(z: torch.Tensor, a: torch.Tensor, delta: torch.Tensor,
         err = lib.reg_loss_bwd(z.data_ptr(), a.data_ptr(), delta.data_ptr(),
                                ct.data_ptr(), r, b, dz.data_ptr(),
                                partials.data_ptr(), ddelta.data_ptr(), stream)
-    _raise_on(lib, err, "reg_loss_bwd")
+    _build.raise_on(lib, _NAME, err, "reg_loss_bwd")
     LAUNCHES["bwd"] += 1
     return dz, ddelta
 

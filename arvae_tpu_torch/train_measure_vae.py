@@ -1,0 +1,179 @@
+"""Train the music AR-VAE (MeasureVAE) with the PyTorch port.
+
+Flag names and defaults follow the root ``train_measure_vae.py``. Run as
+a module:
+
+    python -m arvae_tpu_torch.train_measure_vae --rand 0 -r all --num_epochs 2
+
+``--device`` defaults to ``cuda``; without a card the script raises
+unless ``--device cpu`` is given. Not ported yet (each raises
+``NotImplementedError`` naming the ROADMAP): ``--glsr``,
+``--decoder_type sr|sr-no-input`` and ``--skip_cached``. The eval
+metrics, the test pass and the plots that follow training in the JAX
+CLI are not ported either; ``--test`` restores the checkpoint only.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import List, Optional, Sequence
+
+import torch
+
+from arvae_tpu_torch.core.config import expand_reg_dims
+from arvae_tpu_torch.data.attributes import MUSIC_REG_TYPE
+from arvae_tpu_torch.data.bar_dataset import ChoraleNBarDataset, FolkNBarDataset
+from arvae_tpu_torch.models.measure_vae import MeasureVAE
+from arvae_tpu_torch.training.measure_trainer import MeasureVAETrainer
+
+
+def _bool(s: str) -> bool:
+    if s.lower() in ("1", "true", "yes"):
+        return True
+    if s.lower() in ("0", "false", "no"):
+        return False
+    raise argparse.ArgumentTypeError(f"expected a boolean, got {s!r}")
+
+
+def _switch(p: argparse.ArgumentParser, on: str, off: str, dest: str,
+            default: bool, help: str) -> None:
+    p.add_argument(on, dest=dest, action="store_true", default=default, help=help)
+    p.add_argument(off, dest=dest, action="store_false")
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--dataset_type", "-d", default="folk", choices=("folk", "bach"),
+                   help="dataset to be used, `bach` or `folk`")
+    p.add_argument("--note_embedding_dim", type=int, default=10,
+                   help="size of the note embeddings")
+    p.add_argument("--metadata_embedding_dim", type=int, default=2,
+                   help="size of the metadata embeddings (unused, API parity)")
+    p.add_argument("--num_encoder_layers", type=int, default=2,
+                   help="number of layers in encoder RNN")
+    p.add_argument("--encoder_hidden_size", type=int, default=128,
+                   help="hidden size of the encoder RNN")
+    p.add_argument("--encoder_dropout_prob", type=float, default=0.5,
+                   help="dropout prob between encoder RNN layers")
+    p.add_argument("--has_metadata", type=_bool, default=False,
+                   help="bool, True if data contains metadata (unused, API parity)")
+    p.add_argument("--latent_space_dim", type=int, default=32,
+                   help="dimension of latent space")
+    p.add_argument("--num_decoder_layers", type=int, default=2,
+                   help="number of layers in decoder RNN")
+    p.add_argument("--decoder_hidden_size", type=int, default=128,
+                   help="hidden size of the decoder RNN")
+    p.add_argument("--decoder_dropout_prob", type=float, default=0.5,
+                   help="dropout prob between decoder RNN layers")
+    p.add_argument("--decoder_type", default="hier", choices=("hier", "sr", "sr-no-input"),
+                   help="decoder variant; the port supports `hier`")
+    p.add_argument("--batch_size", type=int, default=256, help="training batch size")
+    p.add_argument("--num_epochs", type=int, default=30, help="number of training epochs")
+    p.add_argument("--lr", type=float, default=1e-4, help="learning rate")
+    p.add_argument("--beta", type=float, default=0.001, help="weight for the KLD loss")
+    p.add_argument("--capacity", type=float, default=0.0, help="beta-VAE capacity")
+    p.add_argument("--gamma", type=float, default=1.0, help="weight for the reg loss")
+    p.add_argument("--delta", type=float, default=10.0, help="spread parameter")
+    _switch(p, "--train", "--test", "do_train", True,
+            "train (default) or, with --test, restore the run's checkpoint")
+    _switch(p, "--log", "--no_log", "log", False,
+            "log the results for tensorboard (unused, API parity)")
+    _switch(p, "--resume", "--no_resume", "resume", False,
+            "restore the run's checkpoint (params, optimizer state, step) "
+            "before training")
+    p.add_argument("--rand", type=int, default=None,
+                   help="random seed; without it seeds 0-9 are trained")
+    p.add_argument("--reg_type", "-r", action="append", default=None,
+                   help="attribute name(s) used for regularization, or `all`")
+    _switch(p, "--short", "--full", "short", False,
+            "use the small synthetic corpus for quick runs")
+    p.add_argument("--sampling", default="argmax", choices=("argmax", "multinomial"),
+                   help="free-running feedback sampling in the decoder")
+    _switch(p, "--glsr", "--no_glsr", "use_glsr", False,
+            "train with GLSR instead of the AR reg loss (not ported yet)")
+    _switch(p, "--skip_cached", "--no_skip_cached", "skip_cached", False,
+            "skip seeds with a protocol-stamped results cache (not ported yet)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; `cpu` must be asked for explicitly")
+    return p.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> List[MeasureVAETrainer]:
+    """Runs the CLI; returns the trainers, one per seed."""
+    args = parse_args(argv)
+    if args.use_glsr:
+        raise NotImplementedError(
+            "--glsr: the GLSR trainer is not ported yet (ROADMAP Queue A)")
+    if args.skip_cached:
+        raise NotImplementedError(
+            "--skip_cached: the results cache (eval metrics) is not ported yet "
+            "(ROADMAP Queue A)")
+    if args.decoder_type != "hier":
+        raise NotImplementedError(
+            f"--decoder_type {args.decoder_type}: the SR decoders are not ported "
+            "yet (ROADMAP Queue A); use hier")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass --device cpu to "
+                           "train on the CPU")
+
+    cls = FolkNBarDataset if args.dataset_type == "folk" else ChoraleNBarDataset
+    dataset = cls(dataset_type="train", is_short=args.short, num_bars=1)
+    # finalize the corpus before sizing the model: building it can grow
+    # the vocabulary past a cached dict file
+    dataset.get_dataset()
+
+    reg_type = tuple(args.reg_type or ())
+    if reg_type:
+        unknown = [r for r in reg_type if r != "all" and r not in MUSIC_REG_TYPE]
+        if unknown or ("all" in reg_type and len(reg_type) != 1):
+            raise ValueError(
+                f"unknown reg_type {unknown or list(reg_type)}; choose from "
+                f"{sorted(MUSIC_REG_TYPE)} or 'all' (alone)")
+        reg_dim = expand_reg_dims(reg_type, MUSIC_REG_TYPE)
+    else:
+        reg_dim = (0,)
+
+    seeds = range(0, 10) if args.rand is None else [args.rand]
+    trainers = []
+    for r in seeds:
+        model = MeasureVAE(
+            num_notes=len(dataset.note2index_dicts),
+            note_embedding_dim=args.note_embedding_dim,
+            num_encoder_layers=args.num_encoder_layers,
+            encoder_hidden_size=args.encoder_hidden_size,
+            encoder_dropout_prob=args.encoder_dropout_prob,
+            latent_space_dim=args.latent_space_dim,
+            num_decoder_layers=args.num_decoder_layers,
+            decoder_hidden_size=args.decoder_hidden_size,
+            decoder_dropout_prob=args.decoder_dropout_prob,
+            decoder_type=args.decoder_type,
+            sampling=args.sampling,
+            seed=r,
+        )
+        trainer = MeasureVAETrainer(
+            dataset=dataset,
+            model=model,
+            device=device,
+            lr=args.lr,
+            reg_type=reg_type,
+            reg_dim=reg_dim,
+            beta=args.beta,
+            capacity=args.capacity,
+            gamma=args.gamma,
+            delta=args.delta,
+            rand=r,
+        )
+        print("run_dir:", trainer.run_dir, flush=True)
+        if args.resume:
+            trainer.maybe_resume()
+        if args.do_train:
+            trainer.train_model(batch_size=args.batch_size, num_epochs=args.num_epochs)
+        else:
+            trainer.load_model()
+        trainers.append(trainer)
+    return trainers
+
+
+if __name__ == "__main__":
+    main()

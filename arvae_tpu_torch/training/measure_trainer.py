@@ -1,0 +1,132 @@
+"""Music AR-VAE trainer for the MeasureVAE.
+
+Counterpart of ``MeasureVAETrainer`` in
+``arvae_tpu/training/measure_trainer.py``: the objective
+token CE + β·|KLD − c| + γ·Σ_r AR-reg, where the attribute labels
+(rhy_complexity, pitch_range, note_density, contour) are computed on the
+device from the score inside the step, and ``torch.optim.Adam(lr)``.
+Every draw of a step (ε, ε_prior, the teacher-forcing coin, the tick
+loop's dropout seed, the GRUs' inter-layer dropout) comes from the
+trainer's noise generator on the device, or from an injected
+:class:`~arvae_tpu_torch.models.measure_vae.MeasureNoise`. Eval is
+free-running argmax with dropout off. The eval-metric suite,
+``test_model`` and the plots are not ported yet.
+
+Precision: float32 throughout; TF32 is turned off for matmuls and cuDNN.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from arvae_tpu_torch.core.config import (TrainerHParams, normalize_reg_dim,
+                                         trainer_config_string)
+from arvae_tpu_torch.data.attributes import MUSIC_REG_TYPE
+from arvae_tpu_torch.data.device_data import Metrics
+from arvae_tpu_torch.models.measure_vae import (MEASURE_SEQ_LEN, MeasureNoise,
+                                                MeasureVAE, draw_measure_noise)
+from arvae_tpu_torch.ops.losses import (kld_loss, token_accuracy,
+                                        token_cross_entropy_loss, total_reg_loss)
+from arvae_tpu_torch.training.base import BaseTrainer
+
+
+class MeasureVAETrainer(BaseTrainer):
+
+    def __init__(
+        self,
+        dataset,
+        model: MeasureVAE,
+        device: torch.device,
+        lr: float = 1e-4,
+        reg_type: Tuple[str, ...] = (),
+        reg_dim: Tuple[int, ...] = (),
+        beta: float = 0.001,
+        gamma: float = 1.0,
+        capacity: float = 0.0,
+        rand: int = 0,
+        delta: float = 10.0,
+    ):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        kind = dataset.class_name[5:9]
+        if kind not in ("Chor", "Folk"):
+            raise ValueError("Dataset Type not recognized")
+        self.dataset_type = "bach" if kind == "Chor" else "folk"
+        self.attr_dict = MUSIC_REG_TYPE
+        hp = TrainerHParams(
+            lr=lr,
+            beta=beta,
+            capacity=capacity,
+            gamma=gamma,
+            delta=delta,
+            rand=rand,
+            reg_type=tuple(reg_type or ()),
+            reg_dim=normalize_reg_dim(reg_dim, reg_type),
+        )
+        # Finalize the corpus first: building it can grow the vocabulary
+        # past a stale dict file, and an embedding lookup clamps rather
+        # than raising, so an undersized model must be caught here.
+        dataset.get_dataset()
+        ticks = dataset.beat_subdivisions * dataset.time_sig_num
+        if ticks != MEASURE_SEQ_LEN:
+            raise ValueError(
+                f"dataset measures span {ticks} ticks ({dataset.time_sig_num}/"
+                f"{dataset.time_sig_den} × {dataset.beat_subdivisions} "
+                f"subdivisions) but MeasureVAE is built on {MEASURE_SEQ_LEN}-tick "
+                "measures")
+        if model.num_notes < len(dataset.note2index_dicts):
+            raise ValueError(
+                f"model num_notes={model.num_notes} is smaller than the finalized "
+                f"vocabulary ({len(dataset.note2index_dicts)}); size the model "
+                "after dataset.get_dataset()")
+        super().__init__(dataset, model, hp, device)
+        self.attrs = dataset.attrs(self.device)
+        self.reg_pairs = tuple((d, d) for d in hp.reg_dim)
+
+    def model_repr(self) -> str:
+        tag = "" if self.model.sampling == "argmax" else "_" + self.model.sampling
+        return (self.dataset_type + "_MeasureVAE" + tag
+                + trainer_config_string(self.hparams))
+
+    # -- loss ---------------------------------------------------------------------
+
+    def _loss_fn(self, batch, noise: Optional[MeasureNoise] = None):
+        score, _ = batch
+        hy = self.hyper
+        if noise is None:
+            noise = draw_measure_noise(score.shape[0], self.model.latent_space_dim,
+                                       self.noise_generator, self.device)
+        out = self.model(score, noise)
+        recons_loss = token_cross_entropy_loss(out.weights, score)
+        dist_loss = kld_loss(out.z_mean, out.z_log_std, hy["beta"], hy["capacity"])
+        loss = recons_loss + dist_loss
+        metrics = {"recons_loss": recons_loss, "dist_loss": dist_loss}
+        if self.hparams.use_reg_loss:
+            labels = self.attrs.compute_labels(score)
+            reg_loss = total_reg_loss(out.z_tilde, labels, self.reg_pairs,
+                                      hy["gamma"], hy["delta"])
+            loss = loss + reg_loss
+            metrics["reg_loss"] = reg_loss
+        metrics["loss"] = loss
+        metrics["accuracy"] = token_accuracy(out.weights, score)
+        return loss, metrics
+
+    # -- steps --------------------------------------------------------------------
+
+    def train_step(self, batch, noise: Optional[MeasureNoise] = None) -> Metrics:
+        """One Adam step on (score, score); ``noise`` overrides the
+        generator's draws (tests inject the JAX side's)."""
+        self.model.train()
+        loss, metrics = self._loss_fn(batch, noise)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        self.step += 1
+        return {k: v.detach() for k, v in metrics.items()}
+
+    @torch.no_grad()
+    def eval_step(self, batch, noise: Optional[MeasureNoise] = None) -> Metrics:
+        self.model.eval()
+        return self._loss_fn(batch, noise)[1]

@@ -1,14 +1,16 @@
-"""Flax → PyTorch parameter conversion for ``DspritesVAE``.
+"""Flax → PyTorch parameter conversion for ``DspritesVAE`` and ``MeasureVAE``.
 
-The exact inverse of ``convert_dsprites_vae`` in
-``arvae_tpu/utils/torch_convert.py``, so a test can load the same
-weights into both packages. Per layer kind:
+The exact inverses of ``convert_dsprites_vae`` and
+``convert_measure_vae`` in ``arvae_tpu/utils/torch_convert.py``, so a
+test can load the same weights into both packages. Per layer kind:
 
 - conv kernels: flax HWIO → torch OIHW;
 - transposed-conv kernels: flax HWIO → torch IOHW, spatially rotated
   180° (flax's ``ConvTranspose`` correlates with the kernel, torch's is
   the adjoint of a conv);
 - linear weights: (in, out) → (out, in);
+- GRU weights: ``w_ih`` (I, 3H) → ``weight_ih_l{k}[_reverse]`` (3H, I),
+  the same (r, z, n) gate order;
 - the dense layers next to the conv stack also undo the flatten order:
   flax flattens a conv map as (H, W, C), torch as (C, H, W).
 
@@ -18,7 +20,7 @@ arrays (anything ``np.asarray`` accepts); output is a ``state_dict``.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -86,4 +88,47 @@ def dsprites_vae_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]
     sd.update(_linear(params["dec_denses_0"], "dec_lin.0"))
     sd.update(_linear(params["dec_denses_1"], "dec_lin.2"))
     sd.update(_linear_flatten_out(params["dec_denses_2"], "dec_lin.4", 32, 4, 4))
+    return sd
+
+
+def _gru(layers: Sequence[Any], prefix: str, bidirectional: bool) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    for layer, lp in enumerate(layers):
+        for d, p in enumerate(lp if bidirectional else [lp]):
+            sfx = f"_l{layer}" + ("_reverse" if d == 1 else "")
+            sd[f"{prefix}.weight_ih{sfx}"] = _t(np.asarray(p["w_ih"]).T)
+            sd[f"{prefix}.weight_hh{sfx}"] = _t(np.asarray(p["w_hh"]).T)
+            sd[f"{prefix}.bias_ih{sfx}"] = _t(np.asarray(p["b_ih"]))
+            sd[f"{prefix}.bias_hh{sfx}"] = _t(np.asarray(p["b_hh"]))
+    return sd
+
+
+def _dense(p: Mapping[str, Any], name: str, prefix: str) -> Dict[str, torch.Tensor]:
+    return {
+        f"{prefix}.weight": _t(np.asarray(p[f"{name}_w"]).T),
+        f"{prefix}.bias": _t(np.asarray(p[f"{name}_b"])),
+    }
+
+
+def measure_vae_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``MeasureVAE`` params (hierarchical decoder) → ``state_dict``
+    of the port's model, under the reference PyTorch module's names."""
+    enc, dec = params["encoder"], params["decoder"]
+    sd: Dict[str, torch.Tensor] = {
+        "encoder.note_embedding_layer.weight": _t(np.asarray(enc["embedding"])),
+        "decoder.note_embedding_layer.weight": _t(np.asarray(dec["embedding"])),
+        "decoder.b_0": _t(np.asarray(dec["b_0"])),
+        "decoder.x_0": _t(np.asarray(dec["x_0"])),
+    }
+    sd.update(_gru(enc["gru"], "encoder.lstm", bidirectional=True))
+    sd.update(_dense(enc, "mean1", "encoder.linear_mean.0"))
+    sd.update(_dense(enc, "mean2", "encoder.linear_mean.2"))
+    sd.update(_dense(enc, "std1", "encoder.linear_log_std.0"))
+    sd.update(_dense(enc, "std2", "encoder.linear_log_std.2"))
+    sd.update(_dense(dec, "z2beat", "decoder.z_to_beat_rnn_input.0"))
+    sd.update(_gru(dec["beat_gru"], "decoder.rnn_beat", bidirectional=False))
+    sd.update(_dense(dec, "beat2tickh", "decoder.beat_emb_to_tick_rnn_hidden.0"))
+    sd.update(_dense(dec, "beat2ticki", "decoder.beat_emb_to_tick_rnn_input.0"))
+    sd.update(_gru(dec["tick_gru"], "decoder.rnn_tick", bidirectional=False))
+    sd.update(_dense(dec, "out", "decoder.tick_emb_to_note_emb.0"))
     return sd

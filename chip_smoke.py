@@ -1,46 +1,71 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card.
+"""Drive the PyTorch port's main paths once on one CUDA card.
 
 Run from the repository root:
 
     python3 chip_smoke.py
 
-Phases, each printing its own line; any failure raises and the script
-exits non-zero:
+Phases, each printing its own lines and its seconds; any failure raises
+and the script exits non-zero:
 
 1. device: requires CUDA (never falls back to the CPU); prints the
    card's name and power limit and the two TF32 flags;
-2. build: compiles ``arvae_tpu_torch/csrc/reg_loss.cu`` for sm_90a;
-3. kernels: the AR-reg forward and backward kernels against their plain
-   PyTorch versions on the card, at the shapes below, twice each, with
-   bitwise-equal repeats required;
-4. slice: the port's training CLI in-process (dSprites short grid,
-   B=128, 2 epochs); the loss must be finite and fall, the reg kernels
-   must have launched once per forward and once per backward, and the
-   trained model's loss on one batch must match the CPU plain path;
-5. times: kernel vs plain (CUDA events) at R=5, B=128, and warm train
-   steps/s at B=128 on a 516,096-row random packed split.
+2. build: compiles the three CUDA sources in ``arvae_tpu_torch/csrc/``
+   for sm_90a, one ``nvcc`` each, all started together, and prints
+   ptxas's registers and spills for every kernel;
+3. kernels: every kernel against its plain PyTorch version on the card,
+   twice each with bitwise-equal repeats required: the AR-reg forward
+   and backward at both slices' shapes and ragged and large batches;
+   ``gru_chain`` forward and backward at the music slice's shapes and a
+   ragged batch; ``hier_tick_chain`` forward and backward at V=34 (the
+   music CLI's corpus) and V=130 (the step-rate cell), teacher-forced,
+   free-running (teacher trick), training with dropout 0.5 (the case
+   matches only if the masks are bitwise equal to the plain version's)
+   and multinomial (in distribution);
+4. slice 1: the dSprites training CLI in-process (short grid, B=128, 2
+   epochs); the loss must be finite and fall, the reg kernels must have
+   launched once per forward and once per backward, and the trained
+   model's loss on one batch must match the CPU plain path;
+5. slice 2: the music training CLI in-process (the ``--full`` synthetic
+   folk corpus, B=256, H=128, latent 32, ``-r all``, 2 epochs): the loss
+   must be finite and fall, a checkpoint must be written, every kernel
+   of the path must have launched once per forward (``gru_chain`` four
+   times) and once per backward, and the trained model on one val batch,
+   teacher-forced with injected draws, must match the CPU plain path;
+6. times: each kernel against its plain version (CUDA events) at the
+   slices' shapes, warm music train steps/s at B=256 on a 65,536-row
+   random token corpus with V=130, and warm dSprites train steps/s at
+   B=128 over 1,000 steps.
 
-The line before the last is the card's name and power limit as
-``nvidia-smi`` prints them; the last line is a JSON object
-``{"ok": true, "device": {...}}``.
+Launch counts are set to 0 just before each slice and read just after
+it; the comparisons of phase 3 do not count. The line before the last
+is the card's name and power limit as ``nvidia-smi`` prints them, the
+one before it a JSON object listing every kernel; the last line is a
+JSON object ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+LIBRARIES = ("reg_loss", "gru_chain", "hier_tick_chain")
+
 R_TRAIN, B_TRAIN = 5, 128
-KERNEL_CASES = [(5, 128), (5, 100), (3, 700), (2, 8192)]
+# (R, B): the dSprites step's (5, 128), the music step's (4, 256), then
+# ragged and large batches
+KERNEL_CASES = [(5, 128), (4, 256), (5, 100), (3, 700), (2, 8192)]
 DELTAS = (1.0, 10.0)
 FWD_RTOL, BWD_RTOL, ATOL = 1e-5, 1e-4, 1e-6
 # At B=8192 each loss sums 67M pair terms in float32, in one order in
@@ -48,14 +73,32 @@ FWD_RTOL, BWD_RTOL, ATOL = 1e-5, 1e-4, 1e-6
 # another in torch's reduction; the rounding of such long sums reaches
 # ~1e-5 relative, so the forward there is held to 1e-4.
 FWD_RTOL_LARGE_B = 1e-4
-# One eval step of the trained model on the card against the same step
-# on the CPU (plain reg path): float32 convolutions and sums in another
-# order, so 1e-4 relative.
+
+# The recurrence kernels: a chain of 24 dependent steps whose products
+# sum in another order than cuBLAS's, so forward rtol 1e-4 with an
+# absolute floor of 1e-5. Gradients rtol 1e-4 with an absolute floor of
+# 1e-5 times the plain gradient's largest magnitude: weight gradients
+# sum T·B terms with cancellation.
+SEQ_FWD_RTOL, SEQ_FWD_ATOL = 1e-4, 1e-5
+SEQ_GRAD_RTOL, SEQ_GRAD_ATOL_FRAC = 1e-4, 1e-5
+GRU_CASES = [(24, 2, 256, 128), (4, 1, 256, 128), (24, 2, 100, 128)]
+# V=34 is the music CLI's synthetic folk corpus, V=130 the step-rate
+# cell's vocabulary: V sets the kernels' shared-memory layout, the argmax
+# loop and the output-layer and embedding reduction tiles.
+HIER_B, HIER_H, HIER_E, HIER_T, HIER_TPB = 256, 128, 10, 24, 6
+HIER_VS = (34, 130)
+
+# One eval step of a trained model on the card against the same step on
+# the CPU (plain paths): float32 products and sums in another order, so
+# 1e-4 relative.
 SLICE_RTOL = 1e-4
 SLICE_ARGS = ["-d", "dsprites", "--short", "--rand", "0", "-r", "all",
               "--beta", "1.0", "--gamma", "10", "--delta", "1",
               "--batch_size", "128", "--num_epochs", "2"]
-BENCH_ROWS = 516_096
+MUSIC_ARGS = ["--rand", "0", "-r", "all", "--num_epochs", "2"]
+MUSIC_B = 256
+BENCH_ROWS = 128_000  # 1,000 steps at B=128
+MUSIC_BENCH_ROWS, MUSIC_BENCH_V = 65_536, 130
 
 
 def card() -> str:
@@ -75,17 +118,50 @@ def phase_device() -> str:
           f"{torch.version.cuda} | count {torch.cuda.device_count()} | "
           f"TF32 defaults: cuda.matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
-          f"{torch.backends.cudnn.allow_tf32} (the trainer sets both False)")
+          f"{torch.backends.cudnn.allow_tf32} (the trainers set both False)")
     return line
 
 
-def phase_build():
-    from arvae_tpu_torch.ops import reg_kernel
+def _kernel_name(mangled: str) -> str:
+    """'gru_bwd<8>' from an Itanium-mangled entry name: the last name of
+    the nesting, and the first template argument when it is an int."""
+    rest, parts = mangled[3:] if mangled.startswith("_ZN") else mangled[2:], []
+    while rest[:1].isdigit():
+        digits = re.match(r"\d+", rest).group()
+        n = len(digits) + int(digits)
+        parts.append(rest[len(digits):n])
+        rest = rest[n:]
+    tmpl = re.match(r"ILi(\d+)E", rest)
+    return (parts[-1] if parts else mangled) + (f"<{tmpl.group(1)}>" if tmpl else "")
 
-    path, seconds, log = reg_kernel.build()
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"[build] {path} in {seconds:.2f} s; ptxas: {' | '.join(ptxas)}")
+
+def _ptxas_summary(log: str) -> str:
+    """'kernel: N regs, spill S/L B' for each entry nvcc compiled."""
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name, spill = _kernel_name(m.group(1)), ""
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = f"spill {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} regs, {spill}")
+            name = None
+    return "; ".join(out)
+
+
+def phase_build():
+    from arvae_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        built = list(pool.map(_build.build, LIBRARIES))
+    for name, (path, seconds, log) in zip(LIBRARIES, built):
+        print(f"[build] {name}: {path} in {seconds:.2f} s; ptxas: {_ptxas_summary(log)}")
+    print(f"[build] {len(LIBRARIES)} libraries, nvcc in parallel: "
+          f"{time.perf_counter() - t0:.2f} s")
 
 
 def _case_inputs(r, b, seed, dev):
@@ -107,10 +183,20 @@ def _check_close(name, got, want, rtol, atol):
     return float(err.max())
 
 
-def phase_kernels():
+def _check_grad(name, got, want):
+    atol = SEQ_GRAD_ATOL_FRAC * float(want.abs().max())
+    return _check_close(name, got, want, SEQ_GRAD_RTOL, atol)
+
+
+def _check_repeat(tag, first, second):
+    for x, y in zip(first, second):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{tag}: repeat is not bitwise equal")
+
+
+def _reg_kernels(dev):
     from arvae_tpu_torch.ops import reg_kernel as rk
 
-    dev = torch.device("cuda")
     fwd_err = bwd_err = 0.0
     for r, b in KERNEL_CASES:
         for delta in DELTAS:
@@ -123,14 +209,11 @@ def phase_kernels():
                 dz, dd = rk.reg_loss_bwd_cuda(z, a, d, ct)
                 torch.cuda.synchronize()
                 runs.append((f, dz, dd))
-            for x, y in zip(runs[0], runs[1]):
-                if not torch.equal(x, y):
-                    raise AssertionError(f"(R={r}, B={b}, delta={delta}): "
-                                         "repeat is not bitwise equal")
+            tag = f"reg (R={r}, B={b}, delta={delta})"
+            _check_repeat(tag, *runs)
             f, dz, dd = runs[0]
             f_ref = rk.reg_loss_fwd_reference(z, a, d)
             dz_ref, dd_ref = rk.reg_loss_bwd_reference(z, a, d, ct)
-            tag = f"(R={r}, B={b}, delta={delta})"
             frtol = FWD_RTOL_LARGE_B if b > 1024 else FWD_RTOL
             fwd_err = max(fwd_err, _check_close(f"fwd {tag}", f, f_ref, frtol, ATOL))
             bwd_err = max(bwd_err,
@@ -148,47 +231,246 @@ def phase_kernels():
     dz_ref, dd_ref = rk.reg_loss_bwd_reference(z, a, torch.tensor([1.0], device=dev), ct)
     _check_close("autograd dz", zg.grad, dz_ref, BWD_RTOL, ATOL)
     _check_close("autograd ddelta", dg.grad, dd_ref, BWD_RTOL, ATOL)
-    print(f"[kernels] autograd Function matches; fwd max abs err "
+    print(f"[kernels] reg autograd Function matches; fwd max abs err "
           f"{fwd_err:.3e}, bwd max abs err {bwd_err:.3e}")
     return fwd_err, bwd_err
+
+
+def _gru_inputs(t, d, b, h, dev, seed):
+    rng = np.random.RandomState(seed)
+
+    def f(*shape, s):
+        return torch.tensor(rng.randn(*shape) * s, dtype=torch.float32, device=dev)
+
+    return (f(t, d, b, 3 * h, s=0.5), f(d, h, 3 * h, s=1 / np.sqrt(h)),
+            f(d, 3 * h, s=0.1), f(d, b, h, s=0.3)), f(t, d, b, h, s=1.0)
+
+
+def _gru_kernels(dev):
+    from arvae_tpu_torch.ops import gru_kernel as gk
+
+    fwd_err = bwd_err = 0.0
+    for t, d, b, h in GRU_CASES:
+        args, ct = _gru_inputs(t, d, b, h, dev, seed=t * 1000 + b)
+        runs = []
+        for _ in range(2):
+            outs = gk.gru_chain_fwd_cuda(*args)
+            runs.append((outs,) + gk.gru_chain_bwd_cuda(*args, outs, ct))
+        torch.cuda.synchronize()
+        tag = f"gru_chain (T={t}, D={d}, B={b}, H={h})"
+        _check_repeat(tag, *runs)
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        want = gk.gru_chain_reference(*leaves)
+        (want * ct).sum().backward()
+        fwd_err = max(fwd_err, _check_close(f"outs {tag}", runs[0][0], want.detach(),
+                                            SEQ_FWD_RTOL, SEQ_FWD_ATOL))
+        for g, leaf, name in zip(runs[0][1:], leaves, ("dgi", "dw_hh", "db_hh", "dh0")):
+            bwd_err = max(bwd_err, _check_grad(f"{name} {tag}", g, leaf.grad))
+        print(f"[kernels] {tag} fwd and bwd match the plain version, bitwise repeatable")
+    return fwd_err, bwd_err
+
+
+def _hier_inputs(dev, seed, v, zero=False):
+    rng = np.random.RandomState(seed)
+    nb, b, h, e = HIER_T // HIER_TPB, HIER_B, HIER_H, HIER_E
+
+    def w(*shape, s=None):
+        x = rng.randn(*shape) * (s if s is not None else 1 / np.sqrt(shape[0]))
+        return torch.tensor(0 * x if zero else x, dtype=torch.float32, device=dev)
+
+    floats = [w(nb, b, 3 * h, s=0.5), w(nb, 2, b, h, s=0.5), w(b, e, s=0.5),
+              w(v, e, s=1.0), w(e, 3 * h), w(h, 3 * h), w(3 * h, s=0.1),
+              w(h, 3 * h), w(3 * h, s=0.1), w(h, 3 * h), w(3 * h, s=0.1),
+              w(h, v), w(v, s=0.1)]
+    score = torch.tensor(rng.randint(0, v, (HIER_T, b)), dtype=torch.int32, device=dev)
+    ct = torch.tensor(rng.randn(HIER_T, b, v), dtype=torch.float32, device=dev)
+    return score, floats, ct
+
+
+def _ints(teacher, seed, dev):
+    return (torch.tensor([teacher], dtype=torch.int32, device=dev),
+            torch.tensor([seed], dtype=torch.int32, device=dev))
+
+
+def _hier_kernel_run(tag, cfg, teacher, seed, score, floats, ct=None):
+    """Forward (and, with ``ct``, backward) kernels twice, bitwise."""
+    from arvae_tpu_torch.ops import hier_decoder_kernel as hk
+
+    train, rate, sampling = cfg
+    runs = []
+    for _ in range(2):
+        weights, samples, h0_all, h1_all = hk.hier_tick_chain_fwd_cuda(
+            train, rate, HIER_TPB, sampling, teacher, seed, score, *floats)
+        grads = () if ct is None else hk.hier_tick_chain_bwd_cuda(
+            train, rate, HIER_TPB, seed, samples, h0_all, h1_all, ct, *floats)
+        runs.append((weights, samples) + tuple(grads))
+    torch.cuda.synchronize()
+    _check_repeat(tag, *runs)
+    return runs[0]
+
+
+def _hier_plain_run(cfg, teacher, seed, score, floats, ct=None):
+    from arvae_tpu_torch.ops import hier_decoder_kernel as hk
+
+    train, rate, sampling = cfg
+    leaves = [f.clone().requires_grad_(ct is not None) for f in floats]
+    weights, samples = hk.hier_tick_chain_reference(train, rate, HIER_TPB, sampling,
+                                                    teacher, seed, score, *leaves)
+    if ct is None:
+        return weights, samples
+    (weights * ct).sum().backward()
+    return (weights.detach(), samples) + tuple(x.grad for x in leaves)
+
+
+def _hier_compare(tag, cfg, kernel_in, plain_in, floats, ct):
+    """Kernel against plain: samples equal, weights and the 13 gradients
+    within tolerance. A logit within rounding of the ReLU kink can fall
+    on either side in the two versions and route a row's gradient
+    differently, so the cotangent is zeroed where the two forwards
+    disagree on a logit's sign (at most 1e-4 of the entries)."""
+    from arvae_tpu_torch.ops import hier_decoder_kernel as hk
+
+    w_k = _hier_kernel_run(tag, cfg, *kernel_in, floats)[0]
+    w_p = _hier_plain_run(cfg, *plain_in, floats)[0]
+    agree = (w_k > 0) == (w_p > 0)
+    flips = int((~agree).sum())
+    if flips > 1e-4 * agree.numel():
+        raise AssertionError(f"{tag}: {flips} logits change sign between kernel and plain")
+    ct = ct * agree
+    kernel = _hier_kernel_run(tag, cfg, *kernel_in, floats, ct)
+    plain = _hier_plain_run(cfg, *plain_in, floats, ct)
+    if not torch.equal(kernel[1], plain[1]):
+        raise AssertionError(f"{tag}: samples differ from the plain version")
+    fwd_err = _check_close(f"weights {tag}", kernel[0], plain[0], SEQ_FWD_RTOL, SEQ_FWD_ATOL)
+    bwd_err = max(_check_grad(f"d{name} {tag}", g, want)
+                  for g, want, name in zip(kernel[2:], plain[2:], hk.FLOAT_OPERANDS))
+    print(f"[kernels] {tag} fwd and bwd match the plain version, bitwise repeatable "
+          f"({flips} ReLU-kink sign flips masked)")
+    return kernel, fwd_err, bwd_err
+
+
+def _hier_kernels(dev):
+    errs = [_hier_kernels_at(dev, v) for v in HIER_VS]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def _hier_kernels_at(dev, v):
+    """The four cases at vocabulary size v → (fwd, bwd) max abs err."""
+    from arvae_tpu_torch.ops import hier_decoder_kernel as hk
+
+    errs = []
+    shape = f"B={HIER_B}, H={HIER_H}, E={HIER_E}, V={v}, T={HIER_T}"
+    score, floats, ct = _hier_inputs(dev, 1, v)
+    forced = _ints(1, 3, dev) + (score,)
+    kernel, *e = _hier_compare(f"hier_tick_chain teacher-forced ({shape})",
+                               (True, 0.0, "argmax"), forced, forced, floats, ct)
+    errs.append(e)
+    if not torch.equal(kernel[1], score):
+        raise AssertionError("teacher-forced samples are not the score")
+
+    score, floats, ct = _hier_inputs(dev, 2, v)
+    free = _ints(0, 3, dev) + (score,)
+    w_free, s_free = _hier_kernel_run("hier free-running", (True, 0.0, "argmax"),
+                                      *free, floats)[:2]
+    if not torch.equal(s_free, hk.argmax_lowest(w_free).clamp(0, v - 1).to(torch.int32)):
+        raise AssertionError("free-running samples are not the argmax of their logits")
+    _, *e = _hier_compare(f"hier_tick_chain free-running, teacher trick ({shape})",
+                          (True, 0.0, "argmax"), free, _ints(1, 3, dev) + (s_free,),
+                          floats, ct)
+    errs.append(e)
+
+    # The masks are bitwise equal if this case matches: a keep bit that
+    # differs moves a layer-1 input by 2·h0, far outside the tolerance.
+    seed = torch.tensor([123457], dtype=torch.int32, device=dev)
+    score, floats, ct = _hier_inputs(dev, 4, v)
+    forced = (torch.ones(1, dtype=torch.int32, device=dev), seed, score)
+    _, *e = _hier_compare(f"hier_tick_chain train, dropout 0.5, masks bitwise ({shape})",
+                          (True, 0.5, "argmax"), forced, forced, floats, ct)
+    errs.append(e)
+
+    score, floats, _ = _hier_inputs(dev, 6, v, zero=True)
+    free = _ints(0, 9, dev) + (score,)
+    peak = v // 2
+    floats[-1][peak] = 1e4  # peaked logits: Gumbel-max is the argmax
+    s_peak = _hier_kernel_run("hier multinomial", (True, 0.0, "multinomial"),
+                              *free, floats)[1]
+    floats[-1].zero_()  # uniform logits: the samples spread over V
+    s_flat = _hier_kernel_run("hier multinomial", (True, 0.0, "multinomial"),
+                              *free, floats)[1]
+    counts = torch.bincount(s_flat.flatten().long(), minlength=v)
+    n = HIER_T * HIER_B
+    if not (bool((s_peak == peak).all()) and int((counts > 0).sum()) == v
+            and int(counts.max()) < 2 * n // v):
+        raise AssertionError(f"multinomial out of distribution: counts {counts.tolist()}")
+    print(f"[kernels] hier_tick_chain multinomial (V={v}): peaked logits sample the "
+          f"peak; uniform logits use all {v} tokens over {n} draws, at most "
+          f"{int(counts.max())} each ({n / v:.1f} expected)")
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def phase_kernels():
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return {"reg": _reg_kernels(dev), "gru": _gru_kernels(dev), "hier": _hier_kernels(dev)}
+
+
+def _launch_counters():
+    from arvae_tpu_torch.ops import gru_kernel, hier_decoder_kernel, reg_kernel
+
+    return {"reg": reg_kernel, "gru": gru_kernel, "hier": hier_decoder_kernel}
+
+
+def _reset_launches():
+    for mod in _launch_counters().values():
+        mod.reset_launches()
+
+
+def _read_launches():
+    return {k: dict(mod.LAUNCHES) for k, mod in _launch_counters().items()}
+
+
+def _check_history(tag, hist, ckpt_ok):
+    losses = [h["train_loss"] for h in hist]
+    if len(hist) != 2 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag}: expected 2 finite epochs, got {hist}")
+    if not losses[1] < losses[0]:
+        raise AssertionError(f"{tag}: train loss did not fall: {losses}")
+    if not ckpt_ok:
+        raise AssertionError(f"{tag}: no checkpoint written")
+    return sum(h["train_steps"] for h in hist), sum(h["val_steps"] for h in hist)
+
+
+def _check_launches(tag, launches, want):
+    if launches != want:
+        raise AssertionError(f"{tag}: kernel launches {launches} != {want}")
 
 
 def phase_slice():
     from arvae_tpu_torch import train_image_vae
     from arvae_tpu_torch.models.image_vae import draw_noise
-    from arvae_tpu_torch.ops import reg_kernel as rk
     from arvae_tpu_torch.training.image_trainer import ImageVAETrainer
 
     with tempfile.TemporaryDirectory() as models_dir:
         os.environ["ARVAE_MODELS_DIR"] = models_dir
-        rk.reset_launches()
+        _reset_launches()
         t0 = time.perf_counter()
         (trainer,) = train_image_vae.main(SLICE_ARGS)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = dict(rk.LAUNCHES)
+        launches = _read_launches()
         ckpt_ok = os.path.isfile(os.path.join(trainer.run_dir, "ckpt.pt"))
     print(f"[slice] TF32 flags: torch.backends.cuda.matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32} "
           f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-
     hist = trainer.history
-    losses = [h["train_loss"] for h in hist]
-    if len(hist) != 2 or not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"expected 2 finite epochs, got {hist}")
-    if not losses[1] < losses[0]:
-        raise AssertionError(f"train loss did not fall: {losses}")
-    if not ckpt_ok:
-        raise AssertionError("no checkpoint written")
-    n_train = sum(h["train_steps"] for h in hist)
-    n_val = sum(h["val_steps"] for h in hist)
-    if launches["bwd"] != n_train or launches["fwd"] != n_train + n_val:
-        raise AssertionError(f"reg kernel launches {launches} != train "
-                             f"{n_train} / train+val {n_train + n_val} steps")
+    n_train, n_val = _check_history("slice", hist, ckpt_ok)
+    _check_launches("slice", launches, {
+        "reg": {"fwd": n_train + n_val, "bwd": n_train},
+        "gru": {"fwd": 0, "bwd": 0}, "hier": {"fwd": 0, "bwd": 0}})
     print(f"[slice] 2 epochs in {seconds:.1f} s; train loss "
-          f"{losses[0]:.4f} -> {losses[1]:.4f}; val loss "
+          f"{hist[0]['train_loss']:.4f} -> {hist[1]['train_loss']:.4f}; val loss "
           f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f}; "
-          f"reg launches fwd={launches['fwd']} bwd={launches['bwd']} "
+          f"reg launches fwd={launches['reg']['fwd']} bwd={launches['reg']['bwd']} "
           f"(train steps {n_train}, val steps {n_val})")
 
     # the trained model on one val batch: card (kernel) vs CPU (plain)
@@ -211,7 +493,72 @@ def phase_slice():
     return launches
 
 
-def _event_ms(fn, iters=1000, warmup=50):
+def _teacher_forced_metrics(trainer, batch, noise):
+    """The trainer's loss and metrics in training mode (teacher-forced by
+    ``noise``) with every dropout rate set to 0, without a step."""
+    from arvae_tpu_torch.ops.gru import GRU
+
+    model = trainer.model
+    for m in model.modules():
+        if isinstance(m, GRU):
+            m.dropout = 0.0
+    model.decoder.dropout = 0.0
+    model.train()
+    with torch.no_grad():
+        return trainer._loss_fn(batch, noise)[1]
+
+
+def phase_music_slice():
+    from arvae_tpu_torch import train_measure_vae
+    from arvae_tpu_torch.models.measure_vae import draw_measure_noise
+    from arvae_tpu_torch.training.measure_trainer import MeasureVAETrainer
+
+    with tempfile.TemporaryDirectory() as models_dir:
+        os.environ["ARVAE_MODELS_DIR"] = models_dir
+        _reset_launches()
+        t0 = time.perf_counter()
+        (trainer,) = train_measure_vae.main(MUSIC_ARGS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _read_launches()
+        ckpt_ok = os.path.isfile(os.path.join(trainer.run_dir, "ckpt.pt"))
+    hist = trainer.history
+    n_train, n_val = _check_history("music slice", hist, ckpt_ok)
+    _check_launches("music slice", launches, {
+        "reg": {"fwd": n_train + n_val, "bwd": n_train},
+        "gru": {"fwd": 4 * (n_train + n_val), "bwd": 4 * n_train},
+        "hier": {"fwd": n_train + n_val, "bwd": n_train}})
+    print(f"[music] 2 epochs in {seconds:.1f} s (corpus build included); train loss "
+          f"{hist[0]['train_loss']:.4f} -> {hist[1]['train_loss']:.4f}; val loss "
+          f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f}; train steps "
+          f"{n_train}, val steps {n_val}; launches gru {launches['gru']} hier "
+          f"{launches['hier']} reg {launches['reg']}")
+
+    # the trained model on one val batch, teacher-forced with injected
+    # draws: card (kernels) vs CPU (plain loops)
+    dev = trainer.device
+    _, val = trainer.dataset.device_splits(dev)
+    batch = val.gather_batch(torch.arange(MUSIC_B, device=dev))
+    noise = draw_measure_noise(MUSIC_B, trainer.model.latent_space_dim,
+                               torch.Generator(dev).manual_seed(1), dev)
+    noise = noise._replace(teacher=torch.ones_like(noise.teacher), generator=None)
+    cpu = MeasureVAETrainer(trainer.dataset, copy.deepcopy(trainer.model).cpu(), "cpu",
+                            reg_type=("all",), reg_dim=trainer.hparams.reg_dim, rand=0)
+    got = _teacher_forced_metrics(trainer, batch, noise)
+    want = _teacher_forced_metrics(
+        cpu, tuple(t.cpu() for t in batch),
+        noise._replace(**{k: getattr(noise, k).cpu()
+                          for k in ("eps", "eps_prior", "teacher", "seed")}))
+    for k in ("loss", "recons_loss", "dist_loss", "reg_loss", "accuracy"):
+        _check_close(f"music {k}", got[k].cpu(), want[k], SLICE_RTOL, ATOL)
+    print(f"[music] trained model, one val batch teacher-forced, card vs CPU plain "
+          f"path: loss {float(got['loss']):.6f} vs {float(want['loss']):.6f}, recons "
+          f"{float(got['recons_loss']):.6f} vs {float(want['recons_loss']):.6f}, reg "
+          f"{float(got['reg_loss']):.6f} vs {float(want['reg_loss']):.6f}")
+    return launches
+
+
+def _event_ms(fn, iters, warmup=10):
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -225,36 +572,105 @@ def _event_ms(fn, iters=1000, warmup=50):
     return start.elapsed_time(end) / iters
 
 
-def phase_times(card_line):
-    from arvae_tpu_torch.data.device_data import DeviceEpochRunner, DeviceSplit
-    from arvae_tpu_torch.models.image_vae import DspritesVAE
+def _kernel_times(dev, card_line):
+    from arvae_tpu_torch.ops import gru_kernel as gk
+    from arvae_tpu_torch.ops import hier_decoder_kernel as hk
     from arvae_tpu_torch.ops import reg_kernel as rk
-    from arvae_tpu_torch.training.image_trainer import ImageVAETrainer
 
-    dev = torch.device("cuda")
+    times = {}
     z, a, ct = _case_inputs(R_TRAIN, B_TRAIN, 11, dev)
     d = torch.tensor([1.0], dtype=torch.float32, device=dev)
-    times = {
-        "fwd": _event_ms(lambda: rk.reg_loss_fwd_cuda(z, a, d)),
-        "fwd_plain": _event_ms(lambda: rk.reg_loss_fwd_reference(z, a, d)),
-        "bwd": _event_ms(lambda: rk.reg_loss_bwd_cuda(z, a, d, ct)),
-        "bwd_plain": _event_ms(lambda: rk.reg_loss_bwd_reference(z, a, d, ct)),
+    times["reg"] = {
+        "fwd": _event_ms(lambda: rk.reg_loss_fwd_cuda(z, a, d), 1000, 50),
+        "fwd_plain": _event_ms(lambda: rk.reg_loss_fwd_reference(z, a, d), 1000, 50),
+        "bwd": _event_ms(lambda: rk.reg_loss_bwd_cuda(z, a, d, ct), 1000, 50),
+        "bwd_plain": _event_ms(lambda: rk.reg_loss_bwd_reference(z, a, d, ct), 1000, 50),
     }
     print(f"[times] reg kernel at R={R_TRAIN}, B={B_TRAIN} (ms per call, CUDA "
-          f"events over 1000 calls): fwd {times['fwd']:.5f} vs plain "
-          f"{times['fwd_plain']:.5f}; bwd {times['bwd']:.5f} vs plain "
-          f"{times['bwd_plain']:.5f} | {card_line}")
+          f"events over 1000 calls): fwd {times['reg']['fwd']:.5f} vs plain "
+          f"{times['reg']['fwd_plain']:.5f}; bwd {times['reg']['bwd']:.5f} vs plain "
+          f"{times['reg']['bwd_plain']:.5f} | {card_line}")
 
-    rng = np.random.RandomState(0)
-    packed = rng.randint(0, 256, (BENCH_ROWS, 512)).astype(np.uint8)
-    labels = rng.rand(BENCH_ROWS, 6).astype(np.float32)
-    split = DeviceSplit(packed, labels, (1, 64, 64), "packed", dev)
-    trainer = ImageVAETrainer(None, DspritesVAE(seed=0), dev,
-                              reg_type=("all",), reg_dim=(1, 2, 3, 4, 5),
-                              beta=1.0, gamma=10.0, delta=1.0, rand=0)
-    runner = DeviceEpochRunner(split, split, B_TRAIN, trainer.train_step,
+    for t, dd, b, h in GRU_CASES[:2]:
+        args, ct = _gru_inputs(t, dd, b, h, dev, seed=17)
+        outs = gk.gru_chain_fwd_cuda(*args)
+        leaves = [x.clone().requires_grad_(True) for x in args]
+        ref = gk.gru_chain_reference(*leaves)
+        row = {
+            "fwd": _event_ms(lambda: gk.gru_chain_fwd_cuda(*args), 200),
+            "fwd_plain": _event_ms(lambda: gk.gru_chain_reference(*args), 50),
+            "bwd": _event_ms(lambda: gk.gru_chain_bwd_cuda(*args, outs, ct), 200),
+            "bwd_plain": _event_ms(
+                lambda: torch.autograd.grad(ref, leaves, ct, retain_graph=True), 50),
+        }
+        times.setdefault("gru", row)  # the encoder's shape goes into the JSON
+        print(f"[times] gru_chain at T={t}, D={dd}, B={b}, H={h} (ms per call): fwd "
+              f"{row['fwd']:.5f} vs plain {row['fwd_plain']:.5f}; bwd {row['bwd']:.5f} "
+              f"vs plain (autograd through the loop) {row['bwd_plain']:.5f} | {card_line}")
+
+    score, floats, ct = _hier_inputs(dev, 8, MUSIC_BENCH_V)
+    teacher, seed = _ints(0, 5, dev)
+    cfg = (True, 0.5, HIER_TPB, "argmax")
+    _, samples, h0_all, h1_all = hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, score, *floats)
+    leaves = [x.clone().requires_grad_(True) for x in floats]
+    ref = hk.hier_tick_chain_reference(*cfg, teacher, seed, score, *leaves)[0]
+    times["hier"] = {
+        "fwd": _event_ms(lambda: hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, score,
+                                                             *floats), 200),
+        "fwd_plain": _event_ms(lambda: hk.hier_tick_chain_reference(
+            *cfg, teacher, seed, score, *floats), 10, 2),
+        "bwd": _event_ms(lambda: hk.hier_tick_chain_bwd_cuda(
+            True, 0.5, HIER_TPB, seed, samples, h0_all, h1_all, ct, *floats), 100),
+        "bwd_plain": _event_ms(
+            lambda: torch.autograd.grad(ref, leaves, ct, retain_graph=True), 10, 2),
+    }
+    row = times["hier"]
+    print(f"[times] hier_tick_chain at B={HIER_B}, H={HIER_H}, E={HIER_E}, V={MUSIC_BENCH_V}, "
+          f"T={HIER_T}, train with dropout 0.5, free-running (ms per call): fwd "
+          f"{row['fwd']:.5f} vs plain {row['fwd_plain']:.5f}; bwd {row['bwd']:.5f} vs "
+          f"plain (autograd through the loop) {row['bwd_plain']:.5f} | {card_line}")
+    return times
+
+
+def _bench_vocab(n):
+    """Specials and chromatic pitch names from MIDI 36 up: the vocabulary
+    of ``scripts/bench_measure_vae.py``."""
+    names = ["__", "START", "END", "rest"]
+    spell = ["C", "C#", "D", "E-", "E", "F", "F#", "G", "A-", "A", "B-", "B"]
+    midi = 36
+    while len(names) < n:
+        names.append(f"{spell[midi % 12]}{midi // 12 - 1}")
+        midi += 1
+    return {i: s for i, s in enumerate(names)}
+
+
+class _TokenCorpus:
+    """Random measures over a V-token vocabulary, with what the music
+    trainer reads of a dataset."""
+
+    class_name = "4by4_FolkNBarDataset_1_"
+    beat_subdivisions, time_sig_num, time_sig_den = 6, 4, 4
+
+    def __init__(self, rows, index2note):
+        self.rows = rows
+        self.index2note_dicts = index2note
+        self.note2index_dicts = {v: k for k, v in index2note.items()}
+
+    def get_dataset(self):
+        return self.rows, self.rows
+
+    def attrs(self, device):
+        from arvae_tpu_torch.data.attributes import MusicAttributes
+
+        return MusicAttributes(self.index2note_dicts, device)
+
+
+def _steps_per_second(trainer, split, batch, tag, card_line):
+    from arvae_tpu_torch.data.device_data import DeviceEpochRunner
+
+    runner = DeviceEpochRunner(split, split, batch, trainer.train_step,
                                trainer.eval_step, trainer.perm_generator)
-    warm = torch.arange(B_TRAIN, device=dev)
+    warm = torch.arange(batch, device=split.device)
     for _ in range(50):
         trainer.train_step(split.gather_batch(warm))
     torch.cuda.synchronize()
@@ -263,30 +679,82 @@ def phase_times(card_line):
     loss = float(totals["loss"]) / steps
     seconds = time.perf_counter() - t0
     if not math.isfinite(loss):
-        raise AssertionError(f"bench epoch loss {loss}")
-    rate = steps / seconds
-    print(f"[times] warm train steps/s at B={B_TRAIN}: {rate:.1f} "
-          f"({steps} steps in {seconds:.3f} s, {1e3 * seconds / steps:.4f} ms/step, "
-          f"{BENCH_ROWS}-row random packed split) | {card_line}")
+        raise AssertionError(f"{tag} bench loss {loss}")
+    print(f"[times] {tag}: {steps / seconds:.1f} warm train steps/s at B={batch} "
+          f"({steps} steps in {seconds:.3f} s, {1e3 * seconds / steps:.4f} ms/step) "
+          f"| {card_line}")
+
+
+def phase_times(card_line):
+    from arvae_tpu_torch.data.device_data import DeviceSplit
+    from arvae_tpu_torch.models.image_vae import DspritesVAE
+    from arvae_tpu_torch.models.measure_vae import MeasureVAE
+    from arvae_tpu_torch.training.image_trainer import ImageVAETrainer
+    from arvae_tpu_torch.training.measure_trainer import MeasureVAETrainer
+
+    dev = torch.device("cuda")
+    times = _kernel_times(dev, card_line)
+
+    rng = np.random.RandomState(0)
+    rows = rng.randint(0, MUSIC_BENCH_V, (MUSIC_BENCH_ROWS, 24)).astype(np.int32)
+    corpus = _TokenCorpus(rows, _bench_vocab(MUSIC_BENCH_V))
+    trainer = MeasureVAETrainer(
+        corpus, MeasureVAE(MUSIC_BENCH_V, encoder_hidden_size=128, latent_space_dim=32,
+                           decoder_hidden_size=128, seed=0),
+        dev, reg_type=("all",), reg_dim=(0, 1, 2, 3), rand=0)
+    split = DeviceSplit(rows, None, (24,), "tokens", dev)
+    _steps_per_second(trainer, split, MUSIC_B,
+                      f"MeasureVAE (H=128, z=32, V={MUSIC_BENCH_V}, -r all, "
+                      f"{MUSIC_BENCH_ROWS}-row random token corpus)", card_line)
+
+    packed = rng.randint(0, 256, (BENCH_ROWS, 512)).astype(np.uint8)
+    labels = rng.rand(BENCH_ROWS, 6).astype(np.float32)
+    split = DeviceSplit(packed, labels, (1, 64, 64), "packed", dev)
+    trainer = ImageVAETrainer(None, DspritesVAE(seed=0), dev,
+                              reg_type=("all",), reg_dim=(1, 2, 3, 4, 5),
+                              beta=1.0, gamma=10.0, delta=1.0, rand=0)
+    _steps_per_second(trainer, split, B_TRAIN,
+                      f"DspritesVAE ({BENCH_ROWS}-row random packed split)", card_line)
     return times
 
 
+def _timed(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
-    card_line = phase_device()
-    phase_build()
-    fwd_err, bwd_err = phase_kernels()
-    launches = phase_slice()
-    times = phase_times(card_line)
-    src = "arvae_tpu_torch/csrc/reg_loss.cu"
+    t0 = time.perf_counter()
+    card_line = _timed("device", phase_device)
+    _timed("build", phase_build)
+    errs = _timed("kernels", phase_kernels)
+    image = _timed("slice 1 (dSprites)", phase_slice)
+    music = _timed("slice 2 (music)", phase_music_slice)
+    times = _timed("times", phase_times, card_line)
+    print(f"[phase] total: {time.perf_counter() - t0:.1f} s")
+
+    def entry(name, key, direction, source, replaces, launches):
+        t = times[key]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": errs[key][direction == "bwd"],
+                "ms": t[direction], "plain_ms": t[f"{direction}_plain"]}
+
+    csrc = "arvae_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
-        {"name": "reg_loss_fwd", "route": "cuda", "source": src,
-         "replaces": "arvae_tpu/ops/reg_pallas.py:83",
-         "launches": launches["fwd"], "max_abs_err": fwd_err,
-         "ms": times["fwd"], "plain_ms": times["fwd_plain"]},
-        {"name": "reg_loss_bwd", "route": "cuda", "source": src,
-         "replaces": "arvae_tpu/ops/reg_pallas.py:113",
-         "launches": launches["bwd"], "max_abs_err": bwd_err,
-         "ms": times["bwd"], "plain_ms": times["bwd_plain"]},
+        entry("reg_loss_fwd", "reg", "fwd", csrc + "reg_loss.cu",
+              "arvae_tpu/ops/reg_pallas.py:83", image["reg"]["fwd"]),
+        entry("reg_loss_bwd", "reg", "bwd", csrc + "reg_loss.cu",
+              "arvae_tpu/ops/reg_pallas.py:113", image["reg"]["bwd"]),
+        entry("gru_chain_fwd", "gru", "fwd", csrc + "gru_chain.cu",
+              "arvae_tpu/ops/gru_pallas.py:144", music["gru"]["fwd"]),
+        entry("gru_chain_bwd", "gru", "bwd", csrc + "gru_chain.cu",
+              "arvae_tpu/ops/gru_pallas.py:218", music["gru"]["bwd"]),
+        entry("hier_tick_chain_fwd", "hier", "fwd", csrc + "hier_tick_chain.cu",
+              "arvae_tpu/ops/hier_decoder_pallas.py:475", music["hier"]["fwd"]),
+        entry("hier_tick_chain_bwd", "hier", "bwd", csrc + "hier_tick_chain.cu",
+              "arvae_tpu/ops/hier_decoder_pallas.py:563", music["hier"]["bwd"]),
     ]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -31,7 +31,7 @@ def _inputs(r, b, dev):
 
 
 @pytest.mark.parametrize("delta", [1.0, 10.0])
-@pytest.mark.parametrize("r,b", [(5, 128), (5, 100), (3, 700), (2, 8192)])
+@pytest.mark.parametrize("r,b", [(5, 128), (4, 256), (5, 100), (3, 700), (2, 8192)])
 def test_kernels_match_plain_and_repeat_bitwise(dev, r, b, delta):
     z, a, ct = _inputs(r, b, dev)
     d = torch.tensor([delta], device=dev)
