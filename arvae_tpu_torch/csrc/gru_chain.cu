@@ -9,177 +9,343 @@
 //   w_hh (D, H, 3H), b_hh (D, 3H), h0 (D, B, H)  ->  outs (T, D, B, H).
 //
 // What bounds it: a T-long chain of dependent (rows x H) @ (H x 3H)
-// products, 24 steps at the encoder's shape. Each step is small, so the
-// kernel is bound by latency (step after step), not by device memory or
-// arithmetic throughput. The design keeps the whole chain in one launch:
-// rows of the batch are independent, so a block owns a tile of RB rows of
-// one direction and loops over t itself (the TPU's sequential grid axis
-// becomes a loop inside the block). The tile's hidden state stays in
-// shared memory across steps; w_hh is read from global memory each step,
-// where it stays L2-resident (192 KB a direction at H = 128). Staging it
-// in shared memory or running the products on the tensor cores is later
-// work.
+// products, 24 steps at the encoder's shape: latency, step after step,
+// far above the fp32 operations bound (utils/kernel_work.py). Two things
+// set that latency: how much of the card works on each step, and how
+// long one CTA takes for its share of it.
 //
-// Backward: the same row tiles walk t from T-1 down to 0, recompute the
-// gates from h_{t-1} (outs[t-1], or h0 at t = 0) and gi_t instead of
-// saving them, carry dh in shared memory, and write dgi_t. dW_hh and
-// db_hh sum over (t, b) across row tiles: the sequential launch writes
-// dgh_t to a scratch buffer, and the two-pass reduction of gru_common.cuh
-// sums h_{t-1}^T dgh_t in a fixed order, so repeats are bitwise equal (no
-// float atomics).
+// The design: a thread-block cluster of C CTAs owns a tile of RB batch
+// rows of one direction and loops over t itself. CTA c of the cluster
+// owns the hidden units [c H/C, (c+1) H/C) and their three gate columns
+// of w_hh, which it loads once into shared memory and keeps for the
+// whole chain (98 KB at H = 128, C = 2). Each of its 512 threads owns one
+// (row, hidden unit) of the tile's cell math. The plan fills the card
+// with one CTA an SM in one wave (128 CTAs at both music shapes: C = 2
+// with 8 rows, or 4 rows for the beat GRU); a CTA of more than half an
+// SM's shared memory keeps a second one off its SM, which would halve
+// the product's speed. No step reads a weight from L2.
+//
+// Each step's product gh = h_{t-1} w_hh[:, own] runs on the CUDA cores in
+// fp32: a thread owns 4 rows by 2 columns, and the spare threads take
+// slices of the depth H whose partial sums the first slice adds in a
+// fixed order (gru_common.cuh::block_product), which cuts the chain a
+// thread walks a step. The unit's gi_t (and douts_t) are loaded into
+// registers a step ahead.
+//
+// Forward: each step, every CTA multiplies the full h_{t-1} of its rows
+// by its weight slice, applies the gate math to its own units, and
+// writes the new hidden units into every peer's shared memory
+// (distributed shared memory, double-buffered by step); one cluster
+// barrier a step publishes them.
+//
+// Backward: the same clusters walk t from T-1 down to 0, recompute the
+// gates from h_{t-1} (outs[t-1], or h0 at t = 0; copied a step ahead
+// with cp.async) and gi_t, carry dh for their own units, and write dgi_t
+// and dgh_t. dh_{t-1} = dh z + dgh_t w_hh^T needs every CTA's columns:
+// each CTA computes the partial over its own columns for all H units and
+// writes the part owned by CTA o into o's slot c (reduce-scatter through
+// distributed shared memory, double-buffered by step); the owner adds its
+// C slots in the fixed order c = 0 .. C-1. dW_hh and db_hh sum over
+// (t, b) across clusters: the tiled GEMM of gru_common.cuh reads
+// h_{t-1} in place and dgh from the sequential launch, in a fixed order.
+// No float atomics anywhere, so repeats are bitwise equal.
+//
+// The launch plan (C, RB, shared-memory bytes) is chosen by the caller
+// (arvae_tpu_torch/ops/gru_kernel.py::gru_plan, which mirrors
+// chain_layout below); the entries check it and refuse a plan that does
+// not fit.
 //
 // Plain C interface, loaded with ctypes: each entry launches on the given
 // stream, does not synchronise, allocates nothing, and returns
 // cudaGetLastError() so the caller can raise on a refused launch.
 
+#include <cooperative_groups.h>
+
 #include "gru_common.cuh"
 
+namespace cg = cooperative_groups;
 using namespace arvae;
 
 namespace {
 
-// Floats of dynamic shared memory per row of a tile, rounded up to a
-// multiple of 4 so that every row array stays 16-byte aligned.
+constexpr int kThreads = 512;
+
 __host__ __device__ inline int up4(int n) { return (n + 3) & ~3; }
-inline int fwd_floats_per_row(int H) { return up4(H) + up4(3 * H); }
-inline int bwd_floats_per_row(int H) { return 2 * up4(H) + 2 * up4(3 * H); }
 
-template <int RB>
-__global__ void __launch_bounds__(kSeqThreads)
-gru_fwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
-        const float* __restrict__ b_hh, const float* __restrict__ h0, int T, int D,
-        int B, int H, float* __restrict__ outs) {
-  extern __shared__ __align__(16) float smem[];
-  const int H3 = 3 * H;
-  float* h_s = smem;                // RB x H
-  float* gh_s = h_s + up4(RB * H);  // RB x 3H
-  const int d = blockIdx.y;
-  const int row0 = blockIdx.x * RB;
-  const int nr = min(RB, B - row0);
-  const float* w = w_hh + static_cast<size_t>(d) * H * H3;
-  const float* bh = b_hh + static_cast<size_t>(d) * H3;
+// Shared-memory layout of one CTA, in floats; every array starts on a
+// 16-byte boundary.
+struct Layout {
+  int hc, n3;              // hidden units the CTA owns, its gate columns
+  int ldw, ldh, ldg, ldo;  // leading dimensions
+  int w, b, h, gh, part;   // weight slice, bias slice, h (2 buffers), gh, product scratch
+  int dg, dz, red;         // backward: dgh, dh z, reduce slots (2 x C)
+  int total;
+};
 
-  for (int i = threadIdx.x; i < RB * H; i += blockDim.x) {
-    const int r = i / H;
-    h_s[i] = r < nr ? h0[(static_cast<size_t>(d) * B + row0) * H + i] : 0.f;
+__host__ __device__ inline Layout chain_layout(bool bwd, int H, int C, int RB) {
+  Layout L;
+  L.hc = H / C;
+  L.n3 = 3 * L.hc;
+  L.ldw = slice_ld(L.n3);
+  L.ldh = up4(H);
+  L.ldg = up4(L.n3);
+  L.ldo = up4(L.hc);
+  int o = 0;
+  L.w = o;
+  o += H * L.ldw;
+  L.b = o;
+  o += L.ldg;
+  L.h = o;
+  o += 2 * RB * L.ldh;
+  L.gh = o;
+  o += RB * L.ldg;
+  L.part = o;
+  o += product_scratch_floats(kThreads);
+  L.dg = L.dz = L.red = o;
+  if (bwd) {
+    L.dg = o;
+    o += RB * L.ldg;
+    L.dz = o;
+    o += RB * L.ldo;
+    L.red = o;
+    o += 2 * C * RB * L.ldo;
   }
-  __syncthreads();
-  for (int t = 0; t < T; ++t) {
-    block_matvec<RB>(h_s, H, w, H3, bh, nullptr, 0, nr, gh_s);
-    __syncthreads();
-    const size_t slab = (static_cast<size_t>(t) * D + d) * B + row0;
-    const float* git = gi + slab * H3;
-    float* ot = outs + slab * H;
-    for (int i = threadIdx.x; i < nr * H; i += blockDim.x) {
-      const int r = i / H;
-      const int c = i - r * H;
-      const float* g = git + static_cast<size_t>(r) * H3;
-      const float* hh = gh_s + r * H3;
-      const Gates q = gru_gates(g[c], g[H + c], g[2 * H + c], hh[c], hh[H + c], hh[2 * H + c]);
-      const float hn = gru_out(q, h_s[i]);
-      h_s[i] = hn;
-      ot[i] = hn;
-    }
-    __syncthreads();
+  L.total = o;
+  return L;
+}
+
+// The CTA's gate columns of w_hh[d] and b_hh[d] into shared memory.
+__device__ void load_slice(const float* w, const float* bias, int H, int u0, const Layout& L,
+                           float* ws, float* bs) {
+  for (int g = 0; g < 3; ++g) copy_tile(ws + g * L.hc, L.ldw, w + g * H + u0, 3 * H, H, L.hc, H);
+  for (int kk = threadIdx.x; kk < L.n3; kk += blockDim.x) {
+    const int g = kk / L.hc;
+    bs[kk] = bias[g * H + u0 + kk - g * L.hc];
   }
 }
 
-template <int RB>
-__global__ void __launch_bounds__(kSeqThreads)
+// This thread's unit of the cell: row r of the tile, hidden unit u0 + i
+// (the plan keeps RB * H / C <= kThreads, one unit a thread).
+struct Unit {
+  int r, i;
+  bool live;  // a unit of the tile (r < RB)
+  bool row;   // and a row of the batch (row0 + r < B)
+};
+
+__device__ __forceinline__ Unit my_unit(int RB, int hc, int nr) {
+  Unit u;
+  u.r = threadIdx.x / hc;
+  u.i = threadIdx.x - u.r * hc;
+  u.live = u.r < RB;
+  u.row = u.r < nr;
+  return u;
+}
+
+// The unit's three gate pre-activations of one row of gi (0 past B),
+// read into registers a step ahead of their use.
+__device__ __forceinline__ void load_gates(const float* row, int H, int u, bool in, float* g) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) g[k] = in ? row[k * H + u] : 0.f;
+}
+
+__global__ void __launch_bounds__(kThreads)
+gru_fwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
+        const float* __restrict__ b_hh, const float* __restrict__ h0, int T, int D, int B,
+        int H, int RB, float* __restrict__ outs) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int c = static_cast<int>(cluster.block_rank());
+  const Layout L = chain_layout(false, H, C, RB);
+  float* ws = smem + L.w;
+  float* bs = smem + L.b;
+  float* hs = smem + L.h;
+  float* ghs = smem + L.gh;
+  float* part = smem + L.part;
+  const int H3 = 3 * H;
+  const int d = blockIdx.y;
+  const int row0 = (blockIdx.x / C) * RB;
+  const int nr = min(RB, B - row0);
+  const int u0 = c * L.hc;
+  const int hbuf = RB * L.ldh;
+  const Unit me = my_unit(RB, L.hc, nr);
+  const int u = u0 + me.i;
+
+  load_slice(w_hh + static_cast<size_t>(d) * H * H3, b_hh + static_cast<size_t>(d) * H3, H, u0,
+             L, ws, bs);
+  copy_tile(hs, L.ldh, h0 + (static_cast<size_t>(d) * B + row0) * H, H, RB, H, nr);
+  cp_async_commit();
+  float gn[3];  // gi_t of this thread's unit
+  load_gates(gi + ((static_cast<size_t>(d) * B + row0 + me.r) * H3), H, u, me.row, gn);
+  cp_async_wait<0>();
+  cluster.sync();  // every peer runs: its shared memory may be written
+
+  for (int t = 0; t < T; ++t) {
+    const int cur = t & 1;
+    float gcur[3] = {gn[0], gn[1], gn[2]};
+    if (t + 1 < T) {
+      load_gates(gi + ((static_cast<size_t>(t + 1) * D + d) * B + row0 + me.r) * H3, H, u,
+                 me.row, gn);
+    }
+    const float* hcur = hs + cur * hbuf;
+    // gh = h_{t-1} w_hh[:, own] + b_hh[own]
+    rows_times_w(hcur, L.ldh, RB, H, ws, L.ldw, L.n3, part,
+                 [&](int r, int n, float v) { ghs[r * L.ldg + n] = v + bs[n]; });
+    __syncthreads();
+    // the unit's new hidden, to every CTA's next buffer
+    if (me.live) {
+      const float* q = ghs + me.r * L.ldg;
+      const Gates G = gru_gates(gcur[0], gcur[1], gcur[2], q[me.i], q[L.hc + me.i],
+                                q[2 * L.hc + me.i]);
+      const float hn = gru_out(G, hcur[me.r * L.ldh + u]);
+      if (me.row) outs[((static_cast<size_t>(t) * D + d) * B + row0 + me.r) * H + u] = hn;
+      float* mine = hs + (cur ^ 1) * hbuf + me.r * L.ldh + u;
+      for (int p = 0; p < C; ++p) *cluster.map_shared_rank(mine, p) = hn;
+    }
+    cluster.sync();
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
 gru_bwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
         const float* __restrict__ b_hh, const float* __restrict__ h0,
-        const float* __restrict__ outs, const float* __restrict__ douts, int T, int D,
-        int B, int H, float* __restrict__ dgi, float* __restrict__ dh0,
+        const float* __restrict__ outs, const float* __restrict__ douts, int T, int D, int B,
+        int H, int RB, float* __restrict__ dgi, float* __restrict__ dh0,
         float* __restrict__ dgh) {
   extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int c = static_cast<int>(cluster.block_rank());
+  const Layout L = chain_layout(true, H, C, RB);
+  float* ws = smem + L.w;
+  float* bs = smem + L.b;
+  float* hps = smem + L.h;  // h_{t-1}, full width, 2 buffers
+  float* ghs = smem + L.gh;
+  float* part = smem + L.part;
+  float* dgs = smem + L.dg;   // dgh_t, own columns
+  float* dzs = smem + L.dz;   // dh z, own units
+  float* red = smem + L.red;  // [parity][source CTA][RB][own units]
   const int H3 = 3 * H;
-  float* hp_s = smem;                  // RB x H: h_{t-1}
-  float* dh_s = hp_s + up4(RB * H);    // RB x H: the dh carry
-  float* gh_s = dh_s + up4(RB * H);    // RB x 3H: h_{t-1} w_hh + b_hh
-  float* dg_s = gh_s + up4(RB * H3);   // RB x 3H: dgh_t
   const int d = blockIdx.y;
-  const int row0 = blockIdx.x * RB;
+  const int row0 = (blockIdx.x / C) * RB;
   const int nr = min(RB, B - row0);
-  const float* w = w_hh + static_cast<size_t>(d) * H * H3;
-  const float* bh = b_hh + static_cast<size_t>(d) * H3;
+  const int u0 = c * L.hc;
+  const int hbuf = RB * L.ldh;
+  const int obuf = RB * L.ldo;
+  const Unit me = my_unit(RB, L.hc, nr);
+  const int u = u0 + me.i;
 
-  for (int i = threadIdx.x; i < RB * H; i += blockDim.x) dh_s[i] = 0.f;
-  for (int t = T - 1; t >= 0; --t) {
+  // step t's h_{t-1} rows into buffer t & 1 (cp.async), and its gi and
+  // douts of this thread's unit into registers
+  auto prefetch = [&](int t, float* g, float& dout) {
     const float* prev = t > 0 ? outs + ((static_cast<size_t>(t - 1) * D + d) * B + row0) * H
                               : h0 + (static_cast<size_t>(d) * B + row0) * H;
-    for (int i = threadIdx.x; i < RB * H; i += blockDim.x) {
-      hp_s[i] = i / H < nr ? prev[i] : 0.f;
+    copy_tile(hps + (t & 1) * hbuf, L.ldh, prev, H, RB, H, nr);
+    cp_async_commit();
+    const size_t row = (static_cast<size_t>(t) * D + d) * B + row0 + me.r;
+    load_gates(gi + row * H3, H, u, me.row, g);
+    dout = me.row ? douts[row * H + u] : 0.f;
+  };
+
+  load_slice(w_hh + static_cast<size_t>(d) * H * H3, b_hh + static_cast<size_t>(d) * H3, H, u0,
+             L, ws, bs);
+  float gn[3], dn;
+  prefetch(T - 1, gn, dn);
+  cp_async_wait<0>();
+  cluster.sync();  // every peer runs: its shared memory may be written
+
+  for (int t = T - 1; t >= 0; --t) {
+    const int cur = t & 1;
+    const float gcur[3] = {gn[0], gn[1], gn[2]};
+    const float dcur = dn;
+    if (t > 0) {
+      prefetch(t - 1, gn, dn);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    block_matvec<RB>(hp_s, H, w, H3, bh, nullptr, 0, nr, gh_s);
+    const float* hp = hps + cur * hbuf;
+    // recompute gh = h_{t-1} w_hh[:, own] + b_hh[own]
+    rows_times_w(hp, L.ldh, RB, H, ws, L.ldw, L.n3, part,
+                 [&](int r, int n, float v) { ghs[r * L.ldg + n] = v + bs[n]; });
     __syncthreads();
-    const size_t slab = (static_cast<size_t>(t) * D + d) * B + row0;
-    const float* git = gi + slab * H3;
-    const float* dot = douts + slab * H;
-    float* dgit = dgi + slab * H3;
-    float* dght = dgh + slab * H3;
-    for (int i = threadIdx.x; i < nr * H; i += blockDim.x) {
-      const int r = i / H;
-      const int c = i - r * H;
-      const size_t o = static_cast<size_t>(r) * H3;
-      const float* g = git + o;
-      const float* hh = gh_s + r * H3;
-      const Gates q = gru_gates(g[c], g[H + c], g[2 * H + c], hh[c], hh[H + c], hh[2 * H + c]);
-      const CellGrads gg = gru_cell_bwd(dot[i] + dh_s[i], q, hp_s[i]);
-      dgit[o + c] = gg.dr;
-      dgit[o + H + c] = gg.dz;
-      dgit[o + 2 * H + c] = gg.dn;
-      dght[o + c] = gg.dr;
-      dght[o + H + c] = gg.dz;
-      dght[o + 2 * H + c] = gg.dgh_n;
-      dg_s[r * H3 + c] = gg.dr;
-      dg_s[r * H3 + H + c] = gg.dz;
-      dg_s[r * H3 + 2 * H + c] = gg.dgh_n;
-      dh_s[i] = gg.dh_z;
+    if (me.live) {
+      const float* q = ghs + me.r * L.ldg;
+      const Gates G = gru_gates(gcur[0], gcur[1], gcur[2], q[me.i], q[L.hc + me.i],
+                                q[2 * L.hc + me.i]);
+      float dh = dcur;
+      if (t < T - 1) {  // + dh z + step t+1's partials of dgh w_hh^T
+        const float* carry = red + ((t + 1) & 1) * C * obuf + me.r * L.ldo + me.i;
+        float s = carry[0];
+        for (int p = 1; p < C; ++p) s += carry[p * obuf];
+        dh += dzs[me.r * L.ldo + me.i] + s;
+      }
+      const CellGrads cgr = gru_cell_bwd(dh, G, hp[me.r * L.ldh + u]);
+      if (me.row) {
+        const size_t o = ((static_cast<size_t>(t) * D + d) * B + row0 + me.r) * H3;
+        dgi[o + u] = cgr.dr;
+        dgi[o + H + u] = cgr.dz;
+        dgi[o + 2 * H + u] = cgr.dn;
+        dgh[o + u] = cgr.dr;
+        dgh[o + H + u] = cgr.dz;
+        dgh[o + 2 * H + u] = cgr.dgh_n;
+      }
+      float* dg = dgs + me.r * L.ldg;
+      dg[me.i] = cgr.dr;
+      dg[L.hc + me.i] = cgr.dz;
+      dg[2 * L.hc + me.i] = cgr.dgh_n;
+      dzs[me.r * L.ldo + me.i] = cgr.dh_z;
     }
     __syncthreads();
-    // dh_{t-1} = dh z + dgh_t @ w_hh^T
-    block_matvec_t<RB>(dg_s, H3, w, H, nr, dh_s, H, true);
-    __syncthreads();
+    // dgh_t w_hh^T over the own columns, for every unit j, into slot c
+    // of j's owner
+    const int slot = ((t & 1) * C + c) * obuf;
+    rows_times_wt(dgs, L.ldg, RB, L.n3, ws, L.ldw, H, part, [&](int r, int j, float v) {
+      const int o = j / L.hc;
+      *cluster.map_shared_rank(red + slot + r * L.ldo + j - o * L.hc, o) = v;
+    });
+    cluster.sync();
   }
-  for (int i = threadIdx.x; i < nr * H; i += blockDim.x) {
-    dh0[(static_cast<size_t>(d) * B + row0) * H + i] = dh_s[i];
+  // dh0 = dh z + the partials of step 0
+  if (me.row) {
+    const float* p0 = red + me.r * L.ldo + me.i;
+    float s = p0[0];
+    for (int p = 1; p < C; ++p) s += p0[p * obuf];
+    dh0[(static_cast<size_t>(d) * B + row0 + me.r) * H + u] = dzs[me.r * L.ldo + me.i] + s;
   }
 }
 
-// The largest row tile whose shared memory fits (8, 4, 2 or 1), or 0.
-int rows_per_block(int floats_per_row) {
-  for (int rb = 8; rb >= 1; rb /= 2) {
-    if (static_cast<long long>(rb) * floats_per_row * 4 + 64 <= kMaxSmem) return rb;
-  }
-  return 0;
+// Refuses a plan the kernels cannot run: returns the shared-memory bytes
+// it needs, or 0.
+int checked_smem(bool bwd, int H, int C, int RB, int smem_bytes) {
+  if (C < 1 || C > 8 || (C & (C - 1)) != 0 || H < 1 || H % C != 0) return 0;
+  if (RB < kRowsPerThread || RB % kRowsPerThread != 0 || RB * (H / C) > kThreads) return 0;
+  const long long need = 4LL * chain_layout(bwd, H, C, RB).total;
+  if (need > kMaxSmem || smem_bytes < need || smem_bytes > kMaxSmem) return 0;
+  return static_cast<int>(need);
 }
 
-template <int RB>
-cudaError_t launch_fwd(const float* gi, const float* w_hh, const float* b_hh,
-                       const float* h0, int T, int D, int B, int H, float* outs,
-                       cudaStream_t st) {
-  const int smem = (up4(RB * H) + up4(RB * 3 * H)) * 4;
-  cudaError_t err = cudaFuncSetAttribute(gru_fwd<RB>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <class... Params, class... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), int C, dim3 grid, int smem,
+                           cudaStream_t st, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((B + RB - 1) / RB, D);
-  gru_fwd<RB><<<grid, kSeqThreads, smem, st>>>(gi, w_hh, b_hh, h0, T, D, B, H, outs);
-  return cudaGetLastError();
-}
-
-template <int RB>
-cudaError_t launch_bwd(const float* gi, const float* w_hh, const float* b_hh,
-                       const float* h0, const float* outs, const float* douts, int T,
-                       int D, int B, int H, float* dgi, float* dh0, float* dgh,
-                       cudaStream_t st) {
-  const int smem = (2 * up4(RB * H) + 2 * up4(RB * 3 * H)) * 4;
-  cudaError_t err = cudaFuncSetAttribute(gru_bwd<RB>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return err;
-  const dim3 grid((B + RB - 1) / RB, D);
-  gru_bwd<RB><<<grid, kSeqThreads, smem, st>>>(gi, w_hh, b_hh, h0, outs, douts, T, D, B,
-                                               H, dgi, dh0, dgh);
   return cudaGetLastError();
 }
 
@@ -191,53 +357,44 @@ const char* gru_chain_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Rows of the batch a block owns in the forward (0 = H too large).
-int gru_chain_rows_fwd(int H) { return rows_per_block(fwd_floats_per_row(H)); }
-// Rows of the batch a block owns in the backward (0 = H too large).
-int gru_chain_rows_bwd(int H) { return rows_per_block(bwd_floats_per_row(H)); }
-
-// gi (T, D, B, 3H), w_hh (D, H, 3H), b_hh (D, 3H), h0 (D, B, H) f32
-// -> outs (T, D, B, H) f32.
-int gru_chain_fwd(const float* gi, const float* w_hh, const float* b_hh, const float* h0,
-                  int T, int D, int B, int H, float* outs, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (gru_chain_rows_fwd(H)) {
-    case 8: return launch_fwd<8>(gi, w_hh, b_hh, h0, T, D, B, H, outs, st);
-    case 4: return launch_fwd<4>(gi, w_hh, b_hh, h0, T, D, B, H, outs, st);
-    case 2: return launch_fwd<2>(gi, w_hh, b_hh, h0, T, D, B, H, outs, st);
-    case 1: return launch_fwd<1>(gi, w_hh, b_hh, h0, T, D, B, H, outs, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+// Floats of shared memory a CTA of the plan (H, C, RB) needs: the
+// layout that ops/gru_kernel.py::chain_smem_floats mirrors.
+int gru_chain_smem_floats(int bwd, int H, int C, int RB) {
+  return chain_layout(bwd != 0, H, C, RB).total;
 }
 
-// Floats of the backward's reduction scratch.
-long long gru_chain_reduce_floats(int T, int D, int B, int H) {
-  return reduce_scratch_floats(H, true, 3 * H, T, B, D);
+// gi (T, D, B, 3H), w_hh (D, H, 3H), b_hh (D, 3H), h0 (D, B, H) f32
+// -> outs (T, D, B, H) f32; the plan: clusters of C CTAs of RB rows,
+// smem_bytes of dynamic shared memory each.
+int gru_chain_fwd(const float* gi, const float* w_hh, const float* b_hh, const float* h0,
+                  int T, int D, int B, int H, int C, int RB, int smem_bytes, float* outs,
+                  void* stream) {
+  if (checked_smem(false, H, C, RB, smem_bytes) == 0) return cudaErrorInvalidValue;
+  const dim3 grid(C * ((B + RB - 1) / RB), D);
+  return launch_cluster(gru_fwd, C, grid, smem_bytes, static_cast<cudaStream_t>(stream), gi,
+                        w_hh, b_hh, h0, T, D, B, H, RB, outs);
 }
 
 // + outs, douts (T, D, B, H) -> dgi (T, D, B, 3H), dh0 (D, B, H),
-// dw (D, H, 3H), db (D, 3H); dgh (T, D, B, 3H) and red
-// (gru_chain_reduce_floats) are scratch.
+// dw (D, H, 3H), db (D, 3H); dgh (T, D, B, 3H) is scratch, and red the
+// GEMM's partial sums over `splits` splits (atb_scratch_floats).
 int gru_chain_bwd(const float* gi, const float* w_hh, const float* b_hh, const float* h0,
-                  const float* outs, const float* douts, int T, int D, int B, int H,
-                  float* dgi, float* dh0, float* dw, float* db, float* dgh, float* red,
-                  void* stream) {
+                  const float* outs, const float* douts, int T, int D, int B, int H, int C,
+                  int RB, int smem_bytes, int splits, float* dgi, float* dh0, float* dw,
+                  float* db, float* dgh, float* red, void* stream) {
+  if (checked_smem(true, H, C, RB, smem_bytes) == 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (gru_chain_rows_bwd(H)) {
-    case 8: err = launch_bwd<8>(gi, w_hh, b_hh, h0, outs, douts, T, D, B, H, dgi, dh0, dgh, st); break;
-    case 4: err = launch_bwd<4>(gi, w_hh, b_hh, h0, outs, douts, T, D, B, H, dgi, dh0, dgh, st); break;
-    case 2: err = launch_bwd<2>(gi, w_hh, b_hh, h0, outs, douts, T, D, B, H, dgi, dh0, dgh, st); break;
-    case 1: err = launch_bwd<1>(gi, w_hh, b_hh, h0, outs, douts, T, D, B, H, dgi, dh0, dgh, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const dim3 grid(C * ((B + RB - 1) / RB), D);
+  cudaError_t err = launch_cluster(gru_bwd, C, grid, smem_bytes, st, gi, w_hh, b_hh, h0, outs,
+                                   douts, T, D, B, H, RB, dgi, dh0, dgh);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long bh = static_cast<long long>(B) * H;
   const long long bh3 = 3 * bh;
   // dW_hh[d] = sum_{t,b} h_{t-1}^T dgh_t, db_hh[d] = sum_{t,b} dgh_t
-  const Operand hprev{outs, h0, bh, D * bh, H};
-  const Operand grad{dgh, nullptr, bh3, D * bh3, 3 * H};
-  return static_cast<int>(launch_reduce(hprev, nullptr, H, grad, 3 * H, T, B, D, dw, db, red, st));
+  const Operand hprev{outs, h0, bh, D * bh, H, T, 0};
+  const Operand grad{dgh, nullptr, bh3, D * bh3, 3 * H, 1, 0};
+  return static_cast<int>(
+      launch_atb(hprev, nullptr, 0, H, grad, 3 * H, T, B, D, splits, dw, db, red, st));
 }
 
 }  // extern "C"

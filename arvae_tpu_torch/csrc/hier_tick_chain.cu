@@ -32,9 +32,11 @@
 // Results of one row stay in the sequential launch (dgi_beat summed over
 // a beat's ticks, dtick_h0 at the resets, dx0 at t = 0). The weight and
 // embedding gradients sum over (t, b) across row tiles: the sequential
-// launch writes each product's operands to scratch buffers, and the
-// fixed-order two-pass reduction of gru_common.cuh sums them, so repeats
-// are bitwise equal (no float atomics).
+// launch writes the products' operands that exist nowhere else to
+// scratch buffers, and the tiled fixed-order GEMM of gru_common.cuh sums
+// them, reading the layers' h_{t-1} (the saved hiddens one tick back,
+// tick_h0 at the resets) and the fed tokens in place, so repeats are
+// bitwise equal (no float atomics).
 //
 // Random bits: a counter-based 32-bit hash of (seed, t, salt, row, col),
 // salt 0 for dropout and 3571 for the Gumbel noise. The plain PyTorch
@@ -125,7 +127,7 @@ struct FwdOut {
 };
 
 // Gradients and the backward's scratch (every (T, B, .) buffer is
-// written by the sequential launch and read by the reductions).
+// written by the sequential launch and read by the GEMMs).
 struct BwdOut {
   float* dgi_beat;  // (n_beats, B, 3H)
   float* dtick_h0;  // (n_beats, 2, B, H)
@@ -141,11 +143,8 @@ struct BwdOut {
   float* dout_w;    // (H, V)
   float* dout_b;    // (V,)
   // scratch
-  float* h0p;     // (T, B, H)  layer-0 h_{t-1} (after resets)
-  float* h1p;     // (T, B, H)  layer-1 h_{t-1}
   float* inter;   // (T, B, H)  layer-1 input after dropout
   float* pe;      // (T, B, E)  fed embedding
-  int* tokp;      // (T, B)     fed token, -1 at t = 0 (x0 is fed there)
   float* dpe;     // (T, B, E)  its gradient
   float* dlog;    // (T, B, V)  dlogits after the ReLU mask
   float* dgi1;    // (T, B, 3H)
@@ -345,7 +344,7 @@ hier_bwd(Weights w, Dims dm, const int* __restrict__ seed_ptr,
     const bool reset = t % dm.tpb == 0;
     const size_t slab = static_cast<size_t>(t) * B + row0;  // row (t, row0) of a (T, B, .) array
 
-    // recompute the step's inputs and save the reductions' operands
+    // recompute the step's inputs and save the GEMMs' operands
     const float* init = w.tick_h0 + (static_cast<size_t>(beat) * 2 * B + row0) * H;
     for (int i = threadIdx.x; i < nr * H; i += blockDim.x) {
       const int r = i / H;
@@ -358,19 +357,15 @@ hier_bwd(Weights w, Dims dm, const int* __restrict__ seed_ptr,
       h1p_s[i] = b;
       h1n_s[i] = h1_all[slab * H + i];
       x_s[i] = x;
-      g.h0p[slab * H + i] = a;
-      g.h1p[slab * H + i] = b;
       g.inter[slab * H + i] = x;
     }
     for (int i = threadIdx.x; i < nr * E; i += blockDim.x) {
       const int r = i / E;
       const int e = i - r * E;
-      const int tok = t > 0 ? samples[(slab - B) + r] : -1;
-      const float v = t > 0 ? w.emb[static_cast<size_t>(tok) * E + e]
+      const float v = t > 0 ? w.emb[static_cast<size_t>(samples[(slab - B) + r]) * E + e]
                             : w.x0[static_cast<size_t>(row0 + r) * E + e];
       pe_s[i] = v;
       g.pe[slab * E + i] = v;
-      if (e == 0) g.tokp[slab + r] = tok;
     }
     __syncthreads();
 
@@ -475,8 +470,9 @@ hier_bwd(Weights w, Dims dm, const int* __restrict__ seed_ptr,
     }
   }
   // t = 0 feeds x0, not an embedding row, so its dpe slab was never
-  // written; the embedding reduction multiplies it by 0 (tokp = -1), and
-  // 0 times an uninitialised NaN would poison the sum, so zero it
+  // written; the embedding GEMM multiplies it by 0 (no token is fed
+  // there), and 0 times an uninitialised NaN would poison the sum, so
+  // zero it
   for (int i = threadIdx.x; i < nr * E; i += blockDim.x) g.dpe[static_cast<size_t>(row0) * E + i] = 0.f;
 }
 
@@ -560,21 +556,11 @@ int hier_tick_chain_fwd(const int* teacher, const int* seed, const int* score,
   }
 }
 
-// Floats of the backward's reduction scratch: the largest of its six
-// reductions, which run one after another on the stream.
-long long hier_tick_chain_reduce_floats(int T, int B, int H, int E, int V) {
-  const long long need[] = {reduce_scratch_floats(H, true, V, T, B, 1),       // out
-                            reduce_scratch_floats(H, true, 3 * H, T, B, 1),   // GRU
-                            reduce_scratch_floats(E, false, 3 * H, T, B, 1),  // w_ih0e
-                            reduce_scratch_floats(V, false, E, T, B, 1)};     // emb
-  long long n = 0;
-  for (const long long x : need) n = x > n ? x : n;
-  return n;
-}
-
 // The backward. grads: the 13 gradient outputs in the order of struct
-// BwdOut; scratch: its 11 buffers in the same order (tokp is i32), then
-// red (hier_tick_chain_reduce_floats).
+// BwdOut; scratch: inter, pe, dpe, dlog, dgi1, dgh1, dgi0, dgh0, then
+// red, the GEMMs' partial sums; splits: the split of the (t, b) terms of
+// each of the six weight-gradient GEMMs, in the order they run below
+// (ops/hier_decoder_kernel.py::gemm_shapes), red sized for the largest.
 int hier_tick_chain_bwd(const int* seed, const int* samples, const float* h0_all,
                         const float* h1_all, const float* dweights, const float* gi_beat,
                         const float* tick_h0, const float* x0, const float* emb,
@@ -585,17 +571,17 @@ int hier_tick_chain_bwd(const int* seed, const int* samples, const float* h0_all
                         float keep, float scale, float* dgi_beat, float* dtick_h0,
                         float* dx0, float* demb, float* dw_ih0e, float* dw_hh0,
                         float* db_hh0, float* dw_ih1, float* db_ih1, float* dw_hh1,
-                        float* db_hh1, float* dout_w, float* dout_b, float* s_h0p,
-                        float* s_h1p, float* s_inter, float* s_pe, int* s_tokp,
-                        float* s_dpe, float* s_dlog, float* s_dgi1, float* s_dgh1,
-                        float* s_dgi0, float* s_dgh0, float* red, void* stream) {
+                        float* db_hh1, float* dout_w, float* dout_b, float* s_inter,
+                        float* s_pe, float* s_dpe, float* s_dlog, float* s_dgi1,
+                        float* s_dgh1, float* s_dgi0, float* s_dgh0, float* red,
+                        const int* splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Weights w = make_weights(gi_beat, tick_h0, x0, emb, w_ih0e, w_hh0, b_hh0, w_ih1,
                                  b_ih1, w_hh1, b_hh1, out_w, out_b);
   const Dims dm{T, B, H, E, V, ticks_per_beat, dropout, keep, scale, 0};
-  const BwdOut g{dgi_beat, dtick_h0, dx0,    demb,   dw_ih0e, dw_hh0, db_hh0, dw_ih1,
-                 db_ih1,   dw_hh1,   db_hh1, dout_w, dout_b,  s_h0p,  s_h1p,  s_inter,
-                 s_pe,     s_tokp,   s_dpe,  s_dlog, s_dgi1,  s_dgh1, s_dgi0, s_dgh0};
+  const BwdOut g{dgi_beat, dtick_h0, dx0,     demb,  dw_ih0e, dw_hh0, db_hh0, dw_ih1,
+                 db_ih1,   dw_hh1,   db_hh1,  dout_w, dout_b, s_inter, s_pe,   s_dpe,
+                 s_dlog,   s_dgi1,   s_dgh1,  s_dgi0, s_dgh0};
   cudaError_t err;
   switch (rows_per_block(false, H, E, V)) {
     case 8: err = launch_bwd<8>(w, dm, seed, samples, h0_all, h1_all, dweights, g, st); break;
@@ -607,9 +593,13 @@ int hier_tick_chain_bwd(const int* seed, const int* samples, const float* h0_all
   if (err != cudaSuccess) return static_cast<int>(err);
 
   // the weight and embedding gradients: fixed-order sums over (t, b)
-  const long long h = H, h3 = 3LL * H;
+  const long long h = H, h3 = 3LL * H, bh = static_cast<long long>(B) * H;
   auto dense = [&](const float* p, long long width) {
-    return Operand{p, nullptr, 0, static_cast<long long>(B) * width, width};
+    return Operand{p, nullptr, 0, static_cast<long long>(B) * width, width, 1, 0};
+  };
+  // a layer's h_{t-1}: its saved hiddens one tick back, tick_h0 at resets
+  auto prev = [&](const float* all, int layer) {
+    return Operand{all, tick_h0 + layer * bh, 0, bh, h, ticks_per_beat, 2 * bh};
   };
   struct Job {
     Operand a;
@@ -623,13 +613,16 @@ int hier_tick_chain_bwd(const int* seed, const int* samples, const float* h0_all
   const Job jobs[] = {
       {dense(h1_all, h), nullptr, H, dense(s_dlog, V), V, dout_w, dout_b},
       {dense(s_inter, h), nullptr, H, dense(s_dgi1, h3), 3 * H, dw_ih1, db_ih1},
-      {dense(s_h1p, h), nullptr, H, dense(s_dgh1, h3), 3 * H, dw_hh1, db_hh1},
-      {dense(s_h0p, h), nullptr, H, dense(s_dgh0, h3), 3 * H, dw_hh0, db_hh0},
+      {prev(h1_all, 1), nullptr, H, dense(s_dgh1, h3), 3 * H, dw_hh1, db_hh1},
+      {prev(h0_all, 0), nullptr, H, dense(s_dgh0, h3), 3 * H, dw_hh0, db_hh0},
       {dense(s_pe, E), nullptr, E, dense(s_dgi0, h3), 3 * H, dw_ih0e, nullptr},
-      {dense(nullptr, V), s_tokp, V, dense(s_dpe, E), E, demb, nullptr},
+      // the fed token of step t is samples[t - 1]; none at t = 0
+      {dense(nullptr, V), samples, V, dense(s_dpe, E), E, demb, nullptr},
   };
-  for (const Job& j : jobs) {
-    err = launch_reduce(j.a, j.tokens, j.m, j.x, j.n, T, B, 1, j.out, j.bias, red, st);
+  for (int i = 0; i < 6; ++i) {
+    const Job& j = jobs[i];
+    err = launch_atb(j.a, j.tokens, B, j.m, j.x, j.n, T, B, 1, splits[i], j.out, j.bias, red,
+                     st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaSuccess);

@@ -18,16 +18,27 @@ autograd through the loop. There is no fallback from one to the other.
 
 What bounds it on the card: a T-long chain of dependent
 (rows x H) @ (H x 3H) products, small enough that latency, not bytes or
-arithmetic, sets the time. The kernel runs the whole chain in one launch
-(a block per tile of batch rows, looping over t, the hidden state in
-shared memory); the backward recomputes the gates from h_{t-1} and sums
-dW_hh / db_hh in fixed-order reduction launches, so its results repeat
+arithmetic, sets the time. The kernel runs the whole chain in one launch:
+a thread-block cluster of C CTAs per tile of RB batch rows loops over t,
+each CTA holding its H/C hidden units' gate columns of ``w_hh`` in shared
+memory for the whole chain and exchanging hidden state (forward) or
+partial hidden gradients (backward) with its peers through distributed
+shared memory. The backward sums dW_hh / db_hh with the tiled
+fixed-order GEMM of ``csrc/gru_common.cuh``, so its results repeat
 bitwise. See the source's header for the design.
+
+The launch plans are decided here, in Python, when a kernel is called:
+:func:`gru_plan` (C, RB, shared-memory bytes, grid) mirrors the kernel's
+shared-memory layout (:func:`chain_smem_floats`), and :func:`atb_splits`
+fixes the weight-gradient GEMM's split of the (t, b) terms; the kernels
+check the plan and refuse one that does not fit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
@@ -79,6 +90,96 @@ def gru_chain_reference(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Launch plans (pure functions of the shapes)
+# ---------------------------------------------------------------------------
+
+MAX_SMEM = 227 * 1024  # dynamic shared memory a CTA may use on Hopper
+SMS = 132              # streaming multiprocessors of an H100 SXM
+THREADS = 512          # threads of a cluster kernel's CTA: one a cell unit
+ROWS_PER_THREAD = 4    # a tile's rows are a multiple of it
+GEMM_TILE, GEMM_DEPTH = 64, 32
+
+
+def _up4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _slice_ld(n: int) -> int:
+    ld = _up4(n)
+    return ld + 4 if ld % 8 == 0 else ld
+
+
+def chain_smem_floats(backward: bool, H: int, C: int, RB: int) -> int:
+    """Floats of shared memory one CTA of ``gru_chain``'s cluster kernels
+    uses: ``chain_layout`` in ``csrc/gru_chain.cu``, term for term."""
+    hc = H // C
+    n3 = 3 * hc
+    ldw, ldh, ldg, ldo = _slice_ld(n3), _up4(H), _up4(n3), _up4(hc)
+    total = H * ldw + ldg + 2 * RB * ldh + RB * ldg + THREADS * 2 * ROWS_PER_THREAD
+    if backward:
+        total += RB * ldg + RB * ldo + 2 * C * RB * ldo
+    return total
+
+
+@dataclass(frozen=True)
+class ChainPlan:
+    clusters: int     # C, CTAs a cluster: each owns H / C hidden units
+    rows: int         # RB, batch rows a cluster owns
+    smem_bytes: int   # dynamic shared memory of one CTA
+    grid: Tuple[int, int]
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+@functools.lru_cache(maxsize=256)
+def gru_plan(D: int, B: int, H: int, backward: bool) -> ChainPlan:
+    """The plan that runs in the fewest waves of the card (a CTA an SM),
+    then with the most CTAs in them, then with the fewest CTAs a cluster
+    (the fewest peers to exchange with), then the most rows a cluster;
+    clusters of 2, 4 or 8 CTAs, a single CTA only where no cluster fits.
+    A CTA's threads each own one (row, hidden unit) of its tile. Raises
+    ValueError when no plan fits 227 KB."""
+    best, best_key = None, None
+    for c in (2, 4, 8, 1):
+        for rb in (16, 8, 4):
+            if H % c or rb * (H // c) > THREADS:
+                continue
+            smem = 4 * chain_smem_floats(backward, H, c, rb)
+            if smem > MAX_SMEM:
+                continue
+            plan = ChainPlan(c, rb, smem, (c * -(-B // rb), D))
+            key = (c == 1, -(-plan.ctas // SMS), -plan.ctas, c, -rb)
+            if best_key is None or key < best_key:
+                best, best_key = plan, key
+    if best is None:
+        raise ValueError(f"H={H} is too wide: no cluster of at most 8 CTAs holds its "
+                         "w_hh slices and a 4-row tile in 227 KB of shared memory")
+    return best
+
+
+@functools.lru_cache(maxsize=256)
+def atb_splits(M: int, bias: bool, N: int, K: int, D: int = 1) -> int:
+    """Splits of the K = T·B terms for the weight-gradient GEMM of an
+    (M (+1 bias row), N) output over D slices: about four 64x64-tile
+    blocks an SM, so that the card's SMs end close together, and at
+    least one 32-term K tile a split."""
+    tiles = D * -(-(M + int(bias)) // GEMM_TILE) * -(-N // GEMM_TILE)
+    return max(1, min(-(-K // GEMM_DEPTH), -(-4 * SMS // tiles)))
+
+
+def atb_scratch_floats(M: int, bias: bool, N: int, D: int, splits: int) -> int:
+    """Floats of the GEMM's partial sums (0 for one split)."""
+    return D * splits * (M + int(bias)) * N if splits > 1 else 0
+
+
+# ---------------------------------------------------------------------------
+# Build and bind
+# ---------------------------------------------------------------------------
+
+
 _bound = False
 
 
@@ -87,14 +188,11 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(_NAME)
     if not _bound:
         p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.gru_chain_rows_fwd, lib.gru_chain_rows_bwd):
-            fn.argtypes = [i]
-            fn.restype = i
-        lib.gru_chain_fwd.argtypes = [p, p, p, p, i, i, i, i, p, p]
+        lib.gru_chain_smem_floats.argtypes = [i] * 4
+        lib.gru_chain_smem_floats.restype = i
+        lib.gru_chain_fwd.argtypes = [p] * 4 + [i] * 7 + [p, p]
         lib.gru_chain_fwd.restype = i
-        lib.gru_chain_reduce_floats.argtypes = [i] * 4
-        lib.gru_chain_reduce_floats.restype = ctypes.c_longlong
-        lib.gru_chain_bwd.argtypes = [p] * 6 + [i] * 4 + [p] * 7
+        lib.gru_chain_bwd.argtypes = [p] * 6 + [i] * 8 + [p] * 7
         lib.gru_chain_bwd.restype = i
         _bound = True
     return lib
@@ -122,24 +220,18 @@ def _dims(gi, w_hh, b_hh, h0) -> Tuple[int, int, int, int]:
     return t, d, b, h
 
 
-def _check_rows(lib: ctypes.CDLL, h: int) -> None:
-    if lib.gru_chain_rows_bwd(h) == 0 or lib.gru_chain_rows_fwd(h) == 0:
-        raise ValueError(f"H={h} is too wide: one batch row of the backward "
-                         "needs 32·H bytes of shared memory, at most 227 KB")
-
-
 def gru_chain_fwd_cuda(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                        h0: torch.Tensor) -> torch.Tensor:
     """Launches the forward kernel → outs (T, D, B, H)."""
     t, d, b, h = _dims(gi, w_hh, b_hh, h0)
     _check((("gi", gi), ("w_hh", w_hh), ("b_hh", b_hh), ("h0", h0)), gi.device)
+    plan = gru_plan(d, b, h, backward=False)
     lib = _library()
-    _check_rows(lib, h)
     outs = torch.empty((t, d, b, h), dtype=torch.float32, device=gi.device)
     with torch.cuda.device(gi.device):
         err = lib.gru_chain_fwd(gi.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-                                h0.data_ptr(), t, d, b, h, outs.data_ptr(),
-                                _build.stream_of(gi))
+                                h0.data_ptr(), t, d, b, h, plan.clusters, plan.rows,
+                                plan.smem_bytes, outs.data_ptr(), _build.stream_of(gi))
     _build.raise_on(lib, _NAME, err, "gru_chain_fwd")
     LAUNCHES["fwd"] += 1
     return outs
@@ -155,20 +247,22 @@ def gru_chain_bwd_cuda(
             ("outs", outs), ("douts", douts)), gi.device)
     if outs.shape != (t, d, b, h) or douts.shape != (t, d, b, h):
         raise ValueError(f"outs and douts must be {(t, d, b, h)}")
+    plan = gru_plan(d, b, h, backward=True)
+    splits = atb_splits(h, True, 3 * h, t * b, d)
     lib = _library()
-    _check_rows(lib, h)
     dgi = torch.empty_like(gi)
     dh0 = torch.empty_like(h0)
     dw = torch.empty_like(w_hh)
     db = torch.empty_like(b_hh)
-    # scratch: dgh_t, and the partial sums of the dW reduction
+    # scratch: dgh_t, and the partial sums of the dW GEMM
     dgh = torch.empty_like(gi)
-    red = torch.empty(lib.gru_chain_reduce_floats(t, d, b, h), dtype=torch.float32,
-                      device=gi.device)
+    red = torch.empty(max(1, atb_scratch_floats(h, True, 3 * h, d, splits)),
+                      dtype=torch.float32, device=gi.device)
     with torch.cuda.device(gi.device):
         err = lib.gru_chain_bwd(gi.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
                                 h0.data_ptr(), outs.data_ptr(), douts.data_ptr(),
-                                t, d, b, h, dgi.data_ptr(), dh0.data_ptr(),
+                                t, d, b, h, plan.clusters, plan.rows, plan.smem_bytes,
+                                splits, dgi.data_ptr(), dh0.data_ptr(),
                                 dw.data_ptr(), db.data_ptr(), dgh.data_ptr(),
                                 red.data_ptr(), _build.stream_of(gi))
     _build.raise_on(lib, _NAME, err, "gru_chain_bwd")

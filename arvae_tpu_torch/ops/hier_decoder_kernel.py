@@ -5,7 +5,8 @@ Replaces the Pallas TPU kernel
 ``arvae_tpu/ops/hier_decoder_pallas.py::hier_tick_chain``: T sequential
 steps of [2-layer tick GRU with per-beat hidden resets → ReLU head →
 argmax or Gumbel-max → teacher select → re-embed the fed token], as one
-launch forward and one (plus its fixed-order reductions) backward.
+launch forward and one (plus its fixed-order weight-gradient GEMMs)
+backward.
 
 On a CUDA tensor, :func:`hier_tick_chain` launches the kernels of
 ``csrc/hier_tick_chain.cu`` or raises; on a CPU tensor it runs
@@ -36,6 +37,7 @@ import torch.nn.functional as F
 
 from arvae_tpu_torch.ops import _build
 from arvae_tpu_torch.ops.gru import stacked_gru_step_from_gi
+from arvae_tpu_torch.ops.gru_kernel import atb_scratch_floats, atb_splits
 
 _NAME = "hier_tick_chain"
 SALT_DROPOUT = 0
@@ -174,10 +176,9 @@ def _library() -> ctypes.CDLL:
         lib.hier_tick_chain_fwd.argtypes = ([p] * 16 + [i] * 7 + [f, f, i]
                                             + [p] * 4 + [p])
         lib.hier_tick_chain_fwd.restype = i
-        lib.hier_tick_chain_reduce_floats.argtypes = [i] * 5
-        lib.hier_tick_chain_reduce_floats.restype = ctypes.c_longlong
         lib.hier_tick_chain_bwd.argtypes = ([p] * 18 + [i] * 7 + [f, f]
-                                            + [p] * 13 + [p] * 12 + [p])
+                                            + [p] * 13 + [p] * 9
+                                            + [ctypes.POINTER(i), p])
         lib.hier_tick_chain_bwd.restype = i
         _bound = True
     return lib
@@ -219,6 +220,14 @@ def _check_rows(lib: ctypes.CDLL, H: int, E: int, V: int) -> None:
         raise ValueError(
             f"H={H}, E={E}, V={V} are too wide: one batch row of the backward "
             "needs (34·H + E + V)·4 bytes of shared memory, at most 227 KB")
+
+
+def gemm_shapes(H: int, E: int, V: int) -> Tuple[Tuple[int, bool, int], ...]:
+    """(M, bias row, N) of the backward's six weight-gradient GEMMs, in
+    the order the C entry runs them: out_w (+ out_b), w_ih1 (+ b_ih1),
+    w_hh1 (+ b_hh1), w_hh0 (+ b_hh0), w_ih0e, emb."""
+    return ((H, True, V), (H, True, 3 * H), (H, True, 3 * H), (H, True, 3 * H),
+            (E, False, 3 * H), (V, False, E))
 
 
 def _rate_args(train: bool, dropout_rate: float) -> Tuple[int, float, float]:
@@ -277,11 +286,13 @@ def hier_tick_chain_bwd_cuda(train, dropout_rate, ticks_per_beat, seed, samples,
     def scratch(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    work = [scratch(T, B, H), scratch(T, B, H), scratch(T, B, H),  # h0p, h1p, inter
-            scratch(T, B, E), scratch(T, B, dtype=torch.int32),    # pe, tokp
+    shapes = gemm_shapes(H, E, V)
+    splits = [atb_splits(m, bias, n, T * B) for m, bias, n in shapes]
+    partial = max(atb_scratch_floats(m, bias, n, 1, k) for (m, bias, n), k in zip(shapes, splits))
+    work = [scratch(T, B, H), scratch(T, B, E),                    # inter, pe
             scratch(T, B, E), scratch(T, B, V),                    # dpe, dlog
             *(scratch(T, B, 3 * H) for _ in range(4)),             # dgi1 dgh1 dgi0 dgh0
-            scratch(lib.hier_tick_chain_reduce_floats(T, B, H, E, V))]  # partial sums
+            scratch(max(1, partial))]                              # the GEMMs' partial sums
     dropout, keep, scale = _rate_args(train, dropout_rate)
     with torch.cuda.device(dev):
         err = lib.hier_tick_chain_bwd(
@@ -289,7 +300,8 @@ def hier_tick_chain_bwd_cuda(train, dropout_rate, ticks_per_beat, seed, samples,
             h1_all.data_ptr(), dweights.data_ptr(),
             *(x.data_ptr() for x in floats), T, B, H, E, V, ticks_per_beat,
             dropout, keep, scale, *(g.data_ptr() for g in grads),
-            *(w.data_ptr() for w in work), _build.stream_of(samples))
+            *(w.data_ptr() for w in work), (ctypes.c_int * 6)(*splits),
+            _build.stream_of(samples))
     _build.raise_on(lib, _NAME, err, "hier_tick_chain_bwd")
     LAUNCHES["bwd"] += 1
     return tuple(grads)

@@ -27,7 +27,6 @@ nothing.
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 from typing import Tuple
 
 import torch
@@ -83,20 +82,6 @@ def reg_loss_bwd_reference(
 # ---------------------------------------------------------------------------
 
 _NAME = "reg_loss"
-SOURCE = _build.source(_NAME)
-BUILD_ROOT = _build.BUILD_ROOT
-NVCC_FLAGS = _build.NVCC_FLAGS
-
-
-def library_path() -> Path:
-    return _build.library_path(_NAME)
-
-
-def build() -> Tuple[Path, float, str]:
-    """Compiles the library if it is not built yet; see ``_build.build``."""
-    return _build.build(_NAME)
-
-
 _bound = False
 
 

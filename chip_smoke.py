@@ -16,12 +16,14 @@ and the script exits non-zero:
 3. kernels: every kernel against its plain PyTorch version on the card,
    twice each with bitwise-equal repeats required: the AR-reg forward
    and backward at both slices' shapes and ragged and large batches;
-   ``gru_chain`` forward and backward at the music slice's shapes and a
-   ragged batch; ``hier_tick_chain`` forward and backward at V=34 (the
-   music CLI's corpus) and V=130 (the step-rate cell), teacher-forced,
-   free-running (teacher trick), training with dropout 0.5 (the case
-   matches only if the masks are bitwise equal to the plain version's)
-   and multinomial (in distribution);
+   ``gru_chain`` forward and backward at the music slice's shapes, a
+   ragged batch and a second hidden width (H=64); ``hier_tick_chain``
+   forward and backward at V=34 (the music CLI's corpus) and V=130 (the
+   step-rate cell), teacher-forced, free-running (teacher trick),
+   training with dropout 0.5 (the case matches only if the masks are
+   bitwise equal to the plain version's) and multinomial (in
+   distribution), then teacher-forced at a ragged B=100 and with one
+   beat of T ticks;
 4. slice 1: the dSprites training CLI in-process (short grid, B=128, 2
    epochs); the loss must be finite and fall, the reg kernels must have
    launched once per forward and once per backward, and the trained
@@ -33,9 +35,15 @@ and the script exits non-zero:
    times) and once per backward, and the trained model on one val batch,
    teacher-forced with injected draws, must match the CPU plain path;
 6. times: each kernel against its plain version (CUDA events) at the
-   slices' shapes, warm music train steps/s at B=256 on a 65,536-row
-   random token corpus with V=130, and warm dSprites train steps/s at
-   B=128 over 1,000 steps.
+   slices' shapes; warm music train steps/s at B=256 on a 65,536-row
+   random token corpus with V=130, then the music step's device busy
+   time and largest kernels from ``torch.profiler`` over 50 steps; the
+   library yardstick for ``gru_chain``: each of the music step's four GRU
+   layers as the port computes it and as cuDNN's ``torch.nn.GRU`` does
+   (same weights, TF32 off, outputs held within rtol 1e-4), device time
+   from the profiler; warm dSprites train steps/s at B=128 over 1,000
+   steps. Each kernel's bound (``arvae_tpu_torch/utils/kernel_work.py``)
+   and launches per step are printed beside its time.
 
 Launch counts are set to 0 just before each slice and read just after
 it; the comparisons of phase 3 do not count. The line before the last
@@ -81,12 +89,18 @@ FWD_RTOL_LARGE_B = 1e-4
 # sum T·B terms with cancellation.
 SEQ_FWD_RTOL, SEQ_FWD_ATOL = 1e-4, 1e-5
 SEQ_GRAD_RTOL, SEQ_GRAD_ATOL_FRAC = 1e-4, 1e-5
-GRU_CASES = [(24, 2, 256, 128), (4, 1, 256, 128), (24, 2, 100, 128)]
+# the encoder layer's and the beat GRU layer's shapes, a ragged batch, and
+# a second hidden width (the cluster kernels split H over their CTAs)
+GRU_CASES = [(24, 2, 256, 128), (4, 1, 256, 128), (24, 2, 100, 128), (24, 2, 256, 64),
+             (4, 1, 256, 64)]
 # V=34 is the music CLI's synthetic folk corpus, V=130 the step-rate
 # cell's vocabulary: V sets the kernels' shared-memory layout, the argmax
-# loop and the output-layer and embedding reduction tiles.
+# loop and the output-layer and embedding weight-gradient GEMM tiles.
 HIER_B, HIER_H, HIER_E, HIER_T, HIER_TPB = 256, 128, 10, 24, 6
 HIER_VS = (34, 130)
+# a ragged batch (not a multiple of any row tile) and one beat of T ticks
+# (the SR decoder's use): the GEMMs' term indexing and the tick_h0 resets
+HIER_RAGGED_B = 100
 
 # One eval step of a trained model on the card against the same step on
 # the CPU (plain paths): float32 products and sums in another order, so
@@ -136,7 +150,9 @@ def _kernel_name(mangled: str) -> str:
 
 
 def _ptxas_summary(log: str) -> str:
-    """'kernel: N regs, spill S/L B' for each entry nvcc compiled."""
+    """'kernel: N regs, spill S/L B[, static smem M B]' for each entry nvcc
+    compiled (the cluster kernels' shared memory is dynamic: their plans
+    are printed by the kernels phase)."""
     out, name, spill = [], None, ""
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -147,7 +163,9 @@ def _ptxas_summary(log: str) -> str:
             spill = f"spill {m.group(1)}/{m.group(2)} B"
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            out.append(f"{name}: {m.group(1)} regs, {spill}")
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append(f"{name}: {m.group(1)} regs, {spill}"
+                       + (f", static smem {smem.group(1)} B" if smem else ""))
             name = None
     return "; ".join(out)
 
@@ -251,6 +269,11 @@ def _gru_kernels(dev):
 
     fwd_err = bwd_err = 0.0
     for t, d, b, h in GRU_CASES:
+        for backward in (False, True):
+            p = gk.gru_plan(d, b, h, backward)
+            print(f"[kernels] gru_chain {'bwd' if backward else 'fwd'} plan at (T={t}, D={d}, "
+                  f"B={b}, H={h}): clusters of {p.clusters} CTAs x {p.rows} rows, "
+                  f"{p.ctas} CTAs, {p.smem_bytes} B dynamic shared memory each")
         args, ct = _gru_inputs(t, d, b, h, dev, seed=t * 1000 + b)
         runs = []
         for _ in range(2):
@@ -270,9 +293,9 @@ def _gru_kernels(dev):
     return fwd_err, bwd_err
 
 
-def _hier_inputs(dev, seed, v, zero=False):
+def _hier_inputs(dev, seed, v, zero=False, b=HIER_B, tpb=HIER_TPB):
     rng = np.random.RandomState(seed)
-    nb, b, h, e = HIER_T // HIER_TPB, HIER_B, HIER_H, HIER_E
+    nb, h, e = -(-HIER_T // tpb), HIER_H, HIER_E
 
     def w(*shape, s=None):
         x = rng.randn(*shape) * (s if s is not None else 1 / np.sqrt(shape[0]))
@@ -293,16 +316,17 @@ def _ints(teacher, seed, dev):
 
 
 def _hier_kernel_run(tag, cfg, teacher, seed, score, floats, ct=None):
-    """Forward (and, with ``ct``, backward) kernels twice, bitwise."""
+    """Forward (and, with ``ct``, backward) kernels twice, bitwise.
+    cfg: (train, dropout rate, sampling[, ticks per beat])."""
     from arvae_tpu_torch.ops import hier_decoder_kernel as hk
 
-    train, rate, sampling = cfg
+    train, rate, sampling, tpb = (*cfg, HIER_TPB)[:4]
     runs = []
     for _ in range(2):
         weights, samples, h0_all, h1_all = hk.hier_tick_chain_fwd_cuda(
-            train, rate, HIER_TPB, sampling, teacher, seed, score, *floats)
+            train, rate, tpb, sampling, teacher, seed, score, *floats)
         grads = () if ct is None else hk.hier_tick_chain_bwd_cuda(
-            train, rate, HIER_TPB, seed, samples, h0_all, h1_all, ct, *floats)
+            train, rate, tpb, seed, samples, h0_all, h1_all, ct, *floats)
         runs.append((weights, samples) + tuple(grads))
     torch.cuda.synchronize()
     _check_repeat(tag, *runs)
@@ -312,9 +336,9 @@ def _hier_kernel_run(tag, cfg, teacher, seed, score, floats, ct=None):
 def _hier_plain_run(cfg, teacher, seed, score, floats, ct=None):
     from arvae_tpu_torch.ops import hier_decoder_kernel as hk
 
-    train, rate, sampling = cfg
+    train, rate, sampling, tpb = (*cfg, HIER_TPB)[:4]
     leaves = [f.clone().requires_grad_(ct is not None) for f in floats]
-    weights, samples = hk.hier_tick_chain_reference(train, rate, HIER_TPB, sampling,
+    weights, samples = hk.hier_tick_chain_reference(train, rate, tpb, sampling,
                                                     teacher, seed, score, *leaves)
     if ct is None:
         return weights, samples
@@ -351,6 +375,14 @@ def _hier_compare(tag, cfg, kernel_in, plain_in, floats, ct):
 
 def _hier_kernels(dev):
     errs = [_hier_kernels_at(dev, v) for v in HIER_VS]
+    v = HIER_VS[-1]
+    for b, tpb in ((HIER_RAGGED_B, HIER_TPB), (HIER_B, HIER_T)):
+        score, floats, ct = _hier_inputs(dev, 5, v, b=b, tpb=tpb)
+        forced = _ints(1, 3, dev) + (score,)
+        shape = f"B={b}, H={HIER_H}, E={HIER_E}, V={v}, T={HIER_T}, {tpb} ticks a beat"
+        _, *e = _hier_compare(f"hier_tick_chain teacher-forced ({shape})",
+                              (True, 0.0, "argmax", tpb), forced, forced, floats, ct)
+        errs.append(e)
     return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
@@ -490,7 +522,7 @@ def phase_slice():
     print(f"[slice] trained model, one batch, card vs CPU plain path: loss "
           f"{float(got['loss']):.6f} vs {float(want['loss']):.6f}, reg "
           f"{float(got['reg_loss']):.6f} vs {float(want['reg_loss']):.6f}")
-    return launches
+    return launches, {"fwd": n_train + n_val, "bwd": n_train}
 
 
 def _teacher_forced_metrics(trainer, batch, noise):
@@ -555,7 +587,7 @@ def phase_music_slice():
           f"path: loss {float(got['loss']):.6f} vs {float(want['loss']):.6f}, recons "
           f"{float(got['recons_loss']):.6f} vs {float(want['recons_loss']):.6f}, reg "
           f"{float(got['reg_loss']):.6f} vs {float(want['reg_loss']):.6f}")
-    return launches
+    return launches, {"fwd": n_train + n_val, "bwd": n_train}
 
 
 def _event_ms(fn, iters, warmup=10):
@@ -578,20 +610,21 @@ def _kernel_times(dev, card_line):
     from arvae_tpu_torch.ops import reg_kernel as rk
 
     times = {}
-    z, a, ct = _case_inputs(R_TRAIN, B_TRAIN, 11, dev)
-    d = torch.tensor([1.0], dtype=torch.float32, device=dev)
-    times["reg"] = {
-        "fwd": _event_ms(lambda: rk.reg_loss_fwd_cuda(z, a, d), 1000, 50),
-        "fwd_plain": _event_ms(lambda: rk.reg_loss_fwd_reference(z, a, d), 1000, 50),
-        "bwd": _event_ms(lambda: rk.reg_loss_bwd_cuda(z, a, d, ct), 1000, 50),
-        "bwd_plain": _event_ms(lambda: rk.reg_loss_bwd_reference(z, a, d, ct), 1000, 50),
-    }
-    print(f"[times] reg kernel at R={R_TRAIN}, B={B_TRAIN} (ms per call, CUDA "
-          f"events over 1000 calls): fwd {times['reg']['fwd']:.5f} vs plain "
-          f"{times['reg']['fwd_plain']:.5f}; bwd {times['reg']['bwd']:.5f} vs plain "
-          f"{times['reg']['bwd_plain']:.5f} | {card_line}")
+    for r, b in KERNEL_CASES[:2]:  # the dSprites step's shape, then the music step's
+        z, a, ct = _case_inputs(r, b, 11, dev)
+        d = torch.tensor([1.0], dtype=torch.float32, device=dev)
+        row = {
+            "fwd": _event_ms(lambda: rk.reg_loss_fwd_cuda(z, a, d), 1000, 50),
+            "fwd_plain": _event_ms(lambda: rk.reg_loss_fwd_reference(z, a, d), 1000, 50),
+            "bwd": _event_ms(lambda: rk.reg_loss_bwd_cuda(z, a, d, ct), 1000, 50),
+            "bwd_plain": _event_ms(lambda: rk.reg_loss_bwd_reference(z, a, d, ct), 1000, 50),
+        }
+        times.setdefault("reg", row)  # the dSprites step's shape goes into the JSON
+        print(f"[times] reg kernel at R={r}, B={b} (ms per call, CUDA events over 1000 "
+              f"calls): fwd {row['fwd']:.5f} vs plain {row['fwd_plain']:.5f}; bwd "
+              f"{row['bwd']:.5f} vs plain {row['bwd_plain']:.5f} | {card_line}")
 
-    for t, dd, b, h in GRU_CASES[:2]:
+    for t, dd, b, h in GRU_CASES:
         args, ct = _gru_inputs(t, dd, b, h, dev, seed=17)
         outs = gk.gru_chain_fwd_cuda(*args)
         leaves = [x.clone().requires_grad_(True) for x in args]
@@ -630,6 +663,109 @@ def _kernel_times(dev, card_line):
           f"{row['fwd']:.5f} vs plain {row['fwd_plain']:.5f}; bwd {row['bwd']:.5f} vs "
           f"plain (autograd through the loop) {row['bwd_plain']:.5f} | {card_line}")
     return times
+
+
+# The music step's four GRU layers (input width, T, bidirectional): the
+# encoder's two biGRU layers and the beat GRU's two layers, at B=256,
+# H=128. Each is timed as the port computes it (cuBLAS input projection
+# + gru_chain) and as cuDNN does (torch.nn.GRU, the library yardstick,
+# which the port never calls), with the same weights and TF32 off.
+GRU_LAYERS = (("encoder layer 0", 10, 24, True), ("encoder layer 1", 256, 24, True),
+              ("beat layer 0", 1, 4, False), ("beat layer 1", 128, 4, False))
+
+
+def _device_ms(fn, iters=20, warmup=5):
+    """Device time per call: the union of the device intervals that
+    ``torch.profiler`` records over ``iters`` calls. A call whose host
+    work outlasts its device work (an autograd backward of many small
+    launches) has gaps that CUDA events would count; this does not."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return _union_us([(e["ts"], e["ts"] + e["dur"]) for e in _device_events(prof)]) / 1e3 / iters
+
+
+def _device_events(prof):
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("ph") == "X"
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not device:
+        raise AssertionError("the profiler recorded no device activity")
+    return device
+
+
+def _short_name(name):
+    """'hier_bwd<8>' from a demangled kernel name, cut to 60 characters."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("(")[0][:60]
+
+
+def _gru_layer_times(dev, card_line):
+    """{layer: {port_fwd, port_bwd, cudnn_fwd, cudnn_bwd}}: device ms per
+    call (profiler), the forward with autograd recording, as in a train
+    step, and the backward alone (the graph retained); the host-clock
+    (CUDA event) ms per call beside them under ``*_wall``."""
+    from arvae_tpu_torch.ops.gru import GRU
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(23)
+    out = {}
+    for tag, width, t, bidir in GRU_LAYERS:
+        port = GRU(width, HIER_H, 1, bidirectional=bidir)
+        with torch.no_grad():
+            for p in port.parameters():
+                p.copy_(torch.tensor(rng.randn(*p.shape) / np.sqrt(HIER_H), dtype=torch.float32))
+        port = port.to(dev)
+        lib = torch.nn.GRU(width, HIER_H, 1, batch_first=True, bidirectional=bidir).to(dev)
+        lib.load_state_dict(port.state_dict())
+        lib.flatten_parameters()
+        dirs = 2 if bidir else 1
+        xs = torch.tensor(rng.randn(MUSIC_B, t, width), dtype=torch.float32, device=dev)
+        h0 = torch.tensor(rng.randn(dirs, MUSIC_B, HIER_H) * 0.3, dtype=torch.float32, device=dev)
+        ct = torch.tensor(rng.randn(MUSIC_B, t, dirs * HIER_H), dtype=torch.float32, device=dev)
+        xs.requires_grad_(True)
+        row = {}
+        for name, mod in (("port", port), ("cudnn", lib)):
+            leaves = [xs, *mod.parameters()]
+            y = mod(xs, h0)[0]
+
+            def fwd():
+                return mod(xs, h0)
+
+            def bwd():
+                return torch.autograd.grad(y, leaves, ct, retain_graph=True)
+
+            row[f"{name}_fwd"] = _device_ms(fwd)
+            row[f"{name}_bwd"] = _device_ms(bwd)
+            row[f"{name}_fwd_wall"] = _event_ms(fwd, 50)
+            row[f"{name}_bwd_wall"] = _event_ms(bwd, 50)
+            row[f"{name}_out"] = y.detach()
+        _check_close(f"cuDNN vs port, {tag}", row.pop("cudnn_out"), row.pop("port_out"),
+                     SEQ_FWD_RTOL, SEQ_FWD_ATOL)
+        out[tag] = row
+        print(f"[times] GRU {tag} (I={width}, T={t}, B={MUSIC_B}, H={HIER_H}, "
+              f"{'bi' if bidir else 'uni'}directional), device ms per call: port fwd "
+              f"{row['port_fwd']:.5f} bwd {row['port_bwd']:.5f}; cuDNN fwd "
+              f"{row['cudnn_fwd']:.5f} bwd {row['cudnn_bwd']:.5f} (host clock: port "
+              f"{row['port_fwd_wall']:.5f} / {row['port_bwd_wall']:.5f}, cuDNN "
+              f"{row['cudnn_fwd_wall']:.5f} / {row['cudnn_bwd_wall']:.5f}); outputs agree "
+              f"within rtol {SEQ_FWD_RTOL} | {card_line}")
+    total = {k: sum(r[k] for r in out.values()) for k in next(iter(out.values()))}
+    print(f"[times] GRU layers of one music step, device ms summed: port fwd "
+          f"{total['port_fwd']:.5f} bwd {total['port_bwd']:.5f}; cuDNN fwd "
+          f"{total['cudnn_fwd']:.5f} bwd {total['cudnn_bwd']:.5f} | {card_line}")
+    return out
 
 
 def _bench_vocab(n):
@@ -685,6 +821,49 @@ def _steps_per_second(trainer, split, batch, tag, card_line):
           f"| {card_line}")
 
 
+def _union_us(intervals):
+    busy, end = 0.0, -math.inf
+    for s, e in sorted(intervals):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+def _device_busy(trainer, split, batch, card_line, steps=50):
+    """Device busy per train step: the union of the kernel, memcpy and
+    memset intervals that ``torch.profiler`` records over ``steps`` warm
+    steps, against the host-clock time of as many unprofiled steps just
+    before; prints the busy time, the idle share and the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = split.gather_batch(torch.arange(batch, device=split.device))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        trainer.train_step(rows)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            trainer.train_step(rows)
+        torch.cuda.synchronize()
+    device = _device_events(prof)
+    busy_ms = _union_us([(e["ts"], e["ts"] + e["dur"]) for e in device]) / 1e3 / steps
+    by_name = {}
+    for e in device:
+        name = _short_name(e["name"])
+        by_name[name] = by_name.get(name, 0.0) + e["dur"] / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    print(f"[times] music step, profiled: device busy {busy_ms:.3f} ms a step over {steps} "
+          f"steps ({len(device) / steps:.0f} device events a step); {steps} unprofiled steps "
+          f"just before: {step_ms:.3f} ms a step, device idle "
+          f"{100 * (1 - busy_ms / step_ms):.1f}% | {card_line}")
+    print("[times] music step, device µs a step by kernel: "
+          + "; ".join(f"{n} {us:.1f}" for n, us in top))
+    return busy_ms
+
+
 def phase_times(card_line):
     from arvae_tpu_torch.data.device_data import DeviceSplit
     from arvae_tpu_torch.models.image_vae import DspritesVAE
@@ -706,6 +885,8 @@ def phase_times(card_line):
     _steps_per_second(trainer, split, MUSIC_B,
                       f"MeasureVAE (H=128, z=32, V={MUSIC_BENCH_V}, -r all, "
                       f"{MUSIC_BENCH_ROWS}-row random token corpus)", card_line)
+    times["music_busy_ms"] = _device_busy(trainer, split, MUSIC_B, card_line)
+    times["gru_layers"] = _gru_layer_times(dev, card_line)
 
     packed = rng.randint(0, 256, (BENCH_ROWS, 512)).astype(np.uint8)
     labels = rng.rand(BENCH_ROWS, 6).astype(np.float32)
@@ -735,27 +916,48 @@ def main() -> int:
     times = _timed("times", phase_times, card_line)
     print(f"[phase] total: {time.perf_counter() - t0:.1f} s")
 
-    def entry(name, key, direction, source, replaces, launches):
+    from arvae_tpu_torch.utils import kernel_work as kw
+
+    hier_shape = dict(T=HIER_T, B=HIER_B, H=HIER_H, E=HIER_E, V=MUSIC_BENCH_V,
+                      ticks_per_beat=HIER_TPB)
+    # the work of each kernel at the shape its "ms" was timed at
+    work = {"reg": lambda bwd: kw.reg_loss(R_TRAIN, B_TRAIN, bwd),
+            "gru": lambda bwd: kw.gru_chain(*GRU_CASES[0], backward=bwd),
+            "hier": lambda bwd: kw.hier_tick_chain(**hier_shape, backward=bwd)}
+    # cuDNN's GRU layer whose projection is smallest (I=10) beside gru_chain
+    cudnn = times["gru_layers"]["encoder layer 0"]
+
+    def entry(name, key, direction, source, replaces, slice_run):
         t = times[key]
+        launches, steps = slice_run[0][key][direction], slice_run[1][direction]
+        w = work[key](direction == "bwd")
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": errs[key][direction == "bwd"],
-                "ms": t[direction], "plain_ms": t[f"{direction}_plain"]}
+                "launches": launches, "launches_per_step": launches / steps,
+                "max_abs_err": errs[key][direction == "bwd"],
+                "ms": t[direction], "plain_ms": t[f"{direction}_plain"],
+                "bound_ms": w.bound_ms, "bound_by": w.bound_by,
+                "library_ms": cudnn[f"cudnn_{direction}"] if key == "gru" else None}
 
     csrc = "arvae_tpu_torch/csrc/"
-    print(json.dumps({"kernels": [
+    kernels = [
         entry("reg_loss_fwd", "reg", "fwd", csrc + "reg_loss.cu",
-              "arvae_tpu/ops/reg_pallas.py:83", image["reg"]["fwd"]),
+              "arvae_tpu/ops/reg_pallas.py:83", image),
         entry("reg_loss_bwd", "reg", "bwd", csrc + "reg_loss.cu",
-              "arvae_tpu/ops/reg_pallas.py:113", image["reg"]["bwd"]),
+              "arvae_tpu/ops/reg_pallas.py:113", image),
         entry("gru_chain_fwd", "gru", "fwd", csrc + "gru_chain.cu",
-              "arvae_tpu/ops/gru_pallas.py:144", music["gru"]["fwd"]),
+              "arvae_tpu/ops/gru_pallas.py:144", music),
         entry("gru_chain_bwd", "gru", "bwd", csrc + "gru_chain.cu",
-              "arvae_tpu/ops/gru_pallas.py:218", music["gru"]["bwd"]),
+              "arvae_tpu/ops/gru_pallas.py:218", music),
         entry("hier_tick_chain_fwd", "hier", "fwd", csrc + "hier_tick_chain.cu",
-              "arvae_tpu/ops/hier_decoder_pallas.py:475", music["hier"]["fwd"]),
+              "arvae_tpu/ops/hier_decoder_pallas.py:475", music),
         entry("hier_tick_chain_bwd", "hier", "bwd", csrc + "hier_tick_chain.cu",
-              "arvae_tpu/ops/hier_decoder_pallas.py:563", music["hier"]["bwd"]),
-    ]}))
+              "arvae_tpu/ops/hier_decoder_pallas.py:563", music),
+    ]
+    for k in kernels:
+        print(f"[times] {k['name']}: {k['ms']:.5f} ms, bound {k['bound_ms']:.5f} ms "
+              f"({k['bound_by']}, {100 * k['bound_ms'] / k['ms']:.1f}% of it), "
+              f"{k['launches_per_step']:g} launches a step | {card_line}")
+    print(json.dumps({"kernels": kernels}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

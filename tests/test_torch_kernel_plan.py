@@ -1,0 +1,58 @@
+"""Launch plans of the cluster kernels of ``gru_chain`` and of the
+weight-gradient GEMM that both recurrence backwards run, computed on
+the CPU from the shapes: each fits 227 KB of shared memory, fills the
+card at the music step's B=256, and a plan too wide raises."""
+
+import pytest
+
+from arvae_tpu_torch.ops import gru_kernel as gk
+from arvae_tpu_torch.ops import hier_decoder_kernel as hk
+
+HS = (64, 128, 256)
+VS = (34, 130)
+B, T, E = 256, 24, 10
+
+
+@pytest.mark.parametrize("v", VS)
+@pytest.mark.parametrize("h", HS)
+def test_plans_fit_and_fill_the_card(h, v):
+    for d in (2, 1):  # the encoder's biGRU layers and the beat GRU
+        for backward in (False, True):
+            plan = gk.gru_plan(d, B, h, backward)
+            assert plan.smem_bytes <= gk.MAX_SMEM
+            assert plan.smem_bytes == 4 * gk.chain_smem_floats(backward, h, plan.clusters,
+                                                              plan.rows)
+            assert h % plan.clusters == 0 and plan.rows % gk.ROWS_PER_THREAD == 0
+            assert plan.clusters > 1 and plan.rows * h // plan.clusters <= gk.THREADS
+            assert plan.ctas >= 100, (d, backward, plan)
+            assert plan.grid == (plan.clusters * -(-B // plan.rows), d)
+    # the GEMMs: gru_chain's dW_hh at both layer shapes, the tick loop's six
+    gemms = [(h, True, 3 * h, T * B, 2), (h, True, 3 * h, 4 * B, 1)]
+    gemms += [(m, bias, n, T * B, 1) for m, bias, n in hk.gemm_shapes(h, E, v)]
+    for m, bias, n, k, d in gemms:
+        splits = gk.atb_splits(m, bias, n, k, d)
+        assert 1 <= splits <= -(-k // gk.GEMM_DEPTH)
+        tiles = d * -(-(m + bias) // gk.GEMM_TILE) * -(-n // gk.GEMM_TILE)
+        assert tiles * splits >= 100, (m, bias, n, k, d)
+
+
+def test_music_step_plan_is_one_wave_of_one_cta_an_sm():
+    for backward in (False, True):
+        enc, beat = gk.gru_plan(2, B, 128, backward), gk.gru_plan(1, B, 128, backward)
+        assert (enc.clusters, enc.rows, enc.ctas) == (2, 8, 128)
+        assert (beat.clusters, beat.rows, beat.ctas) == (2, 4, 128)
+        # the w_hh slice, 128 x 196 floats, is most of it; more than half
+        # an SM's 228 KB keeps a second CTA off the SM
+        for plan in (enc, beat):
+            assert 114 * 1024 < plan.smem_bytes <= gk.MAX_SMEM
+
+
+def test_ragged_batch_covers_every_row():
+    plan = gk.gru_plan(2, 100, 128, True)
+    assert plan.grid[0] // plan.clusters * plan.rows >= 100
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_too_wide_raises_naming_h(backward):
+    with pytest.raises(ValueError, match="H=2048"):
+        gk.gru_plan(2, B, 2048, backward)

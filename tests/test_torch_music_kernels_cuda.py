@@ -15,7 +15,7 @@ of a kernel must be bitwise equal. The dropout masks of the kernel and
 of the plain version are bitwise equal if the dropout-0.5 case matches:
 a keep bit that differs moves a layer-1 input by 2·h0, far outside the
 tolerance. The tick-loop cases run at V=34 (the music CLI's corpus) and
-V=130 (the step-rate cell). A free-running decode is compared by
+V=130 (the step-rate cell), and at a ragged B=100. A free-running decode is compared by
 the teacher trick: the plain version runs teacher-forced on the
 kernel's samples, and each kernel sample must be the lowest-index
 argmax of the kernel's own logits."""
@@ -31,7 +31,11 @@ pytestmark = pytest.mark.gpu
 
 FWD_RTOL, FWD_ATOL = 1e-4, 1e-5
 GRAD_RTOL, GRAD_ATOL_FRAC = 1e-4, 1e-5
-GRU_CASES = [(24, 2, 256, 128), (4, 1, 256, 128), (24, 2, 100, 128)]
+# the music step's two layer shapes, a ragged batch, a second width, and an
+# odd width (no cluster divides H = 21: one CTA a cluster, rows that are
+# not 16-byte aligned)
+GRU_CASES = [(24, 2, 256, 128), (4, 1, 256, 128), (24, 2, 100, 128), (24, 2, 256, 64),
+             (4, 1, 256, 64), (6, 2, 20, 21)]
 HB, HH, HE, HT, HTPB = 256, 128, 10, 24, 6
 HVS = (34, 130)
 
@@ -96,6 +100,15 @@ def test_gru_chain_autograd_launches_kernels(dev):
         _close_grad(a.grad, b.grad)
 
 
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("h", [64, 128, 256])
+def test_gru_plan_mirrors_the_kernel_layout(dev, h, backward):
+    plan = gk.gru_plan(2, 256, h, backward)
+    lib = gk._library()
+    assert 4 * lib.gru_chain_smem_floats(int(backward), h, plan.clusters, plan.rows) \
+        == plan.smem_bytes
+
+
 def test_gru_chain_rejects_bad_inputs(dev):
     args, _ = _gru_inputs(4, 1, 8, 16, dev)
     with pytest.raises(ValueError, match="contiguous float32"):
@@ -109,7 +122,7 @@ def test_gru_chain_rejects_bad_inputs(dev):
 # ---------------------------------------------------------------------------
 
 
-def _hier_inputs(dev, seed, v, tpb=HTPB, zero=False):
+def _hier_inputs(dev, seed, v, tpb=HTPB, zero=False, b=HB):
     rng = np.random.RandomState(seed)
     nb = -(-HT // tpb)
 
@@ -117,12 +130,12 @@ def _hier_inputs(dev, seed, v, tpb=HTPB, zero=False):
         x = rng.randn(*shape) * (s if s is not None else 1 / np.sqrt(shape[0]))
         return torch.tensor(0 * x if zero else x, dtype=torch.float32, device=dev)
 
-    floats = [w(nb, HB, 3 * HH, s=0.5), w(nb, 2, HB, HH, s=0.5), w(HB, HE, s=0.5),
+    floats = [w(nb, b, 3 * HH, s=0.5), w(nb, 2, b, HH, s=0.5), w(b, HE, s=0.5),
               w(v, HE, s=1.0), w(HE, 3 * HH), w(HH, 3 * HH), w(3 * HH, s=0.1),
               w(HH, 3 * HH), w(3 * HH, s=0.1), w(HH, 3 * HH), w(3 * HH, s=0.1),
               w(HH, v), w(v, s=0.1)]
-    score = torch.tensor(rng.randint(0, v, (HT, HB)), dtype=torch.int32, device=dev)
-    ct = torch.tensor(rng.randn(HT, HB, v), dtype=torch.float32, device=dev)
+    score = torch.tensor(rng.randint(0, v, (HT, b)), dtype=torch.int32, device=dev)
+    ct = torch.tensor(rng.randn(HT, b, v), dtype=torch.float32, device=dev)
     return score, floats, ct
 
 
@@ -189,6 +202,16 @@ def test_hier_teacher_forced_matches_plain(dev, tpb, v):
     cfg = (True, 0.0, tpb, "argmax")
     inputs = _ints(1, 3, dev) + (score,)
     _, samples = _compare(cfg, inputs, inputs, floats, ct)
+    assert torch.equal(samples, score)
+
+
+@pytest.mark.parametrize("tpb", [HTPB, HT], ids=["hier", "one_beat"])
+def test_hier_ragged_batch_matches_plain(dev, tpb):
+    """B=100 is a multiple of no row tile: the tiles' masks and the
+    weight-gradient GEMM's (t, b) indexing at a ragged edge."""
+    score, floats, ct = _hier_inputs(dev, 9, HVS[-1], tpb, b=100)
+    inputs = _ints(1, 3, dev) + (score,)
+    _, samples = _compare((True, 0.0, tpb, "argmax"), inputs, inputs, floats, ct)
     assert torch.equal(samples, score)
 
 
