@@ -1,10 +1,11 @@
 // Pieces shared by the two recurrence kernels (gru_chain.cu and
 // hier_tick_chain.cu): torch-exact GRU gate math forward and backward;
-// block-wide products of a tile of rows with a weight matrix read from
-// global memory (L2-resident; the tick loop) or with a weight slice
-// resident in shared memory (gru_chain's cluster kernels); cp.async
-// copies; and the tiled fixed-order fp32 A^T X GEMM that sums weight
-// gradients over (t, b) for both backwards.
+// block-wide products of a tile of rows with a weight slice resident in
+// shared memory (the cluster kernels); cp.async copies; the tiled
+// fixed-order fp32 A^T X GEMM that sums weight gradients over (t, b) for
+// both backwards; and a tiled fp32 row GEMM (A W or A W^T, one output
+// element a thread-register, a caller's epilogue) for the tick loop's
+// products over all of its rows at once.
 //
 // Gate math, as torch.nn.GRU and arvae_tpu/ops/gru_pallas.py::_gates:
 //   r = sigmoid(i_r + h_r), z = sigmoid(i_z + h_z),
@@ -16,11 +17,10 @@
 
 namespace arvae {
 
-// Threads of the tick loop's kernels (hier_tick_chain.cu): one per gate
-// column of the per-step (rows x H) @ (H x 3H) product at H = 128.
-constexpr int kSeqThreads = 384;
 // The largest dynamic shared memory a block may use on Hopper.
 constexpr int kMaxSmem = 227 * 1024;
+
+__host__ __device__ inline int up4(int n) { return (n + 3) & ~3; }
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -63,90 +63,6 @@ __device__ __forceinline__ CellGrads gru_cell_bwd(float dh, const Gates& g, floa
   return o;
 }
 
-// out_s[r * N + k] = sum_j in_s[r * K + j] * W[j * N + k]
-//                    (+ bias[k]) (+ row_add[r * add_ld + k] for r < nr)
-// for every r < RB and k < N. One thread per output column k, looping
-// over the RB rows, so each weight element is read once per block and
-// neighbouring threads read neighbouring columns. in_s holds zeros in
-// rows past nr, which keeps every output finite.
-template <int RB>
-__device__ void block_matvec(const float* in_s, int K, const float* __restrict__ W,
-                             int N, const float* __restrict__ bias,
-                             const float* __restrict__ row_add, int add_ld, int nr,
-                             float* out_s) {
-  for (int k = threadIdx.x; k < N; k += blockDim.x) {
-    float acc[RB];
-#pragma unroll
-    for (int r = 0; r < RB; ++r) acc[r] = 0.f;
-    const float* w = W + k;
-    if ((K & 3) == 0) {
-      for (int j = 0; j < K; j += 4) {
-        const float w0 = __ldg(w + static_cast<size_t>(j) * N);
-        const float w1 = __ldg(w + static_cast<size_t>(j + 1) * N);
-        const float w2 = __ldg(w + static_cast<size_t>(j + 2) * N);
-        const float w3 = __ldg(w + static_cast<size_t>(j + 3) * N);
-#pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          const float4 x = *reinterpret_cast<const float4*>(in_s + r * K + j);
-          acc[r] = fmaf(x.x, w0, acc[r]);
-          acc[r] = fmaf(x.y, w1, acc[r]);
-          acc[r] = fmaf(x.z, w2, acc[r]);
-          acc[r] = fmaf(x.w, w3, acc[r]);
-        }
-      }
-    } else {
-      for (int j = 0; j < K; ++j) {
-        const float wj = __ldg(w + static_cast<size_t>(j) * N);
-#pragma unroll
-        for (int r = 0; r < RB; ++r) acc[r] = fmaf(in_s[r * K + j], wj, acc[r]);
-      }
-    }
-    const float b = bias != nullptr ? bias[k] : 0.f;
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      float v = acc[r] + b;
-      if (row_add != nullptr && r < nr) v += row_add[static_cast<size_t>(r) * add_ld + k];
-      out_s[r * N + k] = v;
-    }
-  }
-}
-
-// out[r * ld + j] (+)= sum_k g_s[r * N + k] * W[j * N + k]  (g @ W^T)
-// for r < nr, j < M. One warp per output column j: its lanes read row j
-// of W with neighbouring lanes on neighbouring addresses, keep a partial
-// sum for each of the RB rows, and add the 32 partials with a fixed
-// shuffle tree (so the result repeats bitwise). Rows past nr of g_s are
-// read but never written out; out may be shared or global memory.
-template <int RB>
-__device__ void block_matvec_t(const float* g_s, int N, const float* __restrict__ W,
-                               int M, int nr, float* out, int ld, bool accumulate) {
-  const int lane = threadIdx.x & 31;
-  for (int j = threadIdx.x >> 5; j < M; j += blockDim.x >> 5) {
-    float acc[RB];
-#pragma unroll
-    for (int r = 0; r < RB; ++r) acc[r] = 0.f;
-    const float* w = W + static_cast<size_t>(j) * N;
-    for (int k = lane; k < N; k += 32) {
-      const float wk = __ldg(w + k);
-#pragma unroll
-      for (int r = 0; r < RB; ++r) acc[r] = fmaf(g_s[r * N + k], wk, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      for (int off = 16; off > 0; off >>= 1) acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        if (r < nr) {
-          float* o = out + static_cast<size_t>(r) * ld + j;
-          *o = accumulate ? *o + acc[r] : acc[r];
-        }
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Products of a tile of rows in shared memory with a weight slice resident
 // in shared memory (the cluster kernels of gru_chain.cu)
@@ -154,6 +70,27 @@ __device__ void block_matvec_t(const float* g_s, int N, const float* __restrict_
 
 // Rows a thread owns in the products below; tiles hold a multiple of it.
 constexpr int kRowsPerThread = 4;
+
+// The threads that run one product: [first, first + count) of the block,
+// whole warps, synchronised by named barrier `bar` (0: the whole block,
+// __syncthreads). Two groups with their own barriers and scratch run two
+// independent products at once.
+struct ThreadGroup {
+  int first, count, bar;
+
+  __device__ int rank() const { return static_cast<int>(threadIdx.x) - first; }
+  __device__ void sync() const {
+    if (bar == 0) {
+      __syncthreads();
+    } else {
+      asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(count) : "memory");
+    }
+  }
+};
+
+__device__ __forceinline__ ThreadGroup whole_block() {
+  return ThreadGroup{0, static_cast<int>(blockDim.x), 0};
+}
 
 // Leading dimension of an array of n-float rows in shared memory: a
 // multiple of 4 (16-byte rows) that is 4 mod 8, so that eight threads
@@ -179,6 +116,14 @@ __host__ __device__ inline int depth_splits(int items, int K, int threads) {
 // Floats of shared scratch the products need for the partial sums.
 __host__ __device__ inline int product_scratch_floats(int threads) {
   return threads * 2 * kRowsPerThread;
+}
+
+// Floats of that scratch one product of `rows` rows over the depth K into
+// N columns needs (vec: K a multiple of 4, as rows_times_w passes it).
+__host__ __device__ inline int product_part_floats(int rows, int K, int N, int threads) {
+  const int items = rows / kRowsPerThread * ((N + 1) / 2);
+  const int S = K % 4 == 0 ? depth_splits(items, K, threads) : 1;
+  return (S - 1) * items * 2 * kRowsPerThread;
 }
 
 // a0[r] += sum_j x[r * ldx + j] * w0[j * wj] and a1 likewise with w1,
@@ -237,17 +182,18 @@ __device__ __forceinline__ void dot_rows(const float* x, int ldx, const float* w
 template <bool kContiguous, class WeightCol, class Store>
 __device__ __forceinline__ void block_product(const float* x, int ldx, int rows, int K, int N,
                                               int wj, bool vec, float* part, WeightCol wcol,
-                                              Store store) {
+                                              Store store, const ThreadGroup& grp) {
   constexpr int RR = kRowsPerThread;
   const int half = (N + 1) / 2;
   const int items = rows / RR * half;
-  const int S = vec ? depth_splits(items, K, blockDim.x) : 1;
+  const int S = vec ? depth_splits(items, K, grp.count) : 1;
   const int span = K / S;
+  const int me = grp.rank();
   // with S > 1 every piece is one thread's; with S = 1 threads loop
-  for (int base = 0; base < items; base += S > 1 ? items : blockDim.x) {
-    const int tid = base + static_cast<int>(threadIdx.x);
-    const int it = S > 1 ? static_cast<int>(threadIdx.x) % items : tid;
-    const int s = S > 1 ? static_cast<int>(threadIdx.x) / items : 0;
+  for (int base = 0; base < items; base += S > 1 ? items : grp.count) {
+    const int tid = base + me;
+    const int it = S > 1 ? me % items : tid;
+    const int s = S > 1 ? me / items : 0;
     const bool active = S > 1 ? s < S : tid < items;
     float a0[RR], a1[RR];
 #pragma unroll
@@ -269,7 +215,7 @@ __device__ __forceinline__ void block_product(const float* x, int ldx, int rows,
           p[RR + r] = a1[r];
         }
       }
-      __syncthreads();
+      grp.sync();
       if (!(active && s == 0)) continue;
       for (int k = 1; k < S; ++k) {
         const float* p = part + ((k - 1) * items + it) * 2 * RR;
@@ -292,15 +238,15 @@ __device__ __forceinline__ void block_product(const float* x, int ldx, int rows,
 
 // store(r, n, v) for v = sum_j in[r * ldi + j] * W[j * ldw + n] over
 // j < K, for r < rows and n < N; rows a multiple of kRowsPerThread, ldi a
-// multiple of 4 and in 16-byte aligned. Every thread of the block must
-// call it (it may synchronise the block); part holds
-// product_scratch_floats(blockDim.x) floats.
+// multiple of 4 and in 16-byte aligned. Every thread of the group (the
+// block by default) must call it (it may synchronise the group); part
+// holds product_part_floats(rows, K, N, group size) floats.
 template <class Store>
 __device__ __forceinline__ void rows_times_w(const float* in, int ldi, int rows, int K,
                                              const float* W, int ldw, int N, float* part,
-                                             Store store) {
+                                             Store store, const ThreadGroup& grp = whole_block()) {
   block_product<false>(in, ldi, rows, K, N, ldw, K % 4 == 0, part,
-                       [&](int c) { return W + c; }, store);
+                       [&](int c) { return W + c; }, store, grp);
 }
 
 // store(r, j, v) for v = sum_k g[r * ldg + k] * W[j * ldw + k] over k < N
@@ -311,7 +257,7 @@ __device__ __forceinline__ void rows_times_wt(const float* g, int ldg, int rows,
                                               const float* W, int ldw, int M, float* part,
                                               Store store) {
   block_product<true>(g, ldg, rows, N, M, 1, N % 4 == 0 && ldw % 4 == 0, part,
-                      [&](int j) { return W + j * ldw; }, store);
+                      [&](int j) { return W + j * ldw; }, store, whole_block());
 }
 
 // ---------------------------------------------------------------------------
@@ -587,6 +533,83 @@ inline cudaError_t launch_atb(const Operand& A, const int* tokens, int tok_shift
   if (err != cudaSuccess || splits == 1) return err;
   const dim3 grid2((rows * N + 255) / 256, D);
   gemm_finish<<<grid2, 256, 0, st>>>(scratch, splits, rows, M, N, out, bias);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Row products: out = A W or A W^T over many rows, fixed order
+// ---------------------------------------------------------------------------
+
+constexpr int kRowTile = 64;     // output tile, rows and columns
+constexpr int kRowDepth = 16;    // terms of the depth a K tile holds
+constexpr int kRowThreads = 256; // 4 x 4 outputs a thread
+
+// epi(m, n, v) for v = sum_k A[m * lda + k] * W(k, n) over k < K, for
+// m < M and n < N, where W(k, n) = W[k * ldw + n] (A W) or, with
+// kTransW, W[n * ldw + k] (A W^T). A 64 x 64 output tile a block, K
+// tiles of 16 terms in shared memory; each output sums its terms in
+// the order k = 0 .. K-1 in one register, so a repeat is bitwise equal.
+template <bool kTransW, class Epi>
+__global__ void __launch_bounds__(kRowThreads)
+row_gemm(const float* __restrict__ A, int lda, const float* __restrict__ W, int ldw, int M,
+         int K, int N, Epi epi) {
+  __shared__ __align__(16) float as[kRowDepth][kRowTile + 4];  // as[k][m]
+  __shared__ __align__(16) float ws[kRowDepth][kRowTile + 4];  // ws[k][n]
+  const int m0 = blockIdx.y * kRowTile;
+  const int n0 = blockIdx.x * kRowTile;
+  const int tx = threadIdx.x % 16;  // columns 4 tx ..
+  const int ty = threadIdx.x / 16;  // rows 4 ty ..
+  float acc[4][4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[p][q] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += kRowDepth) {
+    for (int i = threadIdx.x; i < kRowDepth * kRowTile; i += kRowThreads) {
+      const int r = i / kRowDepth;  // k fastest: neighbouring threads, neighbouring terms
+      const int k = i - r * kRowDepth;
+      const bool kin = k0 + k < K;
+      as[k][r] = kin && m0 + r < M ? A[static_cast<size_t>(m0 + r) * lda + k0 + k] : 0.f;
+      if (kTransW) {
+        ws[k][r] = kin && n0 + r < N ? W[static_cast<size_t>(n0 + r) * ldw + k0 + k] : 0.f;
+      } else {
+        const int kk = i / kRowTile;  // n fastest
+        const int n = i - kk * kRowTile;
+        ws[kk][n] = k0 + kk < K && n0 + n < N ? W[static_cast<size_t>(k0 + kk) * ldw + n0 + n]
+                                              : 0.f;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kRowDepth; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(&as[k][4 * ty]);
+      const float4 w = *reinterpret_cast<const float4*>(&ws[k][4 * tx]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(av[p], wv[q], acc[p][q]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int m = m0 + 4 * ty + p;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int n = n0 + 4 * tx + q;
+      if (m < M && n < N) epi(m, n, acc[p][q]);
+    }
+  }
+}
+
+// Launches row_gemm on the stream; returns cudaGetLastError().
+template <bool kTransW, class Epi>
+cudaError_t launch_row_gemm(const float* A, int lda, const float* W, int ldw, int M, int K,
+                            int N, Epi epi, cudaStream_t st) {
+  const dim3 grid((N + kRowTile - 1) / kRowTile, (M + kRowTile - 1) / kRowTile);
+  row_gemm<kTransW><<<grid, kRowThreads, 0, st>>>(A, lda, W, ldw, M, K, N, epi);
   return cudaGetLastError();
 }
 

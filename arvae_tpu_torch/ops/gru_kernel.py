@@ -101,12 +101,12 @@ ROWS_PER_THREAD = 4    # a tile's rows are a multiple of it
 GEMM_TILE, GEMM_DEPTH = 64, 32
 
 
-def _up4(n: int) -> int:
+def up4(n: int) -> int:
     return (n + 3) & ~3
 
 
-def _slice_ld(n: int) -> int:
-    ld = _up4(n)
+def slice_ld(n: int) -> int:
+    ld = up4(n)
     return ld + 4 if ld % 8 == 0 else ld
 
 
@@ -115,7 +115,7 @@ def chain_smem_floats(backward: bool, H: int, C: int, RB: int) -> int:
     uses: ``chain_layout`` in ``csrc/gru_chain.cu``, term for term."""
     hc = H // C
     n3 = 3 * hc
-    ldw, ldh, ldg, ldo = _slice_ld(n3), _up4(H), _up4(n3), _up4(hc)
+    ldw, ldh, ldg, ldo = slice_ld(n3), up4(H), up4(n3), up4(hc)
     total = H * ldw + ldg + 2 * RB * ldh + RB * ldg + THREADS * 2 * ROWS_PER_THREAD
     if backward:
         total += RB * ldg + RB * ldo + 2 * C * RB * ldo

@@ -22,14 +22,25 @@ dropout masks of the kernel and of the plain version are bitwise equal.
 ``seed`` is an int32 device tensor, drawn per step by the trainer.
 
 What bounds it on the card: a 24-step chain of dependent small products
-with an argmax and a gather between steps, so latency. The kernel keeps
-every recurrent quantity of a tile of batch rows in shared memory for
-the whole measure; see the source's header for the design.
+with an argmax and a gather between steps, so latency. The forward runs
+on thread-block clusters: a cluster owns a tile of batch rows for the
+whole measure, each CTA keeping its slice of every weight in shared
+memory and exchanging hiddens and per-row argmax partials with its peers
+through distributed shared memory (:func:`hier_plan` picks the cluster
+size and the rows). The backward runs the beats in parallel: the hidden
+carries restart at every beat, so each layer is ``n_beats`` independent
+chains of ``ticks_per_beat`` ticks, run by ``gru_chain``'s cluster
+backward, and every product that touches no carry runs over all T·B rows
+at once (:func:`hier_tick_chain_bwd_by_beats` is the same decomposition
+in plain PyTorch). The saved hiddens use the chains' layout
+``(ticks_per_beat, n_beats·B, H)``. See the source's header for the
+design.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Sequence, Tuple
 
 import torch
@@ -37,7 +48,9 @@ import torch.nn.functional as F
 
 from arvae_tpu_torch.ops import _build
 from arvae_tpu_torch.ops.gru import stacked_gru_step_from_gi
-from arvae_tpu_torch.ops.gru_kernel import atb_scratch_floats, atb_splits
+from arvae_tpu_torch.ops.gru_kernel import (MAX_SMEM, ROWS_PER_THREAD, SMS, THREADS,
+                                            ChainPlan, atb_scratch_floats, atb_splits,
+                                            gru_gates, gru_plan, slice_ld, up4)
 
 _NAME = "hier_tick_chain"
 SALT_DROPOUT = 0
@@ -124,10 +137,12 @@ def hier_tick_chain_reference(
     train: bool, dropout_rate: float, ticks_per_beat: int, sampling: str,
     teacher: torch.Tensor, seed: torch.Tensor, score: torch.Tensor,
     gi_beat, tick_h0, x0, emb, w_ih0e, w_hh0, b_hh0, w_ih1, b_ih1, w_hh1, b_hh1,
-    out_w, out_b,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    out_w, out_b, hiddens: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """The tick loop in Python. score (T, B) int; returns (weights
-    (T, B, V) relu logits, samples (T, B) int32 fed tokens)."""
+    (T, B, V) relu logits, samples (T, B) int32 fed tokens), and with
+    ``hiddens`` both layers' hiddens in the chain layout the kernel saves
+    (:func:`to_chain`)."""
     if sampling not in SAMPLING:
         raise NotImplementedError(f"sampling={sampling!r}; use {SAMPLING}")
     T, B = score.shape
@@ -141,6 +156,7 @@ def hier_tick_chain_reference(
     prev_emb = x0
     weights: List[torch.Tensor] = []
     samples: List[torch.Tensor] = []
+    states: List[torch.Tensor] = []
     for t in range(T):
         beat = t // ticks_per_beat
         if t % ticks_per_beat == 0:
@@ -148,6 +164,7 @@ def hier_tick_chain_reference(
         gi0 = prev_emb @ w_ih0e + gi_beat[beat]
         masks = [dropout_mask(seed, t, B, H, dropout_rate)] if dropout else None
         top, h = stacked_gru_step_from_gi(layers, gi0, h, masks)
+        states.append(h)
         logits = torch.relu(top @ out_w + out_b)
         scores = logits + gumbel(seed, t, B, V) if sampling == "multinomial" else logits
         sampled = argmax_lowest(scores.detach())
@@ -155,7 +172,161 @@ def hier_tick_chain_reference(
         weights.append(logits)
         samples.append(tok.to(torch.int32))
         prev_emb = F.embedding(tok, emb)
+    if hiddens:
+        hs = torch.stack(states)  # (T, 2, B, H)
+        return (torch.stack(weights), torch.stack(samples),
+                to_chain(hs[:, 0], ticks_per_beat), to_chain(hs[:, 1], ticks_per_beat))
     return torch.stack(weights), torch.stack(samples)
+
+
+def to_chain(x: torch.Tensor, ticks_per_beat: int) -> torch.Tensor:
+    """(T, B, W) time-major → the chains' layout (ticks_per_beat,
+    n_beats·B, W): row beat·B + b of slab k is tick beat·ticks_per_beat + k;
+    the padded ticks of a short last beat are zero rows."""
+    T, B, W = x.shape
+    nb = -(-T // ticks_per_beat)
+    x = torch.cat([x, x.new_zeros(nb * ticks_per_beat - T, B, W)])
+    return x.reshape(nb, ticks_per_beat, B, W).transpose(0, 1).reshape(ticks_per_beat, nb * B, W)
+
+
+def _chain_bwd_plain(gi, w_hh, b_hh, h0, outs, douts):
+    """``gru_chain``'s backward over a (T, rows) chain with
+    ``gru_chain_reference``'s gate math, written out: → (dgi, dgh, dh0)."""
+    dh = torch.zeros_like(h0)
+    H = h0.shape[-1]
+    dgi, dgh = torch.empty_like(gi), torch.empty_like(gi)
+    for k in reversed(range(gi.shape[0])):
+        hp = outs[k - 1] if k else h0
+        gh = hp @ w_hh + b_hh
+        r, z, n = gru_gates(gi[k], gh)
+        dh = dh + douts[k]
+        da_n = dh * (1.0 - z) * (1.0 - n * n)
+        dr = da_n * gh[:, 2 * H:] * r * (1.0 - r)
+        dz = dh * (hp - n) * z * (1.0 - z)
+        dgi[k] = torch.cat([dr, dz, da_n], -1)
+        dgh[k] = torch.cat([dr, dz, da_n * r], -1)
+        dh = dh * z + dgh[k] @ w_hh.T
+    return dgi, dgh, dh
+
+
+def hier_tick_chain_bwd_by_beats(train, dropout_rate, ticks_per_beat, seed, samples,
+                                 h0_all, h1_all, weights, dweights, gi_beat, tick_h0, x0,
+                                 emb, w_ih0e, w_hh0, b_hh0, w_ih1, b_ih1, w_hh1, b_hh1,
+                                 out_w, out_b):
+    """The kernel backward's decomposition in plain PyTorch: products
+    over all rows at once, then each layer as n_beats independent chains
+    of ``ticks_per_beat`` ticks. ``h0_all``, ``h1_all`` are the saved
+    hiddens in the chain layout, ``weights`` the forward's relu logits
+    (their sign is the ReLU's mask). → the 13 gradients, in
+    :data:`FLOAT_OPERANDS` order."""
+    T, B = samples.shape
+    tpb = ticks_per_beat
+    nb = -(-T // tpb)
+    live = to_chain(torch.ones(T, B, 1, device=samples.device), tpb)  # 0 on padded ticks
+    fed = torch.cat([x0[None], F.embedding(samples[:-1].long(), emb)])  # (T, B, E)
+    pe = to_chain(fed, tpb)
+    if train and dropout_rate > 0.0:
+        mask = to_chain(torch.stack([dropout_mask(seed, t, B, h0_all.shape[-1], dropout_rate)
+                                     for t in range(T)]), tpb)
+    else:
+        mask = torch.ones_like(h0_all)
+    inter = h0_all * mask
+    gi0 = (pe @ w_ih0e + gi_beat.reshape(nb * B, -1)) * live
+    gi1 = (inter @ w_ih1 + b_ih1) * live
+    dlog = to_chain(dweights * (weights > 0), tpb)
+    init = tick_h0.transpose(0, 1).reshape(2, nb * B, -1)
+    dgi1, dgh1, dinit1 = _chain_bwd_plain(gi1, w_hh1, b_hh1, init[1], h1_all, dlog @ out_w.T)
+    dx = (dgi1 @ w_ih1.T) * mask
+    dgi0, dgh0, dinit0 = _chain_bwd_plain(gi0, w_hh0, b_hh0, init[0], h0_all, dx)
+    dpe = dgi0 @ w_ih0e.T
+
+    def atb(a, x):
+        return torch.einsum("kri,krj->ij", a, x)
+
+    def prev(all_, init_):
+        return torch.cat([init_[None], all_[:-1]])
+
+    onehot = F.one_hot(samples[:-1].long(), emb.shape[0]).float()
+    fed_tok = to_chain(torch.cat([torch.zeros_like(onehot[:1]), onehot]), tpb)
+    dtick_h0 = torch.stack([dinit0, dinit1]).reshape(2, nb, B, -1).transpose(0, 1)
+    return (dgi0.sum(0).reshape(nb, B, -1), dtick_h0.contiguous(), dpe[0, :B],
+            atb(fed_tok, dpe), atb(pe, dgi0), atb(prev(h0_all, init[0]), dgh0),
+            dgh0.sum((0, 1)), atb(inter, dgi1), dgi1.sum((0, 1)),
+            atb(prev(h1_all, init[1]), dgh1), dgh1.sum((0, 1)), atb(h1_all, dlog),
+            dlog.sum((0, 1)))
+
+
+# ---------------------------------------------------------------------------
+# The forward's launch plan (a pure function of the shapes)
+# ---------------------------------------------------------------------------
+
+
+def fwd_smem_floats(H: int, E: int, V: int, C: int, RB: int) -> int:
+    """Floats of shared memory one CTA of the forward uses:
+    ``fwd_layout`` in ``csrc/hier_tick_chain.cu``, term for term."""
+    hc, vc = H // C, -(-V // C)
+    n3 = 3 * hc
+    ldw, ldv, ldh, ldg, lde, ldl = (slice_ld(n3), slice_ld(vc), up4(H), up4(n3), up4(E),
+                                    up4(vc))
+    weights = E * ldw + 3 * H * ldw + H * ldv + 3 * ldg + ldl + up4(V * E)
+    tile = 4 * RB * ldh + RB * ldh + RB * lde + 2 * RB * ldg + RB * ldl
+    half = up4(max(product_part_floats(RB, E, n3, THREADS // 2),
+                   product_part_floats(RB, H, n3, THREADS // 2)))
+    part = max(2 * half, up4(product_part_floats(RB, H, vc, THREADS)))
+    return weights + tile + part + 2 * up4(C * RB) + up4(RB)
+
+
+def product_part_floats(rows: int, K: int, N: int, threads: int) -> int:
+    """Floats of partial sums one depth-split product of ``gru_common.cuh``
+    (``product_part_floats``) needs on ``threads`` threads."""
+    items = rows // ROWS_PER_THREAD * -(-N // 2)
+    s = 1
+    while K % 4 == 0 and s < 8 and items * 2 * s <= threads and K % (8 * s) == 0:
+        s *= 2
+    return (s - 1) * items * 2 * ROWS_PER_THREAD
+
+
+# Clusters of C CTAs, one CTA an SM, that an H100 SXM holds at once
+# (cudaOccupancyMaxActiveClusters, arvae_tpu_torch/utils/plan_probe.py):
+# clusters live inside one GPC, and the GPCs' SM counts leave some SMs
+# over, so 32 clusters of 4 CTAs (128 SMs) do not fit at once.
+RESIDENT_CLUSTERS = {1: SMS, 2: 66, 4: 30, 8: 15}
+
+
+@functools.lru_cache(maxsize=256)
+def hier_plan(B: int, H: int, E: int, V: int) -> ChainPlan:
+    """The forward's plan, by ``gru_plan``'s rule: the fewest waves of
+    the card (clusters over the ones it holds at once, a CTA an SM), then
+    the most CTAs, then the fewest CTAs a cluster (the fewest peers to
+    exchange with), then the most rows a cluster; clusters of 2, 4 or 8
+    CTAs, a single CTA only where no cluster fits. A CTA holds its H/C
+    units' gate columns of the four GRU matrices, its ceil(V/C) columns
+    of ``out_w`` and all of ``emb``. Raises ValueError when no plan fits
+    227 KB."""
+    best, best_key = None, None
+    for c in (2, 4, 8, 1):
+        for rb in range(32, 0, -ROWS_PER_THREAD):
+            if H % c or rb * (H // c) > THREADS:
+                continue
+            smem = 4 * fwd_smem_floats(H, E, V, c, rb)
+            if smem > MAX_SMEM:
+                continue
+            plan = ChainPlan(c, rb, smem, (c * -(-B // rb), 1))
+            waves = -(-(plan.grid[0] // c) // RESIDENT_CLUSTERS[c])
+            key = (c == 1, waves, -plan.ctas, c, -rb)
+            if best_key is None or key < best_key:
+                best, best_key = plan, key
+    if best is None:
+        raise ValueError(f"H={H}, V={V} are too wide: no cluster of at most 8 CTAs holds "
+                         "the tick loop's weight slices and a 4-row tile in 227 KB of "
+                         "shared memory")
+    return best
+
+
+def chain_plan(T: int, B: int, H: int, ticks_per_beat: int) -> ChainPlan:
+    """The backward's chain plan: ``gru_chain``'s cluster backward over
+    n_beats·B rows."""
+    return gru_plan(1, -(-T // ticks_per_beat) * B, H, True)
 
 
 # ---------------------------------------------------------------------------
@@ -171,14 +342,17 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(_NAME)
     if not _bound:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.hier_tick_chain_rows.argtypes = [i, i, i, i]
-        lib.hier_tick_chain_rows.restype = i
-        lib.hier_tick_chain_fwd.argtypes = ([p] * 16 + [i] * 7 + [f, f, i]
+        lib.hier_tick_chain_smem_floats.argtypes = [i] * 5
+        lib.hier_tick_chain_smem_floats.restype = i
+        lib.hier_tick_chain_resident_clusters.argtypes = [i, i]
+        lib.hier_tick_chain_resident_clusters.restype = i
+        lib.hier_tick_chain_bwd_scratch_floats.argtypes = [i] * 6
+        lib.hier_tick_chain_bwd_scratch_floats.restype = ctypes.c_longlong
+        lib.hier_tick_chain_fwd.argtypes = ([p] * 16 + [i] * 7 + [f, f] + [i] * 4
                                             + [p] * 4 + [p])
         lib.hier_tick_chain_fwd.restype = i
-        lib.hier_tick_chain_bwd.argtypes = ([p] * 18 + [i] * 7 + [f, f]
-                                            + [p] * 13 + [p] * 9
-                                            + [ctypes.POINTER(i), p])
+        lib.hier_tick_chain_bwd.argtypes = ([p] * 19 + [i] * 7 + [f, f] + [i] * 3
+                                            + [p] * 13 + [p, ctypes.POINTER(i), p])
         lib.hier_tick_chain_bwd.restype = i
         _bound = True
     return lib
@@ -215,13 +389,6 @@ def _check_device(named, dev: torch.device, dtype: torch.dtype) -> None:
             raise ValueError(f"{name} must be contiguous {dtype}")
 
 
-def _check_rows(lib: ctypes.CDLL, H: int, E: int, V: int) -> None:
-    if lib.hier_tick_chain_rows(0, H, E, V) == 0:
-        raise ValueError(
-            f"H={H}, E={E}, V={V} are too wide: one batch row of the backward "
-            "needs (34·H + E + V)·4 bytes of shared memory, at most 227 KB")
-
-
 def gemm_shapes(H: int, E: int, V: int) -> Tuple[Tuple[int, bool, int], ...]:
     """(M, bias row, N) of the backward's six weight-gradient GEMMs, in
     the order the C entry runs them: out_w (+ out_b), w_ih1 (+ b_ih1),
@@ -238,8 +405,10 @@ def _rate_args(train: bool, dropout_rate: float) -> Tuple[int, float, float]:
 
 
 def hier_tick_chain_fwd_cuda(train, dropout_rate, ticks_per_beat, sampling,
-                             teacher, seed, score, *floats):
-    """Launches the forward kernel → (weights, samples, h0_all, h1_all)."""
+                             teacher, seed, score, *floats, plan=None):
+    """Launches the forward kernel → (weights, samples, h0_all, h1_all),
+    the hiddens in the chain layout (ticks_per_beat, n_beats·B, H).
+    ``plan``: the launch plan, :func:`hier_plan`'s by default."""
     if sampling not in SAMPLING:
         raise NotImplementedError(f"sampling={sampling!r}; use {SAMPLING}")
     T, B, H, E, V = _dims(ticks_per_beat, score, floats)
@@ -249,59 +418,60 @@ def hier_tick_chain_fwd_cuda(train, dropout_rate, ticks_per_beat, sampling,
     _check_device(zip(FLOAT_OPERANDS, floats), dev, torch.float32)
     if teacher.numel() != 1 or seed.numel() != 1:
         raise ValueError("teacher and seed must be (1,) int32")
+    plan = plan or hier_plan(B, H, E, V)
     lib = _library()
-    _check_rows(lib, H, E, V)
+    nb = -(-T // ticks_per_beat)
     weights = torch.empty((T, B, V), dtype=torch.float32, device=dev)
     samples = torch.empty((T, B), dtype=torch.int32, device=dev)
-    h0_all = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-    h1_all = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    h0_all = torch.empty((ticks_per_beat, nb * B, H), dtype=torch.float32, device=dev)
+    h1_all = torch.empty_like(h0_all)
     dropout, keep, scale = _rate_args(train, dropout_rate)
     with torch.cuda.device(dev):
         err = lib.hier_tick_chain_fwd(
             teacher.data_ptr(), seed.data_ptr(), score.data_ptr(),
             *(x.data_ptr() for x in floats), T, B, H, E, V, ticks_per_beat,
-            dropout, keep, scale, int(sampling == "multinomial"),
-            weights.data_ptr(), samples.data_ptr(), h0_all.data_ptr(),
-            h1_all.data_ptr(), _build.stream_of(score))
+            dropout, keep, scale, int(sampling == "multinomial"), plan.clusters,
+            plan.rows, plan.smem_bytes, weights.data_ptr(), samples.data_ptr(),
+            h0_all.data_ptr(), h1_all.data_ptr(), _build.stream_of(score))
     _build.raise_on(lib, _NAME, err, "hier_tick_chain_fwd")
     LAUNCHES["fwd"] += 1
     return weights, samples, h0_all, h1_all
 
 
 def hier_tick_chain_bwd_cuda(train, dropout_rate, ticks_per_beat, seed, samples,
-                             h0_all, h1_all, dweights, *floats):
-    """Launches the backward kernels → the 13 float operands' gradients."""
+                             h0_all, h1_all, weights, dweights, *floats):
+    """Launches the backward kernels → the 13 float operands' gradients.
+    ``weights`` are the forward's relu logits (the ReLU's mask)."""
     T, B, H, E, V = _dims(ticks_per_beat, samples, floats)
     dev = samples.device
     _check_device((("seed", seed), ("samples", samples)), dev, torch.int32)
-    _check_device(zip(FLOAT_OPERANDS + ("h0_all", "h1_all", "dweights"),
-                      tuple(floats) + (h0_all, h1_all, dweights)), dev, torch.float32)
-    if h0_all.shape != (T, B, H) or h1_all.shape != (T, B, H) \
+    _check_device(zip(FLOAT_OPERANDS + ("h0_all", "h1_all", "weights", "dweights"),
+                      tuple(floats) + (h0_all, h1_all, weights, dweights)), dev,
+                  torch.float32)
+    nb = -(-T // ticks_per_beat)
+    saved = (ticks_per_beat, nb * B, H)
+    if h0_all.shape != saved or h1_all.shape != saved or weights.shape != (T, B, V) \
             or dweights.shape != (T, B, V):
-        raise ValueError("saved hiddens must be (T, B, H) and dweights (T, B, V)")
+        raise ValueError(f"saved hiddens must be {saved}, weights and dweights {(T, B, V)}")
+    chain = chain_plan(T, B, H, ticks_per_beat)
     lib = _library()
-    _check_rows(lib, H, E, V)
     grads = [torch.empty_like(x) for x in floats]
-
-    def scratch(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
     shapes = gemm_shapes(H, E, V)
-    splits = [atb_splits(m, bias, n, T * B) for m, bias, n in shapes]
+    terms = ticks_per_beat * nb * B
+    splits = [atb_splits(m, bias, n, terms) for m, bias, n in shapes]
     partial = max(atb_scratch_floats(m, bias, n, 1, k) for (m, bias, n), k in zip(shapes, splits))
-    work = [scratch(T, B, H), scratch(T, B, E),                    # inter, pe
-            scratch(T, B, E), scratch(T, B, V),                    # dpe, dlog
-            *(scratch(T, B, 3 * H) for _ in range(4)),             # dgi1 dgh1 dgi0 dgh0
-            scratch(max(1, partial))]                              # the GEMMs' partial sums
+    scratch = torch.empty(
+        lib.hier_tick_chain_bwd_scratch_floats(T, B, H, E, V, ticks_per_beat) + max(1, partial),
+        dtype=torch.float32, device=dev)
     dropout, keep, scale = _rate_args(train, dropout_rate)
     with torch.cuda.device(dev):
         err = lib.hier_tick_chain_bwd(
             seed.data_ptr(), samples.data_ptr(), h0_all.data_ptr(),
-            h1_all.data_ptr(), dweights.data_ptr(),
+            h1_all.data_ptr(), weights.data_ptr(), dweights.data_ptr(),
             *(x.data_ptr() for x in floats), T, B, H, E, V, ticks_per_beat,
-            dropout, keep, scale, *(g.data_ptr() for g in grads),
-            *(w.data_ptr() for w in work), (ctypes.c_int * 6)(*splits),
-            _build.stream_of(samples))
+            dropout, keep, scale, chain.clusters, chain.rows, chain.smem_bytes,
+            *(g.data_ptr() for g in grads), scratch.data_ptr(),
+            (ctypes.c_int * 6)(*splits), _build.stream_of(samples))
     _build.raise_on(lib, _NAME, err, "hier_tick_chain_bwd")
     LAUNCHES["bwd"] += 1
     return tuple(grads)
@@ -323,14 +493,14 @@ class HierTickChainFn(torch.autograd.Function):
             train, dropout_rate, ticks_per_beat, sampling, teacher, seed, score,
             *floats)
         ctx.cfg = (train, dropout_rate, ticks_per_beat)
-        ctx.save_for_backward(seed, samples, h0_all, h1_all, *floats)
+        ctx.save_for_backward(seed, samples, h0_all, h1_all, weights, *floats)
         ctx.mark_non_differentiable(samples)
         return weights, samples
 
     @staticmethod
     def backward(ctx, dweights, _dsamples):
-        seed, samples, h0_all, h1_all, *floats = ctx.saved_tensors
-        grads = hier_tick_chain_bwd_cuda(*ctx.cfg, seed, samples, h0_all, h1_all,
+        seed, samples, h0_all, h1_all, weights, *floats = ctx.saved_tensors
+        grads = hier_tick_chain_bwd_cuda(*ctx.cfg, seed, samples, h0_all, h1_all, weights,
                                          dweights.contiguous(), *floats)
         return (None,) * 7 + grads
 

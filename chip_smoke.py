@@ -22,8 +22,10 @@ and the script exits non-zero:
    step-rate cell), teacher-forced, free-running (teacher trick),
    training with dropout 0.5 (the case matches only if the masks are
    bitwise equal to the plain version's) and multinomial (in
-   distribution), then teacher-forced at a ragged B=100 and with one
-   beat of T ticks;
+   distribution), then teacher-forced at a ragged B=100, with one beat
+   of T ticks and with 5 ticks a beat (a padded last beat), and two
+   argmax edges (a tie across two CTAs' vocabulary slices, a NaN logit);
+   the cluster plans of both recurrence kernels are printed;
 4. slice 1: the dSprites training CLI in-process (short grid, B=128, 2
    epochs); the loss must be finite and fall, the reg kernels must have
    launched once per forward and once per backward, and the trained
@@ -38,6 +40,7 @@ and the script exits non-zero:
    slices' shapes; warm music train steps/s at B=256 on a 65,536-row
    random token corpus with V=130, then the music step's device busy
    time and largest kernels from ``torch.profiler`` over 50 steps; the
+   the tick loop backward's device time by kernel (profiler); the
    library yardstick for ``gru_chain``: each of the music step's four GRU
    layers as the port computes it and as cuDNN's ``torch.nn.GRU`` does
    (same weights, TF32 off, outputs held within rtol 1e-4), device time
@@ -98,9 +101,12 @@ GRU_CASES = [(24, 2, 256, 128), (4, 1, 256, 128), (24, 2, 100, 128), (24, 2, 256
 # loop and the output-layer and embedding weight-gradient GEMM tiles.
 HIER_B, HIER_H, HIER_E, HIER_T, HIER_TPB = 256, 128, 10, 24, 6
 HIER_VS = (34, 130)
-# a ragged batch (not a multiple of any row tile) and one beat of T ticks
-# (the SR decoder's use): the GEMMs' term indexing and the tick_h0 resets
+# a ragged batch (not a multiple of any row tile), one beat of T ticks
+# (the SR decoder's use), and 5 ticks a beat (T is no multiple of it: the
+# backward's chains pad the last beat): the GEMMs' term indexing, the
+# tick_h0 resets and the chain layout
 HIER_RAGGED_B = 100
+HIER_PADDED_TPB = 5
 
 # One eval step of a trained model on the card against the same step on
 # the CPU (plain paths): float32 products and sums in another order, so
@@ -206,9 +212,14 @@ def _check_grad(name, got, want):
     return _check_close(name, got, want, SEQ_GRAD_RTOL, atol)
 
 
+def _bits(x):
+    """The tensor's bits, so that a NaN repeats equal to itself."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
 def _check_repeat(tag, first, second):
     for x, y in zip(first, second):
-        if not torch.equal(x, y):
+        if not torch.equal(_bits(x), _bits(y)):
             raise AssertionError(f"{tag}: repeat is not bitwise equal")
 
 
@@ -326,7 +337,7 @@ def _hier_kernel_run(tag, cfg, teacher, seed, score, floats, ct=None):
         weights, samples, h0_all, h1_all = hk.hier_tick_chain_fwd_cuda(
             train, rate, tpb, sampling, teacher, seed, score, *floats)
         grads = () if ct is None else hk.hier_tick_chain_bwd_cuda(
-            train, rate, tpb, seed, samples, h0_all, h1_all, ct, *floats)
+            train, rate, tpb, seed, samples, h0_all, h1_all, weights, ct, *floats)
         runs.append((weights, samples) + tuple(grads))
     torch.cuda.synchronize()
     _check_repeat(tag, *runs)
@@ -373,17 +384,68 @@ def _hier_compare(tag, cfg, kernel_in, plain_in, floats, ct):
     return kernel, fwd_err, bwd_err
 
 
+def _hier_plans():
+    from arvae_tpu_torch.ops import hier_decoder_kernel as hk
+
+    lib = hk._library()
+    for v in HIER_VS:
+        for b in (HIER_B, HIER_RAGGED_B):
+            p = hk.hier_plan(b, HIER_H, HIER_E, v)
+            held = lib.hier_tick_chain_resident_clusters(p.clusters, p.smem_bytes)
+            print(f"[kernels] hier_tick_chain fwd plan at (B={b}, H={HIER_H}, E={HIER_E}, "
+                  f"V={v}): clusters of {p.clusters} CTAs x {p.rows} rows, {p.ctas} CTAs, "
+                  f"{p.smem_bytes} B dynamic shared memory each; the card holds {held} such "
+                  f"clusters at once (the plan assumes "
+                  f"{hk.RESIDENT_CLUSTERS[p.clusters]})")
+    for tpb in (HIER_TPB, HIER_T, HIER_PADDED_TPB):
+        p = hk.chain_plan(HIER_T, HIER_B, HIER_H, tpb)
+        print(f"[kernels] hier_tick_chain bwd chain plan at (T={HIER_T}, B={HIER_B}, "
+              f"H={HIER_H}, {tpb} ticks a beat, so {-(-HIER_T // tpb)} x {HIER_B} rows "
+              f"a chain of {tpb} ticks): clusters of {p.clusters} CTAs x {p.rows} rows, {p.ctas} CTAs, "
+              f"{p.smem_bytes} B dynamic shared memory each")
+
+
 def _hier_kernels(dev):
+    _hier_plans()
     errs = [_hier_kernels_at(dev, v) for v in HIER_VS]
     v = HIER_VS[-1]
-    for b, tpb in ((HIER_RAGGED_B, HIER_TPB), (HIER_B, HIER_T)):
+    for b, tpb in ((HIER_RAGGED_B, HIER_TPB), (HIER_B, HIER_T), (HIER_B, HIER_PADDED_TPB)):
         score, floats, ct = _hier_inputs(dev, 5, v, b=b, tpb=tpb)
         forced = _ints(1, 3, dev) + (score,)
         shape = f"B={b}, H={HIER_H}, E={HIER_E}, V={v}, T={HIER_T}, {tpb} ticks a beat"
         _, *e = _hier_compare(f"hier_tick_chain teacher-forced ({shape})",
                               (True, 0.0, "argmax", tpb), forced, forced, floats, ct)
         errs.append(e)
+    _hier_argmax_edges(dev, v)
     return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def _hier_argmax_edges(dev, v):
+    """Free-running argmax on flat logits (zero weights, so every row's
+    logits are out_b): a tie across two CTAs' vocabulary slices takes the
+    lower index, and a NaN logit gives V, clamped to V-1."""
+    from arvae_tpu_torch.ops import hier_decoder_kernel as hk
+
+    edge = -(-v // hk.hier_plan(HIER_B, HIER_H, HIER_E, v).clusters)  # CTA 1's first column
+    cfg = (True, 0.0, "argmax")
+    free = _ints(0, 3, dev)
+    for tag, peaks, nan, want in (("tie across CTAs", (edge - 1, edge), None, edge - 1),
+                                  ("NaN logit", (3,), 7, v - 1)):
+        score, floats, _ = _hier_inputs(dev, 10, v, zero=True)
+        for col in peaks:
+            floats[-1][col] = 5.0
+        if nan is not None:
+            floats[-1][nan] = float("nan")
+        w_k, s_k = _hier_kernel_run(f"hier {tag}", cfg, *free, score, floats)[:2]
+        w_p, s_p = _hier_plain_run(cfg, *free, score, floats)
+        if not (bool((s_k == want).all()) and torch.equal(s_k, s_p)):
+            raise AssertionError(f"hier_tick_chain {tag}: samples {s_k.unique().tolist()}, "
+                                 f"want {want} everywhere, as the plain version")
+        torch.testing.assert_close(w_k, w_p, rtol=SEQ_FWD_RTOL, atol=SEQ_FWD_ATOL,
+                                   equal_nan=True)
+        print(f"[kernels] hier_tick_chain {tag} (V={v}, out_b peaks at {list(peaks)}"
+              f"{f', NaN at {nan}' if nan is not None else ''}): every sample is {want}, "
+              f"as the plain version")
 
 
 def _hier_kernels_at(dev, v):
@@ -644,7 +706,8 @@ def _kernel_times(dev, card_line):
     score, floats, ct = _hier_inputs(dev, 8, MUSIC_BENCH_V)
     teacher, seed = _ints(0, 5, dev)
     cfg = (True, 0.5, HIER_TPB, "argmax")
-    _, samples, h0_all, h1_all = hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, score, *floats)
+    weights, samples, h0_all, h1_all = hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, score,
+                                                                   *floats)
     leaves = [x.clone().requires_grad_(True) for x in floats]
     ref = hk.hier_tick_chain_reference(*cfg, teacher, seed, score, *leaves)[0]
     times["hier"] = {
@@ -653,7 +716,7 @@ def _kernel_times(dev, card_line):
         "fwd_plain": _event_ms(lambda: hk.hier_tick_chain_reference(
             *cfg, teacher, seed, score, *floats), 10, 2),
         "bwd": _event_ms(lambda: hk.hier_tick_chain_bwd_cuda(
-            True, 0.5, HIER_TPB, seed, samples, h0_all, h1_all, ct, *floats), 100),
+            True, 0.5, HIER_TPB, seed, samples, h0_all, h1_all, weights, ct, *floats), 100),
         "bwd_plain": _event_ms(
             lambda: torch.autograd.grad(ref, leaves, ct, retain_graph=True), 10, 2),
     }
@@ -662,7 +725,28 @@ def _kernel_times(dev, card_line):
           f"T={HIER_T}, train with dropout 0.5, free-running (ms per call): fwd "
           f"{row['fwd']:.5f} vs plain {row['fwd_plain']:.5f}; bwd {row['bwd']:.5f} vs "
           f"plain (autograd through the loop) {row['bwd_plain']:.5f} | {card_line}")
+    split = _kernel_split(lambda: hk.hier_tick_chain_bwd_cuda(
+        True, 0.5, HIER_TPB, seed, samples, h0_all, h1_all, weights, ct, *floats))
+    print("[times] hier_tick_chain bwd, device µs a call by kernel (profiler, 20 calls): "
+          + "; ".join(f"{n} x{k:g} {us:.1f}" for n, (k, us) in split))
     return times
+
+
+def _kernel_split(fn, iters=20):
+    """[(kernel, (launches a call, device µs a call))], largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in _device_events(prof):
+        k, us = by_name.get(_short_name(e["name"]), (0, 0.0))
+        by_name[_short_name(e["name"])] = (k + 1 / iters, us + e["dur"] / iters)
+    return sorted(by_name.items(), key=lambda kv: -kv[1][1])
 
 
 # The music step's four GRU layers (input width, T, bidirectional): the
@@ -706,7 +790,8 @@ def _device_events(prof):
 
 def _short_name(name):
     """'hier_bwd<8>' from a demangled kernel name, cut to 60 characters."""
-    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    name = name.replace("(anonymous namespace)::", "").replace("arvae::", "")
+    name = name.removeprefix("void ")
     return name.split("(")[0][:60]
 
 

@@ -56,3 +56,42 @@ def test_ragged_batch_covers_every_row():
 def test_too_wide_raises_naming_h(backward):
     with pytest.raises(ValueError, match="H=2048"):
         gk.gru_plan(2, B, 2048, backward)
+
+
+# The tick loop's forward: clusters whose CTAs hold their weight slices
+
+
+@pytest.mark.parametrize("v", VS)
+@pytest.mark.parametrize("h", HS[:2])
+def test_hier_plan_fits(h, v):
+    plan = hk.hier_plan(B, h, E, v)
+    assert plan.smem_bytes <= gk.MAX_SMEM == 227 * 1024
+    assert plan.smem_bytes == 4 * hk.fwd_smem_floats(h, E, v, plan.clusters, plan.rows)
+    assert h % plan.clusters == 0 and plan.rows % gk.ROWS_PER_THREAD == 0
+    assert plan.rows * h // plan.clusters <= gk.THREADS
+
+
+@pytest.mark.parametrize("v", VS)
+def test_hier_plan_is_one_wave_at_the_music_step(v):
+    plan = hk.hier_plan(B, 128, E, v)
+    assert plan.clusters > 1 and 100 <= plan.ctas <= gk.SMS
+    assert plan.grid[0] // plan.clusters <= hk.RESIDENT_CLUSTERS[plan.clusters]
+    # one CTA an SM: more than half an SM's shared memory keeps a second off
+    assert plan.smem_bytes > 114 * 1024
+    # the backward's chains: a beat's 6 ticks on 4 x 256 rows
+    chain = hk.chain_plan(T, B, 128, 6)
+    assert chain.grid[0] // chain.clusters * chain.rows >= 4 * B
+
+
+def test_hier_plan_ragged_batch_covers_every_row():
+    plan = hk.hier_plan(100, 128, E, 130)
+    assert plan.grid[0] // plan.clusters * plan.rows >= 100
+    assert (plan.grid[0] // plan.clusters - 1) * plan.rows < 100  # no idle cluster
+
+
+@pytest.mark.parametrize("h", [256, 2048])
+def test_hier_plan_too_wide_raises_naming_h_and_v(h):
+    # at H=256 the three H x 3H matrices alone take 2.4 MB, more than the
+    # 1.8 MB of shared memory of a cluster of 8 CTAs
+    with pytest.raises(ValueError, match=f"H={h}, V=130"):
+        hk.hier_plan(B, h, E, 130)

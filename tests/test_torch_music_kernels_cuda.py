@@ -153,11 +153,11 @@ def _kernel_run(cfg, teacher, seed, score, floats, ct=None):
         weights, samples, h0_all, h1_all = hk.hier_tick_chain_fwd_cuda(
             train, rate, tpb, sampling, teacher, seed, score, *floats)
         grads = () if ct is None else hk.hier_tick_chain_bwd_cuda(
-            train, rate, tpb, seed, samples, h0_all, h1_all, ct, *floats)
+            train, rate, tpb, seed, samples, h0_all, h1_all, weights, ct, *floats)
         runs.append((weights, samples) + tuple(grads))
     torch.cuda.synchronize()
-    for x, y in zip(*runs):
-        assert torch.equal(x, y)
+    for x, y in zip(*runs):  # bitwise, so that a NaN repeats equal to itself
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
     return runs[0][0], runs[0][1], runs[0][2:]
 
 
@@ -196,7 +196,7 @@ def _compare(cfg, kernel_in, plain_in, floats, ct):
 
 
 @pytest.mark.parametrize("v", HVS)
-@pytest.mark.parametrize("tpb", [HTPB, HT], ids=["hier", "one_beat"])
+@pytest.mark.parametrize("tpb", [HTPB, HT, 5], ids=["hier", "one_beat", "padded_beat"])
 def test_hier_teacher_forced_matches_plain(dev, tpb, v):
     score, floats, ct = _hier_inputs(dev, 1, v, tpb)
     cfg = (True, 0.0, tpb, "argmax")
@@ -254,6 +254,50 @@ def test_hier_multinomial_in_distribution(dev, v):
     counts = torch.bincount(s_flat.flatten().long(), minlength=v)
     assert int((counts > 0).sum()) == v  # 6,144 draws, 47.3 a token expected at V=130
     assert int(counts.max()) < 2 * HT * HB // v
+
+
+@pytest.mark.parametrize("v", HVS)
+def test_hier_plan_mirrors_the_kernel_layout(dev, v):
+    plan = hk.hier_plan(HB, HH, HE, v)
+    lib = hk._library()
+    assert 4 * lib.hier_tick_chain_smem_floats(HH, HE, v, plan.clusters, plan.rows) \
+        == plan.smem_bytes
+    # the plan's count of the clusters the card holds at once is the card's
+    assert lib.hier_tick_chain_resident_clusters(plan.clusters, plan.smem_bytes) \
+        == hk.RESIDENT_CLUSTERS[plan.clusters]
+
+
+def _flat(dev, v, peak_cols=(), nan_col=None):
+    """Zero weights, out_b = 5 at ``peak_cols`` (NaN at ``nan_col``): the
+    logits of every row and tick are out_b."""
+    score, floats, _ = _hier_inputs(dev, 10, v, zero=True)
+    for col in peak_cols:
+        floats[-1][col] = 5.0
+    if nan_col is not None:
+        floats[-1][nan_col] = float("nan")
+    return score, floats
+
+
+def test_hier_argmax_tie_across_ctas_takes_the_lower_index(dev):
+    v = HVS[-1]
+    plan = hk.hier_plan(HB, HH, HE, v)
+    edge = -(-v // plan.clusters)  # CTA 1's first vocabulary column
+    score, floats = _flat(dev, v, (edge - 1, edge))
+    cfg = (True, 0.0, HTPB, "argmax")
+    _, samples, _ = _kernel_run(cfg, *_ints(0, 3, dev), score, floats)
+    assert bool((samples == edge - 1).all())
+    assert torch.equal(samples, _plain_run(cfg, *_ints(0, 3, dev), score, floats)[1])
+
+
+def test_hier_nan_logit_samples_the_last_token(dev):
+    v = HVS[-1]
+    score, floats = _flat(dev, v, (3,), nan_col=7)
+    cfg = (True, 0.0, HTPB, "argmax")
+    w_k, s_k, _ = _kernel_run(cfg, *_ints(0, 3, dev), score, floats)
+    assert bool((s_k == v - 1).all())  # NaN row: index V, clamped to V-1
+    w_p, s_p, _ = _plain_run(cfg, *_ints(0, 3, dev), score, floats)
+    assert torch.equal(s_k, s_p)
+    torch.testing.assert_close(w_k, w_p, rtol=FWD_RTOL, atol=FWD_ATOL, equal_nan=True)
 
 
 def test_hier_autograd_launches_kernels(dev):

@@ -1,6 +1,7 @@
 """The port imports on a machine without jax: every ``arvae_tpu_torch``
 module imports in a subprocess where ``import jax`` fails, and no
-module names jax or the JAX package in an import."""
+module of the port, nor ``chip_smoke.py``, names jax or the JAX package
+in an import."""
 
 import os
 import pathlib
@@ -41,5 +42,6 @@ def test_every_module_imports_without_jax():
 def test_no_jax_or_reference_package_imports():
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|arvae_tpu)\b",
                      re.M)
-    offenders = [str(p) for p in _module_files() if pat.search(p.read_text())]
+    files = _module_files() + [REPO / "chip_smoke.py"]
+    offenders = [str(p) for p in files if pat.search(p.read_text())]
     assert not offenders
