@@ -7,9 +7,10 @@ Counterpart of ``arvae_tpu/ops/losses.py``, function for function:
       + gamma * sum_{r in reg_dims} L1( tanh(delta * D_z_r), sign(D_a_r) )
 
 where ``D_z_r[i, j] = z_i[r] - z_j[r]`` and ``D_a_r[i, j] = a_i[r] - a_j[r]``
-are B×B pairwise difference matrices. The stacked AR term goes through
-:func:`arvae_tpu_torch.ops.reg_kernel.fused_reg_loss`: the CUDA kernel
-for CUDA tensors, its plain PyTorch version for CPU tensors.
+are B×B pairwise difference matrices. The AR term goes through
+:func:`arvae_tpu_torch.ops.reg_kernel.reg_losses`, which reads the
+latent and attribute columns in place: the CUDA kernels for CUDA
+tensors, their plain PyTorch versions for CPU tensors.
 Distributions are carried as ``(mean, log_std)`` pairs.
 """
 
@@ -20,7 +21,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from arvae_tpu_torch.ops.reg_kernel import fused_reg_loss
+from arvae_tpu_torch.ops.reg_kernel import reg_losses
 
 # ---------------------------------------------------------------------------
 # Reconstruction losses
@@ -166,9 +167,8 @@ def total_reg_loss(
     delta: torch.Tensor | float,
 ) -> torch.Tensor:
     """Sum of gamma-weighted AR losses over ``(latent_dim, attr_col)``
-    pairs, through the fused kernel on stacked (R, B) columns."""
+    pairs, through the kernel on the columns of ``z`` and ``labels`` read
+    in place (no stack; float32 labels are not cast)."""
     if len(reg_dims) == 0:
         return torch.zeros((), dtype=torch.float32, device=z.device)
-    z_cols = torch.stack([z[:, d] for d, _ in reg_dims], dim=0)
-    a_cols = torch.stack([labels[:, a] for _, a in reg_dims], dim=0)
-    return gamma * torch.sum(fused_reg_loss(z_cols, a_cols, delta))
+    return gamma * torch.sum(reg_losses(z, labels, reg_dims, delta))

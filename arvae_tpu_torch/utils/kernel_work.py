@@ -17,8 +17,11 @@ Counts:
   ``2·E·3H + 3·2·H·3H + 2·H·V`` (the fed embedding's product, three
   H×3H products, the head); the backward three times that (recompute,
   transposed products, weight gradients).
-- ``fused_reg_loss``: ``R·B²`` pair terms, each counted as its
-  elementwise operations with ``tanh`` as one (8 forward, 14 backward).
+- ``fused_reg_loss`` forward: ``R·B²`` pair terms, each counted as its
+  elementwise operations with ``tanh`` as one: 8 for the loss, 7 more
+  for the gradient factors G and D when a gradient is wanted. The
+  backward scales the factors by the cotangent: ``R·B`` products and
+  ``2R`` for ddelta.
 """
 
 from __future__ import annotations
@@ -31,8 +34,10 @@ PEAK_FP32_FLOP_PER_S = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 WORD = 4  # bytes of a float32 or an int32
 
+# z_i − z_j, ×δ, tanh, a_i − a_j, sign, −, |·|, +
 REG_FWD_OPS_PER_PAIR = 8
-REG_BWD_OPS_PER_PAIR = 14
+# sign(t − s), t², 1 − t², ×, + (G), ×(z_i − z_j), + (D)
+REG_FACTOR_OPS_PER_PAIR = 7
 
 
 @dataclass(frozen=True)
@@ -93,10 +98,15 @@ def hier_tick_chain(T: int, B: int, H: int, E: int, V: int, ticks_per_beat: int,
     return Work(3 * flop, WORD * (1 + tb + 2 * tb * H + tb * V + 2 * floats))
 
 
-def reg_loss(R: int, B: int, backward: bool = False) -> Work:
-    """z and a (R,B), delta (1,) -> the (R,) losses; the backward also
-    reads the (R,) cotangent and writes dz (R,B) and ddelta (1,)."""
-    pairs = R * B * B
+def reg_loss(R: int, B: int, backward: bool = False, factors: bool = True,
+             Z: int | None = None) -> Work:
+    """Forward: the z and a columns (R, B) and delta (1,) -> the (R,)
+    losses and, with ``factors``, G (R, B) and D (R,). Backward: G, D and
+    the (R,) cotangent -> the whole (B, Z) gradient of the latents (Z = R
+    for stacked columns) and ddelta (1,)."""
     if not backward:
-        return Work(REG_FWD_OPS_PER_PAIR * pairs, WORD * (2 * R * B + 1 + R))
-    return Work(REG_BWD_OPS_PER_PAIR * pairs, WORD * (3 * R * B + 1 + R + 1))
+        ops = REG_FWD_OPS_PER_PAIR + (REG_FACTOR_OPS_PER_PAIR if factors else 0)
+        out = R + (R * B + R if factors else 0)
+        return Work(ops * R * B * B, WORD * (2 * R * B + 1 + out))
+    Z = R if Z is None else Z
+    return Work(R * B + 2 * R, WORD * (R * B + 2 * R + B * Z + 1))

@@ -15,7 +15,12 @@ and the script exits non-zero:
    ptxas's registers and spills for every kernel;
 3. kernels: every kernel against its plain PyTorch version on the card,
    twice each with bitwise-equal repeats required: the AR-reg forward
-   and backward at both slices' shapes and ragged and large batches;
+   (losses and gradient factors in one launch, and the losses alone,
+   which must be bitwise equal) and backward (one launch) at both
+   slices' shapes and ragged and large batches, then its in-place entry
+   on (B, Z) latents and (B, L) labels at both slices' shapes, with a
+   latent column named twice on a strided view, and with int64 labels;
+   the reg cluster plans against the clusters the card holds at once;
    ``gru_chain`` forward and backward at the music slice's shapes, a
    ragged batch and a second hidden width (H=64); ``hier_tick_chain``
    forward and backward at V=34 (the music CLI's corpus) and V=130 (the
@@ -37,16 +42,21 @@ and the script exits non-zero:
    times) and once per backward, and the trained model on one val batch,
    teacher-forced with injected draws, must match the CPU plain path;
 6. times: each kernel against its plain version (CUDA events) at the
-   slices' shapes; warm music train steps/s at B=256 on a 65,536-row
-   random token corpus with V=130, then the music step's device busy
-   time and largest kernels from ``torch.profiler`` over 50 steps; the
-   the tick loop backward's device time by kernel (profiler); the
+   slices' shapes, and each reg direction's device time from
+   ``torch.profiler`` (the events follow the host there), also at
+   (R, B) = (2, 8192); the AR term's device launches a train and an
+   eval step on both slices (profiler: one reg kernel each way, no
+   stack, cast or scatter left); warm music train steps/s at B=256 on
+   a 65,536-row random token corpus with V=130, then the music step's
+   device busy time and largest kernels from ``torch.profiler`` over 50
+   steps; the tick loop backward's device time by kernel (profiler); the
    library yardstick for ``gru_chain``: each of the music step's four GRU
    layers as the port computes it and as cuDNN's ``torch.nn.GRU`` does
    (same weights, TF32 off, outputs held within rtol 1e-4), device time
    from the profiler; warm dSprites train steps/s at B=128 over 1,000
-   steps. Each kernel's bound (``arvae_tpu_torch/utils/kernel_work.py``)
-   and launches per step are printed beside its time.
+   steps and the dSprites step's device busy time. Each kernel's bound
+   (``arvae_tpu_torch/utils/kernel_work.py``) and launches per step are
+   printed beside its time.
 
 Launch counts are set to 0 just before each slice and read just after
 it; the comparisons of phase 3 do not count. The line before the last
@@ -80,10 +90,22 @@ KERNEL_CASES = [(5, 128), (4, 256), (5, 100), (3, 700), (2, 8192)]
 DELTAS = (1.0, 10.0)
 FWD_RTOL, BWD_RTOL, ATOL = 1e-5, 1e-4, 1e-6
 # At B=8192 each loss sums 67M pair terms in float32, in one order in
-# the kernel (a sequential row per thread, then a fixed tree) and in
-# another in torch's reduction; the rounding of such long sums reaches
-# ~1e-5 relative, so the forward there is held to 1e-4.
+# the kernel (a sequential slice of a row per thread, then fixed trees)
+# and in another in torch's reduction; the rounding of such long sums
+# reaches ~1e-5 relative, so the forward there is held to 1e-4.
 FWD_RTOL_LARGE_B = 1e-4
+# The in-place entry (z_tilde shape, label columns, dims, label dtype,
+# z_tilde a strided view): the dSprites step's (latents 1-5 of 10), the
+# music step's (0-3 of 32), a latent column named twice on a strided
+# view, and int64 labels (cast once by the wrapper)
+REG_COLUMN_CASES = {
+    "dSprites": ((B_TRAIN, 10), 6, tuple((c, c) for c in range(1, 6)), torch.float32, False),
+    "music": ((256, 32), 4, tuple((c, c) for c in range(4)), torch.float32, False),
+    "repeated dim, strided z_tilde": ((B_TRAIN, 10), 6, ((1, 1), (3, 2), (1, 4)),
+                                      torch.float32, True),
+    "int64 labels": ((B_TRAIN, 10), 6, tuple((c, c) for c in range(1, 6)), torch.int64,
+                     False),
+}
 
 # The recurrence kernels: a chain of 24 dependent steps whose products
 # sum in another order than cuBLAS's, so forward rtol 1e-4 with an
@@ -223,36 +245,81 @@ def _check_repeat(tag, first, second):
             raise AssertionError(f"{tag}: repeat is not bitwise equal")
 
 
+def _reg_stacked_case(rk, r, b, delta, dev):
+    """The kernels on stacked (R, B) columns, through their (B, R) views."""
+    z, a, ct = _case_inputs(r, b, r * 100_003 + b, dev)
+    d = torch.tensor([delta], dtype=torch.float32, device=dev)
+    dims = tuple((i, i) for i in range(r))
+    tag = f"reg (R={r}, B={b}, delta={delta})"
+    runs = []
+    for _ in range(2):
+        loss, g, dd = rk.reg_fwd_cuda(z.t(), a.t(), dims, d)
+        alone = rk.reg_fwd_cuda(z.t(), a.t(), dims, d, factors=False)[0]
+        dz, ddelta = rk.reg_bwd_cuda(g, dd, ct, dims, r, col_major=True)
+        torch.cuda.synchronize()
+        runs.append((loss, alone, g, dd, dz.t(), ddelta.reshape(())))
+    _check_repeat(tag, *runs)
+    loss, alone, g, dd, dz, ddelta = runs[0]
+    if not torch.equal(_bits(alone), _bits(loss)):
+        raise AssertionError(f"{tag}: the forward without factors gives other losses")
+    loss_ref, g_ref, d_ref = rk.reg_fwd_factors_reference(z, a, d)
+    dz_ref, dd_ref = rk.reg_loss_bwd_reference(z, a, d, ct)
+    dz_scale, dd_scale = rk.reg_bwd_scale_reference(g, dd, ct)
+    frtol = FWD_RTOL_LARGE_B if b > 1024 else FWD_RTOL
+    fwd_err = _check_close(f"loss {tag}", loss, loss_ref, frtol, ATOL)
+    bwd_err = max(_check_close(f"G {tag}", g, g_ref, BWD_RTOL, ATOL),
+                  _check_close(f"D {tag}", dd, d_ref, BWD_RTOL, ATOL),
+                  _check_close(f"dz {tag}", dz, dz_ref, BWD_RTOL, ATOL),
+                  _check_close(f"ddelta {tag}", ddelta, dd_ref, BWD_RTOL, ATOL),
+                  _check_close(f"dz vs scale {tag}", dz, dz_scale, BWD_RTOL, ATOL),
+                  _check_close(f"ddelta vs scale {tag}", ddelta, dd_scale, BWD_RTOL, ATOL))
+    print(f"[kernels] {tag}: loss, G, D (one forward launch), the loss without factors "
+          f"(bitwise equal) and dz, ddelta (one backward launch) match the plain versions, "
+          f"bitwise repeatable; plan {rk.reg_plan(r, b)}")
+    return fwd_err, bwd_err
+
+
+def _reg_column_case(rk, name, delta, dev):
+    """The in-place entry on a (B, Z) z_tilde and (B, L) labels, forward
+    and backward through the autograd Function, against the stacked
+    plain path."""
+    (b, zd), nl, dims, ldtype, strided = REG_COLUMN_CASES[name]
+    rng = np.random.RandomState(b + zd + nl)
+    wide = torch.tensor(rng.randn(b, 2 * zd), dtype=torch.float32, device=dev)
+    labels = torch.tensor(rng.randint(0, 4, (b, nl)), device=dev).to(ldtype)
+    ct = torch.tensor(rng.randn(len(dims)), dtype=torch.float32, device=dev)
+    d = torch.tensor(delta, device=dev)
+    tag = f"reg in place, {name} (z_tilde {b}x{zd}, dims {dims}, delta={delta})"
+    runs = []
+    for _ in range(2):
+        leaf = (wide if strided else wide[:, :zd].contiguous()).clone().requires_grad_(True)
+        z = leaf[:, ::2] if strided else leaf
+        losses = rk.reg_losses(z, labels, dims, d)
+        (losses * ct).sum().backward()
+        torch.cuda.synchronize()
+        runs.append((losses.detach(), leaf.grad[:, ::2] if strided else leaf.grad))
+    _check_repeat(tag, *runs)
+    losses, dz = runs[0]
+    z_cols, a_cols = rk.stack_columns(z.detach(), labels.float(), dims)
+    dz_cols, _ = rk.reg_loss_bwd_reference(z_cols, a_cols, d, ct)
+    fwd_err = _check_close(f"loss {tag}", losses, rk.reg_loss_fwd_reference(z_cols, a_cols, d),
+                           FWD_RTOL, ATOL)
+    bwd_err = _check_close(f"dz {tag}", dz, rk.scatter_columns(dz_cols, dims, zd),
+                           BWD_RTOL, ATOL)
+    print(f"[kernels] {tag}: matches the stacked plain path, bitwise repeatable")
+    return fwd_err, bwd_err
+
+
 def _reg_kernels(dev):
     from arvae_tpu_torch.ops import reg_kernel as rk
 
-    fwd_err = bwd_err = 0.0
-    for r, b in KERNEL_CASES:
-        for delta in DELTAS:
-            z, a, ct = _case_inputs(r, b, r * 100_003 + b, dev)
-            d = torch.tensor([delta], dtype=torch.float32, device=dev)
-            runs = []
-            for _ in range(2):
-                f = rk.reg_loss_fwd_cuda(z, a, d)
-                torch.cuda.synchronize()
-                dz, dd = rk.reg_loss_bwd_cuda(z, a, d, ct)
-                torch.cuda.synchronize()
-                runs.append((f, dz, dd))
-            tag = f"reg (R={r}, B={b}, delta={delta})"
-            _check_repeat(tag, *runs)
-            f, dz, dd = runs[0]
-            f_ref = rk.reg_loss_fwd_reference(z, a, d)
-            dz_ref, dd_ref = rk.reg_loss_bwd_reference(z, a, d, ct)
-            frtol = FWD_RTOL_LARGE_B if b > 1024 else FWD_RTOL
-            fwd_err = max(fwd_err, _check_close(f"fwd {tag}", f, f_ref, frtol, ATOL))
-            bwd_err = max(bwd_err,
-                          _check_close(f"dz {tag}", dz, dz_ref, BWD_RTOL, ATOL),
-                          _check_close(f"ddelta {tag}", dd.reshape(()), dd_ref,
-                                       BWD_RTOL, ATOL))
-            print(f"[kernels] {tag} fwd and bwd match the plain version, "
-                  f"bitwise repeatable")
+    errs = [_reg_stacked_case(rk, r, b, delta, dev)
+            for r, b in KERNEL_CASES for delta in DELTAS]
+    errs += [_reg_column_case(rk, name, delta, dev)
+             for name in REG_COLUMN_CASES for delta in DELTAS]
+    fwd_err, bwd_err = max(e[0] for e in errs), max(e[1] for e in errs)
 
-    # the autograd Function end to end: forward and backward kernels
+    # the autograd Function end to end through the (R, B) entry
     z, a, ct = _case_inputs(R_TRAIN, B_TRAIN, 7, dev)
     zg = z.clone().requires_grad_(True)
     dg = torch.tensor(1.0, device=dev, requires_grad=True)
@@ -260,6 +327,13 @@ def _reg_kernels(dev):
     dz_ref, dd_ref = rk.reg_loss_bwd_reference(z, a, torch.tensor([1.0], device=dev), ct)
     _check_close("autograd dz", zg.grad, dz_ref, BWD_RTOL, ATOL)
     _check_close("autograd ddelta", dg.grad, dd_ref, BWD_RTOL, ATOL)
+    for r, b in KERNEL_CASES:
+        plan = rk.reg_plan(r, b)
+        held = rk.resident_clusters(plan.clusters, plan.threads)
+        if r > held:
+            raise AssertionError(f"reg plan {plan}: the card holds only {held} clusters")
+        print(f"[kernels] reg plan at R={r}, B={b}: {plan}, {plan.ctas} CTAs; the card holds "
+              f"{held} such clusters at once")
     print(f"[kernels] reg autograd Function matches; fwd max abs err "
           f"{fwd_err:.3e}, bwd max abs err {bwd_err:.3e}")
     return fwd_err, bwd_err
@@ -534,6 +608,14 @@ def _check_history(tag, hist, ckpt_ok):
     return sum(h["train_steps"] for h in hist), sum(h["val_steps"] for h in hist)
 
 
+def _check_float_labels(tag, labels):
+    """The AR term reads float32 labels in place; any other dtype would
+    cost a cast a step."""
+    if labels.dtype != torch.float32:
+        raise AssertionError(f"{tag}: the trainer hands the AR term {labels.dtype} labels")
+    print(f"[{tag}] the AR term's labels on the card: {tuple(labels.shape)} {labels.dtype}")
+
+
 def _check_launches(tag, launches, want):
     if launches != want:
         raise AssertionError(f"{tag}: kernel launches {launches} != {want}")
@@ -570,6 +652,7 @@ def phase_slice():
     # the trained model on one val batch: card (kernel) vs CPU (plain)
     _, val = trainer.dataset.device_splits(trainer.device)
     batch = val.gather_batch(torch.arange(B_TRAIN, device=trainer.device))
+    _check_float_labels("slice", batch[1])
     noise = draw_noise(B_TRAIN, trainer.model.z_dim,
                        torch.Generator(trainer.device).manual_seed(1),
                        trainer.device)
@@ -633,6 +716,7 @@ def phase_music_slice():
     dev = trainer.device
     _, val = trainer.dataset.device_splits(dev)
     batch = val.gather_batch(torch.arange(MUSIC_B, device=dev))
+    _check_float_labels("music", trainer.attrs.compute_labels(batch[0]))
     noise = draw_measure_noise(MUSIC_B, trainer.model.latent_space_dim,
                                torch.Generator(dev).manual_seed(1), dev)
     noise = noise._replace(teacher=torch.ones_like(noise.teacher), generator=None)
@@ -670,21 +754,47 @@ def _kernel_times(dev, card_line):
     from arvae_tpu_torch.ops import gru_kernel as gk
     from arvae_tpu_torch.ops import hier_decoder_kernel as hk
     from arvae_tpu_torch.ops import reg_kernel as rk
+    from arvae_tpu_torch.utils import kernel_work as kw
+    from arvae_tpu_torch.utils import step_probe
 
     times = {}
-    for r, b in KERNEL_CASES[:2]:  # the dSprites step's shape, then the music step's
-        z, a, ct = _case_inputs(r, b, 11, dev)
-        d = torch.tensor([1.0], dtype=torch.float32, device=dev)
-        row = {
-            "fwd": _event_ms(lambda: rk.reg_loss_fwd_cuda(z, a, d), 1000, 50),
-            "fwd_plain": _event_ms(lambda: rk.reg_loss_fwd_reference(z, a, d), 1000, 50),
-            "bwd": _event_ms(lambda: rk.reg_loss_bwd_cuda(z, a, d, ct), 1000, 50),
-            "bwd_plain": _event_ms(lambda: rk.reg_loss_bwd_reference(z, a, d, ct), 1000, 50),
+    for name, ((b, zd), nl, dims) in step_probe.AR_SHAPES.items():
+        # the AR term's shapes on the step: z_tilde and labels read in place
+        rng = np.random.RandomState(11)
+        z = torch.tensor(rng.randn(b, zd), dtype=torch.float32, device=dev)
+        labels = torch.tensor(rng.randint(0, 4, (b, nl)), dtype=torch.float32, device=dev)
+        ct = torch.tensor(rng.randn(len(dims)), dtype=torch.float32, device=dev)
+        d = torch.tensor(1.0, device=dev)
+        _, g, dd = rk.reg_fwd_cuda(z, labels, dims, d)
+        fns = {
+            "fwd": lambda: rk.reg_fwd_cuda(z, labels, dims, d),
+            "fwd_plain": lambda: rk.reg_fwd_factors_reference(
+                *rk.stack_columns(z, labels, dims), d),
+            "bwd": lambda: rk.reg_bwd_cuda(g, dd, ct, dims, zd),
+            "bwd_plain": lambda: rk.scatter_columns(
+                rk.reg_bwd_scale_reference(g, dd, ct)[0], dims, zd),
         }
+        row = {k: _event_ms(fn, 1000, 50) for k, fn in fns.items()}
+        for direction in ("fwd", "bwd"):
+            # the kernel's own duration: one device kernel a call
+            split = _kernel_split(fns[direction])
+            if len(split) != 1 or split[0][1][0] != 1:
+                raise AssertionError(f"reg {direction} at {name}: device kernels {split}")
+            row[f"{direction}_events"] = row[direction]
+            row[direction] = split[0][1][1] / 1e3
+            row[f"{direction}_work"] = kw.reg_loss(len(dims), b, direction == "bwd", Z=zd)
         times.setdefault("reg", row)  # the dSprites step's shape goes into the JSON
-        print(f"[times] reg kernel at R={r}, B={b} (ms per call, CUDA events over 1000 "
-              f"calls): fwd {row['fwd']:.5f} vs plain {row['fwd_plain']:.5f}; bwd "
-              f"{row['bwd']:.5f} vs plain {row['bwd_plain']:.5f} | {card_line}")
+        print(f"[times] reg at the {name} step's shape (R={len(dims)}, B={b}, z_tilde "
+              f"{b}x{zd}), ms per call: fwd {row['fwd']:.5f} device (profiler), "
+              f"{row['fwd_events']:.5f} CUDA events over 1000 calls, plain "
+              f"{row['fwd_plain']:.5f}, bound {row['fwd_work'].bound_ms:.7f}; bwd "
+              f"{row['bwd']:.5f} device, {row['bwd_events']:.5f} events, plain "
+              f"{row['bwd_plain']:.5f}, bound {row['bwd_work'].bound_ms:.7f} | {card_line}")
+    z, a, _ = _case_inputs(2, 8192, 11, dev)
+    d = torch.tensor([1.0], device=dev)
+    (name, (_, us)), = _kernel_split(lambda: rk.reg_fwd_cuda(z.t(), a.t(), ((0, 0), (1, 1)), d))
+    print(f"[times] reg fwd with factors at (R, B) = (2, 8192), off the path: {us / 1e3:.5f} "
+          f"ms device ({name}, plan {rk.reg_plan(2, 8192)}) | {card_line}")
 
     for t, dd, b, h in GRU_CASES:
         args, ct = _gru_inputs(t, dd, b, h, dev, seed=17)
@@ -733,20 +843,16 @@ def _kernel_times(dev, card_line):
 
 
 def _kernel_split(fn, iters=20):
-    """[(kernel, (launches a call, device µs a call))], largest first."""
-    from torch.profiler import ProfilerActivity, profile
+    """[(kernel, (launches a call, device µs a call))], largest first, from
+    a profiled run that lost no kernel record (``step_probe.call_events``)."""
+    from arvae_tpu_torch.utils.step_probe import call_events, short_name
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     by_name = {}
-    for e in _device_events(prof):
-        k, us = by_name.get(_short_name(e["name"]), (0, 0.0))
-        by_name[_short_name(e["name"])] = (k + 1 / iters, us + e["dur"] / iters)
-    return sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    for e in call_events(fn, iters):
+        k, us = by_name.get(short_name(e["name"]), (0, 0.0))
+        by_name[short_name(e["name"])] = (k + 1, us + e["dur"])
+    return sorted(((n, (k / iters, us / iters)) for n, (k, us) in by_name.items()),
+                  key=lambda kv: -kv[1][1])
 
 
 # The music step's four GRU layers (input width, T, bidirectional): the
@@ -765,6 +871,8 @@ def _device_ms(fn, iters=20, warmup=5):
     launches) has gaps that CUDA events would count; this does not."""
     from torch.profiler import ProfilerActivity, profile
 
+    from arvae_tpu_torch.utils.step_probe import device_events, union_us
+
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -772,27 +880,7 @@ def _device_ms(fn, iters=20, warmup=5):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return _union_us([(e["ts"], e["ts"] + e["dur"]) for e in _device_events(prof)]) / 1e3 / iters
-
-
-def _device_events(prof):
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    device = [e for e in events if e.get("ph") == "X"
-              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    if not device:
-        raise AssertionError("the profiler recorded no device activity")
-    return device
-
-
-def _short_name(name):
-    """'hier_bwd<8>' from a demangled kernel name, cut to 60 characters."""
-    name = name.replace("(anonymous namespace)::", "").replace("arvae::", "")
-    name = name.removeprefix("void ")
-    return name.split("(")[0][:60]
+    return union_us([(e["ts"], e["ts"] + e["dur"]) for e in device_events(prof)]) / 1e3 / iters
 
 
 def _gru_layer_times(dev, card_line):
@@ -853,39 +941,6 @@ def _gru_layer_times(dev, card_line):
     return out
 
 
-def _bench_vocab(n):
-    """Specials and chromatic pitch names from MIDI 36 up: the vocabulary
-    of ``scripts/bench_measure_vae.py``."""
-    names = ["__", "START", "END", "rest"]
-    spell = ["C", "C#", "D", "E-", "E", "F", "F#", "G", "A-", "A", "B-", "B"]
-    midi = 36
-    while len(names) < n:
-        names.append(f"{spell[midi % 12]}{midi // 12 - 1}")
-        midi += 1
-    return {i: s for i, s in enumerate(names)}
-
-
-class _TokenCorpus:
-    """Random measures over a V-token vocabulary, with what the music
-    trainer reads of a dataset."""
-
-    class_name = "4by4_FolkNBarDataset_1_"
-    beat_subdivisions, time_sig_num, time_sig_den = 6, 4, 4
-
-    def __init__(self, rows, index2note):
-        self.rows = rows
-        self.index2note_dicts = index2note
-        self.note2index_dicts = {v: k for k, v in index2note.items()}
-
-    def get_dataset(self):
-        return self.rows, self.rows
-
-    def attrs(self, device):
-        from arvae_tpu_torch.data.attributes import MusicAttributes
-
-        return MusicAttributes(self.index2note_dicts, device)
-
-
 def _steps_per_second(trainer, split, batch, tag, card_line):
     from arvae_tpu_torch.data.device_data import DeviceEpochRunner
 
@@ -906,81 +961,71 @@ def _steps_per_second(trainer, split, batch, tag, card_line):
           f"| {card_line}")
 
 
-def _union_us(intervals):
-    busy, end = 0.0, -math.inf
-    for s, e in sorted(intervals):
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    return busy
-
-
-def _device_busy(trainer, split, batch, card_line, steps=50):
-    """Device busy per train step: the union of the kernel, memcpy and
-    memset intervals that ``torch.profiler`` records over ``steps`` warm
-    steps, against the host-clock time of as many unprofiled steps just
+def _device_busy(tag, trainer, split, batch, card_line):
+    """Device busy per train step (``step_probe.step_profile``: the union
+    of the profiler's kernel, memcpy and memset intervals over 50 warm
+    steps) against the host-clock time of 50 unprofiled steps just
     before; prints the busy time, the idle share and the largest kernels."""
-    from torch.profiler import ProfilerActivity, profile
+    from arvae_tpu_torch.utils.step_probe import step_profile
 
     rows = split.gather_batch(torch.arange(batch, device=split.device))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        trainer.train_step(rows)
-    torch.cuda.synchronize()
-    step_ms = 1e3 * (time.perf_counter() - t0) / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            trainer.train_step(rows)
-        torch.cuda.synchronize()
-    device = _device_events(prof)
-    busy_ms = _union_us([(e["ts"], e["ts"] + e["dur"]) for e in device]) / 1e3 / steps
-    by_name = {}
-    for e in device:
-        name = _short_name(e["name"])
-        by_name[name] = by_name.get(name, 0.0) + e["dur"] / steps
+    busy_ms, events, step_ms, by_name = step_profile(lambda: trainer.train_step(rows))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    print(f"[times] music step, profiled: device busy {busy_ms:.3f} ms a step over {steps} "
-          f"steps ({len(device) / steps:.0f} device events a step); {steps} unprofiled steps "
-          f"just before: {step_ms:.3f} ms a step, device idle "
-          f"{100 * (1 - busy_ms / step_ms):.1f}% | {card_line}")
-    print("[times] music step, device µs a step by kernel: "
+    print(f"[times] {tag} step, profiled: device busy {busy_ms:.3f} ms a step over 50 "
+          f"steps ({events:.0f} device events a step); 50 unprofiled steps just before: "
+          f"{step_ms:.3f} ms a step, device idle {100 * (1 - busy_ms / step_ms):.1f}% "
+          f"| {card_line}")
+    print(f"[times] {tag} step, device µs a step by kernel: "
           + "; ".join(f"{n} {us:.1f}" for n, us in top))
     return busy_ms
 
 
+def _ar_term_launches(dev, card_line):
+    """The device kernels the AR term (``total_reg_loss``) launches in a
+    train and an eval step at each slice's shapes (profiler): one reg
+    kernel each way, and no stack, cast or slice-scatter left."""
+    from arvae_tpu_torch.utils.step_probe import AR_SHAPES, ar_term_profile
+
+    out = {}
+    for name, (shape, nl, dims) in AR_SHAPES.items():
+        for kind, (events, names, dev_us, host_us) in ar_term_profile(
+                dev, shape, nl, dims).items():
+            fwd = sum(k for n, k in names.items() if "reg_fwd" in n)
+            bwd = sum(k for n, k in names.items() if "reg_bwd" in n)
+            if (fwd, bwd) != ((1, 1) if kind == "train" else (1, 0)):
+                raise AssertionError(f"AR term, {name} {kind} step: reg kernels {names}")
+            left = [n for n in names if re.search(r"Cat|[Cc]opy|Fill|[Ss]catter|[Ii]ndex", n)]
+            if left:
+                raise AssertionError(f"AR term, {name} {kind} step launches {left}")
+            out[(name, kind)] = events
+            print(f"[times] AR term, {name} {kind} step: {events:g} device launches a call "
+                  f"({', '.join(f'{n} x{k:g}' for n, k in sorted(names.items()))}); device "
+                  f"{dev_us:.2f} µs, host {host_us:.2f} µs a call | {card_line}")
+    return out
+
+
 def phase_times(card_line):
-    from arvae_tpu_torch.data.device_data import DeviceSplit
-    from arvae_tpu_torch.models.image_vae import DspritesVAE
-    from arvae_tpu_torch.models.measure_vae import MeasureVAE
-    from arvae_tpu_torch.training.image_trainer import ImageVAETrainer
-    from arvae_tpu_torch.training.measure_trainer import MeasureVAETrainer
+    from arvae_tpu_torch.utils import step_probe
 
     dev = torch.device("cuda")
     times = _kernel_times(dev, card_line)
+    times["ar_launches"] = _ar_term_launches(dev, card_line)
 
     rng = np.random.RandomState(0)
     rows = rng.randint(0, MUSIC_BENCH_V, (MUSIC_BENCH_ROWS, 24)).astype(np.int32)
-    corpus = _TokenCorpus(rows, _bench_vocab(MUSIC_BENCH_V))
-    trainer = MeasureVAETrainer(
-        corpus, MeasureVAE(MUSIC_BENCH_V, encoder_hidden_size=128, latent_space_dim=32,
-                           decoder_hidden_size=128, seed=0),
-        dev, reg_type=("all",), reg_dim=(0, 1, 2, 3), rand=0)
-    split = DeviceSplit(rows, None, (24,), "tokens", dev)
+    trainer, split = step_probe.music_trainer(dev, rows)
     _steps_per_second(trainer, split, MUSIC_B,
                       f"MeasureVAE (H=128, z=32, V={MUSIC_BENCH_V}, -r all, "
                       f"{MUSIC_BENCH_ROWS}-row random token corpus)", card_line)
-    times["music_busy_ms"] = _device_busy(trainer, split, MUSIC_B, card_line)
+    times["music_busy_ms"] = _device_busy("music", trainer, split, MUSIC_B, card_line)
     times["gru_layers"] = _gru_layer_times(dev, card_line)
 
     packed = rng.randint(0, 256, (BENCH_ROWS, 512)).astype(np.uint8)
     labels = rng.rand(BENCH_ROWS, 6).astype(np.float32)
-    split = DeviceSplit(packed, labels, (1, 64, 64), "packed", dev)
-    trainer = ImageVAETrainer(None, DspritesVAE(seed=0), dev,
-                              reg_type=("all",), reg_dim=(1, 2, 3, 4, 5),
-                              beta=1.0, gamma=10.0, delta=1.0, rand=0)
+    trainer, split = step_probe.dsprites_trainer(dev, packed, labels)
     _steps_per_second(trainer, split, B_TRAIN,
                       f"DspritesVAE ({BENCH_ROWS}-row random packed split)", card_line)
+    times["dsprites_busy_ms"] = _device_busy("dSprites", trainer, split, B_TRAIN, card_line)
     return times
 
 
@@ -1006,7 +1051,7 @@ def main() -> int:
     hier_shape = dict(T=HIER_T, B=HIER_B, H=HIER_H, E=HIER_E, V=MUSIC_BENCH_V,
                       ticks_per_beat=HIER_TPB)
     # the work of each kernel at the shape its "ms" was timed at
-    work = {"reg": lambda bwd: kw.reg_loss(R_TRAIN, B_TRAIN, bwd),
+    work = {"reg": lambda bwd: times["reg"]["bwd_work" if bwd else "fwd_work"],
             "gru": lambda bwd: kw.gru_chain(*GRU_CASES[0], backward=bwd),
             "hier": lambda bwd: kw.hier_tick_chain(**hier_shape, backward=bwd)}
     # cuDNN's GRU layer whose projection is smallest (I=10) beside gru_chain
@@ -1021,7 +1066,8 @@ def main() -> int:
                 "max_abs_err": errs[key][direction == "bwd"],
                 "ms": t[direction], "plain_ms": t[f"{direction}_plain"],
                 "bound_ms": w.bound_ms, "bound_by": w.bound_by,
-                "library_ms": cudnn[f"cudnn_{direction}"] if key == "gru" else None}
+                "library_ms": cudnn[f"cudnn_{direction}"] if key == "gru" else None,
+                **({"events_ms": t[f"{direction}_events"]} if key == "reg" else {})}
 
     csrc = "arvae_tpu_torch/csrc/"
     kernels = [
@@ -1039,9 +1085,12 @@ def main() -> int:
               "arvae_tpu/ops/hier_decoder_pallas.py:563", music),
     ]
     for k in kernels:
-        print(f"[times] {k['name']}: {k['ms']:.5f} ms, bound {k['bound_ms']:.5f} ms "
+        print(f"[times] {k['name']}: {k['ms']:.5f} ms, bound {k['bound_ms']:.3g} ms "
               f"({k['bound_by']}, {100 * k['bound_ms'] / k['ms']:.1f}% of it), "
               f"{k['launches_per_step']:g} launches a step | {card_line}")
+    print("[times] the AR term's device launches a call (profiler): " + "; ".join(
+        f"{name} {kind} {n:g}" for (name, kind), n in times["ar_launches"].items())
+        + f" | {card_line}")
     print(json.dumps({"kernels": kernels}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

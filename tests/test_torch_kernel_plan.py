@@ -1,12 +1,15 @@
 """Launch plans of the cluster kernels of ``gru_chain`` and of the
 weight-gradient GEMM that both recurrence backwards run, computed on
 the CPU from the shapes: each fits 227 KB of shared memory, fills the
-card at the music step's B=256, and a plan too wide raises."""
+card at the music step's B=256, and a plan too wide raises. The AR
+regulariser's forward plan (a cluster a dim) covers every row in whole
+passes and runs in one wave of the clusters the card holds at once."""
 
 import pytest
 
 from arvae_tpu_torch.ops import gru_kernel as gk
 from arvae_tpu_torch.ops import hier_decoder_kernel as hk
+from arvae_tpu_torch.ops import reg_kernel as rk
 
 HS = (64, 128, 256)
 VS = (34, 130)
@@ -95,3 +98,48 @@ def test_hier_plan_too_wide_raises_naming_h_and_v(h):
     # 1.8 MB of shared memory of a cluster of 8 CTAs
     with pytest.raises(ValueError, match=f"H={h}, V=130"):
         hk.hier_plan(B, h, E, 130)
+
+
+# The AR regulariser's forward: a cluster of C CTAs a regularised dim
+
+# the dSprites and music steps, the card cases' ragged and large
+# batches, the most dims a call takes, and batches smaller than a cluster
+REG_SHAPES = [(5, 128), (4, 256), (5, 100), (3, 700), (2, 8192), (32, 128), (16, 128),
+              (1, 1), (3, 5), (1, 40_000)]
+
+
+@pytest.mark.parametrize("r,b", REG_SHAPES)
+def test_reg_plan_covers_every_row_in_whole_passes(r, b):
+    plan = rk.reg_plan(r, b)
+    c, rows, s, t = plan.clusters, plan.rows, plan.slices, plan.threads
+    assert plan.grid == (c, r) and plan.ctas == c * r
+    assert c in (1, 2, 4, 8) and c * rows >= b and (c - 1) * rows < b  # no idle CTA
+    assert t & (t - 1) == 0 and 32 <= t <= rk.MAX_THREADS
+    assert s & (s - 1) == 0 and s <= b and t % s == 0  # a pass of t items holds whole rows
+    assert rows * s <= t or s == 1
+    assert plan.waves == 1
+
+
+def test_reg_plan_at_the_step_shapes_keeps_every_thread_on_pairs():
+    # dSprites (R=5, B=128) and music (R=4, B=256): clusters of 8, one
+    # wave of the 15 the card holds, every thread a (row, slice) item
+    for (r, b), want in (((5, 128), (8, 16, 16, 256)), ((4, 256), (8, 32, 8, 256))):
+        plan = rk.reg_plan(r, b)
+        assert (plan.clusters, plan.rows, plan.slices, plan.threads) == want
+        assert plan.rows * plan.slices == plan.threads
+        assert r <= hk.RESIDENT_CLUSTERS[plan.clusters]
+
+
+def test_reg_plan_counts_waves_against_resident_clusters():
+    # 16 or 32 clusters of 8 need 2 or 3 waves of the 15 the card holds:
+    # smaller clusters keep them to one wave
+    assert rk.reg_plan(15, 128).clusters == 8
+    assert rk.reg_plan(16, 128).clusters == 4
+    plan = rk.reg_plan(32, 128)
+    assert (plan.clusters, plan.ctas, plan.waves) == (2, 64, 1)
+
+
+@pytest.mark.parametrize("r,b", [(0, 128), (rk.MAX_DIMS + 1, 128), (5, 0)])
+def test_reg_plan_refuses_what_the_kernel_does_not_take(r, b):
+    with pytest.raises(ValueError, match=f"R={r}, B={b}"):
+        rk.reg_plan(r, b)

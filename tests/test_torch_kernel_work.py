@@ -33,7 +33,17 @@ CASES = {
     "hier_flop_in_H": (lambda: kw.hier_flop_per_row_step(64, 10, 130),
                        2 * 10 * 192 + 6 * 64 * 192 + 2 * 64 * 130),
     "hier_flop_in_T_and_B": (lambda: _hier(T=12, B=100).flop, 335_872 * 12 * 100),
-    "reg_pairs": (lambda: kw.reg_loss(4, 256).flop, kw.REG_FWD_OPS_PER_PAIR * 4 * 256 ** 2),
+    "reg_pairs": (lambda: kw.reg_loss(4, 256, factors=False).flop,
+                  kw.REG_FWD_OPS_PER_PAIR * 4 * 256 ** 2),
+    "reg_fwd_with_factors": (lambda: kw.reg_loss(4, 256).flop,
+                             (kw.REG_FWD_OPS_PER_PAIR + kw.REG_FACTOR_OPS_PER_PAIR)
+                             * 4 * 256 ** 2),
+    "reg_factors_written": (lambda: kw.reg_loss(5, 128).bytes
+                            - kw.reg_loss(5, 128, factors=False).bytes, 4 * (5 * 128 + 5)),
+    "reg_bwd_is_a_scale": (lambda: kw.reg_loss(4, 256, backward=True).flop, 4 * 256 + 8),
+    "reg_bwd_writes_the_whole_gradient": (
+        lambda: kw.reg_loss(5, 128, backward=True, Z=10).bytes,
+        4 * (5 * 128 + 10 + 128 * 10 + 1)),
 }
 
 
@@ -61,6 +71,13 @@ def test_bounds_match_the_table(name):
     assert work.bound_ms == pytest.approx(bound_ms, rel=0.05)
     if mb is not None:
         assert work.bytes / 1e6 == pytest.approx(mb, rel=0.05)
+
+
+def test_reg_forward_is_bound_by_operations_and_backward_by_bytes():
+    for r, b in ((4, 256), (5, 128)):
+        assert kw.reg_loss(r, b).bound_by == "operations"
+        assert kw.reg_loss(r, b, factors=False).bound_by == "operations"
+        assert kw.reg_loss(r, b, backward=True, Z=32).bound_by == "bytes"
 
 
 def test_reg_is_a_few_kilobytes_and_under_a_microsecond():

@@ -188,9 +188,10 @@ def test_cpu_path_launches_no_kernel():
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
-    z = torch.randn(2, 8)
+    z = torch.randn(8, 2)
     d = torch.ones(1)
+    dims = ((0, 0), (1, 1))
     with pytest.raises(ValueError):
-        rk.reg_loss_fwd_cuda(z, z, d)
+        rk.reg_fwd_cuda(z, z, dims, d)
     with pytest.raises(ValueError):
-        rk.reg_loss_bwd_cuda(z, z, d, torch.ones(2))
+        rk.reg_bwd_cuda(z.t().contiguous(), torch.ones(2), torch.ones(2), dims, 2)
