@@ -9,6 +9,7 @@ semantics, so run dirs of the two packages share names.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import os
 from typing import Tuple
@@ -79,3 +80,10 @@ def expand_reg_dims(
     if len(reg_type) == 1 and reg_type[0] == "all":
         return tuple(v for k, v in attr_dict.items() if k not in skip)
     return tuple(attr_dict[r] for r in reg_type)
+
+
+def add_switch(p: argparse.ArgumentParser, on: str, off: str, dest: str,
+               default: bool, help: str) -> None:
+    """A ``--on/--off`` pair of CLI flags, as click writes one."""
+    p.add_argument(on, dest=dest, action="store_true", default=default, help=help)
+    p.add_argument(off, dest=dest, action="store_false")

@@ -185,8 +185,9 @@ class GRU(nn.Module):
         return [self.layer_params(i) for i in range(self.num_layers)]
 
     def forward(self, xs: torch.Tensor, h0: torch.Tensor,
-                generator: Optional[torch.Generator] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """xs (B, T, I), h0 (L*D, B, H) → (outputs (B, T, D*H), h_n)."""
-        return gru_forward(self.params(), xs, h0, self.bidirectional,
-                           self.dropout, generator, self.training)
+                generator: Optional[torch.Generator] = None,
+                train: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """xs (B, T, I), h0 (L*D, B, H) → (outputs (B, T, D*H), h_n).
+        ``train`` (dropout between layers) defaults to the module's mode."""
+        return gru_forward(self.params(), xs, h0, self.bidirectional, self.dropout,
+                           generator, self.training if train is None else train)

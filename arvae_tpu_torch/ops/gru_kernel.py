@@ -12,9 +12,11 @@ Gate math is torch-exact: ``n = tanh(i_n + r * (h w_hn + b_hn))``.
 
 On a CUDA tensor, :func:`gru_chain` launches the kernels of
 ``csrc/gru_chain.cu`` (forward in the autograd Function's forward,
-backward in its backward) or raises; on a CPU tensor it runs
-:func:`gru_chain_reference`, a Python loop over T whose backward is
-autograd through the loop. There is no fallback from one to the other.
+backward in its backward) or raises: where :func:`gru_plan` fits no
+direction (H too wide for 227 KB of shared memory) it raises before any
+launch. On a CPU tensor it runs :func:`gru_chain_reference`, a Python
+loop over T whose backward is autograd through the loop. There is no
+fallback from one to the other.
 
 What bounds it on the card: a T-long chain of dependent
 (rows x H) @ (H x 3H) products, small enough that latency, not bytes or
@@ -83,11 +85,6 @@ def gru_chain_reference(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor
         h = (1.0 - z) * n + z * h
         outs.append(h)
     return torch.stack(outs)
-
-
-# ---------------------------------------------------------------------------
-# Build and bind
-# ---------------------------------------------------------------------------
 
 
 # ---------------------------------------------------------------------------
@@ -293,8 +290,13 @@ class GruChainFn(torch.autograd.Function):
 def gru_chain(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
               h0: torch.Tensor) -> torch.Tensor:
     """Runs the full T-step recurrence → outs (T, D, B, H): the kernels
-    for CUDA tensors, the plain loop for CPU tensors."""
+    for CUDA tensors, the plain loop for CPU tensors. On a CUDA tensor
+    both directions' plans are made first, so a width no plan fits raises
+    before any launch."""
     if gi.is_cuda:
+        _, d, b, h = _dims(gi, w_hh, b_hh, h0)
+        gru_plan(d, b, h, backward=False)
+        gru_plan(d, b, h, backward=True)
         return GruChainFn.apply(gi.float().contiguous(), w_hh.float().contiguous(),
                                 b_hh.float().contiguous(), h0.float().contiguous())
     return gru_chain_reference(gi, w_hh, b_hh, h0)

@@ -8,18 +8,24 @@ argmax or Gumbel-max → teacher select → re-embed the fed token], as one
 launch forward and one (plus its fixed-order weight-gradient GEMMs)
 backward.
 
-On a CUDA tensor, :func:`hier_tick_chain` launches the kernels of
-``csrc/hier_tick_chain.cu`` or raises; on a CPU tensor it runs
-:func:`hier_tick_chain_reference`, a Python loop over T whose backward
-is autograd through the loop. There is no fallback from one to the
-other.
+On a CUDA tensor, :func:`tick_chain` launches the kernels of
+``csrc/hier_tick_chain.cu`` or raises: the kernels run a tick GRU of 2
+layers whose forward plan (:func:`hier_plan`) and backward chain plan
+(:func:`chain_plan`) fit 227 KB of shared memory, and
+:func:`hier_plans` raises ``ValueError``, naming H and L, before any
+launch where they do not. On a CPU tensor it runs
+:func:`tick_chain_reference`, a Python loop over T for any number of
+tick-GRU layers whose backward is autograd through the loop. There is
+no fallback from one to the other.
 
 Random bits: neither the TPU's in-kernel PRNG nor ``jax.random`` can be
 reproduced here, so both versions draw from one counter-based hash of
 ``(seed, t, salt, row, col)`` (salt 0 for dropout, 3571 for the Gumbel
 noise), written once in CUDA and once below with integer tensor ops:
 dropout masks of the kernel and of the plain version are bitwise equal.
-``seed`` is an int32 device tensor, drawn per step by the trainer.
+``seed`` is an int32 device tensor, drawn per step by the trainer. A
+plain loop of L layers draws the mask of the gap after layer l with
+salt l, so that its first gap's mask is the kernel's.
 
 What bounds it on the card: a 24-step chain of dependent small products
 with an argmax and a gather between steps, so latency. The forward runs
@@ -41,7 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -109,10 +115,10 @@ def uniform01(seed: torch.Tensor, t: int, salt: int, rows: int,
 
 
 def dropout_mask(seed: torch.Tensor, t: int, rows: int, cols: int,
-                 rate: float) -> torch.Tensor:
+                 rate: float, salt: int = SALT_DROPOUT) -> torch.Tensor:
     """Keep-and-scale mask of step t: 1/(1-rate) where kept, else 0."""
     keep = 1.0 - rate
-    return (uniform01(seed, t, SALT_DROPOUT, rows, cols) < keep).float() * (1.0 / keep)
+    return (uniform01(seed, t, salt, rows, cols) < keep).float() * (1.0 / keep)
 
 
 def gumbel(seed: torch.Tensor, t: int, rows: int, cols: int) -> torch.Tensor:
@@ -133,23 +139,25 @@ def argmax_lowest(scores: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def hier_tick_chain_reference(
+def tick_chain_reference(
     train: bool, dropout_rate: float, ticks_per_beat: int, sampling: str,
     teacher: torch.Tensor, seed: torch.Tensor, score: torch.Tensor,
-    gi_beat, tick_h0, x0, emb, w_ih0e, w_hh0, b_hh0, w_ih1, b_ih1, w_hh1, b_hh1,
+    gi_beat, tick_h0, x0, emb, w_ih0e, layers: Sequence[Dict[str, torch.Tensor]],
     out_w, out_b, hiddens: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
-    """The tick loop in Python. score (T, B) int; returns (weights
-    (T, B, V) relu logits, samples (T, B) int32 fed tokens), and with
-    ``hiddens`` both layers' hiddens in the chain layout the kernel saves
+    """The tick loop in Python, for an L-layer tick GRU. score (T, B)
+    int; tick_h0 (n_beats, L, B, H); ``layers`` the L layers' parameters
+    in the (I, 3H) layout (layer 0's ``w_hh``, ``b_hh``: its input
+    projection comes as ``w_ih0e`` and ``gi_beat``; the others' ``w_ih``,
+    ``b_ih``, ``w_hh``, ``b_hh``). Returns (weights (T, B, V) relu
+    logits, samples (T, B) int32 fed tokens), and with ``hiddens`` every
+    layer's hiddens in the chain layout the kernel saves
     (:func:`to_chain`)."""
     if sampling not in SAMPLING:
         raise NotImplementedError(f"sampling={sampling!r}; use {SAMPLING}")
     T, B = score.shape
-    H = w_hh0.shape[0]
+    H = layers[0]["w_hh"].shape[0]
     V = emb.shape[0]
-    layers = [{"w_hh": w_hh0, "b_hh": b_hh0},
-              {"w_ih": w_ih1, "b_ih": b_ih1, "w_hh": w_hh1, "b_hh": b_hh1}]
     use_teacher = teacher.reshape(()) != 0
     dropout = train and dropout_rate > 0.0
     h = tick_h0[0]
@@ -162,7 +170,8 @@ def hier_tick_chain_reference(
         if t % ticks_per_beat == 0:
             h = tick_h0[beat]
         gi0 = prev_emb @ w_ih0e + gi_beat[beat]
-        masks = [dropout_mask(seed, t, B, H, dropout_rate)] if dropout else None
+        masks = [dropout_mask(seed, t, B, H, dropout_rate, SALT_DROPOUT + gap)
+                 for gap in range(len(layers) - 1)] if dropout else None
         top, h = stacked_gru_step_from_gi(layers, gi0, h, masks)
         states.append(h)
         logits = torch.relu(top @ out_w + out_b)
@@ -173,10 +182,21 @@ def hier_tick_chain_reference(
         samples.append(tok.to(torch.int32))
         prev_emb = F.embedding(tok, emb)
     if hiddens:
-        hs = torch.stack(states)  # (T, 2, B, H)
+        hs = torch.stack(states)  # (T, L, B, H)
         return (torch.stack(weights), torch.stack(samples),
-                to_chain(hs[:, 0], ticks_per_beat), to_chain(hs[:, 1], ticks_per_beat))
+                *(to_chain(hs[:, i], ticks_per_beat) for i in range(len(layers))))
     return torch.stack(weights), torch.stack(samples)
+
+
+def chain_operands(floats: Sequence[torch.Tensor]) -> Tuple:
+    """The 13 float operands in the kernel's order (:data:`FLOAT_OPERANDS`,
+    the order its backward returns their gradients in) → the operands
+    :func:`tick_chain` and :func:`tick_chain_reference` take after
+    ``score``: (gi_beat, tick_h0, x0, emb, w_ih0e, layers, out_w, out_b)."""
+    gi_beat, tick_h0, x0, emb, w_ih0e, w_hh0, b_hh0, w_ih1, b_ih1, w_hh1, b_hh1, *out = floats
+    layers = [{"w_hh": w_hh0, "b_hh": b_hh0},
+              {"w_ih": w_ih1, "b_ih": b_ih1, "w_hh": w_hh1, "b_hh": b_hh1}]
+    return (gi_beat, tick_h0, x0, emb, w_ih0e, layers, *out)
 
 
 def to_chain(x: torch.Tensor, ticks_per_beat: int) -> torch.Tensor:
@@ -327,6 +347,17 @@ def chain_plan(T: int, B: int, H: int, ticks_per_beat: int) -> ChainPlan:
     """The backward's chain plan: ``gru_chain``'s cluster backward over
     n_beats·B rows."""
     return gru_plan(1, -(-T // ticks_per_beat) * B, H, True)
+
+
+def hier_plans(T: int, B: int, H: int, E: int, V: int, L: int,
+               ticks_per_beat: int) -> Tuple[ChainPlan, ChainPlan]:
+    """(forward plan, backward chain plan) of the tick loop's kernels at
+    these shapes; raises ValueError, naming H and L, where the kernels do
+    not run them: a tick GRU of other than 2 layers, or a width no plan
+    fits."""
+    if L != 2:
+        raise ValueError(f"H={H}, L={L}: the tick-loop kernels run a tick GRU of 2 layers")
+    return hier_plan(B, H, E, V), chain_plan(T, B, H, ticks_per_beat)
 
 
 # ---------------------------------------------------------------------------
@@ -505,24 +536,31 @@ class HierTickChainFn(torch.autograd.Function):
         return (None,) * 7 + grads
 
 
-def hier_tick_chain(seq_len: int, train: bool, dropout_rate: float,
-                    ticks_per_beat: int, sampling: str, teacher: torch.Tensor,
-                    seed: torch.Tensor, score: torch.Tensor, gi_beat, tick_h0, x0,
-                    emb, w_ih0e, w_hh0, b_hh0, w_ih1, b_ih1, w_hh1, b_hh1, out_w,
-                    out_b) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The fused T-step tick loop, in the JAX signature's operand order.
-    ``score`` is time-major (T, B); ``teacher`` and ``seed`` are (1,)
-    int32. Returns (weights (T, B, V) relu logits, samples (T, B) int32
-    fed tokens): the kernels for CUDA tensors, the plain loop for CPU."""
+def tick_chain(seq_len: int, train: bool, dropout_rate: float, ticks_per_beat: int,
+               sampling: str, teacher: torch.Tensor, seed: torch.Tensor,
+               score: torch.Tensor, gi_beat, tick_h0, x0, emb, w_ih0e,
+               layers: Sequence[Dict[str, torch.Tensor]], out_w,
+               out_b) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused T-step tick loop of an L-layer tick GRU (``layers`` as
+    :func:`tick_chain_reference` takes them). ``score`` is time-major
+    (T, B); ``teacher`` and ``seed`` are (1,) int32. Returns (weights
+    (T, B, V) relu logits, samples (T, B) int32 fed tokens): the kernels
+    for CUDA tensors, the plain loop for CPU tensors. On a CUDA tensor
+    :func:`hier_plans` runs first, so shapes the kernels do not run raise
+    before any launch."""
     if score.shape[0] != seq_len:
         raise ValueError(f"score has {score.shape[0]} steps, seq_len is {seq_len}")
-    floats = (gi_beat, tick_h0, x0, emb, w_ih0e, w_hh0, b_hh0, w_ih1, b_ih1,
-              w_hh1, b_hh1, out_w, out_b)
     if score.is_cuda:
+        T, B = score.shape
+        hier_plans(T, B, layers[0]["w_hh"].shape[0], x0.shape[-1], emb.shape[0],
+                   len(layers), ticks_per_beat)
+        l0, l1 = layers
+        floats = (gi_beat, tick_h0, x0, emb, w_ih0e, l0["w_hh"], l0["b_hh"], l1["w_ih"],
+                  l1["b_ih"], l1["w_hh"], l1["b_hh"], out_w, out_b)
         ints = (t.to(torch.int32).reshape(-1) for t in (teacher, seed))
         return HierTickChainFn.apply(
             bool(train), float(dropout_rate), int(ticks_per_beat), sampling, *ints,
-            score.to(torch.int32).contiguous(),
-            *(x.float().contiguous() for x in floats))
-    return hier_tick_chain_reference(train, dropout_rate, ticks_per_beat, sampling,
-                                     teacher, seed, score, *floats)
+            score.to(torch.int32).contiguous(), *(x.float().contiguous() for x in floats))
+    return tick_chain_reference(train, dropout_rate, ticks_per_beat, sampling, teacher,
+                                seed, score, gi_beat, tick_h0, x0, emb, w_ih0e, layers,
+                                out_w, out_b)

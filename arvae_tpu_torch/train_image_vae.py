@@ -7,7 +7,10 @@ supports. Run as a module:
         -r all --beta 1.0 --num_epochs 2 --batch_size 128
 
 ``--device`` defaults to ``cuda``; without a card the script raises
-unless ``--device cpu`` is given.
+unless ``--device cpu`` is given. ``--test`` restores the run's
+checkpoint instead of training (the eval metrics that follow in the JAX
+CLI are not ported yet); ``--log`` is accepted for the root CLI's sake
+and does nothing.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from arvae_tpu_torch.core.config import expand_reg_dims
+from arvae_tpu_torch.core.config import add_switch, expand_reg_dims
 from arvae_tpu_torch.data.dsprites import (FULL_FACTOR_SIZES,
                                            SHORT_FACTOR_SIZES, DspritesDataset)
 from arvae_tpu_torch.models.image_vae import DspritesVAE
@@ -42,17 +45,21 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="parameter for weighting regularization loss")
     p.add_argument("--delta", type=float, default=1.0,
                    help="parameter for controlling the spread")
-    p.add_argument("--resume", action="store_true",
-                   help="restore the run's checkpoint (params, optimizer "
-                        "state, step) before training")
+    p.add_argument("--dec_dist", default="bernoulli", choices=("bernoulli", "gaussian"),
+                   help="distribution of the decoder")
+    add_switch(p, "--train", "--test", "do_train", True,
+            "train (default) or, with --test, restore the run's checkpoint")
+    add_switch(p, "--log", "--no_log", "log", False,
+            "log the results for tensorboard (unused, API parity)")
+    add_switch(p, "--resume", "--no_resume", "resume", False,
+            "restore the run's checkpoint (params, optimizer state, step) "
+            "before training")
     p.add_argument("--rand", type=int, default=None,
                    help="random seed; without it seeds 0-9 are trained")
     p.add_argument("--reg_type", "-r", action="append", default=None,
                    help="attribute name to regularize (repeatable), or `all`")
-    p.add_argument("--short", dest="short", action="store_true", default=False,
-                   help="use the reduced dSprites factor grid for quick runs")
-    p.add_argument("--full", dest="short", action="store_false",
-                   help="use the full dSprites factor grid (default)")
+    add_switch(p, "--short", "--full", "short", False,
+            "use the reduced dSprites factor grid for quick runs (default: full)")
     p.add_argument("--device", default="cuda",
                    help="torch device; `cpu` must be asked for explicitly")
     return p.parse_args(argv)
@@ -99,12 +106,16 @@ def main(argv: Optional[Sequence[str]] = None) -> List[ImageVAETrainer]:
             gamma=args.gamma,
             capacity=args.capacity,
             delta=args.delta,
+            dec_dist=args.dec_dist,
             rand=r,
         )
         if args.resume:
             trainer.maybe_resume()
-        trainer.train_model(batch_size=args.batch_size,
-                            num_epochs=args.num_epochs)
+        if args.do_train:
+            trainer.train_model(batch_size=args.batch_size,
+                                num_epochs=args.num_epochs)
+        else:
+            trainer.load_model()
         trainers.append(trainer)
     return trainers
 

@@ -5,12 +5,15 @@ a module:
 
     python -m arvae_tpu_torch.train_measure_vae --rand 0 -r all --num_epochs 2
 
-``--device`` defaults to ``cuda``; without a card the script raises
-unless ``--device cpu`` is given. Not ported yet (each raises
-``NotImplementedError`` naming the ROADMAP): ``--glsr``,
-``--decoder_type sr|sr-no-input`` and ``--skip_cached``. The eval
-metrics, the test pass and the plots that follow training in the JAX
-CLI are not ported either; ``--test`` restores the checkpoint only.
+``--decoder_type`` picks the decoder (``hier``, ``sr``, ``sr-no-input``)
+and ``--glsr`` trains with the GLSR regulariser in place of the AR term,
+on one attribute with a differentiable surrogate (``rhy_complexity`` or
+``note_density``; ``-r all`` or none picks ``rhy_complexity``), as the
+root CLI does. ``--device`` defaults to ``cuda``; without a card the
+script raises unless ``--device cpu`` is given. ``--skip_cached`` raises
+``NotImplementedError`` naming the ROADMAP: it needs the eval metrics,
+which are not ported yet, nor are the test pass and the plots that
+follow training in the JAX CLI; ``--test`` restores the checkpoint only.
 """
 
 from __future__ import annotations
@@ -20,11 +23,15 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from arvae_tpu_torch.core.config import expand_reg_dims
+from arvae_tpu_torch.core.config import add_switch, expand_reg_dims
 from arvae_tpu_torch.data.attributes import MUSIC_REG_TYPE
 from arvae_tpu_torch.data.bar_dataset import ChoraleNBarDataset, FolkNBarDataset
 from arvae_tpu_torch.models.measure_vae import MeasureVAE
+from arvae_tpu_torch.training.glsr_trainer import MeasureVAETrainerGLSR
 from arvae_tpu_torch.training.measure_trainer import MeasureVAETrainer
+
+# GLSR's differentiable surrogates, by the CLI's attribute name
+GLSR_SUPPORTED = {"rhy_complexity": "rhy_complexity", "note_density": "num_notes"}
 
 
 def _bool(s: str) -> bool:
@@ -33,12 +40,6 @@ def _bool(s: str) -> bool:
     if s.lower() in ("0", "false", "no"):
         return False
     raise argparse.ArgumentTypeError(f"expected a boolean, got {s!r}")
-
-
-def _switch(p: argparse.ArgumentParser, on: str, off: str, dest: str,
-            default: bool, help: str) -> None:
-    p.add_argument(on, dest=dest, action="store_true", default=default, help=help)
-    p.add_argument(off, dest=dest, action="store_false")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -66,7 +67,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--decoder_dropout_prob", type=float, default=0.5,
                    help="dropout prob between decoder RNN layers")
     p.add_argument("--decoder_type", default="hier", choices=("hier", "sr", "sr-no-input"),
-                   help="decoder variant; the port supports `hier`")
+                   help="decoder variant")
     p.add_argument("--batch_size", type=int, default=256, help="training batch size")
     p.add_argument("--num_epochs", type=int, default=30, help="number of training epochs")
     p.add_argument("--lr", type=float, default=1e-4, help="learning rate")
@@ -74,44 +75,54 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--capacity", type=float, default=0.0, help="beta-VAE capacity")
     p.add_argument("--gamma", type=float, default=1.0, help="weight for the reg loss")
     p.add_argument("--delta", type=float, default=10.0, help="spread parameter")
-    _switch(p, "--train", "--test", "do_train", True,
+    add_switch(p, "--train", "--test", "do_train", True,
             "train (default) or, with --test, restore the run's checkpoint")
-    _switch(p, "--log", "--no_log", "log", False,
+    add_switch(p, "--log", "--no_log", "log", False,
             "log the results for tensorboard (unused, API parity)")
-    _switch(p, "--resume", "--no_resume", "resume", False,
+    add_switch(p, "--resume", "--no_resume", "resume", False,
             "restore the run's checkpoint (params, optimizer state, step) "
             "before training")
     p.add_argument("--rand", type=int, default=None,
                    help="random seed; without it seeds 0-9 are trained")
     p.add_argument("--reg_type", "-r", action="append", default=None,
                    help="attribute name(s) used for regularization, or `all`")
-    _switch(p, "--short", "--full", "short", False,
+    add_switch(p, "--short", "--full", "short", False,
             "use the small synthetic corpus for quick runs")
     p.add_argument("--sampling", default="argmax", choices=("argmax", "multinomial"),
                    help="free-running feedback sampling in the decoder")
-    _switch(p, "--glsr", "--no_glsr", "use_glsr", False,
-            "train with GLSR instead of the AR reg loss (not ported yet)")
-    _switch(p, "--skip_cached", "--no_skip_cached", "skip_cached", False,
+    add_switch(p, "--glsr", "--no_glsr", "use_glsr", False,
+            "train with GLSR instead of the AR reg loss")
+    add_switch(p, "--skip_cached", "--no_skip_cached", "skip_cached", False,
             "skip seeds with a protocol-stamped results cache (not ported yet)")
     p.add_argument("--device", default="cuda",
                    help="torch device; `cpu` must be asked for explicitly")
     return p.parse_args(argv)
 
 
+def glsr_reg_type(reg_type: Sequence[str]) -> str:
+    """The one attribute ``--glsr`` regularises, by the root CLI's rules:
+    a single name with a surrogate; ``-r all`` or none means
+    ``rhy_complexity``."""
+    if reg_type and reg_type[0] != "all" and (len(reg_type) > 1
+                                              or reg_type[0] not in GLSR_SUPPORTED):
+        raise ValueError("--glsr takes a single reg type with a differentiable "
+                         f"surrogate: {sorted(GLSR_SUPPORTED)}")
+    if reg_type and reg_type[0] == "all" and len(reg_type) > 1:
+        raise ValueError("--glsr: pass either -r all or a single supported reg type, "
+                         "not both")
+    if not reg_type or reg_type[0] == "all":
+        print("--glsr regularizes one attribute; defaulting to rhy_complexity")
+        return "rhy_complexity"
+    return reg_type[0]
+
+
 def main(argv: Optional[Sequence[str]] = None) -> List[MeasureVAETrainer]:
     """Runs the CLI; returns the trainers, one per seed."""
     args = parse_args(argv)
-    if args.use_glsr:
-        raise NotImplementedError(
-            "--glsr: the GLSR trainer is not ported yet (ROADMAP Queue A)")
     if args.skip_cached:
         raise NotImplementedError(
             "--skip_cached: the results cache (eval metrics) is not ported yet "
             "(ROADMAP Queue A)")
-    if args.decoder_type != "hier":
-        raise NotImplementedError(
-            f"--decoder_type {args.decoder_type}: the SR decoders are not ported "
-            "yet (ROADMAP Queue A); use hier")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu to "
@@ -133,6 +144,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[MeasureVAETrainer]:
         reg_dim = expand_reg_dims(reg_type, MUSIC_REG_TYPE)
     else:
         reg_dim = (0,)
+    glsr_type = glsr_reg_type(reg_type) if args.use_glsr else None
 
     seeds = range(0, 10) if args.rand is None else [args.rand]
     trainers = []
@@ -151,19 +163,32 @@ def main(argv: Optional[Sequence[str]] = None) -> List[MeasureVAETrainer]:
             sampling=args.sampling,
             seed=r,
         )
-        trainer = MeasureVAETrainer(
-            dataset=dataset,
-            model=model,
-            device=device,
-            lr=args.lr,
-            reg_type=reg_type,
-            reg_dim=reg_dim,
-            beta=args.beta,
-            capacity=args.capacity,
-            gamma=args.gamma,
-            delta=args.delta,
-            rand=r,
-        )
+        if glsr_type is not None:
+            trainer = MeasureVAETrainerGLSR(
+                dataset=dataset,
+                model=model,
+                device=device,
+                lr=args.lr,
+                reg_type=GLSR_SUPPORTED[glsr_type],
+                reg_dim=MUSIC_REG_TYPE[glsr_type],
+                beta=args.beta,
+                gamma=args.gamma,
+                rand=r,
+            )
+        else:
+            trainer = MeasureVAETrainer(
+                dataset=dataset,
+                model=model,
+                device=device,
+                lr=args.lr,
+                reg_type=reg_type,
+                reg_dim=reg_dim,
+                beta=args.beta,
+                capacity=args.capacity,
+                gamma=args.gamma,
+                delta=args.delta,
+                rand=r,
+            )
         print("run_dir:", trainer.run_dir, flush=True)
         if args.resume:
             trainer.maybe_resume()

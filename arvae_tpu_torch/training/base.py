@@ -152,7 +152,7 @@ class BaseTrainer(abc.ABC):
             self._train_protocol or {"num_epochs": None, "batch_size": None})
         ds = self.dataset
         p["dataset"] = type(ds).__name__
-        for attr in ("factor_sizes", "is_short", "n_bars"):
+        for attr in ("factor_sizes", "is_short", "n_bars", "class_name"):
             v = getattr(ds, attr, None)
             if v is not None:
                 p[attr] = list(v) if isinstance(v, tuple) else v

@@ -54,6 +54,7 @@ class ImageVAETrainer(BaseTrainer):
         capacity: float = 0.0,
         rand: int = 0,
         delta: float = 1.0,
+        dec_dist: str = "bernoulli",
     ):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -63,6 +64,7 @@ class ImageVAETrainer(BaseTrainer):
             capacity=capacity,
             gamma=gamma,
             delta=delta,
+            dec_dist=dec_dist,
             rand=rand,
             reg_type=tuple(reg_type or ()),
             reg_dim=normalize_reg_dim(reg_dim, reg_type),

@@ -31,6 +31,9 @@ from arvae_tpu_torch.ops.losses import (kld_loss, token_accuracy,
                                         token_cross_entropy_loss, total_reg_loss)
 from arvae_tpu_torch.training.base import BaseTrainer
 
+# The run-dir tag of each decoder type.
+DECODER_TAGS = {"hier": "", "sr": "_SRDecoder", "sr-no-input": "_SRDecoderNoInput"}
+
 
 class MeasureVAETrainer(BaseTrainer):
 
@@ -86,7 +89,11 @@ class MeasureVAETrainer(BaseTrainer):
         self.reg_pairs = tuple((d, d) for d in hp.reg_dim)
 
     def model_repr(self) -> str:
-        tag = "" if self.model.sampling == "argmax" else "_" + self.model.sampling
+        # decoder variants and sampling modes get run dirs of their own,
+        # as in the JAX package
+        tag = DECODER_TAGS[self.model.decoder_type]
+        if self.model.sampling != "argmax":
+            tag += "_" + self.model.sampling
         return (self.dataset_type + "_MeasureVAE" + tag
                 + trainer_config_string(self.hparams))
 

@@ -2,7 +2,11 @@
 
 The exact inverses of ``convert_dsprites_vae`` and
 ``convert_measure_vae`` in ``arvae_tpu/utils/torch_convert.py``, so a
-test can load the same weights into both packages. Per layer kind:
+test can load the same weights into both packages. That module maps the
+hierarchical decoder only; for the SR decoders the port's parameters
+carry the Flax tree's names (``decoder.z2in1.weight`` is ``z2in1_w``
+transposed, ``decoder.gru.*`` is ``gru``), so their conversion here is
+the same per-kind mapping. Per layer kind:
 
 - conv kernels: flax HWIO → torch OIHW;
 - transposed-conv kernels: flax HWIO → torch IOHW, spatially rotated
@@ -110,25 +114,46 @@ def _dense(p: Mapping[str, Any], name: str, prefix: str) -> Dict[str, torch.Tens
     }
 
 
+def _decoder_from_flax(dec: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Any of the three decoders, told apart by their parameter trees:
+    ``tick_gru`` (hierarchical), ``z2in1_w`` (SR), ``z2in_w`` (SR without
+    input)."""
+    if "tick_gru" in dec:
+        sd = {"decoder.note_embedding_layer.weight": _t(np.asarray(dec["embedding"])),
+              "decoder.b_0": _t(np.asarray(dec["b_0"])),
+              "decoder.x_0": _t(np.asarray(dec["x_0"]))}
+        sd.update(_dense(dec, "z2beat", "decoder.z_to_beat_rnn_input.0"))
+        sd.update(_gru(dec["beat_gru"], "decoder.rnn_beat", bidirectional=False))
+        sd.update(_dense(dec, "beat2tickh", "decoder.beat_emb_to_tick_rnn_hidden.0"))
+        sd.update(_dense(dec, "beat2ticki", "decoder.beat_emb_to_tick_rnn_input.0"))
+        sd.update(_gru(dec["tick_gru"], "decoder.rnn_tick", bidirectional=False))
+        sd.update(_dense(dec, "out", "decoder.tick_emb_to_note_emb.0"))
+        return sd
+    sd = _gru(dec["gru"], "decoder.gru", bidirectional=False)
+    sd.update(_dense(dec, "out", "decoder.out"))
+    if "z2in1_w" in dec:
+        sd["decoder.embedding.weight"] = _t(np.asarray(dec["embedding"]))
+        sd["decoder.x_0"] = _t(np.asarray(dec["x_0"]))
+        sd.update(_dense(dec, "z2in1", "decoder.z2in1"))
+        sd.update(_dense(dec, "z2in2", "decoder.z2in2"))
+    else:
+        sd.update(_dense(dec, "z2in", "decoder.z2in"))
+    return sd
+
+
 def measure_vae_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax ``MeasureVAE`` params (hierarchical decoder) → ``state_dict``
-    of the port's model, under the reference PyTorch module's names."""
-    enc, dec = params["encoder"], params["decoder"]
+    """Flax ``MeasureVAE`` params (any decoder type, any number of
+    layers) → ``state_dict`` of the port's model: the encoder and the
+    hierarchical decoder under the reference PyTorch module's names, the
+    SR decoders under the Flax tree's."""
+    enc = params["encoder"]
     sd: Dict[str, torch.Tensor] = {
         "encoder.note_embedding_layer.weight": _t(np.asarray(enc["embedding"])),
-        "decoder.note_embedding_layer.weight": _t(np.asarray(dec["embedding"])),
-        "decoder.b_0": _t(np.asarray(dec["b_0"])),
-        "decoder.x_0": _t(np.asarray(dec["x_0"])),
     }
     sd.update(_gru(enc["gru"], "encoder.lstm", bidirectional=True))
     sd.update(_dense(enc, "mean1", "encoder.linear_mean.0"))
     sd.update(_dense(enc, "mean2", "encoder.linear_mean.2"))
     sd.update(_dense(enc, "std1", "encoder.linear_log_std.0"))
     sd.update(_dense(enc, "std2", "encoder.linear_log_std.2"))
-    sd.update(_dense(dec, "z2beat", "decoder.z_to_beat_rnn_input.0"))
-    sd.update(_gru(dec["beat_gru"], "decoder.rnn_beat", bidirectional=False))
-    sd.update(_dense(dec, "beat2tickh", "decoder.beat_emb_to_tick_rnn_hidden.0"))
-    sd.update(_dense(dec, "beat2ticki", "decoder.beat_emb_to_tick_rnn_input.0"))
-    sd.update(_gru(dec["tick_gru"], "decoder.rnn_tick", bidirectional=False))
-    sd.update(_dense(dec, "out", "decoder.tick_emb_to_note_emb.0"))
+    sd.update(_decoder_from_flax(params["decoder"]))
     return sd

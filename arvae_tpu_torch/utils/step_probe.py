@@ -57,17 +57,14 @@ def card() -> str:
 
 def device_events(prof):
     """The kernel, memcpy and memset intervals of a ``torch.profiler``
-    run, from its exported trace; raises if there is none."""
+    run, from its exported trace (empty when CUPTI delivered none)."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    device = [e for e in events if e.get("ph") == "X"
-              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    if not device:
-        raise AssertionError("the profiler recorded no device activity")
-    return device
+    return [e for e in events if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
 
 
 def union_us(intervals):
@@ -86,30 +83,79 @@ def short_name(name):
     return name.split("(")[0][:60]
 
 
+# The port's kernels by short name, each launched a fixed number of
+# times by one call of a wrapper: (ops module, its LAUNCHES key, kernels
+# a call). The tick loop's backward runs each of its two layers through
+# the GRU chain's cluster backward.
+ENTRY_KERNELS = {
+    "reg_fwd": (("reg_kernel", "fwd", 1),),
+    "reg_bwd": (("reg_kernel", "bwd", 1),),
+    "gru_fwd": (("gru_kernel", "fwd", 1),),
+    "gru_bwd": (("gru_kernel", "bwd", 1), ("hier_decoder_kernel", "bwd", 2)),
+    "hier_fwd": (("hier_decoder_kernel", "fwd", 1),),
+    "hier_bwd_prep": (("hier_decoder_kernel", "bwd", 1),),
+}
+
+
+def _launch_counts():
+    """{(module, key): count} of the port's wrapper launch counters."""
+    import importlib
+
+    return {(m, k): v for m in ("reg_kernel", "gru_kernel", "hier_decoder_kernel")
+            for k, v in importlib.import_module(f"arvae_tpu_torch.ops.{m}").LAUNCHES.items()}
+
+
+# Device cycles of the spin kernel that opens and closes each profiled
+# window (about 25 ms on an H100): the profiler keeps a device record
+# only if it falls inside the host clock's window once converted, and a
+# kernel that ends just before the closing sync can land past it.
+PAD_CYCLES = 50_000_000
+
+
 def call_events(fn, calls, attempts=5):
-    """The device events of ``calls`` calls of ``fn`` after two warm ones,
-    from a run in which every kernel's record count is a multiple of
-    ``calls``. CUPTI now and then loses a record (a kernel seen 19 times
-    in 20 calls) but never adds one, so such a run is profiled again, up
-    to ``attempts`` runs; a call that really varies what it launches
-    gives the last run's records, whose counts the caller then rejects."""
-    from torch.profiler import ProfilerActivity, profile
+    """The device events of ``calls`` calls of ``fn`` after two warm ones
+    and a traced warm-up step, from a profiled run whose records of the
+    port's kernels (``ENTRY_KERNELS``) equal, kernel by kernel, what the
+    wrappers' ``LAUNCHES`` counters say they launched in the same window.
+    The calls run between two spin kernels (``PAD_CYCLES``), left out of
+    the events, so that none of theirs sits at an edge of the window.
+    CUPTI now and then loses records (a kernel seen 19 times in 20 calls)
+    but never adds one, so a run that disagrees is profiled again, up to
+    ``attempts`` runs; raises if none agrees."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
+    seen = []
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            before = _launch_counts()
+            torch.cuda._sleep(PAD_CYCLES)
             for _ in range(calls):
                 fn()
+            torch.cuda._sleep(PAD_CYCLES)
             torch.cuda.synchronize()
-        events = device_events(prof)
-        counts = {}
+            after = _launch_counts()
+            prof.step()
+        events = [e for e in device_events(prof) if "spin_kernel" not in e["name"]]
+        recorded = {}
         for e in events:
-            counts[short_name(e["name"])] = counts.get(short_name(e["name"]), 0) + 1
-        if all(k % calls == 0 for k in counts.values()):
-            break
-    return events
+            base = short_name(e["name"]).split("<")[0]
+            if base in ENTRY_KERNELS:
+                recorded[base] = recorded.get(base, 0) + 1
+        expected = {n: sum(c * (after[(m, k)] - before[(m, k)]) for m, k, c in parts)
+                    for n, parts in ENTRY_KERNELS.items()}
+        expected = {n: c for n, c in expected.items() if c}
+        if events and recorded == expected:
+            return events
+        seen.append((recorded, expected))
+    raise AssertionError(f"no profiled run of {calls} calls recorded the port's kernels the "
+                         f"launch counters count (recorded, counted): {seen}")
 
 
 def profile_calls(fn, calls):
@@ -183,20 +229,14 @@ def reg_pair(dev, r, b):
 def step_profile(step, steps=50):
     """(device busy ms a step, device events a step, host-clock ms a step
     of ``steps`` unprofiled steps just before, {kernel: device µs a
-    step}) over ``steps`` profiled steps."""
-    from torch.profiler import ProfilerActivity, profile
-
+    step}) over ``steps`` profiled steps (``call_events``)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
         step()
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0) / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-    device = device_events(prof)
+    device = call_events(step, steps)
     busy_ms = union_us([(e["ts"], e["ts"] + e["dur"]) for e in device]) / 1e3 / steps
     by_name = {}
     for e in device:

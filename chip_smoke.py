@@ -28,9 +28,12 @@ and the script exits non-zero:
    training with dropout 0.5 (the case matches only if the masks are
    bitwise equal to the plain version's) and multinomial (in
    distribution), then teacher-forced at a ragged B=100, with one beat
-   of T ticks and with 5 ticks a beat (a padded last beat), and two
-   argmax edges (a tie across two CTAs' vocabulary slices, a NaN logit);
-   the cluster plans of both recurrence kernels are printed;
+   of T ticks and with 5 ticks a beat (a padded last beat), in eval mode
+   (``train=False``, as GLSR's decodes run it) at 6 and 24 ticks a beat,
+   where a dropout rate must change nothing, and two argmax edges (a tie
+   across two CTAs' vocabulary slices, a NaN logit); ``gru_chain`` also at
+   SRDecoderNoInput's (24, 1, 256, 128); the cluster plans of both
+   recurrence kernels are printed, and the SR decoder's plans;
 4. slice 1: the dSprites training CLI in-process (short grid, B=128, 2
    epochs); the loss must be finite and fall, the reg kernels must have
    launched once per forward and once per backward, and the trained
@@ -39,9 +42,26 @@ and the script exits non-zero:
    folk corpus, B=256, H=128, latent 32, ``-r all``, 2 epochs): the loss
    must be finite and fall, a checkpoint must be written, every kernel
    of the path must have launched once per forward (``gru_chain`` four
-   times) and once per backward, and the trained model on one val batch,
+   times) and once per backward, one train step run twice from the same
+   parameters, Adam state and draws must give bitwise-equal gradients
+   and parameters, and the trained model on one val batch,
    teacher-forced with injected draws, must match the CPU plain path;
-6. times: each kernel against its plain version (CUDA events) at the
+6. slice 3: the music training CLI in-process with ``--decoder_type sr``,
+   ``--decoder_type sr-no-input`` (both ``-r all``) and ``--glsr -r
+   rhy_complexity``, each on the ``--full`` corpus for 2 epochs at the
+   CLI's default width: the loss must be finite and fall, a checkpoint
+   must be written, every kernel must have launched the counts a step
+   the code gives (``VARIANT_LAUNCHES``), one train step run twice from
+   the same state and draws must repeat bitwise; each variant's train
+   step is timed and profiled, and then the model the CLI trained, on
+   one val batch, teacher-forced, must match the CPU plain path (for
+   GLSR also its term row by row within ``GLSR_ROW_RTOL``); the
+   encoder's embedding gradient, as ``nn.Embedding`` and as the one-hot
+   product the encoder uses, is run five times (the product must repeat
+   bitwise); then a HierarchicalDecoder at H=256 and one with 3 tick-GRU
+   layers must be refused on the card (ValueError naming H, and L,
+   before any tick-loop launch) and run forward and backward on the CPU;
+7. times: each kernel against its plain version (CUDA events) at the
    slices' shapes, and each reg direction's device time from
    ``torch.profiler`` (the events follow the host there), also at
    (R, B) = (2, 8192); the AR term's device launches a train and an
@@ -58,8 +78,9 @@ and the script exits non-zero:
    (``arvae_tpu_torch/utils/kernel_work.py``) and launches per step are
    printed beside its time.
 
-Launch counts are set to 0 just before each slice and read just after
-it; the comparisons of phase 3 do not count. The line before the last
+Launch counts are set to 0 just before each slice (and each variant of
+slice 3) and read just after it; the comparisons of phase 3 do not
+count. The line before the last
 is the card's name and power limit as ``nvidia-smi`` prints them, the
 one before it a JSON object listing every kernel; the last line is a
 JSON object ``{"ok": true, "device": {...}}``.
@@ -114,10 +135,11 @@ REG_COLUMN_CASES = {
 # sum T·B terms with cancellation.
 SEQ_FWD_RTOL, SEQ_FWD_ATOL = 1e-4, 1e-5
 SEQ_GRAD_RTOL, SEQ_GRAD_ATOL_FRAC = 1e-4, 1e-5
-# the encoder layer's and the beat GRU layer's shapes, a ragged batch, and
-# a second hidden width (the cluster kernels split H over their CTAs)
-GRU_CASES = [(24, 2, 256, 128), (4, 1, 256, 128), (24, 2, 100, 128), (24, 2, 256, 64),
-             (4, 1, 256, 64)]
+# the encoder layer's and the beat GRU layer's shapes, SRDecoderNoInput's
+# layer (one direction over 24 steps), a ragged batch, and a second hidden
+# width (the cluster kernels split H over their CTAs)
+GRU_CASES = [(24, 2, 256, 128), (4, 1, 256, 128), (24, 1, 256, 128), (24, 2, 100, 128),
+             (24, 2, 256, 64), (4, 1, 256, 64)]
 # V=34 is the music CLI's synthetic folk corpus, V=130 the step-rate
 # cell's vocabulary: V sets the kernels' shared-memory layout, the argmax
 # loop and the output-layer and embedding weight-gradient GEMM tiles.
@@ -423,8 +445,8 @@ def _hier_plain_run(cfg, teacher, seed, score, floats, ct=None):
 
     train, rate, sampling, tpb = (*cfg, HIER_TPB)[:4]
     leaves = [f.clone().requires_grad_(ct is not None) for f in floats]
-    weights, samples = hk.hier_tick_chain_reference(train, rate, tpb, sampling,
-                                                    teacher, seed, score, *leaves)
+    weights, samples = hk.tick_chain_reference(train, rate, tpb, sampling, teacher, seed,
+                                               score, *hk.chain_operands(leaves))
     if ct is None:
         return weights, samples
     (weights * ct).sum().backward()
@@ -471,6 +493,10 @@ def _hier_plans():
                   f"{p.smem_bytes} B dynamic shared memory each; the card holds {held} such "
                   f"clusters at once (the plan assumes "
                   f"{hk.RESIDENT_CLUSTERS[p.clusters]})")
+    for v in HIER_VS:
+        fwd, bwd = hk.hier_plans(HIER_T, HIER_B, HIER_H, HIER_E, v, 2, HIER_T)
+        print(f"[kernels] SRDecoder's tick loop (B={HIER_B}, H={HIER_H}, E={HIER_E}, V={v}, one "
+              f"beat of {HIER_T} ticks): fwd plan {fwd}, bwd chain plan {bwd}")
     for tpb in (HIER_TPB, HIER_T, HIER_PADDED_TPB):
         p = hk.chain_plan(HIER_T, HIER_B, HIER_H, tpb)
         print(f"[kernels] hier_tick_chain bwd chain plan at (T={HIER_T}, B={HIER_B}, "
@@ -490,8 +516,37 @@ def _hier_kernels(dev):
         _, *e = _hier_compare(f"hier_tick_chain teacher-forced ({shape})",
                               (True, 0.0, "argmax", tpb), forced, forced, floats, ct)
         errs.append(e)
+    # eval mode (train=False: free-running argmax, no dropout), as GLSR
+    # differentiates its decodes: the hierarchical decoder's and the SR
+    # decoder's ticks a beat
+    for v in HIER_VS:
+        for tpb in (HIER_TPB, HIER_T):
+            errs.append(_hier_eval_case(dev, v, tpb))
     _hier_argmax_edges(dev, v)
     return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def _hier_eval_case(dev, v, tpb):
+    """The kernels with ``train=False`` and a dropout rate of 0.5, which
+    eval must ignore: bitwise equal to rate 0, samples the argmax of their
+    own logits, and the plain version by the teacher trick."""
+    from arvae_tpu_torch.ops import hier_decoder_kernel as hk
+
+    score, floats, ct = _hier_inputs(dev, 11, v, tpb=tpb)
+    shape = f"B={HIER_B}, H={HIER_H}, E={HIER_E}, V={v}, T={HIER_T}, {tpb} ticks a beat"
+    free = _ints(0, 3, dev) + (score,)
+    kernel = _hier_kernel_run("hier eval", (False, 0.5, "argmax", tpb), *free, floats, ct)
+    no_rate = _hier_kernel_run("hier eval", (False, 0.0, "argmax", tpb), *free, floats, ct)
+    _check_repeat(f"hier eval, rate 0.5 vs 0 ({shape})", kernel, no_rate)
+    w_k, s_k = kernel[:2]
+    if not torch.equal(s_k, hk.argmax_lowest(w_k).clamp(0, v - 1).to(torch.int32)):
+        raise AssertionError(f"hier eval ({shape}): samples are not the argmax of the logits")
+    _, *e = _hier_compare(f"hier_tick_chain eval mode, free-running, teacher trick ({shape})",
+                          (False, 0.5, "argmax", tpb), free, _ints(1, 3, dev) + (s_k,),
+                          floats, ct)
+    print(f"[kernels] hier_tick_chain eval mode ({shape}): a dropout rate of 0.5 gives the "
+          f"rate-0 launches bitwise; max abs err fwd {e[0]:.3e}, bwd {e[1]:.3e}")
+    return e
 
 
 def _hier_argmax_edges(dev, v):
@@ -685,6 +740,77 @@ def _teacher_forced_metrics(trainer, batch, noise):
         return trainer._loss_fn(batch, noise)[1]
 
 
+def _trainer_state(trainer):
+    """A copy of the trainer's parameters, Adam state and step count."""
+    return copy.deepcopy({"model": trainer.model.state_dict(),
+                          "optimizer": trainer.optimizer.state_dict(), "step": trainer.step})
+
+
+def _load_trainer_state(trainer, state):
+    trainer.model.load_state_dict(state["model"])
+    # a copy: Adam then updates its moments in place, and would update
+    # the ones in ``state``
+    trainer.optimizer.load_state_dict(copy.deepcopy(state["optimizer"]))
+    trainer.step = state["step"]
+
+
+def _step_repeats(tag, trainer, batch):
+    """One train step twice from the same parameters, Adam state and
+    draws: the loss, every gradient and every updated parameter must be
+    bitwise equal. Leaves the trainer as it found it."""
+    from arvae_tpu_torch.models.measure_vae import draw_measure_noise
+    from arvae_tpu_torch.training.glsr_trainer import GLSRNoise, MeasureVAETrainerGLSR
+
+    dev, b = trainer.device, batch[0].shape[0]
+    state = _trainer_state(trainer)
+    runs = []
+    for _ in range(2):
+        _load_trainer_state(trainer, state)
+        gen = torch.Generator(dev).manual_seed(11)
+        noise = draw_measure_noise(b, trainer.model.latent_space_dim, gen, dev)
+        if isinstance(trainer, MeasureVAETrainerGLSR):
+            noise = GLSRNoise(noise, torch.rand(b, generator=gen, device=dev))
+        out = {"loss": trainer.train_step(batch, noise)["loss"]}
+        for n, p in trainer.model.named_parameters():
+            out[f"d{n}"] = p.grad.clone()
+            out[n] = p.detach().clone()
+        runs.append(out)
+    _load_trainer_state(trainer, state)
+    differ = [k for k in runs[0] if not torch.equal(runs[0][k], runs[1][k])]
+    if differ:
+        raise AssertionError(f"{tag}: one train step from the same state gave other bits "
+                             f"in a second run: {differ}")
+    print(f"[repeat] {tag}: one train step from the same parameters, Adam state and draws, "
+          f"twice: the loss, all {(len(runs[0]) - 1) // 2} gradients and updated parameters "
+          f"bitwise equal")
+
+
+def _embedding_repeats(dev, num_notes):
+    """The encoder's embedding at the music step's shape, (B, 24) ids into
+    a (V, 10) table, backward five times under one cotangent, as
+    nn.Embedding computes it and as the one-hot product the encoder uses:
+    whether each gradient repeats bitwise. The one-hot product must."""
+    rng = np.random.RandomState(13)
+    ids = torch.tensor(rng.randint(0, num_notes, (MUSIC_B, HIER_T)), device=dev)
+    table = torch.tensor(rng.randn(num_notes, HIER_E), dtype=torch.float32, device=dev)
+    ct = torch.tensor(rng.randn(MUSIC_B, HIER_T, HIER_E), dtype=torch.float32, device=dev)
+    forms = {"nn.Embedding": lambda w: torch.nn.functional.embedding(ids, w),
+             "one-hot product": lambda w: torch.nn.functional.one_hot(ids, num_notes).float() @ w}
+    repeats = {}
+    for name, fn in forms.items():
+        grads = []
+        for _ in range(5):
+            w = table.clone().requires_grad_(True)
+            (fn(w) * ct).sum().backward()
+            grads.append(w.grad)
+        repeats[name] = all(torch.equal(g, grads[0]) for g in grads)
+    if not repeats["one-hot product"]:
+        raise AssertionError("the one-hot embedding's gradient does not repeat bitwise")
+    print(f"[repeat] embedding gradient at (B={MUSIC_B}, T={HIER_T}, V={num_notes}, "
+          f"E={HIER_E}), five backward runs bitwise equal: "
+          + ", ".join(f"{n} {r}" for n, r in repeats.items()))
+
+
 def phase_music_slice():
     from arvae_tpu_torch import train_measure_vae
     from arvae_tpu_torch.models.measure_vae import draw_measure_noise
@@ -714,7 +840,8 @@ def phase_music_slice():
     # the trained model on one val batch, teacher-forced with injected
     # draws: card (kernels) vs CPU (plain loops)
     dev = trainer.device
-    _, val = trainer.dataset.device_splits(dev)
+    train_split, val = trainer.dataset.device_splits(dev)
+    _step_repeats("music", trainer, train_split.gather_batch(torch.arange(MUSIC_B, device=dev)))
     batch = val.gather_batch(torch.arange(MUSIC_B, device=dev))
     _check_float_labels("music", trainer.attrs.compute_labels(batch[0]))
     noise = draw_measure_noise(MUSIC_B, trainer.model.latent_space_dim,
@@ -734,6 +861,186 @@ def phase_music_slice():
           f"{float(got['recons_loss']):.6f} vs {float(want['recons_loss']):.6f}, reg "
           f"{float(got['reg_loss']):.6f} vs {float(want['reg_loss']):.6f}")
     return launches, {"fwd": n_train + n_val, "bwd": n_train}
+
+
+# Slice 3: the music CLI with each other decoder and with GLSR, at its
+# default width (B=256, H=128, z=32, E=10, dropout 0.5, 2 layers) on the
+# --full corpus: --short gives 6 train steps an epoch, too few for the
+# epoch-mean loss to fall reliably.
+VARIANT_ARGS = {
+    "sr": ["--decoder_type", "sr", "-r", "all"],
+    "sr-no-input": ["--decoder_type", "sr-no-input", "-r", "all"],
+    "glsr": ["--glsr", "-r", "rhy_complexity"],
+}
+# Launches a train step of each variant, by the code: the encoder's two
+# biGRU layers; SR's one tick loop of 24 ticks; SR-no-input's two GRU
+# layers; GLSR's three hierarchical decodes (the training one and the two
+# eval decodes of z ± δ), each a beat GRU of two layers and a tick loop,
+# and no AR term. A val step launches the forward counts.
+VARIANT_LAUNCHES = {"sr": {"gru": 2, "hier": 1, "reg": 1},
+                    "sr-no-input": {"gru": 4, "hier": 0, "reg": 1},
+                    "glsr": {"gru": 8, "hier": 3, "reg": 0}}
+# The GLSR term, card against CPU, row by row: a finite difference of the
+# two eval decodes over 2δ, δ = (1 + U)·1e-3, so the decodes' float32
+# rounding (card kernels vs CPU loops, summed in other orders, ~1e-6) is
+# multiplied by 250-500, and −log N(g | 100, 1) scales an error of g by
+# |g − 100| ≈ 100; the term (~4,400 after training) keeps ~1e-6 of it.
+# Measured on the card over five runs of 256 rows: 3.9e-7 to 6.5e-6 at
+# most, medians 1e-7 to 7e-7.
+GLSR_ROW_RTOL = 1e-4
+# Rows whose z ± δ decodes take another token path on the card than on
+# the CPU (an argmax within rounding of a tie) are left out of the GLSR
+# comparison: at most 1% of the rows.
+GLSR_PATH_FLIPS = 0.01
+WIDE_DEEP = ((256, 2), (128, 3))  # (H, tick-GRU layers) that no kernel plan fits
+
+
+def _variant_run(name):
+    """The music CLI with one variant, 2 epochs → (trainer, launches)."""
+    from arvae_tpu_torch import train_measure_vae
+
+    with tempfile.TemporaryDirectory() as models_dir:
+        os.environ["ARVAE_MODELS_DIR"] = models_dir
+        _reset_launches()
+        t0 = time.perf_counter()
+        (trainer,) = train_measure_vae.main(["--rand", "0", "--num_epochs", "2"]
+                                            + VARIANT_ARGS[name])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _read_launches()
+        ckpt_ok = os.path.isfile(os.path.join(trainer.run_dir, "ckpt.pt"))
+        run_dir = os.path.basename(trainer.run_dir)
+    hist = trainer.history
+    n_train, n_val = _check_history(f"variant {name}", hist, ckpt_ok)
+    per_step = VARIANT_LAUNCHES[name]
+    want = {k: {"fwd": n * (n_train + n_val), "bwd": n * n_train} for k, n in per_step.items()}
+    _check_launches(f"variant {name}", launches, want)
+    print(f"[variants] {name} ({run_dir}): 2 epochs in {seconds:.1f} s; train loss "
+          f"{hist[0]['train_loss']:.4f} -> {hist[1]['train_loss']:.4f}; val loss "
+          f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f}; train steps {n_train}, val "
+          f"steps {n_val}; launches {launches}")
+    return trainer, launches
+
+
+def _variant_vs_cpu(name, trainer):
+    """The trained model on one val batch, card against the CPU plain
+    path, teacher-forced with every dropout rate 0; for GLSR also each
+    row's GLSR term from the same latents and perturbations."""
+    from arvae_tpu_torch.models.measure_vae import draw_measure_noise
+    from arvae_tpu_torch.training.glsr_trainer import GLSRNoise, MeasureVAETrainerGLSR
+    from arvae_tpu_torch.training.measure_trainer import MeasureVAETrainer
+
+    dev = trainer.device
+    _, val = trainer.dataset.device_splits(dev)
+    batch = val.gather_batch(torch.arange(MUSIC_B, device=dev))
+    gen = torch.Generator(dev).manual_seed(1)
+    noise = draw_measure_noise(MUSIC_B, trainer.model.latent_space_dim, gen, dev)
+    noise = noise._replace(teacher=torch.ones_like(noise.teacher), generator=None)
+    cpu_noise = noise._replace(**{k: getattr(noise, k).cpu()
+                                  for k in ("eps", "eps_prior", "teacher", "seed")})
+    glsr = name == "glsr"
+    if glsr:
+        u = torch.rand(MUSIC_B, generator=gen, device=dev)
+        noise, cpu_noise = GLSRNoise(noise, u), GLSRNoise(cpu_noise, u.cpu())
+    h = trainer.hparams
+    model = copy.deepcopy(trainer.model).cpu()
+    if glsr:
+        cpu = MeasureVAETrainerGLSR(trainer.dataset, model, "cpu", lr=h.lr,
+                                    reg_type=trainer.glsr_reg_type,
+                                    reg_dim=trainer.glsr_reg_dim, gamma=h.gamma, beta=h.beta)
+    else:
+        cpu = MeasureVAETrainer(trainer.dataset, model, "cpu", lr=h.lr, reg_type=h.reg_type,
+                                reg_dim=h.reg_dim, beta=h.beta, gamma=h.gamma,
+                                capacity=h.capacity, delta=h.delta)
+    got = _teacher_forced_metrics(trainer, batch, noise)
+    want = _teacher_forced_metrics(cpu, tuple(t.cpu() for t in batch), cpu_noise)
+    # GLSR's loss and reg_loss hold the GLSR term of each side's own
+    # latents: it is compared below, row by row, from the same latents
+    keys = ["recons_loss", "dist_loss", "accuracy"] + ([] if glsr else ["loss", "reg_loss"])
+    for k in keys:
+        _check_close(f"variant {name} {k}", got[k].cpu(), want[k], SLICE_RTOL, ATOL)
+    line = (f"[variants] {name}: trained model, one val batch teacher-forced, card vs CPU "
+            f"plain path: loss {float(got['loss']):.6f} vs {float(want['loss']):.6f}, recons "
+            f"{float(got['recons_loss']):.6f} vs {float(want['recons_loss']):.6f}")
+    if not glsr:
+        print(line + f", reg {float(got['reg_loss']):.6f} vs {float(want['reg_loss']):.6f} "
+              f"(rtol {SLICE_RTOL})")
+        return
+    with torch.no_grad():
+        z = cpu.model.encoder(batch[0].cpu())[0]
+        rows_k, sp_k, sm_k = trainer.glsr_rows(z.to(dev), noise)
+        rows_p, sp_p, sm_p = cpu.glsr_rows(z, cpu_noise)
+    same = ((sp_k.cpu() == sp_p) & (sm_k.cpu() == sm_p)).all(1)
+    flips = int((~same).sum())
+    if flips > GLSR_PATH_FLIPS * MUSIC_B:
+        raise AssertionError(f"GLSR: {flips} rows decode another token path on the card")
+    rel = ((rows_k.cpu() - rows_p).abs() / rows_p.abs())[same]
+    if float(rel.max()) > GLSR_ROW_RTOL:
+        raise AssertionError(f"GLSR rows: max rel err {float(rel.max()):.3e} > {GLSR_ROW_RTOL}")
+    print(line + f"; the GLSR term by row ({MUSIC_B - flips} rows on the same token paths, "
+          f"{flips} left out): max rel err {float(rel.max()):.3e}, median "
+          f"{float(rel.median()):.3e} (rtol {GLSR_ROW_RTOL}); mean term "
+          f"{float(rows_k.mean()):.4f} vs {float(rows_p.mean()):.4f}")
+
+
+def _wide_deep_refused(dev):
+    """A HierarchicalDecoder whose width or depth no kernel plan fits: on
+    the card its tick loop raises ValueError, naming H (and L where the
+    depth is the cause), and launches no tick-loop kernel; the same
+    module runs forward and backward on the CPU, its plain path."""
+    from arvae_tpu_torch.models.measure_vae import MeasureNoise, MeasureVAE
+
+    v, zd = HIER_VS[0], 32
+    for h, layers in WIDE_DEEP:
+        dec = MeasureVAE(v, HIER_E, latent_space_dim=zd, num_decoder_layers=layers,
+                         decoder_hidden_size=h, decoder_dropout_prob=0.0).decoder
+        rng = np.random.RandomState(h + layers)
+        z = torch.tensor(rng.randn(MUSIC_B, zd), dtype=torch.float32)
+        score = torch.tensor(rng.randint(0, v, (MUSIC_B, HIER_T)), dtype=torch.int32)
+        ints = (torch.ones(1, dtype=torch.int32), torch.tensor([5], dtype=torch.int32))
+        tag = f"HierarchicalDecoder H={h}, {layers} tick-GRU layers (B={MUSIC_B}, V={v})"
+        zz = z.clone().requires_grad_(True)
+        w, _ = dec(zz, score, MeasureNoise(torch.zeros_like(z), torch.zeros_like(z), *ints),
+                   train=True)
+        w.sum().backward()
+        if not all(bool(torch.isfinite(x).all()) for x in (w, zz.grad)):
+            raise AssertionError(f"{tag}: a value of the CPU path is not finite")
+        dec.to(dev)
+        noise = MeasureNoise(*(x.to(dev) for x in (torch.zeros_like(z), torch.zeros_like(z),
+                                                    *ints)))
+        _reset_launches()
+        try:
+            dec(z.to(dev), score.to(dev), noise, train=True)
+        except ValueError as err:
+            refusal = str(err)
+        else:
+            raise AssertionError(f"{tag}: the card ran a shape no kernel plan fits")
+        hier = _read_launches()["hier"]
+        named = f"H={h}" in refusal and (layers == 2 or f"L={layers}" in refusal)
+        if not named or hier != {"fwd": 0, "bwd": 0}:
+            raise AssertionError(f"{tag}: refusal {refusal!r}, tick-loop launches {hier}")
+        print(f"[variants] {tag}: the card refuses it before any tick-loop launch "
+              f"({refusal}); the CPU runs it, fwd and bwd finite")
+
+
+def phase_music_variants(card_line):
+    """→ {variant: its launches}."""
+    dev = torch.device("cuda")
+    launches = {}
+    for name in VARIANT_ARGS:
+        trainer, launches[name] = _variant_run(name)
+        train_split, _ = trainer.dataset.device_splits(dev)
+        rows = train_split.gather_batch(torch.arange(MUSIC_B, device=dev))
+        _step_repeats(f"variant {name}", trainer, rows)
+        trained = _trainer_state(trainer)
+        _device_busy(f"music {name}", trainer, train_split, MUSIC_B, card_line)
+        # the timing trains on: the comparison is of the model the CLI
+        # trained, and sets every dropout rate to 0, so it comes last
+        _load_trainer_state(trainer, trained)
+        _variant_vs_cpu(name, trainer)
+    _embedding_repeats(dev, trainer.model.num_notes)
+    _wide_deep_refused(dev)
+    return launches
 
 
 def _event_ms(fn, iters, warmup=10):
@@ -819,12 +1126,12 @@ def _kernel_times(dev, card_line):
     weights, samples, h0_all, h1_all = hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, score,
                                                                    *floats)
     leaves = [x.clone().requires_grad_(True) for x in floats]
-    ref = hk.hier_tick_chain_reference(*cfg, teacher, seed, score, *leaves)[0]
+    ref = hk.tick_chain_reference(*cfg, teacher, seed, score, *hk.chain_operands(leaves))[0]
     times["hier"] = {
         "fwd": _event_ms(lambda: hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, score,
                                                              *floats), 200),
-        "fwd_plain": _event_ms(lambda: hk.hier_tick_chain_reference(
-            *cfg, teacher, seed, score, *floats), 10, 2),
+        "fwd_plain": _event_ms(lambda: hk.tick_chain_reference(
+            *cfg, teacher, seed, score, *hk.chain_operands(floats)), 10, 2),
         "bwd": _event_ms(lambda: hk.hier_tick_chain_bwd_cuda(
             True, 0.5, HIER_TPB, seed, samples, h0_all, h1_all, weights, ct, *floats), 100),
         "bwd_plain": _event_ms(
@@ -844,7 +1151,8 @@ def _kernel_times(dev, card_line):
 
 def _kernel_split(fn, iters=20):
     """[(kernel, (launches a call, device µs a call))], largest first, from
-    a profiled run that lost no kernel record (``step_probe.call_events``)."""
+    a profiled run whose records of the port's kernels match the launch
+    counters (``step_probe.call_events``)."""
     from arvae_tpu_torch.utils.step_probe import call_events, short_name
 
     by_name = {}
@@ -869,18 +1177,12 @@ def _device_ms(fn, iters=20, warmup=5):
     ``torch.profiler`` records over ``iters`` calls. A call whose host
     work outlasts its device work (an autograd backward of many small
     launches) has gaps that CUDA events would count; this does not."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from arvae_tpu_torch.utils.step_probe import device_events, union_us
+    from arvae_tpu_torch.utils.step_probe import call_events, union_us
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return union_us([(e["ts"], e["ts"] + e["dur"]) for e in device_events(prof)]) / 1e3 / iters
+    events = call_events(fn, iters)
+    return union_us([(e["ts"], e["ts"] + e["dur"]) for e in events]) / 1e3 / iters
 
 
 def _gru_layer_times(dev, card_line):
@@ -1043,6 +1345,7 @@ def main() -> int:
     errs = _timed("kernels", phase_kernels)
     image = _timed("slice 1 (dSprites)", phase_slice)
     music = _timed("slice 2 (music)", phase_music_slice)
+    variants = _timed("slice 3 (music variants)", phase_music_variants, card_line)
     times = _timed("times", phase_times, card_line)
     print(f"[phase] total: {time.perf_counter() - t0:.1f} s")
 
@@ -1061,8 +1364,10 @@ def main() -> int:
         t = times[key]
         launches, steps = slice_run[0][key][direction], slice_run[1][direction]
         w = work[key](direction == "bwd")
+        by_variant = {v: counts[key][direction] for v, counts in variants.items()}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "launches_per_step": launches / steps,
+                "slice3_launches": by_variant,
                 "max_abs_err": errs[key][direction == "bwd"],
                 "ms": t[direction], "plain_ms": t[f"{direction}_plain"],
                 "bound_ms": w.bound_ms, "bound_by": w.bound_by,

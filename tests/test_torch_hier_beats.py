@@ -1,7 +1,7 @@
 """The tick-loop backward's decomposition (``hier_tick_chain_bwd_by_beats``:
 products over all rows at once, then each layer as independent chains of
 ``ticks_per_beat`` ticks, one a beat) against autograd through the plain
-loop ``hier_tick_chain_reference`` and, with dropout off, against the JAX
+loop ``tick_chain_reference`` and, with dropout off, against the JAX
 Pallas ``hier_tick_chain`` in interpret mode. B=8 and a ragged B=5,
 H=32, E=10, V=34, T=24; ticks_per_beat 6, 24 (one beat) and 5 (T is no
 multiple of it: the last beat's padded ticks). The two packages draw
@@ -46,8 +46,9 @@ def _by_beats_and_autograd(tpb, rate, score, floats, ct):
     gradients, autograd's 13)."""
     ints = [torch.tensor([0], dtype=torch.int32), torch.tensor([5], dtype=torch.int32)]
     leaves = [torch.from_numpy(f).requires_grad_(True) for f in floats]
-    weights, samples, h0_all, h1_all = hk.hier_tick_chain_reference(
-        True, rate, tpb, "argmax", *ints, torch.from_numpy(score), *leaves, hiddens=True)
+    weights, samples, h0_all, h1_all = hk.tick_chain_reference(
+        True, rate, tpb, "argmax", *ints, torch.from_numpy(score), *hk.chain_operands(leaves),
+        hiddens=True)
     cot = torch.from_numpy(ct)
     (weights * cot).sum().backward()
     got = hk.hier_tick_chain_bwd_by_beats(

@@ -1,5 +1,5 @@
-"""The plain tick loop (``hier_tick_chain_reference``, what
-``hier_tick_chain`` runs on a CPU tensor) against the JAX Pallas
+"""The plain tick loop (``tick_chain_reference``, what ``tick_chain``
+runs on a CPU tensor) against the JAX Pallas
 ``hier_tick_chain`` in interpret mode, at B=8, H=128, E=10, V=34, T=24,
 6 ticks per beat, dropout 0 (the two packages draw different random
 bits, so dropout is checked on its own below).
@@ -41,10 +41,11 @@ def _operands(seed, tpb=TPB, b=B, h=H, e=E, v=V, t=T):
 
 def _port(teacher, score, floats, tpb=TPB, grad_ct=None, **kw):
     ts = [torch.from_numpy(f).requires_grad_(grad_ct is not None) for f in floats]
-    weights, samples = hk.hier_tick_chain(
+    weights, samples = hk.tick_chain(
         score.shape[0], kw.get("train", True), kw.get("rate", 0.0), tpb,
         kw.get("sampling", "argmax"), torch.tensor([teacher], dtype=torch.int32),
-        torch.tensor([kw.get("seed", 5)], dtype=torch.int32), torch.from_numpy(score), *ts)
+        torch.tensor([kw.get("seed", 5)], dtype=torch.int32), torch.from_numpy(score),
+        *hk.chain_operands(ts))
     grads = None
     if grad_ct is not None:
         (weights * torch.from_numpy(grad_ct)).sum().backward()

@@ -109,6 +109,14 @@ def test_out_of_range_ids_clamp_and_sr_decoders_wait():
         score[:, 3] = V + 5  # clamps to the last table row, as take(mode="clip")
         got = port(score, noise)
     torch.testing.assert_close(got.z_mean, want.z_mean, rtol=0, atol=0)
+    # both SR decoders build and run, on the clamped ids too, in both modes
     for kind in ("sr", "sr-no-input"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            MeasureVAE(**dict(WIDTHS, decoder_type=kind))
+        sr = MeasureVAE(**dict(WIDTHS, decoder_type=kind))
+        for train in (True, False):
+            with torch.no_grad():
+                out = sr.train(train)(score, noise)
+            assert out.weights.shape == (2, T, V) and out.samples.shape == (2, T)
+            assert bool(torch.isfinite(out.weights).all())
+            assert int(out.samples.min()) >= 0 and int(out.samples.max()) < V
+    with pytest.raises(ValueError, match="decoder_type"):
+        MeasureVAE(**dict(WIDTHS, decoder_type="rnn"))

@@ -15,7 +15,11 @@ of a kernel must be bitwise equal. The dropout masks of the kernel and
 of the plain version are bitwise equal if the dropout-0.5 case matches:
 a keep bit that differs moves a layer-1 input by 2·h0, far outside the
 tolerance. The tick-loop cases run at V=34 (the music CLI's corpus) and
-V=130 (the step-rate cell), and at a ragged B=100. A free-running decode is compared by
+V=130 (the step-rate cell), and at a ragged B=100, and in eval mode
+(``train=False``, as GLSR's decodes run it) at 6 and 24 ticks a beat.
+The widths and depths no plan fits (a GRU chain at H=384, decoders at
+H=256 or with 3 tick-GRU layers) raise ValueError on the card, naming
+H (and L), before their kernels launch. A free-running decode is compared by
 the teacher trick: the plain version runs teacher-forced on the
 kernel's samples, and each kernel sample must be the lowest-index
 argmax of the kernel's own logits."""
@@ -24,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from arvae_tpu_torch.models.measure_vae import MeasureNoise
 from arvae_tpu_torch.ops import gru_kernel as gk
 from arvae_tpu_torch.ops import hier_decoder_kernel as hk
 
@@ -31,11 +36,11 @@ pytestmark = pytest.mark.gpu
 
 FWD_RTOL, FWD_ATOL = 1e-4, 1e-5
 GRAD_RTOL, GRAD_ATOL_FRAC = 1e-4, 1e-5
-# the music step's two layer shapes, a ragged batch, a second width, and an
-# odd width (no cluster divides H = 21: one CTA a cluster, rows that are
-# not 16-byte aligned)
-GRU_CASES = [(24, 2, 256, 128), (4, 1, 256, 128), (24, 2, 100, 128), (24, 2, 256, 64),
-             (4, 1, 256, 64), (6, 2, 20, 21)]
+# the music step's two layer shapes, SRDecoderNoInput's layer, a ragged
+# batch, a second width, and an odd width (no cluster divides H = 21: one
+# CTA a cluster, rows that are not 16-byte aligned)
+GRU_CASES = [(24, 2, 256, 128), (4, 1, 256, 128), (24, 1, 256, 128), (24, 2, 100, 128),
+             (24, 2, 256, 64), (4, 1, 256, 64), (6, 2, 20, 21)]
 HB, HH, HE, HT, HTPB = 256, 128, 10, 24, 6
 HVS = (34, 130)
 
@@ -164,8 +169,8 @@ def _kernel_run(cfg, teacher, seed, score, floats, ct=None):
 def _plain_run(cfg, teacher, seed, score, floats, ct=None):
     train, rate, tpb, sampling = cfg
     leaves = [f.clone().requires_grad_(ct is not None) for f in floats]
-    weights, samples = hk.hier_tick_chain_reference(train, rate, tpb, sampling,
-                                                    teacher, seed, score, *leaves)
+    weights, samples = hk.tick_chain_reference(train, rate, tpb, sampling, teacher, seed,
+                                               score, *hk.chain_operands(leaves))
     if ct is None:
         return weights, samples, []
     (weights * ct).sum().backward()
@@ -304,10 +309,53 @@ def test_hier_autograd_launches_kernels(dev):
     score, floats, ct = _hier_inputs(dev, 7, HVS[0])
     leaves = [f.clone().requires_grad_(True) for f in floats]
     hk.reset_launches()
-    weights, samples = hk.hier_tick_chain(HT, True, 0.0, HTPB, "argmax", *_ints(1, 3, dev),
-                                          score, *leaves)
+    weights, samples = hk.tick_chain(HT, True, 0.0, HTPB, "argmax", *_ints(1, 3, dev), score,
+                                     *hk.chain_operands(leaves))
     (weights * ct).sum().backward()
     assert hk.LAUNCHES == {"fwd": 1, "bwd": 1}
     assert samples.dtype == torch.int32 and not samples.requires_grad
     w_p, _, _ = _plain_run((True, 0.0, HTPB, "argmax"), *_ints(1, 3, dev), score, floats)
     _close(weights.detach(), w_p, FWD_RTOL, FWD_ATOL, "weights")
+
+
+@pytest.mark.parametrize("v", HVS)
+@pytest.mark.parametrize("tpb", [HTPB, HT], ids=["hier", "one_beat"])
+def test_hier_eval_mode_matches_plain(dev, tpb, v):
+    """``train=False``: free-running argmax with no dropout, forward and
+    backward, as GLSR differentiates its eval decodes. A dropout rate
+    passed in eval changes nothing: no mask is drawn or replayed."""
+    score, floats, ct = _hier_inputs(dev, 11, v, tpb)
+    cfg = (False, 0.5, tpb, "argmax")
+    free = _ints(0, 3, dev) + (score,)
+    w_k, s_k, g_k = _kernel_run(cfg, *free, floats, ct)
+    assert torch.equal(s_k, hk.argmax_lowest(w_k).clamp(0, v - 1).to(torch.int32))
+    w_0, s_0, g_0 = _kernel_run((False, 0.0, tpb, "argmax"), *free, floats, ct)
+    for x, y in zip((w_k, s_k, *g_k), (w_0, s_0, *g_0)):
+        assert torch.equal(x, y)
+    # the backward re-embeds the samples the free-running decode fed
+    _compare(cfg, free, _ints(1, 3, dev) + (s_k,), floats, ct)
+
+
+def test_gru_chain_too_wide_raises_before_any_launch(dev):
+    args, _ = _gru_inputs(24, 2, 64, 384, dev, seed=3)
+    gk.reset_launches()
+    with pytest.raises(ValueError, match="H=384 is too wide"):
+        gk.gru_chain(*args)
+    assert gk.LAUNCHES == {"fwd": 0, "bwd": 0}
+
+
+@pytest.mark.parametrize("h,layers", [(256, 2), (128, 3)], ids=["wide", "deep"])
+def test_wide_and_deep_decoders_raise_before_the_tick_loop_launches(dev, h, layers):
+    from arvae_tpu_torch.models.measure_vae import MeasureVAE, draw_measure_noise
+
+    dec = MeasureVAE(HVS[0], HE, latent_space_dim=32, num_decoder_layers=layers,
+                     decoder_hidden_size=h, decoder_dropout_prob=0.0).decoder.to(dev)
+    rng = np.random.RandomState(h + layers)
+    z = torch.tensor(rng.randn(HB, 32), dtype=torch.float32, device=dev)
+    score = torch.tensor(rng.randint(0, HVS[0], (HB, HT)), dtype=torch.int32, device=dev)
+    noise = draw_measure_noise(HB, 32, torch.Generator(dev).manual_seed(0), dev)
+    hk.reset_launches()
+    match = f"H={h}, L={layers}" if layers != 2 else f"H={h}.*too wide"
+    with pytest.raises(ValueError, match=match):
+        dec(z, score, noise, train=True)
+    assert hk.LAUNCHES == {"fwd": 0, "bwd": 0}
