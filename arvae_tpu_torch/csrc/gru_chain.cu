@@ -25,6 +25,15 @@
 // SM's shared memory keeps a second one off its SM, which would halve
 // the product's speed. No step reads a weight from L2.
 //
+// Wider layers (H = 384 or 512 at the reference's own width) have slices
+// that no cluster of 8 CTAs holds beside its tile (253 KB forward at
+// H = 384, C = 8, 4 rows). There the plan takes the streamed layout: the
+// CTA keeps no weight, and each step reads its slice from L2 (3 MB a
+// direction at H = 512, against 50 MB of L2) in stages of 32 rows,
+// double-buffered with cp.async, into the same depth-split product; each
+// output adds its stages' partial sums in stage order, so repeats stay
+// bitwise equal. gru_plan keeps the resident layout wherever it fits.
+//
 // Each step's product gh = h_{t-1} w_hh[:, own] runs on the CUDA cores in
 // fp32: a thread owns 4 rows by 2 columns, and the spare threads take
 // slices of the depth H whose partial sums the first slice adds in a
@@ -68,6 +77,7 @@ using namespace arvae;
 
 namespace {
 
+template <bool kStream>
 __global__ void __launch_bounds__(kThreads)
 gru_fwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
         const float* __restrict__ b_hh, const float* __restrict__ h0, int T, int D, int B,
@@ -76,8 +86,8 @@ gru_fwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int c = static_cast<int>(cluster.block_rank());
-  const ChainLayout L = chain_layout(false, H, C, RB);
-  float* ws = smem + L.w;
+  const ChainLayout L = chain_layout(false, H, C, RB, kStream);
+  float* ws = smem + L.w;  // the resident slice, or the streamed stages
   float* bs = smem + L.b;
   float* hs = smem + L.h;
   float* ghs = smem + L.gh;
@@ -91,8 +101,13 @@ gru_fwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
   const Unit me = my_unit(RB, L.hc, nr);
   const int u = u0 + me.i;
 
-  load_slice(w_hh + static_cast<size_t>(d) * H * H3, b_hh + static_cast<size_t>(d) * H3, H, u0,
-             L, ws, bs);
+  const float* wd = w_hh + static_cast<size_t>(d) * H * H3;
+  const GateRows rows{wd, H, L.hc, u0, L.ldw};
+  if (kStream) {
+    load_bias(b_hh + static_cast<size_t>(d) * H3, H, u0, L, bs);
+  } else {
+    load_slice(wd, b_hh + static_cast<size_t>(d) * H3, H, u0, L, ws, bs);
+  }
   copy_tile(hs, L.ldh, h0 + (static_cast<size_t>(d) * B + row0) * H, H, RB, H, nr);
   cp_async_commit();
   float gn[3];  // gi_t of this thread's unit
@@ -109,8 +124,12 @@ gru_fwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
     }
     const float* hcur = hs + cur * hbuf;
     // gh = h_{t-1} w_hh[:, own] + b_hh[own]
-    rows_times_w(hcur, L.ldh, RB, H, ws, L.ldw, L.n3, part,
-                 [&](int r, int n, float v) { ghs[r * L.ldg + n] = v + bs[n]; });
+    auto gh_store = [&](int r, int n, float v) { ghs[r * L.ldg + n] = v + bs[n]; };
+    if (kStream) {
+      streamed_times_w(hcur, L.ldh, RB, H, L.n3, rows, ws, L.ldw, ghs, L.ldg, part, gh_store);
+    } else {
+      rows_times_w(hcur, L.ldh, RB, H, ws, L.ldw, L.n3, part, gh_store);
+    }
     __syncthreads();
     // the unit's new hidden, to every CTA's next buffer
     if (me.live) {
@@ -134,22 +153,40 @@ const char* gru_chain_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Floats of shared memory a CTA of the plan (H, C, RB) needs: the
+// Floats of shared memory a CTA of the plan (H, C, RB, stream) needs: the
 // layout that ops/gru_kernel.py::chain_smem_floats mirrors.
-int gru_chain_smem_floats(int bwd, int H, int C, int RB) {
-  return chain_layout(bwd != 0, H, C, RB).total;
+int gru_chain_smem_floats(int bwd, int H, int C, int RB, int stream) {
+  return chain_layout(bwd != 0, H, C, RB, stream != 0).total;
+}
+
+// Clusters of C CTAs of the forward (bwd 0) or backward kernel in the
+// resident (stream 0) or streamed layout, smem_bytes each, that the card
+// holds at once; a negative CUDA error code when the query fails.
+int gru_chain_resident_clusters(int bwd, int stream, int C, int smem_bytes) {
+  if (bwd != 0) {
+    return stream != 0 ? resident_clusters(gru_bwd<true>, C, smem_bytes)
+                       : resident_clusters(gru_bwd<false>, C, smem_bytes);
+  }
+  return stream != 0 ? resident_clusters(gru_fwd<true>, C, smem_bytes)
+                     : resident_clusters(gru_fwd<false>, C, smem_bytes);
 }
 
 // gi (T, D, B, 3H), w_hh (D, H, 3H), b_hh (D, 3H), h0 (D, B, H) f32
 // -> outs (T, D, B, H) f32; the plan: clusters of C CTAs of RB rows,
-// smem_bytes of dynamic shared memory each.
+// smem_bytes of dynamic shared memory each, w_hh's slices resident
+// (streamed 0) or streamed.
 int gru_chain_fwd(const float* gi, const float* w_hh, const float* b_hh, const float* h0,
-                  int T, int D, int B, int H, int C, int RB, int smem_bytes, float* outs,
-                  void* stream) {
-  if (chain_checked_smem(false, H, C, RB, smem_bytes) == 0) return cudaErrorInvalidValue;
+                  int T, int D, int B, int H, int C, int RB, int smem_bytes, int streamed,
+                  float* outs, void* stream) {
+  if (chain_checked_smem(false, H, C, RB, smem_bytes, streamed != 0) == 0) {
+    return cudaErrorInvalidValue;
+  }
   const dim3 grid(C * ((B + RB - 1) / RB), D);
-  return launch_cluster(gru_fwd, C, grid, smem_bytes, static_cast<cudaStream_t>(stream), gi,
-                        w_hh, b_hh, h0, T, D, B, H, RB, outs);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return streamed != 0 ? launch_cluster(gru_fwd<true>, C, grid, smem_bytes, st, gi, w_hh, b_hh,
+                                        h0, T, D, B, H, RB, outs)
+                       : launch_cluster(gru_fwd<false>, C, grid, smem_bytes, st, gi, w_hh, b_hh,
+                                        h0, T, D, B, H, RB, outs);
 }
 
 // + outs, douts (T, D, B, H) -> dgi (T, D, B, 3H), dh0 (D, B, H),
@@ -157,13 +194,18 @@ int gru_chain_fwd(const float* gi, const float* w_hh, const float* b_hh, const f
 // GEMM's partial sums over `splits` splits (atb_scratch_floats).
 int gru_chain_bwd(const float* gi, const float* w_hh, const float* b_hh, const float* h0,
                   const float* outs, const float* douts, int T, int D, int B, int H, int C,
-                  int RB, int smem_bytes, int splits, float* dgi, float* dh0, float* dw,
-                  float* db, float* dgh, float* red, void* stream) {
-  if (chain_checked_smem(true, H, C, RB, smem_bytes) == 0) return cudaErrorInvalidValue;
+                  int RB, int smem_bytes, int streamed, int splits, float* dgi, float* dh0,
+                  float* dw, float* db, float* dgh, float* red, void* stream) {
+  if (chain_checked_smem(true, H, C, RB, smem_bytes, streamed != 0) == 0) {
+    return cudaErrorInvalidValue;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(C * ((B + RB - 1) / RB), D);
-  cudaError_t err = launch_cluster(gru_bwd, C, grid, smem_bytes, st, gi, w_hh, b_hh, h0, outs,
-                                   douts, T, D, B, H, RB, dgi, dh0, dgh);
+  cudaError_t err =
+      streamed != 0 ? launch_cluster(gru_bwd<true>, C, grid, smem_bytes, st, gi, w_hh, b_hh, h0,
+                                     outs, douts, T, D, B, H, RB, dgi, dh0, dgh)
+                    : launch_cluster(gru_bwd<false>, C, grid, smem_bytes, st, gi, w_hh, b_hh, h0,
+                                     outs, douts, T, D, B, H, RB, dgi, dh0, dgh);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long bh = static_cast<long long>(B) * H;
   const long long bh3 = 3 * bh;

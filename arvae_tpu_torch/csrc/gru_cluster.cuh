@@ -1,8 +1,9 @@
 // The cluster kernel of the GRU chain's backward, shared by gru_chain.cu
 // (the encoder's and the beat GRU's layers) and hier_tick_chain.cu (the
-// tick loop's two layers, one chain a beat): each library instantiates
-// it. The design is described in gru_chain.cu's header; the launch plan
-// (C, RB, shared-memory bytes) comes from the caller
+// tick loop's layers, one chain a beat): each library instantiates it.
+// The design is described in gru_chain.cu's header; the launch plan
+// (C, RB, shared-memory bytes, and whether w_hh's slice is resident or
+// streamed) comes from the caller
 // (arvae_tpu_torch/ops/gru_kernel.py::gru_plan, which mirrors
 // chain_layout below) and chain_checked_smem refuses one that does not
 // fit.
@@ -24,12 +25,17 @@ constexpr int kThreads = 512;
 struct ChainLayout {
   int hc, n3;              // hidden units the CTA owns, its gate columns
   int ldw, ldh, ldg, ldo;  // leading dimensions
-  int w, b, h, gh, part;   // weight slice, bias slice, h (2 buffers), gh, product scratch
+  int w, b, h, gh, part;   // weight slice (or its two stages), bias slice, h (2 buffers),
+                           // gh, product scratch
   int dg, dz, red;         // backward: dgh, dh z, reduce slots (2 x C)
   int total;
 };
 
-__host__ __device__ inline ChainLayout chain_layout(bool bwd, int H, int C, int RB) {
+// Resident (stream false): the CTA's gate columns of w_hh, all H rows,
+// loaded once. Streamed: two stages of kStreamDepth of those rows, read
+// from L2 at every step (widths whose slices do not fit).
+__host__ __device__ inline ChainLayout chain_layout(bool bwd, int H, int C, int RB,
+                                                    bool stream = false) {
   ChainLayout L;
   L.hc = H / C;
   L.n3 = 3 * L.hc;
@@ -39,7 +45,7 @@ __host__ __device__ inline ChainLayout chain_layout(bool bwd, int H, int C, int 
   L.ldo = up4(L.hc);
   int o = 0;
   L.w = o;
-  o += H * L.ldw;
+  o += (stream ? 2 * kStreamDepth : H) * L.ldw;
   L.b = o;
   o += L.ldg;
   L.h = o;
@@ -61,14 +67,41 @@ __host__ __device__ inline ChainLayout chain_layout(bool bwd, int H, int C, int 
   return L;
 }
 
-// The CTA's gate columns of w_hh[d] and b_hh[d] into shared memory.
-__device__ inline void load_slice(const float* w, const float* bias, int H, int u0,
-                                  const ChainLayout& L, float* ws, float* bs) {
-  for (int g = 0; g < 3; ++g) copy_tile(ws + g * L.hc, L.ldw, w + g * H + u0, 3 * H, H, L.hc, H);
+// Rows [k0, k0 + kt) of the CTA's gate columns (hc units from u0, in
+// each of the three gates) of a (K, 3H) weight into dst (kt x ldw), with
+// cp.async.
+__device__ __forceinline__ void load_gate_rows(float* dst, int ldw, const float* w, int H, int hc,
+                                               int u0, int k0, int kt) {
+  for (int g = 0; g < 3; ++g) {
+    copy_tile(dst + g * hc, ldw, w + static_cast<size_t>(k0) * 3 * H + g * H + u0, 3 * H, kt, hc,
+              kt);
+  }
+}
+
+// A streamed product's loader of a (K, 3H) weight's gate-column slice.
+struct GateRows {
+  const float* w;
+  int H, hc, u0, ldw;
+  __device__ void operator()(float* dst, int k0, int kt) const {
+    load_gate_rows(dst, ldw, w, H, hc, u0, k0, kt);
+  }
+};
+
+// The CTA's gate columns of b_hh[d] into shared memory.
+__device__ inline void load_bias(const float* bias, int H, int u0, const ChainLayout& L,
+                                 float* bs) {
   for (int kk = threadIdx.x; kk < L.n3; kk += blockDim.x) {
     const int g = kk / L.hc;
     bs[kk] = bias[g * H + u0 + kk - g * L.hc];
   }
+}
+
+// The CTA's gate columns of w_hh[d] (all H rows) and b_hh[d] into shared
+// memory: the resident layout.
+__device__ inline void load_slice(const float* w, const float* bias, int H, int u0,
+                                  const ChainLayout& L, float* ws, float* bs) {
+  load_gate_rows(ws, L.ldw, w, H, L.hc, u0, 0, H);
+  load_bias(bias, H, u0, L, bs);
 }
 
 // This thread's unit of the cell: row r of the tile, hidden unit u0 + i
@@ -95,6 +128,7 @@ __device__ __forceinline__ void load_gates(const float* row, int H, int u, bool 
   for (int k = 0; k < 3; ++k) g[k] = in ? row[k * H + u] : 0.f;
 }
 
+template <bool kStream>
 __global__ void __launch_bounds__(kThreads)
 gru_bwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
         const float* __restrict__ b_hh, const float* __restrict__ h0,
@@ -105,8 +139,8 @@ gru_bwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int c = static_cast<int>(cluster.block_rank());
-  const ChainLayout L = chain_layout(true, H, C, RB);
-  float* ws = smem + L.w;
+  const ChainLayout L = chain_layout(true, H, C, RB, kStream);
+  float* ws = smem + L.w;  // the resident slice, or the streamed stages
   float* bs = smem + L.b;
   float* hps = smem + L.h;  // h_{t-1}, full width, 2 buffers
   float* ghs = smem + L.gh;
@@ -136,8 +170,13 @@ gru_bwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
     dout = me.row ? douts[row * H + u] : 0.f;
   };
 
-  load_slice(w_hh + static_cast<size_t>(d) * H * H3, b_hh + static_cast<size_t>(d) * H3, H, u0,
-             L, ws, bs);
+  const float* wd = w_hh + static_cast<size_t>(d) * H * H3;
+  const GateRows rows{wd, H, L.hc, u0, L.ldw};
+  if (kStream) {
+    load_bias(b_hh + static_cast<size_t>(d) * H3, H, u0, L, bs);
+  } else {
+    load_slice(wd, b_hh + static_cast<size_t>(d) * H3, H, u0, L, ws, bs);
+  }
   float gn[3], dn;
   prefetch(T - 1, gn, dn);
   cp_async_wait<0>();
@@ -156,8 +195,12 @@ gru_bwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
     __syncthreads();
     const float* hp = hps + cur * hbuf;
     // recompute gh = h_{t-1} w_hh[:, own] + b_hh[own]
-    rows_times_w(hp, L.ldh, RB, H, ws, L.ldw, L.n3, part,
-                 [&](int r, int n, float v) { ghs[r * L.ldg + n] = v + bs[n]; });
+    auto gh_store = [&](int r, int n, float v) { ghs[r * L.ldg + n] = v + bs[n]; };
+    if (kStream) {
+      streamed_times_w(hp, L.ldh, RB, H, L.n3, rows, ws, L.ldw, ghs, L.ldg, part, gh_store);
+    } else {
+      rows_times_w(hp, L.ldh, RB, H, ws, L.ldw, L.n3, part, gh_store);
+    }
     __syncthreads();
     if (me.live) {
       const float* q = ghs + me.r * L.ldg;
@@ -190,10 +233,15 @@ gru_bwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
     // dgh_t w_hh^T over the own columns, for every unit j, into slot c
     // of j's owner
     const int slot = ((t & 1) * C + c) * obuf;
-    rows_times_wt(dgs, L.ldg, RB, L.n3, ws, L.ldw, H, part, [&](int r, int j, float v) {
+    auto red_store = [&](int r, int j, float v) {
       const int o = j / L.hc;
       *cluster.map_shared_rank(red + slot + r * L.ldo + j - o * L.hc, o) = v;
-    });
+    };
+    if (kStream) {
+      streamed_times_wt(dgs, L.ldg, RB, L.n3, H, rows, ws, L.ldw, part, red_store);
+    } else {
+      rows_times_wt(dgs, L.ldg, RB, L.n3, ws, L.ldw, H, part, red_store);
+    }
     cluster.sync();
   }
   // dh0 = dh z + the partials of step 0
@@ -207,12 +255,45 @@ gru_bwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
 
 // Refuses a plan the kernels cannot run: returns the shared-memory bytes
 // it needs, or 0.
-inline int chain_checked_smem(bool bwd, int H, int C, int RB, int smem_bytes) {
+inline int chain_checked_smem(bool bwd, int H, int C, int RB, int smem_bytes, bool stream) {
   if (C < 1 || C > 8 || (C & (C - 1)) != 0 || H < 1 || H % C != 0) return 0;
   if (RB < kRowsPerThread || RB % kRowsPerThread != 0 || RB * (H / C) > kThreads) return 0;
-  const long long need = 4LL * chain_layout(bwd, H, C, RB).total;
+  const long long need = 4LL * chain_layout(bwd, H, C, RB, stream).total;
   if (need > kMaxSmem || smem_bytes < need || smem_bytes > kMaxSmem) return 0;
   return static_cast<int>(need);
+}
+
+// The cluster launch configuration of a kernel: clusters of C CTAs of
+// kThreads threads, smem bytes of dynamic shared memory each.
+struct ClusterConfig {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  ClusterConfig(int C, dim3 grid, int smem, cudaStream_t st) {
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// Clusters of C CTAs of `kernel`, smem bytes each, that the card holds at
+// once (cudaOccupancyMaxActiveClusters); a negative CUDA error code when
+// the query fails.
+template <class... Params>
+inline int resident_clusters(void (*kernel)(Params...), int C, int smem) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  ClusterConfig cc(C, dim3(C * 1024), smem, nullptr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cc.cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 template <class... Params, class... Args>
@@ -221,19 +302,8 @@ inline cudaError_t launch_cluster(void (*kernel)(Params...), int C, dim3 grid, i
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  ClusterConfig cc(C, grid, smem, st);
+  err = cudaLaunchKernelEx(&cc.cfg, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // Pieces shared by the two recurrence kernels (gru_chain.cu and
 // hier_tick_chain.cu): torch-exact GRU gate math forward and backward;
 // block-wide products of a tile of rows with a weight slice resident in
-// shared memory (the cluster kernels); cp.async copies; the tiled
+// shared memory (the cluster kernels), or streamed from L2 in stages
+// where it does not fit; cp.async copies; the tiled
 // fixed-order fp32 A^T X GEMM that sums weight gradients over (t, b) for
 // both backwards; and a tiled fp32 row GEMM (A W or A W^T, one output
 // element a thread-register, a caller's epilogue) for the tick loop's
@@ -28,18 +29,20 @@ struct Gates {
   float r, z, n, hn;  // hn = h W_hn + b_hn, kept for the backward
 };
 
+// The fused multiply-adds are written out, so that every kernel rounds
+// the cell alike whatever the compiler would contract in its context.
 __device__ __forceinline__ Gates gru_gates(float ir, float iz, float in, float hr,
                                            float hz, float hn) {
   Gates g;
   g.r = sigmoid_f(ir + hr);
   g.z = sigmoid_f(iz + hz);
-  g.n = tanhf(in + g.r * hn);
+  g.n = tanhf(__fmaf_rn(g.r, hn, in));
   g.hn = hn;
   return g;
 }
 
 __device__ __forceinline__ float gru_out(const Gates& g, float h) {
-  return (1.f - g.z) * g.n + g.z * h;
+  return __fmaf_rn(1.f - g.z, g.n, __fmul_rn(g.z, h));
 }
 
 // Backward through one cell (arvae_tpu/ops/gru_pallas.py::_gru_bwd).
@@ -306,6 +309,78 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Streamed products: the weight is not resident in shared memory but read
+// from global memory (L2) in stages of kStreamDepth rows
+// ---------------------------------------------------------------------------
+
+// Rows of a weight one stage holds; a stage buffer is kStreamDepth x lds.
+constexpr int kStreamDepth = 32;
+
+// use(buf, k0, kt) for the stages [k0, k0 + kt) of K rows, in order, after
+// load(dst, k0, kt) has copied those rows into buf with cp.async: two
+// buffers in `stage`, the copy of stage i + 1 in flight while stage i is
+// used. Every thread of the block must call it; it waits for every
+// cp.async group the thread has in flight.
+template <class Load, class Use>
+__device__ __forceinline__ void stream_stages(int K, int lds, float* stage, Load load, Use use) {
+  const int nt = (K + kStreamDepth - 1) / kStreamDepth;
+  load(stage, 0, min(kStreamDepth, K));
+  cp_async_commit();
+  for (int i = 0; i < nt; ++i) {
+    const int k0 = i * kStreamDepth;
+    if (i + 1 < nt) {
+      const int k1 = k0 + kStreamDepth;
+      load(stage + ((i + 1) & 1) * kStreamDepth * lds, k1, min(kStreamDepth, K - k1));
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    use(stage + (i & 1) * kStreamDepth * lds, k0, min(kStreamDepth, K - k0));
+    __syncthreads();  // before the buffer takes stage i + 2
+  }
+}
+
+// rows_times_w with the weight streamed: store(r, n, v) for
+// v = sum_k x[r * ldx + k] * W(k, n) over k < K, where load(dst, k0, kt)
+// copies W's rows [k0, k0 + kt) (N columns) into dst with leading
+// dimension lds. Each output sums its stages' partial sums in stage order
+// in acc[r * lda + n] (which store may overwrite), so a repeat rounds
+// alike. x 16-byte aligned, ldx a multiple of 4.
+template <class Load, class Store>
+__device__ __forceinline__ void streamed_times_w(const float* x, int ldx, int rows, int K, int N,
+                                                 Load load, float* stage, int lds, float* acc,
+                                                 int lda, float* part, Store store) {
+  const int last = (K - 1) / kStreamDepth * kStreamDepth;
+  stream_stages(K, lds, stage, load, [&](const float* w, int k0, int kt) {
+    rows_times_w(x + k0, ldx, rows, kt, w, lds, N, part, [&](int r, int n, float v) {
+      float* a = acc + r * lda + n;
+      const float s = k0 == 0 ? v : *a + v;
+      if (k0 == last) {
+        store(r, n, s);
+      } else {
+        *a = s;
+      }
+    });
+  });
+}
+
+// rows_times_wt with the weight streamed: store(r, j, v) for
+// v = sum_k g[r * ldg + k] * W[j, k] over k < N, for j < M, where
+// load(dst, j0, jt) copies W's rows [j0, j0 + jt) into dst (lds). A stage
+// gives its rows' outputs whole.
+template <class Load, class Store>
+__device__ __forceinline__ void streamed_times_wt(const float* g, int ldg, int rows, int N, int M,
+                                                  Load load, float* stage, int lds, float* part,
+                                                  Store store) {
+  stream_stages(M, lds, stage, load, [&](const float* w, int j0, int jt) {
+    rows_times_wt(g, ldg, rows, N, w, lds, jt, part,
+                  [&](int r, int j, float v) { store(r, j0 + j, v); });
+  });
 }
 
 // ---------------------------------------------------------------------------

@@ -3,65 +3,80 @@
 //
 // Replaces the Pallas TPU kernel pair of
 // arvae_tpu/ops/hier_decoder_pallas.py::hier_tick_chain (_fwd_kernel,
-// _bwd_kernel). For t = 0 .. T-1, with beat = t / ticks_per_beat:
+// _bwd_kernel). For t = 0 .. T-1, with beat = t / ticks_per_beat and a
+// tick GRU of L layers (1 <= L <= kMaxLayers):
 //
-//   at t % ticks_per_beat == 0: (h0, h1) = tick_h0[beat]   (beat resets)
-//   gi0 = prev_emb @ w_ih0e + gi_beat[beat];  h0 = GRU(gi0, h0; w_hh0, b_hh0)
-//   inter = h0 * dropout_mask(seed, t)        (training with dropout only)
-//   h1 = GRU(inter @ w_ih1 + b_ih1, h1; w_hh1, b_hh1)
-//   weights[t] = relu(h1 @ out_w + out_b)
+//   at t % ticks_per_beat == 0: h_l = tick_h0[beat][l] for every l (beat resets)
+//   gi_0 = prev_emb @ w_ih0e + gi_beat[beat];  h_0 = GRU(gi_0, h_0; w_hh_0, b_hh_0)
+//   for l = 1 .. L-1:
+//     x_l = h_{l-1} * dropout_mask(seed, t, salt l-1)   (training with dropout only)
+//     h_l = GRU(x_l @ w_ih_l + b_ih_l, h_l; w_hh_l, b_hh_l)
+//   weights[t] = relu(h_{L-1} @ out_w + out_b)
 //   sampled = argmax (lowest index on ties), or Gumbel-max (multinomial)
 //   tok = clamp(teacher ? score[t] : sampled, 0, V-1);  prev_emb = emb[tok]
 //
 // with prev_emb = x0 at t = 0. The forward saves weights, samples (the fed
-// tokens) and both layers' hiddens for the backward.
+// tokens) and every layer's hiddens for the backward.
 //
 // Forward. What bounds it: a 24-step chain of dependent small products
-// (two GRU layers of (rows x H) @ (H x 3H) and the (rows x H) @ (H x V)
+// (L GRU layers of (rows x H) @ (H x 3H) and the (rows x H) @ (H x V)
 // head) with an argmax and a gather between steps: latency, not bytes or
 // arithmetic throughput. The step really is sequential (free-running, each
 // tick's argmax feeds the next). The design: a thread-block cluster of C
-// CTAs owns a tile of RB batch rows for the whole measure. CTA c holds in
-// shared memory, loaded once, the gate columns of its H/C hidden units of
-// w_ih0e, w_hh0, w_ih1 and w_hh1, its ceil(V/C) columns of out_w and
-// out_b, and a full copy of emb for the gather (about 182 KB at H = 128,
-// V = 130, C = 4), so no tick reads a weight from L2. A tick has three
-// cluster barriers: layer 0 (own units, the new h0 and its dropout-masked
-// copy written into every peer's shared memory), layer 1 (the new h1
-// likewise), and the head (the CTA's V slice of the logits, a per-row
-// partial (max, lowest index) written to every peer, combined by each CTA
-// in the same way, then the teacher select and the re-embedding from the
-// local emb). The products are gru_common.cuh's depth-split
-// rows_times_w, a layer's two (input and hidden side) at once on the two
-// halves of the block; one thread owns one (row, unit) of the cell math. The
-// hiddens are double-buffered by tick parity. The plan (C, RB, shared
-// memory) comes from arvae_tpu_torch/ops/hier_decoder_kernel.py::hier_plan,
-// which mirrors fwd_layout below term for term; the entry refuses a plan
-// that does not fit.
+// CTAs owns a tile of RB batch rows for the whole measure. In the resident
+// layout CTA c holds in shared memory, loaded once, the gate columns of
+// its H/C hidden units of w_ih0e and of every layer's w_hh and w_ih, its
+// ceil(V/C) columns of out_w and out_b, and a full copy of emb for the
+// gather (about 182 KB at H = 128, V = 130, C = 4, L = 2), so no tick
+// reads a weight from L2. A tick has L + 1 cluster barriers: one a layer
+// (own units, the new h_l and its dropout-masked copy, the next layer's
+// input, written into every peer's shared memory), and the head (the
+// CTA's V slice of the logits, a per-row partial (max, lowest index)
+// written to every peer, combined by each CTA in the same way, then the
+// teacher select and the re-embedding from the local emb). The products
+// are gru_common.cuh's depth-split rows_times_w, a layer's two (input and
+// hidden side) at once on the two halves of the block; one thread owns
+// one (row, unit) of the cell math. The hiddens are double-buffered by
+// tick parity, and the layers' inputs by layer parity.
 //
-// Backward. The only dependence between ticks is the two hidden-gradient
+// Where no cluster of 8 CTAs holds those slices (H >= 256 at L = 2, or 4
+// layers at H = 128), the plan takes the streamed layout: the CTA keeps
+// only biases, emb and its tiles, and every product reads its weight
+// slice from L2 (about 9 MB of matrices at H = 512, L = 2; 21 MB at L = 4,
+// against 50 MB of L2) in stages of 32 rows, double-buffered with
+// cp.async, on the whole block, one product after the other (the
+// streamed products of gru_common.cuh: each output adds its stages'
+// partial sums in stage order). The plan (C, RB, shared memory, layout)
+// comes from arvae_tpu_torch/ops/hier_decoder_kernel.py::hier_plan, which
+// mirrors fwd_layout below term for term; the entry refuses a plan that
+// does not fit.
+//
+// Backward. The only dependence between ticks is the L hidden-gradient
 // carries, and they restart at every beat (routed to dtick_h0); tokens
 // carry no gradient. So it is n_beats independent chains of
 // ticks_per_beat ticks a layer. Everything that does not touch a carry
 // runs over all T x B rows at once through the tiled fixed-order row GEMM
-// of gru_common.cuh: the recomputed gi0 and gi1, dlog @ out_w^T,
-// dgi1 @ w_ih1^T and dgi0 @ w_ih0e^T; the ReLU's mask is the forward's
-// own (weights > 0), so the backward agrees with it at the kink. Each layer's chain is the GRU
-// chain's cluster backward (gru_cluster.cuh) over ticks_per_beat steps on
-// n_beats x B rows. Chain operands use the layout (tick in beat,
-// beat * B + b); the forward saves h0_all and h1_all in it, with zero
-// rows for the padded ticks of a short last beat (T not a multiple of
-// ticks_per_beat), whose gi and douts are zero too. The six weight and
-// embedding gradients go through the A^T X GEMM of gru_common.cuh. All of
-// it launches from the one C entry, in a fixed order on one stream; no
-// float atomics, so repeats are bitwise equal.
+// of gru_common.cuh: the recomputed gi_l, dlog @ out_w^T,
+// dgi_l @ w_ih_l^T (masked by gap l-1's dropout) and dgi_0 @ w_ih0e^T;
+// the ReLU's mask is the forward's own (weights > 0), so the backward
+// agrees with it at the kink. The layers run from the top down: each
+// layer's chain is the GRU chain's cluster backward (gru_cluster.cuh, in
+// its resident or streamed layout as gru_plan gives it) over
+// ticks_per_beat steps on n_beats x B rows, followed by its weight
+// gradients. Chain operands use the layout (tick in beat, beat * B + b);
+// the forward saves the hiddens in it, with zero rows for the padded
+// ticks of a short last beat (T not a multiple of ticks_per_beat), whose
+// gi and douts are zero too. The 2L + 2 weight and embedding gradients go
+// through the A^T X GEMM of gru_common.cuh. All of it launches from the
+// one C entry, in a fixed order on one stream; no float atomics, so
+// repeats are bitwise equal.
 //
 // Random bits: a counter-based 32-bit hash of (seed, t, salt, row, col),
-// indexed by the global batch row and column, salt 0 for dropout and
-// 3571 for the Gumbel noise. The plain PyTorch version in
-// arvae_tpu_torch/ops/hier_decoder_kernel.py computes the same function
-// with integer tensor ops, and the uniform is formed with explicitly
-// rounded multiply and add, so both give bitwise-equal masks.
+// indexed by the global batch row and column, salt l for the dropout of
+// the gap after layer l and 3571 for the Gumbel noise. The plain PyTorch
+// version in arvae_tpu_torch/ops/hier_decoder_kernel.py computes the same
+// function with integer tensor ops, and the uniform is formed with
+// explicitly rounded multiply and add, so both give bitwise-equal masks.
 //
 // Plain C interface, loaded with ctypes: each entry launches on the given
 // stream, does not synchronise, allocates nothing, and returns
@@ -102,36 +117,38 @@ __device__ __forceinline__ float uniform01(uint32_t seed, int t, uint32_t salt, 
   return __fadd_rn(__fmul_rn(u, 1.f - 2.f / 16777216.f), 1.f / 16777216.f);
 }
 
-constexpr uint32_t kSaltDropout = 0;
+constexpr uint32_t kSaltDropout = 0;  // + the gap: the gap after layer l draws salt l
 constexpr uint32_t kSaltGumbel = 3571;
 
-__device__ __forceinline__ float dropout_mask(uint32_t seed, int t, int row, int col,
+__device__ __forceinline__ float dropout_mask(uint32_t seed, int t, int gap, int row, int col,
                                               float keep, float scale) {
-  return uniform01(seed, t, kSaltDropout, row, col) < keep ? scale : 0.f;
+  return uniform01(seed, t, kSaltDropout + gap, row, col) < keep ? scale : 0.f;
 }
 
 // ---------------------------------------------------------------------------
 // Arguments
 // ---------------------------------------------------------------------------
 
+// Tick-GRU layers the kernels take.
+constexpr int kMaxLayers = 4;
+
 struct Weights {
   const float* gi_beat;  // (n_beats, B, 3H)
-  const float* tick_h0;  // (n_beats, 2, B, H)
+  const float* tick_h0;  // (n_beats, L, B, H)
   const float* x0;       // (B, E)
   const float* emb;      // (V, E)
   const float* w_ih0e;   // (E, 3H)
-  const float* w_hh0;    // (H, 3H)
-  const float* b_hh0;    // (3H,)
-  const float* w_ih1;    // (H, 3H)
-  const float* b_ih1;    // (3H,)
-  const float* w_hh1;    // (H, 3H)
-  const float* b_hh1;    // (3H,)
+  const float* w_hh[kMaxLayers];  // (H, 3H) each
+  const float* b_hh[kMaxLayers];  // (3H,)
+  const float* w_ih[kMaxLayers];  // (H, 3H), layers 1 .. L-1 ([0] unused)
+  const float* b_ih[kMaxLayers];  // (3H,), layers 1 .. L-1
   const float* out_w;    // (H, V)
   const float* out_b;    // (V,)
 };
 
 struct Dims {
   int T, B, H, E, V, tpb;  // tpb: ticks per beat
+  int L;                   // tick-GRU layers
   int dropout;             // 1: training with a dropout rate > 0
   float keep, scale;       // keep probability and 1 / keep
   int multinomial;         // 1: Gumbel-max sampling, 0: argmax
@@ -167,33 +184,42 @@ __device__ __forceinline__ size_t chain_index(const Dims& dm, int t, int b, int 
 }
 
 struct FwdOut {
-  float* weights;  // (T, B, V) relu logits
-  int* samples;    // (T, B) fed tokens
-  float* h0_all;   // (tpb, n_beats * B, H), chain layout
-  float* h1_all;   // (tpb, n_beats * B, H)
+  float* weights;               // (T, B, V) relu logits
+  int* samples;                 // (T, B) fed tokens
+  float* h_all[kMaxLayers];     // (tpb, n_beats * B, H) each, chain layout
 };
 
 // ---------------------------------------------------------------------------
-// Forward: one cluster a tile of rows, weights resident in shared memory
+// Forward: one cluster a tile of rows
 // ---------------------------------------------------------------------------
 
 // Shared-memory layout of one CTA of the forward, in floats; every array
 // starts on a 16-byte boundary. ops/hier_decoder_kernel.py::fwd_smem_floats
 // mirrors it term for term.
 struct FwdLayout {
-  int hc, n3, vc;                // hidden units, gate columns, vocabulary columns owned
+  int hc, n3, vc;  // hidden units, gate columns, vocabulary columns owned
   int ldw, ldv, ldh, ldg, lde, ldl;
-  int w_ih0e, w_hh0, w_ih1, w_hh1, out_w;  // weight slices
-  int b_hh0, b_ih1, b_hh1, out_b;          // bias slices
-  int emb;                                 // the whole table
-  int h0, h1;                              // full hiddens of the tile, 2 buffers each
-  int x, pe, ga, gb, lg;                   // layer-1 input, fed embedding, gates, logits
-  int part, part_hi;                       // partial sums: the head's; a layer's two halves
-  int pm, pi, tok;                         // argmax partials [source CTA][row], fed tokens
+  int wsz;         // floats of one resident H x 3H slice
+  int w_ih0e;      // resident: w_ih0e's slice; streamed: the two stages
+  int wl;          // resident: the layers' slices, w_hh_0, then w_ih_l, w_hh_l for l >= 1
+  int out_w;       // resident: out_w's slice
+  int bl;          // bias slices: b_hh_0, then b_ih_l, b_hh_l for l >= 1
+  int out_b, emb;  // out_b's slice, the whole table
+  int h;           // hiddens of the tile: layer l's 2 buffers from h + 2 l RB ldh
+  int x;           // the next layer's input: 1 buffer at L = 2, 2 by layer parity at L > 2
+  int pe, ga, gb, lg;  // fed embedding, gates (input and hidden side), logits
+  int part, part_hi;   // partial sums: the head's; a layer's two halves (resident)
+  int pm, pi, tok;     // argmax partials [source CTA][row], fed tokens
   int total;
+
+  __host__ __device__ int whh(int l) const { return wl + 2 * l * wsz; }
+  __host__ __device__ int wih(int l) const { return wl + (2 * l - 1) * wsz; }
+  __host__ __device__ int bhh(int l) const { return bl + 2 * l * ldg; }
+  __host__ __device__ int bih(int l) const { return bl + (2 * l - 1) * ldg; }
 };
 
-__host__ __device__ inline FwdLayout fwd_layout(int H, int E, int V, int C, int RB) {
+__host__ __device__ inline FwdLayout fwd_layout(int H, int E, int V, int C, int RB, int NL,
+                                                bool stream) {
   FwdLayout L;
   L.hc = H / C;
   L.n3 = 3 * L.hc;
@@ -204,34 +230,44 @@ __host__ __device__ inline FwdLayout fwd_layout(int H, int E, int V, int C, int 
   L.ldg = up4(L.n3);
   L.lde = up4(E);
   L.ldl = up4(L.vc);
+  L.wsz = H * L.ldw;
   int o = 0;
   auto take = [&](int& at, int n) {
     at = o;
     o += n;
   };
-  take(L.w_ih0e, E * L.ldw);
-  take(L.w_hh0, H * L.ldw);
-  take(L.w_ih1, H * L.ldw);
-  take(L.w_hh1, H * L.ldw);
-  take(L.out_w, H * L.ldv);
-  take(L.b_hh0, L.ldg);
-  take(L.b_ih1, L.ldg);
-  take(L.b_hh1, L.ldg);
+  if (stream) {
+    take(L.w_ih0e, 2 * kStreamDepth * max(L.ldw, L.ldv));
+    L.wl = L.out_w = L.w_ih0e;
+  } else {
+    take(L.w_ih0e, E * L.ldw);
+    take(L.wl, (2 * NL - 1) * L.wsz);
+    take(L.out_w, H * L.ldv);
+  }
+  take(L.bl, (2 * NL - 1) * L.ldg);
   take(L.out_b, L.ldl);
   take(L.emb, up4(V * E));
-  take(L.h0, 2 * RB * L.ldh);
-  take(L.h1, 2 * RB * L.ldh);
-  take(L.x, RB * L.ldh);
+  take(L.h, NL * 2 * RB * L.ldh);
+  take(L.x, min(NL - 1, 2) * RB * L.ldh);
   take(L.pe, RB * L.lde);
   take(L.ga, RB * L.ldg);
   take(L.gb, RB * L.ldg);
   take(L.lg, RB * L.ldl);
-  // the partial sums: a layer's two products run at once, each on half
-  // the block with its own half of the scratch; the head on the whole
-  const int half = up4(max(product_part_floats(RB, E, L.n3, kThreads / 2),
-                           product_part_floats(RB, H, L.n3, kThreads / 2)));
-  take(L.part, max(2 * half, up4(product_part_floats(RB, H, L.vc, kThreads))));
-  L.part_hi = L.part + half;
+  if (stream) {
+    // the products run one at a time on the whole block, a stage deep
+    const int depth = min(kStreamDepth, H);
+    take(L.part, up4(max(product_part_floats(RB, E, L.n3, kThreads),
+                         max(product_part_floats(RB, depth, L.n3, kThreads),
+                             product_part_floats(RB, depth, L.vc, kThreads)))));
+    L.part_hi = L.part;
+  } else {
+    // a layer's two products run at once, each on half the block with
+    // its own half of the scratch; the head on the whole
+    const int half = up4(max(product_part_floats(RB, E, L.n3, kThreads / 2),
+                             product_part_floats(RB, H, L.n3, kThreads / 2)));
+    take(L.part, max(2 * half, up4(product_part_floats(RB, H, L.vc, kThreads))));
+    L.part_hi = L.part + half;
+  }
   take(L.pm, up4(C * RB));
   take(L.pi, up4(C * RB));
   take(L.tok, up4(RB));
@@ -242,9 +278,25 @@ __host__ __device__ inline FwdLayout fwd_layout(int H, int E, int V, int C, int 
 // The CTA's gate columns of a (K, 3H) weight into a (K, ldw) slice.
 __device__ __forceinline__ void load_gate_slice(float* dst, const FwdLayout& L, const float* w,
                                                 int K, int H, int u0) {
-  for (int g = 0; g < 3; ++g) copy_tile(dst + g * L.hc, L.ldw, w + g * H + u0, 3 * H, K, L.hc, K);
+  load_gate_rows(dst, L.ldw, w, H, L.hc, u0, 0, K);
 }
 
+// A streamed product's loader of the CTA's vocabulary columns [v0, v0 + nv)
+// of out_w (H, V), zeros in the slice's columns past V.
+struct VocabRows {
+  const float* w;
+  int V, v0, nv, vc, ldv;
+  __device__ void operator()(float* dst, int k0, int kt) const {
+    for (int i = threadIdx.x; i < kt * vc; i += blockDim.x) {
+      const int r = i / vc;
+      const int n = i - r * vc;
+      const bool in = n < nv;
+      cp_async4(dst + r * ldv + n, in ? w + static_cast<size_t>(k0 + r) * V + v0 + n : w, in);
+    }
+  }
+};
+
+template <bool kStream>
 __global__ void __launch_bounds__(kThreads)
 hier_fwd(Weights w, Dims dm, int RB, const int* __restrict__ teacher_ptr,
          const int* __restrict__ seed_ptr, const int* __restrict__ score, FwdOut out) {
@@ -252,16 +304,10 @@ hier_fwd(Weights w, Dims dm, int RB, const int* __restrict__ teacher_ptr,
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int c = static_cast<int>(cluster.block_rank());
-  const int T = dm.T, B = dm.B, H = dm.H, E = dm.E, V = dm.V, H3 = 3 * H;
-  const FwdLayout L = fwd_layout(H, E, V, C, RB);
-  float* s_wi0 = smem + L.w_ih0e;
-  float* s_wh0 = smem + L.w_hh0;
-  float* s_wi1 = smem + L.w_ih1;
-  float* s_wh1 = smem + L.w_hh1;
+  const int T = dm.T, B = dm.B, H = dm.H, E = dm.E, V = dm.V, NL = dm.L, H3 = 3 * H;
+  const FwdLayout L = fwd_layout(H, E, V, C, RB, NL, kStream);
+  float* stage = smem + L.w_ih0e;  // streamed: the weight stages
   float* s_ow = smem + L.out_w;
-  float* s_bh0 = smem + L.b_hh0;
-  float* s_bi1 = smem + L.b_ih1;
-  float* s_bh1 = smem + L.b_hh1;
   float* s_ob = smem + L.out_b;
   float* s_emb = smem + L.emb;
   float* s_x = smem + L.x;
@@ -287,28 +333,32 @@ hier_fwd(Weights w, Dims dm, int RB, const int* __restrict__ teacher_ptr,
   const int u = u0 + me.i;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  // each layer's two products run at once on the two halves of the block
+  // resident: each layer's two products run at once on the two halves of the block
   const bool lo = threadIdx.x < kThreads / 2;
   const ThreadGroup half = lo ? ThreadGroup{0, kThreads / 2, 1}
                               : ThreadGroup{kThreads / 2, kThreads / 2, 2};
 
-  // the weight slices, once for the whole measure
-  load_gate_slice(s_wi0, L, w.w_ih0e, E, H, u0);
-  load_gate_slice(s_wh0, L, w.w_hh0, H, H, u0);
-  load_gate_slice(s_wi1, L, w.w_ih1, H, H, u0);
-  load_gate_slice(s_wh1, L, w.w_hh1, H, H, u0);
-  cp_async_commit();
-  for (int i = threadIdx.x; i < H * L.vc; i += blockDim.x) {
-    const int j = i / L.vc;
-    const int n = i - j * L.vc;
-    s_ow[j * L.ldv + n] = n < nv ? w.out_w[static_cast<size_t>(j) * V + v0 + n] : 0.f;
+  // the weight slices, once for the whole measure (resident)
+  if (!kStream) {
+    load_gate_slice(smem + L.w_ih0e, L, w.w_ih0e, E, H, u0);
+    for (int l = 0; l < NL; ++l) {
+      load_gate_slice(smem + L.whh(l), L, w.w_hh[l], H, H, u0);
+      if (l > 0) load_gate_slice(smem + L.wih(l), L, w.w_ih[l], H, H, u0);
+    }
+    cp_async_commit();
+    for (int i = threadIdx.x; i < H * L.vc; i += blockDim.x) {
+      const int j = i / L.vc;
+      const int n = i - j * L.vc;
+      s_ow[j * L.ldv + n] = n < nv ? w.out_w[static_cast<size_t>(j) * V + v0 + n] : 0.f;
+    }
   }
   for (int i = threadIdx.x; i < L.n3; i += blockDim.x) {
     const int g = i / L.hc;
     const int col = g * H + u0 + i - g * L.hc;
-    s_bh0[i] = w.b_hh0[col];
-    s_bi1[i] = w.b_ih1[col];
-    s_bh1[i] = w.b_hh1[col];
+    for (int l = 0; l < NL; ++l) {
+      smem[L.bhh(l) + i] = w.b_hh[l][col];
+      if (l > 0) smem[L.bih(l) + i] = w.b_ih[l][col];
+    }
   }
   for (int i = threadIdx.x; i < L.vc; i += blockDim.x) s_ob[i] = i < nv ? w.out_b[v0 + i] : 0.f;
   for (int i = threadIdx.x; i < V * E; i += blockDim.x) s_emb[i] = w.emb[i];
@@ -322,14 +372,12 @@ hier_fwd(Weights w, Dims dm, int RB, const int* __restrict__ teacher_ptr,
   for (int t = 0; t < T; ++t) {
     const int cur = t & 1;
     const int beat = t / dm.tpb;
-    float* h0c = smem + L.h0 + cur * hbuf;  // h_{t-1}, read this tick
-    float* h0n = smem + L.h0 + (cur ^ 1) * hbuf;  // h_t, written by every CTA
-    float* h1c = smem + L.h1 + cur * hbuf;
-    float* h1n = smem + L.h1 + (cur ^ 1) * hbuf;
     if (t % dm.tpb == 0) {  // the beat's reset; nobody writes these buffers this tick
-      const float* init = w.tick_h0 + (static_cast<size_t>(beat) * 2 * B + row0) * H;
-      copy_tile(h0c, L.ldh, init, H, RB, H, nr);
-      copy_tile(h1c, L.ldh, init + static_cast<size_t>(B) * H, H, RB, H, nr);
+      for (int l = 0; l < NL; ++l) {
+        copy_tile(smem + L.h + (2 * l + cur) * hbuf, L.ldh,
+                  w.tick_h0 + ((static_cast<size_t>(beat) * NL + l) * B + row0) * H, H, RB, H,
+                  nr);
+      }
       cp_async_commit();
     }
     float gb3[3];  // the unit's gi_beat row
@@ -337,58 +385,69 @@ hier_fwd(Weights w, Dims dm, int RB, const int* __restrict__ teacher_ptr,
     cp_async_wait<0>();
     __syncthreads();
 
-    // layer 0: gi0 = pe w_ih0e[:, own] + gi_beat, gh0 = h0 w_hh0[:, own] + b_hh0
-    if (lo) {
-      rows_times_w(s_pe, L.lde, RB, E, s_wi0, L.ldw, L.n3, part,
-                   [&](int r, int n, float v) { s_ga[r * L.ldg + n] = v; }, half);
-    } else {
-      rows_times_w(h0c, L.ldh, RB, H, s_wh0, L.ldw, L.n3, part_hi,
-                   [&](int r, int n, float v) { s_gb[r * L.ldg + n] = v + s_bh0[n]; }, half);
-    }
-    __syncthreads();
-    if (me.live) {
-      const float* a = s_ga + me.r * L.ldg;
-      const float* b = s_gb + me.r * L.ldg;
-      const Gates G = gru_gates(a[me.i] + gb3[0], a[L.hc + me.i] + gb3[1],
-                                a[2 * L.hc + me.i] + gb3[2], b[me.i], b[L.hc + me.i],
-                                b[2 * L.hc + me.i]);
-      const float hn = gru_out(G, h0c[me.r * L.ldh + u]);
-      if (me.row) out.h0_all[chain_index(dm, t, row0 + me.r, u, H)] = hn;
-      const float x =
-          dm.dropout ? hn * dropout_mask(seed, t, row0 + me.r, u, dm.keep, dm.scale) : hn;
-      float* ph = h0n + me.r * L.ldh + u;
-      float* px = s_x + me.r * L.ldh + u;
-      for (int p = 0; p < C; ++p) {
-        *cluster.map_shared_rank(ph, p) = hn;
-        *cluster.map_shared_rank(px, p) = x;
+    for (int l = 0; l < NL; ++l) {
+      const float* hc = smem + L.h + (2 * l + cur) * hbuf;  // h_{t-1}, read this tick
+      float* hn = smem + L.h + (2 * l + (cur ^ 1)) * hbuf;  // h_t, written by every CTA
+      // layer 0 takes the fed embedding, layer l > 0 the masked h_{l-1}
+      const float* in = l == 0 ? s_pe : s_x + ((l - 1) & 1) * hbuf;
+      const int ldin = l == 0 ? L.lde : L.ldh;
+      const int kin = l == 0 ? E : H;
+      const float* bi = l > 0 ? smem + L.bih(l) : nullptr;
+      const float* bh = smem + L.bhh(l);
+      // gi = in w_ih[:, own] (+ b_ih), gh = h w_hh[:, own] + b_hh
+      auto ga_store = [&](int r, int n, float v) { s_ga[r * L.ldg + n] = l == 0 ? v : v + bi[n]; };
+      auto gb_store = [&](int r, int n, float v) { s_gb[r * L.ldg + n] = v + bh[n]; };
+      if (kStream) {
+        const GateRows in_rows{l == 0 ? w.w_ih0e : w.w_ih[l], H, L.hc, u0, L.ldw};
+        const GateRows h_rows{w.w_hh[l], H, L.hc, u0, L.ldw};
+        streamed_times_w(in, ldin, RB, kin, L.n3, in_rows, stage, L.ldw, s_ga, L.ldg, part,
+                         ga_store);
+        streamed_times_w(hc, L.ldh, RB, H, L.n3, h_rows, stage, L.ldw, s_gb, L.ldg, part,
+                         gb_store);
+      } else if (lo) {
+        rows_times_w(in, ldin, RB, kin, smem + (l == 0 ? L.w_ih0e : L.wih(l)), L.ldw, L.n3, part,
+                     ga_store, half);
+      } else {
+        rows_times_w(hc, L.ldh, RB, H, smem + L.whh(l), L.ldw, L.n3, part_hi, gb_store, half);
       }
+      __syncthreads();
+      if (me.live) {
+        const float* a = s_ga + me.r * L.ldg;
+        const float* b = s_gb + me.r * L.ldg;
+        const Gates G =
+            l == 0 ? gru_gates(a[me.i] + gb3[0], a[L.hc + me.i] + gb3[1],
+                               a[2 * L.hc + me.i] + gb3[2], b[me.i], b[L.hc + me.i],
+                               b[2 * L.hc + me.i])
+                   : gru_gates(a[me.i], a[L.hc + me.i], a[2 * L.hc + me.i], b[me.i],
+                               b[L.hc + me.i], b[2 * L.hc + me.i]);
+        const float h = gru_out(G, hc[me.r * L.ldh + u]);
+        if (me.row) out.h_all[l][chain_index(dm, t, row0 + me.r, u, H)] = h;
+        float* ph = hn + me.r * L.ldh + u;
+        if (l + 1 < NL) {
+          const float x = dm.dropout
+                              ? h * dropout_mask(seed, t, l, row0 + me.r, u, dm.keep, dm.scale)
+                              : h;
+          float* px = s_x + (l & 1) * hbuf + me.r * L.ldh + u;
+          for (int p = 0; p < C; ++p) {
+            *cluster.map_shared_rank(ph, p) = h;
+            *cluster.map_shared_rank(px, p) = x;
+          }
+        } else {
+          for (int p = 0; p < C; ++p) *cluster.map_shared_rank(ph, p) = h;
+        }
+      }
+      cluster.sync();
     }
-    cluster.sync();
-
-    // layer 1: gi1 = x w_ih1[:, own] + b_ih1, gh1 = h1 w_hh1[:, own] + b_hh1
-    if (lo) {
-      rows_times_w(s_x, L.ldh, RB, H, s_wi1, L.ldw, L.n3, part,
-                   [&](int r, int n, float v) { s_ga[r * L.ldg + n] = v + s_bi1[n]; }, half);
-    } else {
-      rows_times_w(h1c, L.ldh, RB, H, s_wh1, L.ldw, L.n3, part_hi,
-                   [&](int r, int n, float v) { s_gb[r * L.ldg + n] = v + s_bh1[n]; }, half);
-    }
-    __syncthreads();
-    if (me.live) {
-      const float* a = s_ga + me.r * L.ldg;
-      const float* b = s_gb + me.r * L.ldg;
-      const Gates G = gru_gates(a[me.i], a[L.hc + me.i], a[2 * L.hc + me.i], b[me.i],
-                                b[L.hc + me.i], b[2 * L.hc + me.i]);
-      const float hn = gru_out(G, h1c[me.r * L.ldh + u]);
-      if (me.row) out.h1_all[chain_index(dm, t, row0 + me.r, u, H)] = hn;
-      float* ph = h1n + me.r * L.ldh + u;
-      for (int p = 0; p < C; ++p) *cluster.map_shared_rank(ph, p) = hn;
-    }
-    cluster.sync();
 
     // head: the CTA's V slice of the relu logits, then the sampling scores
-    rows_times_w(h1n, L.ldh, RB, H, s_ow, L.ldv, L.vc, part,
-                 [&](int r, int n, float v) { s_lg[r * L.ldl + n] = v + s_ob[n]; });
+    const float* top = smem + L.h + (2 * (NL - 1) + (cur ^ 1)) * hbuf;
+    auto lg_store = [&](int r, int n, float v) { s_lg[r * L.ldl + n] = v + s_ob[n]; };
+    if (kStream) {
+      streamed_times_w(top, L.ldh, RB, H, L.vc, VocabRows{w.out_w, V, v0, nv, L.vc, L.ldv}, stage,
+                       L.ldv, s_lg, L.ldl, part, lg_store);
+    } else {
+      rows_times_w(top, L.ldh, RB, H, s_ow, L.ldv, L.vc, part, lg_store);
+    }
     __syncthreads();
     for (int i = threadIdx.x; i < RB * L.vc; i += blockDim.x) {
       const int r = i / L.vc;
@@ -464,8 +523,7 @@ hier_fwd(Weights w, Dims dm, int RB, const int* __restrict__ teacher_ptr,
   // the padded ticks of a short last beat: zero hiddens for the backward
   for (int t = T; t < dm.beats() * dm.tpb; ++t) {
     if (me.row) {
-      out.h0_all[chain_index(dm, t, row0 + me.r, u, H)] = 0.f;
-      out.h1_all[chain_index(dm, t, row0 + me.r, u, H)] = 0.f;
+      for (int l = 0; l < NL; ++l) out.h_all[l][chain_index(dm, t, row0 + me.r, u, H)] = 0.f;
     }
   }
   // no CTA may exit while a peer can still write into its shared memory:
@@ -474,10 +532,11 @@ hier_fwd(Weights w, Dims dm, int RB, const int* __restrict__ teacher_ptr,
 
 // Refuses a forward plan the kernel cannot run: returns the shared-memory
 // bytes it needs, or 0.
-int fwd_checked_smem(int H, int E, int V, int C, int RB, int smem_bytes) {
+int fwd_checked_smem(int H, int E, int V, int C, int RB, int NL, bool stream, int smem_bytes) {
   if (C < 1 || C > 8 || (C & (C - 1)) != 0 || H < 1 || H % C != 0 || E < 1 || V < 1) return 0;
+  if (NL < 1 || NL > kMaxLayers) return 0;
   if (RB < kRowsPerThread || RB % kRowsPerThread != 0 || RB * (H / C) > kThreads) return 0;
-  const long long need = 4LL * fwd_layout(H, E, V, C, RB).total;
+  const long long need = 4LL * fwd_layout(H, E, V, C, RB, NL, stream).total;
   if (need > kMaxSmem || smem_bytes < need || smem_bytes > kMaxSmem) return 0;
   return static_cast<int>(need);
 }
@@ -485,42 +544,29 @@ int fwd_checked_smem(int H, int E, int V, int C, int RB, int smem_bytes) {
 // ---------------------------------------------------------------------------
 // Backward
 // ---------------------------------------------------------------------------
-struct BwdGrads {
+// The gradients hier_bwd_finish writes; the GEMMs write the others.
+struct RowGrads {
   float* dgi_beat;  // (n_beats, B, 3H)
-  float* dtick_h0;  // (n_beats, 2, B, H)
+  float* dtick_h0;  // (n_beats, L, B, H)
   float* dx0;       // (B, E)
-  float* demb;      // (V, E)
-  float* dw_ih0e;   // (E, 3H)
-  float* dw_hh0;    // (H, 3H)
-  float* db_hh0;    // (3H,)
-  float* dw_ih1;    // (H, 3H)
-  float* db_ih1;    // (3H,)
-  float* dw_hh1;    // (H, 3H)
-  float* db_hh1;    // (3H,)
-  float* dout_w;    // (H, V)
-  float* dout_b;    // (V,)
 };
 
 // The backward's scratch, carved from one buffer. Chain layout: R =
 // ticks_per_beat * n_beats * B rows (tick in beat, beat * B + b); the
-// chains' initial hiddens and their gradients have n_beats * B rows.
+// chains' initial hiddens and their gradients have n_beats * B rows. The
+// layers run one after the other from the top, so one layer's operands
+// are kept at a time.
 struct BwdScratch {
   int* tok;       // (R,) fed token, -1 at t = 0 and on padded ticks
   float* pe;      // (R, E) fed embedding
-  float* inter;   // (R, H) layer-1 input after dropout
-  float* gi0;     // (R, 3H)
-  float* gi1;     // (R, 3H)
   float* dlog;    // (R, V) dlogits: dweights where the forward's logit > 0
-  float* dh1;     // (R, H) dlog @ out_w^T: layer 1's incoming gradient
-  float* init0;   // (n_beats * B, H) tick_h0[:, 0]
-  float* init1;   // (n_beats * B, H) tick_h0[:, 1]
-  float* dgi1;    // (R, 3H)
-  float* dgh1;    // (R, 3H)
-  float* dinit1;  // (n_beats * B, H)
-  float* dx;      // (R, H) layer 0's incoming gradient
-  float* dgi0;    // (R, 3H)
-  float* dgh0;    // (R, 3H)
-  float* dinit0;  // (n_beats * B, H)
+  float* init;    // (L, n_beats * B, H) tick_h0[:, l]
+  float* dinit;   // (L, n_beats * B, H)
+  float* inter;   // (R, H) the layer's input after dropout (layers l >= 1)
+  float* gi;      // (R, 3H) the layer's recomputed input-side gates
+  float* dh;      // (R, H) the layer's incoming gradient
+  float* dgi;     // (R, 3H)
+  float* dgh;     // (R, 3H)
   float* dpe;     // (R, E)
   long long floats;  // the floats taken; the GEMMs' partial sums follow
 };
@@ -537,31 +583,39 @@ BwdScratch carve(const Dims& dm, float* base) {
   };
   s.tok = reinterpret_cast<int*>(take(R));
   s.pe = take(R * dm.E);
-  s.inter = take(R * H);
-  s.gi0 = take(R * H3);
-  s.gi1 = take(R * H3);
   s.dlog = take(R * dm.V);
-  s.dh1 = take(R * H);
-  s.init0 = take(bc * H);
-  s.init1 = take(bc * H);
-  s.dgi1 = take(R * H3);
-  s.dgh1 = take(R * H3);
-  s.dinit1 = take(bc * H);
-  s.dx = take(R * H);
-  s.dgi0 = take(R * H3);
-  s.dgh0 = take(R * H3);
-  s.dinit0 = take(bc * H);
+  s.init = take(dm.L * bc * H);
+  s.dinit = take(dm.L * bc * H);
+  s.inter = take(R * H);
+  s.gi = take(R * H3);
+  s.dh = take(R * H);
+  s.dgi = take(R * H3);
+  s.dgh = take(R * H3);
   s.dpe = take(R * dm.E);
   s.floats = o;
   return s;
 }
 
+// The top layer's input after dropout: inter = h_prev * mask(gap).
+__device__ __forceinline__ void masked_rows(const Dims& dm, uint32_t seed, int gap,
+                                            const float* __restrict__ h_prev,
+                                            float* __restrict__ inter, int i0, int stride) {
+  const int R = dm.tpb * dm.beats() * dm.B;
+  for (int i = i0; i < R * dm.H; i += stride) {
+    const int m = i / dm.H;
+    const int j = i - m * dm.H;
+    const ChainRow cr = chain_row(dm, m);
+    const float x = h_prev[i];
+    inter[i] = dm.dropout ? x * dropout_mask(seed, cr.t, gap, cr.b, j, dm.keep, dm.scale) : x;
+  }
+}
+
 // The chain operands the recompute needs: fed tokens and embeddings, the
-// layer-1 input (the dropout mask replayed), the chains' initial hiddens,
-// and dlog = dweights where the forward's relu logit is > 0 (its own
-// decision at the kink, not a recomputed one).
+// chains' initial hiddens, dlog = dweights where the forward's relu logit
+// is > 0 (its own decision at the kink, not a recomputed one), and, with
+// h_prev, the top layer's input (the dropout mask of gap L-2 replayed).
 __global__ void hier_bwd_prep(Weights w, Dims dm, const int* __restrict__ seed_ptr,
-                              const int* __restrict__ samples, const float* __restrict__ h0_all,
+                              const int* __restrict__ samples, const float* __restrict__ h_prev,
                               const float* __restrict__ weights,
                               const float* __restrict__ dweights, BwdScratch s) {
   const uint32_t seed = static_cast<uint32_t>(*seed_ptr);
@@ -570,13 +624,7 @@ __global__ void hier_bwd_prep(Weights w, Dims dm, const int* __restrict__ seed_p
   const int R = dm.tpb * bc;
   const int stride = gridDim.x * blockDim.x;
   const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
-  for (int i = i0; i < R * H; i += stride) {
-    const int m = i / H;
-    const int j = i - m * H;
-    const ChainRow cr = chain_row(dm, m);
-    const float x = h0_all[i];
-    s.inter[i] = dm.dropout ? x * dropout_mask(seed, cr.t, cr.b, j, dm.keep, dm.scale) : x;
-  }
+  if (h_prev != nullptr) masked_rows(dm, seed, dm.L - 2, h_prev, s.inter, i0, stride);
   for (int i = i0; i < R * E; i += stride) {
     const int m = i / E;
     const int e = i - m * E;
@@ -601,10 +649,20 @@ __global__ void hier_bwd_prep(Weights w, Dims dm, const int* __restrict__ seed_p
   for (int i = i0; i < bc * H; i += stride) {
     const int rem = i / H;
     const int beat = rem / B;
-    const size_t src = (static_cast<size_t>(beat) * 2 * B + rem - beat * B) * H + i - rem * H;
-    s.init0[i] = w.tick_h0[src];
-    s.init1[i] = w.tick_h0[src + static_cast<size_t>(B) * H];
+    for (int l = 0; l < dm.L; ++l) {
+      const size_t src = ((static_cast<size_t>(beat) * dm.L + l) * B + rem - beat * B) * H +
+                         i - rem * H;
+      s.init[static_cast<size_t>(l) * bc * H + i] = w.tick_h0[src];
+    }
   }
+}
+
+// A lower layer's input after dropout (gap `gap`), for its recompute and
+// its w_ih gradient.
+__global__ void hier_bwd_inter(Dims dm, const int* __restrict__ seed_ptr, int gap,
+                               const float* __restrict__ h_prev, float* __restrict__ inter) {
+  masked_rows(dm, static_cast<uint32_t>(*seed_ptr), gap, h_prev, inter,
+              blockIdx.x * blockDim.x + threadIdx.x, gridDim.x * blockDim.x);
 }
 
 // Epilogues of the batched row products (row m of a chain operand).
@@ -632,49 +690,66 @@ struct EpiStore {
   }
 };
 
-// dx = acc times layer 1's input dropout mask (0 on padded rows).
+// dh = acc times the dropout mask of gap `gap` (0 on padded rows).
 struct EpiMask {
   Dims dm;
   float* out;
   const int* seed;
+  int gap;
   __device__ void operator()(int m, int n, float v) const {
     const ChainRow cr = chain_row(dm, m);
     if (dm.dropout) {
-      v *= dropout_mask(static_cast<uint32_t>(*seed), cr.t, cr.b, n, dm.keep, dm.scale);
+      v *= dropout_mask(static_cast<uint32_t>(*seed), cr.t, gap, cr.b, n, dm.keep, dm.scale);
     }
     out[static_cast<size_t>(m) * dm.H + n] = cr.live ? v : 0.f;
   }
 };
 
-// The gradients of one row each: dgi_beat (a beat's dgi0 summed in tick
-// order), dx0 (dpe at t = 0), dtick_h0 (the chains' dh0).
-__global__ void hier_bwd_finish(Dims dm, BwdScratch s, BwdGrads g) {
+// The gradients of one row each: dgi_beat (a beat's dgi_0 summed in tick
+// order), dx0 (dpe at t = 0), dtick_h0 (the chains' dh0, every layer).
+__global__ void hier_bwd_finish(Dims dm, BwdScratch s, RowGrads g) {
   const int B = dm.B, H = dm.H, E = dm.E, H3 = 3 * dm.H;
   const int bc = dm.beats() * B;
   const int stride = gridDim.x * blockDim.x;
   const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
   for (int i = i0; i < bc * H3; i += stride) {
     float acc = 0.f;
-    for (int k = 0; k < dm.tpb; ++k) acc += s.dgi0[static_cast<size_t>(k) * bc * H3 + i];
+    for (int k = 0; k < dm.tpb; ++k) acc += s.dgi[static_cast<size_t>(k) * bc * H3 + i];
     g.dgi_beat[i] = acc;
   }
   for (int i = i0; i < B * E; i += stride) g.dx0[i] = s.dpe[i];
   for (int i = i0; i < bc * H; i += stride) {
     const int rem = i / H;
     const int beat = rem / B;
-    const size_t o = (static_cast<size_t>(beat) * 2 * B + rem - beat * B) * H + i - rem * H;
-    g.dtick_h0[o] = s.dinit0[i];
-    g.dtick_h0[o + static_cast<size_t>(B) * H] = s.dinit1[i];
+    for (int l = 0; l < dm.L; ++l) {
+      const size_t o = ((static_cast<size_t>(beat) * dm.L + l) * B + rem - beat * B) * H +
+                       i - rem * H;
+      g.dtick_h0[o] = s.dinit[static_cast<size_t>(l) * bc * H + i];
+    }
   }
 }
 
+// The float operands as the entries take them: the layers' matrices as
+// host arrays of kMaxLayers pointers (entries past L unused).
 Weights make_weights(const float* gi_beat, const float* tick_h0, const float* x0,
-                     const float* emb, const float* w_ih0e, const float* w_hh0,
-                     const float* b_hh0, const float* w_ih1, const float* b_ih1,
-                     const float* w_hh1, const float* b_hh1, const float* out_w,
-                     const float* out_b) {
-  return Weights{gi_beat, tick_h0, x0, emb, w_ih0e, w_hh0, b_hh0,
-                 w_ih1, b_ih1, w_hh1, b_hh1, out_w, out_b};
+                     const float* emb, const float* w_ih0e, const float* const* w_hh,
+                     const float* const* b_hh, const float* const* w_ih,
+                     const float* const* b_ih, const float* out_w, const float* out_b, int NL) {
+  Weights w = {};
+  w.gi_beat = gi_beat;
+  w.tick_h0 = tick_h0;
+  w.x0 = x0;
+  w.emb = emb;
+  w.w_ih0e = w_ih0e;
+  for (int l = 0; l < NL; ++l) {
+    w.w_hh[l] = w_hh[l];
+    w.b_hh[l] = b_hh[l];
+    w.w_ih[l] = l > 0 ? w_ih[l] : nullptr;
+    w.b_ih[l] = l > 0 ? b_ih[l] : nullptr;
+  }
+  w.out_w = out_w;
+  w.out_b = out_b;
+  return w;
 }
 
 // Blocks of the elementwise launches: enough to fill the card, each
@@ -691,91 +766,85 @@ const char* hier_tick_chain_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Floats of shared memory a CTA of the forward plan (C, RB) needs: the
-// layout that ops/hier_decoder_kernel.py::fwd_smem_floats mirrors.
-int hier_tick_chain_smem_floats(int H, int E, int V, int C, int RB) {
-  return fwd_layout(H, E, V, C, RB).total;
+// Floats of shared memory a CTA of the forward plan (C, RB) needs for a
+// tick GRU of L layers, resident (stream 0) or streamed: the layout that
+// ops/hier_decoder_kernel.py::fwd_smem_floats mirrors.
+int hier_tick_chain_smem_floats(int H, int E, int V, int C, int RB, int L, int stream) {
+  return fwd_layout(H, E, V, C, RB, L, stream != 0).total;
 }
 
-// Clusters of C CTAs of the forward, smem_bytes of dynamic shared memory
-// each, that the card can hold at once (cudaOccupancyMaxActiveClusters);
-// a negative CUDA error code when the query fails.
-int hier_tick_chain_resident_clusters(int C, int smem_bytes) {
-  cudaError_t err = cudaFuncSetAttribute(hier_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem_bytes);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C * 1024);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem_bytes;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, hier_fwd, &cfg);
-  return err == cudaSuccess ? n : -static_cast<int>(err);
+// Clusters of C CTAs of the forward in the resident (stream 0) or
+// streamed layout, smem_bytes of dynamic shared memory each, that the card
+// can hold at once (cudaOccupancyMaxActiveClusters); a negative CUDA error
+// code when the query fails.
+int hier_tick_chain_resident_clusters(int stream, int C, int smem_bytes) {
+  return stream != 0 ? resident_clusters(hier_fwd<true>, C, smem_bytes)
+                     : resident_clusters(hier_fwd<false>, C, smem_bytes);
 }
 
 // Floats of the backward's scratch before the GEMMs' partial sums.
 long long hier_tick_chain_bwd_scratch_floats(int T, int B, int H, int E, int V,
-                                              int ticks_per_beat) {
-  const Dims dm{T, B, H, E, V, ticks_per_beat, 0, 1.f, 1.f, 0};
+                                              int ticks_per_beat, int L) {
+  const Dims dm{T, B, H, E, V, ticks_per_beat, L, 0, 1.f, 1.f, 0};
   return carve(dm, nullptr).floats;
 }
 
 // teacher, seed: (1,) i32 on the device; score (T, B) i32; the float
-// operands as in struct Weights; the plan: clusters of C CTAs of RB rows,
-// smem_bytes of dynamic shared memory each. Writes weights (T, B, V),
-// samples (T, B) i32, h0_all and h1_all (ticks_per_beat, n_beats * B, H).
+// operands as in struct Weights, the layers' as host arrays of kMaxLayers
+// pointers; the plan: clusters of C CTAs of RB rows, smem_bytes of dynamic
+// shared memory each, the weights resident (streamed 0) or streamed.
+// Writes weights (T, B, V), samples (T, B) i32 and the L layers' hiddens
+// h_all[l] (ticks_per_beat, n_beats * B, H).
 int hier_tick_chain_fwd(const int* teacher, const int* seed, const int* score,
                         const float* gi_beat, const float* tick_h0, const float* x0,
-                        const float* emb, const float* w_ih0e, const float* w_hh0,
-                        const float* b_hh0, const float* w_ih1, const float* b_ih1,
-                        const float* w_hh1, const float* b_hh1, const float* out_w,
-                        const float* out_b, int T, int B, int H, int E, int V,
-                        int ticks_per_beat, int dropout, float keep, float scale,
-                        int multinomial, int C, int RB, int smem_bytes, float* weights,
-                        int* samples, float* h0_all, float* h1_all, void* stream) {
-  if (fwd_checked_smem(H, E, V, C, RB, smem_bytes) == 0 || T < 1 || B < 1 ||
+                        const float* emb, const float* w_ih0e, const float* const* w_hh,
+                        const float* const* b_hh, const float* const* w_ih,
+                        const float* const* b_ih, const float* out_w, const float* out_b, int T,
+                        int B, int H, int E, int V, int L, int ticks_per_beat, int dropout,
+                        float keep, float scale, int multinomial, int C, int RB, int smem_bytes,
+                        int streamed, float* weights, int* samples, float* const* h_all,
+                        void* stream) {
+  if (fwd_checked_smem(H, E, V, C, RB, L, streamed != 0, smem_bytes) == 0 || T < 1 || B < 1 ||
       ticks_per_beat < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Weights w = make_weights(gi_beat, tick_h0, x0, emb, w_ih0e, w_hh0, b_hh0, w_ih1,
-                                 b_ih1, w_hh1, b_hh1, out_w, out_b);
-  const Dims dm{T, B, H, E, V, ticks_per_beat, dropout, keep, scale, multinomial};
-  const FwdOut out{weights, samples, h0_all, h1_all};
+  const Weights w =
+      make_weights(gi_beat, tick_h0, x0, emb, w_ih0e, w_hh, b_hh, w_ih, b_ih, out_w, out_b, L);
+  const Dims dm{T, B, H, E, V, ticks_per_beat, L, dropout, keep, scale, multinomial};
+  FwdOut out = {};
+  out.weights = weights;
+  out.samples = samples;
+  for (int l = 0; l < L; ++l) out.h_all[l] = h_all[l];
   const dim3 grid(C * ((B + RB - 1) / RB));
-  return static_cast<int>(launch_cluster(hier_fwd, C, grid, smem_bytes,
+  auto* kernel = streamed != 0 ? &hier_fwd<true> : &hier_fwd<false>;
+  return static_cast<int>(launch_cluster(kernel, C, grid, smem_bytes,
                                          static_cast<cudaStream_t>(stream), w, dm, RB, teacher,
                                          seed, score, out));
 }
 
-// The backward. grads: the 13 gradient outputs in the order of struct
-// BwdGrads; chain_C, chain_RB, chain_smem: gru_plan's plan of the chain
-// backward on n_beats * B rows; scratch: hier_tick_chain_bwd_scratch_floats
-// floats, then the GEMMs' partial sums; splits: the split of the terms of
-// each of the six weight-gradient GEMMs, in the order they run below
-// (ops/hier_decoder_kernel.py::gemm_shapes).
-int hier_tick_chain_bwd(const int* seed, const int* samples, const float* h0_all,
-                        const float* h1_all, const float* weights, const float* dweights,
-                        const float* gi_beat,
+// The backward. h_all: the forward's L saved hiddens; the gradient
+// outputs in the order of the float operands, the layers' as host arrays of
+// kMaxLayers pointers; chain_C, chain_RB, chain_smem, chain_streamed:
+// gru_plan's plan of the chain backward on n_beats * B rows; scratch:
+// hier_tick_chain_bwd_scratch_floats floats, then the GEMMs' partial sums;
+// splits: the split of the terms of each of the 2L + 2 weight-gradient
+// GEMMs, in the order they run below (ops/hier_decoder_kernel.py::
+// gemm_shapes).
+int hier_tick_chain_bwd(const int* seed, const int* samples, const float* const* h_all,
+                        const float* weights, const float* dweights, const float* gi_beat,
                         const float* tick_h0, const float* x0, const float* emb,
-                        const float* w_ih0e, const float* w_hh0, const float* b_hh0,
-                        const float* w_ih1, const float* b_ih1, const float* w_hh1,
-                        const float* b_hh1, const float* out_w, const float* out_b, int T,
-                        int B, int H, int E, int V, int ticks_per_beat, int dropout,
-                        float keep, float scale, int chain_C, int chain_RB, int chain_smem,
-                        float* dgi_beat, float* dtick_h0, float* dx0, float* demb,
-                        float* dw_ih0e, float* dw_hh0, float* db_hh0, float* dw_ih1,
-                        float* db_ih1, float* dw_hh1, float* db_hh1, float* dout_w,
-                        float* dout_b, float* scratch, const int* splits, void* stream) {
-  const Dims dm{T, B, H, E, V, ticks_per_beat, dropout, keep, scale, 0};
-  if (T < 1 || B < 1 || ticks_per_beat < 1 ||
-      chain_checked_smem(true, H, chain_C, chain_RB, chain_smem) == 0) {
+                        const float* w_ih0e, const float* const* w_hh, const float* const* b_hh,
+                        const float* const* w_ih, const float* const* b_ih, const float* out_w,
+                        const float* out_b, int T, int B, int H, int E, int V, int L,
+                        int ticks_per_beat, int dropout, float keep, float scale, int chain_C,
+                        int chain_RB, int chain_smem, int chain_streamed, float* dgi_beat,
+                        float* dtick_h0, float* dx0, float* demb, float* dw_ih0e,
+                        float* const* dw_hh, float* const* db_hh, float* const* dw_ih,
+                        float* const* db_ih, float* dout_w, float* dout_b, float* scratch,
+                        const int* splits, void* stream) {
+  const Dims dm{T, B, H, E, V, ticks_per_beat, L, dropout, keep, scale, 0};
+  if (T < 1 || B < 1 || ticks_per_beat < 1 || L < 1 || L > kMaxLayers ||
+      chain_checked_smem(true, H, chain_C, chain_RB, chain_smem, chain_streamed != 0) == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int bc = dm.beats() * B;
@@ -785,92 +854,92 @@ int hier_tick_chain_bwd(const int* seed, const int* samples, const float* h0_all
   }
   const int R = static_cast<int>(rows), H3 = 3 * H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Weights w = make_weights(gi_beat, tick_h0, x0, emb, w_ih0e, w_hh0, b_hh0, w_ih1,
-                                 b_ih1, w_hh1, b_hh1, out_w, out_b);
-  const BwdGrads g{dgi_beat, dtick_h0, dx0,    demb,   dw_ih0e, dw_hh0, db_hh0,
-                   dw_ih1,   db_ih1,   dw_hh1, db_hh1, dout_w,  dout_b};
+  const Weights w =
+      make_weights(gi_beat, tick_h0, x0, emb, w_ih0e, w_hh, b_hh, w_ih, b_ih, out_w, out_b, L);
   const BwdScratch s = carve(dm, scratch);
   float* red = scratch + s.floats;
-
-  hier_bwd_prep<<<elementwise_blocks(rows * std::max(H, V)), 256, 0, st>>>(
-      w, dm, seed, samples, h0_all, weights, dweights, s);
-  cudaError_t err = cudaGetLastError();
-  // 1. batched over all rows: the recomputed gates' inputs, and the
-  // head's gradient into layer 1
-  if (err == cudaSuccess) {
-    err = launch_row_gemm<false>(s.pe, E, w_ih0e, H3, R, E, H3,
-                                 EpiGates{dm, s.gi0, nullptr, gi_beat}, st);
-  }
-  if (err == cudaSuccess) {
-    err = launch_row_gemm<false>(s.inter, H, w_ih1, H3, R, H, H3,
-                                 EpiGates{dm, s.gi1, b_ih1, nullptr}, st);
-  }
-  if (err == cudaSuccess) {
-    err = launch_row_gemm<true>(s.dlog, V, out_w, V, R, V, H, EpiStore{s.dh1, H}, st);
-  }
-  // 2. layer 1's chains, one a beat
+  auto* chain = chain_streamed != 0 ? &gru_bwd<true> : &gru_bwd<false>;
   const dim3 chain_grid(chain_C * ((bc + chain_RB - 1) / chain_RB));
-  if (err == cudaSuccess) {
-    err = launch_cluster(gru_bwd, chain_C, chain_grid, chain_smem, st, s.gi1, w_hh1, b_hh1,
-                         s.init1, h1_all, s.dh1, ticks_per_beat, 1, bc, H, chain_RB, s.dgi1,
-                         s.dinit1, s.dgh1);
-  }
-  // 3. the gradient of layer 1's input, through the dropout mask
-  if (err == cudaSuccess) {
-    err = launch_row_gemm<true>(s.dgi1, H3, w_ih1, H3, R, H3, H, EpiMask{dm, s.dx, seed}, st);
-  }
-  // 4. layer 0's chains
-  if (err == cudaSuccess) {
-    err = launch_cluster(gru_bwd, chain_C, chain_grid, chain_smem, st, s.gi0, w_hh0, b_hh0,
-                         s.init0, h0_all, s.dx, ticks_per_beat, 1, bc, H, chain_RB, s.dgi0,
-                         s.dinit0, s.dgh0);
-  }
-  // 5. the fed embedding's gradient, and the gradients of one row each
-  if (err == cudaSuccess) {
-    err = launch_row_gemm<true>(s.dgi0, H3, w_ih0e, H3, R, H3, E, EpiStore{s.dpe, E}, st);
-  }
-  if (err == cudaSuccess) {
-    hier_bwd_finish<<<elementwise_blocks(static_cast<long long>(bc) * H3), 256, 0, st>>>(dm, s, g);
-    err = cudaGetLastError();
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
 
-  // 6. the weight and embedding gradients: fixed-order sums over the
-  // chain rows (padded ticks add exact zeros)
+  // the GEMMs' operands: a dense chain operand, and a layer's h_{t-1}
+  // (its saved hiddens one tick back, the chain's initial hidden at the
+  // first tick of a beat)
   const long long h = H, h3 = H3;
   auto dense = [&](const float* p, long long width) {
     return Operand{p, nullptr, 0, static_cast<long long>(bc) * width, width, 1, 0};
   };
-  // a layer's h_{t-1}: its saved hiddens one tick back, the chain's
-  // initial hidden at the first tick of a beat
   auto prev = [&](const float* all, const float* init) {
     return Operand{all, init, 0, static_cast<long long>(bc) * h, h, ticks_per_beat, 0};
   };
-  struct Job {
-    Operand a;
-    const int* tokens;
-    int m;
-    Operand x;
-    int n;
-    float* out;
-    float* bias;
+  int job = 0;  // the next GEMM, in the order of splits
+  auto atb = [&](const Operand& a, const int* tokens, int m, const Operand& x, int n, float* out,
+                 float* bias) {
+    return launch_atb(a, tokens, 0, m, x, n, ticks_per_beat, bc, 1, splits[job++], out, bias,
+                      red, st);
   };
-  const Job jobs[] = {
-      {dense(h1_all, h), nullptr, H, dense(s.dlog, V), V, dout_w, dout_b},
-      {dense(s.inter, h), nullptr, H, dense(s.dgi1, h3), H3, dw_ih1, db_ih1},
-      {prev(h1_all, s.init1), nullptr, H, dense(s.dgh1, h3), H3, dw_hh1, db_hh1},
-      {prev(h0_all, s.init0), nullptr, H, dense(s.dgh0, h3), H3, dw_hh0, db_hh0},
-      {dense(s.pe, E), nullptr, E, dense(s.dgi0, h3), H3, dw_ih0e, nullptr},
-      // one-hot of the fed token (-1: none, at t = 0 and on padded ticks)
-      {dense(nullptr, V), s.tok, V, dense(s.dpe, E), E, demb, nullptr},
-  };
-  for (int i = 0; i < 6; ++i) {
-    const Job& j = jobs[i];
-    err = launch_atb(j.a, j.tokens, 0, j.m, j.x, j.n, ticks_per_beat, bc, 1, splits[i], j.out,
-                     j.bias, red, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
+
+  hier_bwd_prep<<<elementwise_blocks(rows * std::max(H, V)), 256, 0, st>>>(
+      w, dm, seed, samples, L > 1 ? h_all[L - 2] : nullptr, weights, dweights, s);
+  cudaError_t err = cudaGetLastError();
+  // the head's gradient into the top layer
+  if (err == cudaSuccess) {
+    err = launch_row_gemm<true>(s.dlog, V, out_w, V, R, V, H, EpiStore{s.dh, H}, st);
   }
-  return static_cast<int>(cudaSuccess);
+  for (int l = L - 1; l >= 0 && err == cudaSuccess; --l) {
+    const float* init = s.init + static_cast<size_t>(l) * bc * H;
+    // the layer's input after dropout (the top layer's came with prep)
+    if (l > 0 && l < L - 1) {
+      hier_bwd_inter<<<elementwise_blocks(rows * H), 256, 0, st>>>(dm, seed, l - 1, h_all[l - 1],
+                                                                   s.inter);
+      err = cudaGetLastError();
+    }
+    // its recomputed input-side gates, over all rows at once
+    if (err == cudaSuccess) {
+      err = l > 0 ? launch_row_gemm<false>(s.inter, H, w_ih[l], H3, R, H, H3,
+                                           EpiGates{dm, s.gi, b_ih[l], nullptr}, st)
+                  : launch_row_gemm<false>(s.pe, E, w_ih0e, H3, R, E, H3,
+                                           EpiGates{dm, s.gi, nullptr, gi_beat}, st);
+    }
+    // its chains, one a beat
+    if (err == cudaSuccess) {
+      err = launch_cluster(chain, chain_C, chain_grid, chain_smem, st, s.gi, w_hh[l], b_hh[l],
+                           init, h_all[l], s.dh, ticks_per_beat, 1, bc, H, chain_RB, s.dgi,
+                           s.dinit + static_cast<size_t>(l) * bc * H, s.dgh);
+    }
+    // the gradient of its input: the layer below's (through the dropout
+    // mask), or the fed embedding's
+    if (err == cudaSuccess) {
+      err = l > 0 ? launch_row_gemm<true>(s.dgi, H3, w_ih[l], H3, R, H3, H,
+                                          EpiMask{dm, s.dh, seed, l - 1}, st)
+                  : launch_row_gemm<true>(s.dgi, H3, w_ih0e, H3, R, H3, E, EpiStore{s.dpe, E},
+                                          st);
+    }
+    // its weight gradients: fixed-order sums over the chain rows (padded
+    // ticks add exact zeros)
+    if (err == cudaSuccess && l > 0) {
+      err = atb(dense(s.inter, h), nullptr, H, dense(s.dgi, h3), H3, dw_ih[l], db_ih[l]);
+    }
+    if (err == cudaSuccess) {
+      err = atb(prev(h_all[l], init), nullptr, H, dense(s.dgh, h3), H3, dw_hh[l], db_hh[l]);
+    }
+    if (err == cudaSuccess && l == 0) {
+      err = atb(dense(s.pe, E), nullptr, E, dense(s.dgi, h3), H3, dw_ih0e, nullptr);
+    }
+  }
+  // the gradients of one row each, from layer 0's dgi and dpe
+  const RowGrads g{dgi_beat, dtick_h0, dx0};
+  if (err == cudaSuccess) {
+    hier_bwd_finish<<<elementwise_blocks(static_cast<long long>(bc) * H3), 256, 0, st>>>(dm, s,
+                                                                                          g);
+    err = cudaGetLastError();
+  }
+  // the embedding's (one-hot of the fed token; -1: none, at t = 0 and on
+  // padded ticks) and the head's
+  if (err == cudaSuccess) err = atb(dense(nullptr, V), s.tok, V, dense(s.dpe, E), E, demb, nullptr);
+  if (err == cudaSuccess) {
+    err = atb(dense(h_all[L - 1], h), nullptr, H, dense(s.dlog, V), V, dout_w, dout_b);
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

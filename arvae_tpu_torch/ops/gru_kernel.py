@@ -13,17 +13,19 @@ Gate math is torch-exact: ``n = tanh(i_n + r * (h w_hn + b_hn))``.
 On a CUDA tensor, :func:`gru_chain` launches the kernels of
 ``csrc/gru_chain.cu`` (forward in the autograd Function's forward,
 backward in its backward) or raises: where :func:`gru_plan` fits no
-direction (H too wide for 227 KB of shared memory) it raises before any
-launch. On a CPU tensor it runs :func:`gru_chain_reference`, a Python
-loop over T whose backward is autograd through the loop. There is no
-fallback from one to the other.
+direction (a width whose 4-row tile takes more than 512 threads even in
+clusters of 8) it raises before any launch. On a CPU tensor it runs
+:func:`gru_chain_reference`, a Python loop over T whose backward is
+autograd through the loop. There is no fallback from one to the other.
 
 What bounds it on the card: a T-long chain of dependent
 (rows x H) @ (H x 3H) products, small enough that latency, not bytes or
 arithmetic, sets the time. The kernel runs the whole chain in one launch:
 a thread-block cluster of C CTAs per tile of RB batch rows loops over t,
 each CTA holding its H/C hidden units' gate columns of ``w_hh`` in shared
-memory for the whole chain and exchanging hidden state (forward) or
+memory for the whole chain (or, where they do not fit, as at H=384 and
+512, reading them from L2 every step in stages of 32 rows: the streamed
+layout) and exchanging hidden state (forward) or
 partial hidden gradients (backward) with its peers through distributed
 shared memory. The backward sums dW_hh / db_hh with the tiled
 fixed-order GEMM of ``csrc/gru_common.cuh``, so its results repeat
@@ -95,7 +97,22 @@ MAX_SMEM = 227 * 1024  # dynamic shared memory a CTA may use on Hopper
 SMS = 132              # streaming multiprocessors of an H100 SXM
 THREADS = 512          # threads of a cluster kernel's CTA: one a cell unit
 ROWS_PER_THREAD = 4    # a tile's rows are a multiple of it
+STREAM_DEPTH = 32      # weight rows a stage of the streamed layout holds
 GEMM_TILE, GEMM_DEPTH = 64, 32
+
+# Clusters of C CTAs that an H100 SXM holds at once, by the CTAs an SM
+# holds (cudaOccupancyMaxActiveClusters on an NVIDIA H100 80GB HBM3 at
+# 700 W, arvae_tpu_torch/utils/plan_probe.py): clusters live inside one
+# GPC, and the GPCs' SM counts leave some SMs over, so 32 clusters of 4
+# CTAs (128 SMs) do not fit at once.
+CLUSTERS_HELD = {1: {1: SMS, 2: 66, 4: 30, 8: 15}, 2: {1: 2 * SMS, 2: 132, 4: 62, 8: 30}}
+# Registers a thread of each streamed kernel, as ptxas builds them for
+# sm_90a (CUDA 12.8; chip_smoke.py's build phase prints them): with 64, two
+# CTAs of 512 threads share an SM where their shared memory allows.
+STREAMED_REGISTERS = {"gru_fwd": 64, "gru_bwd": 128, "hier_fwd": 128}
+SM_SMEM = 228 * 1024     # shared memory of an SM
+CTA_RESERVED = 1024      # of it, the runtime's reserve for each CTA
+SM_REGISTERS = 65536
 
 
 def up4(n: int) -> int:
@@ -107,13 +124,16 @@ def slice_ld(n: int) -> int:
     return ld + 4 if ld % 8 == 0 else ld
 
 
-def chain_smem_floats(backward: bool, H: int, C: int, RB: int) -> int:
+def chain_smem_floats(backward: bool, H: int, C: int, RB: int, streamed: bool = False) -> int:
     """Floats of shared memory one CTA of ``gru_chain``'s cluster kernels
-    uses: ``chain_layout`` in ``csrc/gru_chain.cu``, term for term."""
+    uses: ``chain_layout`` in ``csrc/gru_cluster.cuh``, term for term. The
+    resident layout holds the CTA's slice of ``w_hh`` (H rows), the
+    streamed one two stages of ``STREAM_DEPTH`` rows."""
     hc = H // C
     n3 = 3 * hc
     ldw, ldh, ldg, ldo = slice_ld(n3), up4(H), up4(n3), up4(hc)
-    total = H * ldw + ldg + 2 * RB * ldh + RB * ldg + THREADS * 2 * ROWS_PER_THREAD
+    weight_rows = 2 * STREAM_DEPTH if streamed else H
+    total = weight_rows * ldw + ldg + 2 * RB * ldh + RB * ldg + THREADS * 2 * ROWS_PER_THREAD
     if backward:
         total += RB * ldg + RB * ldo + 2 * C * RB * ldo
     return total
@@ -125,36 +145,68 @@ class ChainPlan:
     rows: int         # RB, batch rows a cluster owns
     smem_bytes: int   # dynamic shared memory of one CTA
     grid: Tuple[int, int]
+    streamed: bool = False  # weight slices read from L2 in stages, not resident
 
     @property
     def ctas(self) -> int:
         return self.grid[0] * self.grid[1]
 
 
+def ctas_per_sm(smem_bytes: int, registers: int) -> int:
+    """CTAs of 512 threads an SM holds at once, by shared memory and
+    registers (at most 2: ``CLUSTERS_HELD``'s rows)."""
+    return max(1, min(2, SM_SMEM // (smem_bytes + CTA_RESERVED),
+                      SM_REGISTERS // (registers * THREADS)))
+
+
+def held_clusters(plan: ChainPlan, kernel: str) -> int:
+    """Clusters of the plan's size the card holds at once: a resident
+    plan's CTA takes more than half an SM; a streamed one's may share it,
+    as its shared memory and ``kernel``'s registers allow."""
+    per_sm = ctas_per_sm(plan.smem_bytes, STREAMED_REGISTERS[kernel]) if plan.streamed else 1
+    return CLUSTERS_HELD[per_sm][plan.clusters]
+
+
+def plan_waves(plan: ChainPlan, kernel: str) -> int:
+    """Rounds of the card the plan's clusters take: ``gru_chain``'s
+    resident plans count a CTA an SM, as they were designed; the
+    streamed ones count the clusters the card holds at once."""
+    if not plan.streamed:
+        return -(-plan.ctas // SMS)
+    return -(-(plan.ctas // plan.clusters) // held_clusters(plan, kernel))
+
+
+def best_plan(plans):
+    """Of (plan, key) pairs, the plan of the least key; None if none."""
+    return min(plans, key=lambda pk: pk[1], default=(None, None))[0]
+
+
 @functools.lru_cache(maxsize=256)
 def gru_plan(D: int, B: int, H: int, backward: bool) -> ChainPlan:
-    """The plan that runs in the fewest waves of the card (a CTA an SM),
-    then with the most CTAs in them, then with the fewest CTAs a cluster
-    (the fewest peers to exchange with), then the most rows a cluster;
-    clusters of 2, 4 or 8 CTAs, a single CTA only where no cluster fits.
-    A CTA's threads each own one (row, hidden unit) of its tile. Raises
-    ValueError when no plan fits 227 KB."""
-    best, best_key = None, None
-    for c in (2, 4, 8, 1):
-        for rb in (16, 8, 4):
-            if H % c or rb * (H // c) > THREADS:
-                continue
-            smem = 4 * chain_smem_floats(backward, H, c, rb)
-            if smem > MAX_SMEM:
-                continue
-            plan = ChainPlan(c, rb, smem, (c * -(-B // rb), D))
-            key = (c == 1, -(-plan.ctas // SMS), -plan.ctas, c, -rb)
-            if best_key is None or key < best_key:
-                best, best_key = plan, key
-    if best is None:
-        raise ValueError(f"H={H} is too wide: no cluster of at most 8 CTAs holds its "
-                         "w_hh slices and a 4-row tile in 227 KB of shared memory")
-    return best
+    """The resident layout wherever it fits, else the streamed one; of
+    each, the plan that runs in the fewest waves of the card, then with
+    the most CTAs in them, then with the fewest CTAs a cluster (the
+    fewest peers to exchange with), then the most rows a cluster; clusters
+    of 2, 4 or 8 CTAs, a single CTA only where no cluster fits. A CTA's
+    threads each own one (row, hidden unit) of its tile. Raises
+    ValueError, naming H, when no plan fits 227 KB and 512 threads."""
+    for streamed in (False, True):
+        plans = []
+        for c in (2, 4, 8, 1):
+            for rb in (16, 8, 4):
+                if H % c or rb * (H // c) > THREADS:
+                    continue
+                smem = 4 * chain_smem_floats(backward, H, c, rb, streamed)
+                if smem > MAX_SMEM:
+                    continue
+                plan = ChainPlan(c, rb, smem, (c * -(-B // rb), D), streamed)
+                waves = plan_waves(plan, "gru_bwd" if backward else "gru_fwd")
+                plans.append((plan, (c == 1, waves, -plan.ctas, c, -rb)))
+        best = best_plan(plans)
+        if best is not None:
+            return best
+    raise ValueError(f"H={H} is too wide: no cluster of at most 8 CTAs gives a 4-row tile "
+                     f"one thread a unit and fits 227 KB of shared memory")
 
 
 @functools.lru_cache(maxsize=256)
@@ -185,11 +237,13 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(_NAME)
     if not _bound:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gru_chain_smem_floats.argtypes = [i] * 4
+        lib.gru_chain_smem_floats.argtypes = [i] * 5
         lib.gru_chain_smem_floats.restype = i
-        lib.gru_chain_fwd.argtypes = [p] * 4 + [i] * 7 + [p, p]
+        lib.gru_chain_resident_clusters.argtypes = [i] * 4
+        lib.gru_chain_resident_clusters.restype = i
+        lib.gru_chain_fwd.argtypes = [p] * 4 + [i] * 8 + [p, p]
         lib.gru_chain_fwd.restype = i
-        lib.gru_chain_bwd.argtypes = [p] * 6 + [i] * 8 + [p] * 7
+        lib.gru_chain_bwd.argtypes = [p] * 6 + [i] * 9 + [p] * 7
         lib.gru_chain_bwd.restype = i
         _bound = True
     return lib
@@ -228,7 +282,8 @@ def gru_chain_fwd_cuda(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     with torch.cuda.device(gi.device):
         err = lib.gru_chain_fwd(gi.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
                                 h0.data_ptr(), t, d, b, h, plan.clusters, plan.rows,
-                                plan.smem_bytes, outs.data_ptr(), _build.stream_of(gi))
+                                plan.smem_bytes, int(plan.streamed), outs.data_ptr(),
+                                _build.stream_of(gi))
     _build.raise_on(lib, _NAME, err, "gru_chain_fwd")
     LAUNCHES["fwd"] += 1
     return outs
@@ -259,7 +314,7 @@ def gru_chain_bwd_cuda(
         err = lib.gru_chain_bwd(gi.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
                                 h0.data_ptr(), outs.data_ptr(), douts.data_ptr(),
                                 t, d, b, h, plan.clusters, plan.rows, plan.smem_bytes,
-                                splits, dgi.data_ptr(), dh0.data_ptr(),
+                                int(plan.streamed), splits, dgi.data_ptr(), dh0.data_ptr(),
                                 dw.data_ptr(), db.data_ptr(), dgh.data_ptr(),
                                 red.data_ptr(), _build.stream_of(gi))
     _build.raise_on(lib, _NAME, err, "gru_chain_bwd")

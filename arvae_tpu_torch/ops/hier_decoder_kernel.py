@@ -3,35 +3,36 @@ plain version.
 
 Replaces the Pallas TPU kernel
 ``arvae_tpu/ops/hier_decoder_pallas.py::hier_tick_chain``: T sequential
-steps of [2-layer tick GRU with per-beat hidden resets → ReLU head →
+steps of [L-layer tick GRU with per-beat hidden resets → ReLU head →
 argmax or Gumbel-max → teacher select → re-embed the fed token], as one
 launch forward and one (plus its fixed-order weight-gradient GEMMs)
-backward.
+backward. The JAX kernel runs 2 layers (other depths run on
+``lax.scan`` there); these run 1 to ``MAX_LAYERS``.
 
 On a CUDA tensor, :func:`tick_chain` launches the kernels of
-``csrc/hier_tick_chain.cu`` or raises: the kernels run a tick GRU of 2
-layers whose forward plan (:func:`hier_plan`) and backward chain plan
-(:func:`chain_plan`) fit 227 KB of shared memory, and
-:func:`hier_plans` raises ``ValueError``, naming H and L, before any
-launch where they do not. On a CPU tensor it runs
-:func:`tick_chain_reference`, a Python loop over T for any number of
-tick-GRU layers whose backward is autograd through the loop. There is
-no fallback from one to the other.
+``csrc/hier_tick_chain.cu`` or raises: :func:`hier_plans` gives the
+forward plan (:func:`hier_plan`: the weight slices resident in shared
+memory where they fit, else streamed from L2) and the backward chain
+plan (:func:`chain_plan`), and raises ``ValueError``, naming H and L,
+before any launch for a depth outside [1, ``MAX_LAYERS``] or a width no
+plan fits. On a CPU tensor it runs :func:`tick_chain_reference`, a
+Python loop over T for any number of tick-GRU layers whose backward is
+autograd through the loop. There is no fallback from one to the other.
 
 Random bits: neither the TPU's in-kernel PRNG nor ``jax.random`` can be
 reproduced here, so both versions draw from one counter-based hash of
 ``(seed, t, salt, row, col)`` (salt 0 for dropout, 3571 for the Gumbel
 noise), written once in CUDA and once below with integer tensor ops:
 dropout masks of the kernel and of the plain version are bitwise equal.
-``seed`` is an int32 device tensor, drawn per step by the trainer. A
-plain loop of L layers draws the mask of the gap after layer l with
-salt l, so that its first gap's mask is the kernel's.
+``seed`` is an int32 device tensor, drawn per step by the trainer.
+Both draw the mask of the gap after layer l with salt l.
 
 What bounds it on the card: a 24-step chain of dependent small products
 with an argmax and a gather between steps, so latency. The forward runs
 on thread-block clusters: a cluster owns a tile of batch rows for the
 whole measure, each CTA keeping its slice of every weight in shared
-memory and exchanging hiddens and per-row argmax partials with its peers
+memory (or reading it from L2 in stages, where it does not fit) and
+exchanging hiddens and per-row argmax partials with its peers
 through distributed shared memory (:func:`hier_plan` picks the cluster
 size and the rows). The backward runs the beats in parallel: the hidden
 carries restart at every beat, so each layer is ``n_beats`` independent
@@ -52,10 +53,11 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from arvae_tpu_torch.ops import _build
+from arvae_tpu_torch.ops import _build, gru_kernel
 from arvae_tpu_torch.ops.gru import stacked_gru_step_from_gi
-from arvae_tpu_torch.ops.gru_kernel import (MAX_SMEM, ROWS_PER_THREAD, SMS, THREADS,
-                                            ChainPlan, atb_scratch_floats, atb_splits,
+from arvae_tpu_torch.ops.gru_kernel import (CLUSTERS_HELD, MAX_SMEM, ROWS_PER_THREAD,
+                                            STREAM_DEPTH, THREADS, ChainPlan,
+                                            atb_scratch_floats, atb_splits, best_plan,
                                             gru_gates, gru_plan, slice_ld, up4)
 
 _NAME = "hier_tick_chain"
@@ -65,15 +67,17 @@ SAMPLING = ("argmax", "multinomial")
 
 # Kernel launches by the wrapper, one per call of each direction.
 LAUNCHES = {"fwd": 0, "bwd": 0}
+# Launches of gru_chain's cluster backward by the backward: one a layer.
+CHAIN_LAUNCHES = {"bwd": 0}
 
-# The 13 float operands, in the JAX signature's order.
-FLOAT_OPERANDS = ("gi_beat", "tick_h0", "x0", "emb", "w_ih0e", "w_hh0", "b_hh0",
-                  "w_ih1", "b_ih1", "w_hh1", "b_hh1", "out_w", "out_b")
+# Tick-GRU layers the kernels take (kMaxLayers in the source).
+MAX_LAYERS = 4
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    CHAIN_LAUNCHES["bwd"] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -188,15 +192,53 @@ def tick_chain_reference(
     return torch.stack(weights), torch.stack(samples)
 
 
+
+def float_operands(L: int) -> Tuple[str, ...]:
+    """Names of the 9 + 4(L-1) float operands of an L-layer tick loop, in
+    the kernels' order (the order their backward returns the gradients
+    in): layer 0's ``w_hh``, ``b_hh`` (its input projection comes as
+    ``w_ih0e`` and ``gi_beat``), then each further layer's ``w_ih``,
+    ``b_ih``, ``w_hh``, ``b_hh``."""
+    layers = ["w_hh0", "b_hh0"]
+    for l in range(1, L):
+        layers += [f"w_ih{l}", f"b_ih{l}", f"w_hh{l}", f"b_hh{l}"]
+    return ("gi_beat", "tick_h0", "x0", "emb", "w_ih0e", *layers, "out_w", "out_b")
+
+
+# The 13 float operands of the 2-layer loop, in the JAX signature's order.
+FLOAT_OPERANDS = float_operands(2)
+
+
+def layers_of(floats: Sequence) -> int:
+    """L from the count of float operands; ValueError outside [1, MAX_LAYERS]."""
+    n = len(floats)
+    if n < 9 or (n - 9) % 4 or not 1 <= (n - 9) // 4 + 1 <= MAX_LAYERS:
+        raise ValueError(f"{n} float operands: the tick loop takes 9 + 4(L-1) for "
+                         f"L in [1, {MAX_LAYERS}]")
+    return (n - 9) // 4 + 1
+
+
 def chain_operands(floats: Sequence[torch.Tensor]) -> Tuple:
-    """The 13 float operands in the kernel's order (:data:`FLOAT_OPERANDS`,
-    the order its backward returns their gradients in) → the operands
-    :func:`tick_chain` and :func:`tick_chain_reference` take after
-    ``score``: (gi_beat, tick_h0, x0, emb, w_ih0e, layers, out_w, out_b)."""
-    gi_beat, tick_h0, x0, emb, w_ih0e, w_hh0, b_hh0, w_ih1, b_ih1, w_hh1, b_hh1, *out = floats
-    layers = [{"w_hh": w_hh0, "b_hh": b_hh0},
-              {"w_ih": w_ih1, "b_ih": b_ih1, "w_hh": w_hh1, "b_hh": b_hh1}]
-    return (gi_beat, tick_h0, x0, emb, w_ih0e, layers, *out)
+    """The float operands in the kernels' order (:func:`float_operands`)
+    → the operands :func:`tick_chain` and :func:`tick_chain_reference`
+    take after ``score``: (gi_beat, tick_h0, x0, emb, w_ih0e, layers,
+    out_w, out_b)."""
+    L = layers_of(floats)
+    gi_beat, tick_h0, x0, emb, w_ih0e, w_hh0, b_hh0 = floats[:7]
+    layers = [{"w_hh": w_hh0, "b_hh": b_hh0}]
+    for l in range(1, L):
+        w_ih, b_ih, w_hh, b_hh = floats[7 + 4 * (l - 1):11 + 4 * (l - 1)]
+        layers.append({"w_ih": w_ih, "b_ih": b_ih, "w_hh": w_hh, "b_hh": b_hh})
+    return (gi_beat, tick_h0, x0, emb, w_ih0e, layers, *floats[-2:])
+
+
+def flat_operands(gi_beat, tick_h0, x0, emb, w_ih0e, layers: Sequence[Dict[str, torch.Tensor]],
+                  out_w, out_b) -> Tuple[torch.Tensor, ...]:
+    """:func:`chain_operands` inverted: the flat float operands."""
+    flat = [gi_beat, tick_h0, x0, emb, w_ih0e, layers[0]["w_hh"], layers[0]["b_hh"]]
+    for p in layers[1:]:
+        flat += [p["w_ih"], p["b_ih"], p["w_hh"], p["b_hh"]]
+    return (*flat, out_w, out_b)
 
 
 def to_chain(x: torch.Tensor, ticks_per_beat: int) -> torch.Tensor:
@@ -229,36 +271,31 @@ def _chain_bwd_plain(gi, w_hh, b_hh, h0, outs, douts):
     return dgi, dgh, dh
 
 
-def hier_tick_chain_bwd_by_beats(train, dropout_rate, ticks_per_beat, seed, samples,
-                                 h0_all, h1_all, weights, dweights, gi_beat, tick_h0, x0,
-                                 emb, w_ih0e, w_hh0, b_hh0, w_ih1, b_ih1, w_hh1, b_hh1,
-                                 out_w, out_b):
+def hier_tick_chain_bwd_by_beats(train, dropout_rate, ticks_per_beat, seed, samples, hiddens,
+                                 weights, dweights, *floats):
     """The kernel backward's decomposition in plain PyTorch: products
-    over all rows at once, then each layer as n_beats independent chains
-    of ``ticks_per_beat`` ticks. ``h0_all``, ``h1_all`` are the saved
-    hiddens in the chain layout, ``weights`` the forward's relu logits
-    (their sign is the ReLU's mask). → the 13 gradients, in
-    :data:`FLOAT_OPERANDS` order."""
+    over all rows at once, then each layer, from the top down, as n_beats
+    independent chains of ``ticks_per_beat`` ticks. ``hiddens`` are the
+    L layers' saved hiddens in the chain layout, ``weights`` the
+    forward's relu logits (their sign is the ReLU's mask), ``floats`` the
+    float operands (:func:`float_operands`). → their gradients, in that
+    order."""
+    gi_beat, tick_h0, x0, emb, w_ih0e, layers, out_w, out_b = chain_operands(floats)
+    L = len(layers)
     T, B = samples.shape
+    H = hiddens[0].shape[-1]
     tpb = ticks_per_beat
     nb = -(-T // tpb)
     live = to_chain(torch.ones(T, B, 1, device=samples.device), tpb)  # 0 on padded ticks
     fed = torch.cat([x0[None], F.embedding(samples[:-1].long(), emb)])  # (T, B, E)
     pe = to_chain(fed, tpb)
-    if train and dropout_rate > 0.0:
-        mask = to_chain(torch.stack([dropout_mask(seed, t, B, h0_all.shape[-1], dropout_rate)
-                                     for t in range(T)]), tpb)
-    else:
-        mask = torch.ones_like(h0_all)
-    inter = h0_all * mask
-    gi0 = (pe @ w_ih0e + gi_beat.reshape(nb * B, -1)) * live
-    gi1 = (inter @ w_ih1 + b_ih1) * live
+    dropout = train and dropout_rate > 0.0
+    masks = [to_chain(torch.stack([dropout_mask(seed, t, B, H, dropout_rate, SALT_DROPOUT + gap)
+                                   for t in range(T)]), tpb) if dropout
+             else torch.ones_like(hiddens[0]) for gap in range(L - 1)]
+    inters = [None] + [hiddens[l - 1] * masks[l - 1] for l in range(1, L)]
+    init = tick_h0.transpose(0, 1).reshape(L, nb * B, H)
     dlog = to_chain(dweights * (weights > 0), tpb)
-    init = tick_h0.transpose(0, 1).reshape(2, nb * B, -1)
-    dgi1, dgh1, dinit1 = _chain_bwd_plain(gi1, w_hh1, b_hh1, init[1], h1_all, dlog @ out_w.T)
-    dx = (dgi1 @ w_ih1.T) * mask
-    dgi0, dgh0, dinit0 = _chain_bwd_plain(gi0, w_hh0, b_hh0, init[0], h0_all, dx)
-    dpe = dgi0 @ w_ih0e.T
 
     def atb(a, x):
         return torch.einsum("kri,krj->ij", a, x)
@@ -266,14 +303,28 @@ def hier_tick_chain_bwd_by_beats(train, dropout_rate, ticks_per_beat, seed, samp
     def prev(all_, init_):
         return torch.cat([init_[None], all_[:-1]])
 
+    dh = dlog @ out_w.T
+    per_layer = [None] * L
+    for l in reversed(range(L)):
+        p = layers[l]
+        if l:
+            gi = (inters[l] @ p["w_ih"] + p["b_ih"]) * live
+        else:
+            gi = (pe @ w_ih0e + gi_beat.reshape(nb * B, -1)) * live
+        dgi, dgh, dinit = _chain_bwd_plain(gi, p["w_hh"], p["b_hh"], init[l], hiddens[l], dh)
+        grads = [atb(prev(hiddens[l], init[l]), dgh), dgh.sum((0, 1))]
+        if l:
+            dh = (dgi @ p["w_ih"].T) * masks[l - 1]
+            grads = [atb(inters[l], dgi), dgi.sum((0, 1))] + grads
+        per_layer[l] = (dgi, dinit, grads)
+    dgi0 = per_layer[0][0]
+    dpe = dgi0 @ w_ih0e.T
     onehot = F.one_hot(samples[:-1].long(), emb.shape[0]).float()
     fed_tok = to_chain(torch.cat([torch.zeros_like(onehot[:1]), onehot]), tpb)
-    dtick_h0 = torch.stack([dinit0, dinit1]).reshape(2, nb, B, -1).transpose(0, 1)
+    dtick_h0 = torch.stack([d for _, d, _ in per_layer]).reshape(L, nb, B, H).transpose(0, 1)
     return (dgi0.sum(0).reshape(nb, B, -1), dtick_h0.contiguous(), dpe[0, :B],
-            atb(fed_tok, dpe), atb(pe, dgi0), atb(prev(h0_all, init[0]), dgh0),
-            dgh0.sum((0, 1)), atb(inter, dgi1), dgi1.sum((0, 1)),
-            atb(prev(h1_all, init[1]), dgh1), dgh1.sum((0, 1)), atb(h1_all, dlog),
-            dlog.sum((0, 1)))
+            atb(fed_tok, dpe), atb(pe, dgi0), *(g for _, _, gs in per_layer for g in gs),
+            atb(hiddens[-1], dlog), dlog.sum((0, 1)))
 
 
 # ---------------------------------------------------------------------------
@@ -281,19 +332,31 @@ def hier_tick_chain_bwd_by_beats(train, dropout_rate, ticks_per_beat, seed, samp
 # ---------------------------------------------------------------------------
 
 
-def fwd_smem_floats(H: int, E: int, V: int, C: int, RB: int) -> int:
-    """Floats of shared memory one CTA of the forward uses:
-    ``fwd_layout`` in ``csrc/hier_tick_chain.cu``, term for term."""
+def fwd_smem_floats(H: int, E: int, V: int, C: int, RB: int, L: int = 2,
+                    streamed: bool = False) -> int:
+    """Floats of shared memory one CTA of the forward uses for a tick GRU
+    of L layers, its weight slices resident or streamed: ``fwd_layout``
+    in ``csrc/hier_tick_chain.cu``, term for term."""
     hc, vc = H // C, -(-V // C)
     n3 = 3 * hc
     ldw, ldv, ldh, ldg, lde, ldl = (slice_ld(n3), slice_ld(vc), up4(H), up4(n3), up4(E),
                                     up4(vc))
-    weights = E * ldw + 3 * H * ldw + H * ldv + 3 * ldg + ldl + up4(V * E)
-    tile = 4 * RB * ldh + RB * ldh + RB * lde + 2 * RB * ldg + RB * ldl
-    half = up4(max(product_part_floats(RB, E, n3, THREADS // 2),
-                   product_part_floats(RB, H, n3, THREADS // 2)))
-    part = max(2 * half, up4(product_part_floats(RB, H, vc, THREADS)))
-    return weights + tile + part + 2 * up4(C * RB) + up4(RB)
+    if streamed:
+        weights = 2 * STREAM_DEPTH * max(ldw, ldv)
+    else:
+        weights = E * ldw + (2 * L - 1) * H * ldw + H * ldv
+    biases = (2 * L - 1) * ldg + ldl + up4(V * E)
+    tile = (2 * L + min(L - 1, 2)) * RB * ldh + RB * lde + 2 * RB * ldg + RB * ldl
+    if streamed:
+        depth = min(STREAM_DEPTH, H)
+        part = up4(max(product_part_floats(RB, E, n3, THREADS),
+                       product_part_floats(RB, depth, n3, THREADS),
+                       product_part_floats(RB, depth, vc, THREADS)))
+    else:
+        half = up4(max(product_part_floats(RB, E, n3, THREADS // 2),
+                       product_part_floats(RB, H, n3, THREADS // 2)))
+        part = max(2 * half, up4(product_part_floats(RB, H, vc, THREADS)))
+    return weights + biases + tile + part + 2 * up4(C * RB) + up4(RB)
 
 
 def product_part_floats(rows: int, K: int, N: int, threads: int) -> int:
@@ -307,40 +370,45 @@ def product_part_floats(rows: int, K: int, N: int, threads: int) -> int:
 
 
 # Clusters of C CTAs, one CTA an SM, that an H100 SXM holds at once
-# (cudaOccupancyMaxActiveClusters, arvae_tpu_torch/utils/plan_probe.py):
-# clusters live inside one GPC, and the GPCs' SM counts leave some SMs
-# over, so 32 clusters of 4 CTAs (128 SMs) do not fit at once.
-RESIDENT_CLUSTERS = {1: SMS, 2: 66, 4: 30, 8: 15}
+# (``gru_kernel.CLUSTERS_HELD``): the resident layout's CTAs take more
+# than half an SM's shared memory.
+RESIDENT_CLUSTERS = CLUSTERS_HELD[1]
+
+
+def held_clusters(plan: ChainPlan) -> int:
+    """Clusters of the forward plan's size the card holds at once."""
+    return gru_kernel.held_clusters(plan, "hier_fwd")
 
 
 @functools.lru_cache(maxsize=256)
-def hier_plan(B: int, H: int, E: int, V: int) -> ChainPlan:
-    """The forward's plan, by ``gru_plan``'s rule: the fewest waves of
-    the card (clusters over the ones it holds at once, a CTA an SM), then
-    the most CTAs, then the fewest CTAs a cluster (the fewest peers to
-    exchange with), then the most rows a cluster; clusters of 2, 4 or 8
-    CTAs, a single CTA only where no cluster fits. A CTA holds its H/C
-    units' gate columns of the four GRU matrices, its ceil(V/C) columns
-    of ``out_w`` and all of ``emb``. Raises ValueError when no plan fits
-    227 KB."""
-    best, best_key = None, None
-    for c in (2, 4, 8, 1):
-        for rb in range(32, 0, -ROWS_PER_THREAD):
-            if H % c or rb * (H // c) > THREADS:
-                continue
-            smem = 4 * fwd_smem_floats(H, E, V, c, rb)
-            if smem > MAX_SMEM:
-                continue
-            plan = ChainPlan(c, rb, smem, (c * -(-B // rb), 1))
-            waves = -(-(plan.grid[0] // c) // RESIDENT_CLUSTERS[c])
-            key = (c == 1, waves, -plan.ctas, c, -rb)
-            if best_key is None or key < best_key:
-                best, best_key = plan, key
-    if best is None:
-        raise ValueError(f"H={H}, V={V} are too wide: no cluster of at most 8 CTAs holds "
-                         "the tick loop's weight slices and a 4-row tile in 227 KB of "
-                         "shared memory")
-    return best
+def hier_plan(B: int, H: int, E: int, V: int, L: int = 2) -> ChainPlan:
+    """The forward's plan for a tick GRU of L layers: the resident layout
+    wherever it fits, else the streamed one; of each, by ``gru_plan``'s
+    rule, the fewest waves of the card (clusters over the ones it holds
+    at once), then the most CTAs, then the fewest CTAs a cluster (the
+    fewest peers to exchange with), then the most rows a cluster;
+    clusters of 2, 4 or 8 CTAs, a single CTA only where no cluster fits.
+    A resident CTA holds its H/C units' gate columns of the 2L - 1 GRU
+    matrices and of w_ih0e, its ceil(V/C) columns of ``out_w`` and all
+    of ``emb``; a streamed one reads the matrices from L2 every tick.
+    Raises ValueError, naming H, V and L, when no plan fits 227 KB."""
+    for streamed in (False, True):
+        plans = []
+        for c in (2, 4, 8, 1):
+            for rb in range(32, 0, -ROWS_PER_THREAD):
+                if H % c or rb * (H // c) > THREADS:
+                    continue
+                smem = 4 * fwd_smem_floats(H, E, V, c, rb, L, streamed)
+                if smem > MAX_SMEM:
+                    continue
+                plan = ChainPlan(c, rb, smem, (c * -(-B // rb), 1), streamed)
+                waves = -(-(plan.grid[0] // c) // held_clusters(plan))
+                plans.append((plan, (c == 1, waves, -plan.ctas, c, -rb)))
+        best = best_plan(plans)
+        if best is not None:
+            return best
+    raise ValueError(f"H={H}, V={V}, L={L} are too wide: no cluster of at most 8 CTAs gives "
+                     "a 4-row tile one thread a unit and fits 227 KB of shared memory")
 
 
 def chain_plan(T: int, B: int, H: int, ticks_per_beat: int) -> ChainPlan:
@@ -353,11 +421,12 @@ def hier_plans(T: int, B: int, H: int, E: int, V: int, L: int,
                ticks_per_beat: int) -> Tuple[ChainPlan, ChainPlan]:
     """(forward plan, backward chain plan) of the tick loop's kernels at
     these shapes; raises ValueError, naming H and L, where the kernels do
-    not run them: a tick GRU of other than 2 layers, or a width no plan
-    fits."""
-    if L != 2:
-        raise ValueError(f"H={H}, L={L}: the tick-loop kernels run a tick GRU of 2 layers")
-    return hier_plan(B, H, E, V), chain_plan(T, B, H, ticks_per_beat)
+    not run them: a tick GRU of other than 1 to ``MAX_LAYERS`` layers, or
+    a width no plan fits."""
+    if not 1 <= L <= MAX_LAYERS:
+        raise ValueError(f"H={H}, L={L}: the tick-loop kernels run a tick GRU of 1 to "
+                         f"{MAX_LAYERS} layers")
+    return hier_plan(B, H, E, V, L), chain_plan(T, B, H, ticks_per_beat)
 
 
 # ---------------------------------------------------------------------------
@@ -373,43 +442,43 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(_NAME)
     if not _bound:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.hier_tick_chain_smem_floats.argtypes = [i] * 5
+        pp = ctypes.POINTER(ctypes.c_void_p)
+        lib.hier_tick_chain_smem_floats.argtypes = [i] * 7
         lib.hier_tick_chain_smem_floats.restype = i
-        lib.hier_tick_chain_resident_clusters.argtypes = [i, i]
+        lib.hier_tick_chain_resident_clusters.argtypes = [i] * 3
         lib.hier_tick_chain_resident_clusters.restype = i
-        lib.hier_tick_chain_bwd_scratch_floats.argtypes = [i] * 6
+        lib.hier_tick_chain_bwd_scratch_floats.argtypes = [i] * 7
         lib.hier_tick_chain_bwd_scratch_floats.restype = ctypes.c_longlong
-        lib.hier_tick_chain_fwd.argtypes = ([p] * 16 + [i] * 7 + [f, f] + [i] * 4
-                                            + [p] * 4 + [p])
+        lib.hier_tick_chain_fwd.argtypes = ([p] * 8 + [pp] * 4 + [p] * 2 + [i] * 8 + [f, f]
+                                            + [i] * 5 + [p, p, pp, p])
         lib.hier_tick_chain_fwd.restype = i
-        lib.hier_tick_chain_bwd.argtypes = ([p] * 19 + [i] * 7 + [f, f] + [i] * 3
-                                            + [p] * 13 + [p, ctypes.POINTER(i), p])
+        lib.hier_tick_chain_bwd.argtypes = ([p, p, pp] + [p] * 7 + [pp] * 4 + [p] * 2
+                                            + [i] * 8 + [f, f] + [i] * 4 + [p] * 5 + [pp] * 4
+                                            + [p] * 3 + [ctypes.POINTER(i), p])
         lib.hier_tick_chain_bwd.restype = i
         _bound = True
     return lib
 
 
 def _dims(ticks_per_beat: int, score: torch.Tensor,
-          floats: Sequence[torch.Tensor]) -> Tuple[int, int, int, int, int]:
-    """(T, B, H, E, V) after checking every operand's shape."""
+          floats: Sequence[torch.Tensor]) -> Tuple[int, int, int, int, int, int]:
+    """(T, B, H, E, V, L) after checking every operand's shape."""
     if score.ndim != 2:
         raise ValueError(f"score must be (T, B), got {tuple(score.shape)}")
     T, B = score.shape
+    L = layers_of(floats)
     x0, emb, w_hh0 = floats[2], floats[3], floats[5]
     H, E, V = w_hh0.shape[0], x0.shape[-1], emb.shape[0]
     if ticks_per_beat < 1:
         raise ValueError(f"ticks_per_beat must be >= 1, got {ticks_per_beat}")
     nb = -(-T // ticks_per_beat)
-    want = {
-        "gi_beat": (nb, B, 3 * H), "tick_h0": (nb, 2, B, H), "x0": (B, E),
-        "emb": (V, E), "w_ih0e": (E, 3 * H), "w_hh0": (H, 3 * H), "b_hh0": (3 * H,),
-        "w_ih1": (H, 3 * H), "b_ih1": (3 * H,), "w_hh1": (H, 3 * H),
-        "b_hh1": (3 * H,), "out_w": (H, V), "out_b": (V,),
-    }
-    for name, x in zip(FLOAT_OPERANDS, floats):
-        if tuple(x.shape) != want[name]:
-            raise ValueError(f"{name} must be {want[name]}, got {tuple(x.shape)}")
-    return T, B, H, E, V
+    gate, bias = (H, 3 * H), (3 * H,)
+    want = [(nb, B, 3 * H), (nb, L, B, H), (B, E), (V, E), (E, 3 * H), gate, bias]
+    want += [gate, bias, gate, bias] * (L - 1) + [(H, V), (V,)]
+    for name, x, shape in zip(float_operands(L), floats, want):
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+    return T, B, H, E, V, L
 
 
 def _check_device(named, dev: torch.device, dtype: torch.dtype) -> None:
@@ -420,12 +489,13 @@ def _check_device(named, dev: torch.device, dtype: torch.dtype) -> None:
             raise ValueError(f"{name} must be contiguous {dtype}")
 
 
-def gemm_shapes(H: int, E: int, V: int) -> Tuple[Tuple[int, bool, int], ...]:
-    """(M, bias row, N) of the backward's six weight-gradient GEMMs, in
-    the order the C entry runs them: out_w (+ out_b), w_ih1 (+ b_ih1),
-    w_hh1 (+ b_hh1), w_hh0 (+ b_hh0), w_ih0e, emb."""
-    return ((H, True, V), (H, True, 3 * H), (H, True, 3 * H), (H, True, 3 * H),
-            (E, False, 3 * H), (V, False, E))
+def gemm_shapes(H: int, E: int, V: int, L: int = 2) -> Tuple[Tuple[int, bool, int], ...]:
+    """(M, bias row, N) of the backward's 2L + 2 weight-gradient GEMMs,
+    in the order the C entry runs them: w_ih_l (+ b_ih_l) and w_hh_l
+    (+ b_hh_l) for l = L-1 .. 1, w_hh_0 (+ b_hh_0), w_ih0e, emb, out_w
+    (+ out_b)."""
+    layer = (H, True, 3 * H)
+    return (layer,) * (2 * (L - 1)) + (layer, (E, False, 3 * H), (V, False, E), (H, True, V))
 
 
 def _rate_args(train: bool, dropout_rate: float) -> Tuple[int, float, float]:
@@ -435,76 +505,93 @@ def _rate_args(train: bool, dropout_rate: float) -> Tuple[int, float, float]:
     return 0, 1.0, 1.0
 
 
+def _pointers(xs: Sequence) -> ctypes.Array:
+    """A host array of MAX_LAYERS device pointers (None: unused)."""
+    ptrs = [None if x is None else x.data_ptr() for x in xs]
+    return (ctypes.c_void_p * MAX_LAYERS)(*ptrs, *([None] * (MAX_LAYERS - len(ptrs))))
+
+
+def _operand_args(floats: Sequence[torch.Tensor]) -> Tuple:
+    """The float operands as the C entries take them: gi_beat .. w_ih0e,
+    the layers' w_hh, b_hh, w_ih, b_ih as pointer arrays, out_w, out_b."""
+    gi_beat, tick_h0, x0, emb, w_ih0e, layers, out_w, out_b = chain_operands(floats)
+    arrays = [_pointers([p.get(k) for p in layers]) for k in ("w_hh", "b_hh", "w_ih", "b_ih")]
+    return (*(x.data_ptr() for x in (gi_beat, tick_h0, x0, emb, w_ih0e)), *arrays,
+            out_w.data_ptr(), out_b.data_ptr())
+
+
 def hier_tick_chain_fwd_cuda(train, dropout_rate, ticks_per_beat, sampling,
                              teacher, seed, score, *floats, plan=None):
-    """Launches the forward kernel → (weights, samples, h0_all, h1_all),
-    the hiddens in the chain layout (ticks_per_beat, n_beats·B, H).
-    ``plan``: the launch plan, :func:`hier_plan`'s by default."""
+    """Launches the forward kernel → (weights, samples, *hiddens), the L
+    layers' hiddens in the chain layout (ticks_per_beat, n_beats·B, H).
+    ``floats``: the float operands (:func:`float_operands`); ``plan``: the
+    launch plan, :func:`hier_plan`'s by default."""
     if sampling not in SAMPLING:
         raise NotImplementedError(f"sampling={sampling!r}; use {SAMPLING}")
-    T, B, H, E, V = _dims(ticks_per_beat, score, floats)
+    T, B, H, E, V, L = _dims(ticks_per_beat, score, floats)
     dev = score.device
     _check_device((("teacher", teacher), ("seed", seed), ("score", score)), dev,
                   torch.int32)
-    _check_device(zip(FLOAT_OPERANDS, floats), dev, torch.float32)
+    _check_device(zip(float_operands(L), floats), dev, torch.float32)
     if teacher.numel() != 1 or seed.numel() != 1:
         raise ValueError("teacher and seed must be (1,) int32")
-    plan = plan or hier_plan(B, H, E, V)
+    plan = plan or hier_plan(B, H, E, V, L)
     lib = _library()
     nb = -(-T // ticks_per_beat)
     weights = torch.empty((T, B, V), dtype=torch.float32, device=dev)
     samples = torch.empty((T, B), dtype=torch.int32, device=dev)
-    h0_all = torch.empty((ticks_per_beat, nb * B, H), dtype=torch.float32, device=dev)
-    h1_all = torch.empty_like(h0_all)
+    hiddens = [torch.empty((ticks_per_beat, nb * B, H), dtype=torch.float32, device=dev)
+               for _ in range(L)]
     dropout, keep, scale = _rate_args(train, dropout_rate)
     with torch.cuda.device(dev):
         err = lib.hier_tick_chain_fwd(
-            teacher.data_ptr(), seed.data_ptr(), score.data_ptr(),
-            *(x.data_ptr() for x in floats), T, B, H, E, V, ticks_per_beat,
-            dropout, keep, scale, int(sampling == "multinomial"), plan.clusters,
-            plan.rows, plan.smem_bytes, weights.data_ptr(), samples.data_ptr(),
-            h0_all.data_ptr(), h1_all.data_ptr(), _build.stream_of(score))
+            teacher.data_ptr(), seed.data_ptr(), score.data_ptr(), *_operand_args(floats),
+            T, B, H, E, V, L, ticks_per_beat, dropout, keep, scale,
+            int(sampling == "multinomial"), plan.clusters, plan.rows, plan.smem_bytes,
+            int(plan.streamed), weights.data_ptr(), samples.data_ptr(), _pointers(hiddens),
+            _build.stream_of(score))
     _build.raise_on(lib, _NAME, err, "hier_tick_chain_fwd")
     LAUNCHES["fwd"] += 1
-    return weights, samples, h0_all, h1_all
+    return (weights, samples, *hiddens)
 
 
-def hier_tick_chain_bwd_cuda(train, dropout_rate, ticks_per_beat, seed, samples,
-                             h0_all, h1_all, weights, dweights, *floats):
-    """Launches the backward kernels → the 13 float operands' gradients.
-    ``weights`` are the forward's relu logits (the ReLU's mask)."""
-    T, B, H, E, V = _dims(ticks_per_beat, samples, floats)
+def hier_tick_chain_bwd_cuda(train, dropout_rate, ticks_per_beat, seed, samples, hiddens,
+                             weights, dweights, *floats):
+    """Launches the backward kernels → the float operands' gradients.
+    ``hiddens`` are the forward's L saved hiddens, ``weights`` its relu
+    logits (the ReLU's mask)."""
+    T, B, H, E, V, L = _dims(ticks_per_beat, samples, floats)
     dev = samples.device
     _check_device((("seed", seed), ("samples", samples)), dev, torch.int32)
-    _check_device(zip(FLOAT_OPERANDS + ("h0_all", "h1_all", "weights", "dweights"),
-                      tuple(floats) + (h0_all, h1_all, weights, dweights)), dev,
+    named = list(zip(float_operands(L), floats)) + [("weights", weights), ("dweights", dweights)]
+    _check_device(named + [(f"hiddens[{l}]", h) for l, h in enumerate(hiddens)], dev,
                   torch.float32)
     nb = -(-T // ticks_per_beat)
     saved = (ticks_per_beat, nb * B, H)
-    if h0_all.shape != saved or h1_all.shape != saved or weights.shape != (T, B, V) \
-            or dweights.shape != (T, B, V):
-        raise ValueError(f"saved hiddens must be {saved}, weights and dweights {(T, B, V)}")
+    if len(hiddens) != L or any(h.shape != saved for h in hiddens) \
+            or weights.shape != (T, B, V) or dweights.shape != (T, B, V):
+        raise ValueError(f"hiddens must be {L} of {saved}, weights and dweights {(T, B, V)}")
     chain = chain_plan(T, B, H, ticks_per_beat)
     lib = _library()
     grads = [torch.empty_like(x) for x in floats]
-    shapes = gemm_shapes(H, E, V)
+    shapes = gemm_shapes(H, E, V, L)
     terms = ticks_per_beat * nb * B
     splits = [atb_splits(m, bias, n, terms) for m, bias, n in shapes]
     partial = max(atb_scratch_floats(m, bias, n, 1, k) for (m, bias, n), k in zip(shapes, splits))
     scratch = torch.empty(
-        lib.hier_tick_chain_bwd_scratch_floats(T, B, H, E, V, ticks_per_beat) + max(1, partial),
-        dtype=torch.float32, device=dev)
+        lib.hier_tick_chain_bwd_scratch_floats(T, B, H, E, V, ticks_per_beat, L)
+        + max(1, partial), dtype=torch.float32, device=dev)
     dropout, keep, scale = _rate_args(train, dropout_rate)
     with torch.cuda.device(dev):
         err = lib.hier_tick_chain_bwd(
-            seed.data_ptr(), samples.data_ptr(), h0_all.data_ptr(),
-            h1_all.data_ptr(), weights.data_ptr(), dweights.data_ptr(),
-            *(x.data_ptr() for x in floats), T, B, H, E, V, ticks_per_beat,
+            seed.data_ptr(), samples.data_ptr(), _pointers(hiddens), weights.data_ptr(),
+            dweights.data_ptr(), *_operand_args(floats), T, B, H, E, V, L, ticks_per_beat,
             dropout, keep, scale, chain.clusters, chain.rows, chain.smem_bytes,
-            *(g.data_ptr() for g in grads), scratch.data_ptr(),
-            (ctypes.c_int * 6)(*splits), _build.stream_of(samples))
+            int(chain.streamed), *_operand_args(grads), scratch.data_ptr(),
+            (ctypes.c_int * len(splits))(*splits), _build.stream_of(samples))
     _build.raise_on(lib, _NAME, err, "hier_tick_chain_bwd")
     LAUNCHES["bwd"] += 1
+    CHAIN_LAUNCHES["bwd"] += L
     return tuple(grads)
 
 
@@ -520,18 +607,20 @@ class HierTickChainFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, train, dropout_rate, ticks_per_beat, sampling, teacher, seed,
                 score, *floats):
-        weights, samples, h0_all, h1_all = hier_tick_chain_fwd_cuda(
+        weights, samples, *hiddens = hier_tick_chain_fwd_cuda(
             train, dropout_rate, ticks_per_beat, sampling, teacher, seed, score,
             *floats)
         ctx.cfg = (train, dropout_rate, ticks_per_beat)
-        ctx.save_for_backward(seed, samples, h0_all, h1_all, weights, *floats)
+        ctx.layers = len(hiddens)
+        ctx.save_for_backward(seed, samples, weights, *hiddens, *floats)
         ctx.mark_non_differentiable(samples)
         return weights, samples
 
     @staticmethod
     def backward(ctx, dweights, _dsamples):
-        seed, samples, h0_all, h1_all, weights, *floats = ctx.saved_tensors
-        grads = hier_tick_chain_bwd_cuda(*ctx.cfg, seed, samples, h0_all, h1_all, weights,
+        seed, samples, weights, *rest = ctx.saved_tensors
+        hiddens, floats = rest[:ctx.layers], rest[ctx.layers:]
+        grads = hier_tick_chain_bwd_cuda(*ctx.cfg, seed, samples, hiddens, weights,
                                          dweights.contiguous(), *floats)
         return (None,) * 7 + grads
 
@@ -554,9 +643,7 @@ def tick_chain(seq_len: int, train: bool, dropout_rate: float, ticks_per_beat: i
         T, B = score.shape
         hier_plans(T, B, layers[0]["w_hh"].shape[0], x0.shape[-1], emb.shape[0],
                    len(layers), ticks_per_beat)
-        l0, l1 = layers
-        floats = (gi_beat, tick_h0, x0, emb, w_ih0e, l0["w_hh"], l0["b_hh"], l1["w_ih"],
-                  l1["b_ih"], l1["w_hh"], l1["b_hh"], out_w, out_b)
+        floats = flat_operands(gi_beat, tick_h0, x0, emb, w_ih0e, layers, out_w, out_b)
         ints = (t.to(torch.int32).reshape(-1) for t in (teacher, seed))
         return HierTickChainFn.apply(
             bool(train), float(dropout_rate), int(ticks_per_beat), sampling, *ints,

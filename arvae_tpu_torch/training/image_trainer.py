@@ -58,6 +58,9 @@ class ImageVAETrainer(BaseTrainer):
     ):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # cuDNN's fastest convolution backward algorithms add partial sums
+        # in an order that changes from run to run; these repeat bitwise
+        torch.backends.cudnn.deterministic = True
         hp = TrainerHParams(
             lr=lr,
             beta=beta,

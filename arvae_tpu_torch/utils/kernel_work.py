@@ -13,10 +13,10 @@ Counts:
 - ``gru_chain`` forward: ``2·T·D·B·H·3H`` (the hidden product of every
   step); the backward three times that (the gate recompute, ``dgh·w_hhᵀ``
   and ``dW_hh``).
-- ``hier_tick_chain`` forward, per row and step:
-  ``2·E·3H + 3·2·H·3H + 2·H·V`` (the fed embedding's product, three
-  H×3H products, the head); the backward three times that (recompute,
-  transposed products, weight gradients).
+- ``hier_tick_chain`` forward, per row and step, for a tick GRU of L
+  layers: ``2·E·3H + (2L−1)·2·H·3H + 2·H·V`` (the fed embedding's
+  product, the 2L−1 H×3H products, the head); the backward three times
+  that (recompute, transposed products, weight gradients).
 - ``fused_reg_loss`` forward: ``R·B²`` pair terms, each counted as its
   elementwise operations with ``tanh`` as one: 8 for the loss, 7 more
   for the gradient factors G and D when a gradient is wanted. The
@@ -74,28 +74,28 @@ def gru_chain(T: int, D: int, B: int, H: int, backward: bool = False) -> Work:
     return Work(3 * flop, WORD * (2 * (gi + w + b + h0) + 2 * outs))
 
 
-def hier_flop_per_row_step(H: int, E: int, V: int) -> int:
-    return 2 * E * 3 * H + 3 * 2 * H * 3 * H + 2 * H * V
+def hier_flop_per_row_step(H: int, E: int, V: int, L: int = 2) -> int:
+    return 2 * E * 3 * H + (2 * L - 1) * 2 * H * 3 * H + 2 * H * V
 
 
-def _hier_float_operands(T: int, B: int, H: int, E: int, V: int, tpb: int) -> int:
+def _hier_float_operands(T: int, B: int, H: int, E: int, V: int, tpb: int, L: int) -> int:
     nb = -(-T // tpb)
-    return (nb * B * 3 * H + nb * 2 * B * H + B * E + V * E + E * 3 * H
-            + 3 * H * 3 * H + 3 * 3 * H + H * V + V)
+    return (nb * B * 3 * H + nb * L * B * H + B * E + V * E + E * 3 * H
+            + (2 * L - 1) * (H * 3 * H + 3 * H) + H * V + V)
 
 
 def hier_tick_chain(T: int, B: int, H: int, E: int, V: int, ticks_per_beat: int,
-                    backward: bool = False) -> Work:
-    """The 13 float operands, teacher and seed (1,) and score (T,B) ->
-    weights (T,B,V), samples (T,B), h0_all and h1_all (T,B,H); the
-    backward reads seed, samples, both hiddens, dweights and the 13
-    operands and writes the 13 gradients."""
-    flop = T * B * hier_flop_per_row_step(H, E, V)
-    floats = _hier_float_operands(T, B, H, E, V, ticks_per_beat)
+                    backward: bool = False, L: int = 2) -> Work:
+    """The 9 + 4(L−1) float operands, teacher and seed (1,) and score
+    (T,B) -> weights (T,B,V), samples (T,B) and the L layers' hiddens
+    (T,B,H); the backward reads seed, samples, the hiddens, dweights and
+    the float operands and writes their gradients."""
+    flop = T * B * hier_flop_per_row_step(H, E, V, L)
+    floats = _hier_float_operands(T, B, H, E, V, ticks_per_beat, L)
     tb = T * B
     if not backward:
-        return Work(flop, WORD * (2 + tb + floats + tb * V + tb + 2 * tb * H))
-    return Work(3 * flop, WORD * (1 + tb + 2 * tb * H + tb * V + 2 * floats))
+        return Work(flop, WORD * (2 + tb + floats + tb * V + tb + L * tb * H))
+    return Work(3 * flop, WORD * (1 + tb + L * tb * H + tb * V + 2 * floats))
 
 
 def reg_loss(R: int, B: int, backward: bool = False, factors: bool = True,

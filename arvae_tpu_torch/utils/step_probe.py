@@ -84,14 +84,14 @@ def short_name(name):
 
 
 # The port's kernels by short name, each launched a fixed number of
-# times by one call of a wrapper: (ops module, its LAUNCHES key, kernels
-# a call). The tick loop's backward runs each of its two layers through
-# the GRU chain's cluster backward.
+# times by one call of a wrapper: (ops module, its launch counter's key,
+# kernels a count). The tick loop's backward runs each of its layers
+# through the GRU chain's cluster backward (its ``CHAIN_LAUNCHES``).
 ENTRY_KERNELS = {
     "reg_fwd": (("reg_kernel", "fwd", 1),),
     "reg_bwd": (("reg_kernel", "bwd", 1),),
     "gru_fwd": (("gru_kernel", "fwd", 1),),
-    "gru_bwd": (("gru_kernel", "bwd", 1), ("hier_decoder_kernel", "bwd", 2)),
+    "gru_bwd": (("gru_kernel", "bwd", 1), ("hier_decoder_kernel", "chains", 1)),
     "hier_fwd": (("hier_decoder_kernel", "fwd", 1),),
     "hier_bwd_prep": (("hier_decoder_kernel", "bwd", 1),),
 }
@@ -101,8 +101,11 @@ def _launch_counts():
     """{(module, key): count} of the port's wrapper launch counters."""
     import importlib
 
-    return {(m, k): v for m in ("reg_kernel", "gru_kernel", "hier_decoder_kernel")
-            for k, v in importlib.import_module(f"arvae_tpu_torch.ops.{m}").LAUNCHES.items()}
+    counts = {(m, k): v for m in ("reg_kernel", "gru_kernel", "hier_decoder_kernel")
+              for k, v in importlib.import_module(f"arvae_tpu_torch.ops.{m}").LAUNCHES.items()}
+    hk = importlib.import_module("arvae_tpu_torch.ops.hier_decoder_kernel")
+    counts[("hier_decoder_kernel", "chains")] = hk.CHAIN_LAUNCHES["bwd"]
+    return counts
 
 
 # Device cycles of the spin kernel that opens and closes each profiled

@@ -22,22 +22,31 @@ and the script exits non-zero:
    latent column named twice on a strided view, and with int64 labels;
    the reg cluster plans against the clusters the card holds at once;
    ``gru_chain`` forward and backward at the music slice's shapes, a
-   ragged batch and a second hidden width (H=64); ``hier_tick_chain``
-   forward and backward at V=34 (the music CLI's corpus) and V=130 (the
-   step-rate cell), teacher-forced, free-running (teacher trick),
-   training with dropout 0.5 (the case matches only if the masks are
-   bitwise equal to the plain version's) and multinomial (in
-   distribution), then teacher-forced at a ragged B=100, with one beat
-   of T ticks and with 5 ticks a beat (a padded last beat), in eval mode
-   (``train=False``, as GLSR's decodes run it) at 6 and 24 ticks a beat,
-   where a dropout rate must change nothing, and two argmax edges (a tie
-   across two CTAs' vocabulary slices, a NaN logit); ``gru_chain`` also at
-   SRDecoderNoInput's (24, 1, 256, 128); the cluster plans of both
-   recurrence kernels are printed, and the SR decoder's plans;
+   ragged batch, a second hidden width (H=64), SRDecoderNoInput's
+   (24, 1, 256, 128), and the reference's widths, whose weight slices
+   the kernels stream from L2 (``WIDE_GRU_CASES``: H=512 and 384);
+   ``hier_tick_chain`` forward and backward at V=34 (the music CLI's
+   corpus) and V=130 (the step-rate cell), teacher-forced, free-running
+   (teacher trick), training with dropout 0.5 (the case matches only if
+   the masks are bitwise equal to the plain version's) and multinomial
+   (in distribution), then teacher-forced at a ragged B=100, with one
+   beat of T ticks and with 5 ticks a beat (a padded last beat), in eval
+   mode (``train=False``, as GLSR's decodes run it) at 6 and 24 ticks a
+   beat, where a dropout rate must change nothing, and two argmax edges
+   (a tie across two CTAs' vocabulary slices, a NaN logit); then at the
+   widths and depths of ``WIDE_DEEP_HIER`` (H=256 and 512 with 2
+   layers, H=128 with 1, 3 and 4): teacher-forced, free-running with
+   dropout 0.5 (every gap's mask bitwise), eval, and the SR decoder's
+   one beat of 24 ticks; every plan is printed with the clusters the
+   card holds at once beside the count the plan assumes;
 4. slice 1: the dSprites training CLI in-process (short grid, B=128, 2
-   epochs); the loss must be finite and fall, the reg kernels must have
-   launched once per forward and once per backward, and the trained
-   model's loss on one batch must match the CPU plain path;
+   epochs), twice: the loss must be finite and fall, the reg kernels
+   must have launched once per forward and once per backward, the two
+   runs must give the same val losses to the last digit, one train step
+   repeated from the same state must be bitwise equal (and the
+   gradients that differ with cuDNN free to pick nondeterministic
+   algorithms are printed), and the trained model's loss on one batch
+   must match the CPU plain path;
 5. slice 2: the music training CLI in-process (the ``--full`` synthetic
    folk corpus, B=256, H=128, latent 32, ``-r all``, 2 epochs): the loss
    must be finite and fall, a checkpoint must be written, every kernel
@@ -58,28 +67,36 @@ and the script exits non-zero:
    GLSR also its term row by row within ``GLSR_ROW_RTOL``); the
    encoder's embedding gradient, as ``nn.Embedding`` and as the one-hot
    product the encoder uses, is run five times (the product must repeat
-   bitwise); then a HierarchicalDecoder at H=256 and one with 3 tick-GRU
-   layers must be refused on the card (ValueError naming H, and L,
-   before any tick-loop launch) and run forward and backward on the CPU;
+   bitwise);
 7. times: each kernel against its plain version (CUDA events) at the
-   slices' shapes, and each reg direction's device time from
-   ``torch.profiler`` (the events follow the host there), also at
-   (R, B) = (2, 8192); the AR term's device launches a train and an
-   eval step on both slices (profiler: one reg kernel each way, no
-   stack, cast or scatter left); warm music train steps/s at B=256 on
-   a 65,536-row random token corpus with V=130, then the music step's
-   device busy time and largest kernels from ``torch.profiler`` over 50
-   steps; the tick loop backward's device time by kernel (profiler); the
-   library yardstick for ``gru_chain``: each of the music step's four GRU
-   layers as the port computes it and as cuDNN's ``torch.nn.GRU`` does
-   (same weights, TF32 off, outputs held within rtol 1e-4), device time
-   from the profiler; warm dSprites train steps/s at B=128 over 1,000
-   steps and the dSprites step's device busy time. Each kernel's bound
-   (``arvae_tpu_torch/utils/kernel_work.py``) and launches per step are
-   printed beside its time.
+   slices' shapes and the new widths and depths, with each one's bound,
+   and each reg direction's device time from ``torch.profiler`` (the
+   events follow the host there), also at (R, B) = (2, 8192); the AR
+   term's device launches a train and an eval step on both slices
+   (profiler: one reg kernel each way, no stack, cast or scatter left);
+   warm music train steps/s at B=256 on a 65,536-row random token
+   corpus with V=130, then the music step's device busy time and
+   largest kernels from ``torch.profiler`` over 50 steps; the tick loop
+   backward's device time by kernel (profiler); the library yardstick
+   for ``gru_chain``: each of the music step's four GRU layers as the
+   port computes it and as cuDNN's ``torch.nn.GRU`` does (same weights,
+   TF32 off, outputs held within rtol 1e-4), device time from the
+   profiler, at H=128, at H=512 and SRDecoderNoInput's layer at H=384;
+   warm dSprites train steps/s at B=128 over 1,000 steps and the
+   dSprites step's device busy time, with cuDNN free to pick its
+   algorithms and as the trainer sets it (deterministic). Each kernel's
+   bound (``arvae_tpu_torch/utils/kernel_work.py``) and launches per
+   step are printed beside its time;
+8. slice 4: the music CLI at the reference's widths
+   (``--encoder_hidden_size 512 --decoder_hidden_size 512``) and with
+   ``--num_decoder_layers 3``, 2 epochs each on the ``--full`` corpus
+   (``WIDE_DEEP_ARGS``): the loss finite and falling, every recurrence
+   call of every step on a kernel (the launch counters), a train step
+   repeated bitwise, its device busy time and largest kernels, and the
+   trained model against the CPU on a val batch.
 
 Launch counts are set to 0 just before each slice (and each variant of
-slice 3) and read just after it; the comparisons of phase 3 do not
+slices 3 and 4) and read just after it; the comparisons of phase 3 do not
 count. The line before the last
 is the card's name and power limit as ``nvidia-smi`` prints them, the
 one before it a JSON object listing every kernel; the last line is a
@@ -140,6 +157,10 @@ SEQ_GRAD_RTOL, SEQ_GRAD_ATOL_FRAC = 1e-4, 1e-5
 # width (the cluster kernels split H over their CTAs)
 GRU_CASES = [(24, 2, 256, 128), (4, 1, 256, 128), (24, 1, 256, 128), (24, 2, 100, 128),
              (24, 2, 256, 64), (4, 1, 256, 64)]
+# the reference's own widths, whose w_hh slices the kernels stream from
+# L2: the 512-wide encoder layer and beat GRU layer, SRDecoderNoInput's
+# layer at H=384, and a ragged batch
+WIDE_GRU_CASES = [(24, 2, 256, 512), (4, 1, 256, 512), (24, 1, 256, 384), (24, 2, 100, 512)]
 # V=34 is the music CLI's synthetic folk corpus, V=130 the step-rate
 # cell's vocabulary: V sets the kernels' shared-memory layout, the argmax
 # loop and the output-layer and embedding weight-gradient GEMM tiles.
@@ -151,6 +172,10 @@ HIER_VS = (34, 130)
 # tick_h0 resets and the chain layout
 HIER_RAGGED_B = 100
 HIER_PADDED_TPB = 5
+# (H, tick-GRU layers) beyond the music step's (128, 2): the widths the
+# JAX package runs (256 fused on the TPU, 512 the reference's) and the
+# depths its lax.scan runs
+WIDE_DEEP_HIER = ((256, 2), (512, 2), (128, 1), (128, 3), (128, 4))
 
 # One eval step of a trained model on the card against the same step on
 # the CPU (plain paths): float32 products and sums in another order, so
@@ -187,16 +212,18 @@ def phase_device() -> str:
 
 
 def _kernel_name(mangled: str) -> str:
-    """'gru_bwd<8>' from an Itanium-mangled entry name: the last name of
-    the nesting, and the first template argument when it is an int."""
+    """'hier_fwd<1, 2>' from an Itanium-mangled entry name: the last name
+    of the nesting, and its template arguments where they are ints or
+    bools."""
     rest, parts = mangled[3:] if mangled.startswith("_ZN") else mangled[2:], []
     while rest[:1].isdigit():
         digits = re.match(r"\d+", rest).group()
         n = len(digits) + int(digits)
         parts.append(rest[len(digits):n])
         rest = rest[n:]
-    tmpl = re.match(r"ILi(\d+)E", rest)
-    return (parts[-1] if parts else mangled) + (f"<{tmpl.group(1)}>" if tmpl else "")
+    tmpl = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+    args = re.findall(r"L[ib](\d+)E", tmpl.group(1)) if tmpl else []
+    return (parts[-1] if parts else mangled) + (f"<{', '.join(args)}>" if args else "")
 
 
 def _ptxas_summary(log: str) -> str:
@@ -371,16 +398,27 @@ def _gru_inputs(t, d, b, h, dev, seed):
             f(d, 3 * h, s=0.1), f(d, b, h, s=0.3)), f(t, d, b, h, s=1.0)
 
 
+def _plan_line(p, held, assumed):
+    """A launch plan: its layout, clusters, shared memory, and the clusters
+    the card holds at once beside the count the plan assumes."""
+    return (f"{'streamed' if p.streamed else 'resident'}, clusters of {p.clusters} CTAs x "
+            f"{p.rows} rows, {p.ctas} CTAs, {p.smem_bytes} B dynamic shared memory each; the "
+            f"card holds {held} such clusters at once (the plan assumes {assumed})")
+
+
 def _gru_kernels(dev):
     from arvae_tpu_torch.ops import gru_kernel as gk
 
+    lib = gk._library()
     fwd_err = bwd_err = 0.0
-    for t, d, b, h in GRU_CASES:
+    for t, d, b, h in GRU_CASES + WIDE_GRU_CASES:
         for backward in (False, True):
             p = gk.gru_plan(d, b, h, backward)
+            held = lib.gru_chain_resident_clusters(int(backward), int(p.streamed), p.clusters,
+                                                   p.smem_bytes)
+            assumed = gk.held_clusters(p, "gru_bwd" if backward else "gru_fwd")
             print(f"[kernels] gru_chain {'bwd' if backward else 'fwd'} plan at (T={t}, D={d}, "
-                  f"B={b}, H={h}): clusters of {p.clusters} CTAs x {p.rows} rows, "
-                  f"{p.ctas} CTAs, {p.smem_bytes} B dynamic shared memory each")
+                  f"B={b}, H={h}): {_plan_line(p, held, assumed)}")
         args, ct = _gru_inputs(t, d, b, h, dev, seed=t * 1000 + b)
         runs = []
         for _ in range(2):
@@ -400,18 +438,21 @@ def _gru_kernels(dev):
     return fwd_err, bwd_err
 
 
-def _hier_inputs(dev, seed, v, zero=False, b=HIER_B, tpb=HIER_TPB):
+def _hier_inputs(dev, seed, v, zero=False, b=HIER_B, tpb=HIER_TPB, h=HIER_H, layers=2):
+    """(score (T, B), the float operands of an L-layer tick loop, a
+    cotangent (T, B, V))."""
     rng = np.random.RandomState(seed)
-    nb, h, e = -(-HIER_T // tpb), HIER_H, HIER_E
+    nb, e = -(-HIER_T // tpb), HIER_E
 
     def w(*shape, s=None):
         x = rng.randn(*shape) * (s if s is not None else 1 / np.sqrt(shape[0]))
         return torch.tensor(0 * x if zero else x, dtype=torch.float32, device=dev)
 
-    floats = [w(nb, b, 3 * h, s=0.5), w(nb, 2, b, h, s=0.5), w(b, e, s=0.5),
-              w(v, e, s=1.0), w(e, 3 * h), w(h, 3 * h), w(3 * h, s=0.1),
-              w(h, 3 * h), w(3 * h, s=0.1), w(h, 3 * h), w(3 * h, s=0.1),
-              w(h, v), w(v, s=0.1)]
+    floats = [w(nb, b, 3 * h, s=0.5), w(nb, layers, b, h, s=0.5), w(b, e, s=0.5),
+              w(v, e, s=1.0), w(e, 3 * h), w(h, 3 * h), w(3 * h, s=0.1)]
+    for _ in range(layers - 1):
+        floats += [w(h, 3 * h), w(3 * h, s=0.1), w(h, 3 * h), w(3 * h, s=0.1)]
+    floats += [w(h, v), w(v, s=0.1)]
     score = torch.tensor(rng.randint(0, v, (HIER_T, b)), dtype=torch.int32, device=dev)
     ct = torch.tensor(rng.randn(HIER_T, b, v), dtype=torch.float32, device=dev)
     return score, floats, ct
@@ -430,10 +471,10 @@ def _hier_kernel_run(tag, cfg, teacher, seed, score, floats, ct=None):
     train, rate, sampling, tpb = (*cfg, HIER_TPB)[:4]
     runs = []
     for _ in range(2):
-        weights, samples, h0_all, h1_all = hk.hier_tick_chain_fwd_cuda(
+        weights, samples, *hiddens = hk.hier_tick_chain_fwd_cuda(
             train, rate, tpb, sampling, teacher, seed, score, *floats)
         grads = () if ct is None else hk.hier_tick_chain_bwd_cuda(
-            train, rate, tpb, seed, samples, h0_all, h1_all, weights, ct, *floats)
+            train, rate, tpb, seed, samples, hiddens, weights, ct, *floats)
         runs.append((weights, samples) + tuple(grads))
     torch.cuda.synchronize()
     _check_repeat(tag, *runs)
@@ -473,8 +514,9 @@ def _hier_compare(tag, cfg, kernel_in, plain_in, floats, ct):
     if not torch.equal(kernel[1], plain[1]):
         raise AssertionError(f"{tag}: samples differ from the plain version")
     fwd_err = _check_close(f"weights {tag}", kernel[0], plain[0], SEQ_FWD_RTOL, SEQ_FWD_ATOL)
+    names = hk.float_operands(hk.layers_of(floats))
     bwd_err = max(_check_grad(f"d{name} {tag}", g, want)
-                  for g, want, name in zip(kernel[2:], plain[2:], hk.FLOAT_OPERANDS))
+                  for g, want, name in zip(kernel[2:], plain[2:], names))
     print(f"[kernels] {tag} fwd and bwd match the plain version, bitwise repeatable "
           f"({flips} ReLU-kink sign flips masked)")
     return kernel, fwd_err, bwd_err
@@ -487,7 +529,8 @@ def _hier_plans():
     for v in HIER_VS:
         for b in (HIER_B, HIER_RAGGED_B):
             p = hk.hier_plan(b, HIER_H, HIER_E, v)
-            held = lib.hier_tick_chain_resident_clusters(p.clusters, p.smem_bytes)
+            held = lib.hier_tick_chain_resident_clusters(int(p.streamed), p.clusters,
+                                                         p.smem_bytes)
             print(f"[kernels] hier_tick_chain fwd plan at (B={b}, H={HIER_H}, E={HIER_E}, "
                   f"V={v}): clusters of {p.clusters} CTAs x {p.rows} rows, {p.ctas} CTAs, "
                   f"{p.smem_bytes} B dynamic shared memory each; the card holds {held} such "
@@ -505,9 +548,53 @@ def _hier_plans():
               f"{p.smem_bytes} B dynamic shared memory each")
 
 
+def _hier_wide_deep(dev, h, layers):
+    """The tick loop at a width or depth beyond the music step's, V=130:
+    training teacher-forced, training free-running with dropout 0.5 (the
+    teacher trick on the kernel's own samples with the same seed, so it
+    matches only with bitwise-equal masks at every gap), eval free-running
+    (teacher trick), and the SR decoder's one beat of 24 ticks
+    → [(fwd, bwd) max abs err]."""
+    from arvae_tpu_torch.ops import hier_decoder_kernel as hk
+
+    v = HIER_VS[-1]
+    lib = hk._library()
+    p = hk.hier_plan(HIER_B, h, HIER_E, v, layers)
+    held = lib.hier_tick_chain_resident_clusters(int(p.streamed), p.clusters, p.smem_bytes)
+    print(f"[kernels] hier_tick_chain fwd plan at (B={HIER_B}, H={h}, L={layers}, E={HIER_E}, "
+          f"V={v}): {_plan_line(p, held, hk.held_clusters(p))}; bwd chain plan "
+          f"{hk.chain_plan(HIER_T, HIER_B, h, 6)}")
+    shape = f"B={HIER_B}, H={h}, L={layers}, E={HIER_E}, V={v}, T={HIER_T}"
+    errs = []
+    score, floats, ct = _hier_inputs(dev, 30 + layers, v, h=h, layers=layers)
+    forced = _ints(1, 3, dev) + (score,)
+    errs.append(_hier_compare(f"hier_tick_chain train teacher-forced ({shape})",
+                              (True, 0.0, "argmax"), forced, forced, floats, ct)[1:])
+    seed = torch.tensor([123457], dtype=torch.int32, device=dev)
+    free = (torch.zeros(1, dtype=torch.int32, device=dev), seed, score)
+    w_free, s_free = _hier_kernel_run("hier sampled", (True, 0.5, "argmax"), *free, floats)[:2]
+    if not torch.equal(s_free, hk.argmax_lowest(w_free).clamp(0, v - 1).to(torch.int32)):
+        raise AssertionError(f"{shape}: free-running samples are not the argmax of their logits")
+    errs.append(_hier_compare(
+        f"hier_tick_chain train free-running, dropout 0.5, masks bitwise ({shape})",
+        (True, 0.5, "argmax"), free, (torch.ones_like(free[0]), seed, s_free), floats, ct)[1:])
+    free = _ints(0, 3, dev) + (score,)
+    s_eval = _hier_kernel_run("hier eval", (False, 0.5, "argmax"), *free, floats)[1]
+    errs.append(_hier_compare(f"hier_tick_chain eval, free-running, teacher trick ({shape})",
+                              (False, 0.5, "argmax"), free, _ints(1, 3, dev) + (s_eval,),
+                              floats, ct)[1:])
+    score, floats, ct = _hier_inputs(dev, 40 + layers, v, h=h, layers=layers, tpb=HIER_T)
+    forced = _ints(1, 3, dev) + (score,)
+    errs.append(_hier_compare(f"hier_tick_chain SR one beat of {HIER_T} ticks ({shape})",
+                              (True, 0.0, "argmax", HIER_T), forced, forced, floats, ct)[1:])
+    return errs
+
+
 def _hier_kernels(dev):
     _hier_plans()
     errs = [_hier_kernels_at(dev, v) for v in HIER_VS]
+    for h, layers in WIDE_DEEP_HIER:
+        errs += _hier_wide_deep(dev, h, layers)
     v = HIER_VS[-1]
     for b, tpb in ((HIER_RAGGED_B, HIER_TPB), (HIER_B, HIER_T), (HIER_B, HIER_PADDED_TPB)):
         score, floats, ct = _hier_inputs(dev, 5, v, b=b, tpb=tpb)
@@ -676,10 +763,9 @@ def _check_launches(tag, launches, want):
         raise AssertionError(f"{tag}: kernel launches {launches} != {want}")
 
 
-def phase_slice():
+def _image_cli_run():
+    """The dSprites CLI, 2 epochs → (trainer, launches, seconds, checkpoint written)."""
     from arvae_tpu_torch import train_image_vae
-    from arvae_tpu_torch.models.image_vae import draw_noise
-    from arvae_tpu_torch.training.image_trainer import ImageVAETrainer
 
     with tempfile.TemporaryDirectory() as models_dir:
         os.environ["ARVAE_MODELS_DIR"] = models_dir
@@ -690,9 +776,38 @@ def phase_slice():
         seconds = time.perf_counter() - t0
         launches = _read_launches()
         ckpt_ok = os.path.isfile(os.path.join(trainer.run_dir, "ckpt.pt"))
+    return trainer, launches, seconds, ckpt_ok
+
+
+def _image_step_repeats(trainer):
+    """One dSprites train step twice from the same state and draws, first
+    with cuDNN free to pick nondeterministic algorithms (the parameters
+    whose gradients differ are printed), then as the trainer sets it,
+    ``torch.backends.cudnn.deterministic``, where every bit must repeat."""
+    dev = trainer.device
+    train_split, _ = trainer.dataset.device_splits(dev)
+    batch = train_split.gather_batch(torch.arange(B_TRAIN, device=dev))
+    chosen = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = False
+    differ = _step_repeats("slice 1 (dSprites), cuDNN free", trainer, batch, must=False)
+    print(f"[repeat] slice 1 (dSprites) with torch.backends.cudnn.deterministic=False: "
+          f"the gradients that differ between two runs: {differ or 'none this time'}")
+    torch.backends.cudnn.deterministic = chosen
+    if not chosen:
+        raise AssertionError("the image trainer leaves cuDNN free to pick nondeterministic "
+                             "algorithms")
+    _step_repeats("slice 1 (dSprites), torch.backends.cudnn.deterministic=True", trainer, batch)
+
+
+def phase_slice():
+    from arvae_tpu_torch.models.image_vae import draw_noise
+    from arvae_tpu_torch.training.image_trainer import ImageVAETrainer
+
+    trainer, launches, seconds, ckpt_ok = _image_cli_run()
     print(f"[slice] TF32 flags: torch.backends.cuda.matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32} "
-          f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+          f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}; "
+          f"torch.backends.cudnn.deterministic={torch.backends.cudnn.deterministic}")
     hist = trainer.history
     n_train, n_val = _check_history("slice", hist, ckpt_ok)
     _check_launches("slice", launches, {
@@ -703,6 +818,15 @@ def phase_slice():
           f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f}; "
           f"reg launches fwd={launches['reg']['fwd']} bwd={launches['reg']['bwd']} "
           f"(train steps {n_train}, val steps {n_val})")
+    # a second run of the CLI in this call: the same trained model, so
+    # the same val losses to the last bit
+    again = _image_cli_run()[0].history
+    if [h["val_loss"] for h in again] != [h["val_loss"] for h in hist]:
+        raise AssertionError(f"slice 1: two runs of the CLI trained other models: val loss "
+                             f"{[h['val_loss'] for h in hist]} vs {[h['val_loss'] for h in again]}")
+    print(f"[repeat] slice 1 (dSprites): a second run of the CLI gives the trained val loss "
+          f"{hist[-1]['val_loss']!r} again, to the last digit")
+    _image_step_repeats(trainer)
 
     # the trained model on one val batch: card (kernel) vs CPU (plain)
     _, val = trainer.dataset.device_splits(trainer.device)
@@ -754,12 +878,15 @@ def _load_trainer_state(trainer, state):
     trainer.step = state["step"]
 
 
-def _step_repeats(tag, trainer, batch):
+def _step_repeats(tag, trainer, batch, must=True):
     """One train step twice from the same parameters, Adam state and
     draws: the loss, every gradient and every updated parameter must be
-    bitwise equal. Leaves the trainer as it found it."""
+    bitwise equal (with ``must``; else the names that differ are
+    returned). Leaves the trainer as it found it."""
+    from arvae_tpu_torch.models.image_vae import draw_noise
     from arvae_tpu_torch.models.measure_vae import draw_measure_noise
     from arvae_tpu_torch.training.glsr_trainer import GLSRNoise, MeasureVAETrainerGLSR
+    from arvae_tpu_torch.training.image_trainer import ImageVAETrainer
 
     dev, b = trainer.device, batch[0].shape[0]
     state = _trainer_state(trainer)
@@ -767,7 +894,10 @@ def _step_repeats(tag, trainer, batch):
     for _ in range(2):
         _load_trainer_state(trainer, state)
         gen = torch.Generator(dev).manual_seed(11)
-        noise = draw_measure_noise(b, trainer.model.latent_space_dim, gen, dev)
+        if isinstance(trainer, ImageVAETrainer):
+            noise = draw_noise(b, trainer.model.z_dim, gen, dev)
+        else:
+            noise = draw_measure_noise(b, trainer.model.latent_space_dim, gen, dev)
         if isinstance(trainer, MeasureVAETrainerGLSR):
             noise = GLSRNoise(noise, torch.rand(b, generator=gen, device=dev))
         out = {"loss": trainer.train_step(batch, noise)["loss"]}
@@ -777,6 +907,8 @@ def _step_repeats(tag, trainer, batch):
         runs.append(out)
     _load_trainer_state(trainer, state)
     differ = [k for k in runs[0] if not torch.equal(runs[0][k], runs[1][k])]
+    if not must:
+        return differ
     if differ:
         raise AssertionError(f"{tag}: one train step from the same state gave other bits "
                              f"in a second run: {differ}")
@@ -892,7 +1024,12 @@ GLSR_ROW_RTOL = 1e-4
 # the CPU (an argmax within rounding of a tie) are left out of the GLSR
 # comparison: at most 1% of the rows.
 GLSR_PATH_FLIPS = 0.01
-WIDE_DEEP = ((256, 2), (128, 3))  # (H, tick-GRU layers) that no kernel plan fits
+# The music CLI at the reference's own widths (SURVEY: a 2-layer biGRU(512)
+# encoder; ROADMAP Queue B: a 512-wide decoder) and with a 3-layer tick GRU
+WIDE_DEEP_ARGS = {
+    "512-wide": ["--encoder_hidden_size", "512", "--decoder_hidden_size", "512"],
+    "3-layer decoder": ["--num_decoder_layers", "3"],
+}
 
 
 def _variant_run(name):
@@ -938,7 +1075,7 @@ def _variant_vs_cpu(name, trainer):
     noise = noise._replace(teacher=torch.ones_like(noise.teacher), generator=None)
     cpu_noise = noise._replace(**{k: getattr(noise, k).cpu()
                                   for k in ("eps", "eps_prior", "teacher", "seed")})
-    glsr = name == "glsr"
+    glsr = isinstance(trainer, MeasureVAETrainerGLSR)
     if glsr:
         u = torch.rand(MUSIC_B, generator=gen, device=dev)
         noise, cpu_noise = GLSRNoise(noise, u), GLSRNoise(cpu_noise, u.cpu())
@@ -983,44 +1120,49 @@ def _variant_vs_cpu(name, trainer):
           f"{float(rows_k.mean()):.4f} vs {float(rows_p.mean()):.4f}")
 
 
-def _wide_deep_refused(dev):
-    """A HierarchicalDecoder whose width or depth no kernel plan fits: on
-    the card its tick loop raises ValueError, naming H (and L where the
-    depth is the cause), and launches no tick-loop kernel; the same
-    module runs forward and backward on the CPU, its plain path."""
-    from arvae_tpu_torch.models.measure_vae import MeasureNoise, MeasureVAE
+def _wide_deep_run(name, card_line):
+    """The music CLI at a width or depth beyond its default, 2 epochs on
+    the --full corpus: the loss finite and falling, every recurrence call
+    of every step on a kernel (the launch counters), one train step
+    repeated bitwise, and the trained model against the CPU on a val
+    batch → (trainer, launches, device busy ms a train step)."""
+    from arvae_tpu_torch import train_measure_vae
 
-    v, zd = HIER_VS[0], 32
-    for h, layers in WIDE_DEEP:
-        dec = MeasureVAE(v, HIER_E, latent_space_dim=zd, num_decoder_layers=layers,
-                         decoder_hidden_size=h, decoder_dropout_prob=0.0).decoder
-        rng = np.random.RandomState(h + layers)
-        z = torch.tensor(rng.randn(MUSIC_B, zd), dtype=torch.float32)
-        score = torch.tensor(rng.randint(0, v, (MUSIC_B, HIER_T)), dtype=torch.int32)
-        ints = (torch.ones(1, dtype=torch.int32), torch.tensor([5], dtype=torch.int32))
-        tag = f"HierarchicalDecoder H={h}, {layers} tick-GRU layers (B={MUSIC_B}, V={v})"
-        zz = z.clone().requires_grad_(True)
-        w, _ = dec(zz, score, MeasureNoise(torch.zeros_like(z), torch.zeros_like(z), *ints),
-                   train=True)
-        w.sum().backward()
-        if not all(bool(torch.isfinite(x).all()) for x in (w, zz.grad)):
-            raise AssertionError(f"{tag}: a value of the CPU path is not finite")
-        dec.to(dev)
-        noise = MeasureNoise(*(x.to(dev) for x in (torch.zeros_like(z), torch.zeros_like(z),
-                                                    *ints)))
+    flags = WIDE_DEEP_ARGS[name]
+    with tempfile.TemporaryDirectory() as models_dir:
+        os.environ["ARVAE_MODELS_DIR"] = models_dir
         _reset_launches()
-        try:
-            dec(z.to(dev), score.to(dev), noise, train=True)
-        except ValueError as err:
-            refusal = str(err)
-        else:
-            raise AssertionError(f"{tag}: the card ran a shape no kernel plan fits")
-        hier = _read_launches()["hier"]
-        named = f"H={h}" in refusal and (layers == 2 or f"L={layers}" in refusal)
-        if not named or hier != {"fwd": 0, "bwd": 0}:
-            raise AssertionError(f"{tag}: refusal {refusal!r}, tick-loop launches {hier}")
-        print(f"[variants] {tag}: the card refuses it before any tick-loop launch "
-              f"({refusal}); the CPU runs it, fwd and bwd finite")
+        t0 = time.perf_counter()
+        (trainer,) = train_measure_vae.main(MUSIC_ARGS + ["--full"] + flags)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _read_launches()
+        ckpt_ok = os.path.isfile(os.path.join(trainer.run_dir, "ckpt.pt"))
+    hist = trainer.history
+    n_train, n_val = _check_history(f"music {name}", hist, ckpt_ok)
+    model = trainer.model
+    # the encoder's biGRU layers (one launch a layer, both directions)
+    # and the beat GRU's layers; one tick loop; one AR term
+    grus = model.encoder.lstm.num_layers + model.decoder.rnn_beat.num_layers
+    per_step = {"gru": grus, "hier": 1, "reg": 1}
+    want = {k: {"fwd": n * (n_train + n_val), "bwd": n * n_train} for k, n in per_step.items()}
+    _check_launches(f"music {name}", launches, want)
+    print(f"[wide] music CLI {' '.join(flags)} (H enc {model.encoder.lstm.hidden_size}, "
+          f"dec {model.decoder.rnn_tick.hidden_size}, {model.decoder.rnn_tick.num_layers} "
+          f"tick-GRU layers): 2 epochs in {seconds:.1f} s; train loss "
+          f"{hist[0]['train_loss']:.4f} -> {hist[1]['train_loss']:.4f}; val loss "
+          f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f}; launches a train step "
+          f"gru {grus} fwd + {grus} bwd, hier 1 + 1, reg 1 + 1, every one a kernel "
+          f"({launches} over {n_train} train and {n_val} val steps)")
+    dev = trainer.device
+    train_split, _ = trainer.dataset.device_splits(dev)
+    _step_repeats(f"music {name}", trainer,
+                  train_split.gather_batch(torch.arange(MUSIC_B, device=dev)))
+    trained = _trainer_state(trainer)
+    busy = _device_busy(f"music {name}", trainer, train_split, MUSIC_B, card_line)
+    _load_trainer_state(trainer, trained)
+    _variant_vs_cpu(name, trainer)
+    return trainer, launches, busy
 
 
 def phase_music_variants(card_line):
@@ -1039,8 +1181,17 @@ def phase_music_variants(card_line):
         _load_trainer_state(trainer, trained)
         _variant_vs_cpu(name, trainer)
     _embedding_repeats(dev, trainer.model.num_notes)
-    _wide_deep_refused(dev)
     return launches
+
+
+def phase_wide_deep(card_line):
+    """The music CLI at the reference's widths and with a 3-layer tick GRU
+    → {run: (its launches, train steps, device busy ms a train step)}."""
+    wide = {}
+    for name in WIDE_DEEP_ARGS:
+        trainer, counts, busy = _wide_deep_run(name, card_line)
+        wide[name] = (counts, sum(h["train_steps"] for h in trainer.history), busy)
+    return wide
 
 
 def _event_ms(fn, iters, warmup=10):
@@ -1103,22 +1254,39 @@ def _kernel_times(dev, card_line):
     print(f"[times] reg fwd with factors at (R, B) = (2, 8192), off the path: {us / 1e3:.5f} "
           f"ms device ({name}, plan {rk.reg_plan(2, 8192)}) | {card_line}")
 
-    for t, dd, b, h in GRU_CASES:
+    for t, dd, b, h in GRU_CASES + WIDE_GRU_CASES:
         args, ct = _gru_inputs(t, dd, b, h, dev, seed=17)
         outs = gk.gru_chain_fwd_cuda(*args)
         leaves = [x.clone().requires_grad_(True) for x in args]
         ref = gk.gru_chain_reference(*leaves)
+        n = 200 if h <= 128 else 20  # the wide chains take milliseconds a call
         row = {
-            "fwd": _event_ms(lambda: gk.gru_chain_fwd_cuda(*args), 200),
+            "fwd": _event_ms(lambda: gk.gru_chain_fwd_cuda(*args), n),
             "fwd_plain": _event_ms(lambda: gk.gru_chain_reference(*args), 50),
-            "bwd": _event_ms(lambda: gk.gru_chain_bwd_cuda(*args, outs, ct), 200),
+            "bwd": _event_ms(lambda: gk.gru_chain_bwd_cuda(*args, outs, ct), n),
             "bwd_plain": _event_ms(
                 lambda: torch.autograd.grad(ref, leaves, ct, retain_graph=True), 50),
         }
         times.setdefault("gru", row)  # the encoder's shape goes into the JSON
+        if (t, dd, b, h) in WIDE_GRU_CASES:
+            row["shape"] = (t, dd, b, h)
+            row["fwd_work"], row["bwd_work"] = (kw.gru_chain(t, dd, b, h, backward=bwd)
+                                                for bwd in (False, True))
+            times.setdefault("gru_wide", []).append(row)
         print(f"[times] gru_chain at T={t}, D={dd}, B={b}, H={h} (ms per call): fwd "
-              f"{row['fwd']:.5f} vs plain {row['fwd_plain']:.5f}; bwd {row['bwd']:.5f} "
-              f"vs plain (autograd through the loop) {row['bwd_plain']:.5f} | {card_line}")
+              f"{row['fwd']:.5f} vs plain {row['fwd_plain']:.5f}, bound "
+              f"{kw.gru_chain(t, dd, b, h).bound_ms:.5f}; bwd {row['bwd']:.5f} vs plain "
+              f"(autograd through the loop) {row['bwd_plain']:.5f}, bound "
+              f"{kw.gru_chain(t, dd, b, h, backward=True).bound_ms:.5f} | {card_line}")
+
+    for h, layers in WIDE_DEEP_HIER:
+        row = _hier_times(dev, h, layers)
+        times.setdefault("hier_wide", []).append(row)
+        print(f"[times] hier_tick_chain at B={HIER_B}, H={h}, L={layers}, E={HIER_E}, "
+              f"V={MUSIC_BENCH_V}, T={HIER_T}, train with dropout 0.5, free-running (ms per "
+              f"call): fwd {row['fwd']:.5f} vs plain {row['fwd_plain']:.5f}, bound "
+              f"{row['fwd_work'].bound_ms:.5f}; bwd {row['bwd']:.5f} vs plain "
+              f"{row['bwd_plain']:.5f}, bound {row['bwd_work'].bound_ms:.5f} | {card_line}")
 
     score, floats, ct = _hier_inputs(dev, 8, MUSIC_BENCH_V)
     teacher, seed = _ints(0, 5, dev)
@@ -1133,7 +1301,7 @@ def _kernel_times(dev, card_line):
         "fwd_plain": _event_ms(lambda: hk.tick_chain_reference(
             *cfg, teacher, seed, score, *hk.chain_operands(floats)), 10, 2),
         "bwd": _event_ms(lambda: hk.hier_tick_chain_bwd_cuda(
-            True, 0.5, HIER_TPB, seed, samples, h0_all, h1_all, weights, ct, *floats), 100),
+            True, 0.5, HIER_TPB, seed, samples, (h0_all, h1_all), weights, ct, *floats), 100),
         "bwd_plain": _event_ms(
             lambda: torch.autograd.grad(ref, leaves, ct, retain_graph=True), 10, 2),
     }
@@ -1143,10 +1311,42 @@ def _kernel_times(dev, card_line):
           f"{row['fwd']:.5f} vs plain {row['fwd_plain']:.5f}; bwd {row['bwd']:.5f} vs "
           f"plain (autograd through the loop) {row['bwd_plain']:.5f} | {card_line}")
     split = _kernel_split(lambda: hk.hier_tick_chain_bwd_cuda(
-        True, 0.5, HIER_TPB, seed, samples, h0_all, h1_all, weights, ct, *floats))
+        True, 0.5, HIER_TPB, seed, samples, (h0_all, h1_all), weights, ct, *floats))
     print("[times] hier_tick_chain bwd, device µs a call by kernel (profiler, 20 calls): "
           + "; ".join(f"{n} x{k:g} {us:.1f}" for n, (k, us) in split))
     return times
+
+
+def _hier_times(dev, h, layers):
+    """The tick loop's ms a call at B=256, V=130, 6 ticks a beat, training
+    with dropout 0.5, free-running: kernels (CUDA events) and plain loop,
+    with each direction's work."""
+    from arvae_tpu_torch.ops import hier_decoder_kernel as hk
+    from arvae_tpu_torch.utils import kernel_work as kw
+
+    score, floats, ct = _hier_inputs(dev, 8, MUSIC_BENCH_V, h=h, layers=layers)
+    teacher, seed = _ints(0, 5, dev)
+    cfg = (True, 0.5, HIER_TPB, "argmax")
+    weights, samples, *hiddens = hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, score,
+                                                             *floats)
+    leaves = [x.clone().requires_grad_(True) for x in floats]
+    ref = hk.tick_chain_reference(*cfg, teacher, seed, score, *hk.chain_operands(leaves))[0]
+    n = 100 if h <= 128 else 20
+    shape = dict(T=HIER_T, B=HIER_B, H=h, E=HIER_E, V=MUSIC_BENCH_V, ticks_per_beat=HIER_TPB,
+                 L=layers)
+    return {
+        "shape": (h, layers),
+        "fwd": _event_ms(lambda: hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, score,
+                                                             *floats), n),
+        "fwd_plain": _event_ms(lambda: hk.tick_chain_reference(
+            *cfg, teacher, seed, score, *hk.chain_operands(floats)), 5, 1),
+        "bwd": _event_ms(lambda: hk.hier_tick_chain_bwd_cuda(
+            True, 0.5, HIER_TPB, seed, samples, hiddens, weights, ct, *floats), n),
+        "bwd_plain": _event_ms(
+            lambda: torch.autograd.grad(ref, leaves, ct, retain_graph=True), 5, 1),
+        "fwd_work": kw.hier_tick_chain(**shape), "bwd_work": kw.hier_tick_chain(**shape,
+                                                                               backward=True),
+    }
 
 
 def _kernel_split(fn, iters=20):
@@ -1163,13 +1363,19 @@ def _kernel_split(fn, iters=20):
                   key=lambda kv: -kv[1][1])
 
 
-# The music step's four GRU layers (input width, T, bidirectional): the
-# encoder's two biGRU layers and the beat GRU's two layers, at B=256,
-# H=128. Each is timed as the port computes it (cuBLAS input projection
-# + gru_chain) and as cuDNN does (torch.nn.GRU, the library yardstick,
-# which the port never calls), with the same weights and TF32 off.
-GRU_LAYERS = (("encoder layer 0", 10, 24, True), ("encoder layer 1", 256, 24, True),
-              ("beat layer 0", 1, 4, False), ("beat layer 1", 128, 4, False))
+# The music step's four GRU layers (input width, T, bidirectional) at
+# hidden width H: the encoder's two biGRU layers and the beat GRU's two
+# layers, at B=256. Each is timed as the port computes it (cuBLAS input
+# projection + gru_chain) and as cuDNN does (torch.nn.GRU, the library
+# yardstick, which the port never calls), with the same weights and TF32
+# off; at H=384 SRDecoderNoInput's layer (input width H, 24 steps).
+def gru_layers(h):
+    return (("encoder layer 0", 10, 24, True), ("encoder layer 1", 2 * h, 24, True),
+            ("beat layer 0", 1, 4, False), ("beat layer 1", h, 4, False))
+
+
+GRU_LAYERS = gru_layers(HIER_H)
+SR_NO_INPUT_LAYER = (("sr-no-input layer", 384, 24, False),)
 
 
 def _device_ms(fn, iters=20, warmup=5):
@@ -1185,30 +1391,31 @@ def _device_ms(fn, iters=20, warmup=5):
     return union_us([(e["ts"], e["ts"] + e["dur"]) for e in events]) / 1e3 / iters
 
 
-def _gru_layer_times(dev, card_line):
-    """{layer: {port_fwd, port_bwd, cudnn_fwd, cudnn_bwd}}: device ms per
-    call (profiler), the forward with autograd recording, as in a train
-    step, and the backward alone (the graph retained); the host-clock
-    (CUDA event) ms per call beside them under ``*_wall``."""
+def _gru_layer_times(dev, card_line, h=HIER_H, layers=GRU_LAYERS):
+    """{layer: {port_fwd, port_bwd, cudnn_fwd, cudnn_bwd}} at hidden width
+    h: device ms per call (profiler), the forward with autograd
+    recording, as in a train step, and the backward alone (the graph
+    retained); the host-clock (CUDA event) ms per call beside them under
+    ``*_wall``."""
     from arvae_tpu_torch.ops.gru import GRU
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.RandomState(23)
     out = {}
-    for tag, width, t, bidir in GRU_LAYERS:
-        port = GRU(width, HIER_H, 1, bidirectional=bidir)
+    for tag, width, t, bidir in layers:
+        port = GRU(width, h, 1, bidirectional=bidir)
         with torch.no_grad():
             for p in port.parameters():
-                p.copy_(torch.tensor(rng.randn(*p.shape) / np.sqrt(HIER_H), dtype=torch.float32))
+                p.copy_(torch.tensor(rng.randn(*p.shape) / np.sqrt(h), dtype=torch.float32))
         port = port.to(dev)
-        lib = torch.nn.GRU(width, HIER_H, 1, batch_first=True, bidirectional=bidir).to(dev)
+        lib = torch.nn.GRU(width, h, 1, batch_first=True, bidirectional=bidir).to(dev)
         lib.load_state_dict(port.state_dict())
         lib.flatten_parameters()
         dirs = 2 if bidir else 1
         xs = torch.tensor(rng.randn(MUSIC_B, t, width), dtype=torch.float32, device=dev)
-        h0 = torch.tensor(rng.randn(dirs, MUSIC_B, HIER_H) * 0.3, dtype=torch.float32, device=dev)
-        ct = torch.tensor(rng.randn(MUSIC_B, t, dirs * HIER_H), dtype=torch.float32, device=dev)
+        h0 = torch.tensor(rng.randn(dirs, MUSIC_B, h) * 0.3, dtype=torch.float32, device=dev)
+        ct = torch.tensor(rng.randn(MUSIC_B, t, dirs * h), dtype=torch.float32, device=dev)
         xs.requires_grad_(True)
         row = {}
         for name, mod in (("port", port), ("cudnn", lib)):
@@ -1229,7 +1436,7 @@ def _gru_layer_times(dev, card_line):
         _check_close(f"cuDNN vs port, {tag}", row.pop("cudnn_out"), row.pop("port_out"),
                      SEQ_FWD_RTOL, SEQ_FWD_ATOL)
         out[tag] = row
-        print(f"[times] GRU {tag} (I={width}, T={t}, B={MUSIC_B}, H={HIER_H}, "
+        print(f"[times] GRU {tag} (I={width}, T={t}, B={MUSIC_B}, H={h}, "
               f"{'bi' if bidir else 'uni'}directional), device ms per call: port fwd "
               f"{row['port_fwd']:.5f} bwd {row['port_bwd']:.5f}; cuDNN fwd "
               f"{row['cudnn_fwd']:.5f} bwd {row['cudnn_bwd']:.5f} (host clock: port "
@@ -1237,7 +1444,7 @@ def _gru_layer_times(dev, card_line):
               f"{row['cudnn_fwd_wall']:.5f} / {row['cudnn_bwd_wall']:.5f}); outputs agree "
               f"within rtol {SEQ_FWD_RTOL} | {card_line}")
     total = {k: sum(r[k] for r in out.values()) for k in next(iter(out.values()))}
-    print(f"[times] GRU layers of one music step, device ms summed: port fwd "
+    print(f"[times] GRU layers at H={h} ({', '.join(out)}), device ms summed: port fwd "
           f"{total['port_fwd']:.5f} bwd {total['port_bwd']:.5f}; cuDNN fwd "
           f"{total['cudnn_fwd']:.5f} bwd {total['cudnn_bwd']:.5f} | {card_line}")
     return out
@@ -1321,13 +1528,24 @@ def phase_times(card_line):
                       f"{MUSIC_BENCH_ROWS}-row random token corpus)", card_line)
     times["music_busy_ms"] = _device_busy("music", trainer, split, MUSIC_B, card_line)
     times["gru_layers"] = _gru_layer_times(dev, card_line)
+    times["gru_layers_512"] = _gru_layer_times(dev, card_line, 512, gru_layers(512))
+    times["gru_layers_384"] = _gru_layer_times(dev, card_line, 384, SR_NO_INPUT_LAYER)
 
     packed = rng.randint(0, 256, (BENCH_ROWS, 512)).astype(np.uint8)
     labels = rng.rand(BENCH_ROWS, 6).astype(np.float32)
     trainer, split = step_probe.dsprites_trainer(dev, packed, labels)
     _steps_per_second(trainer, split, B_TRAIN,
                       f"DspritesVAE ({BENCH_ROWS}-row random packed split)", card_line)
-    times["dsprites_busy_ms"] = _device_busy("dSprites", trainer, split, B_TRAIN, card_line)
+    # the dSprites step's device busy with cuDNN free to pick its fastest,
+    # nondeterministic convolution algorithms, then as the trainer sets it
+    torch.backends.cudnn.deterministic = False
+    times["dsprites_busy_free_ms"] = _device_busy(
+        "dSprites (torch.backends.cudnn.deterministic=False)", trainer, split, B_TRAIN,
+        card_line)
+    torch.backends.cudnn.deterministic = True
+    times["dsprites_busy_ms"] = _device_busy(
+        "dSprites (torch.backends.cudnn.deterministic=True)", trainer, split, B_TRAIN,
+        card_line)
     return times
 
 
@@ -1347,6 +1565,8 @@ def main() -> int:
     music = _timed("slice 2 (music)", phase_music_slice)
     variants = _timed("slice 3 (music variants)", phase_music_variants, card_line)
     times = _timed("times", phase_times, card_line)
+    wide = _timed("slice 4 (the reference's widths, a 3-layer tick GRU)", phase_wide_deep,
+                  card_line)
     print(f"[phase] total: {time.perf_counter() - t0:.1f} s")
 
     from arvae_tpu_torch.utils import kernel_work as kw
@@ -1372,7 +1592,39 @@ def main() -> int:
                 "ms": t[direction], "plain_ms": t[f"{direction}_plain"],
                 "bound_ms": w.bound_ms, "bound_by": w.bound_by,
                 "library_ms": cudnn[f"cudnn_{direction}"] if key == "gru" else None,
-                **({"events_ms": t[f"{direction}_events"]} if key == "reg" else {})}
+                **({"events_ms": t[f"{direction}_events"]} if key == "reg" else {}),
+                **({"wide_deep_shapes": shapes(key, direction)} if key != "reg" else {})}
+
+    # the new shapes: the reference's widths and the tick GRU's depths,
+    # each with its launches a train step in the wide or deep CLI run
+    # that reaches it (None where no CLI run does)
+    cudnn_at = {(24, 2, 256, 512): times["gru_layers_512"]["encoder layer 0"],
+                (4, 1, 256, 512): times["gru_layers_512"]["beat layer 0"],
+                (24, 1, 256, 384): times["gru_layers_384"]["sr-no-input layer"]}
+    run_of = {(512, 2): "512-wide", (128, 3): "3-layer decoder"}
+
+    def per_train_step(run, key):
+        if run is None:
+            return None
+        counts, steps, _ = wide[run]
+        return counts[key]["bwd"] / steps
+
+    def shapes(key, direction):
+        rows = []
+        for row in times[f"{key}_wide"]:
+            w = row[f"{direction}_work"]
+            if key == "gru":
+                lib = cudnn_at.get(row["shape"])
+                run = "512-wide" if row["shape"][-1] == 512 and row["shape"][2] == 256 else None
+            else:
+                lib, run = None, run_of.get(row["shape"])
+            rows.append({"shape": row["shape"], "ms": row[direction],
+                         "plain_ms": row[f"{direction}_plain"], "bound_ms": w.bound_ms,
+                         "bound_by": w.bound_by,
+                         "library_ms": lib[f"cudnn_{direction}"] if lib else None,
+                         "cli_run": run,
+                         "cli_launches_per_train_step": per_train_step(run, key)})
+        return rows
 
     csrc = "arvae_tpu_torch/csrc/"
     kernels = [
@@ -1393,6 +1645,12 @@ def main() -> int:
         print(f"[times] {k['name']}: {k['ms']:.5f} ms, bound {k['bound_ms']:.3g} ms "
               f"({k['bound_by']}, {100 * k['bound_ms'] / k['ms']:.1f}% of it), "
               f"{k['launches_per_step']:g} launches a step | {card_line}")
+    for name, (counts, steps, busy) in wide.items():
+        print(f"[times] music {name} run: launches {counts} over {steps} train steps; device "
+              f"busy {busy:.3f} ms a train step | {card_line}")
+    print(f"[times] dSprites step device busy: {times['dsprites_busy_free_ms']:.3f} ms with "
+          f"cuDNN free to pick nondeterministic algorithms, {times['dsprites_busy_ms']:.3f} ms "
+          f"with torch.backends.cudnn.deterministic=True | {card_line}")
     print("[times] the AR term's device launches a call (profiler): " + "; ".join(
         f"{name} {kind} {n:g}" for (name, kind), n in times["ar_launches"].items())
         + f" | {card_line}")

@@ -2,7 +2,9 @@
 
 ``gru_chain_reference`` (the plain version of the CUDA chain kernel, and
 what ``gru_chain`` runs on a CPU tensor) is held against the JAX Pallas
-``gru_chain`` in interpret mode at T=6, B=8, H=128, D∈{1,2}, and against
+``gru_chain`` in interpret mode at T=6, B=8, H=128, D∈{1,2} and at H=384,
+D=1 (a width the card's kernels stream and the TPU ran on its Pallas
+kernel: its ``supports_shapes`` admits the beat GRU there), and against
 JAX's scan reference at an unaligned B=5, H=24: forward rtol 1e-5,
 gradients under a random cotangent rtol 1e-4 (atol 1e-5 and 1e-6: sums
 over T·B terms in another order). ``gru_forward`` is held against JAX's
@@ -47,11 +49,14 @@ def _jax_value_and_grads(fn, args, ct):
     return np.asarray(outs), [np.asarray(g) for g in grads]
 
 
-@pytest.mark.parametrize("case", ["pallas_d1", "pallas_d2", "unaligned_d2"])
+@pytest.mark.parametrize("case", ["pallas_d1", "pallas_d2", "unaligned_d2", "pallas_d1_h384"])
 def test_chain_reference_matches_jax(case):
     if case == "unaligned_d2":
         args, ct = _inputs(2, seed=4, b=5, h=24)
         fn = gru_pallas.gru_chain_reference
+    elif case == "pallas_d1_h384":
+        args, ct = _inputs(1, seed=5, h=384)
+        fn = gru_pallas.gru_chain  # interpret mode off the TPU
     else:
         args, ct = _inputs(int(case[-1]), seed=3)
         fn = gru_pallas.gru_chain  # interpret mode off the TPU

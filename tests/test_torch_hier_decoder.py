@@ -9,7 +9,10 @@ sums in another order); the 13 gradients under a random cotangent rtol
 1e-4 / atol 1e-5. A free-running decode is compared by the teacher
 trick: the port runs teacher-forced on the JAX side's samples, whose
 logits must then match, and each of the port's own free-running samples
-must be the lowest-index argmax of its own logits, exactly."""
+must be the lowest-index argmax of its own logits, exactly. At H=256,
+the widest tick loop the TPU ran fused (its ``supports`` admits it at
+B=256) and one the card's kernels now plan, teacher-forced forward and
+gradients are held alike."""
 
 import jax
 import jax.numpy as jnp
@@ -65,6 +68,18 @@ def _jax(teacher, score, floats, tpb=TPB, grad_ct=None):
         _, vjp = jax.vjp(lambda *f: run(*f)[0], *jf)
         grads = [np.asarray(g) for g in vjp(jnp.asarray(grad_ct))]
     return np.asarray(weights), np.array(samples), grads
+
+
+def test_wide_teacher_forced_forward_and_grads_match_jax():
+    h = 256
+    assert hk.hier_plan(256, h, E, V).streamed  # the card's plan at the music step's B
+    score, floats = _operands(21, h=h)
+    ct = np.random.RandomState(22).randn(T, B, V).astype(np.float32)
+    w_got, s_got, g_got = _port(1, score, floats, TPB, grad_ct=ct)
+    w_want, s_want, g_want = _jax(1, score, floats, TPB, grad_ct=ct)
+    np.testing.assert_array_equal(s_got, s_want)
+    np.testing.assert_allclose(w_got, w_want, rtol=1e-5, atol=1e-5)
+    _check_grads(g_got, g_want)
 
 
 def _check_grads(got, want):

@@ -1,6 +1,7 @@
 """The work counter of ``arvae_tpu_torch/utils/kernel_work.py``: FLOP,
-bytes and bounds at the music step's shapes, and how the counts scale
-with T, B, H and V."""
+bytes and bounds at the music step's shapes, how the counts scale with
+T, B, H, V and the tick GRU's depth L, and the counts at the reference's
+own width (H=512)."""
 
 import pytest
 
@@ -33,6 +34,24 @@ CASES = {
     "hier_flop_in_H": (lambda: kw.hier_flop_per_row_step(64, 10, 130),
                        2 * 10 * 192 + 6 * 64 * 192 + 2 * 64 * 130),
     "hier_flop_in_T_and_B": (lambda: _hier(T=12, B=100).flop, 335_872 * 12 * 100),
+    # a tick GRU of L layers: 2L - 1 H x 3H products a row and step
+    "hier_flop_per_row_step_L3": (lambda: kw.hier_flop_per_row_step(128, 10, 130, 3),
+                                  2 * 10 * 384 + 5 * 2 * 128 * 384 + 2 * 128 * 130),
+    "hier_flop_L1_has_one_product": (lambda: kw.hier_flop_per_row_step(128, 10, 130, 1),
+                                     2 * 10 * 384 + 2 * 128 * 384 + 2 * 128 * 130),
+    "hier_fwd_bytes_in_L": (lambda: _hier(L=3).bytes - _hier().bytes,
+                            4 * (4 * 256 * 128 + 2 * (128 * 384 + 384) + 24 * 256 * 128)),
+    "hier_bwd_is_3x_fwd_L3": (lambda: _hier(backward=True, L=3).flop, 3 * _hier(L=3).flop),
+    # the reference's own width: H=512 for the encoder, beat and tick GRUs
+    "gru_fwd_flop_h512": (lambda: kw.gru_chain(24, 2, 256, 512).flop,
+                          2 * 24 * 2 * 256 * 512 * 1536),
+    "gru_fwd_bytes_h512": (lambda: kw.gru_chain(24, 2, 256, 512).bytes,
+                           4 * (24 * 2 * 256 * 1536 + 2 * 512 * 1536 + 2 * 1536
+                                + 2 * 256 * 512 + 24 * 2 * 256 * 512)),
+    "hier_fwd_flop_h512": (lambda: _hier(H=512).flop,
+                           24 * 256 * (2 * 10 * 1536 + 3 * 2 * 512 * 1536 + 2 * 512 * 130)),
+    "hier_fwd_flop_h512_L3": (lambda: _hier(H=512, L=3).flop,
+                              24 * 256 * (2 * 10 * 1536 + 5 * 2 * 512 * 1536 + 2 * 512 * 130)),
     "reg_pairs": (lambda: kw.reg_loss(4, 256, factors=False).flop,
                   kw.REG_FWD_OPS_PER_PAIR * 4 * 256 ** 2),
     "reg_fwd_with_factors": (lambda: kw.reg_loss(4, 256).flop,

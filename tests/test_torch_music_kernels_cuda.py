@@ -17,9 +17,13 @@ a keep bit that differs moves a layer-1 input by 2·h0, far outside the
 tolerance. The tick-loop cases run at V=34 (the music CLI's corpus) and
 V=130 (the step-rate cell), and at a ragged B=100, and in eval mode
 (``train=False``, as GLSR's decodes run it) at 6 and 24 ticks a beat.
-The widths and depths no plan fits (a GRU chain at H=384, decoders at
-H=256 or with 3 tick-GRU layers) raise ValueError on the card, naming
-H (and L), before their kernels launch. A free-running decode is compared by
+The reference's own widths and the tick GRU's other depths run on the
+kernels too: ``gru_chain`` at H=384 and 512 (the streamed layout), the
+tick loop at H=256 and 512 with 2 layers and at H=128 with 1, 3 and 4
+(teacher-forced, free-running with dropout 0.5, eval, and the SR
+decoder's one beat of 24 ticks), and decoders at those shapes launch
+their kernels; a depth outside 1 to 4 raises ValueError, naming H and
+L, before any launch. A free-running decode is compared by
 the teacher trick: the plain version runs teacher-forced on the
 kernel's samples, and each kernel sample must be the lowest-index
 argmax of the kernel's own logits."""
@@ -40,7 +44,12 @@ GRAD_RTOL, GRAD_ATOL_FRAC = 1e-4, 1e-5
 # batch, a second width, and an odd width (no cluster divides H = 21: one
 # CTA a cluster, rows that are not 16-byte aligned)
 GRU_CASES = [(24, 2, 256, 128), (4, 1, 256, 128), (24, 1, 256, 128), (24, 2, 100, 128),
-             (24, 2, 256, 64), (4, 1, 256, 64), (6, 2, 20, 21)]
+             (24, 2, 256, 64), (4, 1, 256, 64), (6, 2, 20, 21),
+             # the reference's widths, streamed: the 512-wide encoder and beat
+             # layers, SRDecoderNoInput's at 384, a ragged batch
+             (24, 2, 256, 512), (4, 1, 256, 512), (24, 1, 256, 384), (24, 2, 100, 512)]
+# (H, tick-GRU layers) beyond the music step's
+WIDE_DEEP = [(256, 2), (512, 2), (128, 1), (128, 3), (128, 4)]
 HB, HH, HE, HT, HTPB = 256, 128, 10, 24, 6
 HVS = (34, 130)
 
@@ -106,12 +115,16 @@ def test_gru_chain_autograd_launches_kernels(dev):
 
 
 @pytest.mark.parametrize("backward", [False, True])
-@pytest.mark.parametrize("h", [64, 128, 256])
+@pytest.mark.parametrize("h", [64, 128, 256, 384, 512])
 def test_gru_plan_mirrors_the_kernel_layout(dev, h, backward):
     plan = gk.gru_plan(2, 256, h, backward)
     lib = gk._library()
-    assert 4 * lib.gru_chain_smem_floats(int(backward), h, plan.clusters, plan.rows) \
-        == plan.smem_bytes
+    assert 4 * lib.gru_chain_smem_floats(int(backward), h, plan.clusters, plan.rows,
+                                         int(plan.streamed)) == plan.smem_bytes
+    held = lib.gru_chain_resident_clusters(int(backward), int(plan.streamed), plan.clusters,
+                                           plan.smem_bytes)
+    if plan.streamed:  # the plan's count of the clusters the card holds at once
+        assert held == gk.held_clusters(plan, "gru_bwd" if backward else "gru_fwd")
 
 
 def test_gru_chain_rejects_bad_inputs(dev):
@@ -127,7 +140,7 @@ def test_gru_chain_rejects_bad_inputs(dev):
 # ---------------------------------------------------------------------------
 
 
-def _hier_inputs(dev, seed, v, tpb=HTPB, zero=False, b=HB):
+def _hier_inputs(dev, seed, v, tpb=HTPB, zero=False, b=HB, h=HH, layers=2):
     rng = np.random.RandomState(seed)
     nb = -(-HT // tpb)
 
@@ -135,10 +148,11 @@ def _hier_inputs(dev, seed, v, tpb=HTPB, zero=False, b=HB):
         x = rng.randn(*shape) * (s if s is not None else 1 / np.sqrt(shape[0]))
         return torch.tensor(0 * x if zero else x, dtype=torch.float32, device=dev)
 
-    floats = [w(nb, b, 3 * HH, s=0.5), w(nb, 2, b, HH, s=0.5), w(b, HE, s=0.5),
-              w(v, HE, s=1.0), w(HE, 3 * HH), w(HH, 3 * HH), w(3 * HH, s=0.1),
-              w(HH, 3 * HH), w(3 * HH, s=0.1), w(HH, 3 * HH), w(3 * HH, s=0.1),
-              w(HH, v), w(v, s=0.1)]
+    floats = [w(nb, b, 3 * h, s=0.5), w(nb, layers, b, h, s=0.5), w(b, HE, s=0.5),
+              w(v, HE, s=1.0), w(HE, 3 * h), w(h, 3 * h), w(3 * h, s=0.1)]
+    for _ in range(layers - 1):
+        floats += [w(h, 3 * h), w(3 * h, s=0.1), w(h, 3 * h), w(3 * h, s=0.1)]
+    floats += [w(h, v), w(v, s=0.1)]
     score = torch.tensor(rng.randint(0, v, (HT, b)), dtype=torch.int32, device=dev)
     ct = torch.tensor(rng.randn(HT, b, v), dtype=torch.float32, device=dev)
     return score, floats, ct
@@ -155,10 +169,10 @@ def _kernel_run(cfg, teacher, seed, score, floats, ct=None):
     train, rate, tpb, sampling = cfg
     runs = []
     for _ in range(2):
-        weights, samples, h0_all, h1_all = hk.hier_tick_chain_fwd_cuda(
+        weights, samples, *hiddens = hk.hier_tick_chain_fwd_cuda(
             train, rate, tpb, sampling, teacher, seed, score, *floats)
         grads = () if ct is None else hk.hier_tick_chain_bwd_cuda(
-            train, rate, tpb, seed, samples, h0_all, h1_all, weights, ct, *floats)
+            train, rate, tpb, seed, samples, hiddens, weights, ct, *floats)
         runs.append((weights, samples) + tuple(grads))
     torch.cuda.synchronize()
     for x, y in zip(*runs):  # bitwise, so that a NaN repeats equal to itself
@@ -179,7 +193,8 @@ def _plain_run(cfg, teacher, seed, score, floats, ct=None):
 
 def _compare(cfg, kernel_in, plain_in, floats, ct):
     """Kernel (teacher, seed, score) against plain (teacher, seed, score):
-    samples equal, weights and the 13 gradients within tolerance.
+    samples equal, weights and every float operand's gradient within
+    tolerance.
 
     A pre-activation within rounding of the ReLU kink can land on either
     side in the two versions (sums in another order), and its mask then
@@ -195,7 +210,7 @@ def _compare(cfg, kernel_in, plain_in, floats, ct):
     w_p, s_p, g_p = _plain_run(cfg, *plain_in, floats, ct)
     assert torch.equal(s_k, s_p)
     _close(w_k, w_p, FWD_RTOL, FWD_ATOL, "weights")
-    for g, want, name in zip(g_k, g_p, hk.FLOAT_OPERANDS):
+    for g, want, name in zip(g_k, g_p, hk.float_operands(hk.layers_of(floats))):
         _close_grad(g, want, name)
     return w_k, s_k
 
@@ -261,15 +276,16 @@ def test_hier_multinomial_in_distribution(dev, v):
     assert int(counts.max()) < 2 * HT * HB // v
 
 
+@pytest.mark.parametrize("h,layers", [(HH, 2)] + WIDE_DEEP)
 @pytest.mark.parametrize("v", HVS)
-def test_hier_plan_mirrors_the_kernel_layout(dev, v):
-    plan = hk.hier_plan(HB, HH, HE, v)
+def test_hier_plan_mirrors_the_kernel_layout(dev, v, h, layers):
+    plan = hk.hier_plan(HB, h, HE, v, layers)
     lib = hk._library()
-    assert 4 * lib.hier_tick_chain_smem_floats(HH, HE, v, plan.clusters, plan.rows) \
-        == plan.smem_bytes
+    assert 4 * lib.hier_tick_chain_smem_floats(h, HE, v, plan.clusters, plan.rows, layers,
+                                               int(plan.streamed)) == plan.smem_bytes
     # the plan's count of the clusters the card holds at once is the card's
-    assert lib.hier_tick_chain_resident_clusters(plan.clusters, plan.smem_bytes) \
-        == hk.RESIDENT_CLUSTERS[plan.clusters]
+    assert lib.hier_tick_chain_resident_clusters(int(plan.streamed), plan.clusters,
+                                                 plan.smem_bytes) == hk.held_clusters(plan)
 
 
 def _flat(dev, v, peak_cols=(), nan_col=None):
@@ -336,16 +352,42 @@ def test_hier_eval_mode_matches_plain(dev, tpb, v):
     _compare(cfg, free, _ints(1, 3, dev) + (s_k,), floats, ct)
 
 
-def test_gru_chain_too_wide_raises_before_any_launch(dev):
-    args, _ = _gru_inputs(24, 2, 64, 384, dev, seed=3)
+@pytest.mark.parametrize("h,layers", WIDE_DEEP)
+def test_hier_wide_and_deep_match_plain(dev, h, layers):
+    """Teacher-forced; free-running with dropout 0.5 (the teacher trick on
+    the kernel's own samples with the same seed: every gap's mask bitwise
+    equal); eval; and the SR decoder's one beat of 24 ticks."""
+    v = HVS[-1]
+    score, floats, ct = _hier_inputs(dev, 30 + layers, v, h=h, layers=layers)
+    forced = _ints(1, 3, dev) + (score,)
+    _compare((True, 0.0, HTPB, "argmax"), forced, forced, floats, ct)
+    seed = torch.tensor([123457], dtype=torch.int32, device=dev)
+    free = (torch.zeros(1, dtype=torch.int32, device=dev), seed, score)
+    cfg = (True, 0.5, HTPB, "argmax")
+    w_k, s_k, _ = _kernel_run(cfg, *free, floats)
+    assert torch.equal(s_k, hk.argmax_lowest(w_k).clamp(0, v - 1).to(torch.int32))
+    _compare(cfg, free, (torch.ones_like(free[0]), seed, s_k), floats, ct)
+    free = _ints(0, 3, dev) + (score,)
+    s_eval = _kernel_run((False, 0.5, HTPB, "argmax"), *free, floats)[1]
+    _compare((False, 0.5, HTPB, "argmax"), free, _ints(1, 3, dev) + (s_eval,), floats, ct)
+    score, floats, ct = _hier_inputs(dev, 40 + layers, v, HT, h=h, layers=layers)
+    forced = _ints(1, 3, dev) + (score,)
+    _compare((True, 0.0, HT, "argmax"), forced, forced, floats, ct)
+
+
+def test_gru_chain_at_the_reference_width_launches_the_kernels(dev):
+    args, ct = _gru_inputs(24, 2, 64, 512, dev, seed=3)
+    leaves = [a.clone().requires_grad_(True) for a in args]
     gk.reset_launches()
-    with pytest.raises(ValueError, match="H=384 is too wide"):
-        gk.gru_chain(*args)
-    assert gk.LAUNCHES == {"fwd": 0, "bwd": 0}
+    (gk.gru_chain(*leaves) * ct).sum().backward()
+    assert gk.LAUNCHES == {"fwd": 1, "bwd": 1}
+    ref = [a.clone().requires_grad_(True) for a in args]
+    (gk.gru_chain_reference(*ref) * ct).sum().backward()
+    for a, b in zip(leaves, ref):
+        _close_grad(a.grad, b.grad)
 
 
-@pytest.mark.parametrize("h,layers", [(256, 2), (128, 3)], ids=["wide", "deep"])
-def test_wide_and_deep_decoders_raise_before_the_tick_loop_launches(dev, h, layers):
+def _decoder(dev, h, layers):
     from arvae_tpu_torch.models.measure_vae import MeasureVAE, draw_measure_noise
 
     dec = MeasureVAE(HVS[0], HE, latent_space_dim=32, num_decoder_layers=layers,
@@ -354,8 +396,26 @@ def test_wide_and_deep_decoders_raise_before_the_tick_loop_launches(dev, h, laye
     z = torch.tensor(rng.randn(HB, 32), dtype=torch.float32, device=dev)
     score = torch.tensor(rng.randint(0, HVS[0], (HB, HT)), dtype=torch.int32, device=dev)
     noise = draw_measure_noise(HB, 32, torch.Generator(dev).manual_seed(0), dev)
+    return dec, z, score, noise
+
+
+@pytest.mark.parametrize("h,layers", [(256, 2), (512, 2), (128, 3), (128, 4), (128, 1)],
+                         ids=["wide", "reference", "deep", "deeper", "shallow"])
+def test_wide_and_deep_decoders_launch_the_tick_loop_kernels(dev, h, layers):
+    dec, z, score, noise = _decoder(dev, h, layers)
+    zz = z.clone().requires_grad_(True)
+    gk.reset_launches()
     hk.reset_launches()
-    match = f"H={h}, L={layers}" if layers != 2 else f"H={h}.*too wide"
-    with pytest.raises(ValueError, match=match):
+    weights, _ = dec(zz, score, noise, train=True)
+    weights.sum().backward()
+    assert hk.LAUNCHES == {"fwd": 1, "bwd": 1}
+    assert gk.LAUNCHES == {"fwd": layers, "bwd": layers}  # the beat GRU's layers
+    assert bool(torch.isfinite(weights).all()) and bool(torch.isfinite(zz.grad).all())
+
+
+def test_a_tick_gru_depth_outside_the_range_raises_before_the_tick_loop_launches(dev):
+    dec, z, score, noise = _decoder(dev, HH, 5)
+    hk.reset_launches()
+    with pytest.raises(ValueError, match=f"H={HH}, L=5"):
         dec(z, score, noise, train=True)
     assert hk.LAUNCHES == {"fwd": 0, "bwd": 0}
