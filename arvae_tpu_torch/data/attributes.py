@@ -11,9 +11,12 @@ Semantics as in the JAX package:
   consecutive intervals; the first and last notes are the lowest and
   highest indices of the note mask;
 - ``rhythmic_entropy``: ln(#onsets);
-- range and contour are 0 for measures with fewer than 2 notes.
-``interval_entropy`` is not on the training path and is not ported yet
-(ROADMAP).
+- ``interval_entropy``: the softmax entropy of the mod-12 histogram of
+  the intervals between consecutive notes; the JAX package scans each
+  row, here each note's predecessor is found by a cumulative max over
+  note positions;
+- range, contour and interval entropy are 0 for measures with fewer than
+  2 notes.
 """
 
 from __future__ import annotations
@@ -127,6 +130,24 @@ class MusicAttributes:
         count = self.note_mask(t).sum(dim=1).float()
         return torch.where(count > 0, torch.log(count.clamp(min=1.0)), 0.0)
 
+    def interval_entropy(self, t: torch.Tensor) -> torch.Tensor:
+        """Softmax entropy of the mod-12 interval histogram, 0 if < 2 notes."""
+        mask = self.note_mask(t)
+        midi = self.note_midi(t)
+        n = t.shape[1]
+        pos = torch.arange(n, device=t.device)
+        # the position of the last note strictly before each tick (-1: none)
+        last = torch.where(mask, pos, -1).cummax(dim=1).values
+        prev_pos = torch.cat([torch.full_like(last[:, :1], -1), last[:, :-1]], dim=1)
+        prev = torch.where(prev_pos >= 0, midi.gather(1, prev_pos.clamp(min=0)), -1)
+        valid = mask & (prev >= 0)
+        # int32 as in the JAX scan (a pitch past the table wraps the same way)
+        interval = torch.where(valid, (midi - prev).abs() % 12, 0)
+        hist = (torch.nn.functional.one_hot(interval.long(), 12)
+                * valid[..., None]).sum(dim=1).float()
+        ent = -(torch.softmax(hist, dim=1) * torch.log_softmax(hist, dim=1)).sum(dim=1)
+        return torch.where(mask.sum(dim=1) >= 2, ent, 0.0)
+
     # -- batch labels ---------------------------------------------------------
 
     def compute_labels(self, t: torch.Tensor,
@@ -141,5 +162,6 @@ class MusicAttributes:
             "contour": self.contour,
             "beat_strength": self.beat_strength,
             "rhythmic_entropy": self.rhythmic_entropy,
+            "interval_entropy": self.interval_entropy,
         }
         return torch.stack([fns[a](t) for a in attr_list], dim=1)

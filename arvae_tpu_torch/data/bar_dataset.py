@@ -281,6 +281,41 @@ class FolkBarDataset:
 
         return mk(slice(0, i0)), mk(slice(i0, i1))
 
+    def device_eval_split(self, device: torch.device, split=(0.85, 0.10)) -> DeviceSplit:
+        """Device-resident eval split: the rows past ``sum(split)`` of the
+        corpus (the host loaders' test split), as 24-tick measures."""
+        score, _ = self.get_dataset()
+        i1 = int(sum(split) * len(score))
+        rows = np.asarray(score[i1:], np.int32).reshape(-1, TICKS_PER_MEASURE)
+        return DeviceSplit(rows, None, (TICKS_PER_MEASURE,), "tokens", device)
+
+    # -- attribute getters: (N, 24) measures → (N,) numpy ----------------------
+
+    def _attribute(self, name: str, measure_tensor) -> np.ndarray:
+        t = torch.as_tensor(np.asarray(measure_tensor))
+        return getattr(self.attrs(), name)(t).numpy()
+
+    def get_note_density_in_measure(self, measure_tensor):
+        return self._attribute("note_density", measure_tensor)
+
+    def get_pitch_range_in_measure(self, measure_tensor):
+        return self._attribute("pitch_range", measure_tensor)
+
+    def get_rhy_complexity(self, measure_tensor):
+        return self._attribute("rhy_complexity", measure_tensor)
+
+    def get_contour(self, measure_tensor):
+        return self._attribute("contour", measure_tensor)
+
+    def get_beat_strength(self, measure_tensor):
+        return self._attribute("beat_strength", measure_tensor)
+
+    def get_rhythmic_entropy(self, measure_tensor):
+        return self._attribute("rhythmic_entropy", measure_tensor)
+
+    def get_interval_entropy(self, measure_tensor):
+        return self._attribute("interval_entropy", measure_tensor)
+
 
 class FolkNBarDataset(FolkBarDataset):
     """n-bar windows with transposition augmentation and START/END padding."""

@@ -164,10 +164,6 @@ class DspritesDataset:
         self.latents: Optional[np.ndarray] = None
         self._order: Optional[np.ndarray] = None
 
-    @property
-    def is_short(self) -> bool:
-        return self.factor_sizes != FULL_FACTOR_SIZES
-
     def _cache_path(self) -> str:
         tag = "x".join(map(str, self.factor_sizes))
         return os.path.join(self.root, f"dsprites_synth_{tag}.npz")
@@ -210,3 +206,12 @@ class DspritesDataset:
                                (1, _IMG, _IMG), "packed", device)
 
         return make(slice(0, i0)), make(slice(i0, i1))
+
+    def device_eval_split(self, device: torch.device, split=(0.80, 0.15)) -> DeviceSplit:
+        """Device-resident eval split: the rows past ``sum(split)`` of the
+        seed-0 order (the host loaders' test split), bit-packed."""
+        self.load_dataset()
+        n = len(self.packed)
+        rows = self._order[int(sum(split) * n):]
+        return DeviceSplit(self.packed[rows], self.latents[rows].astype(np.float32),
+                           (1, _IMG, _IMG), "packed", device)

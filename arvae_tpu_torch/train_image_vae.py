@@ -7,15 +7,21 @@ supports. Run as a module:
         -r all --beta 1.0 --num_epochs 2 --batch_size 128
 
 ``--device`` defaults to ``cuda``; without a card the script raises
-unless ``--device cpu`` is given. ``--test`` restores the run's
-checkpoint instead of training (the eval metrics that follow in the JAX
-CLI are not ported yet); ``--log`` is accepted for the root CLI's sake
-and does nothing.
+unless ``--device cpu`` is given. After training, or after restoring the
+run's checkpoint under ``--test``, each seed is evaluated: the five
+disentanglement metrics, the test loss and accuracy and the protocol
+stamp are written to ``<run_dir>/results_dict.json`` and printed (a
+results file already in the run dir is printed as it is).
+``--skip_cached`` skips a seed whose run dir holds results stamped with
+the same epochs, batch size and dataset. The latent GIFs that follow in
+the root CLI are left out: they need seaborn, pandas and PIL. ``--log`` is
+accepted for the root CLI's sake and does nothing.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 from typing import List, Optional, Sequence
 
 import torch
@@ -60,13 +66,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="attribute name to regularize (repeatable), or `all`")
     add_switch(p, "--short", "--full", "short", False,
             "use the reduced dSprites factor grid for quick runs (default: full)")
+    add_switch(p, "--skip_cached", "--no_skip_cached", "skip_cached", False,
+            "skip seeds whose run dir holds results stamped with this protocol")
     p.add_argument("--device", default="cuda",
                    help="torch device; `cpu` must be asked for explicitly")
     return p.parse_args(argv)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[ImageVAETrainer]:
-    """Runs the CLI; returns the trainers, one per seed."""
+    """Runs the CLI; returns the trainers, one per seed not skipped."""
     args = parse_args(argv)
     if args.dataset_type == "mnist":
         raise NotImplementedError(
@@ -109,6 +117,10 @@ def main(argv: Optional[Sequence[str]] = None) -> List[ImageVAETrainer]:
             dec_dist=args.dec_dist,
             rand=r,
         )
+        if (args.skip_cached and args.do_train
+                and trainer.has_protocol_cache(args.num_epochs, args.batch_size)):
+            print(f"skip seed {r}: protocol-stamped cache in {trainer.run_dir}")
+            continue
         if args.resume:
             trainer.maybe_resume()
         if args.do_train:
@@ -116,6 +128,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[ImageVAETrainer]:
                                 num_epochs=args.num_epochs)
         else:
             trainer.load_model()
+        metrics = trainer.compute_eval_metrics(batch_size=args.batch_size)
+        print(json.dumps(metrics, indent=2))
         trainers.append(trainer)
     return trainers
 

@@ -10,15 +10,22 @@ and ``--glsr`` trains with the GLSR regulariser in place of the AR term,
 on one attribute with a differentiable surrogate (``rhy_complexity`` or
 ``note_density``; ``-r all`` or none picks ``rhy_complexity``), as the
 root CLI does. ``--device`` defaults to ``cuda``; without a card the
-script raises unless ``--device cpu`` is given. ``--skip_cached`` raises
-``NotImplementedError`` naming the ROADMAP: it needs the eval metrics,
-which are not ported yet, nor are the test pass and the plots that
-follow training in the JAX CLI; ``--test`` restores the checkpoint only.
+script raises unless ``--device cpu`` is given. After training, or after
+restoring the run's checkpoint under ``--test``, each seed is evaluated
+at B=256: the five disentanglement metrics, the test loss and accuracy
+and the protocol stamp are written to ``<run_dir>/results_dict.json``
+and printed (a results file already in the run dir is printed as it
+is). ``--skip_cached`` skips a seed whose run dir holds results stamped
+with the same epochs, batch size and dataset. What follows in the root
+CLI is left out: the 20-batch harvest and the latent interpolation
+plots it feeds need seaborn, pandas and music21. ``--log`` is accepted for
+the root CLI's sake and does nothing.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 from typing import List, Optional, Sequence
 
 import torch
@@ -93,7 +100,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     add_switch(p, "--glsr", "--no_glsr", "use_glsr", False,
             "train with GLSR instead of the AR reg loss")
     add_switch(p, "--skip_cached", "--no_skip_cached", "skip_cached", False,
-            "skip seeds with a protocol-stamped results cache (not ported yet)")
+            "skip seeds whose run dir holds results stamped with this protocol")
     p.add_argument("--device", default="cuda",
                    help="torch device; `cpu` must be asked for explicitly")
     return p.parse_args(argv)
@@ -117,12 +124,8 @@ def glsr_reg_type(reg_type: Sequence[str]) -> str:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[MeasureVAETrainer]:
-    """Runs the CLI; returns the trainers, one per seed."""
+    """Runs the CLI; returns the trainers, one per seed not skipped."""
     args = parse_args(argv)
-    if args.skip_cached:
-        raise NotImplementedError(
-            "--skip_cached: the results cache (eval metrics) is not ported yet "
-            "(ROADMAP Queue A)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu to "
@@ -190,12 +193,18 @@ def main(argv: Optional[Sequence[str]] = None) -> List[MeasureVAETrainer]:
                 rand=r,
             )
         print("run_dir:", trainer.run_dir, flush=True)
+        if (args.skip_cached and args.do_train
+                and trainer.has_protocol_cache(args.num_epochs, args.batch_size)):
+            print(f"skip seed {r}: protocol-stamped cache in {trainer.run_dir}")
+            continue
         if args.resume:
             trainer.maybe_resume()
         if args.do_train:
             trainer.train_model(batch_size=args.batch_size, num_epochs=args.num_epochs)
         else:
             trainer.load_model()
+        metrics = trainer.compute_eval_metrics()
+        print(json.dumps(metrics, indent=2))
         trainers.append(trainer)
     return trainers
 

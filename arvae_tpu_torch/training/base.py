@@ -1,4 +1,5 @@
-"""Abstract trainer: the epoch loop over eager PyTorch steps.
+"""Abstract trainer: the epoch loop over eager PyTorch steps, and the
+evaluation that follows it.
 
 Counterpart of ``arvae_tpu/training/base.py``: the same epoch loop
 (train pass, val pass, stdout stats, numerics guard, per-epoch
@@ -8,23 +9,40 @@ device, both seeded from ``rand``: one draws each epoch's permutation,
 the other the reparametrisation noise. The loss-scale hyperparameters
 live on the device as 0-d tensors, so a step reads none of them from
 the host.
+
+The evaluation runs over the dataset's device-resident eval split: the
+latent harvest (at most ``num_batches + 1`` whole batches, in order,
+the tail left out), the test pass (every batch at equal weight, a
+partial tail batch included), the five-metric suite on the host, and
+the ``results_dict.json`` cache with its protocol stamp. Both passes
+draw their noise from a generator made for the pass and seeded from
+``rand``, so a second evaluation of the same weights draws the same
+noise; each keeps its results on the device until one host read.
 """
 
 from __future__ import annotations
 
 import abc
+import json
+import os
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from arvae_tpu_torch.core.checkpoint import Checkpointer
 from arvae_tpu_torch.core.config import TrainerHParams, run_dir
-from arvae_tpu_torch.data.device_data import DeviceEpochRunner, Metrics
+from arvae_tpu_torch.data.device_data import DeviceEpochRunner, DeviceSplit, Metrics
+from arvae_tpu_torch.eval.metrics import compute_all
 from arvae_tpu_torch.utils.profiling import assert_tensors_finite
 
 # Offset of the permutation generator's seed from the noise generator's.
 _PERM_SEED_OFFSET = 1 << 30
+# Offsets of the harvest's and the test pass's seeds from ``rand`` (the
+# constants the JAX trainers fold into their key for the same passes).
+_HARVEST_SEED_OFFSET = 7_000_000
+_TEST_SEED_OFFSET = 9_000_000
 
 
 def _means(totals: Optional[Metrics], n: int) -> Tuple[float, float]:
@@ -59,6 +77,7 @@ class BaseTrainer(abc.ABC):
         self.history: List[Dict[str, Any]] = []
         # Set by train_model; None for a trainer that never trained.
         self._train_protocol: Optional[Dict[str, int]] = None
+        self._eval_split: Optional[DeviceSplit] = None
 
     @abc.abstractmethod
     def model_repr(self) -> str:
@@ -67,6 +86,10 @@ class BaseTrainer(abc.ABC):
     @property
     def run_dir(self) -> str:
         return run_dir(self.model_repr())
+
+    @property
+    def results_path(self) -> str:
+        return os.path.join(self.run_dir, "results_dict.json")
 
     @abc.abstractmethod
     def train_step(self, batch) -> Metrics:
@@ -80,6 +103,10 @@ class BaseTrainer(abc.ABC):
 
     def train_model(self, batch_size: int, num_epochs: int) -> List[Dict[str, Any]]:
         """Trains ``num_epochs`` epochs; returns the per-epoch history."""
+        # compute_eval_metrics returns a cached results_dict.json as it
+        # is: one from an earlier run must not stand for this one
+        if os.path.exists(self.results_path):
+            os.remove(self.results_path)
         self._train_protocol = {
             "num_epochs": int(num_epochs),
             "batch_size": int(batch_size),
@@ -152,11 +179,130 @@ class BaseTrainer(abc.ABC):
             self._train_protocol or {"num_epochs": None, "batch_size": None})
         ds = self.dataset
         p["dataset"] = type(ds).__name__
-        for attr in ("factor_sizes", "is_short", "n_bars", "class_name"):
+        for attr in ("factor_sizes", "num_bars", "is_short", "class_name"):
             v = getattr(ds, attr, None)
             if v is not None:
                 p[attr] = list(v) if isinstance(v, tuple) else v
         return p
+
+    def has_protocol_cache(self, num_epochs: int, batch_size: int) -> bool:
+        """True iff the run dir holds a ``results_dict.json`` stamped with
+        this training protocol: the epochs, the batch size and the
+        dataset's identity fields (``--skip_cached``)."""
+        try:
+            with open(self.results_path) as fh:
+                stamped = json.load(fh).get("protocol") or {}
+        except (OSError, ValueError):
+            return False
+        want = dict(self.protocol_dict(), num_epochs=int(num_epochs),
+                    batch_size=int(batch_size))
+        return all(stamped.get(k) == v for k, v in want.items())
+
+    # -- evaluation -------------------------------------------------------------
+
+    EVAL_BATCH_SIZE = 128
+
+    @abc.abstractmethod
+    def draw_eval_noise(self, batch: int, generator: torch.Generator):
+        """The draws of one eval batch of ``batch`` rows."""
+
+    @abc.abstractmethod
+    def compute_representations(self, num_batches: int = 200,
+                                batch_size: Optional[int] = None,
+                                noise: Optional[Sequence] = None
+                                ) -> Tuple[np.ndarray, np.ndarray, List[str]]:
+        """(latent codes, attribute columns, attribute names) of the harvest."""
+
+    @abc.abstractmethod
+    def test_model(self, batch_size: Optional[int] = None,
+                   noise: Optional[Sequence] = None) -> Dict[str, float]:
+        """{"test_loss", "test_acc"} over the eval split."""
+
+    def eval_split(self) -> DeviceSplit:
+        """The dataset's eval split on the trainer's device (made once)."""
+        if self._eval_split is None:
+            self._eval_split = self.dataset.device_eval_split(self.device)
+            if self._eval_split.n == 0:
+                raise ValueError("the eval split is empty")
+        return self._eval_split
+
+    def _eval_draws(self, noise: Optional[Sequence], count: int, offset: int):
+        """``count`` batches' draws: the injected ones, or a generator for
+        the pass seeded from ``rand`` + ``offset``."""
+        if noise is not None:
+            if len(noise) != count:
+                raise ValueError(f"{len(noise)} injected draws for {count} batches")
+            return lambda i, b: noise[i]
+        gen = torch.Generator(self.device).manual_seed(self.hparams.rand + offset)
+        return lambda i, b: self.draw_eval_noise(b, gen)
+
+    @torch.no_grad()
+    def _harvest(self, batch_size: Optional[int], num_batches: int,
+                 encode_batch: Callable, noise: Optional[Sequence]
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """(z, labels) of the first ``min(n // B, num_batches + 1)`` whole
+        batches of the eval split, B (``EVAL_BATCH_SIZE`` by default)
+        clamped to the split's size. ``encode_batch(batch, draws) -> (z,
+        labels)``."""
+        sp = self.eval_split()
+        bs = min(batch_size or self.EVAL_BATCH_SIZE, sp.n)
+        steps = min(sp.num_batches(bs), num_batches + 1)
+        draws = self._eval_draws(noise, steps, _HARVEST_SEED_OFFSET)
+        self.model.eval()
+        rows = []
+        for i in range(steps):
+            idx = torch.arange(i * bs, (i + 1) * bs, device=sp.device)
+            z, labels = encode_batch(sp.gather_batch(idx), draws(i, bs))
+            rows.append(torch.cat([z, labels.float()], dim=1))
+        out = torch.cat(rows).cpu().numpy()  # the harvest's one host read
+        zd = z.shape[1]
+        return np.ascontiguousarray(out[:, :zd]), np.ascontiguousarray(out[:, zd:])
+
+    @torch.no_grad()
+    def _test_pass(self, batch_size: Optional[int], batch_metrics: Callable,
+                   noise: Optional[Sequence]) -> Dict[str, float]:
+        """Mean (loss, accuracy) over the eval split's batches of B
+        (``EVAL_BATCH_SIZE`` by default) in order, the final partial batch
+        at the same weight as a whole one. ``batch_metrics(batch, draws)
+        -> (loss, accuracy)``."""
+        sp = self.eval_split()
+        bs = min(batch_size or self.EVAL_BATCH_SIZE, sp.n)
+        steps = sp.num_batches(bs)
+        bounds = [(i * bs, (i + 1) * bs) for i in range(steps)]
+        if sp.n > steps * bs:
+            bounds.append((steps * bs, sp.n))
+        draws = self._eval_draws(noise, len(bounds), _TEST_SEED_OFFSET)
+        self.model.eval()
+        vals = []
+        for i, (a, b) in enumerate(bounds):
+            idx = torch.arange(a, b, device=sp.device)
+            vals.append(torch.stack(batch_metrics(sp.gather_batch(idx), draws(i, b - a))))
+        vals = torch.stack(vals).cpu().numpy()  # the pass's one host read
+        # the whole batches' float32 values, the tail's as a Python float,
+        # averaged as the JAX trainer averages them
+        loss, acc = ([*v[:steps], *map(float, v[steps:])] for v in vals.T)
+        mean_loss, mean_acc = float(np.mean(loss)), float(np.mean(acc))
+        print("Test Epoch:")
+        print("\tTest Loss: ", mean_loss, "\n\tTest Accuracy: ", mean_acc * 100)
+        return {"test_loss": mean_loss, "test_acc": mean_acc}
+
+    def compute_eval_metrics(self, batch_size: Optional[int] = None) -> Dict[str, Any]:
+        """The five metrics of the harvest, the test pass and the protocol
+        stamp, cached as ``results_dict.json`` in the run dir (a cache
+        there is returned as it is). The metrics' jitter is drawn from
+        ``np.random.RandomState(rand)``."""
+        if os.path.exists(self.results_path):
+            with open(self.results_path) as fh:
+                return json.load(fh)
+        latent_codes, attributes, attr_list = self.compute_representations()
+        metrics = compute_all(latent_codes, attributes, attr_list,
+                              np.random.RandomState(self.hparams.rand))
+        metrics.update(self.test_model(batch_size=batch_size))
+        metrics["protocol"] = self.protocol_dict()
+        os.makedirs(self.run_dir, exist_ok=True)
+        with open(self.results_path, "w") as fh:
+            json.dump(metrics, fh, indent=2)
+        return metrics
 
     @staticmethod
     def print_epoch_stats(epoch_index, num_epochs, mean_loss_train,

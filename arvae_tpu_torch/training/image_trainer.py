@@ -5,8 +5,10 @@ Counterpart of ``ImageVAETrainer`` in
 recon + β·|KLD − c| + γ·Σ_r AR-reg, with the AR term on the stacked
 (R, B) columns through the reg kernel, and ``torch.optim.Adam(lr)``,
 whose defaults (0.9, 0.999, 1e-8, eps outside the sqrt) equal
-``optax.adam``'s. MNIST, the eval-metric suite and the artifact
-plots are not ported yet.
+``optax.adam``'s. The evaluation harvests the sampled ``z_tilde`` of
+the eval split against dSprites' five attributes (``color`` left out)
+and tests the reconstruction loss and pixel accuracy. MNIST, its ResNet
+judge and the artifact plots are not ported yet.
 
 Precision: float32 throughout, as the JAX package declares. TF32 is
 turned off for matmuls and cuDNN convolutions (cuDNN would otherwise
@@ -15,14 +17,15 @@ run float32 convolutions in TF32).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from arvae_tpu_torch.core.config import (TrainerHParams, normalize_reg_dim,
                                          trainer_config_string)
 from arvae_tpu_torch.data.device_data import Metrics
-from arvae_tpu_torch.models.image_vae import DspritesVAE, draw_noise
+from arvae_tpu_torch.models.image_vae import DspritesVAE, draw_noise, reparametrize
 from arvae_tpu_torch.ops.losses import (kld_loss, pixel_accuracy,
                                         reconstruction_loss, total_reg_loss)
 from arvae_tpu_torch.training.base import BaseTrainer
@@ -73,6 +76,7 @@ class ImageVAETrainer(BaseTrainer):
             reg_dim=normalize_reg_dim(reg_dim, reg_type),
         )
         super().__init__(dataset, model, hp, device)
+        self.attr_dict = DSPRITES_REG_TYPE
         self.reg_pairs = tuple((d, d) for d in hp.reg_dim)
 
     def model_repr(self) -> str:
@@ -118,3 +122,39 @@ class ImageVAETrainer(BaseTrainer):
     def eval_step(self, batch, noise: Optional[Noise] = None) -> Metrics:
         self.model.eval()
         return self._loss_fn(batch, noise)[1]
+
+    # -- evaluation ---------------------------------------------------------------
+
+    def draw_eval_noise(self, batch: int, generator: torch.Generator) -> Noise:
+        return draw_noise(batch, self.model.z_dim, generator, self.device)
+
+    def _extract_relevant_attributes(self, attributes: np.ndarray
+                                     ) -> Tuple[np.ndarray, List[str]]:
+        attr_list = [a for a in self.attr_dict if a not in ("digit_identity", "color")]
+        return attributes[:, [self.attr_dict[a] for a in attr_list]], attr_list
+
+    def compute_representations(self, num_batches: int = 200,
+                                batch_size: Optional[int] = None,
+                                noise: Optional[Sequence[Noise]] = None):
+        """The sampled ``z_tilde`` of the eval split and its attributes;
+        ``noise`` = one (eps, eps_prior) a batch overrides the draws."""
+
+        def encode_batch(batch, draws):
+            imgs, labels = batch
+            return reparametrize(*self.model.encode(imgs), *draws)[0], labels
+
+        latent_codes, attributes = self._harvest(batch_size, num_batches,
+                                                 encode_batch, noise)
+        return (latent_codes, *self._extract_relevant_attributes(attributes))
+
+    def test_model(self, batch_size: Optional[int] = None,
+                   noise: Optional[Sequence[Noise]] = None) -> Dict[str, float]:
+        """Reconstruction loss and pixel accuracy of the sigmoid."""
+
+        def batch_metrics(batch, draws):
+            imgs, _ = batch
+            logits = self.model(imgs, *draws).logits
+            return (reconstruction_loss(logits, imgs, self.hparams.dec_dist),
+                    pixel_accuracy(torch.sigmoid(logits), imgs))
+
+        return self._test_pass(batch_size, batch_metrics, noise)

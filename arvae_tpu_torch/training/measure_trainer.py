@@ -9,15 +9,18 @@ Every draw of a step (ε, ε_prior, the teacher-forcing coin, the tick
 loop's dropout seed, the GRUs' inter-layer dropout) comes from the
 trainer's noise generator on the device, or from an injected
 :class:`~arvae_tpu_torch.models.measure_vae.MeasureNoise`. Eval is
-free-running argmax with dropout off. The eval-metric suite,
-``test_model`` and the plots are not ported yet.
+free-running argmax with dropout off. The evaluation harvests the
+encoder's sampled ``z_tilde`` of the eval split against the four
+attributes computed from the score on the device, and tests the token
+cross-entropy and accuracy of the eval-mode decode. The plots are not
+ported yet.
 
 Precision: float32 throughout; TF32 is turned off for matmuls and cuDNN.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -25,6 +28,7 @@ from arvae_tpu_torch.core.config import (TrainerHParams, normalize_reg_dim,
                                          trainer_config_string)
 from arvae_tpu_torch.data.attributes import MUSIC_REG_TYPE
 from arvae_tpu_torch.data.device_data import Metrics
+from arvae_tpu_torch.models.image_vae import reparametrize
 from arvae_tpu_torch.models.measure_vae import (MEASURE_SEQ_LEN, MeasureNoise,
                                                 MeasureVAE, draw_measure_noise)
 from arvae_tpu_torch.ops.losses import (kld_loss, token_accuracy,
@@ -36,6 +40,8 @@ DECODER_TAGS = {"hier": "", "sr": "_SRDecoder", "sr-no-input": "_SRDecoderNoInpu
 
 
 class MeasureVAETrainer(BaseTrainer):
+
+    EVAL_BATCH_SIZE = 256
 
     def __init__(
         self,
@@ -137,3 +143,38 @@ class MeasureVAETrainer(BaseTrainer):
     def eval_step(self, batch, noise: Optional[MeasureNoise] = None) -> Metrics:
         self.model.eval()
         return self._loss_fn(batch, noise)[1]
+
+    # -- evaluation ---------------------------------------------------------------
+
+    def draw_eval_noise(self, batch: int, generator: torch.Generator) -> MeasureNoise:
+        return draw_measure_noise(batch, self.model.latent_space_dim, generator,
+                                  self.device)
+
+    def compute_representations(self, num_batches: int = 200,
+                                batch_size: Optional[int] = None,
+                                noise: Optional[Sequence[MeasureNoise]] = None):
+        """The encoder's sampled ``z_tilde`` of the eval split and the
+        attributes of its scores; ``noise`` = one MeasureNoise a batch
+        overrides the draws."""
+
+        def encode_batch(batch, draws):
+            score, _ = batch
+            z_mean, z_log_std = self.model.encoder(score, draws.generator)
+            z_tilde = reparametrize(z_mean, z_log_std, draws.eps, draws.eps_prior)[0]
+            return z_tilde, self.attrs.compute_labels(score)
+
+        latent_codes, attributes = self._harvest(batch_size, num_batches,
+                                                 encode_batch, noise)
+        return latent_codes, attributes, list(self.attr_dict)
+
+    def test_model(self, batch_size: Optional[int] = None,
+                   noise: Optional[Sequence[MeasureNoise]] = None) -> Dict[str, float]:
+        """Token cross-entropy and accuracy of the eval-mode decode."""
+
+        def batch_metrics(batch, draws):
+            score, _ = batch
+            weights = self.model(score, draws).weights
+            return (token_cross_entropy_loss(weights, score),
+                    token_accuracy(weights, score))
+
+        return self._test_pass(batch_size, batch_metrics, noise)

@@ -93,11 +93,41 @@ and the script exits non-zero:
    (``WIDE_DEEP_ARGS``): the loss finite and falling, every recurrence
    call of every step on a kernel (the launch counters), a train step
    repeated bitwise, its device busy time and largest kernels, and the
-   trained model against the CPU on a val batch.
+   trained model against the CPU on a val batch;
+9. slice 5 (evaluation): every CLI run of slices 1-4 now ends with the
+   evaluation (the latent harvest, the test pass, the five metrics and
+   ``results_dict.json``); each run's file must have the JAX package's
+   schema, finite values, the bounded scores in [0, 1] and the protocol
+   stamp, and each run's launch counts gain one evaluation's forwards,
+   derived from the code (``_eval_launches``). Then ``gru_chain`` and
+   ``hier_tick_chain`` forwards (eval mode) against their plain versions
+   at the test pass's tail batch (888 eval rows at B=256: 120) of every
+   music CLI run, each distinct shape once, the shapes read from each
+   trained model (``_eval_tail_shapes``): the encoder's and the beat
+   GRU's layers at H=128 and 512, SRDecoderNoInput's layer, the tick
+   loop at H=128 and 512 (streamed) with 2 and 3 layers, and the SR
+   decoder's one beat of 24 ticks; for every CLI run (dSprites, music,
+   the three variants, the 512-wide and 3-layer runs): the harvest and
+   the test pass on the card against a CPU trainer holding the same
+   weights (for the dSprites and music runs loaded from the run's
+   checkpoint) with the same injected draws (z, labels and test loss
+   within rtol 1e-4; free-running decodes on another token path in at
+   most 1% of rows), the launches counted around each pass divided by
+   its batches (equal to the code's forwards a batch), and the metric
+   suite twice on one harvest (identical); for the dSprites and music
+   runs also ``compute_eval_metrics`` twice from the trained state (both
+   files byte for byte the CLI's), the two passes' times (CUDA events
+   and the profiler's device busy), the CLI again with ``--skip_cached``
+   (skips, no launch) and with ``--test`` (the cache removed: one
+   evaluation's launches, counted, and the same metrics); and the metric
+   suite's host seconds at the paper's protocol size (201 x 128 rows of
+   the full dSprites grid's eval split, 10 random codes). The kernels
+   line's ``eval_launches`` are the ``--test`` runs' counts and its
+   ``eval_launches_per_batch`` the counts a harvest and a test batch.
 
 Launch counts are set to 0 just before each slice (and each variant of
-slices 3 and 4) and read just after it; the comparisons of phase 3 do not
-count. The line before the last
+slices 3 and 4, and each CLI call of slice 5) and read just after it; the
+comparisons of phases 3 and 9 do not count. The line before the last
 is the card's name and power limit as ``nvidia-smi`` prints them, the
 one before it a JSON object listing every kernel; the last line is a
 JSON object ``{"ok": true, "device": {...}}``.
@@ -105,7 +135,9 @@ JSON object ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import math
 import os
@@ -188,6 +220,28 @@ MUSIC_ARGS = ["--rand", "0", "-r", "all", "--num_epochs", "2"]
 MUSIC_B = 256
 BENCH_ROWS = 128_000  # 1,000 steps at B=128
 MUSIC_BENCH_ROWS, MUSIC_BENCH_V = 65_536, 130
+
+# Slice 5, the evaluation. Every CLI run now ends with it: the latent
+# harvest (at most 201 whole batches of the eval split) and the test pass
+# (every batch, the partial tail included), at B=128 for dSprites and
+# B=256 for music; the music CLI's --full eval split, 888 measures, ends
+# in a tail of 120 rows, a batch the training path never gives the
+# kernels.
+EVAL_CAP = 201
+RESULT_KEYS = ["interpretability", "Corr_score", "modularity_score", "mig", "SAP_score",
+               "test_loss", "test_acc", "protocol"]
+BOUNDED = ("Corr_score", "modularity_score", "mig", "SAP_score", "test_acc")
+# Card against CPU, free-running eval decodes: a logit pair within
+# rounding of a tie can take another argmax on the card than on the CPU,
+# and that row's later ticks then decode on another token path. At most
+# 1% of the rows may (as GLSR_PATH_FLIPS below); the rows on the same
+# path are held to SLICE_RTOL.
+EVAL_PATH_FLIPS = 0.01
+# The latent codes (N(0, 1)-sized) within SLICE_RTOL and an absolute
+# floor of 1e-5, as the recurrence kernels' forward (SEQ_FWD_ATOL).
+EVAL_Z_ATOL = 1e-5
+# The paper's protocol on the full dSprites grid: 201 harvest batches of 128
+FULL_PROTOCOL_ROWS = EVAL_CAP * 128
 
 
 def card() -> str:
@@ -438,11 +492,12 @@ def _gru_kernels(dev):
     return fwd_err, bwd_err
 
 
-def _hier_inputs(dev, seed, v, zero=False, b=HIER_B, tpb=HIER_TPB, h=HIER_H, layers=2):
+def _hier_inputs(dev, seed, v, zero=False, b=HIER_B, tpb=HIER_TPB, h=HIER_H, layers=2,
+                 e=HIER_E):
     """(score (T, B), the float operands of an L-layer tick loop, a
     cotangent (T, B, V))."""
     rng = np.random.RandomState(seed)
-    nb, e = -(-HIER_T // tpb), HIER_E
+    nb = -(-HIER_T // tpb)
 
     def w(*shape, s=None):
         x = rng.randn(*shape) * (s if s is not None else 1 / np.sqrt(shape[0]))
@@ -763,19 +818,85 @@ def _check_launches(tag, launches, want):
         raise AssertionError(f"{tag}: kernel launches {launches} != {want}")
 
 
-def _image_cli_run():
-    """The dSprites CLI, 2 epochs → (trainer, launches, seconds, checkpoint written)."""
+def _eval_batches(trainer, batch_size=None):
+    """(harvest batches, test batches) of one evaluation: B clamped to the
+    eval split, at most EVAL_CAP whole batches harvested, every batch
+    tested, the partial tail included."""
+    n = trainer.eval_split().n
+    b = min(batch_size or trainer.EVAL_BATCH_SIZE, n)
+    return min(n // b, EVAL_CAP), -(-n // b)
+
+
+def _eval_per_batch(model):
+    """Forward launches of a harvest batch (the encoder's biGRU layers)
+    and of a test batch (the whole model in eval mode), by kernel, from
+    the code; the DspritesVAE launches none of the port's kernels."""
+    zero = {"reg": 0, "gru": 0, "hier": 0}
+    if not hasattr(model, "encoder"):
+        return {"harvest": zero, "test": zero}
+    enc = model.encoder.lstm.num_layers
+    dec = {"hier": lambda d: d.rnn_beat.num_layers, "sr": lambda d: 0,
+           "sr-no-input": lambda d: d.gru.num_layers}[model.decoder_type](model.decoder)
+    tick = int(model.decoder_type != "sr-no-input")
+    return {"harvest": dict(zero, gru=enc), "test": dict(zero, gru=enc + dec, hier=tick)}
+
+
+def _eval_launches(trainer, batch_size=None):
+    """The forward launches of one evaluation, by kernel."""
+    harvest, test = _eval_batches(trainer, batch_size)
+    per = _eval_per_batch(trainer.model)
+    return {k: harvest * per["harvest"][k] + test * per["test"][k] for k in per["test"]}
+
+
+def _with_eval(want, trainer, batch_size=None):
+    """The training launches ``want`` plus one evaluation's."""
+    extra = _eval_launches(trainer, batch_size)
+    return {k: {"fwd": v["fwd"] + extra[k], "bwd": v["bwd"]} for k, v in want.items()}
+
+
+def _read_results(trainer):
+    with open(trainer.results_path) as fh:
+        return json.load(fh)
+
+
+def _check_results(tag, trainer, results, batch_size):
+    """A CLI run's results_dict.json: the JAX package's schema, finite
+    values, the bounded scores in [0, 1], and the protocol stamp."""
+    if list(results) != RESULT_KEYS:
+        raise AssertionError(f"{tag}: results_dict.json keys {list(results)}")
+    interp = results["interpretability"]
+    attrs = [a for a in trainer.attr_dict if a not in ("color", "digit_identity")]
+    if list(interp) != attrs + ["mean"] or interp["mean"][0] != -1:
+        raise AssertionError(f"{tag}: interpretability {interp}")
+    scores = [v for _, v in interp.values()] + [results[k] for k in RESULT_KEYS[1:7]]
+    if not all(math.isfinite(x) for x in scores):
+        raise AssertionError(f"{tag}: a result is not finite: {results}")
+    if not all(0.0 <= results[k] <= 1.0 for k in BOUNDED):
+        raise AssertionError(f"{tag}: a bounded score outside [0, 1]: {results}")
+    stamp = results["protocol"]
+    want = dict(trainer.protocol_dict(), num_epochs=2, batch_size=batch_size)
+    if stamp != want:
+        raise AssertionError(f"{tag}: protocol {stamp} != {want}")
+    print(f"[eval] {tag}: results_dict.json has the JAX schema, finite values, the bounded "
+          f"scores in [0, 1] and the stamp {stamp}; mig {results['mig']:.6f}, interpretability "
+          f"{interp['mean'][1]:.6f}, test loss {results['test_loss']:.6f}, test acc "
+          f"{results['test_acc']:.6f}")
+
+
+def _image_cli_run(models_dir):
+    """The dSprites CLI, 2 epochs and the evaluation, its run dir under
+    ``models_dir`` → (trainer, launches, seconds, checkpoint written)."""
     from arvae_tpu_torch import train_image_vae
 
-    with tempfile.TemporaryDirectory() as models_dir:
-        os.environ["ARVAE_MODELS_DIR"] = models_dir
-        _reset_launches()
-        t0 = time.perf_counter()
-        (trainer,) = train_image_vae.main(SLICE_ARGS)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = _read_launches()
-        ckpt_ok = os.path.isfile(os.path.join(trainer.run_dir, "ckpt.pt"))
+    os.environ["ARVAE_MODELS_DIR"] = models_dir
+    _reset_launches()
+    t0 = time.perf_counter()
+    (trainer,) = train_image_vae.main(SLICE_ARGS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read_launches()
+    ckpt_ok = os.path.isfile(os.path.join(trainer.run_dir, "ckpt.pt"))
+    _check_results("slice 1 (dSprites)", trainer, _read_results(trainer), B_TRAIN)
     return trainer, launches, seconds, ckpt_ok
 
 
@@ -799,20 +920,23 @@ def _image_step_repeats(trainer):
     _step_repeats("slice 1 (dSprites), torch.backends.cudnn.deterministic=True", trainer, batch)
 
 
-def phase_slice():
+def phase_slice(models_dir):
+    """→ (launches, steps, the trainer); the first CLI run's run dir stays
+    under ``models_dir`` for slice 5."""
     from arvae_tpu_torch.models.image_vae import draw_noise
     from arvae_tpu_torch.training.image_trainer import ImageVAETrainer
 
-    trainer, launches, seconds, ckpt_ok = _image_cli_run()
+    trainer, launches, seconds, ckpt_ok = _image_cli_run(models_dir)
     print(f"[slice] TF32 flags: torch.backends.cuda.matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32} "
           f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}; "
           f"torch.backends.cudnn.deterministic={torch.backends.cudnn.deterministic}")
     hist = trainer.history
     n_train, n_val = _check_history("slice", hist, ckpt_ok)
-    _check_launches("slice", launches, {
+    # the evaluation launches none of the port's kernels on dSprites
+    _check_launches("slice", launches, _with_eval({
         "reg": {"fwd": n_train + n_val, "bwd": n_train},
-        "gru": {"fwd": 0, "bwd": 0}, "hier": {"fwd": 0, "bwd": 0}})
+        "gru": {"fwd": 0, "bwd": 0}, "hier": {"fwd": 0, "bwd": 0}}, trainer, B_TRAIN))
     print(f"[slice] 2 epochs in {seconds:.1f} s; train loss "
           f"{hist[0]['train_loss']:.4f} -> {hist[1]['train_loss']:.4f}; val loss "
           f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f}; "
@@ -820,7 +944,8 @@ def phase_slice():
           f"(train steps {n_train}, val steps {n_val})")
     # a second run of the CLI in this call: the same trained model, so
     # the same val losses to the last bit
-    again = _image_cli_run()[0].history
+    with tempfile.TemporaryDirectory() as other:
+        again = _image_cli_run(other)[0].history
     if [h["val_loss"] for h in again] != [h["val_loss"] for h in hist]:
         raise AssertionError(f"slice 1: two runs of the CLI trained other models: val loss "
                              f"{[h['val_loss'] for h in hist]} vs {[h['val_loss'] for h in again]}")
@@ -846,7 +971,7 @@ def phase_slice():
     print(f"[slice] trained model, one batch, card vs CPU plain path: loss "
           f"{float(got['loss']):.6f} vs {float(want['loss']):.6f}, reg "
           f"{float(got['reg_loss']):.6f} vs {float(want['reg_loss']):.6f}")
-    return launches, {"fwd": n_train + n_val, "bwd": n_train}
+    return launches, {"fwd": n_train + n_val, "bwd": n_train}, trainer
 
 
 def _teacher_forced_metrics(trainer, batch, noise):
@@ -943,26 +1068,28 @@ def _embedding_repeats(dev, num_notes):
           + ", ".join(f"{n} {r}" for n, r in repeats.items()))
 
 
-def phase_music_slice():
+def phase_music_slice(models_dir):
+    """→ (launches, steps, the trainer); the CLI's run dir stays under
+    ``models_dir`` for slice 5."""
     from arvae_tpu_torch import train_measure_vae
     from arvae_tpu_torch.models.measure_vae import draw_measure_noise
     from arvae_tpu_torch.training.measure_trainer import MeasureVAETrainer
 
-    with tempfile.TemporaryDirectory() as models_dir:
-        os.environ["ARVAE_MODELS_DIR"] = models_dir
-        _reset_launches()
-        t0 = time.perf_counter()
-        (trainer,) = train_measure_vae.main(MUSIC_ARGS)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = _read_launches()
-        ckpt_ok = os.path.isfile(os.path.join(trainer.run_dir, "ckpt.pt"))
+    os.environ["ARVAE_MODELS_DIR"] = models_dir
+    _reset_launches()
+    t0 = time.perf_counter()
+    (trainer,) = train_measure_vae.main(MUSIC_ARGS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read_launches()
+    ckpt_ok = os.path.isfile(os.path.join(trainer.run_dir, "ckpt.pt"))
+    _check_results("slice 2 (music)", trainer, _read_results(trainer), MUSIC_B)
     hist = trainer.history
     n_train, n_val = _check_history("music slice", hist, ckpt_ok)
-    _check_launches("music slice", launches, {
+    _check_launches("music slice", launches, _with_eval({
         "reg": {"fwd": n_train + n_val, "bwd": n_train},
         "gru": {"fwd": 4 * (n_train + n_val), "bwd": 4 * n_train},
-        "hier": {"fwd": n_train + n_val, "bwd": n_train}})
+        "hier": {"fwd": n_train + n_val, "bwd": n_train}}, trainer))
     print(f"[music] 2 epochs in {seconds:.1f} s (corpus build included); train loss "
           f"{hist[0]['train_loss']:.4f} -> {hist[1]['train_loss']:.4f}; val loss "
           f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f}; train steps "
@@ -992,7 +1119,7 @@ def phase_music_slice():
           f"path: loss {float(got['loss']):.6f} vs {float(want['loss']):.6f}, recons "
           f"{float(got['recons_loss']):.6f} vs {float(want['recons_loss']):.6f}, reg "
           f"{float(got['reg_loss']):.6f} vs {float(want['reg_loss']):.6f}")
-    return launches, {"fwd": n_train + n_val, "bwd": n_train}
+    return launches, {"fwd": n_train + n_val, "bwd": n_train}, trainer
 
 
 # Slice 3: the music CLI with each other decoder and with GLSR, at its
@@ -1047,16 +1174,35 @@ def _variant_run(name):
         launches = _read_launches()
         ckpt_ok = os.path.isfile(os.path.join(trainer.run_dir, "ckpt.pt"))
         run_dir = os.path.basename(trainer.run_dir)
+        # a GLSR run dir holds results of its own
+        _check_results(f"variant {name} ({run_dir})", trainer, _read_results(trainer), MUSIC_B)
     hist = trainer.history
     n_train, n_val = _check_history(f"variant {name}", hist, ckpt_ok)
     per_step = VARIANT_LAUNCHES[name]
     want = {k: {"fwd": n * (n_train + n_val), "bwd": n * n_train} for k, n in per_step.items()}
-    _check_launches(f"variant {name}", launches, want)
+    _check_launches(f"variant {name}", launches, _with_eval(want, trainer))
     print(f"[variants] {name} ({run_dir}): 2 epochs in {seconds:.1f} s; train loss "
           f"{hist[0]['train_loss']:.4f} -> {hist[1]['train_loss']:.4f}; val loss "
           f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f}; train steps {n_train}, val "
           f"steps {n_val}; launches {launches}")
     return trainer, launches
+
+
+def _cpu_twin(trainer):
+    """A CPU trainer (plain paths) of the same class, hyperparameters and
+    dataset, holding a copy of the card trainer's model as it stands."""
+    from arvae_tpu_torch.training.glsr_trainer import MeasureVAETrainerGLSR
+    from arvae_tpu_torch.training.measure_trainer import MeasureVAETrainer
+
+    h = trainer.hparams
+    model = copy.deepcopy(trainer.model).cpu()
+    if isinstance(trainer, MeasureVAETrainerGLSR):
+        return MeasureVAETrainerGLSR(trainer.dataset, model, "cpu", lr=h.lr,
+                                     reg_type=trainer.glsr_reg_type,
+                                     reg_dim=trainer.glsr_reg_dim, gamma=h.gamma, beta=h.beta)
+    return MeasureVAETrainer(trainer.dataset, model, "cpu", lr=h.lr, reg_type=h.reg_type,
+                             reg_dim=h.reg_dim, beta=h.beta, gamma=h.gamma,
+                             capacity=h.capacity, delta=h.delta)
 
 
 def _variant_vs_cpu(name, trainer):
@@ -1065,7 +1211,6 @@ def _variant_vs_cpu(name, trainer):
     row's GLSR term from the same latents and perturbations."""
     from arvae_tpu_torch.models.measure_vae import draw_measure_noise
     from arvae_tpu_torch.training.glsr_trainer import GLSRNoise, MeasureVAETrainerGLSR
-    from arvae_tpu_torch.training.measure_trainer import MeasureVAETrainer
 
     dev = trainer.device
     _, val = trainer.dataset.device_splits(dev)
@@ -1079,16 +1224,7 @@ def _variant_vs_cpu(name, trainer):
     if glsr:
         u = torch.rand(MUSIC_B, generator=gen, device=dev)
         noise, cpu_noise = GLSRNoise(noise, u), GLSRNoise(cpu_noise, u.cpu())
-    h = trainer.hparams
-    model = copy.deepcopy(trainer.model).cpu()
-    if glsr:
-        cpu = MeasureVAETrainerGLSR(trainer.dataset, model, "cpu", lr=h.lr,
-                                    reg_type=trainer.glsr_reg_type,
-                                    reg_dim=trainer.glsr_reg_dim, gamma=h.gamma, beta=h.beta)
-    else:
-        cpu = MeasureVAETrainer(trainer.dataset, model, "cpu", lr=h.lr, reg_type=h.reg_type,
-                                reg_dim=h.reg_dim, beta=h.beta, gamma=h.gamma,
-                                capacity=h.capacity, delta=h.delta)
+    cpu = _cpu_twin(trainer)
     got = _teacher_forced_metrics(trainer, batch, noise)
     want = _teacher_forced_metrics(cpu, tuple(t.cpu() for t in batch), cpu_noise)
     # GLSR's loss and reg_loss hold the GLSR term of each side's own
@@ -1138,6 +1274,7 @@ def _wide_deep_run(name, card_line):
         seconds = time.perf_counter() - t0
         launches = _read_launches()
         ckpt_ok = os.path.isfile(os.path.join(trainer.run_dir, "ckpt.pt"))
+        _check_results(f"music {name}", trainer, _read_results(trainer), MUSIC_B)
     hist = trainer.history
     n_train, n_val = _check_history(f"music {name}", hist, ckpt_ok)
     model = trainer.model
@@ -1146,14 +1283,15 @@ def _wide_deep_run(name, card_line):
     grus = model.encoder.lstm.num_layers + model.decoder.rnn_beat.num_layers
     per_step = {"gru": grus, "hier": 1, "reg": 1}
     want = {k: {"fwd": n * (n_train + n_val), "bwd": n * n_train} for k, n in per_step.items()}
-    _check_launches(f"music {name}", launches, want)
+    _check_launches(f"music {name}", launches, _with_eval(want, trainer))
     print(f"[wide] music CLI {' '.join(flags)} (H enc {model.encoder.lstm.hidden_size}, "
           f"dec {model.decoder.rnn_tick.hidden_size}, {model.decoder.rnn_tick.num_layers} "
           f"tick-GRU layers): 2 epochs in {seconds:.1f} s; train loss "
           f"{hist[0]['train_loss']:.4f} -> {hist[1]['train_loss']:.4f}; val loss "
           f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f}; launches a train step "
           f"gru {grus} fwd + {grus} bwd, hier 1 + 1, reg 1 + 1, every one a kernel "
-          f"({launches} over {n_train} train and {n_val} val steps)")
+          f"({launches} over {n_train} train and {n_val} val steps and one evaluation, "
+          f"whose forwards are {_eval_launches(trainer)})")
     dev = trainer.device
     train_split, _ = trainer.dataset.device_splits(dev)
     _step_repeats(f"music {name}", trainer,
@@ -1166,11 +1304,12 @@ def _wide_deep_run(name, card_line):
 
 
 def phase_music_variants(card_line):
-    """→ {variant: its launches}."""
+    """→ ({variant: its launches}, [(tag, the trainer)])."""
     dev = torch.device("cuda")
-    launches = {}
+    launches, trainers = {}, []
     for name in VARIANT_ARGS:
         trainer, launches[name] = _variant_run(name)
+        trainers.append((f"variant {name}", trainer))
         train_split, _ = trainer.dataset.device_splits(dev)
         rows = train_split.gather_batch(torch.arange(MUSIC_B, device=dev))
         _step_repeats(f"variant {name}", trainer, rows)
@@ -1181,17 +1320,19 @@ def phase_music_variants(card_line):
         _load_trainer_state(trainer, trained)
         _variant_vs_cpu(name, trainer)
     _embedding_repeats(dev, trainer.model.num_notes)
-    return launches
+    return launches, trainers
 
 
 def phase_wide_deep(card_line):
     """The music CLI at the reference's widths and with a 3-layer tick GRU
-    → {run: (its launches, train steps, device busy ms a train step)}."""
-    wide = {}
+    → ({run: (its launches, train steps, device busy ms a train step)},
+    [(tag, the trainer)])."""
+    wide, trainers = {}, []
     for name in WIDE_DEEP_ARGS:
         trainer, counts, busy = _wide_deep_run(name, card_line)
         wide[name] = (counts, sum(h["train_steps"] for h in trainer.history), busy)
-    return wide
+        trainers.append((f"music {name}", trainer))
+    return wide, trainers
 
 
 def _event_ms(fn, iters, warmup=10):
@@ -1549,6 +1690,339 @@ def phase_times(card_line):
     return times
 
 
+def _eval_draws(cpu, batch_size):
+    """One evaluation's draws, made on the CPU: the harvest's batches and
+    the test pass's (the tail's included), MeasureNoise without a
+    generator (eval runs no dropout)."""
+    n = cpu.eval_split().n
+    b = min(batch_size, n)
+    gen = torch.Generator().manual_seed(5)
+    sizes = [b] * min(n // b, EVAL_CAP), [b] * (n // b) + ([n % b] if n % b else [])
+
+    def draw(k):
+        d = cpu.draw_eval_noise(k, gen)
+        return d._replace(generator=None) if hasattr(d, "_replace") else d
+
+    return tuple([draw(k) for k in ks] for ks in sizes)
+
+
+def _draws_to(draws, dev):
+    if hasattr(draws, "_replace"):  # MeasureNoise
+        return draws._replace(**{k: getattr(draws, k).to(dev)
+                                 for k in ("eps", "eps_prior", "teacher", "seed")})
+    return tuple(t.to(dev) for t in draws)
+
+
+@torch.no_grad()
+def _test_rows(trainer, noise):
+    """Each eval row's token cross-entropy and decoded tokens in the test
+    pass's batches (eval mode, free-running argmax)."""
+    sp = trainer.eval_split()
+    b = min(trainer.EVAL_BATCH_SIZE, sp.n)
+    trainer.model.eval()
+    ce, samples = [], []
+    for i, a in enumerate(range(0, sp.n, b)):
+        score = sp.gather_batch(torch.arange(a, min(a + b, sp.n), device=sp.device))[0]
+        out = trainer.model(score, noise[i])
+        logp = torch.log_softmax(out.weights.float(), dim=-1)
+        ce.append(-logp.gather(2, score.long()[..., None])[..., 0].mean(dim=1))
+        samples.append(out.samples)
+    return torch.cat(ce).cpu(), torch.cat(samples).cpu()
+
+
+def _eval_vs_cpu(tag, trainer, cpu, batch_size):
+    """The harvest and the test pass on the card against a CPU trainer that
+    loaded the same checkpoint, with the same injected draws; the metric
+    suite on the card's harvest twice. → (the card's harvest, suite s)."""
+    from arvae_tpu_torch.eval.metrics import compute_all
+
+    dev = trainer.device
+    harvest, test = _eval_draws(cpu, batch_size)
+    _reset_launches()
+    z_k, l_k, names = trainer.compute_representations(
+        batch_size=batch_size, noise=[_draws_to(d, dev) for d in harvest])
+    launches = {"harvest": (_read_launches(), len(harvest))}
+    z_p, l_p, _ = cpu.compute_representations(batch_size=batch_size, noise=harvest)
+    z_err = _check_close(f"{tag} harvest z", torch.from_numpy(z_k), torch.from_numpy(z_p),
+                         SLICE_RTOL, EVAL_Z_ATOL)
+    l_err = _check_close(f"{tag} harvest labels", torch.from_numpy(l_k),
+                         torch.from_numpy(l_p), SLICE_RTOL, ATOL)
+    test_dev = [_draws_to(d, dev) for d in test]
+    _reset_launches()
+    got = trainer.test_model(batch_size=batch_size, noise=test_dev)
+    launches["test"] = (_read_launches(), len(test))
+    per_batch = _launches_per_batch(tag, trainer, launches)
+    want = cpu.test_model(batch_size=batch_size, noise=test)
+    line = (f"[eval] {tag}, card vs CPU from the same weights and draws: harvest "
+            f"{z_k.shape[0]} rows, z max abs err {z_err:.3e}, labels {l_err:.3e}; test loss "
+            f"{got['test_loss']!r} vs {want['test_loss']!r}, acc {got['test_acc']!r} vs "
+            f"{want['test_acc']!r}")
+    flips = 0
+    if hasattr(trainer.model, "encoder"):  # free-running decodes: the token paths
+        ce_k, s_k = _test_rows(trainer, test_dev)
+        ce_p, s_p = _test_rows(cpu, test)
+        same = (s_k == s_p).all(dim=1)
+        flips = int((~same).sum())
+        if flips > EVAL_PATH_FLIPS * len(same):
+            raise AssertionError(f"{tag}: {flips} of {len(same)} eval rows decode another "
+                                 f"token path on the card")
+        _check_close(f"{tag} test CE of the rows on one token path", ce_k[same], ce_p[same],
+                     SLICE_RTOL, ATOL)
+        line += (f"; {flips} of {len(same)} rows decode another token path (bound "
+                 f"{EVAL_PATH_FLIPS:.0%}), the others' CE within rtol {SLICE_RTOL}")
+    if flips == 0:
+        for k in ("test_loss", "test_acc"):
+            _check_close(f"{tag} {k}", torch.tensor(got[k]), torch.tensor(want[k]),
+                         SLICE_RTOL, 0.0)
+    print(line)
+    t0 = time.perf_counter()
+    first = json.dumps(compute_all(z_k, l_k, names, np.random.RandomState(0)))
+    suite_s = time.perf_counter() - t0
+    if json.dumps(compute_all(z_k, l_k, names, np.random.RandomState(0))) != first:
+        raise AssertionError(f"{tag}: the metric suite gave other numbers on the same harvest")
+    print(f"[eval] {tag}: the metric suite twice on the card's harvest ({z_k.shape[0]} x "
+          f"{z_k.shape[1]} codes, {len(names)} attributes): identical; {suite_s:.3f} s host")
+    return suite_s, per_batch
+
+
+def _launches_per_batch(tag, trainer, launches):
+    """The launches counted around one harvest and one test pass
+    {pass: (counts, batches)}, each divided by the pass's batches: whole
+    and equal to the forwards a batch the code gives (``_eval_per_batch``),
+    no backward. → {pass: {kernel: launches a batch}}."""
+    want = _eval_per_batch(trainer.model)
+    out = {}
+    for name, (counts, batches) in launches.items():
+        per = {k: {d: n / batches for d, n in c.items()} for k, c in counts.items()}
+        if per != {k: {"fwd": n, "bwd": 0} for k, n in want[name].items()}:
+            raise AssertionError(f"{tag} {name}: launches {counts} over {batches} batches, "
+                                 f"want {want[name]} forwards a batch")
+        out[name] = {k: {d: int(n) for d, n in c.items()} for k, c in per.items()}
+    print(f"[eval] {tag}: launches counted a harvest batch {out['harvest']} "
+          f"({launches['harvest'][1]} batches), a test batch {out['test']} "
+          f"({launches['test'][1]} batches, the tail's included)")
+    return out
+
+
+def _eval_repeats(tag, trainer, batch_size):
+    """compute_eval_metrics twice from the trained state, the cache removed
+    before each: both files byte for byte the CLI's own."""
+    with open(trainer.results_path, "rb") as fh:
+        cli = fh.read()
+    for i in range(2):
+        os.remove(trainer.results_path)
+        trainer.compute_eval_metrics(batch_size=batch_size)
+        with open(trainer.results_path, "rb") as fh:
+            if fh.read() != cli:
+                raise AssertionError(f"{tag}: evaluation {i + 1} of the trained state wrote "
+                                     f"another results_dict.json than the CLI")
+    print(f"[repeat] {tag}: compute_eval_metrics twice from the trained state: "
+          f"results_dict.json byte for byte the CLI's ({len(cli)} bytes)")
+
+
+def _pass_times(tag, trainer, batch_size, card_line):
+    """The harvest's and the test pass's ms: CUDA events around one pass
+    (its host read included) and the device busy time (profiler)."""
+    out = {}
+    for name, fn in (("harvest", lambda: trainer.compute_representations(
+            batch_size=batch_size)), ("test pass", lambda: trainer.test_model(
+            batch_size=batch_size))):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = (start.elapsed_time(end), _device_ms(fn, iters=3, warmup=1))
+    h, t = _eval_batches(trainer, batch_size)
+    print(f"[times] {tag} evaluation ({trainer.eval_split().n} eval rows, B={batch_size}): "
+          f"harvest ({h} batches) {out['harvest'][0]:.3f} ms CUDA events, "
+          f"{out['harvest'][1]:.3f} ms device busy; test pass ({t} batches) "
+          f"{out['test pass'][0]:.3f} ms events, {out['test pass'][1]:.3f} ms busy | {card_line}")
+    return out
+
+
+def _cli_skip_and_test(tag, main, argv, trainer, batch_size):
+    """In the CLI run's models dir (ARVAE_MODELS_DIR): ``--skip_cached``
+    prints the skip line and launches nothing; ``--test``, the cache
+    removed, re-evaluates from the checkpoint, launching one evaluation's
+    forwards, with the CLI's metrics."""
+    cli = _read_results(trainer)
+    _reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        skipped = main(argv + ["--skip_cached"])
+    launches = _read_launches()
+    if skipped or f"skip seed 0: protocol-stamped cache in {trainer.run_dir}" not in \
+            out.getvalue() or any(v for c in launches.values() for v in c.values()):
+        raise AssertionError(f"{tag} --skip_cached: trainers {skipped}, launches {launches}, "
+                             f"output {out.getvalue()[-500:]!r}")
+    os.remove(trainer.results_path)
+    _reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        (tested,) = main(argv + ["--test"])
+    launches = _read_launches()
+    _check_launches(f"{tag} --test", launches, {
+        k: {"fwd": v, "bwd": 0} for k, v in _eval_launches(tested, batch_size).items()})
+    again = _read_results(tested)
+    if {k: v for k, v in again.items() if k != "protocol"} != \
+            {k: v for k, v in cli.items() if k != "protocol"} or tested.history:
+        raise AssertionError(f"{tag} --test: {again} != the CLI's {cli}")
+    print(f"[eval] {tag}: --skip_cached prints the skip line and launches nothing; --test "
+          f"(cache removed) restores step {tested.step}, launches {launches} and writes the "
+          f"CLI's metrics again (stamp {again['protocol']})")
+    return launches
+
+
+def _eval_tail_shapes(trainer):
+    """The kernels' shapes in the test pass's tail batch, from the model:
+    ``gru_chain`` (T, D, B, H) for the encoder's biGRU layers and the
+    decoder's GRU layers (the beat GRU's 4 steps, SRDecoderNoInput's 24),
+    and ``hier_tick_chain`` (H, tick-GRU layers, ticks a beat, E) for the
+    hierarchical decoder's tick loop (6 ticks a beat) or the SR decoder's
+    (one beat of 24 ticks). → (tail rows, gru shapes, tick-loop shapes)."""
+    from arvae_tpu_torch.models.measure_vae import (MEASURE_SEQ_LEN, NUM_BEATS_PER_MEASURE,
+                                                    NUM_TICKS_PER_BEAT)
+
+    n = trainer.eval_split().n
+    b = n % min(trainer.EVAL_BATCH_SIZE, n)
+    model, dec = trainer.model, trainer.model.decoder
+    gru = [(MEASURE_SEQ_LEN, 2, b, model.encoder.lstm.hidden_size)]
+    hier = []
+    if model.decoder_type == "hier":
+        gru.append((NUM_BEATS_PER_MEASURE, 1, b, dec.rnn_beat.hidden_size))
+        hier.append((dec.rnn_tick.hidden_size, dec.rnn_tick.num_layers, NUM_TICKS_PER_BEAT,
+                     dec.x_0.shape[0]))
+    elif model.decoder_type == "sr":
+        hier.append((dec.gru.hidden_size, dec.gru.num_layers, MEASURE_SEQ_LEN,
+                     dec.x_0.shape[0]))
+    else:  # sr-no-input
+        gru.append((MEASURE_SEQ_LEN, 1, b, dec.gru.hidden_size))
+    return b, gru, hier
+
+
+def _eval_tail_kernels(dev, runs):
+    """``gru_chain`` forward and ``hier_tick_chain`` forward in eval mode
+    (free-running argmax, a dropout rate eval must ignore) at the test
+    pass's tail batch of every music CLI run ``runs`` [(tag, trainer)],
+    each distinct shape once, against their plain versions (the tick loop
+    by the teacher trick on the kernel's tokens), each launch repeated
+    bitwise. → max abs err."""
+    from arvae_tpu_torch.ops import gru_kernel as gk
+    from arvae_tpu_torch.ops import hier_decoder_kernel as hk
+
+    gru_runs, hier_runs = {}, {}
+    for tag, trainer in runs:
+        b, gru, hier = _eval_tail_shapes(trainer)
+        if not b:
+            raise AssertionError(f"{tag}: the eval split of {trainer.eval_split().n} rows has "
+                                 f"no tail batch")
+        for shape in gru:
+            gru_runs.setdefault(shape, []).append(tag)
+        for h, layers, tpb, e in hier:
+            hier_runs.setdefault((b, h, layers, tpb, e, trainer.model.num_notes), []).append(tag)
+    err = 0.0
+    for (t, d, b, h), tags in gru_runs.items():
+        args, _ = _gru_inputs(t, d, b, h, dev, seed=t * 1000 + b + h)
+        with torch.no_grad():
+            runs_k = [(gk.gru_chain_fwd_cuda(*args),) for _ in range(2)]
+            torch.cuda.synchronize()
+            tag = f"gru_chain fwd at the eval tail (T={t}, D={d}, B={b}, H={h})"
+            _check_repeat(tag, *runs_k)
+            e = _check_close(tag, runs_k[0][0], gk.gru_chain_reference(*args),
+                             SEQ_FWD_RTOL, SEQ_FWD_ATOL)
+        err = max(err, e)
+        print(f"[kernels] {tag}, {'streamed' if gk.gru_plan(d, b, h, False).streamed else 'resident'}"
+              f" plan, as in {', '.join(tags)}: matches the plain version (max abs err "
+              f"{e:.3e}), bitwise repeatable")
+    cfg_eval = (False, 0.5, "argmax")
+    for (b, h, layers, tpb, e_dim, v), tags in hier_runs.items():
+        score, floats, _ = _hier_inputs(dev, 21 + layers, v, b=b, tpb=tpb, h=h, layers=layers,
+                                        e=e_dim)
+        cfg = cfg_eval + (tpb,)
+        streamed = hk.hier_plan(b, h, e_dim, v, layers).streamed
+        tag = (f"hier_tick_chain fwd, eval mode, at the eval tail (B={b}, H={h}, L={layers}, "
+               f"{tpb} ticks a beat, E={e_dim}, V={v}, {'streamed' if streamed else 'resident'})")
+        with torch.no_grad():
+            w_k, s_k = _hier_kernel_run(tag, cfg, *_ints(0, 3, dev), score, floats)[:2]
+            if not torch.equal(s_k, hk.argmax_lowest(w_k).clamp(0, v - 1).to(torch.int32)):
+                raise AssertionError(f"{tag}: samples are not the argmax of the logits")
+            w_p = _hier_plain_run(cfg, *_ints(1, 3, dev), s_k, floats)[0]
+            s_free = _hier_plain_run(cfg, *_ints(0, 3, dev), score, floats)[1]
+        e = _check_close(tag, w_k, w_p, SEQ_FWD_RTOL, SEQ_FWD_ATOL)
+        print(f"[kernels] {tag}, as in {', '.join(tags)}: the plain version on the kernel's "
+              f"tokens (teacher trick) matches (max abs err {e:.3e}), bitwise repeatable; the "
+              f"plain free-running decode takes another token path in "
+              f"{int((s_free != s_k).any(dim=0).sum())} of {b} rows")
+        err = max(err, e)
+    return err
+
+
+def _full_protocol_suite(card_line):
+    """The metric suite's host seconds at the paper's protocol size: 201
+    harvest batches of 128 rows of the full dSprites grid's eval split
+    (its real attribute columns), random codes of 10 dims."""
+    from arvae_tpu_torch.data.dsprites import FULL_FACTOR_SIZES, _factor_values
+    from arvae_tpu_torch.eval.metrics import compute_all
+
+    grids = np.meshgrid(*_factor_values(FULL_FACTOR_SIZES), indexing="ij")
+    latents = np.stack([g.reshape(-1) for g in grids], axis=1).astype(np.float32)
+    n = len(latents)
+    rows = np.random.RandomState(0).permutation(n)[int(sum((0.80, 0.15)) * n):]
+    attrs = latents[rows[:FULL_PROTOCOL_ROWS], 1:]  # color left out
+    codes = np.random.RandomState(1).randn(FULL_PROTOCOL_ROWS, 10).astype(np.float32)
+    t0 = time.perf_counter()
+    res = compute_all(codes, attrs, ["shape", "scale", "orientation", "posx", "posy"],
+                      np.random.RandomState(0))
+    seconds = time.perf_counter() - t0
+    print(f"[times] metric suite at the full dSprites protocol size ({FULL_PROTOCOL_ROWS} x 10 "
+          f"random codes, the full grid's eval attributes): {seconds:.2f} s host, mig "
+          f"{res['mig']:.6f} | {card_line}")
+    return seconds
+
+
+def phase_eval(image_trainer, image_dir, music_trainer, music_dir, others, card_line):
+    """Slice 5: the evaluation of the dSprites and music CLI runs of slices
+    1 and 2, whose models dirs are kept, and of the other music CLI runs
+    ``others`` [(tag, trainer)] of slices 3 and 4 → the times and the
+    launches measured."""
+    from arvae_tpu_torch import train_image_vae, train_measure_vae
+    from arvae_tpu_torch.models.image_vae import DspritesVAE
+    from arvae_tpu_torch.training.image_trainer import ImageVAETrainer
+    from arvae_tpu_torch.training.measure_trainer import MeasureVAETrainer
+
+    dev = torch.device("cuda")
+    times = {"tail_err": _eval_tail_kernels(dev, [("music", music_trainer)] + others)}
+    cases = (("dSprites", image_trainer, image_dir, B_TRAIN, train_image_vae.main, SLICE_ARGS),
+             ("music", music_trainer, music_dir, MUSIC_B, train_measure_vae.main, MUSIC_ARGS))
+    for tag, trainer, models_dir, b, main, argv in cases:
+        # the run dirs follow ARVAE_MODELS_DIR, which later slices moved
+        os.environ["ARVAE_MODELS_DIR"] = models_dir
+        h = trainer.hparams
+        kw = dict(lr=h.lr, reg_type=h.reg_type, reg_dim=h.reg_dim, beta=h.beta,
+                  gamma=h.gamma, capacity=h.capacity, delta=h.delta, rand=h.rand)
+        if isinstance(trainer, ImageVAETrainer):
+            cpu = ImageVAETrainer(trainer.dataset, DspritesVAE(), "cpu",
+                                  dec_dist=h.dec_dist, **kw)
+        else:
+            cpu = MeasureVAETrainer(trainer.dataset, copy.deepcopy(trainer.model).cpu(), "cpu",
+                                    **kw)
+        if cpu.run_dir != trainer.run_dir:
+            raise AssertionError(f"{tag}: the CPU trainer's run dir {cpu.run_dir}")
+        cpu.load_model()  # the CLI's checkpoint
+        times[f"{tag} suite_s"], per_batch = _eval_vs_cpu(tag, trainer, cpu, b)
+        _eval_repeats(tag, trainer, b)
+        times[tag] = _pass_times(tag, trainer, b, card_line)
+        times[f"{tag} launches"] = {"per_batch": per_batch, "evaluation": _cli_skip_and_test(
+            tag, main, argv, trainer, b)}
+    # the other runs' models as their CLI trained them (their run dirs are
+    # gone): the harvest and the test pass against a CPU copy
+    for tag, trainer in others:
+        _eval_vs_cpu(tag, trainer, _cpu_twin(trainer), MUSIC_B)
+    times["full_suite_s"] = _full_protocol_suite(card_line)
+    return times
+
+
 def _timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1561,12 +2035,17 @@ def main() -> int:
     card_line = _timed("device", phase_device)
     _timed("build", phase_build)
     errs = _timed("kernels", phase_kernels)
-    image = _timed("slice 1 (dSprites)", phase_slice)
-    music = _timed("slice 2 (music)", phase_music_slice)
-    variants = _timed("slice 3 (music variants)", phase_music_variants, card_line)
-    times = _timed("times", phase_times, card_line)
-    wide = _timed("slice 4 (the reference's widths, a 3-layer tick GRU)", phase_wide_deep,
-                  card_line)
+    with tempfile.TemporaryDirectory() as kept:  # slices 1 and 2's run dirs, for slice 5
+        image_dir, music_dir = os.path.join(kept, "dsprites"), os.path.join(kept, "music")
+        image = _timed("slice 1 (dSprites)", phase_slice, image_dir)
+        music = _timed("slice 2 (music)", phase_music_slice, music_dir)
+        variants, variant_runs = _timed("slice 3 (music variants)", phase_music_variants,
+                                        card_line)
+        times = _timed("times", phase_times, card_line)
+        wide, wide_runs = _timed("slice 4 (the reference's widths, a 3-layer tick GRU)",
+                                 phase_wide_deep, card_line)
+        evaluation = _timed("slice 5 (evaluation)", phase_eval, image[2], image_dir, music[2],
+                            music_dir, variant_runs + wide_runs, card_line)
     print(f"[phase] total: {time.perf_counter() - t0:.1f} s")
 
     from arvae_tpu_torch.utils import kernel_work as kw
@@ -1580,13 +2059,21 @@ def main() -> int:
     # cuDNN's GRU layer whose projection is smallest (I=10) beside gru_chain
     cudnn = times["gru_layers"]["encoder layer 0"]
 
-    def entry(name, key, direction, source, replaces, slice_run):
+    def entry(name, key, direction, source, replaces, slice_run, eval_of):
         t = times[key]
-        launches, steps = slice_run[0][key][direction], slice_run[1][direction]
+        counts, steps, _ = slice_run
+        launches = counts[key][direction]
+        # the CLI run's launches include one evaluation's forwards, as
+        # the --test run of slice 5 counted them
+        measured = evaluation[f"{eval_of} launches"]
+        evals = measured["evaluation"][key][direction]
         w = work[key](direction == "bwd")
         by_variant = {v: counts[key][direction] for v, counts in variants.items()}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "launches_per_step": launches / steps,
+                "launches": launches, "launches_per_step": (launches - evals) / steps[direction],
+                "eval_launches": evals,
+                "eval_launches_per_batch": {p: measured["per_batch"][p][key][direction]
+                                            for p in ("harvest", "test")},
                 "slice3_launches": by_variant,
                 "max_abs_err": errs[key][direction == "bwd"],
                 "ms": t[direction], "plain_ms": t[f"{direction}_plain"],
@@ -1629,22 +2116,27 @@ def main() -> int:
     csrc = "arvae_tpu_torch/csrc/"
     kernels = [
         entry("reg_loss_fwd", "reg", "fwd", csrc + "reg_loss.cu",
-              "arvae_tpu/ops/reg_pallas.py:83", image),
+              "arvae_tpu/ops/reg_pallas.py:83", image, "dSprites"),
         entry("reg_loss_bwd", "reg", "bwd", csrc + "reg_loss.cu",
-              "arvae_tpu/ops/reg_pallas.py:113", image),
+              "arvae_tpu/ops/reg_pallas.py:113", image, "dSprites"),
         entry("gru_chain_fwd", "gru", "fwd", csrc + "gru_chain.cu",
-              "arvae_tpu/ops/gru_pallas.py:144", music),
+              "arvae_tpu/ops/gru_pallas.py:144", music, "music"),
         entry("gru_chain_bwd", "gru", "bwd", csrc + "gru_chain.cu",
-              "arvae_tpu/ops/gru_pallas.py:218", music),
+              "arvae_tpu/ops/gru_pallas.py:218", music, "music"),
         entry("hier_tick_chain_fwd", "hier", "fwd", csrc + "hier_tick_chain.cu",
-              "arvae_tpu/ops/hier_decoder_pallas.py:475", music),
+              "arvae_tpu/ops/hier_decoder_pallas.py:475", music, "music"),
         entry("hier_tick_chain_bwd", "hier", "bwd", csrc + "hier_tick_chain.cu",
-              "arvae_tpu/ops/hier_decoder_pallas.py:563", music),
+              "arvae_tpu/ops/hier_decoder_pallas.py:563", music, "music"),
     ]
     for k in kernels:
         print(f"[times] {k['name']}: {k['ms']:.5f} ms, bound {k['bound_ms']:.3g} ms "
               f"({k['bound_by']}, {100 * k['bound_ms'] / k['ms']:.1f}% of it), "
-              f"{k['launches_per_step']:g} launches a step | {card_line}")
+              f"{k['launches_per_step']:g} launches a step, "
+              f"{k['eval_launches_per_batch']['harvest']} a harvest batch and "
+              f"{k['eval_launches_per_batch']['test']} a test batch | {card_line}")
+    print(f"[times] metric suite host s: dSprites eval split {evaluation['dSprites suite_s']:.3f}, "
+          f"music eval split {evaluation['music suite_s']:.3f}, full dSprites protocol size "
+          f"{evaluation['full_suite_s']:.2f} | {card_line}")
     for name, (counts, steps, busy) in wide.items():
         print(f"[times] music {name} run: launches {counts} over {steps} train steps; device "
               f"busy {busy:.3f} ms a train step | {card_line}")

@@ -229,3 +229,6 @@ def test_cli_trains_glsr_one_epoch(corpus, tmp_path):
     assert len(hist) == 1 and np.isfinite(hist[0]["train_loss"])
     run = tmp_path / "models" / "folk_MeasureVAE_r_0_b_0.001_g_1.0_d_10.0_num_notes_GLSR"
     assert (run / "ckpt.pt").is_file()
+    # the GLSR run is evaluated into a results_dict.json of its own run dir
+    assert trainer.results_path == str(run / "results_dict.json")
+    assert (run / "results_dict.json").is_file()

@@ -128,8 +128,11 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path):
     packed, latents = generate_dsprites(TINY)
     np.savez_compressed(ds_root / "dsprites" / "dsprites_synth_1x3x3x10x16x16.npz",
                         packed=packed, latents=latents)
+    # one OpenMP thread, as test_torch_suite_settings.py gives the
+    # in-process tests
     env = dict(os.environ, ARVAE_DATASETS_DIR=str(ds_root),
-               ARVAE_MODELS_DIR=str(tmp_path / "models"), PYTHONPATH=REPO)
+               ARVAE_MODELS_DIR=str(tmp_path / "models"), PYTHONPATH=REPO,
+               OMP_NUM_THREADS="1")
     cmd = [sys.executable, "-m", "arvae_tpu_torch.train_image_vae",
            "--device", "cpu", "-d", "dsprites", "--short", "--rand", "0",
            "-r", "all", "--beta", "1.0", "--batch_size", "16",
