@@ -1,29 +1,39 @@
-"""dSprites convolutional VAE in native NCHW.
+"""The convolutional image VAEs in native NCHW.
 
-Counterpart of ``DspritesVAE`` in ``arvae_tpu/models/image_vae.py``, at
-its published width: encoder 4×(Conv k4 s2 p1 → ReLU) with 32
-channels, 512 → 256 → 256 → (mean, log_std) heads, z_dim 10; mirrored
-ConvTranspose decoder. Layer names and ``Sequential`` indices are the
-reference PyTorch module's (``enc_conv.{0,2,4,6}``, ``enc_lin.{0,2}``,
-``dec_lin.{0,2,4}``, ``dec_conv.{0,2,4,6}``), so
-``utils/convert.py`` maps Flax parameters onto it one to one.
+Counterparts of ``arvae_tpu/models/image_vae.py``, each at its
+published width:
 
-The reparametrisation (:func:`reparametrize`, shared with the
-MeasureVAE) takes its noise as tensors (``eps``, ``eps_prior``), so a
-test can hand both packages the same draws; :func:`draw_noise` makes
-them from a ``torch.Generator``.
+- ``MnistVAE``: encoder 3×(Conv k4 s1 VALID → SELU → Dropout 0.5) with
+  channels 1→64→64→8, flatten 19·19·8 = 2888 → Linear 256 (SELU) →
+  (mean, log_std) heads, z_dim 16; decoder Linear 256 → Linear 2888
+  (SELU each) and 3 stride-1 ConvTranspose (SELU and Dropout after the
+  first two). Layer names ``enc_conv.{0,3,6}``, ``enc_lin.0``,
+  ``dec_lin.{0,2}``, ``dec_conv.{0,3,6}``.
+- ``DspritesVAE``: encoder 4×(Conv k4 s2 p1 → ReLU) with 32 channels,
+  512 → 256 → 256 → heads, z_dim 10; mirrored ConvTranspose decoder.
+  Layer names ``enc_conv.{0,2,4,6}``, ``enc_lin.{0,2}``,
+  ``dec_lin.{0,2,4}``, ``dec_conv.{0,2,4,6}``.
+
+The names and ``Sequential`` indices are the reference PyTorch
+modules', so ``utils/convert.py`` maps Flax parameters onto them one to
+one. The reparametrisation (:func:`reparametrize`, shared with the
+MeasureVAE) takes its noise as tensors (``eps``, ``eps_prior``), and
+``MnistVAE`` its dropout masks too, so a test can hand both packages the
+same draws and a train step repeats bitwise from one generator;
+:func:`draw_noise` and :meth:`MnistVAE.dropout_masks` make them from a
+``torch.Generator``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 
 class VAEOutput(NamedTuple):
-    logits: torch.Tensor  # decoder output, (B, 1, 64, 64)
+    logits: torch.Tensor  # decoder output, (B, 1, 28, 28) or (B, 1, 64, 64)
     z_mean: torch.Tensor  # (B, z_dim)
     z_log_std: torch.Tensor  # (B, z_dim)
     z_tilde: torch.Tensor  # reparametrised sample, (B, z_dim)
@@ -45,6 +55,16 @@ def draw_noise(batch: int, z_dim: int, generator: torch.Generator,
     eps = torch.randn(batch, z_dim, generator=generator, device=device)
     eps_prior = torch.randn(batch, z_dim, generator=generator, device=device)
     return eps, eps_prior
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Xavier-normal weights and zero biases, the JAX package's init
+    (drawn from ``generator``, so not the same numbers)."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            nn.init.xavier_normal_(m.weight, generator=generator)
+            nn.init.zeros_(m.bias)
 
 
 class DspritesVAE(nn.Module):
@@ -80,14 +100,7 @@ class DspritesVAE(nn.Module):
         )
         self.init_weights(torch.Generator().manual_seed(seed))
 
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
-        """Xavier-normal weights and zero biases, the JAX package's init
-        (drawn from ``generator``, so not the same numbers)."""
-        for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
-                nn.init.xavier_normal_(m.weight, generator=generator)
-                nn.init.zeros_(m.bias)
+    init_weights = init_weights
 
     def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         h = self.enc_conv(x).flatten(1)
@@ -104,6 +117,110 @@ class DspritesVAE(nn.Module):
         z_tilde, z_prior = reparametrize(z_mean, z_log_std, eps, eps_prior)
         return VAEOutput(
             logits=self.decode(z_tilde),
+            z_mean=z_mean,
+            z_log_std=z_log_std,
+            z_tilde=z_tilde,
+            z_prior=z_prior,
+        )
+
+
+class MaskedDropout(nn.Module):
+    """Dropout by a given keep mask: ``x / (1 − rate)`` where the mask is
+    true, 0 elsewhere (Flax's ``nn.Dropout``); no mask, no dropout."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor]) -> torch.Tensor:
+        if keep is None:
+            return x
+        return torch.where(keep, x / (1.0 - self.rate), 0.0)
+
+
+def _selu_drop(rate: float):
+    return nn.SELU(), MaskedDropout(rate)
+
+
+class MnistVAE(nn.Module):
+    """28×28 single-channel conv VAE with SELU and dropout.
+
+    ``forward(x, eps, eps_prior, masks)``: ``masks`` are the five keep
+    masks of :meth:`dropout_masks` (training), or None (no dropout: eval
+    mode, or a rate of 0)."""
+
+    z_dim = 16
+    inter_dim = 19
+    inter_channels = 8
+
+    def __init__(self, dropout_rate: float = 0.5, seed: int = 0):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        z_dim, c, n = self.z_dim, self.inter_channels, self.inter_dim
+        self.enc_conv = nn.Sequential(
+            nn.Conv2d(1, 64, 4, 1), *_selu_drop(dropout_rate),
+            nn.Conv2d(64, 64, 4, 1), *_selu_drop(dropout_rate),
+            nn.Conv2d(64, c, 4, 1), *_selu_drop(dropout_rate),
+        )
+        self.enc_lin = nn.Sequential(nn.Linear(n * n * c, 256), nn.SELU())
+        self.enc_mean = nn.Linear(256, z_dim)
+        self.enc_log_std = nn.Linear(256, z_dim)
+        self.dec_lin = nn.Sequential(
+            nn.Linear(z_dim, 256), nn.SELU(),
+            nn.Linear(256, n * n * c), nn.SELU(),
+        )
+        self.dec_conv = nn.Sequential(
+            nn.ConvTranspose2d(c, 64, 4, 1), *_selu_drop(dropout_rate),
+            nn.ConvTranspose2d(64, 64, 4, 1), *_selu_drop(dropout_rate),
+            nn.ConvTranspose2d(64, 1, 4, 1),
+        )
+        init_weights(self, torch.Generator().manual_seed(seed))
+
+    # (channels, side) of each dropout's input: the encoder's three, the
+    # decoder's two
+    MASK_SHAPES = ((64, 25), (64, 22), (8, 19), (64, 22), (64, 25))
+
+    def dropout_masks(self, batch: int, generator: torch.Generator,
+                      device: torch.device) -> Optional[Tuple[torch.Tensor, ...]]:
+        """The five keep masks of a training forward (each entry kept with
+        probability 1 − rate), drawn from ``generator``; None at rate 0."""
+        if self.dropout_rate == 0.0:
+            return None
+        return tuple(
+            torch.rand(batch, ch, side, side, generator=generator, device=device)
+            >= self.dropout_rate
+            for ch, side in self.MASK_SHAPES)
+
+    @staticmethod
+    def _stack(seq: nn.Sequential, h: torch.Tensor,
+               masks: Optional[Sequence[torch.Tensor]]) -> torch.Tensor:
+        """Runs a Sequential of (layer, SELU, dropout) triples, a bare last
+        layer allowed, the j-th dropout with ``masks[j]``."""
+        layers = list(seq)
+        for j, i in enumerate(range(0, len(layers), 3)):
+            h = layers[i](h)
+            if i + 2 < len(layers):
+                h = layers[i + 2](layers[i + 1](h), masks[j] if masks else None)
+        return h
+
+    def encode(self, x: torch.Tensor, masks: Optional[Sequence[torch.Tensor]] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        h = self._stack(self.enc_conv, x, masks and masks[:3])
+        h = self.enc_lin(h.flatten(1))
+        return self.enc_mean(h), self.enc_log_std(h)
+
+    def decode(self, z: torch.Tensor, masks: Optional[Sequence[torch.Tensor]] = None
+               ) -> torch.Tensor:
+        n = self.inter_dim
+        h = self.dec_lin(z).view(z.shape[0], self.inter_channels, n, n)
+        return self._stack(self.dec_conv, h, masks and masks[3:])
+
+    def forward(self, x: torch.Tensor, eps: torch.Tensor, eps_prior: torch.Tensor,
+                masks: Optional[Sequence[torch.Tensor]] = None) -> VAEOutput:
+        z_mean, z_log_std = self.encode(x, masks)
+        z_tilde, z_prior = reparametrize(z_mean, z_log_std, eps, eps_prior)
+        return VAEOutput(
+            logits=self.decode(z_tilde, masks),
             z_mean=z_mean,
             z_log_std=z_log_std,
             z_tilde=z_tilde,

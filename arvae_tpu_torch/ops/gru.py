@@ -155,6 +155,8 @@ class GRU(nn.Module):
                                         nn.Parameter(torch.zeros(3 * hidden_size)))
                 self.register_parameter(f"bias_hh{sfx}",
                                         nn.Parameter(torch.zeros(3 * hidden_size)))
+        # never uninitialised memory: a model re-initialises from its own seed
+        self.init_weights(torch.Generator().manual_seed(0))
 
     @staticmethod
     def _suffix(layer: int, direction: int) -> str:

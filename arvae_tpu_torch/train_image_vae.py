@@ -1,10 +1,18 @@
-"""Train the dSprites AR-VAE with the PyTorch port.
+"""Train an image AR-VAE (Morpho-MNIST or dSprites) with the PyTorch port.
 
-Flag names follow the root ``train_image_vae.py`` for what the port
-supports. Run as a module:
+Flag names and defaults follow the root ``train_image_vae.py`` for what
+the port supports. Run as a module:
 
+    python -m arvae_tpu_torch.train_image_vae -r all --beta 1.0 --rand 0 \\
+        --num_epochs 2                      # MNIST, the default
     python -m arvae_tpu_torch.train_image_vae -d dsprites --short --rand 0 \\
         -r all --beta 1.0 --num_epochs 2 --batch_size 128
+
+MNIST trains ``MnistVAE`` on ``MorphoMnistDataset`` (the synthetic digit
+set and its measured morphometrics while no real archives are present;
+``--short`` applies to dSprites only) and its evaluation adds the
+digit judge's ``digit_pred_acc`` when ``python -m
+arvae_tpu_torch.test_mnist`` has trained one.
 
 ``--device`` defaults to ``cuda``; without a card the script raises
 unless ``--device cpu`` is given. After training, or after restoring the
@@ -29,15 +37,16 @@ import torch
 from arvae_tpu_torch.core.config import add_switch, expand_reg_dims
 from arvae_tpu_torch.data.dsprites import (FULL_FACTOR_SIZES,
                                            SHORT_FACTOR_SIZES, DspritesDataset)
-from arvae_tpu_torch.models.image_vae import DspritesVAE
-from arvae_tpu_torch.training.image_trainer import (DSPRITES_REG_TYPE,
+from arvae_tpu_torch.data.mnist import MorphoMnistDataset
+from arvae_tpu_torch.models.image_vae import DspritesVAE, MnistVAE
+from arvae_tpu_torch.training.image_trainer import (DSPRITES_REG_TYPE, MNIST_REG_TYPES,
                                                     ImageVAETrainer)
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--dataset_type", "-d", default="dsprites",
-                   help="dataset to be used; the port supports `dsprites`")
+    p.add_argument("--dataset_type", "-d", default="mnist",
+                   help="dataset to be used, `mnist` or `dsprites`")
     p.add_argument("--batch_size", type=int, default=128,
                    help="training batch size")
     p.add_argument("--num_epochs", type=int, default=100,
@@ -65,7 +74,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--reg_type", "-r", action="append", default=None,
                    help="attribute name to regularize (repeatable), or `all`")
     add_switch(p, "--short", "--full", "short", False,
-            "use the reduced dSprites factor grid for quick runs (default: full)")
+            "use the reduced dSprites factor grid for quick runs (default: full; "
+            "MNIST ignores it)")
     add_switch(p, "--skip_cached", "--no_skip_cached", "skip_cached", False,
             "skip seeds whose run dir holds results stamped with this protocol")
     p.add_argument("--device", default="cuda",
@@ -76,27 +86,27 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[Sequence[str]] = None) -> List[ImageVAETrainer]:
     """Runs the CLI; returns the trainers, one per seed not skipped."""
     args = parse_args(argv)
-    if args.dataset_type == "mnist":
-        raise NotImplementedError(
-            "MNIST is not ported yet (MnistVAE and pandas-free MNIST data "
-            "are queued in ROADMAP.md); use -d dsprites")
-    if args.dataset_type != "dsprites":
-        raise ValueError("Invalid dataset_type. Choose dsprites")
+    if args.dataset_type not in ("mnist", "dsprites"):
+        raise ValueError("Invalid dataset_type. Choose between mnist and dsprites")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu to "
                            "train on the CPU")
 
-    dataset = DspritesDataset(
-        factor_sizes=SHORT_FACTOR_SIZES if args.short else FULL_FACTOR_SIZES)
+    if args.dataset_type == "mnist":
+        dataset, model_type, attr_dict = MorphoMnistDataset(), MnistVAE, MNIST_REG_TYPES
+    else:
+        dataset = DspritesDataset(
+            factor_sizes=SHORT_FACTOR_SIZES if args.short else FULL_FACTOR_SIZES)
+        model_type, attr_dict = DspritesVAE, DSPRITES_REG_TYPE
     reg_type = tuple(args.reg_type or ())
     if reg_type:
-        unknown = [r for r in reg_type if r != "all" and r not in DSPRITES_REG_TYPE]
+        unknown = [r for r in reg_type if r != "all" and r not in attr_dict]
         if unknown or ("all" in reg_type and len(reg_type) != 1):
             raise ValueError(
                 f"unknown reg_type {unknown or list(reg_type)}; choose from "
-                f"{sorted(DSPRITES_REG_TYPE)} or 'all' (alone)")
-        reg_dim = expand_reg_dims(reg_type, DSPRITES_REG_TYPE)
+                f"{sorted(attr_dict)} or 'all' (alone)")
+        reg_dim = expand_reg_dims(reg_type, attr_dict)
     else:
         reg_dim = (0,)
 
@@ -105,7 +115,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[ImageVAETrainer]:
     for r in seeds:
         trainer = ImageVAETrainer(
             dataset=dataset,
-            model=DspritesVAE(seed=r),
+            model=model_type(seed=r),
             device=device,
             lr=args.lr,
             reg_type=reg_type,

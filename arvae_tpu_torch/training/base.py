@@ -78,6 +78,8 @@ class BaseTrainer(abc.ABC):
         # Set by train_model; None for a trainer that never trained.
         self._train_protocol: Optional[Dict[str, int]] = None
         self._eval_split: Optional[DeviceSplit] = None
+        # The last evaluation's results (compute_eval_metrics)
+        self.metrics: Dict[str, Any] = {}
 
     @abc.abstractmethod
     def model_repr(self) -> str:
@@ -286,23 +288,30 @@ class BaseTrainer(abc.ABC):
         print("\tTest Loss: ", mean_loss, "\n\tTest Accuracy: ", mean_acc * 100)
         return {"test_loss": mean_loss, "test_acc": mean_acc}
 
+    def extra_eval_metrics(self) -> Dict[str, Any]:
+        """Results a trainer adds after the test pass (MNIST's judge)."""
+        return {}
+
     def compute_eval_metrics(self, batch_size: Optional[int] = None) -> Dict[str, Any]:
-        """The five metrics of the harvest, the test pass and the protocol
-        stamp, cached as ``results_dict.json`` in the run dir (a cache
-        there is returned as it is). The metrics' jitter is drawn from
-        ``np.random.RandomState(rand)``."""
+        """The five metrics of the harvest, the test pass, the trainer's
+        extra results and the protocol stamp, cached as
+        ``results_dict.json`` in the run dir (a cache there is returned
+        as it is) and kept as ``self.metrics``. The metrics' jitter is
+        drawn from ``np.random.RandomState(rand)``."""
         if os.path.exists(self.results_path):
             with open(self.results_path) as fh:
-                return json.load(fh)
+                self.metrics = json.load(fh)
+            return self.metrics
         latent_codes, attributes, attr_list = self.compute_representations()
-        metrics = compute_all(latent_codes, attributes, attr_list,
-                              np.random.RandomState(self.hparams.rand))
-        metrics.update(self.test_model(batch_size=batch_size))
-        metrics["protocol"] = self.protocol_dict()
+        self.metrics = compute_all(latent_codes, attributes, attr_list,
+                                   np.random.RandomState(self.hparams.rand))
+        self.metrics.update(self.test_model(batch_size=batch_size))
+        self.metrics.update(self.extra_eval_metrics())
+        self.metrics["protocol"] = self.protocol_dict()
         os.makedirs(self.run_dir, exist_ok=True)
         with open(self.results_path, "w") as fh:
-            json.dump(metrics, fh, indent=2)
-        return metrics
+            json.dump(self.metrics, fh, indent=2)
+        return self.metrics
 
     @staticmethod
     def print_epoch_stats(epoch_index, num_epochs, mean_loss_train,

@@ -1,14 +1,20 @@
-"""Image AR-VAE trainer for dSprites.
+"""Image AR-VAE trainer for Morpho-MNIST and dSprites.
 
 Counterpart of ``ImageVAETrainer`` in
 ``arvae_tpu/training/image_trainer.py``: the same objective
-recon + β·|KLD − c| + γ·Σ_r AR-reg, with the AR term on the stacked
-(R, B) columns through the reg kernel, and ``torch.optim.Adam(lr)``,
-whose defaults (0.9, 0.999, 1e-8, eps outside the sqrt) equal
-``optax.adam``'s. The evaluation harvests the sampled ``z_tilde`` of
-the eval split against dSprites' five attributes (``color`` left out)
-and tests the reconstruction loss and pixel accuracy. MNIST, its ResNet
-judge and the artifact plots are not ported yet.
+recon + β·|KLD − c| + γ·Σ_r AR-reg, with the AR term on the columns of
+``z_tilde`` and the labels read in place by the reg kernel, and
+``torch.optim.Adam(lr)``, whose defaults (0.9, 0.999, 1e-8, eps outside
+the sqrt) equal ``optax.adam``'s. The dataset's class name picks the
+attributes: MNIST's labels are its 7 morphometry columns (the digit,
+then area, length, thickness, slant, width, height), dSprites' its 6
+factors. ``MnistVAE``'s dropout masks come from the trainer's noise
+generator with the reparametrisation's draws. The evaluation harvests
+the sampled ``z_tilde`` of the eval split against the attributes
+(``digit_identity`` and ``color`` left out) and tests the
+reconstruction loss and pixel accuracy; for MNIST it adds the ResNet
+judge's ``digit_pred_acc`` when a trained judge exists. The artifact
+plots are not ported.
 
 Precision: float32 throughout, as the JAX package declares. TF32 is
 turned off for matmuls and cuDNN convolutions (cuDNN would otherwise
@@ -25,10 +31,33 @@ import torch
 from arvae_tpu_torch.core.config import (TrainerHParams, normalize_reg_dim,
                                          trainer_config_string)
 from arvae_tpu_torch.data.device_data import Metrics
-from arvae_tpu_torch.models.image_vae import DspritesVAE, draw_noise, reparametrize
+from arvae_tpu_torch.models.image_vae import (DspritesVAE, MnistVAE, draw_noise,
+                                             reparametrize)
 from arvae_tpu_torch.ops.losses import (kld_loss, pixel_accuracy,
                                         reconstruction_loss, total_reg_loss)
 from arvae_tpu_torch.training.base import BaseTrainer
+from arvae_tpu_torch.training.resnet_judge import judge_accuracy, load_judge
+
+MNIST_REG_TYPES = {
+    "digit_identity": 0,
+    "area": 1,
+    "length": 2,
+    "thickness": 3,
+    "slant": 4,
+    "width": 5,
+    "height": 6,
+}
+
+# Each attribute's (low, high) for normalising labels (the fader's)
+MNIST_NORMALIZATION_FACTORS = {
+    "digit_identity": (0, 9),
+    "area": (0, 350),
+    "length": (0, 100),
+    "thickness": (0, 15),
+    "slant": (-1.2, 1.2),
+    "width": (0, 30),
+    "height": (0, 30),
+}
 
 DSPRITES_REG_TYPE = {
     "color": 0,
@@ -39,7 +68,13 @@ DSPRITES_REG_TYPE = {
     "posy": 5,
 }
 
-Noise = Tuple[torch.Tensor, torch.Tensor]
+DATASET_REG_TYPE_DICT = {"mnist": MNIST_REG_TYPES, "dsprites": DSPRITES_REG_TYPE}
+_DATASET_TYPES = {"MorphoMnistDataset": "mnist", "MnistDataset": "mnist",
+                  "DspritesDataset": "dsprites"}
+_MODEL_NAMES = {"mnist": "MnistVAE", "dsprites": "DspritesVAE"}
+
+# (eps, eps_prior), and for MnistVAE in training its dropout masks
+Noise = Tuple
 
 
 class ImageVAETrainer(BaseTrainer):
@@ -47,7 +82,7 @@ class ImageVAETrainer(BaseTrainer):
     def __init__(
         self,
         dataset,
-        model: DspritesVAE,
+        model: DspritesVAE | MnistVAE,
         device: torch.device,
         lr: float = 1e-4,
         reg_type: Tuple[str, ...] = (),
@@ -76,20 +111,40 @@ class ImageVAETrainer(BaseTrainer):
             reg_dim=normalize_reg_dim(reg_dim, reg_type),
         )
         super().__init__(dataset, model, hp, device)
-        self.attr_dict = DSPRITES_REG_TYPE
+        self.dataset_type = self._dataset_type(dataset, model)
+        self.attr_dict = DATASET_REG_TYPE_DICT[self.dataset_type]
         self.reg_pairs = tuple((d, d) for d in hp.reg_dim)
 
+    @staticmethod
+    def _dataset_type(dataset, model) -> str:
+        """By the dataset's class name; a trainer built without a dataset
+        (a test's, a probe's) by its model."""
+        if dataset is None:
+            return "mnist" if isinstance(model, MnistVAE) else "dsprites"
+        name = type(dataset).__name__
+        if name not in _DATASET_TYPES:
+            raise ValueError(f"Dataset type not recognized: {name}")
+        return _DATASET_TYPES[name]
+
     def model_repr(self) -> str:
-        return "DspritesVAE" + trainer_config_string(self.hparams)
+        return _MODEL_NAMES[self.dataset_type] + trainer_config_string(self.hparams)
+
+    def draw_train_noise(self, batch: int,
+                         generator: Optional[torch.Generator] = None) -> Noise:
+        """A train step's draws from ``generator`` (the trainer's noise
+        generator by default): (eps, eps_prior) and, for MnistVAE, its
+        dropout masks."""
+        gen = self.noise_generator if generator is None else generator
+        eps, eps_prior = draw_noise(batch, self.model.z_dim, gen, self.device)
+        if isinstance(self.model, MnistVAE):
+            return eps, eps_prior, self.model.dropout_masks(batch, gen, self.device)
+        return eps, eps_prior
 
     # -- loss ---------------------------------------------------------------------
 
-    def _loss_fn(self, batch, noise: Optional[Noise] = None):
+    def _loss_fn(self, batch, noise: Noise):
         inputs, labels = batch
         h, hy = self.hparams, self.hyper
-        if noise is None:
-            noise = draw_noise(inputs.shape[0], self.model.z_dim,
-                               self.noise_generator, self.device)
         out = self.model(inputs, *noise)
         recons_loss = reconstruction_loss(out.logits, inputs, h.dec_dist)
         dist_loss = kld_loss(out.z_mean, out.z_log_std, hy["beta"],
@@ -108,9 +163,11 @@ class ImageVAETrainer(BaseTrainer):
     # -- steps --------------------------------------------------------------------
 
     def train_step(self, batch, noise: Optional[Noise] = None) -> Metrics:
-        """One Adam step; ``noise`` = (eps, eps_prior) overrides the
-        generator's draw (tests inject the JAX side's noise)."""
+        """One Adam step; ``noise`` (``draw_train_noise``'s tuple)
+        overrides the generator's draws (tests inject the JAX side's)."""
         self.model.train()
+        if noise is None:
+            noise = self.draw_train_noise(batch[0].shape[0])
         loss, metrics = self._loss_fn(batch, noise)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -120,7 +177,12 @@ class ImageVAETrainer(BaseTrainer):
 
     @torch.no_grad()
     def eval_step(self, batch, noise: Optional[Noise] = None) -> Metrics:
+        """The loss and metrics without dropout; ``noise`` = (eps,
+        eps_prior) overrides the generator's draws."""
         self.model.eval()
+        if noise is None:
+            noise = draw_noise(batch[0].shape[0], self.model.z_dim, self.noise_generator,
+                               self.device)
         return self._loss_fn(batch, noise)[1]
 
     # -- evaluation ---------------------------------------------------------------
@@ -158,3 +220,18 @@ class ImageVAETrainer(BaseTrainer):
                     pixel_accuracy(torch.sigmoid(logits), imgs))
 
         return self._test_pass(batch_size, batch_metrics, noise)
+
+    def extra_eval_metrics(self) -> Dict:
+        """MNIST's ``digit_pred_acc`` from the trained judge, when one exists."""
+        return (self.get_resnet_accuracy() or {}) if self.dataset_type == "mnist" else {}
+
+    def get_resnet_accuracy(self) -> Optional[Dict]:
+        """Digit identity kept in reconstructions and traversals, as the
+        ResNet judge sees it (``resnet_judge.judge_accuracy``); None, with
+        the JAX package's message, when no trained judge exists."""
+        judge = load_judge(self.device)
+        if judge is None:
+            print("No MnistRESNET checkpoint found - skipping digit_pred_acc "
+                  "(train one with test_mnist.py)")
+            return None
+        return judge_accuracy(self, judge)

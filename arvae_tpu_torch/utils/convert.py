@@ -1,8 +1,11 @@
-"""Flax → PyTorch parameter conversion for ``DspritesVAE`` and ``MeasureVAE``.
+"""Flax → PyTorch parameter conversion for ``MnistVAE``, ``DspritesVAE``,
+``MeasureVAE`` and the MNIST ResNet judge.
 
-The exact inverses of ``convert_dsprites_vae`` and
-``convert_measure_vae`` in ``arvae_tpu/utils/torch_convert.py``, so a
-test can load the same weights into both packages. That module maps the
+The exact inverses of ``convert_mnist_vae``, ``convert_dsprites_vae``
+and ``convert_measure_vae`` in ``arvae_tpu/utils/torch_convert.py``, so a
+test can load the same weights into both packages; the judge
+(``arvae_tpu/training/resnet_judge.py``) maps onto torchvision's
+ResNet-18 names, its BatchNorm statistics included. That module maps the
 hierarchical decoder only; for the SR decoders the port's parameters
 carry the Flax tree's names (``decoder.z2in1.weight`` is ``z2in1_w``
 transposed, ``decoder.gru.*`` is ``gru``), so their conversion here is
@@ -11,7 +14,9 @@ the same per-kind mapping. Per layer kind:
 - conv kernels: flax HWIO → torch OIHW;
 - transposed-conv kernels: flax HWIO → torch IOHW, spatially rotated
   180° (flax's ``ConvTranspose`` correlates with the kernel, torch's is
-  the adjoint of a conv);
+  the adjoint of a conv). The Flax ``MnistVAE`` decoder's pad(3) + Conv
+  is the stride-1 transposed conv with that same kernel, so it maps the
+  same way;
 - linear weights: (in, out) → (out, in);
 - GRU weights: ``w_ih`` (I, 3H) → ``weight_ih_l{k}[_reverse]`` (3H, I),
   the same (r, z, n) gate order;
@@ -92,6 +97,56 @@ def dsprites_vae_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]
     sd.update(_linear(params["dec_denses_0"], "dec_lin.0"))
     sd.update(_linear(params["dec_denses_1"], "dec_lin.2"))
     sd.update(_linear_flatten_out(params["dec_denses_2"], "dec_lin.4", 32, 4, 4))
+    return sd
+
+
+def mnist_vae_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``MnistVAE`` params → ``state_dict`` of the port's model."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, idx in enumerate((0, 3, 6)):
+        sd.update(_conv(params[f"enc_convs_{i}"], f"enc_conv.{idx}"))
+        sd.update(_convtranspose(params[f"dec_convs_{i}"], f"dec_conv.{idx}"))
+    sd.update(_linear_flatten_in(params["enc_dense"], "enc_lin.0", 8, 19, 19))
+    sd.update(_linear(params["enc_mean"], "enc_mean"))
+    sd.update(_linear(params["enc_log_std"], "enc_log_std"))
+    sd.update(_linear(params["dec_denses_0"], "dec_lin.0"))
+    sd.update(_linear_flatten_out(params["dec_denses_1"], "dec_lin.2", 8, 19, 19))
+    return sd
+
+
+def _batch_norm(p, stats, prefix):
+    return {
+        f"{prefix}.weight": _t(np.asarray(p["scale"])),
+        f"{prefix}.bias": _t(np.asarray(p["bias"])),
+        f"{prefix}.running_mean": _t(np.asarray(stats["mean"])),
+        f"{prefix}.running_var": _t(np.asarray(stats["var"])),
+        f"{prefix}.num_batches_tracked": torch.tensor(0),
+    }
+
+
+def _conv_no_bias(p, prefix):
+    return {f"{prefix}.weight": _t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))}
+
+
+def resnet_judge_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``MnistResNet`` variables (``params`` and ``batch_stats``) →
+    ``state_dict`` of the port's judge: ``Conv_0``/``BatchNorm_0`` →
+    ``conv1``/``bn1``, ``BasicBlock_i`` → ``layer{i // 2 + 1}.{i % 2}``
+    (its third conv and norm, the residual projection, →
+    ``downsample.0``/``.1``), ``Dense_0`` → ``fc``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = _conv_no_bias(params["Conv_0"], "conv1")
+    sd.update(_batch_norm(params["BatchNorm_0"], stats["BatchNorm_0"], "bn1"))
+    for i in range(8):
+        p, st = params[f"BasicBlock_{i}"], stats[f"BasicBlock_{i}"]
+        prefix = f"layer{i // 2 + 1}.{i % 2}"
+        names = (("conv1", "bn1"), ("conv2", "bn2"), ("downsample.0", "downsample.1"))
+        for j, (conv, bn) in enumerate(names):
+            if f"Conv_{j}" in p:
+                sd.update(_conv_no_bias(p[f"Conv_{j}"], f"{prefix}.{conv}"))
+                sd.update(_batch_norm(p[f"BatchNorm_{j}"], st[f"BatchNorm_{j}"],
+                                      f"{prefix}.{bn}"))
+    sd.update(_linear(params["Dense_0"], "fc"))
     return sd
 
 

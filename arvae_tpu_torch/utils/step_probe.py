@@ -13,8 +13,9 @@ so one file measures both sides. ``chip_smoke.py`` imports its helpers.
 Every line it prints ends with the card's name and power limit:
 
 - the AR term (``total_reg_loss``) at the dSprites step's shapes
-  (``z_tilde`` (128, 10), 6 label columns, dims 1-5) and the music
-  step's (``z_tilde`` (256, 32), 4 label columns, dims 0-3): the device
+  (``z_tilde`` (128, 10), 6 label columns, dims 1-5), the music
+  step's (``z_tilde`` (256, 32), 4 label columns, dims 0-3) and the
+  MNIST step's (``z_tilde`` (128, 16), 7 label columns, dims 1-6): the device
   kernels a call launches by name, its device µs (the union of the
   profiler's device intervals) and its host µs (host clock over 200
   back-to-back calls), as a train step runs it (forward, and backward
@@ -44,7 +45,8 @@ import torch
 
 # (z_tilde shape, label columns, dims) of the AR term on each slice
 AR_SHAPES = {"dSprites": ((128, 10), 6, tuple((c, c) for c in range(1, 6))),
-             "music": ((256, 32), 4, tuple((c, c) for c in range(4)))}
+             "music": ((256, 32), 4, tuple((c, c) for c in range(4))),
+             "MNIST": ((128, 16), 7, tuple((c, c) for c in range(1, 7)))}
 DSPRITES_B, MUSIC_B, MUSIC_V = 128, 256, 130
 
 
