@@ -21,9 +21,11 @@ disentanglement metrics, the test loss and accuracy and the protocol
 stamp are written to ``<run_dir>/results_dict.json`` and printed (a
 results file already in the run dir is printed as it is).
 ``--skip_cached`` skips a seed whose run dir holds results stamped with
-the same epochs, batch size and dataset. The latent GIFs that follow in
-the root CLI are left out: they need seaborn, pandas and PIL. ``--log`` is
-accepted for the root CLI's sake and does nothing.
+the same epochs, batch size and dataset. ``--bf16`` runs the models'
+convolutions and hidden linear layers in bfloat16, as the root CLI's
+does (``--f32``, float32 throughout, is the default). The latent GIFs
+that follow in the root CLI are left out: they need seaborn, pandas and
+PIL. ``--log`` is accepted for the root CLI's sake and does nothing.
 """
 
 from __future__ import annotations
@@ -76,6 +78,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     add_switch(p, "--short", "--full", "short", False,
             "use the reduced dSprites factor grid for quick runs (default: full; "
             "MNIST ignores it)")
+    add_switch(p, "--bf16", "--f32", "bf16", False,
+               "run the conv and dense stacks in bfloat16 (parameters, the "
+               "distribution heads and the logits stay float32; the run dir is "
+               "the same)")
     add_switch(p, "--skip_cached", "--no_skip_cached", "skip_cached", False,
             "skip seeds whose run dir holds results stamped with this protocol")
     p.add_argument("--device", default="cuda",
@@ -110,12 +116,13 @@ def main(argv: Optional[Sequence[str]] = None) -> List[ImageVAETrainer]:
     else:
         reg_dim = (0,)
 
+    compute_dtype = torch.bfloat16 if args.bf16 else torch.float32
     seeds = range(0, 10) if args.rand is None else [args.rand]
     trainers = []
     for r in seeds:
         trainer = ImageVAETrainer(
             dataset=dataset,
-            model=model_type(seed=r),
+            model=model_type(seed=r, compute_dtype=compute_dtype),
             device=device,
             lr=args.lr,
             reg_type=reg_type,

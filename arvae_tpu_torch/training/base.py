@@ -159,7 +159,10 @@ class BaseTrainer(abc.ABC):
 
     def load_model(self) -> None:
         """Restores model, Adam state and step from the run checkpoint."""
-        state = Checkpointer(self.run_dir).restore(self.device)
+        self.restore_state(Checkpointer(self.run_dir).restore(self.device))
+
+    def restore_state(self, state: Dict[str, Any]) -> None:
+        """Model, Adam state and step from a ``checkpoint_state`` dict."""
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
@@ -299,14 +302,25 @@ class BaseTrainer(abc.ABC):
         as it is) and kept as ``self.metrics``. The metrics' jitter is
         drawn from ``np.random.RandomState(rand)``."""
         if os.path.exists(self.results_path):
-            with open(self.results_path) as fh:
-                self.metrics = json.load(fh)
-            return self.metrics
-        latent_codes, attributes, attr_list = self.compute_representations()
-        self.metrics = compute_all(latent_codes, attributes, attr_list,
-                                   np.random.RandomState(self.hparams.rand))
+            return self._read_results()
+        self.metrics = self._metric_suite()
         self.metrics.update(self.test_model(batch_size=batch_size))
         self.metrics.update(self.extra_eval_metrics())
+        return self._write_results()
+
+    def _metric_suite(self) -> Dict[str, Any]:
+        """The five metrics of the harvest, jitter from RandomState(rand)."""
+        return compute_all(*self.compute_representations(),
+                           np.random.RandomState(self.hparams.rand))
+
+    def _read_results(self) -> Dict[str, Any]:
+        """The cached ``results_dict.json`` as it is, kept as ``self.metrics``."""
+        with open(self.results_path) as fh:
+            self.metrics = json.load(fh)
+        return self.metrics
+
+    def _write_results(self) -> Dict[str, Any]:
+        """Stamps ``self.metrics`` with the protocol and caches it."""
         self.metrics["protocol"] = self.protocol_dict()
         os.makedirs(self.run_dir, exist_ok=True)
         with open(self.results_path, "w") as fh:

@@ -1,11 +1,14 @@
 """Flax → PyTorch parameter conversion for ``MnistVAE``, ``DspritesVAE``,
-``MeasureVAE`` and the MNIST ResNet judge.
+the fader networks and their discriminator, ``MeasureVAE`` and the MNIST
+ResNet judge.
 
 The exact inverses of ``convert_mnist_vae``, ``convert_dsprites_vae``
 and ``convert_measure_vae`` in ``arvae_tpu/utils/torch_convert.py``, so a
 test can load the same weights into both packages; the judge
 (``arvae_tpu/training/resnet_judge.py``) maps onto torchvision's
-ResNet-18 names, its BatchNorm statistics included. That module maps the
+ResNet-18 names, its BatchNorm statistics included; the fader networks
+are the VAEs without ``enc_log_std`` (that module has no fader
+converter: the tests carry the other direction). That module maps the
 hierarchical decoder only; for the SR decoders the port's parameters
 carry the Flax tree's names (``decoder.z2in1.weight`` is ``z2in1_w``
 transposed, ``decoder.gru.*`` is ``gru``), so their conversion here is
@@ -92,11 +95,19 @@ def dsprites_vae_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]
         sd.update(_convtranspose(params[f"dec_convs_{i}"], f"dec_conv.{idx}"))
     sd.update(_linear_flatten_in(params["enc_denses_0"], "enc_lin.0", 32, 4, 4))
     sd.update(_linear(params["enc_denses_1"], "enc_lin.2"))
-    sd.update(_linear(params["enc_mean"], "enc_mean"))
-    sd.update(_linear(params["enc_log_std"], "enc_log_std"))
+    sd.update(_heads(params))
     sd.update(_linear(params["dec_denses_0"], "dec_lin.0"))
     sd.update(_linear(params["dec_denses_1"], "dec_lin.2"))
     sd.update(_linear_flatten_out(params["dec_denses_2"], "dec_lin.4", 32, 4, 4))
+    return sd
+
+
+def _heads(params) -> Dict[str, torch.Tensor]:
+    """The mean head, and the log-std head where there is one (the fader
+    networks have none)."""
+    sd = _linear(params["enc_mean"], "enc_mean")
+    if "enc_log_std" in params:
+        sd.update(_linear(params["enc_log_std"], "enc_log_std"))
     return sd
 
 
@@ -107,10 +118,24 @@ def mnist_vae_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         sd.update(_conv(params[f"enc_convs_{i}"], f"enc_conv.{idx}"))
         sd.update(_convtranspose(params[f"dec_convs_{i}"], f"dec_conv.{idx}"))
     sd.update(_linear_flatten_in(params["enc_dense"], "enc_lin.0", 8, 19, 19))
-    sd.update(_linear(params["enc_mean"], "enc_mean"))
-    sd.update(_linear(params["enc_log_std"], "enc_log_std"))
+    sd.update(_heads(params))
     sd.update(_linear(params["dec_denses_0"], "dec_lin.0"))
     sd.update(_linear_flatten_out(params["dec_denses_1"], "dec_lin.2", 8, 19, 19))
+    return sd
+
+
+def fader_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``MnistFaderNetwork`` or ``DspritesFaderNetwork`` params (told
+    apart by MNIST's one ``enc_dense``) → ``state_dict`` of the port's."""
+    return (mnist_vae_from_flax if "enc_dense" in params else dsprites_vae_from_flax)(params)
+
+
+def fader_discriminator_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``ImageFaderDiscriminator`` params (``Dense_{0,1,2}``) →
+    ``state_dict`` of the port's (``layers.{0,3,6}``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, idx in enumerate((0, 3, 6)):
+        sd.update(_linear(params[f"Dense_{i}"], f"layers.{idx}"))
     return sd
 
 

@@ -145,11 +145,32 @@ and the script exits non-zero:
    CLI's checkpoint; the MNIST step's device busy, events, idle share
    and largest kernels over 50 profiled steps. The kernels line's reg
    entries carry the MNIST shape's time, bound and launches
-   (``"mnist"``).
+   (``"mnist"``);
+11. slice 7 (fader and sweep): the fader CLI (``python -m
+   arvae_tpu_torch.train_image_fader``) in-process on slice 6's
+   synthetic MNIST set (``FADER_MNIST_ARGS``: MnistFaderNetwork at
+   MnistVAE's width, dropout 0.5, B=128, 2 epochs) and on the --short
+   dSprites grid (``FADER_DSPRITES_ARGS``), each: the losses finite and
+   falling, a val batch's reconstruction below the initial weights',
+   **no** launch of the port's kernels (training and evaluation), a
+   checkpoint with both networks and both Adam states, the five metrics
+   and the stamp in ``results_dict.json`` without ``test_loss`` or
+   ``test_acc``, the trained fader against the CPU from the CLI's
+   checkpoint, and one two-optimiser step repeated bitwise; the dSprites
+   run continued by ``--resume`` (the step count goes on); both fader
+   steps' device busy, events and idle share (profiler); two γ×δ sweep
+   cells at the grid's corners (``SWEEP_CORNERS``) through
+   ``script_hyper_param_exp.run_cell``, 1 epoch each: a finite row and
+   the reg pair 1 + 1 a train step; the image CLI with ``--bf16``
+   (``BF16_ARGS``, 2 epochs): the loss finite and falling, the reg pair
+   1 + 1 a train step, and a val batch against a CPU bfloat16 copy from
+   the checkpoint within ``BF16_RTOL``. Each kernel's entry in the
+   kernels line carries these launches (``"slice7_launches"``).
 
 Launch counts are set to 0 just before each slice (and each variant of
-slices 3 and 4, and each CLI call of slices 5 and 6) and read just after
-it; the comparisons of phases 3, 9 and 10 do not count. The line before the last
+slices 3 and 4, and each CLI call of slices 5, 6 and 7, each sweep cell)
+and read just after it; the comparisons of phases 3, 9 and 10 do not
+count. The line before the last
 is the card's name and power limit as ``nvidia-smi`` prints them, the
 one before it a JSON object listing every kernel; the last line is a
 JSON object ``{"ok": true, "device": {...}}``.
@@ -282,6 +303,27 @@ MNIST_RUN = "MnistVAE_r_0_b_1.0_g_10.0_d_1.0_all_"
 MNIST_RESULT_KEYS = RESULT_KEYS[:-1] + ["digit_pred_acc", "protocol"]
 JUDGE_BAR = 0.96
 JUDGE_EPOCHS = 20
+
+# Slice 7, the fader baseline and the γ×δ sweep. The fader CLI at its
+# defaults (β=4, rand 0) but 2 epochs: MNIST on slice 6's synthetic set
+# (MnistFaderNetwork at MnistVAE's width, z=16, dropout 0.5, B=128) and
+# the --short dSprites grid, then one more dSprites epoch by --resume.
+# The fader has no AR term: its path launches none of the port's kernels.
+FADER_MNIST_ARGS = ["-d", "mnist", "--num_epochs", "2", "--batch_size", "128"]
+FADER_DSPRITES_ARGS = ["-d", "dsprites", "--short", "--num_epochs", "2", "--batch_size",
+                       "128"]
+FADER_RESULT_KEYS = RESULT_KEYS[:5] + ["protocol"]
+# The sweep's corner cells, (γ, δ): δ=100 saturates tanh, δ=0.01 nearly
+# linear; --short dSprites, 1 epoch each, through run_cell
+SWEEP_CORNERS = ((0.01, 100.0), (100.0, 0.01))
+# The image CLI with --bf16: the dSprites slice's flags. Card against CPU,
+# both bfloat16: cuDNN's and oneDNN's bfloat16 layers round each output
+# alike but sum in other orders, so a few elements round the other way and
+# carry through later layers (2e-2 of the largest |logit| between the
+# JAX and the port's models on the CPU, tests/test_torch_image_bf16.py);
+# the losses, means of 4,096 pixel terms a row, within 1e-2 relative.
+BF16_ARGS = SLICE_ARGS + ["--bf16"]
+BF16_RTOL = 1e-2
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1035,22 +1077,21 @@ def _teacher_forced_metrics(trainer, batch, noise):
 
 
 def _trainer_state(trainer):
-    """A copy of the trainer's parameters, Adam state and step count."""
-    return copy.deepcopy({"model": trainer.model.state_dict(),
-                          "optimizer": trainer.optimizer.state_dict(), "step": trainer.step})
+    """A copy of the trainer's checkpoint state: parameters, Adam states
+    and step count (the fader's discriminator and its Adam too)."""
+    return copy.deepcopy(trainer.checkpoint_state())
 
 
 def _load_trainer_state(trainer, state):
-    trainer.model.load_state_dict(state["model"])
     # a copy: Adam then updates its moments in place, and would update
     # the ones in ``state``
-    trainer.optimizer.load_state_dict(copy.deepcopy(state["optimizer"]))
-    trainer.step = state["step"]
+    trainer.restore_state(copy.deepcopy(state))
 
 
 def _step_repeats(tag, trainer, batch, must=True):
     """One train step twice from the same parameters, Adam state and
-    draws: the loss, every gradient and every updated parameter must be
+    draws (the fader's: both networks' and both Adam states): the loss,
+    every gradient and every updated parameter must be
     bitwise equal (with ``must``; else the names that differ are
     returned). Leaves the trainer as it found it."""
     from arvae_tpu_torch.models.measure_vae import draw_measure_noise
@@ -1070,9 +1111,12 @@ def _step_repeats(tag, trainer, batch, must=True):
         if isinstance(trainer, MeasureVAETrainerGLSR):
             noise = GLSRNoise(noise, torch.rand(b, generator=gen, device=dev))
         out = {"loss": trainer.train_step(batch, noise)["loss"]}
-        for n, p in trainer.model.named_parameters():
-            out[f"d{n}"] = p.grad.clone()
-            out[n] = p.detach().clone()
+        nets = {"": trainer.model, **({"disc.": trainer.disc} if hasattr(trainer, "disc")
+                                      else {})}
+        for prefix, net in nets.items():
+            for n, p in net.named_parameters():
+                out[f"d{prefix}{n}"] = p.grad.clone()
+                out[prefix + n] = p.detach().clone()
         runs.append(out)
     _load_trainer_state(trainer, state)
     differ = [k for k in runs[0] if not torch.equal(runs[0][k], runs[1][k])]
@@ -2137,11 +2181,12 @@ def _mnist_judge(models_dir, datasets_dir):
     return acc, seconds
 
 
-def phase_mnist(card_line):
-    """Slice 6: the synthetic Morpho-MNIST set built, the reg pair at the
-    MNIST shapes, the judge trained by its CLI, the MNIST CLI run twice,
-    its evaluation checked, repeated and held against the CPU, and its
-    train step profiled → the numbers the kernels line and PERF.md take."""
+def phase_mnist(card_line, data_dir):
+    """Slice 6: the synthetic Morpho-MNIST set built under ``data_dir``
+    (kept for slice 7), the reg pair at the MNIST shapes, the judge
+    trained by its CLI, the MNIST CLI run twice, its evaluation checked,
+    repeated and held against the CPU, and its train step profiled → the
+    numbers the kernels line and PERF.md take."""
     from arvae_tpu_torch import train_image_vae
     from arvae_tpu_torch.models.image_vae import MnistVAE
     from arvae_tpu_torch.ops import reg_kernel as rk
@@ -2150,7 +2195,7 @@ def phase_mnist(card_line):
     out = {}
     before = os.environ.get("ARVAE_DATASETS_DIR")
     with tempfile.TemporaryDirectory() as tmp:
-        data_dir, models_dir = os.path.join(tmp, "datasets"), os.path.join(tmp, "models")
+        models_dir = os.path.join(tmp, "models")
         ds, out["data_s"] = _mnist_data(data_dir, card_line)
         out["reg_err"] = _mnist_reg(rk, ds, torch.device("cuda"))
         out["judge_acc"], out["judge_s"] = _mnist_judge(models_dir, data_dir)
@@ -2221,6 +2266,225 @@ def phase_mnist(card_line):
     return out
 
 
+@contextlib.contextmanager
+def _datasets_dir(path):
+    """ARVAE_DATASETS_DIR set to ``path`` within the block."""
+    before = os.environ.get("ARVAE_DATASETS_DIR")
+    os.environ["ARVAE_DATASETS_DIR"] = path
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("ARVAE_DATASETS_DIR", None)
+        else:
+            os.environ["ARVAE_DATASETS_DIR"] = before
+
+
+def _fader_cli_run(models_dir, argv):
+    """The fader CLI in-process → (trainer, launches, seconds, checkpoint
+    written)."""
+    from arvae_tpu_torch import train_image_fader
+
+    os.environ["ARVAE_MODELS_DIR"] = models_dir
+    _reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_image_fader.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (trainer, _read_launches(), seconds,
+            os.path.isfile(os.path.join(trainer.run_dir, "ckpt.pt")))
+
+
+def _check_no_launches(tag, launches):
+    if any(v for counts in launches.values() for v in counts.values()):
+        raise AssertionError(f"{tag}: the port's kernels launched on the fader path: "
+                             f"{launches}")
+
+
+def _check_fader_checkpoint(tag, trainer):
+    """Both networks, both Adam states (with moments) and the step."""
+    ckpt = torch.load(os.path.join(trainer.run_dir, "ckpt.pt"), map_location="cpu",
+                      weights_only=True)
+    if not {"model", "optimizer", "disc", "disc_optimizer", "step"} <= set(ckpt) or not (
+            ckpt["optimizer"]["state"] and ckpt["disc_optimizer"]["state"]) or \
+            ckpt["step"] != trainer.step:
+        raise AssertionError(f"{tag}: checkpoint keys {sorted(ckpt)}, step {ckpt.get('step')}")
+    print(f"[fader] {tag}: the checkpoint holds both networks, both Adam states "
+          f"({len(ckpt['optimizer']['state'])} + {len(ckpt['disc_optimizer']['state'])} "
+          f"parameters' moments) and step {ckpt['step']}")
+
+
+def _check_fader_results(tag, trainer, batch_size, epochs):
+    """results_dict.json: the five metrics and the stamp, no test pass."""
+    results = _read_results(trainer)
+    if list(results) != FADER_RESULT_KEYS:
+        raise AssertionError(f"{tag}: results_dict.json keys {list(results)}")
+    interp = results["interpretability"]
+    attrs = [a for a in trainer.attr_dict if a not in ("color", "digit_identity")]
+    scores = [v for _, v in interp.values()] + [results[k] for k in FADER_RESULT_KEYS[1:5]]
+    if list(interp) != attrs + ["mean"] or not all(math.isfinite(x) for x in scores) or \
+            not all(0.0 <= results[k] <= 1.0 for k in FADER_RESULT_KEYS[1:5]):
+        raise AssertionError(f"{tag}: results {results}")
+    want = dict(trainer.protocol_dict(), num_epochs=epochs, batch_size=batch_size)
+    if results["protocol"] != want:
+        raise AssertionError(f"{tag}: protocol {results['protocol']} != {want}")
+    print(f"[fader] {tag}: results_dict.json has the five metrics and the stamp "
+          f"{results['protocol']}, no test_loss or test_acc; mig {results['mig']:.6f}, "
+          f"interpretability {interp['mean'][1]:.6f}")
+    return results
+
+
+def _fader_run(tag, models_dir, argv):
+    """One fader CLI run: finite losses falling, no kernel launched, the
+    checkpoint, the results, the reconstruction of a val batch below the
+    initial weights', card against CPU from the CLI's checkpoint, and a
+    two-optimiser step repeated bitwise → the trainer."""
+    from arvae_tpu_torch.training.fader_trainer import ImageFaderTrainer
+
+    trainer, launches, seconds, ckpt_ok = _fader_cli_run(models_dir, argv)
+    _check_no_launches(tag, launches)
+    hist = trainer.history
+    n_train, n_val = _check_history(tag, hist, ckpt_ok)
+    _check_fader_checkpoint(tag, trainer)
+    _check_fader_results(tag, trainer, B_TRAIN, 2)
+    dev, h = trainer.device, trainer.hparams
+    train_split, val = trainer.dataset.device_splits(dev)
+    batch = val.gather_batch(torch.arange(B_TRAIN, device=dev))
+    # the CLI's initial weights: the same seeds
+    init = ImageFaderTrainer(trainer.dataset, type(trainer.model)(seed=h.rand), dev,
+                             beta=h.beta, rand=h.rand)
+    before, after = init.eval_step(batch), trainer.eval_step(batch)
+    if not float(after["recons_loss"]) < float(before["recons_loss"]):
+        raise AssertionError(f"{tag}: the reconstruction did not fall: "
+                             f"{float(before['recons_loss'])} -> {float(after['recons_loss'])}")
+    print(f"[fader] {tag} CLI {' '.join(argv)}: 2 epochs in {seconds:.1f} s ({n_train} train + "
+          f"{n_val} val steps); train loss {hist[0]['train_loss']:.4f} -> "
+          f"{hist[1]['train_loss']:.4f}; val batch recons_loss {float(before['recons_loss']):.4f} "
+          f"(initial weights) -> {float(after['recons_loss']):.4f}, adv_loss "
+          f"{float(after['adv_loss']):.6f}; the port's kernels launched {launches}")
+    cpu = ImageFaderTrainer(trainer.dataset, type(trainer.model)(), "cpu", beta=h.beta,
+                            rand=h.rand)
+    cpu.load_model()  # the CLI's checkpoint: both networks
+    want = cpu.eval_step(tuple(t.cpu() for t in batch))
+    for k in ("loss", "recons_loss", "adv_loss"):
+        _check_close(f"{tag} {k}", after[k].cpu(), want[k], SLICE_RTOL, ATOL)
+    print(f"[fader] {tag}: the trained fader on a val batch, card vs CPU plain path: loss "
+          f"{float(after['loss']):.6f} vs {float(want['loss']):.6f}, adv_loss "
+          f"{float(after['adv_loss']):.6f} vs {float(want['adv_loss']):.6f}")
+    _step_repeats(f"slice 7 ({tag})", trainer,
+                  train_split.gather_batch(torch.arange(B_TRAIN, device=dev)))
+    return trainer, launches
+
+
+def _sweep_corners():
+    """Two sweep cells through ``run_cell`` on the --short grid, 1 epoch
+    each: a finite row, the reg pair once a forward and once a backward
+    → {cell: (launches, train steps, val steps, row)}."""
+    from arvae_tpu_torch import script_hyper_param_exp as sweep
+
+    data = sweep.sweep_data("dsprites", True)
+    out = {}
+    for gamma, delta in SWEEP_CORNERS:
+        tag = f"sweep cell gamma={gamma} delta={delta}"
+        _reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer, row = sweep.run_cell(*data, gamma, delta, device=torch.device("cuda"),
+                                          batch_size=B_TRAIN, num_epochs=1)
+        launches = _read_launches()
+        if row is None or not all(math.isfinite(x) for x in row):
+            raise AssertionError(f"{tag}: row {row}")
+        (h,) = trainer.history
+        n_train, n_val = h["train_steps"], h["val_steps"]
+        if not math.isfinite(h["train_loss"]):
+            raise AssertionError(f"{tag}: train loss {h['train_loss']}")
+        # the evaluation launches none of the port's kernels on dSprites
+        _check_launches(tag, launches, {"reg": {"fwd": n_train + n_val, "bwd": n_train},
+                                        "gru": {"fwd": 0, "bwd": 0},
+                                        "hier": {"fwd": 0, "bwd": 0}})
+        print(f"[sweep] {tag}: 1 epoch ({n_train} train + {n_val} val steps), train loss "
+              f"{h['train_loss']:.4f}; reg launches fwd={launches['reg']['fwd']} "
+              f"bwd={launches['reg']['bwd']} (1 + 1 a train step); row "
+              + json.dumps(dict(zip(sweep.COLUMNS, row))))
+        out[(gamma, delta)] = (launches, n_train, n_val, row)
+    return out
+
+
+def _bf16_run(models_dir, card_line):
+    """The image CLI with --bf16: the loss finite and falling, the reg
+    pair 1 + 1 a train step, the trained model on a val batch against a
+    CPU bfloat16 copy from the checkpoint within BF16_RTOL, and its train
+    step's device busy → (launches, train steps, val steps, busy ms)."""
+    from arvae_tpu_torch.models.image_vae import DspritesVAE, draw_noise
+    from arvae_tpu_torch.training.image_trainer import ImageVAETrainer
+
+    tag = "--bf16 image CLI"
+    trainer, launches, seconds, ckpt_ok = _image_cli_run(models_dir, BF16_ARGS)
+    if trainer.model.compute_dtype != torch.bfloat16:
+        raise AssertionError(f"{tag}: the model computes in {trainer.model.compute_dtype}")
+    hist = trainer.history
+    n_train, n_val = _check_history(tag, hist, ckpt_ok)
+    _check_launches(tag, launches, {"reg": {"fwd": n_train + n_val, "bwd": n_train},
+                                    "gru": {"fwd": 0, "bwd": 0}, "hier": {"fwd": 0, "bwd": 0}})
+    h, dev = trainer.hparams, trainer.device
+    cpu = ImageVAETrainer(trainer.dataset, DspritesVAE(compute_dtype=torch.bfloat16), "cpu",
+                          reg_type=h.reg_type, reg_dim=h.reg_dim, beta=h.beta, gamma=h.gamma,
+                          delta=h.delta, rand=h.rand)
+    cpu.load_model()
+    _, val = trainer.dataset.device_splits(dev)
+    batch = val.gather_batch(torch.arange(B_TRAIN, device=dev))
+    noise = draw_noise(B_TRAIN, trainer.model.z_dim, torch.Generator().manual_seed(1), "cpu")
+    got = trainer.eval_step(batch, tuple(t.to(dev) for t in noise))
+    want = cpu.eval_step(tuple(t.cpu() for t in batch), noise)
+    errs = {k: _check_close(f"{tag} {k}", got[k].cpu(), want[k], BF16_RTOL, ATOL)
+            for k in ("loss", "recons_loss", "dist_loss", "reg_loss")}
+    print(f"[bf16] {tag} {' '.join(BF16_ARGS)}: 2 epochs in {seconds:.1f} s; train loss "
+          f"{hist[0]['train_loss']:.4f} -> {hist[1]['train_loss']:.4f}; val loss "
+          f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f}; reg launches "
+          f"fwd={launches['reg']['fwd']} bwd={launches['reg']['bwd']} ({n_train} train + {n_val} "
+          f"val steps); a val batch card vs CPU (both bfloat16): loss {float(got['loss']):.6f} "
+          f"vs {float(want['loss']):.6f}, abs errs {errs}")
+    train_split, _ = trainer.dataset.device_splits(dev)
+    busy = _device_busy("dSprites --bf16 (DspritesVAE, B=128, -r all)", trainer, train_split,
+                        B_TRAIN, card_line)
+    return launches, n_train, n_val, busy
+
+
+def phase_fader(card_line, mnist_data_dir):
+    """Slice 7: the fader CLI on MNIST (slice 6's synthetic set) and on
+    --short dSprites, --resume, two sweep corner cells and a --bf16 image
+    CLI run, each checked; the fader steps profiled → the numbers the
+    kernels line and PERF.md take."""
+    out = {"fader_launches": {}}
+    with tempfile.TemporaryDirectory() as models_dir:
+        with _datasets_dir(mnist_data_dir):
+            mnist, out["fader_launches"]["mnist"] = _fader_run("fader MNIST", models_dir,
+                                                               FADER_MNIST_ARGS)
+            train_split, _ = mnist.dataset.device_splits(mnist.device)
+            out["mnist_busy_ms"] = _device_busy(
+                "fader MNIST (MnistFaderNetwork, B=128, dropout 0.5, two Adam steps)", mnist,
+                train_split, B_TRAIN, card_line)
+        dsp, out["fader_launches"]["dsprites"] = _fader_run("fader dSprites", models_dir,
+                                                            FADER_DSPRITES_ARGS)
+        steps = dsp.step
+        resumed, launches, _, _ = _fader_cli_run(
+            models_dir, FADER_DSPRITES_ARGS + ["--num_epochs", "1", "--resume"])
+        _check_no_launches("fader dSprites --resume", launches)
+        out["fader_launches"]["dsprites --resume"] = launches
+        if resumed.step != steps + resumed.history[0]["train_steps"] or \
+                resumed.history[0]["step"] != resumed.step:
+            raise AssertionError(f"fader --resume: step {resumed.step} after {steps} and "
+                                 f"{resumed.history}")
+        _check_fader_checkpoint("fader dSprites --resume", resumed)
+        print(f"[fader] --resume: the dSprites run continued from step {steps} to "
+              f"{resumed.step}, train loss {resumed.history[0]['train_loss']:.4f}")
+        train_split, _ = dsp.dataset.device_splits(dsp.device)
+        out["dsprites_busy_ms"] = _device_busy("fader dSprites (B=128, two Adam steps)", dsp,
+                                               train_split, B_TRAIN, card_line)
+        out["sweep"] = _sweep_corners()
+        out["bf16"] = _bf16_run(models_dir, card_line)
+    return out
+
+
 def _timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2244,7 +2508,10 @@ def main() -> int:
                                  phase_wide_deep, card_line)
         evaluation = _timed("slice 5 (evaluation)", phase_eval, image[2], image_dir, music[2],
                             music_dir, variant_runs + wide_runs, card_line)
-    mnist = _timed("slice 6 (Morpho-MNIST)", phase_mnist, card_line)
+    with tempfile.TemporaryDirectory() as mnist_tmp:  # slice 6's data, for slice 7
+        mnist_data = os.path.join(mnist_tmp, "datasets")
+        mnist = _timed("slice 6 (Morpho-MNIST)", phase_mnist, card_line, mnist_data)
+        fader = _timed("slice 7 (fader and sweep)", phase_fader, card_line, mnist_data)
     print(f"[phase] total: {time.perf_counter() - t0:.1f} s")
 
     from arvae_tpu_torch.utils import kernel_work as kw
@@ -2274,6 +2541,7 @@ def main() -> int:
                 "eval_launches_per_batch": {p: measured["per_batch"][p][key][direction]
                                             for p in ("harvest", "test")},
                 "slice3_launches": by_variant,
+                "slice7_launches": slice7(key, direction),
                 "max_abs_err": errs[key][direction == "bwd"],
                 "ms": t[direction], "plain_ms": t[f"{direction}_plain"],
                 "bound_ms": w.bound_ms, "bound_by": w.bound_by,
@@ -2281,6 +2549,17 @@ def main() -> int:
                 **({"events_ms": t[f"{direction}_events"],
                     "mnist": mnist_reg(direction)} if key == "reg" else {}),
                 **({"wide_deep_shapes": shapes(key, direction)} if key != "reg" else {})}
+
+    def slice7(key, direction):
+        """Slice 7's launches: each fader CLI run's (0), and a train step's
+        in each sweep corner cell and in the --bf16 image CLI run."""
+        def per_step(counts, n_train, n_val):
+            return counts[key][direction] / (n_train + n_val if direction == "fwd" else n_train)
+
+        return {"fader": {run: c[key][direction] for run, c in fader["fader_launches"].items()},
+                "sweep_cells_per_step": {f"gamma={g} delta={d}": per_step(c, nt, nv)
+                                         for (g, d), (c, nt, nv, _) in fader["sweep"].items()},
+                "bf16_per_step": per_step(*fader["bf16"][:3])}
 
     def mnist_reg(direction):
         """The reg kernel at the MNIST step's shapes: (R, B) = (6, 128),
@@ -2365,6 +2644,11 @@ def main() -> int:
           f"{mnist['digit_pred_acc']}, step device busy {mnist['busy_ms']:.3f} ms, CLI val "
           f"loss repeats: {mnist['cli_repeats']}, step repeats: {mnist['step_repeats']} "
           f"| {card_line}")
+    print(f"[times] fader step device busy: MNIST {fader['mnist_busy_ms']:.3f} ms, dSprites "
+          f"{fader['dsprites_busy_ms']:.3f} ms; the --bf16 dSprites step {fader['bf16'][3]:.3f} "
+          f"ms; the port's kernels launched on the fader path: "
+          f"{fader['fader_launches']}; reg a train step in the sweep cells and the --bf16 run: "
+          f"{kernels[0]['slice7_launches']} / {kernels[1]['slice7_launches']} | {card_line}")
     print(f"[times] dSprites step device busy: {times['dsprites_busy_free_ms']:.3f} ms with "
           f"cuDNN free to pick nondeterministic algorithms, {times['dsprites_busy_ms']:.3f} ms "
           f"with torch.backends.cudnn.deterministic=True | {card_line}")
