@@ -15,7 +15,7 @@ import torch
 
 
 class Checkpointer:
-    """Save/restore full train state under models/<repr>/ckpt.pt."""
+    """Save/restore full train state under <models_root>/torch/<repr>/ckpt.pt."""
 
     def __init__(self, run_dir: str):
         self.run_dir = os.path.abspath(run_dir)

@@ -2,9 +2,11 @@
 
 A copy of ``arvae_tpu/core/config.py`` (pure Python; the JAX package's
 ``core`` imports orbax, so the port carries its own). Hyperparameters
-are serialized into ``trainer_config`` and concatenated into the run
-path ``models/<ModelName><trainer_config>/`` with the same string
-semantics, so run dirs of the two packages share names.
+are serialized into ``trainer_config`` with the same string semantics,
+so a run's name (``model_repr``) is the JAX package's. The port keeps
+its runs under ``<models_root>/torch/<model_repr>/``, beside the JAX
+package's ``<models_root>/<model_repr>/``: neither reads or removes the
+other's checkpoint or ``results_dict.json``.
 """
 
 from __future__ import annotations
@@ -54,8 +56,8 @@ def trainer_config_string(h: TrainerHParams) -> str:
 
 
 def run_dir(model_repr: str) -> str:
-    """models/<repr>/ — the per-run artifact directory."""
-    return os.path.join(models_root(), model_repr)
+    """<models_root>/torch/<repr>/ — the port's per-run artifact directory."""
+    return os.path.join(models_root(), "torch", model_repr)
 
 
 def normalize_reg_dim(reg_dim, reg_type) -> Tuple[int, ...]:

@@ -1,22 +1,31 @@
 """Bar datasets: monophonic measures on a 24-tick grid (numpy).
 
-The synthetic-corpus path of ``arvae_tpu/data/bar_dataset.py``, copied
-so that the two packages build byte-identical corpora: the same vocab
-file (the two-line literal format, at the same ``dict_path``), the same
-generator and RNG seeds (folk 1234, chorale 4321), tune counts, 90/10
-tune split, transposition shifts, START/END window padding and cache
-``.npz`` names under the shared datasets root. Whichever package builds a
-cache first, the other reads it.
+A copy of ``arvae_tpu/data/bar_dataset.py`` so that the two packages
+build byte-identical corpora: the same vocab file (the two-line literal
+format, at the same ``dict_path``), tune split, transposition shifts,
+START/END window padding and cache ``.npz`` names under the shared
+datasets root. Whichever package builds a cache first, the other reads
+it. The corpus is, as there:
 
-Not ported yet (ROADMAP): the ``.abc`` ingest of ``folk_raw_data/``
-(raising ``NotImplementedError`` when such files are present), scores
-and MIDI output.
+1. the ``.abc`` files of ``folk_raw_data/`` when it holds any (folk
+   only), parsed by :mod:`arvae_tpu_torch.data.abc_parser` through the
+   validity filter, whose full list is cached as
+   ``<ts>valid_filelist.txt``; the list is shuffled by
+   ``RandomState(0)`` and capped at 20 files (``--short``) or 25,000;
+   tunes that fail to parse are skipped;
+2. otherwise the synthetic corpus, from the same generator and seeds
+   (folk 1234, chorale 4321) and tune counts.
+
+Scores are :class:`Score` note lists (pitch, start, duration in
+quarters; pitch -1 a rest), written as MIDI by
+:mod:`arvae_tpu_torch.utils.midi`.
 """
 
 from __future__ import annotations
 
 import ast
 import os
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -27,7 +36,30 @@ from arvae_tpu_torch.data.device_data import DeviceSplit
 from arvae_tpu_torch.data.dsprites import datasets_root
 from arvae_tpu_torch.data.music_theory import (END_SYMBOL, REST_SYMBOL, SLUR_SYMBOL,
                                                START_SYMBOL, TICK_DURATIONS,
-                                               TICKS_PER_MEASURE, midi_to_note_name)
+                                               TICKS_PER_MEASURE, midi_to_note_name,
+                                               note_name_to_midi)
+from arvae_tpu_torch.utils.midi import write_midi
+
+
+@dataclass
+class Score:
+    """A monophonic score as (pitch, start_quarters, dur_quarters) events;
+    pitch -1 denotes a rest."""
+
+    notes: List[Tuple[int, float, float]] = field(default_factory=list)
+
+    @property
+    def highest_time(self) -> float:
+        return max((s + d for _, s, d in self.notes), default=0.0)
+
+    def write_midi(self, path: str) -> None:
+        write_midi(self.notes, path)
+
+    def write(self, fmt: str, fp: str) -> None:
+        """music21's ``score.write("midi", fp=...)``, MIDI only."""
+        if fmt != "midi":
+            raise ValueError(f"only MIDI is written, not {fmt!r}")
+        self.write_midi(fp)
 
 # Onset probability per tick position within a beat (strong beats first)
 _FOLK_ONSET_P = np.tile([0.95, 0.08, 0.12, 0.45, 0.12, 0.25], 4)
@@ -72,6 +104,32 @@ def _tune_token_names(tune: np.ndarray, shift: int = 0) -> List[str]:
     return names
 
 
+_TICK_STARTS = np.cumsum([0.0] + [float(d) for d in TICK_DURATIONS])
+
+
+def onset_tick(start: float, beat_subdivisions: int) -> int:
+    """The tick of a note onset (in quarters): the one grid-snapping rule
+    of ``score_to_tensor`` and ``score_to_tick_codes``."""
+    beat, frac = divmod(start, 1.0)
+    tick_in_beat = int(np.argmin(np.abs(_TICK_STARTS[:-1] - frac)))
+    return int(beat) * beat_subdivisions + tick_in_beat
+
+
+def score_to_tick_codes(score: Score, beat_subdivisions: int = 6) -> Optional[np.ndarray]:
+    """Score → per-tick codes: ≥0 MIDI onset, -1 slur continuation, -2
+    rest onset (the tunes' representation); None for an empty score."""
+    length = int(round(score.highest_time * beat_subdivisions))
+    if length == 0:
+        return None
+    codes = np.full((length,), -1, dtype=np.int64)
+    for pitch, start, _ in score.notes:
+        tick = onset_tick(start, beat_subdivisions)
+        if tick >= length:
+            continue
+        codes[tick] = -2 if pitch < 0 else int(pitch)
+    return codes
+
+
 class FolkBarDataset:
     """Single-measure folk dataset over the synthetic corpus."""
 
@@ -92,6 +150,7 @@ class FolkBarDataset:
         self.dataset_dir_path = datasets_root()
         self.class_name = f"{self.time_sig_str}_{type(self).__name__}_"
         self.raw_datapath = raw_datapath or os.path.join(os.getcwd(), "folk_raw_data")
+        self.max_num_files = 20 if is_short else 25000
         self.note2index_dicts: Dict[str, int] = {}
         self.index2note_dicts: Dict[int, str] = {}
         self._tunes: Optional[List[np.ndarray]] = None
@@ -160,22 +219,59 @@ class FolkBarDataset:
 
     # -- corpus ----------------------------------------------------------------
 
+    def _abc_files(self) -> List[str]:
+        """The ``.abc`` files of ``raw_datapath``, sorted (folk only)."""
+        if self.style != "folk" or not os.path.isdir(self.raw_datapath):
+            return []
+        return sorted(os.path.join(self.raw_datapath, f)
+                      for f in os.listdir(self.raw_datapath) if f.endswith(".abc"))
+
+    def _valid_abc_files(self) -> List[str]:
+        """The files that pass the validity filter, cached as
+        ``<ts>valid_filelist.txt`` in the datasets root. The cache holds
+        the full valid list; the reader applies ``max_num_files``, so a
+        ``--short`` run never stands for a full one."""
+        from arvae_tpu_torch.data.abc_parser import is_valid_folk_tune
+
+        os.makedirs(self.dataset_dir_path, exist_ok=True)
+        cache = os.path.join(self.dataset_dir_path, self.time_sig_str + "valid_filelist.txt")
+        if os.path.exists(cache):
+            with open(cache) as f:
+                return [os.path.join(self.raw_datapath, line.rstrip("\n"))
+                        for line in f if line.strip()]
+        valid = [path for path in self._abc_files()
+                 if is_valid_folk_tune(path, (self.time_sig_num, self.time_sig_den))]
+        with open(cache, "w") as f:
+            for p in valid:
+                f.write(os.path.basename(p) + "\n")
+        return valid
+
     def _corpus_all_tunes(self) -> List[np.ndarray]:
-        """Every synthetic tune of the corpus (both splits)."""
+        """Every tune of the corpus (both splits), read once."""
         if self._all_tunes is None:
-            if self.style == "folk" and os.path.isdir(self.raw_datapath) and any(
-                    f.endswith(".abc") for f in os.listdir(self.raw_datapath)):
-                raise NotImplementedError(
-                    f"{self.raw_datapath} holds .abc files; the .abc ingest is "
-                    "not ported yet (ROADMAP Queue A). Train on the synthetic "
-                    "corpus by running where no folk_raw_data/ exists")
-            n = self.n_tunes_short if self.is_short else self.n_tunes_full
-            rng = np.random.RandomState(1234 if self.style == "folk" else 4321)
-            self._all_tunes = [
-                generate_synthetic_tune(rng, num_measures=int(rng.randint(8, 17)),
-                                        style=self.style)
-                for _ in range(n)
-            ]
+            if self._abc_files():
+                from arvae_tpu_torch.data.abc_parser import parse_abc_file
+
+                files = self._valid_abc_files()
+                order = np.random.RandomState(0).permutation(len(files))
+                # the cap after the shuffle, whichever run built the cache
+                files = [files[i] for i in order][: self.max_num_files]
+                tunes = []
+                for p in files:
+                    try:
+                        _, score = parse_abc_file(p)
+                    except Exception:  # a tune that fails to parse is skipped
+                        continue
+                    codes = score_to_tick_codes(score, self.beat_subdivisions)
+                    if codes is not None:
+                        tunes.append(codes)
+            else:
+                n = self.n_tunes_short if self.is_short else self.n_tunes_full
+                rng = np.random.RandomState(1234 if self.style == "folk" else 4321)
+                tunes = [generate_synthetic_tune(rng, num_measures=int(rng.randint(8, 17)),
+                                                 style=self.style)
+                         for _ in range(n)]
+            self._all_tunes = tunes
         return self._all_tunes
 
     def _corpus_tunes(self) -> List[np.ndarray]:
@@ -208,8 +304,66 @@ class FolkBarDataset:
         return list(range(self.pitch_range[0] - lo, self.pitch_range[1] - hi + 1))
 
     def _tokens(self, tune: np.ndarray, shift: int = 0) -> np.ndarray:
+        """Token ids of one tune; a name the vocabulary lacks (a real
+        corpus's pitch outside a cached file's span) grows it."""
         return np.array([self._token_index(nm) for nm in _tune_token_names(tune, shift)],
                         dtype=np.int64)
+
+    # -- scores ----------------------------------------------------------------
+
+    def score_to_tensor(self, score: Score) -> Optional[np.ndarray]:
+        """Score → (1, L) token row: a token at each onset tick, SLUR on
+        continuations; None for an empty score. An unseen note name
+        grows the vocabulary."""
+        length = int(round(score.highest_time * self.beat_subdivisions))
+        if length == 0:
+            return None
+        tokens = np.full((length,), self.note2index_dicts[SLUR_SYMBOL], dtype=np.int64)
+        for pitch, start, _ in score.notes:
+            tick = onset_tick(start, self.beat_subdivisions)
+            if tick >= length:
+                continue
+            name = REST_SYMBOL if pitch < 0 else midi_to_note_name(pitch)
+            tokens[tick] = self._token_index(name)
+        return tokens[None, :]
+
+    def tensor_to_m21score(self, tensor_score) -> Score:
+        """Token row(s) → Score: every token but SLUR starts an event,
+        which lasts until the next one; a token with no pitch (rest,
+        START, END) is a rest."""
+        slur_index = self.note2index_dicts[SLUR_SYMBOL]
+        flat = np.asarray(tensor_score).reshape(-1)
+        notes: List[Tuple[int, float, float]] = []
+        cur_pitch = None
+        cur_start = 0.0
+        t = 0.0
+        for tick_index, note_index in enumerate(flat):
+            dur = float(TICK_DURATIONS[tick_index % self.beat_subdivisions])
+            if note_index != slur_index:
+                if cur_pitch is not None:
+                    notes.append((cur_pitch, cur_start, t - cur_start))
+                midi = note_name_to_midi(self.index2note_dicts[int(note_index)])
+                cur_pitch = midi if midi is not None else -1
+                cur_start = t
+            t += dur
+        if cur_pitch is not None:
+            notes.append((cur_pitch, cur_start, t - cur_start))
+        return Score(notes=notes)
+
+    @staticmethod
+    def concatenate_scores(scores_list: Sequence[Score]) -> Score:
+        """Back-to-back measures, 4 quarters apart."""
+        out = Score()
+        offset = 0.0
+        for s in scores_list:
+            for p, st, d in s.notes:
+                out.notes.append((p, offset + st, d))
+            offset += 4.0
+        return out
+
+    def empty_score_tensor(self, score_length: int) -> np.ndarray:
+        """(1, score_length) SLUR tokens."""
+        return np.full((1, score_length), self.note2index_dicts[SLUR_SYMBOL], dtype=np.int64)
 
     # -- tensors ---------------------------------------------------------------
 

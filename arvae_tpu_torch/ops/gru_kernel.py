@@ -43,7 +43,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -272,11 +272,12 @@ def _dims(gi, w_hh, b_hh, h0) -> Tuple[int, int, int, int]:
 
 
 def gru_chain_fwd_cuda(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
-                       h0: torch.Tensor) -> torch.Tensor:
-    """Launches the forward kernel → outs (T, D, B, H)."""
+                       h0: torch.Tensor, plan: Optional[ChainPlan] = None) -> torch.Tensor:
+    """Launches the forward kernel → outs (T, D, B, H). ``plan``: the
+    launch plan, :func:`gru_plan`'s by default."""
     t, d, b, h = _dims(gi, w_hh, b_hh, h0)
     _check((("gi", gi), ("w_hh", w_hh), ("b_hh", b_hh), ("h0", h0)), gi.device)
-    plan = gru_plan(d, b, h, backward=False)
+    plan = plan or gru_plan(d, b, h, backward=False)
     lib = _library()
     outs = torch.empty((t, d, b, h), dtype=torch.float32, device=gi.device)
     with torch.cuda.device(gi.device):

@@ -7,7 +7,7 @@ Flag names follow the root ``test_mnist.py``. Run as a module:
 Each epoch takes Adadelta(lr, rho 0.9, eps 1e-6) steps (optax's
 ``adadelta``) on the NLL of the clipped softmax over the shuffled train
 digits, then prints the macro precision, recall, F1 and the accuracy on
-the t10k digits and saves the judge to ``models/MnistRESNET/ckpt.pt``,
+the t10k digits and saves the judge to ``<models_root>/torch/MnistRESNET/ckpt.pt``,
 which the MNIST AR-VAE's evaluation reads for ``digit_pred_acc``.
 ``--augment`` shifts each training image by up to 2 pixels each way.
 ``--device`` defaults to ``cuda``; without a card the script raises

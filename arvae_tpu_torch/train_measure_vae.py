@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import argparse
 import json
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -49,8 +49,9 @@ def _bool(s: str) -> bool:
     raise argparse.ArgumentTypeError(f"expected a boolean, got {s!r}")
 
 
-def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def arg_parser(description: str = __doc__.splitlines()[0]) -> argparse.ArgumentParser:
+    """The CLI's flags (``run_tester_sweep`` reads a run by the same ones)."""
+    p = argparse.ArgumentParser(description=description)
     p.add_argument("--dataset_type", "-d", default="folk", choices=("folk", "bach"),
                    help="dataset to be used, `bach` or `folk`")
     p.add_argument("--note_embedding_dim", type=int, default=10,
@@ -103,7 +104,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
             "skip seeds whose run dir holds results stamped with this protocol")
     p.add_argument("--device", default="cuda",
                    help="torch device; `cpu` must be asked for explicitly")
-    return p.parse_args(argv)
+    return p
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    return arg_parser().parse_args(argv)
 
 
 def glsr_reg_type(reg_type: Sequence[str]) -> str:
@@ -123,20 +128,28 @@ def glsr_reg_type(reg_type: Sequence[str]) -> str:
     return reg_type[0]
 
 
-def main(argv: Optional[Sequence[str]] = None) -> List[MeasureVAETrainer]:
-    """Runs the CLI; returns the trainers, one per seed not skipped."""
-    args = parse_args(argv)
+def device_of(args: argparse.Namespace) -> torch.device:
+    """``--device``; a CUDA device without a card raises."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu to "
-                           "train on the CPU")
+                           "run on the CPU")
+    return device
 
+
+def dataset_of(args: argparse.Namespace):
+    """The corpus of ``-d`` and ``--short``, finalized: building it can
+    grow the vocabulary past a cached dict file, so it comes before the
+    model is sized."""
     cls = FolkNBarDataset if args.dataset_type == "folk" else ChoraleNBarDataset
     dataset = cls(dataset_type="train", is_short=args.short, num_bars=1)
-    # finalize the corpus before sizing the model: building it can grow
-    # the vocabulary past a cached dict file
     dataset.get_dataset()
+    return dataset
 
+
+def reg_settings(args: argparse.Namespace) -> Tuple[Tuple[str, ...], Tuple[int, ...],
+                                                     Optional[str]]:
+    """(reg_type, reg_dim, the attribute --glsr regularises or None) of ``-r``."""
     reg_type = tuple(args.reg_type or ())
     if reg_type:
         unknown = [r for r in reg_type if r != "all" and r not in MUSIC_REG_TYPE]
@@ -147,51 +160,69 @@ def main(argv: Optional[Sequence[str]] = None) -> List[MeasureVAETrainer]:
         reg_dim = expand_reg_dims(reg_type, MUSIC_REG_TYPE)
     else:
         reg_dim = (0,)
-    glsr_type = glsr_reg_type(reg_type) if args.use_glsr else None
+    return reg_type, reg_dim, glsr_reg_type(reg_type) if args.use_glsr else None
+
+
+def model_of(args: argparse.Namespace, dataset, seed: int) -> MeasureVAE:
+    return MeasureVAE(
+        num_notes=len(dataset.note2index_dicts),
+        note_embedding_dim=args.note_embedding_dim,
+        num_encoder_layers=args.num_encoder_layers,
+        encoder_hidden_size=args.encoder_hidden_size,
+        encoder_dropout_prob=args.encoder_dropout_prob,
+        latent_space_dim=args.latent_space_dim,
+        num_decoder_layers=args.num_decoder_layers,
+        decoder_hidden_size=args.decoder_hidden_size,
+        decoder_dropout_prob=args.decoder_dropout_prob,
+        decoder_type=args.decoder_type,
+        sampling=args.sampling,
+        seed=seed,
+    )
+
+
+def trainer_of(args: argparse.Namespace, dataset, device: torch.device, seed: int,
+               settings) -> MeasureVAETrainer:
+    """The trainer of one seed, its model freshly initialised."""
+    reg_type, reg_dim, glsr_type = settings
+    model = model_of(args, dataset, seed)
+    if glsr_type is not None:
+        return MeasureVAETrainerGLSR(
+            dataset=dataset,
+            model=model,
+            device=device,
+            lr=args.lr,
+            reg_type=GLSR_SUPPORTED[glsr_type],
+            reg_dim=MUSIC_REG_TYPE[glsr_type],
+            beta=args.beta,
+            gamma=args.gamma,
+            rand=seed,
+        )
+    return MeasureVAETrainer(
+        dataset=dataset,
+        model=model,
+        device=device,
+        lr=args.lr,
+        reg_type=reg_type,
+        reg_dim=reg_dim,
+        beta=args.beta,
+        capacity=args.capacity,
+        gamma=args.gamma,
+        delta=args.delta,
+        rand=seed,
+    )
+
+
+def main(argv: Optional[Sequence[str]] = None) -> List[MeasureVAETrainer]:
+    """Runs the CLI; returns the trainers, one per seed not skipped."""
+    args = parse_args(argv)
+    device = device_of(args)
+    dataset = dataset_of(args)
+    settings = reg_settings(args)
 
     seeds = range(0, 10) if args.rand is None else [args.rand]
     trainers = []
     for r in seeds:
-        model = MeasureVAE(
-            num_notes=len(dataset.note2index_dicts),
-            note_embedding_dim=args.note_embedding_dim,
-            num_encoder_layers=args.num_encoder_layers,
-            encoder_hidden_size=args.encoder_hidden_size,
-            encoder_dropout_prob=args.encoder_dropout_prob,
-            latent_space_dim=args.latent_space_dim,
-            num_decoder_layers=args.num_decoder_layers,
-            decoder_hidden_size=args.decoder_hidden_size,
-            decoder_dropout_prob=args.decoder_dropout_prob,
-            decoder_type=args.decoder_type,
-            sampling=args.sampling,
-            seed=r,
-        )
-        if glsr_type is not None:
-            trainer = MeasureVAETrainerGLSR(
-                dataset=dataset,
-                model=model,
-                device=device,
-                lr=args.lr,
-                reg_type=GLSR_SUPPORTED[glsr_type],
-                reg_dim=MUSIC_REG_TYPE[glsr_type],
-                beta=args.beta,
-                gamma=args.gamma,
-                rand=r,
-            )
-        else:
-            trainer = MeasureVAETrainer(
-                dataset=dataset,
-                model=model,
-                device=device,
-                lr=args.lr,
-                reg_type=reg_type,
-                reg_dim=reg_dim,
-                beta=args.beta,
-                capacity=args.capacity,
-                gamma=args.gamma,
-                delta=args.delta,
-                rand=r,
-            )
+        trainer = trainer_of(args, dataset, device, r, settings)
         print("run_dir:", trainer.run_dir, flush=True)
         if (args.skip_cached and args.do_train
                 and trainer.has_protocol_cache(args.num_epochs, args.batch_size)):

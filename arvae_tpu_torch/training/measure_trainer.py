@@ -12,8 +12,10 @@ trainer's noise generator on the device, or from an injected
 free-running argmax with dropout off. The evaluation harvests the
 encoder's sampled ``z_tilde`` of the eval split against the four
 attributes computed from the score on the device, and tests the token
-cross-entropy and accuracy of the eval-mode decode. The plots are not
-ported yet.
+cross-entropy and accuracy of the eval-mode decode. Latent codes decode
+to token rows and a :class:`~arvae_tpu_torch.data.bar_dataset.Score`
+(``decode_latent_codes``, ``compute_latent_interpolations``); the plots
+are not ported.
 
 Precision: float32 throughout; TF32 is turned off for matmuls and cuDNN.
 """
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from arvae_tpu_torch.core.config import (TrainerHParams, normalize_reg_dim,
@@ -37,6 +40,9 @@ from arvae_tpu_torch.training.base import BaseTrainer
 
 # The run-dir tag of each decoder type.
 DECODER_TAGS = {"hier": "", "sr": "_SRDecoder", "sr-no-input": "_SRDecoderNoInput"}
+# Offset of the decodes' seed from ``rand`` (the constant the JAX
+# trainer folds into its key for them).
+_DECODE_SEED_OFFSET = 42
 
 
 class MeasureVAETrainer(BaseTrainer):
@@ -178,3 +184,42 @@ class MeasureVAETrainer(BaseTrainer):
                     token_accuracy(weights, score))
 
         return self._test_pass(batch_size, batch_metrics, noise)
+
+    # -- decoding latent codes ------------------------------------------------------
+
+    @torch.no_grad()
+    def decode_latent_codes(self, latent_codes, noise: Optional[MeasureNoise] = None):
+        """Latent codes (n, z) → (Score, samples (n, 24) int32): one
+        eval-mode decode (free-running argmax, no dropout) against a zero
+        score, on the trainer's device. No draw changes an eval decode;
+        ``noise`` overrides the draws as on the training path, which
+        otherwise come from a generator seeded from ``rand``."""
+        z = torch.as_tensor(np.asarray(latent_codes, np.float32), device=self.device)
+        n = z.shape[0]
+        dummy = torch.zeros((n, self.dataset.beat_subdivisions * 4), dtype=torch.int32,
+                            device=self.device)
+        if noise is None:
+            gen = torch.Generator(self.device).manual_seed(
+                self.hparams.rand + _DECODE_SEED_OFFSET)
+            noise = self.draw_eval_noise(n, gen)
+        self.model.eval()
+        samples = self.model.decode(z, dummy, noise, train=False)[1].cpu().numpy()
+        return self.dataset.tensor_to_m21score(samples), samples
+
+    def compute_latent_interpolations(self, latent_code, original_score, dim1: int = 0,
+                                      num_points: int = 5):
+        """A traversal of ``dim1`` over [-4, 4] in ``num_points`` codes,
+        each decoded alone, the middle measure replaced by
+        ``original_score`` → (the measures concatenated as one Score, the
+        decoded samples (num_points, 24))."""
+        if num_points % 2 != 1:
+            raise ValueError(f"num_points must be odd, got {num_points}")
+        z = np.repeat(np.asarray(latent_code, np.float32), num_points, axis=0)
+        z[:, dim1] = np.linspace(-4.0, 4.0, num_points)
+        scores, tensors = [], []
+        for n in range(num_points):
+            score, tensor = self.decode_latent_codes(z[n:n + 1])
+            scores.append(score)
+            tensors.append(tensor)
+        scores[num_points // 2] = original_score
+        return self.dataset.concatenate_scores(scores), np.concatenate(tensors, 0)

@@ -10,8 +10,8 @@ torchvision's ResNet-18 layer names, so ``utils/convert.py``'s
 scores how well a VAE keeps digit identity in its reconstructions and
 latent traversals (``judge_accuracy``, behind the MNIST evaluation's
 ``digit_pred_acc``). ``arvae_tpu_torch/test_mnist.py`` trains it and
-saves ``ckpt.pt`` under ``models/MnistRESNET/``; ``load_judge`` reads
-that file (the JAX judge's orbax directory is not read).
+saves ``ckpt.pt`` under ``<models_root>/torch/MnistRESNET/``; ``load_judge``
+reads that file (the JAX judge's orbax directory is not read).
 """
 
 from __future__ import annotations
@@ -125,7 +125,7 @@ def judge_run_dir() -> str:
 
 def load_judge(device: torch.device) -> Optional[MnistResNet]:
     """The trained judge in eval mode on ``device``, or None when
-    ``models/MnistRESNET/ckpt.pt`` does not exist."""
+    ``<models_root>/torch/MnistRESNET/ckpt.pt`` does not exist."""
     ckpt = Checkpointer(judge_run_dir())
     if not ckpt.exists():
         return None

@@ -135,8 +135,8 @@ and the script exits non-zero:
    arvae_tpu_torch.test_mnist`` at its defaults but 20 epochs, the JAX
    protocol's judge (each epoch's scores printed; the t10k accuracy must
    reach ``JUDGE_BAR``); the MNIST CLI
-   (``MNIST_ARGS``): the loss finite and falling, the run dir the JAX
-   trainer's, the reg launches 1 + 1 a train step and none in the
+   (``MNIST_ARGS``): the loss finite and falling, the run dir named as
+   the JAX trainer's under ``<models_root>/torch/``, the reg launches 1 + 1 a train step and none in the
    evaluation, ``results_dict.json`` with the JAX schema and
    ``digit_pred_acc``; a second CLI run's val losses and a train step
    from one state twice, each reported as bitwise equal or not;
@@ -165,12 +165,39 @@ and the script exits non-zero:
    (``BF16_ARGS``, 2 epochs): the loss finite and falling, the reg pair
    1 + 1 a train step, and a val batch against a CPU bfloat16 copy from
    the checkpoint within ``BF16_RTOL``. Each kernel's entry in the
-   kernels line carries these launches (``"slice7_launches"``).
+   kernels line carries these launches (``"slice7_launches"``);
+12. slice 8 (music analysis), last, on slice 2's run dir, kept for it:
+   the recurrence kernels' forwards at the analysis's batches
+   (``ANALYSIS_BATCHES``: 1, 6, 10, 22), ``gru_chain`` at (24, 2, B,
+   128), (4, 1, B, 128) and (24, 2, B, 512) and ``hier_tick_chain`` in
+   eval mode at H=128 and 512 with 2 layers and H=128 with 3, each
+   against its plain version, repeated bitwise, run again under the
+   B=256 call's plan and then bitwise equal to that call's rows (the
+   masked rows of a tile change nothing), and under its own plan held
+   to those rows within the forward tolerance (bitwise where the two
+   plans are one); each one's plan, card ms (CUDA events), bound and
+   plain ms, and cuDNN's ``torch.nn.GRU`` at B=1; the run dirs: slice
+   2's under ``<models_root>/torch/``, and a JAX-named
+   ``results_dict.json`` at ``<models_root>/<repr>/`` neither read nor
+   removed by the port; ``python -m arvae_tpu_torch.run_tester_sweep``
+   in-process on slice 2's model and with ``--glsr`` on slice 3's GLSR
+   model (its checkpoint saved into a models dir of its own): finite
+   scores, every MIDI file read back to its Score's notes, the launches
+   equal to the code's (``_sweep_launches``) and no backward; the
+   tester's decodes and test pass on the card against a CPU copy of the
+   model with the same draws (tokens on another path in at most
+   ``EVAL_PATH_FLIPS`` of the rows, the rest's CE and, with no such row,
+   the test loss within ``SLICE_RTOL``); and the ``.abc`` ingest: a
+   corpus of 31 valid and 5 invalid tunes (``write_abc_corpus``) in a
+   temporary ``folk_raw_data/``, the music CLI 1 epoch on it
+   (``ABC_ARGS``): the loss finite, the launches the code's. The
+   kernels line's music kernels carry their rows
+   (``"analysis_shapes"``).
 
 Launch counts are set to 0 just before each slice (and each variant of
-slices 3 and 4, and each CLI call of slices 5, 6 and 7, each sweep cell)
-and read just after it; the comparisons of phases 3, 9 and 10 do not
-count. The line before the last
+slices 3 and 4, and each CLI call of slices 5, 6, 7 and 8, each sweep
+cell, each tester call) and read just after it; the comparisons of
+phases 3, 9, 10 and 12 do not count. The line before the last
 is the card's name and power limit as ``nvidia-smi`` prints them, the
 one before it a JSON object listing every kernel; the last line is a
 JSON object ``{"ok": true, "device": {...}}``.
@@ -324,6 +351,100 @@ SWEEP_CORNERS = ((0.01, 100.0), (100.0, 0.01))
 # the losses, means of 4,096 pixel terms a row, within 1e-2 relative.
 BF16_ARGS = SLICE_ARGS + ["--bf16"]
 BF16_RTOL = 1e-2
+
+# Slice 8, the music analysis. The batches its encodes and decodes give
+# the kernels: 1 (test_interpolation encodes one measure at a time,
+# compute_latent_interpolations decodes one code at a time), 6 and 10
+# (run_tester_sweep's traversals decode n + 2 = 6 codes, its two-point
+# interpolation 10) and 22 (decode_mid_point at the tester's default
+# n = 20); each is held against the same rows of a call at MUSIC_B.
+ANALYSIS_BATCHES = (1, 6, 10, 22)
+# gru_chain (T, D, H): the encoder layer, the beat GRU layer, and the
+# reference's 512-wide encoder layer (streamed); hier_tick_chain in eval
+# mode (H, tick-GRU layers): the CLI's default, the streamed H=512 and a
+# 3-layer tick GRU, at the music CLI's vocabulary
+ANALYSIS_GRU = ((24, 2, 128), (4, 1, 128), (24, 2, 512))
+ANALYSIS_HIER = ((128, 2), (512, 2), (128, 3))
+ANALYSIS_V = 34
+# The music CLI on the .abc corpus: 1 epoch at B=64 (its 31 tunes make a
+# few thousand measures with their transpositions)
+ABC_ARGS = ["--rand", "0", "-r", "all", "--num_epochs", "1", "--batch_size", "64"]
+
+# The .abc corpus of slice 8 (and of tests/test_torch_abc_ingest.py):
+# fixture tunes of tests/test_abc_parser.py, one below the transposition
+# range, tunes generated from a seed, and invalid ones the filter drops.
+_ABC_SIMPLE = "X:1\nT:Test Tune\nM:4/4\nL:1/4\nK:C\nCDEF|GABc|\n"
+ABC_VALID = {
+    "simple": _ABC_SIMPLE,
+    "endings": "X:4\nT:Endings\nM:4/4\nL:1/4\nK:C\n|:CDEF|1GGGG:|2AAAA|\n",
+    "triplet": "X:6\nT:Triplets\nM:4/4\nL:1/8\nK:C\n(3CDE (3CDE C2C2 z4|\n",
+    "tie_across_bar": _ABC_SIMPLE.replace("CDEF|GABc|", "CDEE-|EGGc|"),
+    # below the transposition range: its untransposed bars grow the vocabulary
+    "low": _ABC_SIMPLE.replace("CDEF|GABc|", "C,D,E,F,|G,A,B,C|"),
+}
+ABC_INVALID = {
+    "chords": _ABC_SIMPLE.replace("CDEF", '"C"CDEF'),
+    "six_eight": _ABC_SIMPLE.replace("M:4/4", "M:6/8"),
+    "no_title": _ABC_SIMPLE.replace("T:Test Tune\n", ""),
+    "second_voice": _ABC_SIMPLE + "V:2\nCCCC|\n",
+    "meter_change": _ABC_SIMPLE.replace("CDEF|GABc|", "CDEF|\nM:6/8\nGAB|"),
+}
+ABC_GENERATED = 26
+_ABC_KEYS = ["C", "G", "D", "A", "F", "Bb", "Ador", "Em", "Dmix", "Bm", "Gm", "Edor"]
+
+
+def _abc_bar(rng, letters):
+    """One 4/4 bar at L:1/8: eight eighths' worth, every onset on the tick grid."""
+    def pick():
+        return letters[rng.randint(len(letters))]
+
+    kind = rng.randint(6)
+    if kind == 0:
+        return "".join(pick() for _ in range(8))
+    if kind == 1:
+        return "".join(pick() + "2" for _ in range(4))
+    if kind == 2:  # a triplet of eighths in a quarter's time, then six eighths
+        return "(3" + "".join(pick() for _ in range(9))
+    if kind == 3:  # sixteenths, a dotted quarter, a rest
+        return pick() + "/" + pick() + "/" + pick() + "3" + "z2" + pick() + pick()
+    if kind == 4:  # accidentals, and a tie into the next bar
+        return ("^" + pick() + pick() + "_" + pick() + pick() + "=" + pick()
+                + "".join(pick() for _ in range(3)) + "-")
+    return pick() + "4" + pick() + "2" + pick() + pick()
+
+
+def abc_tune(i, rng, letters="DEFGABcdefg"):
+    """Tune ``i``: 4-8 bars, some under a repeat or first and second
+    endings, some in common time (``M:C``), the keys in turn."""
+    bars = [_abc_bar(rng, letters) for _ in range(rng.randint(4, 9))]
+    body = "|".join(bars) + "|"
+    if i % 3 == 0:
+        body = "|:" + body + ":|"
+    if i % 4 == 1:
+        body = "|:" + "|".join(bars[:2]) + "|1" + bars[2] + ":|2" + bars[3] + "|"
+    meter = "C" if i % 5 == 2 else "4/4"
+    return f"X:{i}\nT:Tune {i}\nM:{meter}\nL:1/8\nK:{_ABC_KEYS[i % len(_ABC_KEYS)]}\n{body}\n"
+
+
+def write_abc_corpus(raw, narrow=None):
+    """``ABC_GENERATED`` tunes from ``RandomState(0)``, ``ABC_VALID`` and
+    ``ABC_INVALID`` as ``.abc`` files and a README in ``raw``; with
+    ``narrow``, 3 tunes of four pitches there. → the valid tunes."""
+    rng = np.random.RandomState(0)
+    files = {f"gen_{i:02d}.abc": abc_tune(i, rng) for i in range(ABC_GENERATED)}
+    files.update({f"fixture_{k}.abc": v for k, v in ABC_VALID.items()})
+    files.update({f"invalid_{k}.abc": v for k, v in ABC_INVALID.items()})
+    files["README.txt"] = "not a tune\n"
+    os.makedirs(raw)
+    for name, text in files.items():
+        with open(os.path.join(raw, name), "w") as fh:
+            fh.write(text)
+    if narrow is not None:
+        os.makedirs(narrow)
+        for i in range(3):
+            with open(os.path.join(narrow, f"narrow_{i}.abc"), "w") as fh:
+                fh.write(abc_tune(100 + i, rng, letters="FGAB"))
+    return ABC_GENERATED + len(ABC_VALID)
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1803,20 +1924,26 @@ def _draws_to(draws, dev):
 
 
 @torch.no_grad()
-def _test_rows(trainer, noise):
-    """Each eval row's token cross-entropy and decoded tokens in the test
-    pass's batches (eval mode, free-running argmax)."""
-    sp = trainer.eval_split()
-    b = min(trainer.EVAL_BATCH_SIZE, sp.n)
-    trainer.model.eval()
+def _row_ce(model, scores, noise):
+    """Each row's token cross-entropy and decoded tokens of the batches
+    ``scores``, batch i with draws ``noise[i]`` (eval mode, free-running
+    argmax)."""
+    model.eval()
     ce, samples = [], []
-    for i, a in enumerate(range(0, sp.n, b)):
-        score = sp.gather_batch(torch.arange(a, min(a + b, sp.n), device=sp.device))[0]
-        out = trainer.model(score, noise[i])
+    for score, draws in zip(scores, noise):
+        out = model(score, draws)
         logp = torch.log_softmax(out.weights.float(), dim=-1)
         ce.append(-logp.gather(2, score.long()[..., None])[..., 0].mean(dim=1))
         samples.append(out.samples)
     return torch.cat(ce).cpu(), torch.cat(samples).cpu()
+
+
+def _test_rows(trainer, noise):
+    """``_row_ce`` over the test pass's batches of the eval split."""
+    sp = trainer.eval_split()
+    b = min(trainer.EVAL_BATCH_SIZE, sp.n)
+    return _row_ce(trainer.model, [sp.gather_batch(torch.arange(
+        a, min(a + b, sp.n), device=sp.device))[0] for a in range(0, sp.n, b)], noise)
 
 
 def _eval_vs_cpu(tag, trainer, cpu, batch_size):
@@ -2173,7 +2300,7 @@ def _mnist_judge(models_dir, datasets_dir):
     if len(epochs) != JUDGE_EPOCHS or not acc >= JUDGE_BAR:
         raise AssertionError(f"the judge reached t10k accuracy {acc} after {len(epochs)} "
                              f"epochs, short of {JUDGE_BAR}")
-    if not os.path.isfile(os.path.join(models_dir, "MnistRESNET", "ckpt.pt")):
+    if not os.path.isfile(os.path.join(models_dir, "torch", "MnistRESNET", "ckpt.pt")):
         raise AssertionError("test_mnist wrote no judge checkpoint")
     print(f"[mnist] judge: {JUDGE_EPOCHS} epochs (B=256, Adadelta 0.5, the defaults) in "
           f"{seconds:.1f} s (the process's start included); final t10k accuracy {acc} >= "
@@ -2202,8 +2329,9 @@ def phase_mnist(card_line, data_dir):
 
         trainer, launches, seconds, ckpt_ok = _image_cli_run(models_dir, MNIST_ARGS)
         tag = "slice 6 (MNIST)"
-        if os.path.basename(trainer.run_dir) != MNIST_RUN:
-            raise AssertionError(f"{tag}: run dir {trainer.run_dir}, not the JAX {MNIST_RUN}")
+        if trainer.run_dir != os.path.join(models_dir, "torch", MNIST_RUN):
+            raise AssertionError(f"{tag}: run dir {trainer.run_dir}, not the port's one of "
+                                 f"the JAX name {MNIST_RUN}")
         hist = trainer.history
         n_train, n_val = _check_history(tag, hist, ckpt_ok)
         # the evaluation (harvest, test pass, judge) launches none of the
@@ -2485,6 +2613,353 @@ def phase_fader(card_line, mnist_data_dir):
     return out
 
 
+def _check_rows_of_full(tag, own, under_full, full_rows, same_plan):
+    """Tiles of mostly masked rows change nothing: the call run under the
+    B=MUSIC_B call's plan gives that call's rows bitwise. Under its own
+    plan the rows sum in that plan's order: within the forward tolerance
+    of the B=MUSIC_B call's, bitwise where the two plans are one. ``own``,
+    ``under_full`` and ``full_rows``: (outputs, ...) tuples, the first a
+    float tensor. → (own bitwise equal to the rows, max abs err)."""
+    if not all(torch.equal(_bits(a), _bits(b)) for a, b in zip(under_full, full_rows)):
+        raise AssertionError(f"{tag}: under the B={MUSIC_B} call's plan the rows are not "
+                             f"bitwise that call's")
+    bitwise = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(own, full_rows))
+    if same_plan and not bitwise:
+        raise AssertionError(f"{tag}: the B={MUSIC_B} call's plan, not bitwise its rows")
+    for a, b in zip(own[1:], full_rows[1:]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: other samples than the rows of the B={MUSIC_B} call")
+    return bitwise, _check_close(f"{tag} against the rows of the B={MUSIC_B} call", own[0],
+                                 full_rows[0], SEQ_FWD_RTOL, SEQ_FWD_ATOL)
+
+
+def _same_layout(p, q):
+    """Two launch plans that tile rows alike (their grids follow B)."""
+    return (p.clusters, p.rows, p.smem_bytes, p.streamed) == (q.clusters, q.rows, q.smem_bytes,
+                                                              q.streamed)
+
+
+def _plan_text(p):
+    return (f"{'streamed' if p.streamed else 'resident'}, {p.clusters} CTAs x {p.rows} rows "
+            f"a cluster, {p.ctas} CTAs")
+
+
+def _cudnn_gru_ms(dev, t, d, b, h, width):
+    """cuDNN's ``torch.nn.GRU`` forward of one layer (input projection
+    included) at (T, D, B, H) on ``width`` inputs, CUDA events, TF32 off."""
+    torch.backends.cudnn.allow_tf32 = False
+    lib = torch.nn.GRU(width, h, 1, batch_first=True, bidirectional=d == 2).to(dev)
+    xs = torch.randn(b, t, width, device=dev)
+    h0 = torch.zeros(d, b, h, device=dev)
+    with torch.no_grad():
+        return _event_ms(lambda: lib(xs, h0), 50, 5)
+
+
+def _analysis_gru(dev, card_line, t, d, h):
+    """``gru_chain`` forward at (t, d, B, h) for each analysis batch → rows."""
+    from arvae_tpu_torch.ops import gru_kernel as gk
+    from arvae_tpu_torch.utils import kernel_work as kw
+
+    args, _ = _gru_inputs(t, d, MUSIC_B, h, dev, seed=t * 100 + h)
+    full_plan = gk.gru_plan(d, MUSIC_B, h, False)
+    out = []
+    with torch.no_grad():
+        full = gk.gru_chain_fwd_cuda(*args)
+        for b in ANALYSIS_BATCHES:
+            sub = (args[0][:, :, :b].contiguous(), args[1], args[2], args[3][:, :b].contiguous())
+            plan = gk.gru_plan(d, b, h, False)
+            tag = f"gru_chain fwd at (T={t}, D={d}, B={b}, H={h})"
+            runs = [(gk.gru_chain_fwd_cuda(*sub),) for _ in range(2)]
+            under_full = (gk.gru_chain_fwd_cuda(*sub, plan=full_plan),)
+            torch.cuda.synchronize()
+            _check_repeat(tag, *runs)
+            err = _check_close(tag, runs[0][0], gk.gru_chain_reference(*sub), SEQ_FWD_RTOL,
+                               SEQ_FWD_ATOL)
+            bitwise, row_err = _check_rows_of_full(tag, runs[0], under_full,
+                                                   (full[:, :, :b],),
+                                                   _same_layout(plan, full_plan))
+            w = kw.gru_chain(t, d, b, h)
+            row = {"shape": [t, d, b, h], "plan": _plan_text(plan),
+                   "ms": _event_ms(lambda: gk.gru_chain_fwd_cuda(*sub), 50, 5),
+                   "plain_ms": _event_ms(lambda: gk.gru_chain_reference(*sub), 5, 1),
+                   "bound_ms": w.bound_ms, "bound_by": w.bound_by,
+                   "library_ms": _cudnn_gru_ms(dev, t, d, b, h, 1 if t == 4 else 10)
+                   if b == 1 else None,
+                   "max_abs_err": err, "rows_of_full_bitwise": bitwise,
+                   "rows_of_full_err": row_err}
+            out.append(row)
+            print(f"[analysis] {tag}: {row['plan']} (B={MUSIC_B}: {_plan_text(full_plan)}); "
+                  f"matches plain (max abs err {err:.3e}), bitwise repeatable; under the "
+                  f"B={MUSIC_B} plan bitwise its rows; under its own plan "
+                  f"{'bitwise' if bitwise else f'within {row_err:.3e} of'} its rows; "
+                  f"{row['ms']:.5f} ms, plain {row['plain_ms']:.5f}, bound "
+                  f"{w.bound_ms:.3g} ({w.bound_by})"
+                  + (f", cuDNN torch.nn.GRU {row['library_ms']:.5f}" if b == 1 else "")
+                  + f" | {card_line}")
+    return out
+
+
+def _analysis_hier(dev, card_line, h, layers):
+    """``hier_tick_chain`` forward in eval mode at (h, layers) for each
+    analysis batch → rows. The plain version runs on the kernel's tokens
+    (the teacher trick); each kernel token is its own logits' argmax."""
+    from arvae_tpu_torch.ops import hier_decoder_kernel as hk
+    from arvae_tpu_torch.utils import kernel_work as kw
+
+    score, floats, _ = _hier_inputs(dev, 40 + layers, ANALYSIS_V, b=MUSIC_B, h=h, layers=layers)
+    cfg = (False, 0.5, "argmax", HIER_TPB)
+    teacher, seed = _ints(0, 3, dev)
+    full_plan = hk.hier_plan(MUSIC_B, h, HIER_E, ANALYSIS_V, layers)
+
+    def fwd(sc, fl, plan=None):
+        return tuple(hk.hier_tick_chain_fwd_cuda(False, 0.5, HIER_TPB, "argmax", teacher, seed,
+                                                 sc, *fl, plan=plan)[:2])
+
+    out = []
+    with torch.no_grad():
+        full = fwd(score, floats)
+        for b in ANALYSIS_BATCHES:
+            sc = score[:, :b].contiguous()
+            fl = [floats[0][:, :b].contiguous(), floats[1][:, :, :b].contiguous(),
+                  floats[2][:b].contiguous()] + floats[3:]
+            plan = hk.hier_plan(b, h, HIER_E, ANALYSIS_V, layers)
+            tag = (f"hier_tick_chain fwd, eval mode, at B={b}, H={h}, L={layers}, "
+                   f"V={ANALYSIS_V}")
+            w_k, s_k = _hier_kernel_run(tag, cfg, teacher, seed, sc, fl)[:2]
+            if not torch.equal(s_k, hk.argmax_lowest(w_k).clamp(0, ANALYSIS_V - 1)
+                               .to(torch.int32)):
+                raise AssertionError(f"{tag}: samples are not the argmax of the logits")
+            w_p = _hier_plain_run(cfg, *_ints(1, 3, dev), s_k, fl)[0]
+            err = _check_close(tag, w_k, w_p, SEQ_FWD_RTOL, SEQ_FWD_ATOL)
+            bitwise, row_err = _check_rows_of_full(
+                tag, (w_k, s_k), fwd(sc, fl, full_plan), (full[0][:, :b], full[1][:, :b]),
+                _same_layout(plan, full_plan))
+            w = kw.hier_tick_chain(HIER_T, b, h, HIER_E, ANALYSIS_V, HIER_TPB, L=layers)
+            row = {"shape": {"B": b, "H": h, "L": layers, "V": ANALYSIS_V},
+                   "plan": _plan_text(plan),
+                   "ms": _event_ms(lambda: fwd(sc, fl), 20, 3),
+                   "plain_ms": _event_ms(lambda: hk.tick_chain_reference(
+                       False, 0.5, HIER_TPB, "argmax", teacher, seed, sc,
+                       *hk.chain_operands(fl)), 3, 1),
+                   "bound_ms": w.bound_ms, "bound_by": w.bound_by, "library_ms": None,
+                   "max_abs_err": err, "rows_of_full_bitwise": bitwise,
+                   "rows_of_full_err": row_err}
+            out.append(row)
+            print(f"[analysis] {tag}: {row['plan']} (B={MUSIC_B}: {_plan_text(full_plan)}); "
+                  f"the plain version on its tokens matches (max abs err {err:.3e}), bitwise "
+                  f"repeatable; under the B={MUSIC_B} plan bitwise its rows; under its own "
+                  f"plan {'bitwise' if bitwise else f'within {row_err:.3e} of'} its rows "
+                  f"(the same tokens); {row['ms']:.5f} ms, plain {row['plain_ms']:.5f}, "
+                  f"bound {w.bound_ms:.3g} ({w.bound_by}) | {card_line}")
+    return out
+
+
+def _analysis_run_dirs(trainer, models_dir):
+    """Slice 2's run dir is the port's, under <models_root>/torch/; a
+    results_dict.json placed at the JAX package's <models_root>/<repr>/,
+    stamped with the port's own protocol, is neither read nor removed."""
+    want = os.path.join(models_dir, "torch", trainer.model_repr())
+    if trainer.run_dir != want:
+        raise AssertionError(f"slice 8: slice 2's run dir {trainer.run_dir}, not {want}")
+    jax_path = os.path.join(models_dir, trainer.model_repr(), "results_dict.json")
+    with open(trainer.results_path) as fh:
+        stamped = json.load(fh)
+    # the stamp of slice 2's training, which --skip_cached would take
+    stamped["protocol"] = trainer.protocol_dict()
+    stamped["test_loss"] = -1.0  # a value no evaluation gives
+    os.makedirs(os.path.dirname(jax_path))
+    with open(jax_path, "w") as fh:
+        json.dump(stamped, fh, indent=2)
+    with open(jax_path, "rb") as fh:
+        jax_bytes = fh.read()
+    own = trainer.results_path + ".slice2"
+    os.rename(trainer.results_path, own)
+    if trainer.has_protocol_cache(2, MUSIC_B):
+        raise AssertionError("slice 8: the port took the JAX-named file for its cache")
+    got = trainer.compute_eval_metrics()
+    with open(jax_path, "rb") as fh:
+        kept = fh.read() == jax_bytes
+    if got["test_loss"] == -1.0 or not kept:
+        raise AssertionError(f"slice 8: the port read ({got['test_loss']}) or changed "
+                             f"({not kept}) the JAX-named results_dict.json")
+    os.replace(own, trainer.results_path)
+    print(f"[analysis] run dirs: slice 2's is {trainer.run_dir}; a JAX-named "
+          f"results_dict.json at {os.path.dirname(jax_path)} stamped with its protocol was "
+          f"neither read (the port evaluated again: test loss {got['test_loss']:.6f}) nor "
+          f"removed")
+
+
+def _sweep_launches(tester, decodes):
+    """The forward launches of run_tester_sweep's analyses, by kernel, from
+    the code: test_model's whole batches (the model), five harvests of at
+    most EVAL_CAP batches (the encoder), test_interp's two one-measure
+    encodes, and ``decodes`` decodes (the decoder's GRU layers and tick
+    loop); no backward."""
+    per = _eval_per_batch(tester.model)
+    enc, whole = per["harvest"], per["test"]
+    _, tests = tester.whole_batches(MUSIC_B)
+    _, harvests = tester.whole_batches(MUSIC_B, EVAL_CAP)
+    return {k: {"fwd": tests * whole[k] + (5 * harvests + 2) * enc[k]
+                + decodes * (whole[k] - enc[k]), "bwd": 0} for k in whole}
+
+
+def _sweep_run(tag, argv, out_dir):
+    """``python -m arvae_tpu_torch.run_tester_sweep`` in-process → (the
+    tester, its JSON line, launches, seconds)."""
+    from arvae_tpu_torch import run_tester_sweep
+    from arvae_tpu_torch.utils.midi import read_midi
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    tester, result, written = run_tester_sweep.main(argv + ["--device", "cuda", "--out",
+                                                            out_dir])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read_launches()
+    _check_launches(tag, launches, _sweep_launches(tester, len(written)))
+    for path, score in written.items():
+        want = [n for n in sorted(score.notes, key=lambda n: n[1]) if n[0] >= 0 and n[2] > 0]
+        got = read_midi(path)
+        if [n[0] for n in got] != [n[0] for n in want] or not np.allclose(
+                [n[1:] for n in got], [n[1:] for n in want], rtol=0, atol=1e-9):
+            raise AssertionError(f"{tag}: {path} reads back other notes than its Score's")
+    interp = result["interpretability"]
+    print(f"[analysis] {tag}: {seconds:.1f} s; test loss {result['test_loss']:.6f}, acc "
+          f"{result['test_acc']:.6f}; interpretability {interp}; {len(written)} MIDI files, "
+          f"each read back to its Score's notes; launches {launches} (the code's)")
+    return tester, result, launches, seconds
+
+
+def _tester_vs_cpu(trainer, tmp):
+    """The tester's decodes and test pass on the card against a CPU copy of
+    slice 2's model with the same draws, on the --short corpus (its 9
+    whole test batches keep the CPU's share short): the decoded tokens of
+    ANALYSIS_BATCHES and MUSIC_B codes and of every test row on one path
+    but for at most EVAL_PATH_FLIPS of the rows, the rest's CE within
+    SLICE_RTOL, and the test loss too when no row flips."""
+    from arvae_tpu_torch.data.bar_dataset import FolkNBarDataset
+    from arvae_tpu_torch.eval.tester import VAETester
+    from arvae_tpu_torch.training.measure_trainer import MeasureVAETrainer
+
+    dev = trainer.device
+    short = FolkNBarDataset(dataset_type="train", is_short=True, num_bars=1)
+    h = trainer.hparams
+    kw = dict(reg_type=h.reg_type, reg_dim=h.reg_dim, rand=h.rand)
+    card = VAETester(MeasureVAETrainer(short, copy.deepcopy(trainer.model), dev, **kw),
+                     plots_dir=os.path.join(tmp, "card"))
+    cpu = VAETester(MeasureVAETrainer(short, copy.deepcopy(trainer.model).cpu(), "cpu", **kw),
+                    plots_dir=os.path.join(tmp, "cpu"))
+    rng = np.random.RandomState(11)
+    flips = rows = 0
+    for b in ANALYSIS_BATCHES + (MUSIC_B,):
+        z = 2 * rng.randn(b, trainer.model.latent_space_dim).astype(np.float32)
+        s_k, s_p = card.trainer.decode_latent_codes(z)[1], cpu.trainer.decode_latent_codes(z)[1]
+        flips += int((s_k != s_p).any(axis=1).sum())
+        rows += b
+    per_batch, steps = cpu.whole_batches(MUSIC_B)
+    gen = torch.Generator().manual_seed(6)
+    noise = [cpu.trainer.draw_eval_noise(per_batch, gen)._replace(generator=None)
+             for _ in range(steps)]
+    noise_dev = [_draws_to(d, dev) for d in noise]
+    got, want = card.test_model(MUSIC_B, noise=noise_dev), cpu.test_model(MUSIC_B, noise=noise)
+    ce_k, s_k = _row_ce(card.model, [card._batch(i, per_batch) for i in range(steps)],
+                        noise_dev)
+    ce_p, s_p = _row_ce(cpu.model, [cpu._batch(i, per_batch) for i in range(steps)], noise)
+    same = (s_k == s_p).all(dim=1)
+    test_flips = int((~same).sum())
+    if flips + test_flips > EVAL_PATH_FLIPS * (rows + len(same)):
+        raise AssertionError(f"slice 8: {flips} of {rows} decoded codes and {test_flips} of "
+                             f"{len(same)} test rows take another token path on the card")
+    _check_close("slice 8 test CE of the rows on one token path", ce_k[same], ce_p[same],
+                 SLICE_RTOL, ATOL)
+    if test_flips == 0:
+        for k, (a, b) in enumerate(zip(got, want)):
+            _check_close(f"slice 8 tester {('test loss', 'test acc')[k]}", torch.tensor(a),
+                         torch.tensor(b), SLICE_RTOL, 0.0)
+    print(f"[analysis] card vs CPU, slice 2's weights, the same draws: decodes of "
+          f"{'/'.join(map(str, ANALYSIS_BATCHES + (MUSIC_B,)))} codes on another token path "
+          f"in {flips} of {rows} rows; test_model on the --short corpus ({steps} batches) "
+          f"loss {got[0]!r} vs {want[0]!r}, acc {got[1]!r} vs {want[1]!r}, {test_flips} of "
+          f"{len(same)} rows on another path (bound {EVAL_PATH_FLIPS:.0%})")
+    return flips + test_flips
+
+
+def _abc_ingest(tmp):
+    """The music CLI (``ABC_ARGS``) on the .abc corpus in ``tmp``'s
+    folk_raw_data/ (the run's working directory), its data and models
+    under ``tmp`` → (launches, the trainer)."""
+    from arvae_tpu_torch import train_measure_vae
+
+    n_valid = write_abc_corpus(os.path.join(tmp, "folk_raw_data"))
+    before = {k: os.environ.get(k) for k in ("ARVAE_DATASETS_DIR", "ARVAE_MODELS_DIR")}
+    cwd = os.getcwd()
+    os.environ["ARVAE_DATASETS_DIR"] = os.path.join(tmp, "datasets")
+    os.environ["ARVAE_MODELS_DIR"] = os.path.join(tmp, "models")
+    os.chdir(tmp)
+    try:
+        _reset_launches()
+        t0 = time.perf_counter()
+        (trainer,) = train_measure_vae.main(ABC_ARGS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _read_launches()
+        with open(os.path.join(tmp, "datasets", "4by4valid_filelist.txt")) as fh:
+            listed = fh.read().split()
+    finally:
+        os.chdir(cwd)
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    hist = trainer.history
+    n_train, n_val = hist[0]["train_steps"], hist[0]["val_steps"]
+    if len(listed) != n_valid or len(hist) != 1 or not math.isfinite(hist[0]["train_loss"]):
+        raise AssertionError(f"slice 8 .abc: {len(listed)} of {n_valid} valid files listed, "
+                             f"history {hist}")
+    _check_launches("slice 8 .abc", launches, _with_eval({
+        "reg": {"fwd": n_train + n_val, "bwd": n_train},
+        "gru": {"fwd": 4 * (n_train + n_val), "bwd": 4 * n_train},
+        "hier": {"fwd": n_train + n_val, "bwd": n_train}}, trainer))
+    rows = len(trainer.dataset.get_dataset()[0])
+    print(f"[analysis] .abc ingest: {len(listed)} valid tunes of {len(listed) + len(ABC_INVALID)}"
+          f" listed, {rows} measures (V={len(trainer.dataset.note2index_dicts)}); the music CLI "
+          f"1 epoch at B=64 in {seconds:.1f} s: train loss {hist[0]['train_loss']:.4f}, val "
+          f"loss {hist[0]['val_loss']:.4f}, {n_train} + {n_val} steps; launches {launches} "
+          f"(the code's, the evaluation's included)")
+    return launches
+
+
+def phase_analysis(card_line, music_trainer, music_dir, glsr_trainer):
+    """Slice 8: the music analysis on slice 2's kept run dir and slice 3's
+    GLSR model → {"gru": rows, "hier": rows, "sweep": launches, ...}."""
+    from arvae_tpu_torch.core.checkpoint import Checkpointer
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    out = {"gru": [r for t, d, h in ANALYSIS_GRU for r in _analysis_gru(dev, card_line, t, d, h)],
+           "hier": [r for h, layers in ANALYSIS_HIER
+                    for r in _analysis_hier(dev, card_line, h, layers)]}
+    kernels_s = time.perf_counter() - t0
+    os.environ["ARVAE_MODELS_DIR"] = music_dir
+    _analysis_run_dirs(music_trainer, music_dir)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, result, out["sweep"], _ = _sweep_run("run_tester_sweep on slice 2's run",
+                                                MUSIC_ARGS, os.path.join(tmp, "ar"))
+        if result["run_dir"] != music_trainer.run_dir:
+            raise AssertionError(f"slice 8: the sweep read {result['run_dir']}")
+        # slice 3's GLSR model, its run dir gone with its call: saved anew
+        os.environ["ARVAE_MODELS_DIR"] = os.path.join(tmp, "glsr_models")
+        Checkpointer(glsr_trainer.run_dir).save(glsr_trainer.checkpoint_state())
+        _, _, out["sweep_glsr"], _ = _sweep_run(
+            "run_tester_sweep --glsr on slice 3's GLSR run",
+            ["--rand", "0"] + VARIANT_ARGS["glsr"], os.path.join(tmp, "glsr"))
+        out["flips"] = _tester_vs_cpu(music_trainer, tmp)
+        out["abc"] = _abc_ingest(os.path.join(tmp, "abc"))
+    print(f"[analysis] the kernels' cases took {kernels_s:.1f} s")
+    return out
+
+
 def _timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2497,7 +2972,8 @@ def main() -> int:
     card_line = _timed("device", phase_device)
     _timed("build", phase_build)
     errs = _timed("kernels", phase_kernels)
-    with tempfile.TemporaryDirectory() as kept:  # slices 1 and 2's run dirs, for slice 5
+    # slices 1 and 2's run dirs, kept for slice 5 and (music) slice 8
+    with tempfile.TemporaryDirectory() as kept:
         image_dir, music_dir = os.path.join(kept, "dsprites"), os.path.join(kept, "music")
         image = _timed("slice 1 (dSprites)", phase_slice, image_dir)
         music = _timed("slice 2 (music)", phase_music_slice, music_dir)
@@ -2508,10 +2984,13 @@ def main() -> int:
                                  phase_wide_deep, card_line)
         evaluation = _timed("slice 5 (evaluation)", phase_eval, image[2], image_dir, music[2],
                             music_dir, variant_runs + wide_runs, card_line)
-    with tempfile.TemporaryDirectory() as mnist_tmp:  # slice 6's data, for slice 7
-        mnist_data = os.path.join(mnist_tmp, "datasets")
-        mnist = _timed("slice 6 (Morpho-MNIST)", phase_mnist, card_line, mnist_data)
-        fader = _timed("slice 7 (fader and sweep)", phase_fader, card_line, mnist_data)
+        with tempfile.TemporaryDirectory() as mnist_tmp:  # slice 6's data, for slice 7
+            mnist_data = os.path.join(mnist_tmp, "datasets")
+            mnist = _timed("slice 6 (Morpho-MNIST)", phase_mnist, card_line, mnist_data)
+            fader = _timed("slice 7 (fader and sweep)", phase_fader, card_line, mnist_data)
+        glsr = dict(variant_runs)["variant glsr"]
+        analysis = _timed("slice 8 (music analysis)", phase_analysis, card_line, music[2],
+                          music_dir, glsr)
     print(f"[phase] total: {time.perf_counter() - t0:.1f} s")
 
     from arvae_tpu_torch.utils import kernel_work as kw
@@ -2548,7 +3027,12 @@ def main() -> int:
                 "library_ms": cudnn[f"cudnn_{direction}"] if key == "gru" else None,
                 **({"events_ms": t[f"{direction}_events"],
                     "mnist": mnist_reg(direction)} if key == "reg" else {}),
-                **({"wide_deep_shapes": shapes(key, direction)} if key != "reg" else {})}
+                **({"wide_deep_shapes": shapes(key, direction)} if key != "reg" else {}),
+                **({"analysis_shapes": analysis[key], "sweep_launches": {
+                    "ar": analysis["sweep"][key]["fwd"],
+                    "glsr": analysis["sweep_glsr"][key]["fwd"]},
+                    "abc_cli_launches": analysis["abc"][key]["fwd"]}
+                   if key != "reg" and direction == "fwd" else {})}
 
     def slice7(key, direction):
         """Slice 7's launches: each fader CLI run's (0), and a train step's

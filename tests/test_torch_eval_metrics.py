@@ -217,4 +217,4 @@ def test_metrics_import_only_numpy_scipy_and_the_standard_library():
             roots |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.module:
             roots.add(node.module.split(".")[0])
-    assert roots <= {"__future__", "warnings", "numpy", "scipy"}, roots
+    assert roots <= {"__future__", "math", "warnings", "numpy", "scipy"}, roots

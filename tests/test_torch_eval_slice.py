@@ -300,14 +300,18 @@ def test_results_dict_matches_the_jax_schema_and_stamp(dirs):
         t._train_protocol = {"num_epochs": 1, "batch_size": 4}
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        want = jtr.compute_eval_metrics(batch_size=4)
+        jtr.compute_eval_metrics(batch_size=4)
         got = tr.compute_eval_metrics(batch_size=4)
-    assert jtr.run_dir == tr.run_dir
+    # each package writes its own file, in run dirs of one name
+    assert tr.run_dir != jtr.run_dir
+    assert os.path.basename(tr.run_dir) == os.path.basename(jtr.run_dir)
     with open(tr.results_path) as fh:
         on_disk = json.load(fh)
-    want = json.loads(json.dumps(want))  # the JAX trainer's dict, as it is written
+    with open(os.path.join(jtr.run_dir, "results_dict.json")) as fh:
+        want = json.load(fh)  # the JAX trainer's file
     assert _key_tree(on_disk) == _key_tree(want) == _key_tree(json.loads(json.dumps(got)))
     assert list(on_disk) == list(want)
+    assert list(on_disk["interpretability"]) == list(want["interpretability"])
     assert on_disk["protocol"] == want["protocol"] == {
         "num_epochs": 1, "batch_size": 4, "dataset": "DspritesDataset",
         "factor_sizes": list(TINY)}
@@ -315,6 +319,62 @@ def test_results_dict_matches_the_jax_schema_and_stamp(dirs):
         assert np.isfinite(on_disk[k]), k
     # a second call returns the cache as it is
     assert tr.compute_eval_metrics(batch_size=4) == on_disk
+
+
+# The CLI's and the sweep cell's protocol stamp on the seeded --short grid
+SHORT_STAMP = {"num_epochs": 1, "batch_size": 16, "dataset": "DspritesDataset",
+               "factor_sizes": [1, 3, 3, 10, 16, 16]}
+
+
+@pytest.mark.parametrize("reader", ["compute_eval_metrics", "skip_cached", "run_cell"])
+def test_the_port_ignores_a_jax_results_dict(dirs, reader, capsys):
+    """A results_dict.json the JAX trainer wrote at <models_root>/<repr>/,
+    stamped with the very protocol the port's reader asks for, is neither
+    read nor removed: the port's compute_eval_metrics writes its own, the
+    CLI's --skip_cached trains, and the sweep's run_cell under --test
+    finds no finished cell."""
+    from arvae_tpu_torch import script_hyper_param_exp as sweep
+
+    _seed_short_dsprites(dirs)
+    jtr, _, tr = _image_trainers(str(dirs / "dsp"), 200)
+    jtr._train_protocol = {"num_epochs": 1, "batch_size": 16}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jtr.compute_eval_metrics(batch_size=16)
+    jax_path = dirs / "models" / tr.model_repr() / "results_dict.json"
+    with open(jax_path) as fh:
+        jax_results = json.load(fh)
+    tr._train_protocol = {"num_epochs": 1, "batch_size": 16}
+    jax_results["protocol"] = (tr.protocol_dict() if reader == "compute_eval_metrics"
+                               else SHORT_STAMP)
+    jax_path.write_text(json.dumps(jax_results, indent=2))
+    jax_bytes = jax_path.read_bytes()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        if reader == "compute_eval_metrics":
+            assert not tr.has_protocol_cache(1, 16)
+            tr.train_model(batch_size=16, num_epochs=1)
+            got = json.loads(json.dumps(tr.compute_eval_metrics(batch_size=16)))
+            assert got != jax_results and got["protocol"] == jax_results["protocol"]
+            with open(tr.results_path) as fh:
+                assert json.load(fh) == got
+        elif reader == "skip_cached":
+            argv = ["--device", "cpu", "-d", "dsprites", "--short", "--rand", "0", "-r",
+                    "all", "--beta", "1.0", "--batch_size", "16", "--num_epochs", "1",
+                    "--skip_cached"]
+            (trainer,) = train_image_vae.main(argv)
+            assert trainer.model_repr() == tr.model_repr() and len(trainer.history) == 1
+            assert "skip seed" not in capsys.readouterr().out
+            with open(trainer.results_path) as fh:
+                assert json.load(fh)["protocol"] == SHORT_STAMP
+        else:
+            trainer, row = sweep.run_cell(*sweep.sweep_data("dsprites", True), 10.0, 1.0,
+                                          device=CPU, batch_size=16, num_epochs=1,
+                                          do_train=False)
+            assert trainer.model_repr() == tr.model_repr() and row is None
+            assert "skip gamma=10.0 delta=1.0 (no finished cell)" in capsys.readouterr().out
+            assert not os.path.exists(trainer.run_dir)
+    assert jax_path.read_bytes() == jax_bytes
 
 
 def test_music_stamp_matches_jax(corpus):
@@ -348,7 +408,8 @@ def test_train_model_deletes_a_stale_cache_and_the_stamp_gates_skips(dirs):
     _, full = _dsprites_pair(str(dirs / "dsp"), 200)
     full.factor_sizes = (1, 3, 6, 40, 32, 32)
     other = ImageVAETrainer(full, DspritesVAE(), CPU, **REG)
-    assert other.run_dir == tr.run_dir and not other.has_protocol_cache(1, 64)
+    assert other.run_dir == tr.run_dir == str(dirs / "models" / "torch" / tr.model_repr())
+    assert not other.has_protocol_cache(1, 64)
 
 
 def test_music_stamp_rejects_short_against_full(corpus):

@@ -425,13 +425,16 @@ def test_harvest_and_results_dict_match_jax(dirs):
 
     for t in (jt, tr):
         t._train_protocol = {"num_epochs": 1, "batch_size": 16}
-    tr.compute_representations = lambda: (jz, jattrs, jnames)  # the same arrays
+    # the two packages' suites on the same arrays, each writing its own file
+    tr.compute_representations = lambda: (jz, jattrs, jnames)
+    jt.compute_representations = lambda *a, **k: (jz, jattrs, jnames)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         np.random.seed(0)
         want = json.loads(json.dumps(jt.compute_eval_metrics(batch_size=16)))
         got = tr.compute_eval_metrics(batch_size=16)
-    assert jt.run_dir == tr.run_dir
+    assert os.path.basename(jt.run_dir) == os.path.basename(tr.run_dir)
+    assert jt.run_dir != tr.run_dir
     with open(tr.results_path) as fh:
         on_disk = json.load(fh)
     assert on_disk == json.loads(json.dumps(got))

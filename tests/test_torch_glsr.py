@@ -34,6 +34,8 @@ JAX's; the elements where they do not are at most 1e-3 of all (26 of
 73,701 measured, 3.5e-4). The other terms keep the AR trainer's rtol
 1e-4 / atol 1e-6 (``tests/test_torch_measure_train_step.py``)."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -198,7 +200,10 @@ def test_run_dir_is_the_jax_model_repr(corpus, tmp_path):
     for reg_type, reg_dim in (("rhy_complexity", 0), ("num_notes", 2)):
         jtr, _, tr = _trainers(corpus, reg_type, reg_dim)
         assert tr.model_repr() == jtr.model_repr()
-        assert tr.run_dir == str(tmp_path / "models" / jtr.model_repr())
+        assert tr.run_dir == str(tmp_path / "models" / "torch" / jtr.model_repr())
+        # the JAX package's run dir has the same name, outside the port's
+        assert os.path.basename(tr.run_dir) == os.path.basename(jtr.run_dir)
+        assert tr.run_dir != jtr.run_dir
     assert tr.model_repr() == "folk_MeasureVAE_r_0_b_0.001_g_1.0_d_10.0_num_notes_GLSR"
 
 
@@ -227,7 +232,8 @@ def test_cli_trains_glsr_one_epoch(corpus, tmp_path):
     assert (trainer.glsr_reg_type, trainer.glsr_reg_dim) == ("num_notes", 2)
     hist = trainer.history
     assert len(hist) == 1 and np.isfinite(hist[0]["train_loss"])
-    run = tmp_path / "models" / "folk_MeasureVAE_r_0_b_0.001_g_1.0_d_10.0_num_notes_GLSR"
+    run = (tmp_path / "models" / "torch"
+           / "folk_MeasureVAE_r_0_b_0.001_g_1.0_d_10.0_num_notes_GLSR")
     assert (run / "ckpt.pt").is_file()
     # the GLSR run is evaluated into a results_dict.json of its own run dir
     assert trainer.results_path == str(run / "results_dict.json")

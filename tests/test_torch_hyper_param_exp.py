@@ -48,7 +48,7 @@ def grid(tmp_path, monkeypatch):
                         latents=latents)
     monkeypatch.setattr(sweep, "GAMMAS", [0.01, 100.0])
     monkeypatch.setattr(sweep, "DELTAS", [100.0, 0.01])
-    return tmp_path / "models"
+    return tmp_path / "models" / "torch"  # the port's run dirs
 
 
 def _run(argv):

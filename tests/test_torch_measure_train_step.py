@@ -143,7 +143,7 @@ def test_cli_trains_checkpoints_and_resumes(corpus, tmp_path, capsys):
     hist = trainer.history
     assert len(hist) == 1 and np.isfinite(hist[0]["train_loss"])
     assert hist[0]["train_steps"] == n_steps
-    run = tmp_path / "models" / "folk_MeasureVAE_r_0_b_0.001_g_1.0_d_10.0_all_"
+    run = tmp_path / "models" / "torch" / "folk_MeasureVAE_r_0_b_0.001_g_1.0_d_10.0_all_"
     assert trainer.run_dir == str(run)
     ckpt = torch.load(run / "ckpt.pt", weights_only=True)
     assert ckpt["step"] == n_steps

@@ -52,7 +52,7 @@ def _main(argv):
 def test_mnist_is_the_default_and_runs_without_a_judge(dirs, capsys):
     (trainer,) = _main(ARGV)
     assert trainer.dataset_type == "mnist" and type(trainer.model).__name__ == "MnistVAE"
-    assert trainer.run_dir == str(dirs / "models" / RUN)
+    assert trainer.run_dir == str(dirs / "models" / "torch" / RUN)
     assert trainer.reg_pairs == tuple((d, d) for d in range(1, 7))
     hist = trainer.history
     assert len(hist) == 1 and np.isfinite(hist[0]["train_loss"])
@@ -113,5 +113,5 @@ def test_dataset_and_reg_type_checks(dirs):
                         "--num_epochs", "1"])
     assert trainer.hparams.reg_dim == (4, 0)
     assert trainer.run_dir == str(
-        dirs / "models" / "MnistVAE_r_1_b_4.0_g_10.0_d_1.0_slant_digit_identity_")
+        dirs / "models" / "torch" / "MnistVAE_r_1_b_4.0_g_10.0_d_1.0_slant_digit_identity_")
     assert trainer.history[0]["train_steps"] == N_TRAIN // B

@@ -68,12 +68,16 @@ def test_short_corpus_is_byte_identical(tmp_path, monkeypatch, kind):
 
 
 def test_abc_corpus_is_refused(tmp_path, monkeypatch):
+    """A folk_raw_data/ whose .abc files hold no valid tune is ingested
+    (not replaced by the synthetic corpus) and refused: no rows."""
     monkeypatch.setenv("ARVAE_DATASETS_DIR", str(tmp_path / "ds"))
     raw = tmp_path / "folk_raw_data"
     raw.mkdir()
     (raw / "tune.abc").write_text("X:1\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bar_dataset.FolkNBarDataset(is_short=True, num_bars=1, raw_datapath=str(raw))
+    ds = bar_dataset.FolkNBarDataset(is_short=True, num_bars=1, raw_datapath=str(raw))
+    assert ds._abc_files() == [str(raw / "tune.abc")] and ds._corpus_all_tunes() == []
+    with pytest.raises(ValueError, match="corpus produced no 'train' windows"):
+        ds.get_dataset()
 
 
 def _rows():

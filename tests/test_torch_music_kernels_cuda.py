@@ -23,7 +23,11 @@ tick loop at H=256 and 512 with 2 layers and at H=128 with 1, 3 and 4
 (teacher-forced, free-running with dropout 0.5, eval, and the SR
 decoder's one beat of 24 ticks), and decoders at those shapes launch
 their kernels; a depth outside 1 to 4 raises ValueError, naming H and
-L, before any launch. A free-running decode is compared by
+L, before any launch. At the music analysis's batches (B = 1, 6, 10,
+22) the GRU chain and the eval-mode tick loop match their plain versions
+and the same rows of a B=256 call: bitwise under that call's plan,
+within the forward tolerance under their own (bitwise where the plans
+tile alike). A free-running decode is compared by
 the teacher trick: the plain version runs teacher-forced on the
 kernel's samples, and each kernel sample must be the lowest-index
 argmax of the kernel's own logits."""
@@ -419,3 +423,71 @@ def test_a_tick_gru_depth_outside_the_range_raises_before_the_tick_loop_launches
     with pytest.raises(ValueError, match=f"H={HH}, L=5"):
         dec(z, score, noise, train=True)
     assert hk.LAUNCHES == {"fwd": 0, "bwd": 0}
+
+
+# ---------------------------------------------------------------------------
+# The music analysis's batches (chip_smoke.py's slice 8): decodes of n + 2
+# codes and one-measure encodes give the kernels B = 1, 6, 10 and 22, tiles
+# of mostly masked rows. Each is held against its plain version and against
+# the same rows of a B=256 call: run under that call's plan the rows are
+# bitwise its rows (the masked rows change nothing); under its own plan, whose
+# depth split sums in another order, within the forward tolerance, bitwise
+# where the two plans tile alike.
+# ---------------------------------------------------------------------------
+
+SMALL_BATCHES = (1, 6, 10, 22)
+
+
+def _same_layout(p, q):
+    return (p.clusters, p.rows, p.smem_bytes, p.streamed) == (q.clusters, q.rows, q.smem_bytes,
+                                                              q.streamed)
+
+
+@pytest.mark.parametrize("b", SMALL_BATCHES)
+@pytest.mark.parametrize("t,d,h", [(24, 2, 128), (4, 1, 128), (24, 2, 512)])
+def test_gru_chain_small_batches_match_plain_and_the_full_calls_rows(dev, t, d, h, b):
+    args, _ = _gru_inputs(t, d, HB, h, dev, seed=t * 100 + h)
+    sub = (args[0][:, :, :b].contiguous(), args[1], args[2], args[3][:, :b].contiguous())
+    full_plan = gk.gru_plan(d, HB, h, False)
+    with torch.no_grad():
+        full = gk.gru_chain_fwd_cuda(*args)[:, :, :b]
+        own, again = gk.gru_chain_fwd_cuda(*sub), gk.gru_chain_fwd_cuda(*sub)
+        under_full = gk.gru_chain_fwd_cuda(*sub, plan=full_plan)
+        torch.cuda.synchronize()
+        assert torch.equal(own, again)
+        _close(own, gk.gru_chain_reference(*sub), FWD_RTOL, FWD_ATOL, "outs")
+    assert torch.equal(under_full, full)
+    _close(own, full, FWD_RTOL, FWD_ATOL, "rows of the B=256 call")
+    if _same_layout(gk.gru_plan(d, b, h, False), full_plan):
+        assert torch.equal(own, full)
+
+
+@pytest.mark.parametrize("b", SMALL_BATCHES)
+@pytest.mark.parametrize("h,layers", [(HH, 2), (512, 2), (HH, 3)])
+def test_hier_eval_small_batches_match_plain_and_the_full_calls_rows(dev, h, layers, b):
+    v = HVS[0]
+    score, floats, _ = _hier_inputs(dev, 40 + layers, v, h=h, layers=layers)
+    sc = score[:, :b].contiguous()
+    fl = [floats[0][:, :b].contiguous(), floats[1][:, :, :b].contiguous(),
+          floats[2][:b].contiguous()] + floats[3:]
+    cfg = (False, 0.5, HTPB, "argmax")
+    teacher, seed = _ints(0, 3, dev)
+    full_plan = hk.hier_plan(HB, h, HE, v, layers)
+
+    def fwd(s, f, plan=None):
+        return hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, s, *f, plan=plan)[:2]
+
+    with torch.no_grad():
+        w_full, s_full = (x[:, :b] for x in fwd(score, floats))
+        w_k, s_k, _ = _kernel_run(cfg, teacher, seed, sc, fl)
+        w_u, s_u = fwd(sc, fl, full_plan)
+        torch.cuda.synchronize()
+        assert torch.equal(s_k, hk.argmax_lowest(w_k).clamp(0, v - 1).to(torch.int32))
+        w_p, s_p, _ = _plain_run(cfg, *_ints(1, 3, dev), s_k, fl)  # the teacher trick
+    assert torch.equal(s_p, s_k)
+    _close(w_k, w_p, FWD_RTOL, FWD_ATOL, "weights")
+    assert torch.equal(w_u, w_full) and torch.equal(s_u, s_full)
+    assert torch.equal(s_k, s_full)
+    _close(w_k, w_full, FWD_RTOL, FWD_ATOL, "rows of the B=256 call")
+    if _same_layout(hk.hier_plan(b, h, HE, v, layers), full_plan):
+        assert torch.equal(w_k, w_full)

@@ -1,9 +1,10 @@
 """The port imports on a machine without jax: every ``arvae_tpu_torch``
 module imports in a subprocess where ``import jax`` fails, and no
 module of the port, nor ``chip_smoke.py``, names jax or the JAX package
-in an import. The probe also blocks scikit-learn, pandas and click,
-which the card's machine lacks too, so an import of any of them in the
-port fails here and not first on the card."""
+in an import. The probe also blocks scikit-learn, pandas, click,
+matplotlib and music21, which the card's machine lacks too, so an import
+of any of them in the port (a plot creeping into the tester, say) fails
+here and not first on the card."""
 
 import os
 import pathlib
@@ -17,7 +18,7 @@ PKG = REPO / "arvae_tpu_torch"
 _PROBE = """
 import importlib, pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "optax", "orbax", "arvae_tpu", "sklearn",
-             "pandas", "click"):
+             "pandas", "click", "matplotlib", "music21"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import arvae_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(arvae_tpu_torch.__path__,

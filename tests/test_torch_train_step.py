@@ -143,7 +143,7 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path):
     assert "Train Epoch: 1/1" in first.stdout
     loss = float(first.stdout.split("Train Loss: ")[1].split()[0])
     assert np.isfinite(loss)
-    run = tmp_path / "models" / "DspritesVAE_r_0_b_1.0_g_10.0_d_1.0_all_"
+    run = tmp_path / "models" / "torch" / "DspritesVAE_r_0_b_1.0_g_10.0_d_1.0_all_"
     ckpt = torch.load(run / "ckpt.pt", weights_only=True)
     n_steps = int(0.7 * len(packed)) // 16
     assert ckpt["step"] == n_steps
