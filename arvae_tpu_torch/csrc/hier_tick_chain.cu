@@ -72,7 +72,9 @@
 // repeats are bitwise equal.
 //
 // Random bits: a counter-based 32-bit hash of (seed, t, salt, row, col),
-// indexed by the global batch row and column, salt l for the dropout of
+// indexed by the global batch row (row_base + the call's row: a rank of a
+// data-parallel step holds rows row_base.. of the global batch, and draws
+// what one card draws for them) and column, salt l for the dropout of
 // the gap after layer l and 3571 for the Gumbel noise. The plain PyTorch
 // version in arvae_tpu_torch/ops/hier_decoder_kernel.py computes the same
 // function with integer tensor ops, and the uniform is formed with
@@ -152,6 +154,7 @@ struct Dims {
   int dropout;             // 1: training with a dropout rate > 0
   float keep, scale;       // keep probability and 1 / keep
   int multinomial;         // 1: Gumbel-max sampling, 0: argmax
+  int row_base;            // the global batch row of the call's row 0 (random bits)
 
   __host__ __device__ int beats() const { return (T + tpb - 1) / tpb; }
 };
@@ -424,9 +427,10 @@ hier_fwd(Weights w, Dims dm, int RB, const int* __restrict__ teacher_ptr,
         if (me.row) out.h_all[l][chain_index(dm, t, row0 + me.r, u, H)] = h;
         float* ph = hn + me.r * L.ldh + u;
         if (l + 1 < NL) {
-          const float x = dm.dropout
-                              ? h * dropout_mask(seed, t, l, row0 + me.r, u, dm.keep, dm.scale)
-                              : h;
+          const float x =
+              dm.dropout
+                  ? h * dropout_mask(seed, t, l, dm.row_base + row0 + me.r, u, dm.keep, dm.scale)
+                  : h;
           float* px = s_x + (l & 1) * hbuf + me.r * L.ldh + u;
           for (int p = 0; p < C; ++p) {
             *cluster.map_shared_rank(ph, p) = h;
@@ -457,8 +461,9 @@ hier_fwd(Weights w, Dims dm, int RB, const int* __restrict__ teacher_ptr,
       const float l = x < 0.f ? 0.f : x;  // relu, NaN passes through
       if (r < nr) out.weights[(static_cast<size_t>(t) * B + row0 + r) * V + v0 + n] = l;
       s_lg[r * L.ldl + n] =
-          dm.multinomial ? l - logf(-logf(uniform01(seed, t, kSaltGumbel, row0 + r, v0 + n)))
-                         : l;
+          dm.multinomial
+              ? l - logf(-logf(uniform01(seed, t, kSaltGumbel, dm.row_base + row0 + r, v0 + n)))
+              : l;
     }
     __syncthreads();
     // a per-row partial over the slice, one warp a row: the max (NaN if
@@ -606,7 +611,8 @@ __device__ __forceinline__ void masked_rows(const Dims& dm, uint32_t seed, int g
     const int j = i - m * dm.H;
     const ChainRow cr = chain_row(dm, m);
     const float x = h_prev[i];
-    inter[i] = dm.dropout ? x * dropout_mask(seed, cr.t, gap, cr.b, j, dm.keep, dm.scale) : x;
+    inter[i] = dm.dropout ? x * dropout_mask(seed, cr.t, gap, dm.row_base + cr.b, j, dm.keep,
+                                                dm.scale) : x;
   }
 }
 
@@ -699,7 +705,8 @@ struct EpiMask {
   __device__ void operator()(int m, int n, float v) const {
     const ChainRow cr = chain_row(dm, m);
     if (dm.dropout) {
-      v *= dropout_mask(static_cast<uint32_t>(*seed), cr.t, gap, cr.b, n, dm.keep, dm.scale);
+      v *= dropout_mask(static_cast<uint32_t>(*seed), cr.t, gap, dm.row_base + cr.b, n, dm.keep,
+                        dm.scale);
     }
     out[static_cast<size_t>(m) * dm.H + n] = cr.live ? v : 0.f;
   }
@@ -785,14 +792,15 @@ int hier_tick_chain_resident_clusters(int stream, int C, int smem_bytes) {
 // Floats of the backward's scratch before the GEMMs' partial sums.
 long long hier_tick_chain_bwd_scratch_floats(int T, int B, int H, int E, int V,
                                               int ticks_per_beat, int L) {
-  const Dims dm{T, B, H, E, V, ticks_per_beat, L, 0, 1.f, 1.f, 0};
+  const Dims dm{T, B, H, E, V, ticks_per_beat, L, 0, 1.f, 1.f, 0, 0};
   return carve(dm, nullptr).floats;
 }
 
 // teacher, seed: (1,) i32 on the device; score (T, B) i32; the float
 // operands as in struct Weights, the layers' as host arrays of kMaxLayers
 // pointers; the plan: clusters of C CTAs of RB rows, smem_bytes of dynamic
-// shared memory each, the weights resident (streamed 0) or streamed.
+// shared memory each, the weights resident (streamed 0) or streamed;
+// row_base: the global batch row of row 0, for the random bits.
 // Writes weights (T, B, V), samples (T, B) i32 and the L layers' hiddens
 // h_all[l] (ticks_per_beat, n_beats * B, H).
 int hier_tick_chain_fwd(const int* teacher, const int* seed, const int* score,
@@ -801,7 +809,8 @@ int hier_tick_chain_fwd(const int* teacher, const int* seed, const int* score,
                         const float* const* b_hh, const float* const* w_ih,
                         const float* const* b_ih, const float* out_w, const float* out_b, int T,
                         int B, int H, int E, int V, int L, int ticks_per_beat, int dropout,
-                        float keep, float scale, int multinomial, int C, int RB, int smem_bytes,
+                        float keep, float scale, int multinomial, int row_base, int C, int RB,
+                        int smem_bytes,
                         int streamed, float* weights, int* samples, float* const* h_all,
                         void* stream) {
   if (fwd_checked_smem(H, E, V, C, RB, L, streamed != 0, smem_bytes) == 0 || T < 1 || B < 1 ||
@@ -810,7 +819,7 @@ int hier_tick_chain_fwd(const int* teacher, const int* seed, const int* score,
   }
   const Weights w =
       make_weights(gi_beat, tick_h0, x0, emb, w_ih0e, w_hh, b_hh, w_ih, b_ih, out_w, out_b, L);
-  const Dims dm{T, B, H, E, V, ticks_per_beat, L, dropout, keep, scale, multinomial};
+  const Dims dm{T, B, H, E, V, ticks_per_beat, L, dropout, keep, scale, multinomial, row_base};
   FwdOut out = {};
   out.weights = weights;
   out.samples = samples;
@@ -824,7 +833,7 @@ int hier_tick_chain_fwd(const int* teacher, const int* seed, const int* score,
 
 // The backward. h_all: the forward's L saved hiddens; the gradient
 // outputs in the order of the float operands, the layers' as host arrays of
-// kMaxLayers pointers; chain_C, chain_RB, chain_smem, chain_streamed:
+// kMaxLayers pointers; row_base as in the forward; chain_C, chain_RB, chain_smem, chain_streamed:
 // gru_plan's plan of the chain backward on n_beats * B rows; scratch:
 // hier_tick_chain_bwd_scratch_floats floats, then the GEMMs' partial sums;
 // splits: the split of the terms of each of the 2L + 2 weight-gradient
@@ -836,13 +845,14 @@ int hier_tick_chain_bwd(const int* seed, const int* samples, const float* const*
                         const float* w_ih0e, const float* const* w_hh, const float* const* b_hh,
                         const float* const* w_ih, const float* const* b_ih, const float* out_w,
                         const float* out_b, int T, int B, int H, int E, int V, int L,
-                        int ticks_per_beat, int dropout, float keep, float scale, int chain_C,
+                        int ticks_per_beat, int dropout, float keep, float scale, int row_base,
+                        int chain_C,
                         int chain_RB, int chain_smem, int chain_streamed, float* dgi_beat,
                         float* dtick_h0, float* dx0, float* demb, float* dw_ih0e,
                         float* const* dw_hh, float* const* db_hh, float* const* dw_ih,
                         float* const* db_ih, float* dout_w, float* dout_b, float* scratch,
                         const int* splits, void* stream) {
-  const Dims dm{T, B, H, E, V, ticks_per_beat, L, dropout, keep, scale, 0};
+  const Dims dm{T, B, H, E, V, ticks_per_beat, L, dropout, keep, scale, 0, row_base};
   if (T < 1 || B < 1 || ticks_per_beat < 1 || L < 1 || L > kMaxLayers ||
       chain_checked_smem(true, H, chain_C, chain_RB, chain_smem, chain_streamed != 0) == 0) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -420,10 +420,11 @@ class FolkBarDataset:
             raise ValueError(f"corpus produced no {self.dataset_type!r} bars")
         return np.concatenate(bars, 0)
 
-    def device_splits(self, device: torch.device, split=(0.70, 0.20)
+    def device_splits(self, device: torch.device, split=(0.70, 0.20), ctx=None
                       ) -> Tuple[DeviceSplit, DeviceSplit]:
         """Device-resident (train, val) token splits: rows [0, 70%) and
-        [70%, 90%) of the corpus, reshaped to 24-tick measures."""
+        [70%, 90%) of the corpus, reshaped to 24-tick measures, over the
+        data axis ``ctx`` (``DeviceSplit``'s)."""
         score, _ = self.get_dataset()
         n = len(score)
         a, b = split
@@ -431,7 +432,7 @@ class FolkBarDataset:
 
         def mk(sl):
             rows = np.asarray(score[sl], np.int32).reshape(-1, TICKS_PER_MEASURE)
-            return DeviceSplit(rows, None, (TICKS_PER_MEASURE,), "tokens", device)
+            return DeviceSplit(rows, None, (TICKS_PER_MEASURE,), "tokens", device, ctx)
 
         return mk(slice(0, i0)), mk(slice(i0, i1))
 

@@ -191,9 +191,10 @@ class DspritesDataset:
         rng = np.random.RandomState(self.seed)
         self._order = rng.permutation(len(self.packed))
 
-    def device_splits(self, device: torch.device, split=(0.70, 0.20)
+    def device_splits(self, device: torch.device, split=(0.70, 0.20), ctx=None
                       ) -> Tuple[DeviceSplit, DeviceSplit]:
-        """(train, val) splits uploaded once to ``device``, bit-packed."""
+        """(train, val) splits uploaded once to ``device``, bit-packed,
+        over the data axis ``ctx`` (``DeviceSplit``'s)."""
         self.load_dataset()
         n = len(self.packed)
         a, b = split
@@ -203,7 +204,7 @@ class DspritesDataset:
         def make(sl):
             return DeviceSplit(self.packed[order[sl]],
                                self.latents[order[sl]].astype(np.float32),
-                               (1, _IMG, _IMG), "packed", device)
+                               (1, _IMG, _IMG), "packed", device, ctx)
 
         return make(slice(0, i0)), make(slice(i0, i1))
 

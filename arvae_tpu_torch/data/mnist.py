@@ -205,18 +205,19 @@ class MorphoMnistDataset(MnistDataset):
         self.val_arrays = self._full_test
 
     @staticmethod
-    def _device_split(arrays, device: torch.device) -> DeviceSplit:
+    def _device_split(arrays, device: torch.device, ctx=None) -> DeviceSplit:
         images, _, morpho = arrays
         rows = (images[:, 0] * 255).astype(np.uint8).reshape(len(images), -1)
-        return DeviceSplit(rows, morpho, (1, 28, 28), "bytes", device)
+        return DeviceSplit(rows, morpho, (1, 28, 28), "bytes", device, ctx)
 
-    def device_splits(self, device: torch.device, split=(0.70, 0.20)
+    def device_splits(self, device: torch.device, split=(0.70, 0.20), ctx=None
                       ) -> Tuple[DeviceSplit, DeviceSplit]:
-        """(train, val) on ``device``: the train files and the t10k files;
-        the files' fixed split stands in for ``split``."""
+        """(train, val) on ``device`` over the data axis ``ctx``: the train
+        files and the t10k files; the files' fixed split stands in for
+        ``split``."""
         del split
-        return (self._device_split(self.train_arrays, device),
-                self._device_split(self.val_arrays, device))
+        return (self._device_split(self.train_arrays, device, ctx),
+                self._device_split(self.val_arrays, device, ctx))
 
     def device_eval_split(self, device: torch.device, split=None) -> DeviceSplit:
         """The eval split: the t10k files only."""

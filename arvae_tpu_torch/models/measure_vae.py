@@ -34,21 +34,25 @@ only), so theirs follow the JAX package's parameter tree
 one. Every random draw of a forward comes in through
 :class:`MeasureNoise`, so a test can hand both packages the same draws;
 :func:`draw_measure_noise` makes them on the device from a
-``torch.Generator``. Each decoder runs in the mode its ``train``
+``torch.Generator``. On a rank of a data-parallel step the noise's
+``rows`` is the rank's share of the global batch: the GRUs' dropout is
+drawn for the global batch and the rank's rows taken, and the tick loop
+hashes global rows, so each rank draws what one card draws for its
+rows. Each decoder runs in the mode its ``train``
 argument asks for, the module's own mode by default; eval is
 free-running argmax without dropout.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from arvae_tpu_torch.models.image_vae import draw_noise, reparametrize
-from arvae_tpu_torch.ops.gru import GRU
+from arvae_tpu_torch.ops.gru import GRU, rand_rows
 from arvae_tpu_torch.ops.hier_decoder_kernel import SAMPLING, tick_chain
 
 NUM_BEATS_PER_MEASURE = 4
@@ -64,6 +68,9 @@ class MeasureNoise(NamedTuple):
     teacher: torch.Tensor  # (1,) int32: 1 = teacher-forced decode (training only)
     seed: torch.Tensor  # (1,) int32: the tick loop's dropout / Gumbel seed
     generator: Optional[torch.Generator] = None  # GRU inter-layer dropout draws
+    # a data-parallel rank's share of the global batch (parallel.RowShare):
+    # eps and eps_prior are its rows, the in-forward draws are taken for them
+    rows: Any = None
 
 
 def draw_measure_noise(batch: int, z_dim: int, generator: torch.Generator,
@@ -104,7 +111,7 @@ class Encoder(nn.Module):
                                             nn.Linear(2 * H, z_dim))
 
     def forward(self, score: torch.Tensor,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, rows: Any = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         batch = score.shape[0]
         # an out-of-range id clamps into the table, as the JAX package's
@@ -117,7 +124,7 @@ class Encoder(nn.Module):
         embedded = F.one_hot(ids, self.num_notes).to(table.dtype) @ table
         h0 = torch.zeros(2 * self.lstm.num_layers, batch, self.lstm.hidden_size,
                          device=score.device)
-        _, h_n = self.lstm(embedded, h0, generator)
+        _, h_n = self.lstm(embedded, h0, generator, rows=rows)
         # (L*D, B, H) -> (B, L*D*H), as hidden.transpose(0, 1).view(B, -1)
         hidden = h_n.transpose(0, 1).reshape(batch, -1)
         return self.linear_mean(hidden), self.linear_log_std(hidden)
@@ -130,6 +137,11 @@ def _decode_mode(module: nn.Module, train: Optional[bool], noise: MeasureNoise,
     train = module.training if train is None else train
     teacher = noise.teacher if train else torch.zeros_like(noise.teacher)
     return train, teacher, sampling if train else "argmax"
+
+
+def _row_base(noise: MeasureNoise) -> int:
+    """The global batch row of the decode's row 0, for the tick loop's bits."""
+    return 0 if noise.rows is None else noise.rows.first
 
 
 def _check_sampling(sampling: str) -> None:
@@ -170,7 +182,8 @@ class HierarchicalDecoder(nn.Module):
         # beat RNN, 4 steps over the learned input b_0
         h0_beat = self.z_to_beat_rnn_input(z).view(B, L, H).transpose(0, 1)
         beat_in = self.b_0.view(1, 1, 1).expand(B, NUM_BEATS_PER_MEASURE, 1)
-        beat_out, _ = self.rnn_beat(beat_in, h0_beat, noise.generator, train)  # (B, 4, H)
+        beat_out, _ = self.rnn_beat(beat_in, h0_beat, noise.generator, train,
+                                    noise.rows)  # (B, 4, H)
 
         # per-beat tick inits (4, L, B, H) and the beat-conditioning half
         # of the tick GRU's layer-0 input projection (4, B, 3H), hoisted
@@ -186,7 +199,8 @@ class HierarchicalDecoder(nn.Module):
         weights, samples = tick_chain(
             MEASURE_SEQ_LEN, train, self.dropout, NUM_TICKS_PER_BEAT, sampling,
             teacher, noise.seed, score.t(), gi_beat, tick_h0, self.x_0[None].expand(B, E),
-            self.note_embedding_layer.weight, w_ih0[:E], layers, out.weight.t(), out.bias)
+            self.note_embedding_layer.weight, w_ih0[:E], layers, out.weight.t(), out.bias,
+            _row_base(noise))
         return weights.transpose(0, 1), samples.t()
 
 
@@ -227,7 +241,8 @@ class SRDecoder(nn.Module):
         weights, samples = tick_chain(
             T, train, self.dropout, T, sampling, teacher, noise.seed, score.t(),
             gi_z[None], z.new_zeros(1, L, B, H), self.x_0[None].expand(B, E),
-            self.embedding.weight, w_ih0[:E], layers, self.out.weight.t(), self.out.bias)
+            self.embedding.weight, w_ih0[:E], layers, self.out.weight.t(), self.out.bias,
+            _row_base(noise))
         return weights.transpose(0, 1), samples.t()
 
 
@@ -256,11 +271,11 @@ class SRDecoderNoInput(nn.Module):
         H, L = self.gru.hidden_size, self.gru.num_layers
         train, _, sampling = _decode_mode(self, train, noise, self.sampling)
         rnn_in = self.z2in(z)[:, None].expand(B, T, H)
-        out, _ = self.gru(rnn_in, z.new_zeros(L, B, H), noise.generator, train)
+        out, _ = self.gru(rnn_in, z.new_zeros(L, B, H), noise.generator, train, noise.rows)
         weights = torch.relu(self.out(out))
         scores = weights.detach()
         if sampling == "multinomial":
-            u = torch.rand(scores.shape, generator=noise.generator, device=scores.device)
+            u = rand_rows(scores.shape, noise.generator, scores.device, noise.rows)
             scores = scores - torch.log(-torch.log(u))
         return weights, scores.argmax(-1).to(torch.int32)
 
@@ -323,7 +338,7 @@ class MeasureVAE(nn.Module):
         if score.ndim != 2 or score.shape[1] != MEASURE_SEQ_LEN:
             raise ValueError(f"score must be (B, {MEASURE_SEQ_LEN}), got "
                              f"{tuple(score.shape)}")
-        z_mean, z_log_std = self.encoder(score, noise.generator)
+        z_mean, z_log_std = self.encoder(score, noise.generator, noise.rows)
         z_tilde, z_prior = reparametrize(z_mean, z_log_std, noise.eps, noise.eps_prior)
         weights, samples = self.decoder(z_tilde, score, noise)
         return MeasureVAEOutput(weights, samples, z_mean, z_log_std, z_tilde, z_prior)

@@ -21,7 +21,7 @@ checkpoint loads as it is, but computes through these functions.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -29,6 +29,18 @@ from torch import nn
 from arvae_tpu_torch.ops.gru_kernel import gru_chain, gru_gates
 
 GRUParams = Dict[str, torch.Tensor]
+
+
+def rand_rows(shape: Sequence[int], generator: Optional[torch.Generator],
+              device: torch.device, rows: Any = None) -> torch.Tensor:
+    """U(0, 1) draws of ``shape`` (batch first) from ``generator``. With
+    ``rows``, a data-parallel rank's share of the global batch
+    (:class:`arvae_tpu_torch.parallel.RowShare`), they are drawn for the
+    whole global batch and this rank's rows taken: every rank advances the
+    generator as one card does and holds that card's draws for its rows."""
+    if rows is None:
+        return torch.rand(tuple(shape), generator=generator, device=device)
+    return rows.take(torch.rand((rows.total, *shape[1:]), generator=generator, device=device))
 
 
 def gru_cell_from_gi(params: GRUParams, gi: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -103,13 +115,15 @@ def gru_forward(
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
     train: bool = False,
+    rows: Any = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stacked (bi)GRU matching ``torch.nn.GRU(batch_first=True)``.
 
     xs: (B, T, I); h0: (L*D, B, H). Returns (outputs (B, T, H*D), h_n
     (L*D, B, H)) with h_n in torch's layout [l0_fwd, l0_bwd, l1_fwd, ...].
     In training with a rate > 0, dropout between layers (not after the
-    last), its keep mask drawn on the device from ``generator``."""
+    last), its keep mask drawn on the device from ``generator``
+    (:func:`rand_rows`, for a data-parallel rank's ``rows``)."""
     n_layers = len(params_layers)
     finals: List[torch.Tensor] = []
     out = xs
@@ -122,7 +136,7 @@ def gru_forward(
             finals.append(hf)
         if train and dropout_rate > 0.0 and i < n_layers - 1:
             keep = 1.0 - dropout_rate
-            u = torch.rand(out.shape, generator=generator, device=out.device)
+            u = rand_rows(out.shape, generator, out.device, rows)
             out = out * ((u < keep).float() * (1.0 / keep))
     return out, torch.stack(finals, 0)
 
@@ -188,8 +202,10 @@ class GRU(nn.Module):
 
     def forward(self, xs: torch.Tensor, h0: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                train: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                train: Optional[bool] = None, rows: Any = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """xs (B, T, I), h0 (L*D, B, H) → (outputs (B, T, D*H), h_n).
-        ``train`` (dropout between layers) defaults to the module's mode."""
+        ``train`` (dropout between layers) defaults to the module's mode;
+        ``rows`` as :func:`gru_forward` takes it."""
         return gru_forward(self.params(), xs, h0, self.bidirectional, self.dropout,
-                           generator, self.training if train is None else train)
+                           generator, self.training if train is None else train, rows)

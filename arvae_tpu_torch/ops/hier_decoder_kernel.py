@@ -24,7 +24,10 @@ reproduced here, so both versions draw from one counter-based hash of
 ``(seed, t, salt, row, col)`` (salt 0 for dropout, 3571 for the Gumbel
 noise), written once in CUDA and once below with integer tensor ops:
 dropout masks of the kernel and of the plain version are bitwise equal.
-``seed`` is an int32 device tensor, drawn per step by the trainer.
+``seed`` is an int32 device tensor, drawn per step by the trainer. The
+row is the global batch row: a call given ``row_base`` hashes its row b
+as ``row_base + b``, so a rank of a data-parallel step that holds rows
+``row_base..`` of the global batch draws what one card draws for them.
 Both draw the mask of the gap after layer l with salt l.
 
 What bounds it on the card: a 24-step chain of dependent small products
@@ -104,14 +107,14 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
 
 
 def uniform01(seed: torch.Tensor, t: int, salt: int, rows: int,
-              cols: int) -> torch.Tensor:
-    """(rows, cols) float32 uniforms in (0, 1) for step t: the top 24
-    bits of the hash, kept away from 0 and 1 as
-    ``hier_decoder_pallas._uniform01`` does."""
+              cols: int, row_base: int = 0) -> torch.Tensor:
+    """(rows, cols) float32 uniforms in (0, 1) for step t and the
+    global rows ``row_base..``: the top 24 bits of the hash, kept away
+    from 0 and 1 as ``hier_decoder_pallas._uniform01`` does."""
     dev = seed.device
     h = seed.reshape(1).long() & _M32
     h = _mix32(_mix32(_mix32(h) ^ t) ^ salt)
-    r = torch.arange(rows, device=dev, dtype=torch.int64)[:, None]
+    r = torch.arange(row_base, row_base + rows, device=dev, dtype=torch.int64)[:, None]
     c = torch.arange(cols, device=dev, dtype=torch.int64)[None, :]
     h = _mix32(_mix32(h[:, None] ^ r) ^ c)
     u = (h >> 8).to(torch.float32) * (1.0 / 16777216.0)
@@ -119,14 +122,15 @@ def uniform01(seed: torch.Tensor, t: int, salt: int, rows: int,
 
 
 def dropout_mask(seed: torch.Tensor, t: int, rows: int, cols: int,
-                 rate: float, salt: int = SALT_DROPOUT) -> torch.Tensor:
+                 rate: float, salt: int = SALT_DROPOUT, row_base: int = 0) -> torch.Tensor:
     """Keep-and-scale mask of step t: 1/(1-rate) where kept, else 0."""
     keep = 1.0 - rate
-    return (uniform01(seed, t, salt, rows, cols) < keep).float() * (1.0 / keep)
+    return (uniform01(seed, t, salt, rows, cols, row_base) < keep).float() * (1.0 / keep)
 
 
-def gumbel(seed: torch.Tensor, t: int, rows: int, cols: int) -> torch.Tensor:
-    return -torch.log(-torch.log(uniform01(seed, t, SALT_GUMBEL, rows, cols)))
+def gumbel(seed: torch.Tensor, t: int, rows: int, cols: int,
+           row_base: int = 0) -> torch.Tensor:
+    return -torch.log(-torch.log(uniform01(seed, t, SALT_GUMBEL, rows, cols, row_base)))
 
 
 def argmax_lowest(scores: torch.Tensor) -> torch.Tensor:
@@ -147,13 +151,14 @@ def tick_chain_reference(
     train: bool, dropout_rate: float, ticks_per_beat: int, sampling: str,
     teacher: torch.Tensor, seed: torch.Tensor, score: torch.Tensor,
     gi_beat, tick_h0, x0, emb, w_ih0e, layers: Sequence[Dict[str, torch.Tensor]],
-    out_w, out_b, hiddens: bool = False,
+    out_w, out_b, hiddens: bool = False, row_base: int = 0,
 ) -> Tuple[torch.Tensor, ...]:
     """The tick loop in Python, for an L-layer tick GRU. score (T, B)
     int; tick_h0 (n_beats, L, B, H); ``layers`` the L layers' parameters
     in the (I, 3H) layout (layer 0's ``w_hh``, ``b_hh``: its input
     projection comes as ``w_ih0e`` and ``gi_beat``; the others' ``w_ih``,
-    ``b_ih``, ``w_hh``, ``b_hh``). Returns (weights (T, B, V) relu
+    ``b_ih``, ``w_hh``, ``b_hh``); ``row_base`` the global batch row of
+    row 0, for the random bits. Returns (weights (T, B, V) relu
     logits, samples (T, B) int32 fed tokens), and with ``hiddens`` every
     layer's hiddens in the chain layout the kernel saves
     (:func:`to_chain`)."""
@@ -174,12 +179,13 @@ def tick_chain_reference(
         if t % ticks_per_beat == 0:
             h = tick_h0[beat]
         gi0 = prev_emb @ w_ih0e + gi_beat[beat]
-        masks = [dropout_mask(seed, t, B, H, dropout_rate, SALT_DROPOUT + gap)
+        masks = [dropout_mask(seed, t, B, H, dropout_rate, SALT_DROPOUT + gap, row_base)
                  for gap in range(len(layers) - 1)] if dropout else None
         top, h = stacked_gru_step_from_gi(layers, gi0, h, masks)
         states.append(h)
         logits = torch.relu(top @ out_w + out_b)
-        scores = logits + gumbel(seed, t, B, V) if sampling == "multinomial" else logits
+        scores = (logits + gumbel(seed, t, B, V, row_base) if sampling == "multinomial"
+                  else logits)
         sampled = argmax_lowest(scores.detach())
         tok = torch.where(use_teacher, score[t].long(), sampled).clamp(0, V - 1)
         weights.append(logits)
@@ -272,14 +278,14 @@ def _chain_bwd_plain(gi, w_hh, b_hh, h0, outs, douts):
 
 
 def hier_tick_chain_bwd_by_beats(train, dropout_rate, ticks_per_beat, seed, samples, hiddens,
-                                 weights, dweights, *floats):
+                                 weights, dweights, *floats, row_base=0):
     """The kernel backward's decomposition in plain PyTorch: products
     over all rows at once, then each layer, from the top down, as n_beats
     independent chains of ``ticks_per_beat`` ticks. ``hiddens`` are the
     L layers' saved hiddens in the chain layout, ``weights`` the
     forward's relu logits (their sign is the ReLU's mask), ``floats`` the
-    float operands (:func:`float_operands`). → their gradients, in that
-    order."""
+    float operands (:func:`float_operands`), ``row_base`` the global
+    batch row of row 0. → their gradients, in that order."""
     gi_beat, tick_h0, x0, emb, w_ih0e, layers, out_w, out_b = chain_operands(floats)
     L = len(layers)
     T, B = samples.shape
@@ -290,8 +296,8 @@ def hier_tick_chain_bwd_by_beats(train, dropout_rate, ticks_per_beat, seed, samp
     fed = torch.cat([x0[None], F.embedding(samples[:-1].long(), emb)])  # (T, B, E)
     pe = to_chain(fed, tpb)
     dropout = train and dropout_rate > 0.0
-    masks = [to_chain(torch.stack([dropout_mask(seed, t, B, H, dropout_rate, SALT_DROPOUT + gap)
-                                   for t in range(T)]), tpb) if dropout
+    masks = [to_chain(torch.stack([dropout_mask(seed, t, B, H, dropout_rate, SALT_DROPOUT + gap,
+                                                row_base) for t in range(T)]), tpb) if dropout
              else torch.ones_like(hiddens[0]) for gap in range(L - 1)]
     inters = [None] + [hiddens[l - 1] * masks[l - 1] for l in range(1, L)]
     init = tick_h0.transpose(0, 1).reshape(L, nb * B, H)
@@ -450,10 +456,10 @@ def _library() -> ctypes.CDLL:
         lib.hier_tick_chain_bwd_scratch_floats.argtypes = [i] * 7
         lib.hier_tick_chain_bwd_scratch_floats.restype = ctypes.c_longlong
         lib.hier_tick_chain_fwd.argtypes = ([p] * 8 + [pp] * 4 + [p] * 2 + [i] * 8 + [f, f]
-                                            + [i] * 5 + [p, p, pp, p])
+                                            + [i] * 6 + [p, p, pp, p])
         lib.hier_tick_chain_fwd.restype = i
         lib.hier_tick_chain_bwd.argtypes = ([p, p, pp] + [p] * 7 + [pp] * 4 + [p] * 2
-                                            + [i] * 8 + [f, f] + [i] * 4 + [p] * 5 + [pp] * 4
+                                            + [i] * 8 + [f, f] + [i] * 5 + [p] * 5 + [pp] * 4
                                             + [p] * 3 + [ctypes.POINTER(i), p])
         lib.hier_tick_chain_bwd.restype = i
         _bound = True
@@ -521,11 +527,12 @@ def _operand_args(floats: Sequence[torch.Tensor]) -> Tuple:
 
 
 def hier_tick_chain_fwd_cuda(train, dropout_rate, ticks_per_beat, sampling,
-                             teacher, seed, score, *floats, plan=None):
+                             teacher, seed, score, *floats, plan=None, row_base=0):
     """Launches the forward kernel → (weights, samples, *hiddens), the L
     layers' hiddens in the chain layout (ticks_per_beat, n_beats·B, H).
     ``floats``: the float operands (:func:`float_operands`); ``plan``: the
-    launch plan, :func:`hier_plan`'s by default."""
+    launch plan, :func:`hier_plan`'s by default; ``row_base``: the global
+    batch row of row 0, for the random bits."""
     if sampling not in SAMPLING:
         raise NotImplementedError(f"sampling={sampling!r}; use {SAMPLING}")
     T, B, H, E, V, L = _dims(ticks_per_beat, score, floats)
@@ -547,7 +554,8 @@ def hier_tick_chain_fwd_cuda(train, dropout_rate, ticks_per_beat, sampling,
         err = lib.hier_tick_chain_fwd(
             teacher.data_ptr(), seed.data_ptr(), score.data_ptr(), *_operand_args(floats),
             T, B, H, E, V, L, ticks_per_beat, dropout, keep, scale,
-            int(sampling == "multinomial"), plan.clusters, plan.rows, plan.smem_bytes,
+            int(sampling == "multinomial"), int(row_base), plan.clusters, plan.rows,
+            plan.smem_bytes,
             int(plan.streamed), weights.data_ptr(), samples.data_ptr(), _pointers(hiddens),
             _build.stream_of(score))
     _build.raise_on(lib, _NAME, err, "hier_tick_chain_fwd")
@@ -556,10 +564,10 @@ def hier_tick_chain_fwd_cuda(train, dropout_rate, ticks_per_beat, sampling,
 
 
 def hier_tick_chain_bwd_cuda(train, dropout_rate, ticks_per_beat, seed, samples, hiddens,
-                             weights, dweights, *floats):
+                             weights, dweights, *floats, row_base=0):
     """Launches the backward kernels → the float operands' gradients.
     ``hiddens`` are the forward's L saved hiddens, ``weights`` its relu
-    logits (the ReLU's mask)."""
+    logits (the ReLU's mask), ``row_base`` the forward's."""
     T, B, H, E, V, L = _dims(ticks_per_beat, samples, floats)
     dev = samples.device
     _check_device((("seed", seed), ("samples", samples)), dev, torch.int32)
@@ -586,7 +594,7 @@ def hier_tick_chain_bwd_cuda(train, dropout_rate, ticks_per_beat, seed, samples,
         err = lib.hier_tick_chain_bwd(
             seed.data_ptr(), samples.data_ptr(), _pointers(hiddens), weights.data_ptr(),
             dweights.data_ptr(), *_operand_args(floats), T, B, H, E, V, L, ticks_per_beat,
-            dropout, keep, scale, chain.clusters, chain.rows, chain.smem_bytes,
+            dropout, keep, scale, int(row_base), chain.clusters, chain.rows, chain.smem_bytes,
             int(chain.streamed), *_operand_args(grads), scratch.data_ptr(),
             (ctypes.c_int * len(splits))(*splits), _build.stream_of(samples))
     _build.raise_on(lib, _NAME, err, "hier_tick_chain_bwd")
@@ -605,12 +613,13 @@ class HierTickChainFn(torch.autograd.Function):
     samples carry no gradient; neither do teacher, seed and score."""
 
     @staticmethod
-    def forward(ctx, train, dropout_rate, ticks_per_beat, sampling, teacher, seed,
+    def forward(ctx, train, dropout_rate, ticks_per_beat, sampling, row_base, teacher, seed,
                 score, *floats):
         weights, samples, *hiddens = hier_tick_chain_fwd_cuda(
             train, dropout_rate, ticks_per_beat, sampling, teacher, seed, score,
-            *floats)
+            *floats, row_base=row_base)
         ctx.cfg = (train, dropout_rate, ticks_per_beat)
+        ctx.row_base = row_base
         ctx.layers = len(hiddens)
         ctx.save_for_backward(seed, samples, weights, *hiddens, *floats)
         ctx.mark_non_differentiable(samples)
@@ -621,18 +630,20 @@ class HierTickChainFn(torch.autograd.Function):
         seed, samples, weights, *rest = ctx.saved_tensors
         hiddens, floats = rest[:ctx.layers], rest[ctx.layers:]
         grads = hier_tick_chain_bwd_cuda(*ctx.cfg, seed, samples, hiddens, weights,
-                                         dweights.contiguous(), *floats)
-        return (None,) * 7 + grads
+                                         dweights.contiguous(), *floats, row_base=ctx.row_base)
+        return (None,) * 8 + grads
 
 
 def tick_chain(seq_len: int, train: bool, dropout_rate: float, ticks_per_beat: int,
                sampling: str, teacher: torch.Tensor, seed: torch.Tensor,
                score: torch.Tensor, gi_beat, tick_h0, x0, emb, w_ih0e,
                layers: Sequence[Dict[str, torch.Tensor]], out_w,
-               out_b) -> Tuple[torch.Tensor, torch.Tensor]:
+               out_b, row_base: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused T-step tick loop of an L-layer tick GRU (``layers`` as
     :func:`tick_chain_reference` takes them). ``score`` is time-major
-    (T, B); ``teacher`` and ``seed`` are (1,) int32. Returns (weights
+    (T, B); ``teacher`` and ``seed`` are (1,) int32; ``row_base`` is the
+    global batch row of row 0 (a data-parallel rank's first row), for the
+    random bits. Returns (weights
     (T, B, V) relu logits, samples (T, B) int32 fed tokens): the kernels
     for CUDA tensors, the plain loop for CPU tensors. On a CUDA tensor
     :func:`hier_plans` runs first, so shapes the kernels do not run raise
@@ -646,8 +657,8 @@ def tick_chain(seq_len: int, train: bool, dropout_rate: float, ticks_per_beat: i
         floats = flat_operands(gi_beat, tick_h0, x0, emb, w_ih0e, layers, out_w, out_b)
         ints = (t.to(torch.int32).reshape(-1) for t in (teacher, seed))
         return HierTickChainFn.apply(
-            bool(train), float(dropout_rate), int(ticks_per_beat), sampling, *ints,
+            bool(train), float(dropout_rate), int(ticks_per_beat), sampling, int(row_base), *ints,
             score.to(torch.int32).contiguous(), *(x.float().contiguous() for x in floats))
     return tick_chain_reference(train, dropout_rate, ticks_per_beat, sampling, teacher,
                                 seed, score, gi_beat, tick_h0, x0, emb, w_ih0e, layers,
-                                out_w, out_b)
+                                out_w, out_b, row_base=row_base)

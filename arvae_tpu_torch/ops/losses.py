@@ -12,11 +12,19 @@ are B×B pairwise difference matrices. The AR term goes through
 latent and attribute columns in place: the CUDA kernels for CUDA
 tensors, their plain PyTorch versions for CPU tensors.
 Distributions are carried as ``(mean, log_std)`` pairs.
+
+On a rank of a data-parallel step (``share``, the rank's
+:class:`~arvae_tpu_torch.parallel.RowShare` of the global batch) each
+loss is the global batch's: a batch mean is ``share.mean`` of this
+rank's (its weight the rank's rows over the global count, as per-rank
+row counts may differ), ``kld_loss`` takes ``|·−c|`` of the global mean
+(it is not linear in the mean for c > 0), and the AR term runs on the
+gathered (B, Z) latents and labels, so its pairs are the global batch's.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Any, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -133,12 +141,16 @@ def kld_loss(
     z_log_std: torch.Tensor,
     beta: torch.Tensor | float,
     c: torch.Tensor | float = 0.0,
+    share: Any = None,
 ) -> torch.Tensor:
-    """beta * | mean_B( sum_D KL(N(mu, sigma) || N(0, 1)) ) - c |."""
+    """beta * | mean_B( sum_D KL(N(mu, sigma) || N(0, 1)) ) - c |, the
+    mean over the global batch when given a rank's ``share``."""
     mu = z_mean.float()
     log_s = z_log_std.float()
     kl = -log_s + 0.5 * (torch.exp(2.0 * log_s) + torch.square(mu)) - 0.5
     kld = torch.mean(torch.sum(kl, dim=-1))
+    if share is not None:
+        kld = share.mean(kld)
     return beta * torch.abs(kld - c)
 
 
@@ -165,10 +177,15 @@ def total_reg_loss(
     reg_dims: Sequence[Tuple[int, int]],
     gamma: torch.Tensor | float,
     delta: torch.Tensor | float,
+    share: Any = None,
 ) -> torch.Tensor:
     """Sum of gamma-weighted AR losses over ``(latent_dim, attr_col)``
     pairs, through the kernel on the columns of ``z`` and ``labels`` read
-    in place (no stack; float32 labels are not cast)."""
+    in place (no stack; float32 labels are not cast). Given a rank's
+    ``share``, on the global batch's rows of both: the gathered latents
+    (their gradient reaches this rank's rows) and labels."""
     if len(reg_dims) == 0:
         return torch.zeros((), dtype=torch.float32, device=z.device)
+    if share is not None:
+        z, labels = share.gather(z), share.gather_constant(labels)
     return gamma * torch.sum(reg_losses(z, labels, reg_dims, delta))

@@ -18,7 +18,10 @@ run's checkpoint under ``--test``, the run is evaluated: the five
 disentanglement metrics and the protocol stamp are written to
 ``<run_dir>/results_dict.json`` and printed (a results file already in
 the run dir is printed as it is). ``--log`` is accepted for the root
-CLI's sake and does nothing.
+CLI's sake and does nothing. Under ``torchrun --nproc_per_node N -m
+arvae_tpu_torch.train_image_fader ...`` the ranks train data-parallel,
+one card each, with ``--batch_size`` the global batch (as
+``train_image_vae``'s docstring says).
 """
 
 from __future__ import annotations
@@ -30,10 +33,9 @@ from typing import Optional, Sequence
 import torch
 
 from arvae_tpu_torch.core.config import add_switch
-from arvae_tpu_torch.data.dsprites import (FULL_FACTOR_SIZES, SHORT_FACTOR_SIZES,
-                                           DspritesDataset)
-from arvae_tpu_torch.data.mnist import MorphoMnistDataset
 from arvae_tpu_torch.models.image_fader import DspritesFaderNetwork, MnistFaderNetwork
+from arvae_tpu_torch.parallel import init_data_parallel
+from arvae_tpu_torch.train_image_vae import dataset_of
 from arvae_tpu_torch.training.fader_trainer import ImageFaderTrainer
 
 
@@ -69,17 +71,22 @@ def main(argv: Optional[Sequence[str]] = None) -> ImageFaderTrainer:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu to "
                            "train on the CPU")
-    if args.dataset_type == "mnist":
-        dataset, model = MorphoMnistDataset(), MnistFaderNetwork(seed=args.rand)
-    elif args.dataset_type == "dsprites":
-        dataset = DspritesDataset(
-            factor_sizes=SHORT_FACTOR_SIZES if args.short else FULL_FACTOR_SIZES)
-        model = DspritesFaderNetwork(seed=args.rand)
-    else:
-        raise ValueError("Invalid dataset_type. Choose between mnist and dsprites")
+    ctx = init_data_parallel(device)
+    try:
+        return _train(args, ctx)
+    finally:
+        ctx.close()
 
-    trainer = ImageFaderTrainer(dataset, model, device, lr=args.lr, beta=args.beta,
-                                rand=args.rand)
+
+def _train(args: argparse.Namespace, ctx) -> ImageFaderTrainer:
+    if args.dataset_type not in ("mnist", "dsprites"):
+        raise ValueError("Invalid dataset_type. Choose between mnist and dsprites")
+    dataset = ctx.main_first(lambda: dataset_of(args))
+    model = (MnistFaderNetwork if args.dataset_type == "mnist"
+             else DspritesFaderNetwork)(seed=args.rand)
+
+    trainer = ImageFaderTrainer(dataset, model, ctx.device, lr=args.lr, beta=args.beta,
+                                rand=args.rand, ctx=ctx)
     if args.resume:
         trainer.maybe_resume()
     if args.do_train:
@@ -87,7 +94,7 @@ def main(argv: Optional[Sequence[str]] = None) -> ImageFaderTrainer:
     else:
         trainer.load_model()
     metrics = trainer.compute_eval_metrics(batch_size=args.batch_size)
-    print(json.dumps(metrics, indent=2))
+    trainer.say(json.dumps(metrics, indent=2))
     return trainer
 
 

@@ -26,6 +26,18 @@ convolutions and hidden linear layers in bfloat16, as the root CLI's
 does (``--f32``, float32 throughout, is the default). The latent GIFs
 that follow in the root CLI are left out: they need seaborn, pandas and
 PIL. ``--log`` is accepted for the root CLI's sake and does nothing.
+
+On N cards, under ``torchrun``, one process a card::
+
+    torchrun --nproc_per_node N -m arvae_tpu_torch.train_image_vae \\
+        -d dsprites --short --rand 0 -r all --batch_size 128 --num_epochs 2
+
+each rank takes ``cuda:LOCAL_RANK`` and the ranks train data-parallel
+over NCCL (``arvae_tpu_torch.parallel``); ``--batch_size`` stays the
+global batch, split over the ranks. Rank 0 alone prints and writes the
+run's files, and evaluates on its card. ``--device cpu`` under torchrun
+runs the ranks on the CPU over gloo (for tests). Without torchrun the
+CLI trains on one card, as it always has.
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ from arvae_tpu_torch.data.dsprites import (FULL_FACTOR_SIZES,
                                            SHORT_FACTOR_SIZES, DspritesDataset)
 from arvae_tpu_torch.data.mnist import MorphoMnistDataset
 from arvae_tpu_torch.models.image_vae import DspritesVAE, MnistVAE
+from arvae_tpu_torch.parallel import init_data_parallel
 from arvae_tpu_torch.training.image_trainer import (DSPRITES_REG_TYPE, MNIST_REG_TYPES,
                                                     ImageVAETrainer)
 
@@ -98,12 +111,28 @@ def main(argv: Optional[Sequence[str]] = None) -> List[ImageVAETrainer]:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu to "
                            "train on the CPU")
+    ctx = init_data_parallel(device)
+    try:
+        return _train(args, ctx)
+    finally:
+        ctx.close()
 
+
+def dataset_of(args: argparse.Namespace):
+    """The dataset of ``-d`` and ``--short``, its cache built or read."""
     if args.dataset_type == "mnist":
-        dataset, model_type, attr_dict = MorphoMnistDataset(), MnistVAE, MNIST_REG_TYPES
+        return MorphoMnistDataset()
+    dataset = DspritesDataset(
+        factor_sizes=SHORT_FACTOR_SIZES if args.short else FULL_FACTOR_SIZES)
+    dataset.load_dataset()
+    return dataset
+
+
+def _train(args: argparse.Namespace, ctx) -> List[ImageVAETrainer]:
+    dataset = ctx.main_first(lambda: dataset_of(args))
+    if args.dataset_type == "mnist":
+        model_type, attr_dict = MnistVAE, MNIST_REG_TYPES
     else:
-        dataset = DspritesDataset(
-            factor_sizes=SHORT_FACTOR_SIZES if args.short else FULL_FACTOR_SIZES)
         model_type, attr_dict = DspritesVAE, DSPRITES_REG_TYPE
     reg_type = tuple(args.reg_type or ())
     if reg_type:
@@ -123,7 +152,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[ImageVAETrainer]:
         trainer = ImageVAETrainer(
             dataset=dataset,
             model=model_type(seed=r, compute_dtype=compute_dtype),
-            device=device,
+            device=ctx.device,
             lr=args.lr,
             reg_type=reg_type,
             reg_dim=reg_dim,
@@ -133,10 +162,11 @@ def main(argv: Optional[Sequence[str]] = None) -> List[ImageVAETrainer]:
             delta=args.delta,
             dec_dist=args.dec_dist,
             rand=r,
+            ctx=ctx,
         )
         if (args.skip_cached and args.do_train
                 and trainer.has_protocol_cache(args.num_epochs, args.batch_size)):
-            print(f"skip seed {r}: protocol-stamped cache in {trainer.run_dir}")
+            trainer.say(f"skip seed {r}: protocol-stamped cache in {trainer.run_dir}")
             continue
         if args.resume:
             trainer.maybe_resume()
@@ -146,7 +176,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[ImageVAETrainer]:
         else:
             trainer.load_model()
         metrics = trainer.compute_eval_metrics(batch_size=args.batch_size)
-        print(json.dumps(metrics, indent=2))
+        trainer.say(json.dumps(metrics, indent=2))
         trainers.append(trainer)
     return trainers
 

@@ -19,7 +19,10 @@ is). ``--skip_cached`` skips a seed whose run dir holds results stamped
 with the same epochs, batch size and dataset. What follows in the root
 CLI is left out: the 20-batch harvest and the latent interpolation
 plots it feeds need seaborn, pandas and music21. ``--log`` is accepted for
-the root CLI's sake and does nothing.
+the root CLI's sake and does nothing. Under ``torchrun --nproc_per_node N
+-m arvae_tpu_torch.train_measure_vae ...`` the ranks train data-parallel,
+one card each, with ``--batch_size`` the global batch (as
+``train_image_vae``'s docstring says).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from arvae_tpu_torch.core.config import add_switch, expand_reg_dims
 from arvae_tpu_torch.data.attributes import MUSIC_REG_TYPE
 from arvae_tpu_torch.data.bar_dataset import ChoraleNBarDataset, FolkNBarDataset
 from arvae_tpu_torch.models.measure_vae import MeasureVAE
+from arvae_tpu_torch.parallel import DataContext, init_data_parallel
 from arvae_tpu_torch.training.glsr_trainer import MeasureVAETrainerGLSR
 from arvae_tpu_torch.training.measure_trainer import MeasureVAETrainer
 
@@ -181,8 +185,9 @@ def model_of(args: argparse.Namespace, dataset, seed: int) -> MeasureVAE:
 
 
 def trainer_of(args: argparse.Namespace, dataset, device: torch.device, seed: int,
-               settings) -> MeasureVAETrainer:
-    """The trainer of one seed, its model freshly initialised."""
+               settings, ctx: Optional[DataContext] = None) -> MeasureVAETrainer:
+    """The trainer of one seed, its model freshly initialised, over the
+    data axis ``ctx`` (``init_data_parallel``'s by default)."""
     reg_type, reg_dim, glsr_type = settings
     model = model_of(args, dataset, seed)
     if glsr_type is not None:
@@ -196,6 +201,7 @@ def trainer_of(args: argparse.Namespace, dataset, device: torch.device, seed: in
             beta=args.beta,
             gamma=args.gamma,
             rand=seed,
+            ctx=ctx,
         )
     return MeasureVAETrainer(
         dataset=dataset,
@@ -209,24 +215,32 @@ def trainer_of(args: argparse.Namespace, dataset, device: torch.device, seed: in
         gamma=args.gamma,
         delta=args.delta,
         rand=seed,
+        ctx=ctx,
     )
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[MeasureVAETrainer]:
     """Runs the CLI; returns the trainers, one per seed not skipped."""
     args = parse_args(argv)
-    device = device_of(args)
-    dataset = dataset_of(args)
+    ctx = init_data_parallel(device_of(args))
+    try:
+        return _train(args, ctx)
+    finally:
+        ctx.close()
+
+
+def _train(args: argparse.Namespace, ctx: DataContext) -> List[MeasureVAETrainer]:
+    dataset = ctx.main_first(lambda: dataset_of(args))
     settings = reg_settings(args)
 
     seeds = range(0, 10) if args.rand is None else [args.rand]
     trainers = []
     for r in seeds:
-        trainer = trainer_of(args, dataset, device, r, settings)
-        print("run_dir:", trainer.run_dir, flush=True)
+        trainer = trainer_of(args, dataset, ctx.device, r, settings, ctx)
+        trainer.say("run_dir:", trainer.run_dir)
         if (args.skip_cached and args.do_train
                 and trainer.has_protocol_cache(args.num_epochs, args.batch_size)):
-            print(f"skip seed {r}: protocol-stamped cache in {trainer.run_dir}")
+            trainer.say(f"skip seed {r}: protocol-stamped cache in {trainer.run_dir}")
             continue
         if args.resume:
             trainer.maybe_resume()
@@ -235,7 +249,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[MeasureVAETrainer]:
         else:
             trainer.load_model()
         metrics = trainer.compute_eval_metrics()
-        print(json.dumps(metrics, indent=2))
+        trainer.say(json.dumps(metrics, indent=2))
         trainers.append(trainer)
     return trainers
 

@@ -18,6 +18,18 @@ the ``results_dict.json`` cache with its protocol stamp. Both passes
 draw their noise from a generator made for the pass and seeded from
 ``rand``, so a second evaluation of the same weights draws the same
 noise; each keeps its results on the device until one host read.
+
+Data parallelism (``ctx``, a :class:`~arvae_tpu_torch.parallel.DataContext`,
+by default ``init_data_parallel``'s: a world of 1 with no process group
+unless ``torchrun`` started the program). Over a process group the
+parameters must start equal on every rank (the models' init is seeded;
+checked bitwise), each step works on this rank's rows of the global
+batch and sums the gradients over the ranks before Adam
+(:func:`~arvae_tpu_torch.parallel.all_reduce_grads`), so every rank
+takes the step one card takes on the whole batch. Rank 0 alone prints,
+writes the checkpoint and the results, and runs the evaluation over the
+whole eval split on its card while the others wait; ``--resume``
+restores on every rank.
 """
 
 from __future__ import annotations
@@ -26,15 +38,19 @@ import abc
 import json
 import os
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from arvae_tpu_torch.core.checkpoint import Checkpointer
 from arvae_tpu_torch.core.config import TrainerHParams, run_dir
 from arvae_tpu_torch.data.device_data import DeviceEpochRunner, DeviceSplit, Metrics
 from arvae_tpu_torch.eval.metrics import compute_all
+from arvae_tpu_torch.parallel import (DataContext, RowShare, all_reduce_grads,
+                                      check_replicated, init_data_parallel)
+from arvae_tpu_torch.parallel.collectives import differs_from_main
 from arvae_tpu_torch.utils.profiling import assert_tensors_finite
 
 # Offset of the permutation generator's seed from the noise generator's.
@@ -53,16 +69,25 @@ def _means(totals: Optional[Metrics], n: int) -> Tuple[float, float]:
 
 
 class BaseTrainer(abc.ABC):
-    """Owns dataset + model + Adam + generators on one device; drives epochs."""
+    """Owns dataset + model + Adam + generators on one device; drives
+    epochs, over the data axis ``ctx``."""
 
     def __init__(self, dataset, model: torch.nn.Module,
-                 hparams: TrainerHParams, device: torch.device):
+                 hparams: TrainerHParams, device: torch.device,
+                 ctx: Optional[DataContext] = None):
         self.dataset = dataset
+        self.ctx = init_data_parallel(device) if ctx is None else ctx
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # generators compare devices with their index
             self.device = torch.device("cuda", torch.cuda.current_device())
+        if self.ctx.distributed and self.device != self.ctx.device:
+            raise ValueError(f"device {self.device} is not the data context's "
+                             f"{self.ctx.device}")
         self.model = model.to(self.device)
+        self.check_replicated(self.model.state_dict().values(), "the initial parameters")
+        # steps whose per-step draws differed from rank 0's (note_draws)
+        self._draw_faults = torch.zeros((), dtype=torch.int64, device=self.device)
         self.hparams = hparams
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=hparams.lr)
         self.step = 0
@@ -93,6 +118,50 @@ class BaseTrainer(abc.ABC):
     def results_path(self) -> str:
         return os.path.join(self.run_dir, "results_dict.json")
 
+    # -- data parallelism ---------------------------------------------------------
+
+    def check_replicated(self, tensors: Iterable[torch.Tensor], what: str) -> None:
+        """Over a process group, raises unless ``tensors`` are bitwise
+        rank 0's on every rank."""
+        if self.ctx.distributed:
+            check_replicated(tensors, self.ctx.group, what)
+
+    def check_share(self, share: Optional[RowShare]) -> None:
+        """A step gets its rank's share over a process group, and none
+        without one."""
+        if self.ctx.distributed != (share is not None):
+            raise ValueError("a step over a process group takes its rank's share of the "
+                             "global batch (share=ctx.share(B)), and no share without one")
+
+    def sync_grads(self, params: Iterable[torch.nn.Parameter]) -> None:
+        """Over a process group, sums the gradients of ``params`` over the
+        ranks (each rank's holds its rows' part of the global loss's)."""
+        if self.ctx.distributed:
+            all_reduce_grads(params, self.ctx.group)
+
+    def note_draws(self, draws: Iterable[torch.Tensor]) -> None:
+        """Over a process group, counts on the device (no host read) a
+        step whose per-step draws, which the shared generator makes equal
+        on every rank, differ from rank 0's; :meth:`check_draws` raises."""
+        if self.ctx.distributed:
+            self._draw_faults += differs_from_main(draws, self.ctx.group)
+
+    def check_draws(self) -> None:
+        """Raises on every rank if any rank noted a step whose draws
+        differed from rank 0's (one host read; train_model calls it each
+        epoch)."""
+        if self.ctx.distributed:
+            faults = self._draw_faults.clone()
+            dist.all_reduce(faults, group=self.ctx.group)
+            if int(faults):
+                raise RuntimeError(f"{int(faults)} steps drew other per-step draws than "
+                                   "rank 0 (the noise generators are out of step)")
+
+    def say(self, *args) -> None:
+        """``print`` on rank 0 only."""
+        if self.ctx.is_main:
+            print(*args, flush=True)
+
     @abc.abstractmethod
     def train_step(self, batch) -> Metrics:
         """One optimizer step on (images, labels); returns detached metrics."""
@@ -107,19 +176,20 @@ class BaseTrainer(abc.ABC):
         """Trains ``num_epochs`` epochs; returns the per-epoch history."""
         # compute_eval_metrics returns a cached results_dict.json as it
         # is: one from an earlier run must not stand for this one
-        if os.path.exists(self.results_path):
+        if self.ctx.is_main and os.path.exists(self.results_path):
             os.remove(self.results_path)
+        self.ctx.barrier()
         self._train_protocol = {
             "num_epochs": int(num_epochs),
             "batch_size": int(batch_size),
         }
         train_split, val_split = self.dataset.device_splits(
-            self.device, split=(0.70, 0.20))
+            self.device, split=(0.70, 0.20), ctx=self.ctx)
         runner = DeviceEpochRunner(train_split, val_split, batch_size,
                                    self.train_step, self.eval_step,
                                    self.perm_generator)
-        print("Num Train Batches: ", train_split.num_batches(batch_size))
-        print("Num Valid Batches: ", val_split.num_batches(batch_size))
+        self.say("Num Train Batches: ", train_split.num_batches(batch_size))
+        self.say("Num Valid Batches: ", val_split.num_batches(batch_size))
 
         ckpt = Checkpointer(self.run_dir)
         for epoch_index in range(num_epochs):
@@ -129,11 +199,15 @@ class BaseTrainer(abc.ABC):
             # the epoch's one host read of the device-side sums
             loss_train, acc_train = _means(totals, n)
             loss_val, acc_val = _means(vtot, vn)
+            self.check_draws()
             dt = time.time() - t0
-            self.print_epoch_stats(epoch_index, num_epochs, loss_train,
-                                   acc_train, loss_val, acc_val, dt)
+            if self.ctx.is_main:
+                self.print_epoch_stats(epoch_index, num_epochs, loss_train,
+                                       acc_train, loss_val, acc_val, dt)
             assert_tensors_finite(self.model.state_dict(), "model parameters")
-            ckpt.save(self.checkpoint_state())
+            if self.ctx.is_main:
+                ckpt.save(self.checkpoint_state())
+            self.ctx.barrier()
             self.history.append({
                 "epoch": epoch_index + 1,
                 "train_loss": loss_train,
@@ -171,10 +245,10 @@ class BaseTrainer(abc.ABC):
         """Restores the run's checkpoint if one exists; returns whether
         training resumes from it."""
         if not Checkpointer(self.run_dir).exists():
-            print(f"no checkpoint under {self.run_dir}; training fresh")
+            self.say(f"no checkpoint under {self.run_dir}; training fresh")
             return False
         self.load_model()
-        print(f"resumed from {self.run_dir} at step {self.step}")
+        self.say(f"resumed from {self.run_dir} at step {self.step}")
         return True
 
     def protocol_dict(self) -> Dict[str, Any]:
@@ -296,17 +370,31 @@ class BaseTrainer(abc.ABC):
         return {}
 
     def compute_eval_metrics(self, batch_size: Optional[int] = None) -> Dict[str, Any]:
-        """The five metrics of the harvest, the test pass, the trainer's
-        extra results and the protocol stamp, cached as
-        ``results_dict.json`` in the run dir (a cache there is returned
-        as it is) and kept as ``self.metrics``. The metrics' jitter is
-        drawn from ``np.random.RandomState(rand)``."""
-        if os.path.exists(self.results_path):
+        """The evaluation's results (:meth:`evaluation_results`) and the
+        protocol stamp, cached as ``results_dict.json`` in the run dir (a
+        cache there is returned as it is) and kept as ``self.metrics``.
+        Over a process group rank 0 evaluates and writes, on its card,
+        while the others wait, then read its file."""
+        if not self.ctx.is_main:
+            self.ctx.barrier()
             return self._read_results()
+        try:
+            if os.path.exists(self.results_path):
+                return self._read_results()
+            self.metrics = self.evaluation_results(batch_size)
+            return self._write_results()
+        finally:
+            self.ctx.barrier()
+
+    def evaluation_results(self, batch_size: Optional[int] = None) -> Dict[str, Any]:
+        """The five metrics of the harvest, the test pass and the
+        trainer's extra results, gathered in ``self.metrics`` (the judge
+        reads the interpretability there). The metrics' jitter is drawn
+        from ``np.random.RandomState(rand)``."""
         self.metrics = self._metric_suite()
         self.metrics.update(self.test_model(batch_size=batch_size))
         self.metrics.update(self.extra_eval_metrics())
-        return self._write_results()
+        return self.metrics
 
     def _metric_suite(self) -> Dict[str, Any]:
         """The five metrics of the harvest, jitter from RandomState(rand)."""

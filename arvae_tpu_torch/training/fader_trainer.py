@@ -23,11 +23,16 @@ mode) of the eval split with the normalised attributes and writes the
 five metrics and the protocol stamp: no test pass and no judge, as the
 JAX fader's ``results_dict.json`` has neither. Its TensorBoard hook and
 traversal grids are not ported (plots).
+
+On a rank of a data-parallel step the masks are drawn for the global
+batch and the rank's rows taken, both losses are the global batch's,
+and each of the two updates sums its own network's gradients over the
+ranks before its Adam step. The normalised labels use fixed bounds, not
+batch statistics, so they need no collective.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,6 +44,7 @@ from arvae_tpu_torch.models.image_fader import (DspritesFaderNetwork,
                                                ImageFaderDiscriminator, MnistFaderNetwork)
 from arvae_tpu_torch.models.image_vae import keep_masks
 from arvae_tpu_torch.ops.losses import pixel_accuracy, reconstruction_loss
+from arvae_tpu_torch.parallel import DataContext, RowShare
 from arvae_tpu_torch.training.image_trainer import MNIST_NORMALIZATION_FACTORS, ImageVAETrainer
 
 # Each dSprites factor's (low, high)
@@ -74,13 +80,16 @@ class ImageFaderTrainer(ImageVAETrainer):
         beta: float = 1.0,
         rand: int = 0,
         dec_dist: str = "bernoulli",
+        ctx: Optional[DataContext] = None,
     ):
         super().__init__(dataset, fader_model, device, lr=lr, beta=beta, reg_type=(),
-                         reg_dim=(), dec_dist=dec_dist, rand=rand)
+                         reg_dim=(), dec_dist=dec_dist, rand=rand, ctx=ctx)
         if disc_model is None:
             disc_model = ImageFaderDiscriminator(fader_model.num_attributes,
                                                  fader_model.z_dim, seed=rand)
         self.disc = disc_model.to(self.device)
+        self.check_replicated(self.disc.state_dict().values(),
+                              "the discriminator's initial parameters")
         self.disc_optimizer = torch.optim.Adam(self.disc.parameters(), lr=lr)
         self._fader_params = list(self.model.parameters())
         if self.dataset_type == "mnist":
@@ -119,52 +128,65 @@ class ImageFaderTrainer(ImageVAETrainer):
             fader_disc=self.disc.dropout_masks(batch, gen, dev))
 
     def _fader_losses(self, inputs: torch.Tensor, norm_labels: torch.Tensor,
-                      masks: Masks = None, disc_masks: Masks = None
-                      ) -> Tuple[torch.Tensor, Metrics]:
+                      masks: Masks = None, disc_masks: Masks = None,
+                      share: Optional[RowShare] = None) -> Tuple[torch.Tensor, Metrics]:
         """The fader's loss (reconstruction + β·disc loss on the flipped
-        attributes) and its metrics."""
+        attributes) and its metrics, the global batch's given a rank's
+        ``share``."""
         logits, z = self.model(inputs, norm_labels, masks)
         pred = self.disc(z, disc_masks)
         recons_loss = reconstruction_loss(logits, inputs, self.hparams.dec_dist)
-        adv_loss = self.hyper["beta"] * self.compute_disc_loss(pred, 1.0 - norm_labels)
+        disc_loss = self.compute_disc_loss(pred, 1.0 - norm_labels)
+        accuracy = pixel_accuracy(torch.sigmoid(logits), inputs)
+        if share is not None:
+            recons_loss, disc_loss, accuracy = (share.mean(x) for x in
+                                                (recons_loss, disc_loss, accuracy))
+        adv_loss = self.hyper["beta"] * disc_loss
         loss = recons_loss + adv_loss
-        return loss, {"loss": loss,
-                      "accuracy": pixel_accuracy(torch.sigmoid(logits), inputs),
+        return loss, {"loss": loss, "accuracy": accuracy,
                       "recons_loss": recons_loss, "adv_loss": adv_loss}
 
-    def train_step(self, batch, noise: Optional[FaderNoise] = None) -> Metrics:
+    def train_step(self, batch, noise: Optional[FaderNoise] = None,
+                   share: Optional[RowShare] = None) -> Metrics:
         """The discriminator's step, then the fader's; ``noise``
-        (``draw_train_noise``'s) overrides the generator's draws."""
+        (``draw_train_noise``'s) overrides the generator's draws. Over a
+        process group ``batch`` is this rank's rows of the global batch,
+        ``share`` says which, and ``noise`` is the global batch's."""
         inputs, labels = batch
         self.model.train()
         self.disc.train()
-        if noise is None:
-            noise = self.draw_train_noise(inputs.shape[0])
+        noise = self._noise(batch, noise, share, self.draw_train_noise)
         norm_labels = self.normalize_labels(labels)
 
         with torch.no_grad():
             z = self.model.encode_deterministic(inputs, noise.enc)
         disc_loss = self.compute_disc_loss(self.disc(z, noise.disc), norm_labels)
+        if share is not None:
+            disc_loss = share.mean(disc_loss)
         self.disc_optimizer.zero_grad(set_to_none=True)
         disc_loss.backward()
+        self.sync_grads(self.disc.parameters())
         self.disc_optimizer.step()
 
         loss, metrics = self._fader_losses(inputs, norm_labels, noise.fader,
-                                           noise.fader_disc)
+                                           noise.fader_disc, share)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward(inputs=self._fader_params)
+        self.sync_grads(self._fader_params)
         self.optimizer.step()
         self.step += 1
         metrics["disc_loss"] = disc_loss
         return {k: v.detach() for k, v in metrics.items()}
 
     @torch.no_grad()
-    def eval_step(self, batch) -> Metrics:
-        """The fader's loss and metrics without dropout."""
+    def eval_step(self, batch, share: Optional[RowShare] = None) -> Metrics:
+        """The fader's loss and metrics without dropout (``share`` as for
+        :meth:`train_step`)."""
         inputs, labels = batch
         self.model.eval()
         self.disc.eval()
-        return self._fader_losses(inputs, self.normalize_labels(labels))[1]
+        self.check_share(share)
+        return self._fader_losses(inputs, self.normalize_labels(labels), share=share)[1]
 
     # -- checkpoints ------------------------------------------------------------
 
@@ -198,11 +220,7 @@ class ImageFaderTrainer(ImageVAETrainer):
         names = [a for a in self.attr_dict if a not in ("digit_identity", "color")]
         return latent_codes, attributes, names
 
-    def compute_eval_metrics(self, batch_size: Optional[int] = None) -> Dict:
-        """The five metrics of the harvest and the protocol stamp, cached
-        as ``results_dict.json`` (a cache there is returned as it is). No
-        test pass and no judge: ``batch_size`` is unused."""
-        if os.path.exists(self.results_path):
-            return self._read_results()
-        self.metrics = self._metric_suite()
-        return self._write_results()
+    def evaluation_results(self, batch_size: Optional[int] = None) -> Dict:
+        """The five metrics of the harvest. No test pass and no judge:
+        ``batch_size`` is unused."""
+        return self._metric_suite()

@@ -14,7 +14,9 @@ encoder through both decodes.
 
 Every draw of a step comes from the trainer's noise generator on the
 device, or from an injected :class:`GLSRNoise`, so a test can hand both
-packages the same draws.
+packages the same draws. On a rank of a data-parallel step they are the
+global batch's (the rank's rows taken), the finite-difference decodes
+run on the rank's rows, and the term is the mean over the global rows.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 from arvae_tpu_torch.models.measure_vae import (MEASURE_SEQ_LEN, MeasureNoise,
                                                 MeasureVAE, draw_measure_noise)
 from arvae_tpu_torch.ops.losses import kld_loss, token_accuracy, token_cross_entropy_loss
+from arvae_tpu_torch.parallel import DataContext, RowShare
 from arvae_tpu_torch.training.measure_trainer import MeasureVAETrainer
 
 GLSR_REG_TYPES = ("rhy_complexity", "num_notes")
@@ -44,12 +47,13 @@ class MeasureVAETrainerGLSR(MeasureVAETrainer):
 
     def __init__(self, dataset, model: MeasureVAE, device: torch.device,
                  lr: float = 1e-4, reg_type: str = "rhy_complexity", reg_dim: int = 0,
-                 gamma: float = 1.0, beta: float = 0.001, rand: int = 0):
+                 gamma: float = 1.0, beta: float = 0.001, rand: int = 0,
+                 ctx: Optional[DataContext] = None):
         if reg_type not in GLSR_REG_TYPES:
             raise ValueError(f"GLSR has a differentiable surrogate for {GLSR_REG_TYPES}, "
                              f"not {reg_type!r}")
         super().__init__(dataset, model, device, lr=lr, reg_type=(reg_type,),
-                         reg_dim=(reg_dim,), beta=beta, gamma=gamma, rand=rand)
+                         reg_dim=(reg_dim,), beta=beta, gamma=gamma, rand=rand, ctx=ctx)
         self.glsr_reg_type = reg_type
         self.glsr_reg_dim = reg_dim
         self._note_mask = self.attrs.is_note_table.float()  # (V,)
@@ -83,24 +87,34 @@ class MeasureVAETrainerGLSR(MeasureVAETrainer):
         reg = 0.5 * (grad_attr - PRIOR_MEAN) ** 2 + 0.5 * math.log(2.0 * math.pi)
         return reg, s_plus, s_minus
 
-    def compute_glsr_loss(self, z: torch.Tensor, noise: GLSRNoise) -> torch.Tensor:
-        """The GLSR term: :meth:`glsr_rows` averaged over the batch."""
-        return self.glsr_rows(z, noise)[0].mean()
+    def compute_glsr_loss(self, z: torch.Tensor, noise: GLSRNoise,
+                          share: Optional[RowShare] = None) -> torch.Tensor:
+        """The GLSR term: :meth:`glsr_rows` averaged over the batch (the
+        global batch, given a rank's ``share``)."""
+        term = self.glsr_rows(z, noise)[0].mean()
+        return term if share is None else share.mean(term)
 
     # -- loss -------------------------------------------------------------------
 
-    def _loss_fn(self, batch, noise: Optional[GLSRNoise] = None):
+    def _loss_fn(self, batch, noise: Optional[GLSRNoise] = None,
+                 share: Optional[RowShare] = None):
         score, _ = batch
         hy = self.hyper
         if noise is None:
-            measure = draw_measure_noise(score.shape[0], self.model.latent_space_dim,
+            rows = score.shape[0] if share is None else share.total
+            measure = draw_measure_noise(rows, self.model.latent_space_dim,
                                          self.noise_generator, self.device)
-            u = torch.rand(score.shape[0], generator=self.noise_generator, device=self.device)
+            u = torch.rand(rows, generator=self.noise_generator, device=self.device)
             noise = GLSRNoise(measure, u)
+        measure = self.step_noise(score, noise.measure, share)
+        noise = GLSRNoise(measure, noise.u if share is None else share.take(noise.u))
         out = self.model(score, noise.measure)
         recons_loss = token_cross_entropy_loss(out.weights, score)
-        dist_loss = kld_loss(out.z_mean, out.z_log_std, hy["beta"], hy["capacity"])
-        glsr_loss = hy["gamma"] * self.compute_glsr_loss(out.z_tilde, noise)
+        accuracy = token_accuracy(out.weights, score)
+        if share is not None:
+            recons_loss, accuracy = share.mean(recons_loss), share.mean(accuracy)
+        dist_loss = kld_loss(out.z_mean, out.z_log_std, hy["beta"], hy["capacity"], share)
+        glsr_loss = hy["gamma"] * self.compute_glsr_loss(out.z_tilde, noise, share)
         loss = recons_loss + dist_loss + glsr_loss
         return loss, {"loss": loss, "recons_loss": recons_loss, "dist_loss": dist_loss,
-                      "reg_loss": glsr_loss, "accuracy": token_accuracy(out.weights, score)}
+                      "reg_loss": glsr_loss, "accuracy": accuracy}

@@ -16,6 +16,11 @@ reconstruction loss and pixel accuracy; for MNIST it adds the ResNet
 judge's ``digit_pred_acc`` when a trained judge exists. The artifact
 plots are not ported.
 
+On a rank of a data-parallel step the draws (ε, ε_prior, MnistVAE's
+dropout masks) are made for the global batch from the shared noise
+generator and the rank's rows taken, so W ranks draw what one card
+draws; the losses are the global batch's (``ops/losses.py``).
+
 Precision: float32 throughout, as the JAX package declares. TF32 is
 turned off for matmuls and cuDNN convolutions (cuDNN would otherwise
 run float32 convolutions in TF32).
@@ -35,6 +40,7 @@ from arvae_tpu_torch.models.image_vae import (DspritesVAE, MnistVAE, draw_noise,
                                              reparametrize)
 from arvae_tpu_torch.ops.losses import (kld_loss, pixel_accuracy,
                                         reconstruction_loss, total_reg_loss)
+from arvae_tpu_torch.parallel import DataContext, RowShare, sharded
 from arvae_tpu_torch.training.base import BaseTrainer
 from arvae_tpu_torch.training.resnet_judge import judge_accuracy, load_judge
 
@@ -93,6 +99,7 @@ class ImageVAETrainer(BaseTrainer):
         rand: int = 0,
         delta: float = 1.0,
         dec_dist: str = "bernoulli",
+        ctx: Optional[DataContext] = None,
     ):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -110,7 +117,7 @@ class ImageVAETrainer(BaseTrainer):
             reg_type=tuple(reg_type or ()),
             reg_dim=normalize_reg_dim(reg_dim, reg_type),
         )
-        super().__init__(dataset, model, hp, device)
+        super().__init__(dataset, model, hp, device, ctx)
         self.dataset_type = self._dataset_type(dataset, model)
         self.attr_dict = DATASET_REG_TYPE_DICT[self.dataset_type]
         self.reg_pairs = tuple((d, d) for d in hp.reg_dim)
@@ -142,48 +149,63 @@ class ImageVAETrainer(BaseTrainer):
 
     # -- loss ---------------------------------------------------------------------
 
-    def _loss_fn(self, batch, noise: Noise):
+    def _loss_fn(self, batch, noise: Noise, share: Optional[RowShare] = None):
         inputs, labels = batch
         h, hy = self.hparams, self.hyper
         out = self.model(inputs, *noise)
         recons_loss = reconstruction_loss(out.logits, inputs, h.dec_dist)
+        accuracy = pixel_accuracy(torch.sigmoid(out.logits), inputs)
+        if share is not None:
+            recons_loss, accuracy = share.mean(recons_loss), share.mean(accuracy)
         dist_loss = kld_loss(out.z_mean, out.z_log_std, hy["beta"],
-                             hy["capacity"])
+                             hy["capacity"], share)
         loss = recons_loss + dist_loss
         metrics = {"recons_loss": recons_loss, "dist_loss": dist_loss}
         if h.use_reg_loss:
             reg_loss = total_reg_loss(out.z_tilde, labels, self.reg_pairs,
-                                      hy["gamma"], hy["delta"])
+                                      hy["gamma"], hy["delta"], share)
             loss = loss + reg_loss
             metrics["reg_loss"] = reg_loss
         metrics["loss"] = loss
-        metrics["accuracy"] = pixel_accuracy(torch.sigmoid(out.logits), inputs)
+        metrics["accuracy"] = accuracy
         return loss, metrics
+
+    def _noise(self, batch, noise, share: Optional[RowShare], draw):
+        """The step's draws for its rows: ``noise`` (the global batch's
+        over a process group) or ``draw(rows)``'s, this rank's rows taken."""
+        self.check_share(share)
+        if noise is None:
+            noise = draw(batch[0].shape[0] if share is None else share.total)
+        return noise if share is None else sharded(noise, share)
 
     # -- steps --------------------------------------------------------------------
 
-    def train_step(self, batch, noise: Optional[Noise] = None) -> Metrics:
+    def train_step(self, batch, noise: Optional[Noise] = None,
+                   share: Optional[RowShare] = None) -> Metrics:
         """One Adam step; ``noise`` (``draw_train_noise``'s tuple)
-        overrides the generator's draws (tests inject the JAX side's)."""
+        overrides the generator's draws (tests inject the JAX side's).
+        Over a process group ``batch`` is this rank's rows of the global
+        batch, ``share`` says which, and ``noise`` is the global batch's."""
         self.model.train()
-        if noise is None:
-            noise = self.draw_train_noise(batch[0].shape[0])
-        loss, metrics = self._loss_fn(batch, noise)
+        noise = self._noise(batch, noise, share, self.draw_train_noise)
+        loss, metrics = self._loss_fn(batch, noise, share)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        self.sync_grads(self.model.parameters())
         self.optimizer.step()
         self.step += 1
         return {k: v.detach() for k, v in metrics.items()}
 
     @torch.no_grad()
-    def eval_step(self, batch, noise: Optional[Noise] = None) -> Metrics:
+    def eval_step(self, batch, noise: Optional[Noise] = None,
+                  share: Optional[RowShare] = None) -> Metrics:
         """The loss and metrics without dropout; ``noise`` = (eps,
-        eps_prior) overrides the generator's draws."""
+        eps_prior) overrides the generator's draws (``share`` as for
+        :meth:`train_step`)."""
         self.model.eval()
-        if noise is None:
-            noise = draw_noise(batch[0].shape[0], self.model.z_dim, self.noise_generator,
-                               self.device)
-        return self._loss_fn(batch, noise)[1]
+        noise = self._noise(batch, noise, share, lambda b: draw_noise(
+            b, self.model.z_dim, self.noise_generator, self.device))
+        return self._loss_fn(batch, noise, share)[1]
 
     # -- evaluation ---------------------------------------------------------------
 

@@ -17,6 +17,13 @@ to token rows and a :class:`~arvae_tpu_torch.data.bar_dataset.Score`
 (``decode_latent_codes``, ``compute_latent_interpolations``); the plots
 are not ported.
 
+On a rank of a data-parallel step the draws are the global batch's: ε
+and ε_prior drawn for it and the rank's rows taken, the coin and the
+tick loop's seed one a step (the shared generator gives every rank the
+same, which the step checks), and the GRUs' dropout drawn for the
+global batch inside the forward (``MeasureNoise.rows``). The labels are
+computed from this rank's scores and gathered for the AR term.
+
 Precision: float32 throughout; TF32 is turned off for matmuls and cuDNN.
 """
 
@@ -36,6 +43,7 @@ from arvae_tpu_torch.models.measure_vae import (MEASURE_SEQ_LEN, MeasureNoise,
                                                 MeasureVAE, draw_measure_noise)
 from arvae_tpu_torch.ops.losses import (kld_loss, token_accuracy,
                                         token_cross_entropy_loss, total_reg_loss)
+from arvae_tpu_torch.parallel import DataContext, RowShare, sharded
 from arvae_tpu_torch.training.base import BaseTrainer
 
 # The run-dir tag of each decoder type.
@@ -62,6 +70,7 @@ class MeasureVAETrainer(BaseTrainer):
         capacity: float = 0.0,
         rand: int = 0,
         delta: float = 10.0,
+        ctx: Optional[DataContext] = None,
     ):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -96,7 +105,7 @@ class MeasureVAETrainer(BaseTrainer):
                 f"model num_notes={model.num_notes} is smaller than the finalized "
                 f"vocabulary ({len(dataset.note2index_dicts)}); size the model "
                 "after dataset.get_dataset()")
-        super().__init__(dataset, model, hp, device)
+        super().__init__(dataset, model, hp, device, ctx)
         self.attrs = dataset.attrs(self.device)
         self.reg_pairs = tuple((d, d) for d in hp.reg_dim)
 
@@ -111,44 +120,67 @@ class MeasureVAETrainer(BaseTrainer):
 
     # -- loss ---------------------------------------------------------------------
 
-    def _loss_fn(self, batch, noise: Optional[MeasureNoise] = None):
+    def step_noise(self, score: torch.Tensor, noise: Optional[MeasureNoise],
+                   share: Optional[RowShare]) -> MeasureNoise:
+        """The step's draws for its rows: ``noise`` (the global batch's
+        over a process group) or the generator's, with this rank's rows
+        taken and the share attached."""
+        self.check_share(share)
+        if noise is None:
+            noise = draw_measure_noise(score.shape[0] if share is None else share.total,
+                                       self.model.latent_space_dim, self.noise_generator,
+                                       self.device)
+        if share is None:
+            return noise
+        # the coin and the seed must be the same on every rank
+        self.note_draws((noise.teacher, noise.seed))
+        return sharded(noise, share)._replace(rows=share)
+
+    def _loss_fn(self, batch, noise: Optional[MeasureNoise] = None,
+                 share: Optional[RowShare] = None):
         score, _ = batch
         hy = self.hyper
-        if noise is None:
-            noise = draw_measure_noise(score.shape[0], self.model.latent_space_dim,
-                                       self.noise_generator, self.device)
+        noise = self.step_noise(score, noise, share)
         out = self.model(score, noise)
         recons_loss = token_cross_entropy_loss(out.weights, score)
-        dist_loss = kld_loss(out.z_mean, out.z_log_std, hy["beta"], hy["capacity"])
+        accuracy = token_accuracy(out.weights, score)
+        if share is not None:
+            recons_loss, accuracy = share.mean(recons_loss), share.mean(accuracy)
+        dist_loss = kld_loss(out.z_mean, out.z_log_std, hy["beta"], hy["capacity"], share)
         loss = recons_loss + dist_loss
         metrics = {"recons_loss": recons_loss, "dist_loss": dist_loss}
         if self.hparams.use_reg_loss:
             labels = self.attrs.compute_labels(score)
             reg_loss = total_reg_loss(out.z_tilde, labels, self.reg_pairs,
-                                      hy["gamma"], hy["delta"])
+                                      hy["gamma"], hy["delta"], share)
             loss = loss + reg_loss
             metrics["reg_loss"] = reg_loss
         metrics["loss"] = loss
-        metrics["accuracy"] = token_accuracy(out.weights, score)
+        metrics["accuracy"] = accuracy
         return loss, metrics
 
     # -- steps --------------------------------------------------------------------
 
-    def train_step(self, batch, noise: Optional[MeasureNoise] = None) -> Metrics:
+    def train_step(self, batch, noise: Optional[MeasureNoise] = None,
+                   share: Optional[RowShare] = None) -> Metrics:
         """One Adam step on (score, score); ``noise`` overrides the
-        generator's draws (tests inject the JAX side's)."""
+        generator's draws (tests inject the JAX side's). Over a process
+        group ``batch`` is this rank's rows of the global batch, ``share``
+        says which, and ``noise`` is the global batch's."""
         self.model.train()
-        loss, metrics = self._loss_fn(batch, noise)
+        loss, metrics = self._loss_fn(batch, noise, share)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        self.sync_grads(self.model.parameters())
         self.optimizer.step()
         self.step += 1
         return {k: v.detach() for k, v in metrics.items()}
 
     @torch.no_grad()
-    def eval_step(self, batch, noise: Optional[MeasureNoise] = None) -> Metrics:
+    def eval_step(self, batch, noise: Optional[MeasureNoise] = None,
+                  share: Optional[RowShare] = None) -> Metrics:
         self.model.eval()
-        return self._loss_fn(batch, noise)[1]
+        return self._loss_fn(batch, noise, share)[1]
 
     # -- evaluation ---------------------------------------------------------------
 

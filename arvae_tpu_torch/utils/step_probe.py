@@ -282,9 +282,10 @@ class TokenCorpus:
         return MusicAttributes(self.index2note_dicts, device)
 
 
-def music_trainer(dev, rows):
+def music_trainer(dev, rows, ctx=None):
     """The music step's trainer (H=128, z=32, V=130, ``-r all``) and its
-    split, on ``rows`` (N, 24) random tokens."""
+    split, on ``rows`` (N, 24) random tokens, over the data axis ``ctx``
+    (the trainer's default: ``init_data_parallel``'s)."""
     from arvae_tpu_torch.data.device_data import DeviceSplit
     from arvae_tpu_torch.models.measure_vae import MeasureVAE
     from arvae_tpu_torch.training.measure_trainer import MeasureVAETrainer
@@ -293,21 +294,21 @@ def music_trainer(dev, rows):
     trainer = MeasureVAETrainer(
         corpus, MeasureVAE(MUSIC_V, encoder_hidden_size=128, latent_space_dim=32,
                            decoder_hidden_size=128, seed=0),
-        dev, reg_type=("all",), reg_dim=(0, 1, 2, 3), rand=0)
-    return trainer, DeviceSplit(rows, None, (24,), "tokens", dev)
+        dev, reg_type=("all",), reg_dim=(0, 1, 2, 3), rand=0, ctx=ctx)
+    return trainer, DeviceSplit(rows, None, (24,), "tokens", dev, trainer.ctx)
 
 
-def dsprites_trainer(dev, packed, labels):
+def dsprites_trainer(dev, packed, labels, ctx=None):
     """The dSprites step's trainer (``-r all``, β 1, γ 10, δ 1) and its
-    packed split."""
+    packed split, over the data axis ``ctx`` (as :func:`music_trainer`)."""
     from arvae_tpu_torch.data.device_data import DeviceSplit
     from arvae_tpu_torch.models.image_vae import DspritesVAE
     from arvae_tpu_torch.training.image_trainer import ImageVAETrainer
 
     trainer = ImageVAETrainer(None, DspritesVAE(seed=0), dev, reg_type=("all",),
                               reg_dim=(1, 2, 3, 4, 5), beta=1.0, gamma=10.0, delta=1.0,
-                              rand=0)
-    return trainer, DeviceSplit(packed, labels, (1, 64, 64), "packed", dev)
+                              rand=0, ctx=ctx)
+    return trainer, DeviceSplit(packed, labels, (1, 64, 64), "packed", dev, trainer.ctx)
 
 
 def main() -> int:

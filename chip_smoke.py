@@ -3,7 +3,8 @@
 
 Run from the repository root:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                          # every phase, one card
+    python3 chip_smoke.py --data-parallel-only     # device, build, slice 9
 
 Phases, each printing its own lines and its seconds; any failure raises
 and the script exits non-zero:
@@ -192,12 +193,49 @@ and the script exits non-zero:
    temporary ``folk_raw_data/``, the music CLI 1 epoch on it
    (``ABC_ARGS``): the loss finite, the launches the code's. The
    kernels line's music kernels carry their rows
-   (``"analysis_shapes"``).
+   (``"analysis_shapes"``);
+13. slice 9 (data parallel, ``arvae_tpu_torch/parallel``), last: the
+   tick loop's ``row_base`` (training, dropout 0.5, teacher-forced): each
+   of 2 and 4 ranks' rows of a B=256 call, run at its first global row
+   under that call's plan, bitwise that call's rows, under its own plan
+   matching the plain version at that ``row_base``, its per-row
+   gradients and the ranks' summed weight gradients within the gradient
+   tolerance of that call's; one card's dSprites gradient of a B=128
+   batch against its two halves' summed, with no collective (how far the
+   card's sums move when a batch is split, printed); then 3 Adam steps of
+   the dSprites AR step
+   (B=128) and the music step (B=256, H=128, V=130, ``-r all``) on 4,096
+   random rows with the trainers' own draws, through the data-parallel
+   trainer over a real NCCL group of one rank (a ``FileStore`` in a
+   temporary directory) bitwise those of the same trainer with no group
+   (every step's metrics, the first step's gradients, the parameters),
+   the launches of each run equal to the code's (``DP_LAUNCHES``); each
+   step's host ms with and without the group, in turns; NCCL's device µs
+   for an all-reduce of DspritesVAE's 0.50 M, MeasureVAE's 17.7 M (its
+   default widths) and the music step's 1.11 M float32 parameters and for
+   ``gather_rows`` of (256, 32) latents; the plans each rank's shape gets
+   at W = 1, 2, 4; and where the machine has two cards, the same steps
+   on two NCCL ranks spawned on cuda:0 and cuda:1 against the one-card
+   steps within ``DP_LOSS_RTOL``, ``DP_ACC_ATOL``, ``DP_GRAD_RTOL`` (of
+   each gradient leaf's norm) and ``DP_PARAM_ATOL``,
+   the parameters bitwise equal on both ranks and one seed's ``randperm``
+   equal on both cards; the two planted faults of ``DP_FAULTS`` (a
+   gather whose backward reduces, half the batch left out), each of
+   which must read above ``DP_GRAD_RTOL`` on that measure; a batch's
+   gather from the row-sharded split against a local ``index_select``
+   of the whole split (bitwise, and each timed); then the image CLI
+   under ``torchrun`` on two cards against one process, one epoch of the
+   ``--short`` grid (rank 0 alone prints; the losses within
+   ``DP_CLI_RTOL``); one line says which of the checks ran. Each
+   kernel's entry in the kernels line carries the launches and the
+   shapes its wrapper was called with on a rank in each run
+   (``"data_parallel"``; null for a world that did not run).
 
 Launch counts are set to 0 just before each slice (and each variant of
 slices 3 and 4, and each CLI call of slices 5, 6, 7 and 8, each sweep
-cell, each tester call) and read just after it; the comparisons of
-phases 3, 9, 10 and 12 do not count. The line before the last
+cell, each tester call, each trainer's 3 steps of slice 9) and read
+just after it; the comparisons of phases 3, 9, 10, 12 and 13 do not
+count. The line before the last
 is the card's name and power limit as ``nvidia-smi`` prints them, the
 one before it a JSON object listing every kernel; the last line is a
 JSON object ``{"ok": true, "device": {...}}``.
@@ -2960,6 +2998,679 @@ def phase_analysis(card_line, music_trainer, music_dir, glsr_trainer):
     return out
 
 
+# Slice 9, data parallelism (``arvae_tpu_torch/parallel``): the dSprites
+# AR step (B=128) and the music step (B=256, H=128, z=32, V=130, ``-r
+# all``) of ``utils/step_probe.py``'s trainers, on 4,096 random rows, 3
+# Adam steps each with the trainers' own draws, through the data-parallel
+# trainer over a real NCCL group of one rank against the same trainer
+# with no group (bitwise), and where the machine has two cards over two
+# NCCL ranks against the one-card step (the CPU tests' tolerances).
+DP_STEPS = 3
+DP_ROWS = 4096
+# launches a train step by the code, (fwd, bwd): the AR term's reg pair;
+# the music step's gru_chain (the encoder's two biGRU layers, the beat
+# GRU's two) and one tick loop
+DP_LAUNCHES = {"dSprites": {"reg": (1, 1), "gru": (0, 0), "hier": (0, 0)},
+               "music": {"reg": (1, 1), "gru": (4, 4), "hier": (1, 1)}}
+DP_LOSS_RTOL, DP_GRAD_RTOL, DP_PARAM_ATOL = 1e-5, 2e-3, 5e-4
+# Each leaf of the summed gradient against the one-card gradient's leaf:
+# the norm of the difference within DP_GRAD_RTOL of the leaf's norm, not
+# element by element at the CPU tests' rtol 1e-4. On the card the
+# gradient of a batch depends on how its rows are split at the 1e-4 level
+# with no collective at all: ``_dp_split_noise`` prints how far one
+# card's dSprites gradient of a B=128 batch is from the sum of its two
+# halves' (cuDNN and cuBLAS sum B=64 in other splits), and two-card runs
+# on H100s measured at most 5.6e-4 of a leaf's norm (the dSprites decoder
+# weights; 2e-4 of the music decoder's biases), with every loss within
+# 7.8e-7 and every parameter within 2e-4 after 3 steps. The limit's
+# power is read in the same run: each fault of DP_FAULTS, planted for
+# one step on both ranks, must put some leaf above it in each slice.
+DP_FAULTS = ("a gather that reduces in its backward", "half the batch left out")
+# The image CLI's train and val loss after one epoch under torchrun on
+# two cards against one process (two-card runs on H100s: 8.0e-6 / 4.8e-5).
+DP_CLI_RTOL = 1e-3
+# An accuracy is a share of thresholded pixels or argmax tokens: one whose
+# logit lies within rounding of the threshold or a tie can fall either
+# way when the ranks' products sum in another order (a rank's convolutions
+# run at B/W rows). At most 1e-3 of the elements may.
+DP_ACC_ATOL = 1e-3
+DP_WORLD = 2
+DP_TIMED_STEPS = 30
+DP_REDUCE_ITERS = 50
+
+
+def _dp_data():
+    """The slices' DP_ROWS random rows: (packed images, labels, tokens)."""
+    from arvae_tpu_torch.utils import step_probe
+
+    rng = np.random.RandomState(0)
+    packed = rng.randint(0, 256, (DP_ROWS, 512)).astype(np.uint8)
+    labels = rng.rand(DP_ROWS, 6).astype(np.float32)
+    tokens = rng.randint(0, step_probe.MUSIC_V, (DP_ROWS, 24)).astype(np.int32)
+    return packed, labels, tokens
+
+
+def _dp_trainers(dev, ctx, slices=("dSprites", "music")):
+    """{slice: (trainer, split, global batch)} over the data axis ``ctx``."""
+    from arvae_tpu_torch.utils import step_probe
+
+    packed, labels, tokens = _dp_data()
+    make = {"dSprites": lambda: (*step_probe.dsprites_trainer(dev, packed, labels, ctx),
+                                 step_probe.DSPRITES_B),
+            "music": lambda: (*step_probe.music_trainer(dev, tokens, ctx), step_probe.MUSIC_B)}
+    return {name: make[name]() for name in slices}
+
+
+def _dp_split_noise(dev, card_line):
+    """The one-card dSprites gradient of a batch against the sum of its
+    two halves' gradients, each halved: the same weights and draws, no
+    collective, without the AR term (the one term across rows; the KLD at
+    capacity 0 is linear), so the same gradient in exact arithmetic,
+    computed at B/2 rows as two ranks compute it → the norm of the
+    difference over the gradient's."""
+    from arvae_tpu_torch.parallel import DataContext
+
+    def fresh():
+        ((tr, split, b),) = _dp_trainers(dev, DataContext(device=dev), ("dSprites",)).values()
+        tr.hyper["gamma"].fill_(0.0)
+        return tr, split, b
+
+    tr, split, b = fresh()
+    imgs, labels = split.gather_batch(torch.arange(b, device=dev))
+    noise = tr.draw_train_noise(b)
+    tr.train_step((imgs, labels), noise=noise)
+    whole = {k: p.grad.clone() for k, p in tr.model.named_parameters()}
+    halves = {k: torch.zeros_like(g) for k, g in whole.items()}
+    for rows in (slice(0, b // 2), slice(b // 2, b)):
+        half = fresh()[0]
+        half.train_step((imgs[rows], labels[rows]), noise=tuple(x[rows] for x in noise))
+        for k, p in half.model.named_parameters():
+            halves[k] += 0.5 * p.grad
+    flat = [torch.cat([g[k].reshape(-1) for k in whole]) for g in (halves, whole)]
+    noise = float(torch.linalg.vector_norm(flat[0] - flat[1]) / torch.linalg.vector_norm(flat[1]))
+    print(f"[data parallel] one card, no collective: the dSprites gradient of a B={b} batch "
+          f"(no AR term) against its two halves' gradients summed: {noise:.3e} of its norm "
+          f"apart; the leaves furthest apart: {_dp_worst_leaves(halves, whole)} | {card_line}")
+    return noise
+
+
+def _dp_leaf_error(got, want):
+    """The norm of ``got - want`` over the norm of ``want`` (one leaf)."""
+    want = want.float().cpu()
+    diff = float(torch.linalg.vector_norm(got.float().cpu() - want))
+    return diff / max(float(torch.linalg.vector_norm(want)), 1e-30)
+
+
+def _dp_worst_leaves(got, want, n=4):
+    """The ``n`` gradient leaves furthest from ``want``'s, each as (name,
+    its difference's norm over its norm, its norm)."""
+    rows = [(k, _dp_leaf_error(got[k], w), float(torch.linalg.vector_norm(w.float())))
+            for k, w in want.items()]
+    return [(k, f"{r:.2e}", f"{v:.3g}") for k, r, v in sorted(rows, key=lambda x: -x[1])[:n]]
+
+
+def _dp_spied():
+    """The kernel wrappers whose calls the data-parallel runs record →
+    {(kernel, direction): (module, wrapper, the shape a call's arguments
+    give)}."""
+    from arvae_tpu_torch.ops import gru_kernel as gk
+    from arvae_tpu_torch.ops import hier_decoder_kernel as hk
+    from arvae_tpu_torch.ops import reg_kernel as rk
+
+    def reg_fwd(z, labels, dims, *rest, **kw):
+        return {"R": len(dims), "B": z.shape[0]}
+
+    def reg_bwd(g, *rest, **kw):
+        return {"R": g.shape[0], "B": g.shape[1]}
+
+    def gru(gi, w_hh, b_hh, h0, *rest, **kw):
+        return {"T": gi.shape[0], "D": gi.shape[1], "B": gi.shape[2], "H": h0.shape[-1]}
+
+    def hier(tpb, score, floats):
+        t, b, h, _, v, layers = hk._dims(tpb, score, floats)
+        return {"T": t, "B": b, "H": h, "V": v, "L": layers}
+
+    def hier_fwd(train, rate, tpb, sampling, teacher, seed, score, *floats, **kw):
+        return hier(tpb, score, floats)
+
+    def hier_bwd(train, rate, tpb, seed, samples, hiddens, weights, dweights, *floats, **kw):
+        return hier(tpb, samples, floats)
+
+    return {("reg", "fwd"): (rk, "reg_fwd_cuda", reg_fwd),
+            ("reg", "bwd"): (rk, "reg_bwd_cuda", reg_bwd),
+            ("gru", "fwd"): (gk, "gru_chain_fwd_cuda", gru),
+            ("gru", "bwd"): (gk, "gru_chain_bwd_cuda", gru),
+            ("hier", "fwd"): (hk, "hier_tick_chain_fwd_cuda", hier_fwd),
+            ("hier", "bwd"): (hk, "hier_tick_chain_bwd_cuda", hier_bwd)}
+
+
+@contextlib.contextmanager
+def _dp_kernel_shapes():
+    """Records the shape of every call of the port's kernel wrappers in
+    the block, read from its arguments → {kernel: {direction: [each
+    distinct shape, in order]}}. The wrappers count their launches as
+    before."""
+    seen = {k: {"fwd": [], "bwd": []} for k in ("reg", "gru", "hier")}
+    saved = []
+    for (key, direction), (mod, name, shape_of) in _dp_spied().items():
+        real, out = getattr(mod, name), seen[key][direction]
+
+        def spy(*args, _real=real, _shape_of=shape_of, _out=out, **kwargs):
+            shape = _shape_of(*args, **kwargs)
+            if shape not in _out:
+                _out.append(shape)
+            return _real(*args, **kwargs)
+
+        saved.append((mod, name, real))
+        setattr(mod, name, spy)
+    try:
+        yield seen
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def _dp_kwargs(trainer, b):
+    return {"share": trainer.ctx.share(b)} if trainer.ctx.distributed else {}
+
+
+def _dp_steps(trainers):
+    """DP_STEPS Adam steps of each trainer on its rows of the global
+    batches [iB, (i+1)B) → {slice: each step's metrics, the first step's
+    gradients, the parameters after, the launches counted around the
+    steps}."""
+    out = {}
+    for name, (tr, split, b) in trainers.items():
+        _reset_launches()
+        metrics, grads = [], None
+        with _dp_kernel_shapes() as shapes:
+            for i in range(DP_STEPS):
+                idx = torch.arange(i * b, (i + 1) * b, device=split.device)
+                m = tr.train_step(split.gather_batch(idx), **_dp_kwargs(tr, b))
+                metrics.append({k: v.clone() for k, v in m.items()})
+                if grads is None:
+                    grads = {k: p.grad.clone() for k, p in tr.model.named_parameters()}
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        tr.check_draws()
+        want = {k: {"fwd": DP_STEPS * f, "bwd": DP_STEPS * w}
+                for k, (f, w) in DP_LAUNCHES[name].items()}
+        _check_launches(f"data parallel, {name} ({tr.ctx.n_data} rank(s), "
+                        f"{'a group' if tr.ctx.distributed else 'no group'})", launches, want)
+        out[name] = {"metrics": metrics, "grads": grads, "launches": launches,
+                     "shapes": shapes,
+                     "params": {k: v.clone() for k, v in tr.model.state_dict().items()}}
+    return out
+
+
+@contextlib.contextmanager
+def _dp_planted(fault):
+    """One of DP_FAULTS, planted in the block: the latents' gather by
+    ``torch.distributed.nn.functional.all_gather``, whose backward sums
+    the gradient over the ranks, or no gradient all-reduce, so that each
+    rank steps on its half of the batch alone."""
+    from unittest import mock
+
+    import torch.distributed.nn.functional as dist_nn
+
+    from arvae_tpu_torch.parallel import RowShare
+    from arvae_tpu_torch.training import base
+
+    def reducing_gather(share, x):
+        return torch.cat(dist_nn.all_gather(x.contiguous(), group=share.ctx.group))[:share.total]
+
+    if fault == DP_FAULTS[0]:
+        patch = mock.patch.object(RowShare, "gather", reducing_gather)
+    elif fault == DP_FAULTS[1]:
+        patch = mock.patch.object(base, "all_reduce_grads", lambda params, group: None)
+    else:
+        raise ValueError(f"no planted fault {fault!r}")
+    with patch:
+        yield
+
+
+def _dp_fault_grads(dev, ctx):
+    """{fault: {slice: the first step's gradients}} of fresh trainers with
+    each of DP_FAULTS planted for their first step."""
+    out = {}
+    for fault in DP_FAULTS:
+        out[fault] = {}
+        for name, (tr, split, b) in _dp_trainers(dev, ctx).items():
+            with _dp_planted(fault):
+                tr.train_step(split.gather_batch(torch.arange(b, device=split.device)),
+                              **_dp_kwargs(tr, b))
+            out[fault][name] = {k: p.grad.clone() for k, p in tr.model.named_parameters()}
+    return out
+
+
+def _dp_compare(tag, got, want, bitwise):
+    """Each step's metrics, the first step's gradients and the parameters
+    after: bitwise, or within DP_LOSS_RTOL, DP_ACC_ATOL, DP_GRAD_RTOL (of
+    each gradient leaf's norm) and DP_PARAM_ATOL → the largest
+    differences: relative for the losses and the gradient leaves,
+    absolute for the accuracies and the parameters."""
+    tols = {"loss": (DP_LOSS_RTOL, 0.0), "accuracy": (0.0, DP_ACC_ATOL),
+            "grad": (DP_GRAD_RTOL, 0.0), "param": (0.0, DP_PARAM_ATOL)}
+    worst = dict.fromkeys(tols, 0.0)
+    failures = []
+    for name in want:
+        g, w = got[name], want[name]
+        pairs = [("accuracy" if k == "accuracy" else "loss", f"step {i} {k}",
+                  g["metrics"][i][k], w["metrics"][i][k])
+                 for i in range(DP_STEPS) for k in w["metrics"][i]]
+        pairs += [("grad", f"gradient {k}", g["grads"][k], w["grads"][k]) for k in w["grads"]]
+        pairs += [("param", k, g["params"][k], w["params"][k]) for k in w["params"]]
+        for kind, label, a, b in pairs:
+            a, b = a.to(b.device).float(), b.float()
+            if bitwise:
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{tag}, {name} {label}: not bitwise equal")
+            if kind == "grad":  # the norm of the difference over the leaf's
+                diff = _dp_leaf_error(a, b)
+                ok = diff <= DP_GRAD_RTOL
+            else:
+                diff = float((a - b).abs().max())
+                rtol, atol = tols[kind]
+                ok = torch.allclose(a, b, rtol=rtol, atol=atol)
+            scale = max(float(b.abs()), 1e-30) if kind == "loss" else 1.0
+            worst[kind] = max(worst[kind], diff / scale)
+            if not ok:
+                failures.append(f"{name} {label}: off by {diff:.3e}")
+    if failures:
+        raise AssertionError(f"{tag}: {len(failures)} outside the tolerances: {failures}")
+    return worst
+
+
+def _dp_step_ms(trainer, split, b):
+    """Host ms a warm train step, over DP_TIMED_STEPS synchronised steps."""
+    kw = _dp_kwargs(trainer, b)
+    rows = split.gather_batch(torch.arange(b, device=split.device))
+    for _ in range(5):
+        trainer.train_step(rows, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DP_TIMED_STEPS):
+        trainer.train_step(rows, **kw)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / DP_TIMED_STEPS
+
+
+def _dp_collective_us(dev, ctx):
+    """The all-reduce at the parameter counts of DspritesVAE, of
+    MeasureVAE at its default widths (V=130) and of the music step's
+    model, and ``gather_rows`` on the music step's (256, 32) latents →
+    {call: (device µs a call from the profiler, device events a call, µs a
+    call by CUDA events over back-to-back calls, which the host sets where
+    it launches more slowly than the device runs)}."""
+    import torch.distributed as dist
+
+    from arvae_tpu_torch.models.image_vae import DspritesVAE
+    from arvae_tpu_torch.models.measure_vae import MeasureVAE
+    from arvae_tpu_torch.parallel import gather_rows
+
+    counts = {"DspritesVAE": sum(p.numel() for p in DspritesVAE().parameters()),
+              "MeasureVAE default widths": sum(p.numel() for p in MeasureVAE(130).parameters()),
+              "MeasureVAE H=128 (the music step)": sum(p.numel() for p in MeasureVAE(
+                  130, encoder_hidden_size=128, latent_space_dim=32,
+                  decoder_hidden_size=128).parameters())}
+    calls = {}
+    for name, n in counts.items():
+        buf = torch.zeros(n, device=dev)
+        calls[f"all_reduce {name} ({n} float32)"] = (
+            lambda buf=buf: dist.all_reduce(buf, group=ctx.group))
+    z = torch.randn(256, 32, device=dev)
+    share = ctx.share(256 * ctx.n_data)
+    calls["gather_rows (256, 32) a rank"] = lambda: gather_rows(z, share)
+    out = {}
+    for name, fn in calls.items():
+        # every rank starts each measurement together: a collective's
+        # kernel waits for its peers, and its time would hold their skew
+        dist.barrier(group=ctx.group)
+        device = _dp_device_us(fn)
+        dist.barrier(group=ctx.group)
+        out[name] = (*device, 1e3 * _event_ms(fn, DP_REDUCE_ITERS, 5))
+    return out
+
+
+def _dp_gather_us(dev, ctx):
+    """A batch's gather on this rank from the row-sharded split (the
+    masked take and its ``reduce_scatter``) against this rank's rows by a
+    local ``index_select`` of the whole split, as a replicated split
+    gathers them: bitwise equal, then each timed by CUDA events →
+    {slice: (row-sharded µs, whole-split µs) a call}."""
+    import torch.distributed as dist
+
+    from arvae_tpu_torch.data.device_data import DeviceSplit
+    from arvae_tpu_torch.utils import step_probe
+
+    packed, labels, tokens = _dp_data()
+    cases = {"dSprites": (packed, labels, (1, 64, 64), "packed", step_probe.DSPRITES_B),
+             "music": (tokens, None, (24,), "tokens", step_probe.MUSIC_B)}
+    out = {}
+    for name, (rows, labs, shape, kind, b) in cases.items():
+        sharded = DeviceSplit(rows, labs, shape, kind, dev, ctx)
+        whole = DeviceSplit(rows, labs, shape, kind, dev)
+        idx = torch.randperm(DP_ROWS, generator=torch.Generator(dev).manual_seed(2),
+                             device=dev)[:b]
+        local = ctx.share(b).take(idx)
+        for got, want in zip(sharded.gather_batch(idx), whole.gather_batch(local)):
+            if not torch.equal(got, want):
+                raise AssertionError(f"data parallel, {name}: the row-sharded gather is not "
+                                     "the whole split's rows")
+        times = []
+        for fn in (lambda: sharded.gather_batch(idx), lambda: whole.gather_batch(local)):
+            dist.barrier(group=ctx.group)
+            times.append(1e3 * _event_ms(fn, DP_REDUCE_ITERS, 5))
+        out[name] = tuple(times)
+    return out
+
+
+def _dp_device_us(fn, calls=20):
+    """(device µs a call: the median over ``calls`` calls of ``fn`` of each
+    call's union of the profiler's device intervals, 0 where it records
+    none; device events a call). The median leaves out the first calls'
+    wait for a peer that entered the profiled window later."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from arvae_tpu_torch.utils.step_probe import device_events, union_us
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted(device_events(prof), key=lambda e: e["ts"])
+    per_call = len(events) // calls
+    if per_call == 0:
+        return 0.0, len(events) / calls
+    spans = [union_us([(e["ts"], e["ts"] + e["dur"])
+                       for e in events[i * per_call:(i + 1) * per_call]]) for i in range(calls)]
+    return float(np.median(spans)), len(events) / calls
+
+
+def _dp_plans():
+    """The plans each rank's shape gets in the music step at W = 1, 2, 4:
+    gru_chain's at (D, B/W, 128) and the tick loop's at B/W rows, reg's at
+    the global (R, B)."""
+    from arvae_tpu_torch.ops import gru_kernel, hier_decoder_kernel, reg_kernel
+
+    for w in (1, 2, 4):
+        b = 256 // w
+        enc = gru_kernel.gru_plan(2, b, 128, False)
+        beat = gru_kernel.gru_plan(1, b, 128, False)
+        fwd, chain = hier_decoder_kernel.hier_plans(24, b, 128, 10, 130, 2, 6)
+        print(f"[data parallel] W={w}, B/W={b}: gru_chain (24, 2, {b}, 128) clusters of "
+              f"{enc.clusters} x {enc.rows} rows ({enc.ctas} CTAs); (4, 1, {b}, 128) "
+              f"{beat.clusters} x {beat.rows} ({beat.ctas}); hier_tick_chain fwd "
+              f"{fwd.clusters} x {fwd.rows} ({fwd.ctas}), bwd chains {chain.clusters} x "
+              f"{chain.rows} ({chain.ctas}); reg at the global (5, 128) "
+              f"{reg_kernel.reg_plan(5, 128).grid} and (4, 256) {reg_kernel.reg_plan(4, 256).grid}")
+
+
+def _dp_rank(rank, world, store_path, out_path):
+    """One rank of the two-card check: NCCL over a file store, the steps
+    of ``_dp_steps`` on this rank's rows, the planted faults' gradients,
+    the step's, collectives' and gathers' times."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from arvae_tpu_torch.parallel import init_data_parallel
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.FileStore(store_path, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=60))
+    try:
+        ctx = init_data_parallel(dev)
+        trainers = _dp_trainers(dev, ctx)
+        res = _dp_steps(trainers)
+        res["randperm"] = torch.randperm(DP_ROWS, generator=torch.Generator(dev).manual_seed(1),
+                                         device=dev)
+        res["faults"] = _dp_fault_grads(dev, ctx)
+        res["step_ms"] = {name: _dp_step_ms(*t) for name, t in trainers.items()}
+        res["collective_us"] = _dp_collective_us(dev, ctx)
+        res["gather_us"] = _dp_gather_us(dev, ctx)
+        torch.save(_to_cpu(res), out_path % rank)
+    finally:
+        dist.destroy_process_group()
+
+
+def _to_cpu(x):
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_to_cpu(v) for v in x]
+    return x
+
+
+def _dp_two_cards(want, card_line):
+    """The two-card check: DP_WORLD spawned NCCL ranks against the one-card
+    steps ``want`` → their results."""
+    import torch.multiprocessing as torch_mp
+
+    spawn = torch_mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "rank%d.pt")
+        procs = [spawn.Process(target=_dp_rank, args=(r, DP_WORLD, os.path.join(tmp, "store"),
+                                                    out_path)) for r in range(DP_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + 120
+        for p in procs:
+            p.join(max(0.0, deadline - time.perf_counter()))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join(10)
+        if alive or any(p.exitcode for p in procs):
+            raise AssertionError(f"data parallel: the {DP_WORLD} ranks ended with "
+                                 f"{[p.exitcode for p in procs]}")
+        ranks = [torch.load(out_path % r, weights_only=False) for r in range(DP_WORLD)]
+    for name in want:
+        print(f"[data parallel] {DP_WORLD} ranks vs one card, {name}, the gradient leaves "
+              f"furthest apart (of each leaf's norm): "
+              f"{_dp_worst_leaves(ranks[0][name]['grads'], want[name]['grads'])}")
+    worst = _dp_compare(f"{DP_WORLD} NCCL ranks vs one card", ranks[0], want, bitwise=False)
+    faults = {fault: {name: max(_dp_leaf_error(g[k], want[name]["grads"][k]) for k in g)
+                      for name, g in by_slice.items()}
+              for fault, by_slice in ranks[0]["faults"].items()}
+    print(f"[data parallel] planted faults, one step on {DP_WORLD} ranks, the leaf furthest "
+          f"from one card's gradient (of its norm; the limit {DP_GRAD_RTOL:g}): "
+          + "; ".join(f"{fault}: " + ", ".join(f"{n} {x:.3e}" for n, x in r.items())
+                      for fault, r in faults.items()) + f" | {card_line}")
+    for fault, readings in faults.items():
+        for name, x in readings.items():
+            if not x > DP_GRAD_RTOL:
+                raise AssertionError(f"data parallel: with {fault} planted the {name} gradient "
+                                     f"reads {x:.3e}, within the limit {DP_GRAD_RTOL:g}")
+    for r, res in enumerate(ranks[1:], 1):
+        for name in want:
+            for k, v in res[name]["params"].items():
+                if not torch.equal(v, ranks[0][name]["params"][k]):
+                    raise AssertionError(f"data parallel: rank {r}'s {name} {k} is not rank 0's")
+    if not torch.equal(ranks[0]["randperm"], ranks[1]["randperm"]):
+        raise AssertionError("data parallel: one seed gave other randperms on cuda:0, cuda:1")
+    print(f"[data parallel] {DP_WORLD} NCCL ranks (cuda:0, cuda:1), {DP_STEPS} steps against "
+          f"one card: largest differences: losses {worst['loss']:.3e} relative, accuracy "
+          f"{worst['accuracy']:.3e}, the first step's gradient {worst['grad']:.3e} of a "
+          f"leaf's norm, parameter {worst['param']:.3e}; parameters bitwise equal on "
+          f"both ranks; one seed's randperm equal on both cards; launches a rank "
+          f"{ {n: ranks[0][n]['launches'] for n in want} }, the wrappers' shapes on rank 0 "
+          f"{ {n: ranks[0][n]['shapes'] for n in want} }; step ms a rank "
+          f"{ranks[0]['step_ms']}; collectives a call (device µs, events, µs by CUDA "
+          f"events) {ranks[0]['collective_us']}; a batch's gather µs a call, row-sharded / "
+          f"local index_select of the whole split {ranks[0]['gather_us']} | {card_line}")
+    ranks[0]["fault_readings"] = faults
+    return ranks[0]
+
+
+def _dp_row_base(dev, card_line):
+    """The tick loop's ``row_base`` on the card, at the music step's
+    shapes in training with dropout 0.5 (teacher-forced): each of W = 2, 4
+    ranks' rows of the B=256 call, run with its first global row as
+    ``row_base`` under the B=256 call's plan, gives that call's rows
+    bitwise (the dropout masks hashed by global row); under its own plan
+    it matches the plain version at that ``row_base``; its backward gives
+    the B=256 call's per-row gradients, and the ranks' weight gradients
+    sum to that call's → the largest differences."""
+    from arvae_tpu_torch.ops import hier_decoder_kernel as hk
+
+    score, floats, ct = _hier_inputs(dev, 71, MUSIC_BENCH_V, b=MUSIC_B)
+    teacher, seed = _ints(1, 5, dev)
+    cfg = (True, 0.5, HIER_TPB, "argmax")
+    full_plan = hk.hier_plan(MUSIC_B, HIER_H, HIER_E, MUSIC_BENCH_V, 2)
+    w_full, s_full, *h_full = hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, score, *floats)
+    g_full = hk.hier_tick_chain_bwd_cuda(True, 0.5, HIER_TPB, seed, s_full, h_full, w_full, ct,
+                                         *floats)
+    errs = {"fwd_vs_plain": 0.0, "row_grads": 0.0, "weight_grads": 0.0}
+    for world in (2, 4):
+        b = MUSIC_B // world
+        sums = None
+        for k in range(world):
+            rows = slice(k * b, (k + 1) * b)
+            sc = score[:, rows].contiguous()
+            fl = [floats[0][:, rows].contiguous(), floats[1][:, :, rows].contiguous(),
+                  floats[2][rows].contiguous()] + floats[3:]
+            tag = f"hier_tick_chain row_base={k * b}, rank {k} of {world}"
+            under = hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, sc, *fl, plan=full_plan,
+                                                row_base=k * b)
+            if not (torch.equal(_bits(under[0]), _bits(w_full[:, rows]))
+                    and torch.equal(under[1], s_full[:, rows])):
+                raise AssertionError(f"{tag}: under the B={MUSIC_B} plan not bitwise its rows")
+            w, s, *h = hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, sc, *fl, row_base=k * b)
+            w_p, s_p = hk.tick_chain_reference(*cfg, teacher, seed, sc, *hk.chain_operands(fl),
+                                               row_base=k * b)
+            if not torch.equal(s, s_p):
+                raise AssertionError(f"{tag}: samples differ from the plain version")
+            errs["fwd_vs_plain"] = max(errs["fwd_vs_plain"], _check_close(
+                f"{tag} against the plain version", w, w_p, SEQ_FWD_RTOL, SEQ_FWD_ATOL))
+            g = hk.hier_tick_chain_bwd_cuda(True, 0.5, HIER_TPB, seed, s, h, w,
+                                            ct[:, rows].contiguous(), *fl, row_base=k * b)
+            for name, got, want in (("dgi_beat", g[0], g_full[0][:, rows]),
+                                    ("dtick_h0", g[1], g_full[1][:, :, rows]),
+                                    ("dx0", g[2], g_full[2][rows])):
+                errs["row_grads"] = max(errs["row_grads"],
+                                        _check_grad(f"{name} {tag}", got, want))
+            sums = list(g[3:]) if sums is None else [a + x for a, x in zip(sums, g[3:])]
+        names = hk.float_operands(2)[3:]
+        for name, got, want in zip(names, sums, g_full[3:]):
+            errs["weight_grads"] = max(errs["weight_grads"], _check_grad(
+                f"d{name}, the sum over {world} ranks' rows", got, want))
+    print(f"[data parallel] hier_tick_chain row_base (training, dropout 0.5, B={MUSIC_B} "
+          f"split over 2 and 4 ranks): each rank's rows under the B={MUSIC_B} plan bitwise "
+          f"that call's; against the plain version at its row_base max abs err "
+          f"{errs['fwd_vs_plain']:.3e}; per-row gradients {errs['row_grads']:.3e} and summed "
+          f"weight gradients {errs['weight_grads']:.3e} off the B={MUSIC_B} call's | {card_line}")
+    return errs
+
+
+def _dp_cli(card_line):
+    """The image CLI under ``torchrun`` on DP_WORLD cards against the same
+    CLI in one process, one epoch of the ``--short`` dSprites grid at
+    B=128: rank 0 alone prints and writes, and the losses of the two runs
+    within DP_CLI_RTOL (one epoch of 126 steps apart, so not held to the
+    step tolerance) → their relative differences."""
+    args = ["-m", "arvae_tpu_torch.train_image_vae", "-d", "dsprites", "--short", "--rand",
+            "0", "-r", "all", "--beta", "1.0", "--batch_size", "128", "--num_epochs", "1"]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, prefix in (("torchrun", [sys.executable, "-m", "torch.distributed.run",
+                                           "--standalone", "--nproc_per_node", str(DP_WORLD)]),
+                             ("one process", [sys.executable])):
+            env = {k: v for k, v in os.environ.items()
+                   if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                                "MASTER_PORT")}
+            env.update(ARVAE_MODELS_DIR=os.path.join(tmp, name.replace(" ", "_")),
+                       PYTHONPATH=os.getcwd())
+            t0 = time.perf_counter()
+            out = subprocess.run(prefix + args, env=env, capture_output=True, text=True,
+                                 timeout=600)
+            if out.returncode != 0:
+                raise AssertionError(f"data parallel, the image CLI ({name}) failed: "
+                                     f"{out.stdout[-2000:]}{out.stderr[-2000:]}")
+            if out.stdout.count("Train Epoch: 1/1") != 1:
+                raise AssertionError(f"data parallel, the image CLI ({name}) printed "
+                                     f"{out.stdout.count('Train Epoch: 1/1')} epoch lines")
+            runs[name] = ([float(x.split()[0]) for x in out.stdout.split("Train Loss: ")[1:]]
+                          + [float(x.split()[0]) for x in out.stdout.split("Valid Loss: ")[1:]],
+                          time.perf_counter() - t0)
+    (got, s_two), (want, s_one) = runs["torchrun"], runs["one process"]
+    rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    if len(got) != 2 or len(want) != 2 or not all(math.isfinite(x) for x in got):
+        raise AssertionError(f"data parallel, the image CLI under torchrun: losses {got}, "
+                             f"in one process {want}")
+    if not max(rel) <= DP_CLI_RTOL:
+        raise AssertionError(f"data parallel, the image CLI: train / val loss under torchrun "
+                             f"{got}, in one process {want}: {rel} apart, over {DP_CLI_RTOL:g}")
+    print(f"[data parallel] the image CLI, 1 epoch of --short dSprites at B=128: under torchrun "
+          f"on {DP_WORLD} cards train / val loss {got[0]} / {got[1]} in {s_two:.1f} s, in one "
+          f"process {want[0]} / {want[1]} in {s_one:.1f} s (relative differences "
+          f"{rel[0]:.2e} / {rel[1]:.2e}); rank 0 alone printed the epoch | {card_line}")
+    return {"losses": got, "one_process": want, "seconds": (s_two, s_one)}
+
+
+def phase_data_parallel(card_line):
+    """Slice 9: the data-parallel trainer over an NCCL group of one rank,
+    bitwise the trainer without one; over two ranks where there are two
+    cards → the numbers for the kernels line."""
+    import torch.distributed as dist
+
+    from arvae_tpu_torch.parallel import DataContext, init_data_parallel
+
+    dev = torch.device("cuda", 0)
+    row_base = _dp_row_base(dev, card_line)
+    noise = _dp_split_noise(dev, card_line)
+    plain = _dp_trainers(dev, DataContext(device=dev))
+    want = _dp_steps(plain)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            ctx = init_data_parallel(dev)
+            if (ctx.n_data, ctx.rank, ctx.distributed) != (1, 0, True):
+                raise AssertionError(f"data parallel: the context {ctx}")
+            grouped = _dp_trainers(dev, ctx)
+            got = _dp_steps(grouped)
+            _dp_compare("an NCCL group of one rank vs no group", got, want, bitwise=True)
+            print(f"[data parallel] an NCCL group of one rank: {DP_STEPS} Adam steps of the "
+                  f"dSprites (B=128) and music (B=256, H=128) steps bitwise those of the same "
+                  f"trainer with no group (metrics, gradients, parameters); launches "
+                  f"{ {n: got[n]['launches'] for n in got} }, the code's; the wrappers' "
+                  f"shapes { {n: got[n]['shapes'] for n in got} }")
+            step_ms = {}
+            for name in grouped:  # in turns: no group, group, group, no group
+                step_ms[name] = [_dp_step_ms(*t) for t in (plain[name], grouped[name],
+                                                           grouped[name], plain[name])]
+            collective = _dp_collective_us(dev, ctx)
+        finally:
+            dist.destroy_process_group()
+    for name, ms in step_ms.items():
+        print(f"[data parallel] {name} step ms, no group / NCCL group of one / group / no "
+              f"group: {' / '.join(f'{x:.4f}' for x in ms)} | {card_line}")
+    print("[data parallel] NCCL at one rank, a call: " + "; ".join(
+        f"{k}: device {d:.2f} µs ({e:g} device events), {w:.2f} µs by CUDA events"
+        for k, (d, e, w) in collective.items()) + f" | {card_line}")
+    _dp_plans()
+    two = None
+    if torch.cuda.device_count() >= DP_WORLD:
+        two = _dp_two_cards(want, card_line)
+        two["cli"] = _dp_cli(card_line)
+        print(f"[data parallel] ran: the one-rank NCCL check and the {DP_WORLD}-card check "
+              f"(the steps and the image CLI under torchrun)")
+    else:
+        print(f"[data parallel] ran: the one-rank NCCL check only ({torch.cuda.device_count()} "
+              f"card; the {DP_WORLD}-card check needs {DP_WORLD})")
+    return {"launches": {n: got[n]["launches"] for n in got},
+            "shapes": {n: got[n]["shapes"] for n in got}, "step_ms": step_ms,
+            "collective_us": collective, "two": two, "row_base": row_base,
+            "split_noise": noise}
+
+
 def _timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2967,10 +3678,25 @@ def _timed(name, fn, *args):
     return out
 
 
-def main() -> int:
+def _last_lines(card_line):
+    print(card_line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else list(argv)
+    if args not in ([], ["--data-parallel-only"]):
+        raise SystemExit(f"usage: chip_smoke.py [--data-parallel-only], not {args}")
     t0 = time.perf_counter()
     card_line = _timed("device", phase_device)
     _timed("build", phase_build)
+    if args:
+        _timed("slice 9 (data parallel)", phase_data_parallel, card_line)
+        print(f"[phase] total: {time.perf_counter() - t0:.1f} s")
+        _last_lines(card_line)
+        return 0
     errs = _timed("kernels", phase_kernels)
     # slices 1 and 2's run dirs, kept for slice 5 and (music) slice 8
     with tempfile.TemporaryDirectory() as kept:
@@ -2991,6 +3717,7 @@ def main() -> int:
         glsr = dict(variant_runs)["variant glsr"]
         analysis = _timed("slice 8 (music analysis)", phase_analysis, card_line, music[2],
                           music_dir, glsr)
+    dp = _timed("slice 9 (data parallel)", phase_data_parallel, card_line)
     print(f"[phase] total: {time.perf_counter() - t0:.1f} s")
 
     from arvae_tpu_torch.utils import kernel_work as kw
@@ -3032,7 +3759,23 @@ def main() -> int:
                     "ar": analysis["sweep"][key]["fwd"],
                     "glsr": analysis["sweep_glsr"][key]["fwd"]},
                     "abc_cli_launches": analysis["abc"][key]["fwd"]}
-                   if key != "reg" and direction == "fwd" else {})}
+                   if key != "reg" and direction == "fwd" else {}),
+                "data_parallel": data_parallel(key, direction)}
+
+    def data_parallel(key, direction):
+        """Slice 9: the launches of its 3 steps a slice, over an NCCL group
+        of one rank and (where it ran) on rank 0 of two cards, and the
+        shapes the wrapper was called with in those runs (null for a
+        world that did not run)."""
+        two = dp["two"]
+        return {"launches_world_1": {n: c[key][direction] for n, c in dp["launches"].items()},
+                "launches_world_2_rank_0": None if two is None else {
+                    n: two[n]["launches"][key][direction] for n in dp["launches"]},
+                "steps": DP_STEPS, "shapes_a_rank": {
+                    "W=1": {n: sh[key][direction] for n, sh in dp["shapes"].items()},
+                    "W=2": None if two is None else {
+                        n: two[n]["shapes"][key][direction] for n in dp["shapes"]},
+                    "W=4": None}}
 
     def slice7(key, direction):
         """Slice 7's launches: each fader CLI run's (0), and a train step's
@@ -3139,11 +3882,12 @@ def main() -> int:
     print("[times] the AR term's device launches a call (profiler): " + "; ".join(
         f"{name} {kind} {n:g}" for (name, kind), n in times["ar_launches"].items())
         + f" | {card_line}")
+    for name, ms in dp["step_ms"].items():
+        print(f"[times] data parallel: {name} step ms, no group / NCCL group of one / group / "
+              f"no group: {' / '.join(f'{x:.4f}' for x in ms)}; collectives a call (device "
+              f"µs, events, µs by CUDA events) {dp['collective_us']} | {card_line}")
     print(json.dumps({"kernels": kernels}))
-    print(card_line)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    _last_lines(card_line)
     return 0
 
 

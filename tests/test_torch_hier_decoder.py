@@ -207,3 +207,51 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(NotImplementedError):
         hk.hier_tick_chain_fwd_cuda(True, 0.0, 6, "topk", *ints,
                                     torch.from_numpy(score), *ts)
+
+
+@pytest.mark.parametrize("sampling", ["argmax", "multinomial"])
+def test_row_base_gives_the_rows_of_the_whole_call(sampling):
+    """A data-parallel rank's call (``row_base`` = its first global row)
+    draws the dropout masks and Gumbel noise of those rows in a call over
+    the whole batch: the same samples, and logits and per-row gradients
+    within the forward and gradient tolerances of the whole call's rows
+    (products over fewer rows sum in another order; a mask drawn for
+    another row would zero or double a unit), and
+    ``hier_tick_chain_bwd_by_beats`` at that ``row_base`` agrees with
+    autograd."""
+    score, floats = _operands(11)
+    ct = np.random.RandomState(12).randn(T, B, V).astype(np.float32)
+    kw = dict(rate=0.5, sampling=sampling)
+    whole = _port(0, score, floats, grad_ct=ct, **kw)
+    for r0, r1 in ((0, 3), (3, 8), (5, 6)):
+        part = [f[:, r0:r1] if i == 0 else f[:, :, r0:r1] if i == 1 else f[r0:r1] if i == 2
+                else f for i, f in enumerate(floats)]
+        part = [np.ascontiguousarray(f) for f in part]
+        leaves = [torch.from_numpy(f).requires_grad_(True) for f in part]
+        weights, samples, *hiddens = hk.tick_chain_reference(
+            True, 0.5, TPB, sampling, torch.tensor([0], dtype=torch.int32),
+            torch.tensor([5], dtype=torch.int32), torch.from_numpy(score[:, r0:r1]),
+            *hk.chain_operands(leaves), hiddens=True, row_base=r0)
+        np.testing.assert_array_equal(samples.numpy(), whole[1][:, r0:r1])
+        np.testing.assert_allclose(weights.detach().numpy(), whole[0][:, r0:r1], rtol=1e-5,
+                                   atol=1e-5)
+        ct_part = torch.from_numpy(np.ascontiguousarray(ct[:, r0:r1]))
+        (weights * ct_part).sum().backward()
+        for i in range(3):  # the per-row operands: gi_beat, tick_h0, x0
+            want = whole[2][i][:, r0:r1] if i == 0 else (whole[2][i][:, :, r0:r1] if i == 1
+                                                         else whole[2][i][r0:r1])
+            np.testing.assert_allclose(leaves[i].grad.numpy(), want, rtol=1e-4, atol=1e-5)
+        by_beats = hk.hier_tick_chain_bwd_by_beats(
+            True, 0.5, TPB, torch.tensor([5], dtype=torch.int32), samples,
+            [h.detach() for h in hiddens], weights.detach(), ct_part,
+            *[torch.from_numpy(f) for f in part], row_base=r0)
+        for got, leaf in zip(by_beats, leaves):
+            np.testing.assert_allclose(got.numpy(), leaf.grad.numpy(), rtol=1e-4, atol=1e-5)
+    # a rank that ignored its row_base would draw row 0's masks for its rows
+    other = hk.tick_chain_reference(
+        True, 0.5, TPB, sampling, torch.tensor([0], dtype=torch.int32),
+        torch.tensor([5], dtype=torch.int32), torch.from_numpy(score[:, 3:8]),
+        *hk.chain_operands([torch.from_numpy(np.ascontiguousarray(
+            f[:, 3:8] if i == 0 else f[:, :, 3:8] if i == 1 else f[3:8] if i == 2 else f))
+            for i, f in enumerate(floats)]))[0]
+    assert not np.allclose(other.numpy(), whole[0][:, 3:8], rtol=1e-5, atol=1e-5)

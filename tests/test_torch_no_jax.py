@@ -49,3 +49,21 @@ def test_no_jax_or_reference_package_imports():
     files = _module_files() + [REPO / "chip_smoke.py"]
     offenders = [str(p) for p in files if pat.search(p.read_text())]
     assert not offenders
+
+
+def test_the_data_parallel_layer_and_its_rank_bodies_import_no_jax():
+    """``parallel/`` is among the modules the probe imports without jax,
+    and the rank bodies the spawned gloo ranks import
+    (``tests/torch_parallel_ranks.py``) name neither jax nor the JAX
+    package."""
+    parallel = sorted(p.name for p in (PKG / "parallel").glob("*.py"))
+    assert parallel == ["__init__.py", "collectives.py", "mesh.py"]
+    probe = _PROBE.replace("print(len(names))", "print(sorted(n for n in names if "
+                           "n.startswith('arvae_tpu_torch.parallel')))")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", probe], env=env, cwd=str(REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "'arvae_tpu_torch.parallel.collectives', 'arvae_tpu_torch.parallel.mesh'" in out.stdout
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|arvae_tpu)\b", re.M)
+    assert not pat.search((REPO / "tests" / "torch_parallel_ranks.py").read_text())
