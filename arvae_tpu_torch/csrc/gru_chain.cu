@@ -27,12 +27,11 @@
 //
 // Wider layers (H = 384 or 512 at the reference's own width) have slices
 // that no cluster of 8 CTAs holds beside its tile (253 KB forward at
-// H = 384, C = 8, 4 rows). There the plan takes the streamed layout: the
-// CTA keeps no weight, and each step reads its slice from L2 (3 MB a
-// direction at H = 512, against 50 MB of L2) in stages of 32 rows,
-// double-buffered with cp.async, into the same depth-split product; each
-// output adds its stages' partial sums in stage order, so repeats stay
-// bitwise equal. gru_plan keeps the resident layout wherever it fits.
+// H = 384, C = 8, 4 rows). There the plan takes the wide layout of
+// gru_wide.cuh: one cooperative wave of CTAs, each holding its units'
+// slice of w_hh in shared memory for the whole call, a grid barrier a
+// step (its header gives the design). gru_plan keeps the resident layout
+// wherever it fits.
 //
 // Each step's product gh = h_{t-1} w_hh[:, own] runs on the CUDA cores in
 // fp32: a thread owns 4 rows by 2 columns, and the spare threads take
@@ -72,12 +71,12 @@
 // cudaGetLastError() so the caller can raise on a refused launch.
 
 #include "gru_cluster.cuh"
+#include "gru_wide.cuh"
 
 using namespace arvae;
 
 namespace {
 
-template <bool kStream>
 __global__ void __launch_bounds__(kThreads)
 gru_fwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
         const float* __restrict__ b_hh, const float* __restrict__ h0, int T, int D, int B,
@@ -86,8 +85,8 @@ gru_fwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int c = static_cast<int>(cluster.block_rank());
-  const ChainLayout L = chain_layout(false, H, C, RB, kStream);
-  float* ws = smem + L.w;  // the resident slice, or the streamed stages
+  const ChainLayout L = chain_layout(false, H, C, RB);
+  float* ws = smem + L.w;
   float* bs = smem + L.b;
   float* hs = smem + L.h;
   float* ghs = smem + L.gh;
@@ -101,13 +100,8 @@ gru_fwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
   const Unit me = my_unit(RB, L.hc, nr);
   const int u = u0 + me.i;
 
-  const float* wd = w_hh + static_cast<size_t>(d) * H * H3;
-  const GateRows rows{wd, H, L.hc, u0, L.ldw};
-  if (kStream) {
-    load_bias(b_hh + static_cast<size_t>(d) * H3, H, u0, L, bs);
-  } else {
-    load_slice(wd, b_hh + static_cast<size_t>(d) * H3, H, u0, L, ws, bs);
-  }
+  load_slice(w_hh + static_cast<size_t>(d) * H * H3, b_hh + static_cast<size_t>(d) * H3, H, u0,
+             L, ws, bs);
   copy_tile(hs, L.ldh, h0 + (static_cast<size_t>(d) * B + row0) * H, H, RB, H, nr);
   cp_async_commit();
   float gn[3];  // gi_t of this thread's unit
@@ -125,11 +119,7 @@ gru_fwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
     const float* hcur = hs + cur * hbuf;
     // gh = h_{t-1} w_hh[:, own] + b_hh[own]
     auto gh_store = [&](int r, int n, float v) { ghs[r * L.ldg + n] = v + bs[n]; };
-    if (kStream) {
-      streamed_times_w(hcur, L.ldh, RB, H, L.n3, rows, ws, L.ldw, ghs, L.ldg, part, gh_store);
-    } else {
-      rows_times_w(hcur, L.ldh, RB, H, ws, L.ldw, L.n3, part, gh_store);
-    }
+    rows_times_w(hcur, L.ldh, RB, H, ws, L.ldw, L.n3, part, gh_store);
     __syncthreads();
     // the unit's new hidden, to every CTA's next buffer
     if (me.live) {
@@ -153,40 +143,61 @@ const char* gru_chain_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Floats of shared memory a CTA of the plan (H, C, RB, stream) needs: the
+// Floats of shared memory a CTA of the resident plan (H, C, RB) needs: the
 // layout that ops/gru_kernel.py::chain_smem_floats mirrors.
-int gru_chain_smem_floats(int bwd, int H, int C, int RB, int stream) {
-  return chain_layout(bwd != 0, H, C, RB, stream != 0).total;
+int gru_chain_smem_floats(int bwd, int H, int C, int RB) {
+  return chain_layout(bwd != 0, H, C, RB).total;
 }
 
-// Clusters of C CTAs of the forward (bwd 0) or backward kernel in the
-// resident (stream 0) or streamed layout, smem_bytes each, that the card
-// holds at once; a negative CUDA error code when the query fails.
-int gru_chain_resident_clusters(int bwd, int stream, int C, int smem_bytes) {
+// Clusters of C CTAs of the resident forward (bwd 0) or backward kernel,
+// smem_bytes each, that the card holds at once; a negative CUDA error
+// code when the query fails.
+int gru_chain_resident_clusters(int bwd, int C, int smem_bytes) {
+  return bwd != 0 ? resident_clusters(gru_bwd, C, smem_bytes)
+                  : resident_clusters(gru_fwd, C, smem_bytes);
+}
+
+// Floats of shared memory a CTA of the wide layout (U units a CTA) needs:
+// the layout that ops/gru_kernel.py::wide_smem_floats mirrors.
+int gru_chain_wide_smem_floats(int bwd, int H, int U) {
+  return wide_layout(bwd != 0, H, U).total;
+}
+
+// CTAs of the wide forward (bwd 0) or backward kernel of U units a CTA,
+// smem_bytes each, that the card holds at once; a negative CUDA error
+// code when a query fails.
+int gru_chain_wide_resident_ctas(int bwd, int U, int smem_bytes) {
+  if (U != 16 && U != 32) return -static_cast<int>(cudaErrorInvalidValue);
   if (bwd != 0) {
-    return stream != 0 ? resident_clusters(gru_bwd<true>, C, smem_bytes)
-                       : resident_clusters(gru_bwd<false>, C, smem_bytes);
+    return U == 32 ? wide_resident_ctas(gru_wide_bwd<32>, smem_bytes)
+                   : wide_resident_ctas(gru_wide_bwd<16>, smem_bytes);
   }
-  return stream != 0 ? resident_clusters(gru_fwd<true>, C, smem_bytes)
-                     : resident_clusters(gru_fwd<false>, C, smem_bytes);
+  return U == 32 ? wide_resident_ctas(gru_wide_fwd<32>, smem_bytes)
+                 : wide_resident_ctas(gru_wide_fwd<16>, smem_bytes);
 }
 
 // gi (T, D, B, 3H), w_hh (D, H, 3H), b_hh (D, 3H), h0 (D, B, H) f32
-// -> outs (T, D, B, H) f32; the plan: clusters of C CTAs of RB rows,
-// smem_bytes of dynamic shared memory each, w_hh's slices resident
-// (streamed 0) or streamed.
+// -> outs (T, D, B, H) f32; the resident plan: clusters of C CTAs of RB
+// rows, smem_bytes of dynamic shared memory each.
 int gru_chain_fwd(const float* gi, const float* w_hh, const float* b_hh, const float* h0,
-                  int T, int D, int B, int H, int C, int RB, int smem_bytes, int streamed,
-                  float* outs, void* stream) {
-  if (chain_checked_smem(false, H, C, RB, smem_bytes, streamed != 0) == 0) {
-    return cudaErrorInvalidValue;
-  }
+                  int T, int D, int B, int H, int C, int RB, int smem_bytes, float* outs,
+                  void* stream) {
+  if (chain_checked_smem(false, H, C, RB, smem_bytes) == 0) return cudaErrorInvalidValue;
   const dim3 grid(C * ((B + RB - 1) / RB), D);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return streamed != 0 ? launch_cluster(gru_fwd<true>, C, grid, smem_bytes, st, gi, w_hh, b_hh,
-                                        h0, T, D, B, H, RB, outs)
-                       : launch_cluster(gru_fwd<false>, C, grid, smem_bytes, st, gi, w_hh, b_hh,
-                                        h0, T, D, B, H, RB, outs);
+  return launch_cluster(gru_fwd, C, grid, smem_bytes, static_cast<cudaStream_t>(stream), gi,
+                        w_hh, b_hh, h0, T, D, B, H, RB, outs);
+}
+
+// dW_hh[d] = sum_{t,b} h_{t-1}^T dgh_t, db_hh[d] = sum_{t,b} dgh_t, in the
+// splits' fixed order (red: atb_scratch_floats).
+static cudaError_t weight_grads(const float* h0, const float* outs, const float* dgh, int T,
+                                int D, int B, int H, int splits, float* dw, float* db,
+                                float* red, cudaStream_t st) {
+  const long long bh = static_cast<long long>(B) * H;
+  const long long bh3 = 3 * bh;
+  const Operand hprev{outs, h0, bh, D * bh, H, T, 0};
+  const Operand grad{dgh, nullptr, bh3, D * bh3, 3 * H, 1, 0};
+  return launch_atb(hprev, nullptr, 0, H, grad, 3 * H, T, B, D, splits, dw, db, red, st);
 }
 
 // + outs, douts (T, D, B, H) -> dgi (T, D, B, 3H), dh0 (D, B, H),
@@ -194,26 +205,52 @@ int gru_chain_fwd(const float* gi, const float* w_hh, const float* b_hh, const f
 // GEMM's partial sums over `splits` splits (atb_scratch_floats).
 int gru_chain_bwd(const float* gi, const float* w_hh, const float* b_hh, const float* h0,
                   const float* outs, const float* douts, int T, int D, int B, int H, int C,
-                  int RB, int smem_bytes, int streamed, int splits, float* dgi, float* dh0,
-                  float* dw, float* db, float* dgh, float* red, void* stream) {
-  if (chain_checked_smem(true, H, C, RB, smem_bytes, streamed != 0) == 0) {
+                  int RB, int smem_bytes, int splits, float* dgi, float* dh0, float* dw,
+                  float* db, float* dgh, float* red, void* stream) {
+  if (chain_checked_smem(true, H, C, RB, smem_bytes) == 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(C * ((B + RB - 1) / RB), D);
+  cudaError_t err = launch_cluster(gru_bwd, C, grid, smem_bytes, st, gi, w_hh, b_hh, h0, outs,
+                                   douts, T, D, B, H, RB, dgi, dh0, dgh);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      weight_grads(h0, outs, dgh, T, D, B, H, splits, dw, db, red, st));
+}
+
+// The wide layout's forward: the plan is U units a CTA, rows batch rows a
+// CTA, smem_bytes each; gh (T, D, B, 3H), where not null, receives
+// h_{t-1} w_hh + b_hh for the backward; bar: 2 unsigned of scratch.
+int gru_chain_wide_fwd(const float* gi, const float* w_hh, const float* b_hh, const float* h0,
+                       int T, int D, int B, int H, int U, int rows, int smem_bytes, float* outs,
+                       float* gh, unsigned* bar, void* stream) {
+  if (wide_checked_smem(false, H, U, rows, smem_bytes) == 0 || T < 1 || B < 1) {
+    return cudaErrorInvalidValue;
+  }
+  const int ctas = wide_ctas(D, B, H, U, rows);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return U == 32 ? launch_wide(gru_wide_fwd<32>, ctas, smem_bytes, bar, st, gi, w_hh, b_hh, h0,
+                               T, D, B, H, rows, outs, gh, bar)
+                 : launch_wide(gru_wide_fwd<16>, ctas, smem_bytes, bar, st, gi, w_hh, b_hh, h0,
+                               T, D, B, H, rows, outs, gh, bar);
+}
+
+// The wide layout's backward, as gru_chain_bwd: gh is the forward's
+// (recompute 0) or scratch of its shape that the kernel fills first
+// (recompute 1); bar: 2 unsigned of scratch.
+int gru_chain_wide_bwd(const float* gi, float* gh, int recompute, const float* w_hh,
+                       const float* b_hh, const float* h0, const float* outs,
+                       const float* douts, int T, int D, int B, int H, int U, int rows,
+                       int smem_bytes, int splits, float* dgi, float* dh0, float* dw, float* db,
+                       float* dgh, float* red, unsigned* bar, void* stream) {
+  if (wide_checked_smem(true, H, U, rows, smem_bytes) == 0 || T < 1 || B < 1) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(C * ((B + RB - 1) / RB), D);
-  cudaError_t err =
-      streamed != 0 ? launch_cluster(gru_bwd<true>, C, grid, smem_bytes, st, gi, w_hh, b_hh, h0,
-                                     outs, douts, T, D, B, H, RB, dgi, dh0, dgh)
-                    : launch_cluster(gru_bwd<false>, C, grid, smem_bytes, st, gi, w_hh, b_hh, h0,
-                                     outs, douts, T, D, B, H, RB, dgi, dh0, dgh);
+  cudaError_t err = launch_wide_bwd(gi, gh, recompute != 0, w_hh, b_hh, h0, outs, douts, T, D,
+                                    B, H, U, rows, smem_bytes, dgi, dh0, dgh, bar, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long bh = static_cast<long long>(B) * H;
-  const long long bh3 = 3 * bh;
-  // dW_hh[d] = sum_{t,b} h_{t-1}^T dgh_t, db_hh[d] = sum_{t,b} dgh_t
-  const Operand hprev{outs, h0, bh, D * bh, H, T, 0};
-  const Operand grad{dgh, nullptr, bh3, D * bh3, 3 * H, 1, 0};
   return static_cast<int>(
-      launch_atb(hprev, nullptr, 0, H, grad, 3 * H, T, B, D, splits, dw, db, red, st));
+      weight_grads(h0, outs, dgh, T, D, B, H, splits, dw, db, red, st));
 }
 
 }  // extern "C"

@@ -2,11 +2,11 @@
 // (the encoder's and the beat GRU's layers) and hier_tick_chain.cu (the
 // tick loop's layers, one chain a beat): each library instantiates it.
 // The design is described in gru_chain.cu's header; the launch plan
-// (C, RB, shared-memory bytes, and whether w_hh's slice is resident or
-// streamed) comes from the caller
+// (C, RB, shared-memory bytes) comes from the caller
 // (arvae_tpu_torch/ops/gru_kernel.py::gru_plan, which mirrors
 // chain_layout below) and chain_checked_smem refuses one that does not
-// fit.
+// fit. Widths whose slices no cluster holds run the wide layout of
+// gru_wide.cuh instead.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -25,17 +25,13 @@ constexpr int kThreads = 512;
 struct ChainLayout {
   int hc, n3;              // hidden units the CTA owns, its gate columns
   int ldw, ldh, ldg, ldo;  // leading dimensions
-  int w, b, h, gh, part;   // weight slice (or its two stages), bias slice, h (2 buffers),
-                           // gh, product scratch
+  int w, b, h, gh, part;   // weight slice, bias slice, h (2 buffers), gh, product scratch
   int dg, dz, red;         // backward: dgh, dh z, reduce slots (2 x C)
   int total;
 };
 
-// Resident (stream false): the CTA's gate columns of w_hh, all H rows,
-// loaded once. Streamed: two stages of kStreamDepth of those rows, read
-// from L2 at every step (widths whose slices do not fit).
-__host__ __device__ inline ChainLayout chain_layout(bool bwd, int H, int C, int RB,
-                                                    bool stream = false) {
+// The CTA's gate columns of w_hh, all H rows, loaded once.
+__host__ __device__ inline ChainLayout chain_layout(bool bwd, int H, int C, int RB) {
   ChainLayout L;
   L.hc = H / C;
   L.n3 = 3 * L.hc;
@@ -45,7 +41,7 @@ __host__ __device__ inline ChainLayout chain_layout(bool bwd, int H, int C, int 
   L.ldo = up4(L.hc);
   int o = 0;
   L.w = o;
-  o += (stream ? 2 * kStreamDepth : H) * L.ldw;
+  o += H * L.ldw;
   L.b = o;
   o += L.ldg;
   L.h = o;
@@ -128,7 +124,6 @@ __device__ __forceinline__ void load_gates(const float* row, int H, int u, bool 
   for (int k = 0; k < 3; ++k) g[k] = in ? row[k * H + u] : 0.f;
 }
 
-template <bool kStream>
 __global__ void __launch_bounds__(kThreads)
 gru_bwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
         const float* __restrict__ b_hh, const float* __restrict__ h0,
@@ -139,8 +134,8 @@ gru_bwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int c = static_cast<int>(cluster.block_rank());
-  const ChainLayout L = chain_layout(true, H, C, RB, kStream);
-  float* ws = smem + L.w;  // the resident slice, or the streamed stages
+  const ChainLayout L = chain_layout(true, H, C, RB);
+  float* ws = smem + L.w;
   float* bs = smem + L.b;
   float* hps = smem + L.h;  // h_{t-1}, full width, 2 buffers
   float* ghs = smem + L.gh;
@@ -170,13 +165,8 @@ gru_bwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
     dout = me.row ? douts[row * H + u] : 0.f;
   };
 
-  const float* wd = w_hh + static_cast<size_t>(d) * H * H3;
-  const GateRows rows{wd, H, L.hc, u0, L.ldw};
-  if (kStream) {
-    load_bias(b_hh + static_cast<size_t>(d) * H3, H, u0, L, bs);
-  } else {
-    load_slice(wd, b_hh + static_cast<size_t>(d) * H3, H, u0, L, ws, bs);
-  }
+  load_slice(w_hh + static_cast<size_t>(d) * H * H3, b_hh + static_cast<size_t>(d) * H3, H, u0,
+             L, ws, bs);
   float gn[3], dn;
   prefetch(T - 1, gn, dn);
   cp_async_wait<0>();
@@ -196,11 +186,7 @@ gru_bwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
     const float* hp = hps + cur * hbuf;
     // recompute gh = h_{t-1} w_hh[:, own] + b_hh[own]
     auto gh_store = [&](int r, int n, float v) { ghs[r * L.ldg + n] = v + bs[n]; };
-    if (kStream) {
-      streamed_times_w(hp, L.ldh, RB, H, L.n3, rows, ws, L.ldw, ghs, L.ldg, part, gh_store);
-    } else {
-      rows_times_w(hp, L.ldh, RB, H, ws, L.ldw, L.n3, part, gh_store);
-    }
+    rows_times_w(hp, L.ldh, RB, H, ws, L.ldw, L.n3, part, gh_store);
     __syncthreads();
     if (me.live) {
       const float* q = ghs + me.r * L.ldg;
@@ -237,11 +223,7 @@ gru_bwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
       const int o = j / L.hc;
       *cluster.map_shared_rank(red + slot + r * L.ldo + j - o * L.hc, o) = v;
     };
-    if (kStream) {
-      streamed_times_wt(dgs, L.ldg, RB, L.n3, H, rows, ws, L.ldw, part, red_store);
-    } else {
-      rows_times_wt(dgs, L.ldg, RB, L.n3, ws, L.ldw, H, part, red_store);
-    }
+    rows_times_wt(dgs, L.ldg, RB, L.n3, ws, L.ldw, H, part, red_store);
     cluster.sync();
   }
   // dh0 = dh z + the partials of step 0
@@ -255,10 +237,10 @@ gru_bwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
 
 // Refuses a plan the kernels cannot run: returns the shared-memory bytes
 // it needs, or 0.
-inline int chain_checked_smem(bool bwd, int H, int C, int RB, int smem_bytes, bool stream) {
+inline int chain_checked_smem(bool bwd, int H, int C, int RB, int smem_bytes) {
   if (C < 1 || C > 8 || (C & (C - 1)) != 0 || H < 1 || H % C != 0) return 0;
   if (RB < kRowsPerThread || RB % kRowsPerThread != 0 || RB * (H / C) > kThreads) return 0;
-  const long long need = 4LL * chain_layout(bwd, H, C, RB, stream).total;
+  const long long need = 4LL * chain_layout(bwd, H, C, RB).total;
   if (need > kMaxSmem || smem_bytes < need || smem_bytes > kMaxSmem) return 0;
   return static_cast<int>(need);
 }

@@ -369,20 +369,6 @@ __device__ __forceinline__ void streamed_times_w(const float* x, int ldx, int ro
   });
 }
 
-// rows_times_wt with the weight streamed: store(r, j, v) for
-// v = sum_k g[r * ldg + k] * W[j, k] over k < N, for j < M, where
-// load(dst, j0, jt) copies W's rows [j0, j0 + jt) into dst (lds). A stage
-// gives its rows' outputs whole.
-template <class Load, class Store>
-__device__ __forceinline__ void streamed_times_wt(const float* g, int ldg, int rows, int N, int M,
-                                                  Load load, float* stage, int lds, float* part,
-                                                  Store store) {
-  stream_stages(M, lds, stage, load, [&](const float* w, int j0, int jt) {
-    rows_times_wt(g, ldg, rows, N, w, lds, jt, part,
-                  [&](int r, int j, float v) { store(r, j0 + j, v); });
-  });
-}
-
 // ---------------------------------------------------------------------------
 // Weight gradients: a tiled fp32 A^T X GEMM over (t, b), fixed order
 // ---------------------------------------------------------------------------

@@ -60,10 +60,11 @@
 // dgi_l @ w_ih_l^T (masked by gap l-1's dropout) and dgi_0 @ w_ih0e^T;
 // the ReLU's mask is the forward's own (weights > 0), so the backward
 // agrees with it at the kink. The layers run from the top down: each
-// layer's chain is the GRU chain's cluster backward (gru_cluster.cuh, in
-// its resident or streamed layout as gru_plan gives it) over
-// ticks_per_beat steps on n_beats x B rows, followed by its weight
-// gradients. Chain operands use the layout (tick in beat, beat * B + b);
+// layer's chain is the GRU chain's backward (the cluster kernel of
+// gru_cluster.cuh where its slices fit, else the wide layout of
+// gru_wide.cuh, which first recomputes the chain's hidden-side gates; as
+// gru_plan gives it) over ticks_per_beat steps on n_beats x B rows,
+// followed by its weight gradients. Chain operands use the layout (tick in beat, beat * B + b);
 // the forward saves the hiddens in it, with zero rows for the padded
 // ticks of a short last beat (T not a multiple of ticks_per_beat), whose
 // gi and douts are zero too. The 2L + 2 weight and embedding gradients go
@@ -89,6 +90,7 @@
 #include <cstdint>
 
 #include "gru_cluster.cuh"
+#include "gru_wide.cuh"
 
 using namespace arvae;
 
@@ -573,10 +575,12 @@ struct BwdScratch {
   float* dgi;     // (R, 3H)
   float* dgh;     // (R, 3H)
   float* dpe;     // (R, E)
+  float* gh;      // (R, 3H) the wide chains' recomputed hidden-side gates (wide only)
+  unsigned* bar;  // the wide chains' grid barrier
   long long floats;  // the floats taken; the GEMMs' partial sums follow
 };
 
-BwdScratch carve(const Dims& dm, float* base) {
+BwdScratch carve(const Dims& dm, float* base, bool wide) {
   const long long bc = static_cast<long long>(dm.beats()) * dm.B;
   const long long R = dm.tpb * bc, H = dm.H, H3 = 3LL * dm.H;
   BwdScratch s;
@@ -597,6 +601,8 @@ BwdScratch carve(const Dims& dm, float* base) {
   s.dgi = take(R * H3);
   s.dgh = take(R * H3);
   s.dpe = take(R * dm.E);
+  s.gh = wide ? take(R * H3) : nullptr;
+  s.bar = reinterpret_cast<unsigned*>(take(1));
   s.floats = o;
   return s;
 }
@@ -789,11 +795,12 @@ int hier_tick_chain_resident_clusters(int stream, int C, int smem_bytes) {
                      : resident_clusters(hier_fwd<false>, C, smem_bytes);
 }
 
-// Floats of the backward's scratch before the GEMMs' partial sums.
+// Floats of the backward's scratch before the GEMMs' partial sums, its
+// chains in the cluster (wide 0) or the wide layout.
 long long hier_tick_chain_bwd_scratch_floats(int T, int B, int H, int E, int V,
-                                              int ticks_per_beat, int L) {
+                                              int ticks_per_beat, int L, int wide) {
   const Dims dm{T, B, H, E, V, ticks_per_beat, L, 0, 1.f, 1.f, 0, 0};
-  return carve(dm, nullptr).floats;
+  return carve(dm, nullptr, wide != 0).floats;
 }
 
 // teacher, seed: (1,) i32 on the device; score (T, B) i32; the float
@@ -833,8 +840,10 @@ int hier_tick_chain_fwd(const int* teacher, const int* seed, const int* score,
 
 // The backward. h_all: the forward's L saved hiddens; the gradient
 // outputs in the order of the float operands, the layers' as host arrays of
-// kMaxLayers pointers; row_base as in the forward; chain_C, chain_RB, chain_smem, chain_streamed:
-// gru_plan's plan of the chain backward on n_beats * B rows; scratch:
+// kMaxLayers pointers; row_base as in the forward; chain_C, chain_RB, chain_smem, chain_wide:
+// gru_plan's plan of the chain backward on n_beats * B rows (chain_wide 0:
+// clusters of chain_C CTAs of chain_RB rows; 1: the wide layout, chain_C
+// units and chain_RB rows a CTA); scratch:
 // hier_tick_chain_bwd_scratch_floats floats, then the GEMMs' partial sums;
 // splits: the split of the terms of each of the 2L + 2 weight-gradient
 // GEMMs, in the order they run below (ops/hier_decoder_kernel.py::
@@ -847,14 +856,15 @@ int hier_tick_chain_bwd(const int* seed, const int* samples, const float* const*
                         const float* out_b, int T, int B, int H, int E, int V, int L,
                         int ticks_per_beat, int dropout, float keep, float scale, int row_base,
                         int chain_C,
-                        int chain_RB, int chain_smem, int chain_streamed, float* dgi_beat,
+                        int chain_RB, int chain_smem, int chain_wide, float* dgi_beat,
                         float* dtick_h0, float* dx0, float* demb, float* dw_ih0e,
                         float* const* dw_hh, float* const* db_hh, float* const* dw_ih,
                         float* const* db_ih, float* dout_w, float* dout_b, float* scratch,
                         const int* splits, void* stream) {
   const Dims dm{T, B, H, E, V, ticks_per_beat, L, dropout, keep, scale, 0, row_base};
   if (T < 1 || B < 1 || ticks_per_beat < 1 || L < 1 || L > kMaxLayers ||
-      chain_checked_smem(true, H, chain_C, chain_RB, chain_smem, chain_streamed != 0) == 0) {
+      (chain_wide != 0 ? wide_checked_smem(true, H, chain_C, chain_RB, chain_smem)
+                       : chain_checked_smem(true, H, chain_C, chain_RB, chain_smem)) == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int bc = dm.beats() * B;
@@ -866,9 +876,8 @@ int hier_tick_chain_bwd(const int* seed, const int* samples, const float* const*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Weights w =
       make_weights(gi_beat, tick_h0, x0, emb, w_ih0e, w_hh, b_hh, w_ih, b_ih, out_w, out_b, L);
-  const BwdScratch s = carve(dm, scratch);
+  const BwdScratch s = carve(dm, scratch, chain_wide != 0);
   float* red = scratch + s.floats;
-  auto* chain = chain_streamed != 0 ? &gru_bwd<true> : &gru_bwd<false>;
   const dim3 chain_grid(chain_C * ((bc + chain_RB - 1) / chain_RB));
 
   // the GEMMs' operands: a dense chain operand, and a layer's h_{t-1}
@@ -911,10 +920,15 @@ int hier_tick_chain_bwd(const int* seed, const int* samples, const float* const*
                                            EpiGates{dm, s.gi, nullptr, gi_beat}, st);
     }
     // its chains, one a beat
-    if (err == cudaSuccess) {
-      err = launch_cluster(chain, chain_C, chain_grid, chain_smem, st, s.gi, w_hh[l], b_hh[l],
-                           init, h_all[l], s.dh, ticks_per_beat, 1, bc, H, chain_RB, s.dgi,
-                           s.dinit + static_cast<size_t>(l) * bc * H, s.dgh);
+    float* dinit = s.dinit + static_cast<size_t>(l) * bc * H;
+    if (err == cudaSuccess && chain_wide != 0) {
+      err = launch_wide_bwd(s.gi, s.gh, true, w_hh[l], b_hh[l], init, h_all[l], s.dh,
+                            ticks_per_beat, 1, bc, H, chain_C, chain_RB, chain_smem, s.dgi, dinit,
+                            s.dgh, s.bar, st);
+    } else if (err == cudaSuccess) {
+      err = launch_cluster(gru_bwd, chain_C, chain_grid, chain_smem, st, s.gi, w_hh[l], b_hh[l],
+                           init, h_all[l], s.dh, ticks_per_beat, 1, bc, H, chain_RB, s.dgi, dinit,
+                           s.dgh);
     }
     // the gradient of its input: the layer below's (through the dropout
     // mask), or the fed embedding's

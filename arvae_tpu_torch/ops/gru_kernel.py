@@ -13,29 +13,36 @@ Gate math is torch-exact: ``n = tanh(i_n + r * (h w_hn + b_hn))``.
 On a CUDA tensor, :func:`gru_chain` launches the kernels of
 ``csrc/gru_chain.cu`` (forward in the autograd Function's forward,
 backward in its backward) or raises: where :func:`gru_plan` fits no
-direction (a width whose 4-row tile takes more than 512 threads even in
-clusters of 8) it raises before any launch. On a CPU tensor it runs
-:func:`gru_chain_reference`, a Python loop over T whose backward is
-autograd through the loop. There is no fallback from one to the other.
+layout (a width whose w_hh slices no plan holds) it raises before any
+launch. On a CPU tensor it runs :func:`gru_chain_reference`, a Python
+loop over T whose backward is autograd through the loop. There is no
+fallback from one to the other.
 
 What bounds it on the card: a T-long chain of dependent
 (rows x H) @ (H x 3H) products, small enough that latency, not bytes or
-arithmetic, sets the time. The kernel runs the whole chain in one launch:
-a thread-block cluster of C CTAs per tile of RB batch rows loops over t,
-each CTA holding its H/C hidden units' gate columns of ``w_hh`` in shared
-memory for the whole chain (or, where they do not fit, as at H=384 and
-512, reading them from L2 every step in stages of 32 rows: the streamed
-layout) and exchanging hidden state (forward) or
-partial hidden gradients (backward) with its peers through distributed
-shared memory. The backward sums dW_hh / db_hh with the tiled
-fixed-order GEMM of ``csrc/gru_common.cuh``, so its results repeat
-bitwise. See the source's header for the design.
+arithmetic, sets the time at the music step's H=128. The kernel runs the
+whole chain in one launch. In the resident layout a thread-block
+cluster of C CTAs per tile of RB batch rows loops over t, each CTA
+holding its H/C hidden units' gate columns of ``w_hh`` in shared memory
+for the whole chain and exchanging hidden state (forward) or partial
+hidden gradients (backward) with its peers through distributed shared
+memory. Where those slices do not fit (H=384 and 512, the reference's
+width), the wide layout (``csrc/gru_wide.cuh``) runs one cooperative
+wave of CTAs, each keeping a U-unit slice of ``w_hh`` in shared memory
+for the whole call and multiplying on the tensor cores in 3xTF32 (about
+fp32's accuracy), with a grid barrier a step; its forward keeps the hidden-side
+pre-activations ``gh`` for its backward when the caller trains. Both
+backwards sum dW_hh / db_hh with the tiled fixed-order GEMM of
+``csrc/gru_common.cuh``, so their results repeat bitwise. See the
+sources' headers for the designs.
 
 The launch plans are decided here, in Python, when a kernel is called:
-:func:`gru_plan` (C, RB, shared-memory bytes, grid) mirrors the kernel's
-shared-memory layout (:func:`chain_smem_floats`), and :func:`atb_splits`
-fixes the weight-gradient GEMM's split of the (t, b) terms; the kernels
-check the plan and refuse one that does not fit.
+:func:`gru_plan` (a :class:`ChainPlan` of C, RB, shared-memory bytes and
+grid, or a :class:`WidePlan` of U, rows a CTA and shared memory) mirrors
+the kernels' shared-memory layouts (:func:`chain_smem_floats`,
+:func:`wide_smem_floats`), and :func:`atb_splits` fixes the
+weight-gradient GEMM's split of the (t, b) terms; the kernels check the
+plan and refuse one that does not fit.
 """
 
 from __future__ import annotations
@@ -51,13 +58,16 @@ from arvae_tpu_torch.ops import _build
 
 _NAME = "gru_chain"
 
-# Kernel launches by the wrapper, one per call of each direction.
+# Kernel launches by the wrapper, one per call of each direction, and of
+# them those of the wide layout.
 LAUNCHES = {"fwd": 0, "bwd": 0}
+WIDE_LAUNCHES = {"fwd": 0, "bwd": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, WIDE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -97,7 +107,7 @@ MAX_SMEM = 227 * 1024  # dynamic shared memory a CTA may use on Hopper
 SMS = 132              # streaming multiprocessors of an H100 SXM
 THREADS = 512          # threads of a cluster kernel's CTA: one a cell unit
 ROWS_PER_THREAD = 4    # a tile's rows are a multiple of it
-STREAM_DEPTH = 32      # weight rows a stage of the streamed layout holds
+STREAM_DEPTH = 32      # weight rows a stage of the tick loop's streamed layout holds
 GEMM_TILE, GEMM_DEPTH = 64, 32
 
 # Clusters of C CTAs that an H100 SXM holds at once, by the CTAs an SM
@@ -106,13 +116,20 @@ GEMM_TILE, GEMM_DEPTH = 64, 32
 # GPC, and the GPCs' SM counts leave some SMs over, so 32 clusters of 4
 # CTAs (128 SMs) do not fit at once.
 CLUSTERS_HELD = {1: {1: SMS, 2: 66, 4: 30, 8: 15}, 2: {1: 2 * SMS, 2: 132, 4: 62, 8: 30}}
-# Registers a thread of each streamed kernel, as ptxas builds them for
-# sm_90a (CUDA 12.8; chip_smoke.py's build phase prints them): with 64, two
-# CTAs of 512 threads share an SM where their shared memory allows.
-STREAMED_REGISTERS = {"gru_fwd": 64, "gru_bwd": 128, "hier_fwd": 128}
 SM_SMEM = 228 * 1024     # shared memory of an SM
 CTA_RESERVED = 1024      # of it, the runtime's reserve for each CTA
 SM_REGISTERS = 65536
+
+# The wide layout (csrc/gru_wide.cuh): CTAs of WIDE_THREADS threads (8
+# warps), each warp a 16-row x 16-unit tile of 3xTF32 tensor-core
+# products; U units a CTA, so a pass of 2048 / U rows; operands streamed
+# in chunks of WIDE_DEPTH terms through WIDE_STAGES buffers. Every plan
+# is one CTA an SM, one wave.
+WIDE_THREADS = 256
+WIDE_WARP_TILE = (16, 16)
+WIDE_DEPTH = 32
+WIDE_STAGES = 3
+WIDE_UNITS = (32, 16)
 
 
 def up4(n: int) -> int:
@@ -124,19 +141,39 @@ def slice_ld(n: int) -> int:
     return ld + 4 if ld % 8 == 0 else ld
 
 
-def chain_smem_floats(backward: bool, H: int, C: int, RB: int, streamed: bool = False) -> int:
+def chain_smem_floats(backward: bool, H: int, C: int, RB: int) -> int:
     """Floats of shared memory one CTA of ``gru_chain``'s cluster kernels
-    uses: ``chain_layout`` in ``csrc/gru_cluster.cuh``, term for term. The
-    resident layout holds the CTA's slice of ``w_hh`` (H rows), the
-    streamed one two stages of ``STREAM_DEPTH`` rows."""
+    uses: ``chain_layout`` in ``csrc/gru_cluster.cuh``, term for term: the
+    CTA's slice of ``w_hh`` (H rows), resident."""
     hc = H // C
     n3 = 3 * hc
     ldw, ldh, ldg, ldo = slice_ld(n3), up4(H), up4(n3), up4(hc)
-    weight_rows = 2 * STREAM_DEPTH if streamed else H
-    total = weight_rows * ldw + ldg + 2 * RB * ldh + RB * ldg + THREADS * 2 * ROWS_PER_THREAD
+    total = H * ldw + ldg + 2 * RB * ldh + RB * ldg + THREADS * 2 * ROWS_PER_THREAD
     if backward:
         total += RB * ldg + RB * ldo + 2 * C * RB * ldo
     return total
+
+
+def wide_pass_rows(U: int) -> int:
+    """Batch rows a CTA of the wide layout multiplies at once (a pass)."""
+    rows, units = WIDE_WARP_TILE
+    return rows * (WIDE_THREADS // 32) * units // U
+
+
+def wide_smem_floats(backward: bool, H: int, U: int) -> int:
+    """Floats of shared memory one CTA of the wide layout uses:
+    ``wide_layout`` in ``csrc/gru_wide.cuh``, term for term. The forward
+    holds the CTA's 3U gate columns of ``w_hh`` (H terms each, padded to
+    whole chunks), the backward its U rows (3H terms) or, to recompute
+    ``gh`` first, the forward's slice, whichever is larger; then
+    ``WIDE_STAGES`` chunks of a pass's rows."""
+    def padded(k):
+        return -(-k // WIDE_DEPTH) * WIDE_DEPTH + 4
+
+    w = 3 * U * padded(H)
+    if backward:
+        w = max(w, U * padded(3 * H))
+    return w + WIDE_STAGES * wide_pass_rows(U) * (WIDE_DEPTH + 4)
 
 
 @dataclass(frozen=True)
@@ -145,11 +182,30 @@ class ChainPlan:
     rows: int         # RB, batch rows a cluster owns
     smem_bytes: int   # dynamic shared memory of one CTA
     grid: Tuple[int, int]
-    streamed: bool = False  # weight slices read from L2 in stages, not resident
+    streamed: bool = False  # the tick loop's forward only: weights read from L2 in stages
 
     @property
     def ctas(self) -> int:
         return self.grid[0] * self.grid[1]
+
+
+@dataclass(frozen=True)
+class WidePlan:
+    """The wide layout's launch: CTA (d, g, q) owns hidden units
+    [g U, (g + 1) U) of direction d for batch rows [q rows, (q + 1) rows),
+    which it multiplies in ``passes`` passes of ``pass_rows``."""
+    units: int        # U, hidden units a CTA owns (3U gate columns of w_hh)
+    rows: int         # batch rows a CTA owns
+    smem_bytes: int   # dynamic shared memory of one CTA
+    ctas: int         # D * ceil(H / U) * ceil(B / rows), all on the card at once
+
+    @property
+    def pass_rows(self) -> int:
+        return wide_pass_rows(self.units)
+
+    @property
+    def passes(self) -> int:
+        return -(-self.rows // self.pass_rows)
 
 
 def ctas_per_sm(smem_bytes: int, registers: int) -> int:
@@ -159,54 +215,63 @@ def ctas_per_sm(smem_bytes: int, registers: int) -> int:
                       SM_REGISTERS // (registers * THREADS)))
 
 
-def held_clusters(plan: ChainPlan, kernel: str) -> int:
-    """Clusters of the plan's size the card holds at once: a resident
-    plan's CTA takes more than half an SM; a streamed one's may share it,
-    as its shared memory and ``kernel``'s registers allow."""
-    per_sm = ctas_per_sm(plan.smem_bytes, STREAMED_REGISTERS[kernel]) if plan.streamed else 1
-    return CLUSTERS_HELD[per_sm][plan.clusters]
-
-
-def plan_waves(plan: ChainPlan, kernel: str) -> int:
-    """Rounds of the card the plan's clusters take: ``gru_chain``'s
-    resident plans count a CTA an SM, as they were designed; the
-    streamed ones count the clusters the card holds at once."""
-    if not plan.streamed:
-        return -(-plan.ctas // SMS)
-    return -(-(plan.ctas // plan.clusters) // held_clusters(plan, kernel))
-
-
 def best_plan(plans):
     """Of (plan, key) pairs, the plan of the least key; None if none."""
     return min(plans, key=lambda pk: pk[1], default=(None, None))[0]
 
 
+# Rows of a wide plan's row group at least: one m16 tile of the products.
+WIDE_MIN_ROWS = 16
+
+
+def wide_plan(D: int, B: int, H: int, backward: bool) -> Optional[WidePlan]:
+    """The wide layout's plan, or None where none fits: of U in
+    ``WIDE_UNITS`` whose CTA fits 227 KB, as many row groups as keep every
+    CTA on the card at once (one CTA an SM: ``SMS``; more row groups cost
+    no operand traffic and leave each CTA fewer rows), then the plan of
+    the fewest passes a step (each pass is the same work), then the least
+    operand traffic a step (D·B·H floats for each of the ceil(H / U)
+    unit groups: the most units a CTA)."""
+    plans = []
+    for u in WIDE_UNITS:
+        smem = 4 * wide_smem_floats(backward, H, u)
+        groups = D * -(-H // u)
+        if smem > MAX_SMEM or groups > SMS:
+            continue
+        row_groups = min(-(-B // WIDE_MIN_ROWS), SMS // groups)
+        rows = -(-B // row_groups)
+        plan = WidePlan(u, rows, smem, groups * -(-B // rows))
+        plans.append((plan, (plan.passes, -u)))
+    return best_plan(plans)
+
+
 @functools.lru_cache(maxsize=256)
-def gru_plan(D: int, B: int, H: int, backward: bool) -> ChainPlan:
-    """The resident layout wherever it fits, else the streamed one; of
-    each, the plan that runs in the fewest waves of the card, then with
-    the most CTAs in them, then with the fewest CTAs a cluster (the
-    fewest peers to exchange with), then the most rows a cluster; clusters
-    of 2, 4 or 8 CTAs, a single CTA only where no cluster fits. A CTA's
-    threads each own one (row, hidden unit) of its tile. Raises
-    ValueError, naming H, when no plan fits 227 KB and 512 threads."""
-    for streamed in (False, True):
-        plans = []
-        for c in (2, 4, 8, 1):
-            for rb in (16, 8, 4):
-                if H % c or rb * (H // c) > THREADS:
-                    continue
-                smem = 4 * chain_smem_floats(backward, H, c, rb, streamed)
-                if smem > MAX_SMEM:
-                    continue
-                plan = ChainPlan(c, rb, smem, (c * -(-B // rb), D), streamed)
-                waves = plan_waves(plan, "gru_bwd" if backward else "gru_fwd")
-                plans.append((plan, (c == 1, waves, -plan.ctas, c, -rb)))
-        best = best_plan(plans)
-        if best is not None:
-            return best
-    raise ValueError(f"H={H} is too wide: no cluster of at most 8 CTAs gives a 4-row tile "
-                     f"one thread a unit and fits 227 KB of shared memory")
+def gru_plan(D: int, B: int, H: int, backward: bool):
+    """The resident layout wherever it fits, else the wide one. Resident:
+    the plan that runs in the fewest waves of the card (a CTA an SM),
+    then with the most CTAs in them, then with the fewest CTAs a cluster
+    (the fewest peers to exchange with), then the most rows a cluster;
+    clusters of 2, 4 or 8 CTAs, a single CTA only where no cluster fits;
+    a CTA's threads each own one (row, hidden unit) of its tile. Wide:
+    :func:`wide_plan`. Raises ValueError, naming H, when no plan fits
+    227 KB and one wave."""
+    plans = []
+    for c in (2, 4, 8, 1):
+        for rb in (16, 8, 4):
+            if H % c or rb * (H // c) > THREADS:
+                continue
+            smem = 4 * chain_smem_floats(backward, H, c, rb)
+            if smem > MAX_SMEM:
+                continue
+            plan = ChainPlan(c, rb, smem, (c * -(-B // rb), D))
+            waves = -(-plan.ctas // SMS)
+            plans.append((plan, (c == 1, waves, -plan.ctas, c, -rb)))
+    best = best_plan(plans) or wide_plan(D, B, H, backward)
+    if best is None:
+        raise ValueError(f"H={H} is too wide: neither a cluster of at most 8 CTAs nor a wave "
+                         f"of CTAs of {WIDE_UNITS} units holds its slices of w_hh in 227 KB "
+                         f"of shared memory")
+    return best
 
 
 @functools.lru_cache(maxsize=256)
@@ -217,6 +282,19 @@ def atb_splits(M: int, bias: bool, N: int, K: int, D: int = 1) -> int:
     least one 32-term K tile a split."""
     tiles = D * -(-(M + int(bias)) // GEMM_TILE) * -(-N // GEMM_TILE)
     return max(1, min(-(-K // GEMM_DEPTH), -(-4 * SMS // tiles)))
+
+
+# The wide layout's weight-gradient GEMMs sum at most this many (t, b)
+# terms a split: at (24, 2, 256, 512) two splits of 3,072 terms took the
+# GEMM 912 µs, six of 1,024 754 µs (utils/wide_probe.py --atb-splits on
+# an NVIDIA H100 80GB HBM3 at 700 W).
+WIDE_ATB_TERMS = 1024
+
+
+def wide_atb_splits(M: int, bias: bool, N: int, K: int, D: int = 1) -> int:
+    """:func:`atb_splits` for the wide layout's GEMMs: at least
+    K / ``WIDE_ATB_TERMS`` splits."""
+    return max(atb_splits(M, bias, N, K, D), -(-K // WIDE_ATB_TERMS))
 
 
 def atb_scratch_floats(M: int, bias: bool, N: int, D: int, splits: int) -> int:
@@ -237,14 +315,22 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(_NAME)
     if not _bound:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gru_chain_smem_floats.argtypes = [i] * 5
+        lib.gru_chain_smem_floats.argtypes = [i] * 4
         lib.gru_chain_smem_floats.restype = i
-        lib.gru_chain_resident_clusters.argtypes = [i] * 4
+        lib.gru_chain_resident_clusters.argtypes = [i] * 3
         lib.gru_chain_resident_clusters.restype = i
-        lib.gru_chain_fwd.argtypes = [p] * 4 + [i] * 8 + [p, p]
+        lib.gru_chain_wide_smem_floats.argtypes = [i] * 3
+        lib.gru_chain_wide_smem_floats.restype = i
+        lib.gru_chain_wide_resident_ctas.argtypes = [i] * 3
+        lib.gru_chain_wide_resident_ctas.restype = i
+        lib.gru_chain_fwd.argtypes = [p] * 4 + [i] * 7 + [p, p]
         lib.gru_chain_fwd.restype = i
-        lib.gru_chain_bwd.argtypes = [p] * 6 + [i] * 9 + [p] * 7
+        lib.gru_chain_bwd.argtypes = [p] * 6 + [i] * 8 + [p] * 7
         lib.gru_chain_bwd.restype = i
+        lib.gru_chain_wide_fwd.argtypes = [p] * 4 + [i] * 7 + [p] * 4
+        lib.gru_chain_wide_fwd.restype = i
+        lib.gru_chain_wide_bwd.argtypes = [p, p, i] + [p] * 5 + [i] * 8 + [p] * 8
+        lib.gru_chain_wide_bwd.restype = i
         _bound = True
     return lib
 
@@ -271,37 +357,61 @@ def _dims(gi, w_hh, b_hh, h0) -> Tuple[int, int, int, int]:
     return t, d, b, h
 
 
+def _barrier(dev: torch.device) -> torch.Tensor:
+    """Scratch for the wide layout's grid barrier (zeroed by the entry)."""
+    return torch.empty(1, dtype=torch.int32, device=dev)
+
+
 def gru_chain_fwd_cuda(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
-                       h0: torch.Tensor, plan: Optional[ChainPlan] = None) -> torch.Tensor:
+                       h0: torch.Tensor, plan=None, keep_gh: bool = False):
     """Launches the forward kernel → outs (T, D, B, H). ``plan``: the
-    launch plan, :func:`gru_plan`'s by default."""
+    launch plan, :func:`gru_plan`'s by default. With ``keep_gh`` →
+    (outs, gh): the wide layout's hidden-side pre-activations
+    h_{t-1} w_hh + b_hh (T, D, B, 3H) for its backward, None for the
+    resident layout (whose backward recomputes them)."""
     t, d, b, h = _dims(gi, w_hh, b_hh, h0)
     _check((("gi", gi), ("w_hh", w_hh), ("b_hh", b_hh), ("h0", h0)), gi.device)
     plan = plan or gru_plan(d, b, h, backward=False)
+    wide = isinstance(plan, WidePlan)
     lib = _library()
     outs = torch.empty((t, d, b, h), dtype=torch.float32, device=gi.device)
+    gh = torch.empty_like(gi) if wide and keep_gh else None
     with torch.cuda.device(gi.device):
-        err = lib.gru_chain_fwd(gi.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-                                h0.data_ptr(), t, d, b, h, plan.clusters, plan.rows,
-                                plan.smem_bytes, int(plan.streamed), outs.data_ptr(),
-                                _build.stream_of(gi))
+        if wide:
+            err = lib.gru_chain_wide_fwd(
+                gi.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(), t, d, b, h,
+                plan.units, plan.rows, plan.smem_bytes, outs.data_ptr(),
+                None if gh is None else gh.data_ptr(), _barrier(gi.device).data_ptr(),
+                _build.stream_of(gi))
+        else:
+            err = lib.gru_chain_fwd(gi.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+                                    h0.data_ptr(), t, d, b, h, plan.clusters, plan.rows,
+                                    plan.smem_bytes, outs.data_ptr(), _build.stream_of(gi))
     _build.raise_on(lib, _NAME, err, "gru_chain_fwd")
     LAUNCHES["fwd"] += 1
-    return outs
+    WIDE_LAUNCHES["fwd"] += int(wide)
+    return (outs, gh) if keep_gh else outs
 
 
 def gru_chain_bwd_cuda(
     gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, h0: torch.Tensor,
-    outs: torch.Tensor, douts: torch.Tensor,
+    outs: torch.Tensor, douts: torch.Tensor, gh: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launches the backward kernels → (dgi, dw_hh, db_hh, dh0)."""
+    """Launches the backward kernels → (dgi, dw_hh, db_hh, dh0). ``gh``:
+    the wide forward's kept pre-activations; without them the wide
+    backward recomputes them for all steps at once before its chain."""
     t, d, b, h = _dims(gi, w_hh, b_hh, h0)
     _check((("gi", gi), ("w_hh", w_hh), ("b_hh", b_hh), ("h0", h0),
             ("outs", outs), ("douts", douts)), gi.device)
     if outs.shape != (t, d, b, h) or douts.shape != (t, d, b, h):
         raise ValueError(f"outs and douts must be {(t, d, b, h)}")
     plan = gru_plan(d, b, h, backward=True)
-    splits = atb_splits(h, True, 3 * h, t * b, d)
+    wide = isinstance(plan, WidePlan)
+    if gh is not None:
+        _check((("gh", gh),), gi.device)
+        if not wide or gh.shape != gi.shape:
+            raise ValueError(f"gh is the wide layout's (T, D, B, 3H) = {tuple(gi.shape)}")
+    splits = (wide_atb_splits if wide else atb_splits)(h, True, 3 * h, t * b, d)
     lib = _library()
     dgi = torch.empty_like(gi)
     dh0 = torch.empty_like(h0)
@@ -312,14 +422,26 @@ def gru_chain_bwd_cuda(
     red = torch.empty(max(1, atb_scratch_floats(h, True, 3 * h, d, splits)),
                       dtype=torch.float32, device=gi.device)
     with torch.cuda.device(gi.device):
-        err = lib.gru_chain_bwd(gi.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-                                h0.data_ptr(), outs.data_ptr(), douts.data_ptr(),
-                                t, d, b, h, plan.clusters, plan.rows, plan.smem_bytes,
-                                int(plan.streamed), splits, dgi.data_ptr(), dh0.data_ptr(),
-                                dw.data_ptr(), db.data_ptr(), dgh.data_ptr(),
-                                red.data_ptr(), _build.stream_of(gi))
+        if wide:
+            recompute = gh is None
+            if recompute:
+                gh = torch.empty_like(gi)
+            err = lib.gru_chain_wide_bwd(
+                gi.data_ptr(), gh.data_ptr(), int(recompute), w_hh.data_ptr(),
+                b_hh.data_ptr(), h0.data_ptr(), outs.data_ptr(), douts.data_ptr(), t, d, b, h,
+                plan.units, plan.rows, plan.smem_bytes, splits, dgi.data_ptr(), dh0.data_ptr(),
+                dw.data_ptr(), db.data_ptr(), dgh.data_ptr(), red.data_ptr(),
+                _barrier(gi.device).data_ptr(), _build.stream_of(gi))
+        else:
+            err = lib.gru_chain_bwd(gi.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+                                    h0.data_ptr(), outs.data_ptr(), douts.data_ptr(),
+                                    t, d, b, h, plan.clusters, plan.rows, plan.smem_bytes,
+                                    splits, dgi.data_ptr(), dh0.data_ptr(), dw.data_ptr(),
+                                    db.data_ptr(), dgh.data_ptr(), red.data_ptr(),
+                                    _build.stream_of(gi))
     _build.raise_on(lib, _NAME, err, "gru_chain_bwd")
     LAUNCHES["bwd"] += 1
+    WIDE_LAUNCHES["bwd"] += int(wide)
     return dgi, dw, db, dh0
 
 
@@ -329,18 +451,23 @@ def gru_chain_bwd_cuda(
 
 
 class GruChainFn(torch.autograd.Function):
-    """The recurrence with the kernel backward (CUDA tensors only)."""
+    """The recurrence with the kernel backward (CUDA tensors only). The
+    wide layout's forward keeps ``gh`` for the backward when an input
+    needs a gradient."""
 
     @staticmethod
     def forward(ctx, gi, w_hh, b_hh, h0):
-        outs = gru_chain_fwd_cuda(gi, w_hh, b_hh, h0)
-        ctx.save_for_backward(gi, w_hh, b_hh, h0, outs)
+        if any(ctx.needs_input_grad):
+            outs, gh = gru_chain_fwd_cuda(gi, w_hh, b_hh, h0, keep_gh=True)
+        else:
+            outs, gh = gru_chain_fwd_cuda(gi, w_hh, b_hh, h0), None
+        ctx.save_for_backward(gi, w_hh, b_hh, h0, outs, gh)
         return outs
 
     @staticmethod
     def backward(ctx, douts):
-        gi, w_hh, b_hh, h0, outs = ctx.saved_tensors
-        return gru_chain_bwd_cuda(gi, w_hh, b_hh, h0, outs, douts.contiguous())
+        gi, w_hh, b_hh, h0, outs, gh = ctx.saved_tensors
+        return gru_chain_bwd_cuda(gi, w_hh, b_hh, h0, outs, douts.contiguous(), gh)
 
 
 def gru_chain(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,

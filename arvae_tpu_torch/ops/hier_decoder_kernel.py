@@ -39,9 +39,10 @@ exchanging hiddens and per-row argmax partials with its peers
 through distributed shared memory (:func:`hier_plan` picks the cluster
 size and the rows). The backward runs the beats in parallel: the hidden
 carries restart at every beat, so each layer is ``n_beats`` independent
-chains of ``ticks_per_beat`` ticks, run by ``gru_chain``'s cluster
-backward, and every product that touches no carry runs over all T·B rows
-at once (:func:`hier_tick_chain_bwd_by_beats` is the same decomposition
+chains of ``ticks_per_beat`` ticks, run by ``gru_chain``'s backward
+(its cluster kernel, or its wide layout at H=384 and 512, which first
+recomputes the chains' hidden-side gates), and every product that
+touches no carry runs over all T·B rows at once (:func:`hier_tick_chain_bwd_by_beats` is the same decomposition
 in plain PyTorch). The saved hiddens use the chains' layout
 ``(ticks_per_beat, n_beats·B, H)``. See the source's header for the
 design.
@@ -59,9 +60,10 @@ import torch.nn.functional as F
 from arvae_tpu_torch.ops import _build, gru_kernel
 from arvae_tpu_torch.ops.gru import stacked_gru_step_from_gi
 from arvae_tpu_torch.ops.gru_kernel import (CLUSTERS_HELD, MAX_SMEM, ROWS_PER_THREAD,
-                                            STREAM_DEPTH, THREADS, ChainPlan,
+                                            STREAM_DEPTH, THREADS, ChainPlan, WidePlan,
                                             atb_scratch_floats, atb_splits, best_plan,
-                                            gru_gates, gru_plan, slice_ld, up4)
+                                            gru_gates, gru_plan, slice_ld, up4,
+                                            wide_atb_splits)
 
 _NAME = "hier_tick_chain"
 SALT_DROPOUT = 0
@@ -70,8 +72,9 @@ SAMPLING = ("argmax", "multinomial")
 
 # Kernel launches by the wrapper, one per call of each direction.
 LAUNCHES = {"fwd": 0, "bwd": 0}
-# Launches of gru_chain's cluster backward by the backward: one a layer.
-CHAIN_LAUNCHES = {"bwd": 0}
+# Launches of gru_chain's backward by the backward: one a layer; of them,
+# those of its wide layout.
+CHAIN_LAUNCHES = {"bwd": 0, "wide": 0}
 
 # Tick-GRU layers the kernels take (kMaxLayers in the source).
 MAX_LAYERS = 4
@@ -80,7 +83,8 @@ MAX_LAYERS = 4
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    CHAIN_LAUNCHES["bwd"] = 0
+    for k in CHAIN_LAUNCHES:
+        CHAIN_LAUNCHES[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -381,9 +385,20 @@ def product_part_floats(rows: int, K: int, N: int, threads: int) -> int:
 RESIDENT_CLUSTERS = CLUSTERS_HELD[1]
 
 
+# Registers a thread of the streamed forward, as ptxas builds it for
+# sm_90a (CUDA 12.8; chip_smoke.py's build phase prints them): with 64,
+# two CTAs of 512 threads would share an SM where their shared memory
+# allows.
+STREAMED_REGISTERS = 128
+
+
 def held_clusters(plan: ChainPlan) -> int:
-    """Clusters of the forward plan's size the card holds at once."""
-    return gru_kernel.held_clusters(plan, "hier_fwd")
+    """Clusters of the forward plan's size the card holds at once: a
+    resident plan's CTA takes more than half an SM; a streamed one's may
+    share it, as its shared memory and registers allow."""
+    per_sm = (gru_kernel.ctas_per_sm(plan.smem_bytes, STREAMED_REGISTERS) if plan.streamed
+              else 1)
+    return CLUSTERS_HELD[per_sm][plan.clusters]
 
 
 @functools.lru_cache(maxsize=256)
@@ -417,14 +432,14 @@ def hier_plan(B: int, H: int, E: int, V: int, L: int = 2) -> ChainPlan:
                      "a 4-row tile one thread a unit and fits 227 KB of shared memory")
 
 
-def chain_plan(T: int, B: int, H: int, ticks_per_beat: int) -> ChainPlan:
-    """The backward's chain plan: ``gru_chain``'s cluster backward over
-    n_beats·B rows."""
+def chain_plan(T: int, B: int, H: int, ticks_per_beat: int):
+    """The backward's chain plan: ``gru_chain``'s backward over n_beats·B
+    rows (a ``ChainPlan``, or a ``WidePlan`` where no cluster holds the
+    slices)."""
     return gru_plan(1, -(-T // ticks_per_beat) * B, H, True)
 
 
-def hier_plans(T: int, B: int, H: int, E: int, V: int, L: int,
-               ticks_per_beat: int) -> Tuple[ChainPlan, ChainPlan]:
+def hier_plans(T: int, B: int, H: int, E: int, V: int, L: int, ticks_per_beat: int):
     """(forward plan, backward chain plan) of the tick loop's kernels at
     these shapes; raises ValueError, naming H and L, where the kernels do
     not run them: a tick GRU of other than 1 to ``MAX_LAYERS`` layers, or
@@ -453,7 +468,7 @@ def _library() -> ctypes.CDLL:
         lib.hier_tick_chain_smem_floats.restype = i
         lib.hier_tick_chain_resident_clusters.argtypes = [i] * 3
         lib.hier_tick_chain_resident_clusters.restype = i
-        lib.hier_tick_chain_bwd_scratch_floats.argtypes = [i] * 7
+        lib.hier_tick_chain_bwd_scratch_floats.argtypes = [i] * 8
         lib.hier_tick_chain_bwd_scratch_floats.restype = ctypes.c_longlong
         lib.hier_tick_chain_fwd.argtypes = ([p] * 8 + [pp] * 4 + [p] * 2 + [i] * 8 + [f, f]
                                             + [i] * 6 + [p, p, pp, p])
@@ -580,26 +595,29 @@ def hier_tick_chain_bwd_cuda(train, dropout_rate, ticks_per_beat, seed, samples,
             or weights.shape != (T, B, V) or dweights.shape != (T, B, V):
         raise ValueError(f"hiddens must be {L} of {saved}, weights and dweights {(T, B, V)}")
     chain = chain_plan(T, B, H, ticks_per_beat)
+    wide = isinstance(chain, WidePlan)
     lib = _library()
     grads = [torch.empty_like(x) for x in floats]
     shapes = gemm_shapes(H, E, V, L)
     terms = ticks_per_beat * nb * B
-    splits = [atb_splits(m, bias, n, terms) for m, bias, n in shapes]
+    splits = [(wide_atb_splits if wide else atb_splits)(m, bias, n, terms)
+              for m, bias, n in shapes]
     partial = max(atb_scratch_floats(m, bias, n, 1, k) for (m, bias, n), k in zip(shapes, splits))
     scratch = torch.empty(
-        lib.hier_tick_chain_bwd_scratch_floats(T, B, H, E, V, ticks_per_beat, L)
+        lib.hier_tick_chain_bwd_scratch_floats(T, B, H, E, V, ticks_per_beat, L, int(wide))
         + max(1, partial), dtype=torch.float32, device=dev)
     dropout, keep, scale = _rate_args(train, dropout_rate)
     with torch.cuda.device(dev):
         err = lib.hier_tick_chain_bwd(
             seed.data_ptr(), samples.data_ptr(), _pointers(hiddens), weights.data_ptr(),
             dweights.data_ptr(), *_operand_args(floats), T, B, H, E, V, L, ticks_per_beat,
-            dropout, keep, scale, int(row_base), chain.clusters, chain.rows, chain.smem_bytes,
-            int(chain.streamed), *_operand_args(grads), scratch.data_ptr(),
+            dropout, keep, scale, int(row_base), chain.units if wide else chain.clusters,
+            chain.rows, chain.smem_bytes, int(wide), *_operand_args(grads), scratch.data_ptr(),
             (ctypes.c_int * len(splits))(*splits), _build.stream_of(samples))
     _build.raise_on(lib, _NAME, err, "hier_tick_chain_bwd")
     LAUNCHES["bwd"] += 1
     CHAIN_LAUNCHES["bwd"] += L
+    CHAIN_LAUNCHES["wide"] += L * int(wide)
     return tuple(grads)
 
 

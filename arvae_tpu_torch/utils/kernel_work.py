@@ -29,9 +29,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 # H100 SXM, published, at the 700 W power limit: fp32 on the CUDA cores
-# and HBM3.
+# and HBM3; and TF32 on the tensor cores, dense, which the GRU chain's
+# wide layout runs its products on in 3xTF32 (three TF32 products for
+# each fp32 one).
 PEAK_FP32_FLOP_PER_S = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_TF32_FLOP_PER_S = 495e12
+TF32_PRODUCTS_PER_FP32 = 3
 WORD = 4  # bytes of a float32 or an int32
 
 # z_i − z_j, ×δ, tanh, a_i − a_j, sign, −, |·|, +
@@ -60,6 +64,13 @@ class Work:
     @property
     def bound_by(self) -> str:
         return "operations" if self.flop_ms >= self.bytes_ms else "bytes"
+
+    @property
+    def tf32x3_bound_ms(self) -> float:
+        """The bound with every operation a 3xTF32 tensor-core product:
+        three TF32 operations each, at the card's TF32 rate."""
+        tf32_ms = 1e3 * TF32_PRODUCTS_PER_FP32 * self.flop / PEAK_TF32_FLOP_PER_S
+        return max(tf32_ms, self.bytes_ms)
 
 
 def gru_chain(T: int, D: int, B: int, H: int, backward: bool = False) -> Work:

@@ -79,20 +79,21 @@ HIER_SHAPES = ((256, 256, 10, 130, 2), (256, 512, 10, 130, 2), (256, 128, 10, 13
 
 
 def held_report():
-    """Lines: the clusters of C CTAs each kernel layout can keep on the
-    card at once (cudaOccupancyMaxActiveClusters) at one CTA an SM
+    """Lines: the clusters of C CTAs each cluster kernel layout can keep
+    on the card at once (cudaOccupancyMaxActiveClusters) at one CTA an SM
     (200,000 B of shared memory) and at two (100,000 B, where the
     kernel's registers allow it), beside ``CLUSTERS_HELD``; then each
-    wide or deep shape's plan, the clusters it assumes and the card's."""
+    wide or deep shape's plan, the clusters (or, for the GRU chain's wide
+    layout, the CTAs of its cooperative wave) it assumes and the card's."""
     glib, hlib = gk._library(), hk._library()
-    kernels = {  # name: (registers key, held(stream, C, smem))
-        "gru_chain fwd": lambda st, c, b: glib.gru_chain_resident_clusters(0, st, c, b),
-        "gru_chain bwd": lambda st, c, b: glib.gru_chain_resident_clusters(1, st, c, b),
+    kernels = {  # name: held(streamed, C, smem)
+        "gru_chain fwd": lambda st, c, b: glib.gru_chain_resident_clusters(0, c, b),
+        "gru_chain bwd": lambda st, c, b: glib.gru_chain_resident_clusters(1, c, b),
         "hier_tick_chain fwd": hlib.hier_tick_chain_resident_clusters,
     }
     lines = []
     for name, held in kernels.items():
-        for stream in (0, 1):
+        for stream in (0, 1) if name.startswith("hier") else (0,):
             for smem in (200_000, 100_000):
                 got = {c: held(stream, c, smem) for c in (1, 2, 4, 8)}
                 lines.append(f"{name}, {'streamed' if stream else 'resident'}, {smem} B a CTA: "
@@ -101,12 +102,15 @@ def held_report():
     for d, b, h in GRU_SHAPES:
         for backward in (False, True):
             p = gk.gru_plan(d, b, h, backward)
-            got = glib.gru_chain_resident_clusters(int(backward), int(p.streamed), p.clusters,
-                                                   p.smem_bytes)
-            held = gk.held_clusters(p, "gru_bwd" if backward else "gru_fwd")
+            if isinstance(p, gk.WidePlan):
+                got = glib.gru_chain_wide_resident_ctas(int(backward), p.units, p.smem_bytes)
+                held = f"its {p.ctas} CTAs at once (one CTA an SM), the card holds {got}"
+            else:
+                got = glib.gru_chain_resident_clusters(int(backward), p.clusters, p.smem_bytes)
+                held = (f"{gk.CLUSTERS_HELD[1][p.clusters]} clusters at once, the card holds "
+                        f"{got}")
             lines.append(f"gru_chain {'bwd' if backward else 'fwd'} (D={d}, B={b}, H={h}): "
-                         f"{p}; the plan assumes {held} clusters at once, the card holds "
-                         f"{got}")
+                         f"{p}; the plan assumes {held}")
     for b, h, e, v, layers in HIER_SHAPES:
         p = hk.hier_plan(b, h, e, v, layers)
         got = hlib.hier_tick_chain_resident_clusters(int(p.streamed), p.clusters, p.smem_bytes)

@@ -87,26 +87,36 @@ def short_name(name):
 
 # The port's kernels by short name, each launched a fixed number of
 # times by one call of a wrapper: (ops module, its launch counter's key,
-# kernels a count). The tick loop's backward runs each of its layers
-# through the GRU chain's cluster backward (its ``CHAIN_LAUNCHES``).
+# kernels a count), summed. The tick loop's backward runs each of its
+# layers through the GRU chain's backward (its ``CHAIN_LAUNCHES``); the
+# wide layout's calls (``WIDE_LAUNCHES``, ``CHAIN_LAUNCHES["wide"]``)
+# launch its kernels instead of the cluster kernels.
 ENTRY_KERNELS = {
     "reg_fwd": (("reg_kernel", "fwd", 1),),
     "reg_bwd": (("reg_kernel", "bwd", 1),),
-    "gru_fwd": (("gru_kernel", "fwd", 1),),
-    "gru_bwd": (("gru_kernel", "bwd", 1), ("hier_decoder_kernel", "chains", 1)),
+    "gru_fwd": (("gru_kernel", "fwd", 1), ("gru_kernel", "wide_fwd", -1)),
+    "gru_bwd": (("gru_kernel", "bwd", 1), ("gru_kernel", "wide_bwd", -1),
+                ("hier_decoder_kernel", "chains", 1), ("hier_decoder_kernel", "chains_wide", -1)),
+    "gru_wide_fwd": (("gru_kernel", "wide_fwd", 1),),
+    "gru_wide_bwd": (("gru_kernel", "wide_bwd", 1), ("hier_decoder_kernel", "chains_wide", 1)),
     "hier_fwd": (("hier_decoder_kernel", "fwd", 1),),
     "hier_bwd_prep": (("hier_decoder_kernel", "bwd", 1),),
 }
 
 
 def _launch_counts():
-    """{(module, key): count} of the port's wrapper launch counters."""
+    """{(module, key): count} of the port's wrapper launch counters (an
+    earlier checkout's lack the wide layout's: 0)."""
     import importlib
 
     counts = {(m, k): v for m in ("reg_kernel", "gru_kernel", "hier_decoder_kernel")
               for k, v in importlib.import_module(f"arvae_tpu_torch.ops.{m}").LAUNCHES.items()}
+    gk = importlib.import_module("arvae_tpu_torch.ops.gru_kernel")
+    for k in ("fwd", "bwd"):
+        counts[("gru_kernel", f"wide_{k}")] = getattr(gk, "WIDE_LAUNCHES", {}).get(k, 0)
     hk = importlib.import_module("arvae_tpu_torch.ops.hier_decoder_kernel")
     counts[("hier_decoder_kernel", "chains")] = hk.CHAIN_LAUNCHES["bwd"]
+    counts[("hier_decoder_kernel", "chains_wide")] = hk.CHAIN_LAUNCHES.get("wide", 0)
     return counts
 
 

@@ -1,0 +1,199 @@
+"""Times the GRU recurrences at the reference's widths on one card, and
+splits each call's device time by kernel, to compare two checkouts of
+the port.
+
+Run on the card from a checkout's root, against that checkout, or
+against another one put first on the path:
+
+    python arvae_tpu_torch/utils/wide_probe.py --tag change
+    PYTHONPATH=<other checkout> python arvae_tpu_torch/utils/wide_probe.py --tag parent
+
+It reaches the port only through entry points every version of it has
+(``gru_chain_fwd_cuda`` and ``gru_chain_bwd_cuda``,
+``hier_tick_chain_fwd_cuda`` and ``hier_tick_chain_bwd_cuda``,
+``step_probe.call_events``). Where the version's forward keeps the
+hidden-side pre-activations for its backward (``keep_gh``), the
+backward is timed with them, as a train step runs it. For each
+``gru_chain`` shape (T, D, B, H) and the tick loop at H=512 (B=256,
+V=130, 6 ticks a beat, 2 layers, dropout 0.5, free-running): ms a call
+by CUDA events over back-to-back calls, and the device µs a call of
+each kernel (``torch.profiler``, 5 calls). With ``--atb-splits`` it
+times the backward instead under each split count of its
+weight-gradient GEMM (``gru_kernel.atb_splits`` replaced for the run),
+at the reference's widths. Every line ends with the card's name and
+power limit; ``--json`` also writes the rows to a file.
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+
+import numpy as np
+import torch
+
+from arvae_tpu_torch.ops import gru_kernel as gk
+from arvae_tpu_torch.ops import hier_decoder_kernel as hk
+from arvae_tpu_torch.utils.step_probe import call_events, card, short_name
+
+GRU_SHAPES = ((24, 2, 256, 512), (4, 1, 256, 512), (24, 1, 256, 384), (24, 2, 100, 512),
+              (24, 2, 128, 512), (24, 2, 1, 512), (24, 2, 22, 512), (6, 1, 1024, 512))
+HIER = dict(B=256, H=512, E=10, V=130, T=24, tpb=6, L=2)
+
+
+def _ms(fn, iters, warmup=3):
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _split(fn, calls=5):
+    """{kernel: device µs a call} from a profiled run of ``calls`` calls."""
+    out = {}
+    for e in call_events(fn, calls):
+        name = short_name(e["name"])
+        out[name] = out.get(name, 0.0) + e["dur"] / calls
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def gru_inputs(t, d, b, h, dev, seed=17):
+    rng = np.random.RandomState(seed)
+
+    def f(*shape, s):
+        return torch.tensor(rng.randn(*shape) * s, dtype=torch.float32, device=dev)
+
+    return (f(t, d, b, 3 * h, s=0.5), f(d, h, 3 * h, s=1 / np.sqrt(h)),
+            f(d, 3 * h, s=0.1), f(d, b, h, s=0.3)), f(t, d, b, h, s=1.0)
+
+
+def gru_row(shape, dev):
+    args, ct = gru_inputs(*shape, dev)
+    keeps = "keep_gh" in inspect.signature(gk.gru_chain_fwd_cuda).parameters
+    if keeps:
+        outs, gh = gk.gru_chain_fwd_cuda(*args, keep_gh=True)
+        fwd = lambda: gk.gru_chain_fwd_cuda(*args, keep_gh=True)  # noqa: E731
+        bwd = lambda: gk.gru_chain_bwd_cuda(*args, outs, ct, gh=gh)  # noqa: E731
+    else:
+        outs = gk.gru_chain_fwd_cuda(*args)
+        fwd = lambda: gk.gru_chain_fwd_cuda(*args)  # noqa: E731
+        bwd = lambda: gk.gru_chain_bwd_cuda(*args, outs, ct)  # noqa: E731
+    iters = 50 if shape[-1] > 128 else 200
+    return {"shape": shape, "keeps_gh": keeps, "fwd_ms": _ms(fwd, iters),
+            "bwd_ms": _ms(bwd, iters), "fwd_us_by_kernel": _split(fwd),
+            "bwd_us_by_kernel": _split(bwd)}
+
+
+def hier_inputs(dev, B, H, E, V, T, tpb, L, seed=8):
+    rng = np.random.RandomState(seed)
+    nb = -(-T // tpb)
+
+    def w(*shape, s=None):
+        x = rng.randn(*shape) * (s if s is not None else 1 / np.sqrt(shape[0]))
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+
+    floats = [w(nb, B, 3 * H, s=0.5), w(nb, L, B, H, s=0.5), w(B, E, s=0.5), w(V, E, s=1.0),
+              w(E, 3 * H)]
+    for layer in range(L):
+        floats += [w(H, 3 * H), w(3 * H, s=0.1)]
+        if layer:
+            floats += [w(H, 3 * H), w(3 * H, s=0.1)]
+    floats += [w(H, V), w(V, s=0.1)]
+    score = torch.tensor(rng.randint(0, V, (T, B)), dtype=torch.int32, device=dev)
+    ct = torch.tensor(rng.randn(T, B, V), dtype=torch.float32, device=dev)
+    return score, floats, ct
+
+
+def hier_row(dev):
+    p = HIER
+    score, floats, ct = hier_inputs(dev, **p)
+    teacher = torch.zeros(1, dtype=torch.int32, device=dev)
+    seed = torch.full((1,), 5, dtype=torch.int32, device=dev)
+    cfg = (True, 0.5, p["tpb"], "argmax")
+    weights, samples, *hiddens = hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, score,
+                                                             *floats)
+
+    def bwd():
+        return hk.hier_tick_chain_bwd_cuda(True, 0.5, p["tpb"], seed, samples, hiddens,
+                                           weights, ct, *floats)
+
+    fwd = lambda: hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, score, *floats)  # noqa
+    return {"shape": dict(p), "fwd_ms": _ms(fwd, 20), "bwd_ms": _ms(bwd, 20),
+            "bwd_us_by_kernel": _split(bwd)}
+
+
+def atb_split_rows(dev, line, tag):
+    """The backward at each split count of its weight-gradient GEMM."""
+    rows, chosen = [], {}
+    for shape in ((24, 2, 256, 512), (24, 1, 256, 384), (6, 1, 1024, 512)):
+        args, ct = gru_inputs(*shape, dev)
+        outs, gh = gk.gru_chain_fwd_cuda(*args, keep_gh=True)
+        chosen[shape] = getattr(gk, "wide_atb_splits", gk.atb_splits)(
+            shape[3], True, 3 * shape[3], shape[0] * shape[2], shape[1])
+        real = gk.atb_splits
+        for splits in (1, 2, 3, 4, 6, 8):
+            gk.atb_splits = lambda *a, s=splits: s  # noqa: E731
+            if hasattr(gk, "wide_atb_splits"):
+                saved, gk.wide_atb_splits = gk.wide_atb_splits, gk.atb_splits
+            try:
+                def bwd():
+                    return gk.gru_chain_bwd_cuda(*args, outs, ct, gh=gh)
+
+                ms, by_kernel = _ms(bwd, 30), _split(bwd)
+            finally:
+                gk.atb_splits = real
+                if hasattr(gk, "wide_atb_splits"):
+                    gk.wide_atb_splits = saved
+            rows.append({"shape": shape, "splits": splits, "bwd_ms": ms,
+                         "bwd_us_by_kernel": by_kernel})
+            print(f"[{tag}] gru_chain {shape} backward, GEMM in {splits} splits (the plan "
+                  f"takes {chosen[shape]}): {ms:.5f} ms; device µs by kernel {by_kernel} "
+                  f"| {line}", flush=True)
+    return rows
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tag", default="this checkout")
+    ap.add_argument("--json", default=None, help="also write the rows to this file")
+    ap.add_argument("--atb-splits", action="store_true",
+                    help="time the backward at each split count of its GEMM instead")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("wide_probe: no card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    line = card()
+    if args.atb_splits:
+        rows = atb_split_rows(dev, line, args.tag)
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump({"tag": args.tag, "card": line, "rows": rows}, f, default=str)
+        return
+    rows = []
+    for shape in GRU_SHAPES:
+        row = gru_row(shape, dev)
+        rows.append(row)
+        print(f"[{args.tag}] gru_chain {shape}: fwd {row['fwd_ms']:.5f} ms, bwd "
+              f"{row['bwd_ms']:.5f} ms (gh kept: {row['keeps_gh']}); device µs a call by "
+              f"kernel, fwd {row['fwd_us_by_kernel']}, bwd {row['bwd_us_by_kernel']} | {line}",
+              flush=True)
+    row = hier_row(dev)
+    rows.append(row)
+    print(f"[{args.tag}] hier_tick_chain {row['shape']}: fwd {row['fwd_ms']:.5f} ms, bwd "
+          f"{row['bwd_ms']:.5f} ms; bwd device µs a call by kernel {row['bwd_us_by_kernel']} "
+          f"| {line}", flush=True)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump({"tag": args.tag, "card": line, "rows": rows}, f, default=str)
+
+
+if __name__ == "__main__":
+    main()

@@ -26,7 +26,11 @@ and the script exits non-zero:
    ``gru_chain`` forward and backward at the music slice's shapes, a
    ragged batch, a second hidden width (H=64), SRDecoderNoInput's
    (24, 1, 256, 128), and the reference's widths, whose weight slices
-   the kernels stream from L2 (``WIDE_GRU_CASES``: H=512 and 384);
+   no cluster holds: the wide layout (``WIDE_GRU_CASES``: H=512 and
+   384, and the tick loop's 6-tick chains on 1,024 rows), each with its
+   plan (CTAs, the CTAs the card holds at once, shared memory, ptxas's
+   registers and spills), its backward from the forward's kept ``gh``
+   bitwise its backward that recomputes them;
    ``hier_tick_chain`` forward and backward at V=34 (the music CLI's
    corpus) and V=130 (the step-rate cell), teacher-forced, free-running
    (teacher trick), training with dropout 0.5 (the case matches only if
@@ -89,14 +93,21 @@ and the script exits non-zero:
    dSprites step's device busy time, with cuDNN free to pick its
    algorithms and as the trainer sets it (deterministic). Each kernel's
    bound (``arvae_tpu_torch/utils/kernel_work.py``) and launches per
-   step are printed beside its time;
+   step are printed beside its time. At each ``WIDE_GRU_CASES`` shape
+   the wide layout's plan, its fwd / bwd ms as a train step runs them
+   (the forward keeping ``gh``), cuDNN's ``torch.nn.GRU`` layer there,
+   the plain version, the bound, and each call's device µs by kernel;
 8. slice 4: the music CLI at the reference's widths
    (``--encoder_hidden_size 512 --decoder_hidden_size 512``) and with
    ``--num_decoder_layers 3``, 2 epochs each on the ``--full`` corpus
    (``WIDE_DEEP_ARGS``): the loss finite and falling, every recurrence
-   call of every step on a kernel (the launch counters), a train step
-   repeated bitwise, its device busy time and largest kernels, and the
-   trained model against the CPU on a val batch;
+   call of every step on a kernel (the launch counters; at the
+   reference's widths every ``gru_chain`` call and every tick-loop
+   backward chain on the wide layout, ``WIDE_LAUNCHES`` and
+   ``CHAIN_LAUNCHES``), a train step repeated bitwise, its device busy
+   time and largest kernels, and the trained model against the CPU on a
+   val batch. The kernels line's ``gru_chain_wide_fwd`` / ``_bwd``
+   entries take their launches from the 512-wide run;
 9. slice 5 (evaluation): every CLI run of slices 1-4 now ends with the
    evaluation (the latent harvest, the test pass, the five metrics and
    ``results_dict.json``); each run's file must have the JAX package's
@@ -300,10 +311,12 @@ SEQ_GRAD_RTOL, SEQ_GRAD_ATOL_FRAC = 1e-4, 1e-5
 # width (the cluster kernels split H over their CTAs)
 GRU_CASES = [(24, 2, 256, 128), (4, 1, 256, 128), (24, 1, 256, 128), (24, 2, 100, 128),
              (24, 2, 256, 64), (4, 1, 256, 64)]
-# the reference's own widths, whose w_hh slices the kernels stream from
-# L2: the 512-wide encoder layer and beat GRU layer, SRDecoderNoInput's
-# layer at H=384, and a ragged batch
-WIDE_GRU_CASES = [(24, 2, 256, 512), (4, 1, 256, 512), (24, 1, 256, 384), (24, 2, 100, 512)]
+# the reference's own widths, whose w_hh slices no cluster holds (the
+# wide layout): the 512-wide encoder layer and beat GRU layer,
+# SRDecoderNoInput's layer at H=384, a ragged batch, and the tick loop's
+# backward chains at H=512 (6 ticks on 4 beats x 256 rows)
+WIDE_GRU_CASES = [(24, 2, 256, 512), (4, 1, 256, 512), (24, 1, 256, 384), (24, 2, 100, 512),
+                  (6, 1, 1024, 512)]
 # V=34 is the music CLI's synthetic folk corpus, V=130 the step-rate
 # cell's vocabulary: V sets the kernels' shared-memory layout, the argmax
 # loop and the output-layer and embedding weight-gradient GEMM tiles.
@@ -522,10 +535,14 @@ def _kernel_name(mangled: str) -> str:
     return (parts[-1] if parts else mangled) + (f"<{', '.join(args)}>" if args else "")
 
 
+# ptxas's 'N regs, spill S/L B' of each kernel the build phase compiled
+PTXAS = {}
+
+
 def _ptxas_summary(log: str) -> str:
     """'kernel: N regs, spill S/L B[, static smem M B]' for each entry nvcc
     compiled (the cluster kernels' shared memory is dynamic: their plans
-    are printed by the kernels phase)."""
+    are printed by the kernels phase); each kept in ``PTXAS``."""
     out, name, spill = [], None, ""
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -539,6 +556,7 @@ def _ptxas_summary(log: str) -> str:
             smem = re.search(r"(\d+) bytes smem", ln)
             out.append(f"{name}: {m.group(1)} regs, {spill}"
                        + (f", static smem {smem.group(1)} B" if smem else ""))
+            PTXAS.setdefault(name, f"{m.group(1)} regs, {spill}")
             name = None
     return "; ".join(out)
 
@@ -704,19 +722,33 @@ def _plan_line(p, held, assumed):
             f"card holds {held} such clusters at once (the plan assumes {assumed})")
 
 
+def _gru_plan_line(gk, lib, p, backward):
+    """A ``gru_chain`` plan: resident (clusters) or wide (one cooperative
+    wave: the CTAs the card holds at once must cover it; ptxas's
+    registers and spills of its kernel)."""
+    if isinstance(p, gk.WidePlan):
+        held = lib.gru_chain_wide_resident_ctas(int(backward), p.units, p.smem_bytes)
+        if held < p.ctas:
+            raise AssertionError(f"wide plan {p}: the card holds only {held} such CTAs at once")
+        kernel = f"gru_wide_{'bwd' if backward else 'fwd'}<{p.units}>"
+        return (f"wide, {p.units} units x {p.rows} rows a CTA ({p.passes} passes of "
+                f"{p.pass_rows}), {p.ctas} CTAs of {gk.WIDE_THREADS} threads, {p.smem_bytes} B "
+                f"dynamic shared memory each; the card holds {held} such CTAs at once (one "
+                f"cooperative wave); {kernel}: {PTXAS.get(kernel, 'not built here')}")
+    held = lib.gru_chain_resident_clusters(int(backward), p.clusters, p.smem_bytes)
+    return _plan_line(p, held, gk.CLUSTERS_HELD[1][p.clusters])
+
+
 def _gru_kernels(dev):
     from arvae_tpu_torch.ops import gru_kernel as gk
 
     lib = gk._library()
-    fwd_err = bwd_err = 0.0
+    errs = {False: [0.0, 0.0], True: [0.0, 0.0]}  # by layout (wide or not): fwd, bwd
     for t, d, b, h in GRU_CASES + WIDE_GRU_CASES:
         for backward in (False, True):
             p = gk.gru_plan(d, b, h, backward)
-            held = lib.gru_chain_resident_clusters(int(backward), int(p.streamed), p.clusters,
-                                                   p.smem_bytes)
-            assumed = gk.held_clusters(p, "gru_bwd" if backward else "gru_fwd")
             print(f"[kernels] gru_chain {'bwd' if backward else 'fwd'} plan at (T={t}, D={d}, "
-                  f"B={b}, H={h}): {_plan_line(p, held, assumed)}")
+                  f"B={b}, H={h}): {_gru_plan_line(gk, lib, p, backward)}")
         args, ct = _gru_inputs(t, d, b, h, dev, seed=t * 1000 + b)
         runs = []
         for _ in range(2):
@@ -725,15 +757,23 @@ def _gru_kernels(dev):
         torch.cuda.synchronize()
         tag = f"gru_chain (T={t}, D={d}, B={b}, H={h})"
         _check_repeat(tag, *runs)
+        if (t, d, b, h) in WIDE_GRU_CASES:
+            # as a train step runs it: the forward keeps gh, the backward reads it
+            outs, gh = gk.gru_chain_fwd_cuda(*args, keep_gh=True)
+            _check_repeat(f"{tag} with gh kept", runs[0],
+                          (outs,) + gk.gru_chain_bwd_cuda(*args, outs, ct, gh=gh))
         leaves = [a.clone().requires_grad_(True) for a in args]
         want = gk.gru_chain_reference(*leaves)
         (want * ct).sum().backward()
-        fwd_err = max(fwd_err, _check_close(f"outs {tag}", runs[0][0], want.detach(),
-                                            SEQ_FWD_RTOL, SEQ_FWD_ATOL))
+        err = errs[(t, d, b, h) in WIDE_GRU_CASES]
+        err[0] = max(err[0], _check_close(f"outs {tag}", runs[0][0], want.detach(),
+                                          SEQ_FWD_RTOL, SEQ_FWD_ATOL))
         for g, leaf, name in zip(runs[0][1:], leaves, ("dgi", "dw_hh", "db_hh", "dh0")):
-            bwd_err = max(bwd_err, _check_grad(f"{name} {tag}", g, leaf.grad))
+            err[1] = max(err[1], _check_grad(f"{name} {tag}", g, leaf.grad))
         print(f"[kernels] {tag} fwd and bwd match the plain version, bitwise repeatable")
-    return fwd_err, bwd_err
+    # (fwd, bwd) max abs err over every case, then over the wide layout's
+    return (max(errs[False][0], errs[True][0]), max(errs[False][1], errs[True][1]),
+            *errs[True])
 
 
 def _hier_inputs(dev, seed, v, zero=False, b=HIER_B, tpb=HIER_TPB, h=HIER_H, layers=2,
@@ -1531,6 +1571,21 @@ def _wide_deep_run(name, card_line):
     per_step = {"gru": grus, "hier": 1, "reg": 1}
     want = {k: {"fwd": n * (n_train + n_val), "bwd": n * n_train} for k, n in per_step.items()}
     _check_launches(f"music {name}", launches, _with_eval(want, trainer))
+    # of them, the GRU chain's wide layout's: every one at the reference's
+    # width, the tick loop's backward chains too (one a tick-GRU layer)
+    from arvae_tpu_torch.ops import gru_kernel as gk
+    from arvae_tpu_torch.ops import hier_decoder_kernel as hk
+
+    launches["gru_wide"], launches["chains"] = dict(gk.WIDE_LAUNCHES), dict(hk.CHAIN_LAUNCHES)
+    layers = model.decoder.rnn_tick.num_layers
+    wide_want = ({"gru_wide": launches["gru"],
+                  "chains": {"bwd": layers * launches["hier"]["bwd"],
+                             "wide": layers * launches["hier"]["bwd"]}}
+                 if model.encoder.lstm.hidden_size >= 384 else
+                 {"gru_wide": {"fwd": 0, "bwd": 0},
+                  "chains": {"bwd": layers * launches["hier"]["bwd"], "wide": 0}})
+    _check_launches(f"music {name}, wide layout",
+                    {k: launches[k] for k in wide_want}, wide_want)
     print(f"[wide] music CLI {' '.join(flags)} (H enc {model.encoder.lstm.hidden_size}, "
           f"dec {model.decoder.rnn_tick.hidden_size}, {model.decoder.rnn_tick.num_layers} "
           f"tick-GRU layers): 2 epochs in {seconds:.1f} s; train loss "
@@ -1645,22 +1700,35 @@ def _kernel_times(dev, card_line):
 
     for t, dd, b, h in GRU_CASES + WIDE_GRU_CASES:
         args, ct = _gru_inputs(t, dd, b, h, dev, seed=17)
-        outs = gk.gru_chain_fwd_cuda(*args)
+        wide = (t, dd, b, h) in WIDE_GRU_CASES
+        # as a train step runs them: the wide forward keeps gh for its backward
+        outs, gh = gk.gru_chain_fwd_cuda(*args, keep_gh=True)
         leaves = [x.clone().requires_grad_(True) for x in args]
         ref = gk.gru_chain_reference(*leaves)
-        n = 200 if h <= 128 else 20  # the wide chains take milliseconds a call
+        n = 200 if h <= 128 else 50  # the wide chains take up to a millisecond a call
+
+        def fwd():
+            return gk.gru_chain_fwd_cuda(*args, keep_gh=True)
+
+        def bwd():
+            return gk.gru_chain_bwd_cuda(*args, outs, ct, gh=gh)
+
         row = {
-            "fwd": _event_ms(lambda: gk.gru_chain_fwd_cuda(*args), n),
+            "fwd": _event_ms(fwd, n),
             "fwd_plain": _event_ms(lambda: gk.gru_chain_reference(*args), 50),
-            "bwd": _event_ms(lambda: gk.gru_chain_bwd_cuda(*args, outs, ct), n),
+            "bwd": _event_ms(bwd, n),
             "bwd_plain": _event_ms(
                 lambda: torch.autograd.grad(ref, leaves, ct, retain_graph=True), 50),
         }
         times.setdefault("gru", row)  # the encoder's shape goes into the JSON
-        if (t, dd, b, h) in WIDE_GRU_CASES:
+        if wide:
             row["shape"] = (t, dd, b, h)
             row["fwd_work"], row["bwd_work"] = (kw.gru_chain(t, dd, b, h, backward=bwd)
                                                 for bwd in (False, True))
+            row["plans"] = [gk.gru_plan(dd, b, h, bwd) for bwd in (False, True)]
+            # device µs a call by kernel (profiler): the chain, the weight gradient's GEMM
+            row["fwd_split"], row["bwd_split"] = _kernel_split(fwd, 5), _kernel_split(bwd, 5)
+            row["cudnn"] = _cudnn_layer_ms(dev, t, dd, b, h, 1 if t == 4 else 10)
             times.setdefault("gru_wide", []).append(row)
         print(f"[times] gru_chain at T={t}, D={dd}, B={b}, H={h} (ms per call): fwd "
               f"{row['fwd']:.5f} vs plain {row['fwd_plain']:.5f}, bound "
@@ -1704,6 +1772,42 @@ def _kernel_times(dev, card_line):
     print("[times] hier_tick_chain bwd, device µs a call by kernel (profiler, 20 calls): "
           + "; ".join(f"{n} x{k:g} {us:.1f}" for n, (k, us) in split))
     return times
+
+
+def _cudnn_layer_ms(dev, t, d, b, h, width):
+    """cuDNN's ``torch.nn.GRU`` layer (input projection of ``width`` inputs
+    included) at (T, D, B, H), the library yardstick at a wide shape:
+    device ms a call (profiler), forward with autograd recording and the
+    backward alone, TF32 off → {"fwd", "bwd"}."""
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(29)
+    lib = torch.nn.GRU(width, h, 1, batch_first=True, bidirectional=d == 2).to(dev)
+    xs = torch.tensor(rng.randn(b, t, width), dtype=torch.float32, device=dev,
+                      requires_grad=True)
+    h0 = torch.tensor(rng.randn(d, b, h) * 0.3, dtype=torch.float32, device=dev)
+    ct = torch.tensor(rng.randn(b, t, d * h), dtype=torch.float32, device=dev)
+    leaves = [xs, *lib.parameters()]
+    y = lib(xs, h0)[0]
+    return {"fwd": _device_ms(lambda: lib(xs, h0)),
+            "bwd": _device_ms(lambda: torch.autograd.grad(y, leaves, ct, retain_graph=True))}
+
+
+def _wide_report(times, card_line):
+    """Each wide shape's plan, its kernels' ms beside cuDNN's, the plain
+    version's and the bound, and each call's device split by kernel."""
+    for row in times["gru_wide"]:
+        t, d, b, h = row["shape"]
+        for direction, plan in zip(("fwd", "bwd"), row["plans"]):
+            w = row[f"{direction}_work"]
+            print(f"[times] gru_chain wide layout {direction} at (T={t}, D={d}, B={b}, H={h}): "
+                  f"{_plan_text(plan)}, {plan.smem_bytes} B shared memory a CTA; "
+                  f"{row[direction]:.5f} ms (CUDA events), cuDNN torch.nn.GRU "
+                  f"{row['cudnn'][direction]:.5f} (device, its input projection included), "
+                  f"plain {row[f'{direction}_plain']:.5f}, bound {w.bound_ms:.5f} "
+                  f"({w.bound_by}, {100 * w.bound_ms / row[direction]:.1f}% of it); device µs "
+                  f"a call by kernel: " + "; ".join(
+                      f"{n} x{k:g} {us:.1f}" for n, (k, us) in row[f"{direction}_split"])
+                  + f" | {card_line}")
 
 
 def _hier_times(dev, h, layers):
@@ -1919,6 +2023,7 @@ def phase_times(card_line):
     times["gru_layers"] = _gru_layer_times(dev, card_line)
     times["gru_layers_512"] = _gru_layer_times(dev, card_line, 512, gru_layers(512))
     times["gru_layers_384"] = _gru_layer_times(dev, card_line, 384, SR_NO_INPUT_LAYER)
+    _wide_report(times, card_line)
 
     packed = rng.randint(0, 256, (BENCH_ROWS, 512)).astype(np.uint8)
     labels = rng.rand(BENCH_ROWS, 6).astype(np.float32)
@@ -2186,7 +2291,7 @@ def _eval_tail_kernels(dev, runs):
             e = _check_close(tag, runs_k[0][0], gk.gru_chain_reference(*args),
                              SEQ_FWD_RTOL, SEQ_FWD_ATOL)
         err = max(err, e)
-        print(f"[kernels] {tag}, {'streamed' if gk.gru_plan(d, b, h, False).streamed else 'resident'}"
+        print(f"[kernels] {tag}, {_layout(gk.gru_plan(d, b, h, False))}"
               f" plan, as in {', '.join(tags)}: matches the plain version (max abs err "
               f"{e:.3e}), bitwise repeatable")
     cfg_eval = (False, 0.5, "argmax")
@@ -2672,14 +2777,27 @@ def _check_rows_of_full(tag, own, under_full, full_rows, same_plan):
 
 
 def _same_layout(p, q):
-    """Two launch plans that tile rows alike (their grids follow B)."""
+    """Two launch plans that sum every output alike: cluster plans that
+    tile rows alike (their grids follow B), or wide plans of as many
+    units a CTA (their sums do not depend on the row tile)."""
+    from arvae_tpu_torch.ops.gru_kernel import WidePlan
+
+    if isinstance(p, WidePlan) or isinstance(q, WidePlan):
+        return type(p) is type(q) and p.units == q.units
     return (p.clusters, p.rows, p.smem_bytes, p.streamed) == (q.clusters, q.rows, q.smem_bytes,
                                                               q.streamed)
 
 
+def _layout(p):
+    from arvae_tpu_torch.ops.gru_kernel import WidePlan
+
+    return "wide" if isinstance(p, WidePlan) else "streamed" if p.streamed else "resident"
+
+
 def _plan_text(p):
-    return (f"{'streamed' if p.streamed else 'resident'}, {p.clusters} CTAs x {p.rows} rows "
-            f"a cluster, {p.ctas} CTAs")
+    if _layout(p) == "wide":
+        return f"wide, {p.units} units x {p.rows} rows a CTA, {p.ctas} CTAs"
+    return f"{_layout(p)}, {p.clusters} CTAs x {p.rows} rows a cluster, {p.ctas} CTAs"
 
 
 def _cudnn_gru_ms(dev, t, d, b, h, width):
@@ -3741,7 +3859,8 @@ def main(argv=None) -> int:
         evals = measured["evaluation"][key][direction]
         w = work[key](direction == "bwd")
         by_variant = {v: counts[key][direction] for v, counts in variants.items()}
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+        return {"name": name, "layout": "resident" if key == "gru" else None,
+                "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "launches_per_step": (launches - evals) / steps[direction],
                 "eval_launches": evals,
                 "eval_launches_per_batch": {p: measured["per_batch"][p][key][direction]
@@ -3804,9 +3923,6 @@ def main(argv=None) -> int:
     # the new shapes: the reference's widths and the tick GRU's depths,
     # each with its launches a train step in the wide or deep CLI run
     # that reaches it (None where no CLI run does)
-    cudnn_at = {(24, 2, 256, 512): times["gru_layers_512"]["encoder layer 0"],
-                (4, 1, 256, 512): times["gru_layers_512"]["beat layer 0"],
-                (24, 1, 256, 384): times["gru_layers_384"]["sr-no-input layer"]}
     run_of = {(512, 2): "512-wide", (128, 3): "3-layer decoder"}
 
     def per_train_step(run, key):
@@ -3820,7 +3936,7 @@ def main(argv=None) -> int:
         for row in times[f"{key}_wide"]:
             w = row[f"{direction}_work"]
             if key == "gru":
-                lib = cudnn_at.get(row["shape"])
+                lib = {f"cudnn_{k}": v for k, v in row["cudnn"].items()}
                 run = "512-wide" if row["shape"][-1] == 512 and row["shape"][2] == 256 else None
             else:
                 lib, run = None, run_of.get(row["shape"])
@@ -3847,12 +3963,37 @@ def main(argv=None) -> int:
         entry("hier_tick_chain_bwd", "hier", "bwd", csrc + "hier_tick_chain.cu",
               "arvae_tpu/ops/hier_decoder_pallas.py:563", music, "music"),
     ]
+
+    def wide_entry(direction, replaces):
+        """gru_chain's wide layout: launches from the 512-wide CLI run (its
+        main path), times at the 512-wide encoder layer's (24, 2, 256, 512)."""
+        counts, steps, _ = wide["512-wide"]
+        row, bwd = times["gru_wide"][0], direction == "bwd"
+        w = row[f"{direction}_work"]
+        return {"name": f"gru_chain_wide_{direction}", "layout": "wide", "route": "cuda",
+                "source": csrc + "gru_wide.cuh", "replaces": replaces,
+                "launches": counts["gru_wide"][direction],
+                "launches_per_train_step": counts["gru_wide"]["bwd"] / steps,
+                **({"tick_loop_chain_launches": counts["chains"]["wide"]} if bwd else {}),
+                "max_abs_err": errs["gru"][3 if bwd else 2], "shape": row["shape"],
+                "ms": row[direction], "plain_ms": row[f"{direction}_plain"],
+                "bound_ms": w.bound_ms, "bound_by": w.bound_by,
+                "library_ms": row["cudnn"][direction],
+                "device_us_by_kernel": dict(row[f"{direction}_split"]),
+                "wide_shapes": shapes("gru", direction)}
+
+    kernels += [wide_entry("fwd", "arvae_tpu/ops/gru_pallas.py:144"),
+                wide_entry("bwd", "arvae_tpu/ops/gru_pallas.py:218")]
     for k in kernels:
+        where = (f"{k['launches_per_train_step']:g} launches a train step of the 512-wide "
+                 f"music CLI run ({k['launches']} in it), at {k['shape']}"
+                 if k["layout"] == "wide" else
+                 f"{k['launches_per_step']:g} launches a step, "
+                 f"{k['eval_launches_per_batch']['harvest']} a harvest batch and "
+                 f"{k['eval_launches_per_batch']['test']} a test batch")
         print(f"[times] {k['name']}: {k['ms']:.5f} ms, bound {k['bound_ms']:.3g} ms "
-              f"({k['bound_by']}, {100 * k['bound_ms'] / k['ms']:.1f}% of it), "
-              f"{k['launches_per_step']:g} launches a step, "
-              f"{k['eval_launches_per_batch']['harvest']} a harvest batch and "
-              f"{k['eval_launches_per_batch']['test']} a test batch | {card_line}")
+              f"({k['bound_by']}, {100 * k['bound_ms'] / k['ms']:.1f}% of it), {where} "
+              f"| {card_line}")
     print(f"[times] metric suite host s: dSprites eval split {evaluation['dSprites suite_s']:.3f}, "
           f"music eval split {evaluation['music suite_s']:.3f}, full dSprites protocol size "
           f"{evaluation['full_suite_s']:.2f} | {card_line}")

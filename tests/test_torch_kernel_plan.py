@@ -4,12 +4,17 @@ the CPU from the shapes: each fits 227 KB of shared memory, fills the
 card at the music step's B=256, and a plan too wide raises. Every shape
 of the range the kernels take plans (H a multiple of 32 up to 512, tick
 GRUs of 1 to 4 layers), and the music step's H=128 plans are the ones
-the kernels have run since the resident layouts were designed. The AR
-regulariser's forward plan (a cluster a dim) covers every row in whole
-passes and runs in one wave of the clusters the card holds at once."""
+the kernels have run since the resident layouts were designed. The GRU
+chain's wide layout (H=384 and 512) plans one cooperative wave of CTAs
+that covers every row at each shape the card runs it at: chip_smoke.py's
+wide cases, the tick loop's backward chains, the analysis batches and a
+data-parallel rank's rows. The AR regulariser's forward plan (a cluster
+a dim) covers every row in whole passes and runs in one wave of the
+clusters the card holds at once."""
 
 import pytest
 
+import chip_smoke
 from arvae_tpu_torch.ops import gru_kernel as gk
 from arvae_tpu_torch.ops.gru_kernel import ChainPlan
 from arvae_tpu_torch.ops import hier_decoder_kernel as hk
@@ -117,10 +122,27 @@ RANGE_H = tuple(range(32, 513, 32))
 RANGE_B = (1, 100, 256, 1024)
 
 
+def _check_wide_plan(plan, backward, h, rows, d):
+    """One cooperative wave of CTAs of 256 threads (at most 512), one CTA
+    an SM, whose row groups cover every row and whose slices cover every
+    unit, each within 227 KB."""
+    assert isinstance(plan, gk.WidePlan) and plan.units in gk.WIDE_UNITS
+    assert plan.smem_bytes == 4 * gk.wide_smem_floats(backward, h, plan.units) <= gk.MAX_SMEM
+    assert gk.WIDE_THREADS <= gk.THREADS
+    # more than half an SM's shared memory: one CTA an SM, every CTA on the card at once
+    assert plan.smem_bytes > gk.SM_SMEM // 2 - gk.CTA_RESERVED
+    row_groups = -(-rows // plan.rows)
+    assert plan.ctas == d * -(-h // plan.units) * row_groups <= gk.SMS
+    assert row_groups * plan.rows >= rows and (row_groups - 1) * plan.rows < rows
+    assert plan.passes * plan.pass_rows >= plan.rows
+
+
 def _check_chain_plan(plan, backward, h, rows, d):
+    if isinstance(plan, gk.WidePlan):
+        _check_wide_plan(plan, backward, h, rows, d)
+        return
     assert plan.smem_bytes <= gk.MAX_SMEM
-    assert plan.smem_bytes == 4 * gk.chain_smem_floats(backward, h, plan.clusters, plan.rows,
-                                                      plan.streamed)
+    assert plan.smem_bytes == 4 * gk.chain_smem_floats(backward, h, plan.clusters, plan.rows)
     assert h % plan.clusters == 0 and plan.rows % gk.ROWS_PER_THREAD == 0
     assert plan.rows * h // plan.clusters <= gk.THREADS
     assert plan.grid == (plan.clusters * -(-rows // plan.rows), d)
@@ -171,20 +193,22 @@ def test_music_step_plans_are_unchanged():
     assert gk.gru_plan(2, 100, 128, True) == plan(8, 16, 83136, (56, 2))
 
 
-@pytest.mark.parametrize("d,h", [(2, 384), (2, 512), (1, 384), (1, 512)])
-def test_wide_gru_chain_streams_its_weights(d, h):
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("d,h", [(2, 384), (2, 512), (1, 384), (1, 512), (2, 416), (1, 544)])
+def test_wide_gru_chain_streams_its_weights(d, h, backward):
     # the reference's own widths: no cluster of 8 CTAs holds the w_hh
-    # slices beside a tile (253 KB forward at H=384, C=8, 4 rows), so
-    # each step reads them from L2 in stages of STREAM_DEPTH rows
+    # slices beside a tile (253 KB forward at H=384, C=8, 4 rows), so the
+    # wide layout spreads w_hh over one wave of CTAs, each holding its
+    # units' slice for the whole call and streaming only the step's
+    # operand rows, in chunks of WIDE_DEPTH terms
     assert 4 * gk.chain_smem_floats(False, h, 8, 4) > gk.MAX_SMEM
-    for backward in (False, True):
-        plan = gk.gru_plan(d, B, h, backward)
-        assert plan.streamed
-        _check_chain_plan(plan, backward, h, B, d)
-        kernel = "gru_bwd" if backward else "gru_fwd"
-        held = gk.CLUSTERS_HELD[gk.ctas_per_sm(plan.smem_bytes, gk.STREAMED_REGISTERS[kernel])]
-        assert gk.plan_waves(plan, kernel) == -(-(plan.ctas // plan.clusters)
-                                                 // held[plan.clusters])
+    plan = gk.gru_plan(d, B, h, backward)
+    _check_wide_plan(plan, backward, h, B, d)
+    assert plan.passes == 1
+    # the slice: 3U gate columns of H terms, or U rows of 3H, padded to whole chunks
+    padded = -(-(3 * h if backward else h) // gk.WIDE_DEPTH) * gk.WIDE_DEPTH + 4
+    slice_floats = plan.units * padded * (1 if backward else 3)
+    assert 4 * slice_floats <= plan.smem_bytes
 
 
 def test_hier_plan_streams_only_where_nothing_resident_fits():
@@ -243,3 +267,49 @@ def test_reg_plan_counts_waves_against_resident_clusters():
 def test_reg_plan_refuses_what_the_kernel_does_not_take(r, b):
     with pytest.raises(ValueError, match=f"R={r}, B={b}"):
         rk.reg_plan(r, b)
+
+
+# The wide layout at every shape the card runs it at: chip_smoke.py's wide
+# cases, the tick loop's backward chains (n_beats x B rows, one direction)
+# of its wide and deep shapes, the analysis batches and a data-parallel
+# rank's B/W rows, both directions
+
+WIDE_CASES = sorted(
+    {(d, b, h) for _, d, b, h in chip_smoke.WIDE_GRU_CASES}
+    | {(1, -(-chip_smoke.HIER_T // tpb) * b, h)
+       for h, _ in chip_smoke.WIDE_DEEP_HIER for tpb in (6, 24, 5) for b in (256, 128, 64)}
+    | {(d, b, 512) for d in (1, 2) for b in (1, 6, 10, 22, 120)}
+    | {(d, 256 // w, h) for d in (1, 2) for w in (2, 4) for h in (384, 512)})
+
+
+@pytest.mark.parametrize("d,b,h", WIDE_CASES)
+def test_wide_plans_are_one_wave_that_covers_every_row(d, b, h):
+    for backward in (False, True):
+        plan = gk.gru_plan(d, b, h, backward)
+        _check_chain_plan(plan, backward, h, b, d)
+        assert isinstance(plan, gk.WidePlan) == (h >= 384)
+
+
+def test_the_tick_loops_wide_chain_is_one_wave_of_128_ctas():
+    # 4 beats x 256 rows of 6 ticks at H=512: 16 unit groups x 8 row groups
+    plan = hk.chain_plan(24, 256, 512, 6)
+    assert plan == gk.gru_plan(1, 1024, 512, True)
+    assert (plan.units, plan.rows, plan.ctas, plan.passes) == (32, 128, 128, 2)
+
+
+@pytest.mark.parametrize("d,h", [(2, 1024), (1, 2048), (2, 4096)])
+def test_a_width_no_wide_plan_fits_raises_naming_h(d, h):
+    for backward in (False, True):
+        with pytest.raises(ValueError, match=f"H={h}"):
+            gk.gru_plan(d, B, h, backward)
+
+
+@pytest.mark.parametrize("t,d,b,h", chip_smoke.WIDE_GRU_CASES)
+def test_the_wide_weight_gradient_sums_at_most_1024_terms_a_split(t, d, b, h):
+    k = t * b
+    splits = gk.wide_atb_splits(h, True, 3 * h, k, d)
+    assert splits >= gk.atb_splits(h, True, 3 * h, k, d)
+    # each split's terms: gemm_chunk in csrc/gru_common.cuh, whole 32-term K tiles
+    chunk = -(-(-(-k // splits)) // gk.GEMM_DEPTH) * gk.GEMM_DEPTH
+    assert chunk <= max(gk.WIDE_ATB_TERMS, gk.GEMM_DEPTH)
+    assert splits <= -(-k // gk.GEMM_DEPTH)

@@ -105,3 +105,16 @@ def test_reg_is_a_few_kilobytes_and_under_a_microsecond():
             work = kw.reg_loss(r, b, backward)
             assert work.bytes < 16_384
             assert work.bound_ms < 1e-3
+
+
+@pytest.mark.parametrize("shape", [(24, 2, 256, 512), (4, 1, 256, 512), (24, 1, 256, 384),
+                                   (6, 1, 1024, 512)])
+def test_the_wide_layouts_tf32x3_bound_is_three_tf32_products_an_operation(shape):
+    # the GRU chain's wide layout multiplies in 3xTF32: its bound at the
+    # TF32 rate is three TF32 operations for each fp32 one, below the fp32
+    # bound by 495 / (3 x 67) and never below the bytes' time
+    for backward in (False, True):
+        w = kw.gru_chain(*shape, backward=backward)
+        tf32_ms = 1e3 * 3 * w.flop / 495e12
+        assert w.tf32x3_bound_ms == pytest.approx(max(tf32_ms, w.bytes_ms), rel=1e-12)
+        assert w.bytes_ms <= w.tf32x3_bound_ms < w.bound_ms

@@ -18,7 +18,9 @@ tolerance. The tick-loop cases run at V=34 (the music CLI's corpus) and
 V=130 (the step-rate cell), and at a ragged B=100, and in eval mode
 (``train=False``, as GLSR's decodes run it) at 6 and 24 ticks a beat.
 The reference's own widths and the tick GRU's other depths run on the
-kernels too: ``gru_chain`` at H=384 and 512 (the streamed layout), the
+kernels too: ``gru_chain`` at H=384 and 512 (the wide layout, whose
+backward with the forward's kept ``gh`` is bitwise its backward that
+recomputes them, and the tick loop's 6-tick chains on 1,024 rows), the
 tick loop at H=256 and 512 with 2 layers and at H=128 with 1, 3 and 4
 (teacher-forced, free-running with dropout 0.5, eval, and the SR
 decoder's one beat of 24 ticks), and decoders at those shapes launch
@@ -49,9 +51,15 @@ GRAD_RTOL, GRAD_ATOL_FRAC = 1e-4, 1e-5
 # CTA a cluster, rows that are not 16-byte aligned)
 GRU_CASES = [(24, 2, 256, 128), (4, 1, 256, 128), (24, 1, 256, 128), (24, 2, 100, 128),
              (24, 2, 256, 64), (4, 1, 256, 64), (6, 2, 20, 21),
-             # the reference's widths, streamed: the 512-wide encoder and beat
-             # layers, SRDecoderNoInput's at 384, a ragged batch
-             (24, 2, 256, 512), (4, 1, 256, 512), (24, 1, 256, 384), (24, 2, 100, 512)]
+             # the reference's widths, the wide layout: the 512-wide encoder and
+             # beat layers, SRDecoderNoInput's at 384, a ragged batch, the tick
+             # loop's backward chains at H=512 (4 beats x 256 rows)
+             (24, 2, 256, 512), (4, 1, 256, 512), (24, 1, 256, 384), (24, 2, 100, 512),
+             (6, 1, 1024, 512),
+             # an odd wide width (rows not 16-byte aligned: 4-byte copies, a ragged
+             # last unit group) and one past 544 (16 units a CTA)
+             (4, 2, 20, 390), (4, 1, 24, 576)]
+WIDE_GRU_CASES = [c for c in GRU_CASES if c[-1] >= 384]
 # (H, tick-GRU layers) beyond the music step's
 WIDE_DEEP = [(256, 2), (512, 2), (128, 1), (128, 3), (128, 4)]
 HB, HH, HE, HT, HTPB = 256, 128, 10, 24, 6
@@ -118,17 +126,38 @@ def test_gru_chain_autograd_launches_kernels(dev):
         _close_grad(a.grad, b.grad)
 
 
+@pytest.mark.parametrize("t,d,b,h", WIDE_GRU_CASES)
+def test_wide_gru_chain_backward_from_the_kept_gh_is_bitwise_the_recomputed(dev, t, d, b, h):
+    args, ct = _gru_inputs(t, d, b, h, dev, seed=t * 1000 + b)
+    outs, gh = gk.gru_chain_fwd_cuda(*args, keep_gh=True)
+    gk.reset_launches()
+    kept = gk.gru_chain_bwd_cuda(*args, outs, ct, gh=gh)
+    recomputed = gk.gru_chain_bwd_cuda(*args, outs, ct)
+    torch.cuda.synchronize()
+    assert torch.equal(outs, gk.gru_chain_fwd_cuda(*args))
+    for x, y in zip(kept, recomputed):
+        assert torch.equal(x, y)
+    assert gk.WIDE_LAUNCHES == {"fwd": 1, "bwd": 2} and gk.LAUNCHES == {"fwd": 1, "bwd": 2}
+    hprev = torch.cat([args[3][None], outs[:-1]])
+    want = torch.einsum("tdbh,dhk->tdbk", hprev, args[1]) + args[2][None, :, None]
+    _close(gh, want, FWD_RTOL, FWD_ATOL, "gh")
+
+
 @pytest.mark.parametrize("backward", [False, True])
 @pytest.mark.parametrize("h", [64, 128, 256, 384, 512])
 def test_gru_plan_mirrors_the_kernel_layout(dev, h, backward):
     plan = gk.gru_plan(2, 256, h, backward)
     lib = gk._library()
-    assert 4 * lib.gru_chain_smem_floats(int(backward), h, plan.clusters, plan.rows,
-                                         int(plan.streamed)) == plan.smem_bytes
-    held = lib.gru_chain_resident_clusters(int(backward), int(plan.streamed), plan.clusters,
-                                           plan.smem_bytes)
-    if plan.streamed:  # the plan's count of the clusters the card holds at once
-        assert held == gk.held_clusters(plan, "gru_bwd" if backward else "gru_fwd")
+    if isinstance(plan, gk.WidePlan):
+        assert 4 * lib.gru_chain_wide_smem_floats(int(backward), h, plan.units) \
+            == plan.smem_bytes
+        # one wave: the card holds every CTA of the cooperative launch at once
+        assert lib.gru_chain_wide_resident_ctas(int(backward), plan.units,
+                                                plan.smem_bytes) >= plan.ctas
+        return
+    assert 4 * lib.gru_chain_smem_floats(int(backward), h, plan.clusters, plan.rows) \
+        == plan.smem_bytes
+    assert lib.gru_chain_resident_clusters(int(backward), plan.clusters, plan.smem_bytes) > 0
 
 
 def test_gru_chain_rejects_bad_inputs(dev):
@@ -379,12 +408,25 @@ def test_hier_wide_and_deep_match_plain(dev, h, layers):
     _compare((True, 0.0, HT, "argmax"), forced, forced, floats, ct)
 
 
+@pytest.mark.parametrize("h,layers", [(512, 2), (512, 1), (384, 2)])
+def test_hier_wide_backward_chains_run_the_wide_layout(dev, h, layers):
+    """The tick loop's backward at the reference's width: its chains (6
+    ticks on 4 x 256 rows) run the wide layout, one launch a layer, and
+    the gradients match the plain version and repeat bitwise."""
+    v = HVS[-1]
+    score, floats, ct = _hier_inputs(dev, 50 + layers, v, h=h, layers=layers)
+    forced = _ints(1, 3, dev) + (score,)
+    hk.reset_launches()
+    _compare((True, 0.0, HTPB, "argmax"), forced, forced, floats, ct)
+    assert hk.CHAIN_LAUNCHES == {"bwd": 2 * layers, "wide": 2 * layers}
+
+
 def test_gru_chain_at_the_reference_width_launches_the_kernels(dev):
     args, ct = _gru_inputs(24, 2, 64, 512, dev, seed=3)
     leaves = [a.clone().requires_grad_(True) for a in args]
     gk.reset_launches()
     (gk.gru_chain(*leaves) * ct).sum().backward()
-    assert gk.LAUNCHES == {"fwd": 1, "bwd": 1}
+    assert gk.LAUNCHES == {"fwd": 1, "bwd": 1} and gk.WIDE_LAUNCHES == {"fwd": 1, "bwd": 1}
     ref = [a.clone().requires_grad_(True) for a in args]
     (gk.gru_chain_reference(*ref) * ct).sum().backward()
     for a, b in zip(leaves, ref):
@@ -439,8 +481,11 @@ SMALL_BATCHES = (1, 6, 10, 22)
 
 
 def _same_layout(p, q):
-    return (p.clusters, p.rows, p.smem_bytes, p.streamed) == (q.clusters, q.rows, q.smem_bytes,
-                                                              q.streamed)
+    """Whether two plans sum every output alike: the wide layout's sums do
+    not depend on its row tile."""
+    if isinstance(p, gk.WidePlan) or isinstance(q, gk.WidePlan):
+        return type(p) is type(q) and p.units == q.units
+    return (p.clusters, p.rows, p.smem_bytes) == (q.clusters, q.rows, q.smem_bytes)
 
 
 @pytest.mark.parametrize("b", SMALL_BATCHES)
