@@ -74,15 +74,6 @@ __device__ __forceinline__ void load_gate_rows(float* dst, int ldw, const float*
   }
 }
 
-// A streamed product's loader of a (K, 3H) weight's gate-column slice.
-struct GateRows {
-  const float* w;
-  int H, hc, u0, ldw;
-  __device__ void operator()(float* dst, int k0, int kt) const {
-    load_gate_rows(dst, ldw, w, H, hc, u0, k0, kt);
-  }
-};
-
 // The CTA's gate columns of b_hh[d] into shared memory.
 __device__ inline void load_bias(const float* bias, int H, int u0, const ChainLayout& L,
                                  float* bs) {

@@ -1,8 +1,7 @@
 // Pieces shared by the two recurrence kernels (gru_chain.cu and
 // hier_tick_chain.cu): torch-exact GRU gate math forward and backward;
 // block-wide products of a tile of rows with a weight slice resident in
-// shared memory (the cluster kernels), or streamed from L2 in stages
-// where it does not fit; cp.async copies; the tiled
+// shared memory (the cluster kernels); cp.async copies; the tiled
 // fixed-order fp32 A^T X GEMM that sums weight gradients over (t, b) for
 // both backwards; and a tiled fp32 row GEMM (A W or A W^T, one output
 // element a thread-register, a caller's epilogue) for the tick loop's
@@ -309,64 +308,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// ---------------------------------------------------------------------------
-// Streamed products: the weight is not resident in shared memory but read
-// from global memory (L2) in stages of kStreamDepth rows
-// ---------------------------------------------------------------------------
-
-// Rows of a weight one stage holds; a stage buffer is kStreamDepth x lds.
-constexpr int kStreamDepth = 32;
-
-// use(buf, k0, kt) for the stages [k0, k0 + kt) of K rows, in order, after
-// load(dst, k0, kt) has copied those rows into buf with cp.async: two
-// buffers in `stage`, the copy of stage i + 1 in flight while stage i is
-// used. Every thread of the block must call it; it waits for every
-// cp.async group the thread has in flight.
-template <class Load, class Use>
-__device__ __forceinline__ void stream_stages(int K, int lds, float* stage, Load load, Use use) {
-  const int nt = (K + kStreamDepth - 1) / kStreamDepth;
-  load(stage, 0, min(kStreamDepth, K));
-  cp_async_commit();
-  for (int i = 0; i < nt; ++i) {
-    const int k0 = i * kStreamDepth;
-    if (i + 1 < nt) {
-      const int k1 = k0 + kStreamDepth;
-      load(stage + ((i + 1) & 1) * kStreamDepth * lds, k1, min(kStreamDepth, K - k1));
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    use(stage + (i & 1) * kStreamDepth * lds, k0, min(kStreamDepth, K - k0));
-    __syncthreads();  // before the buffer takes stage i + 2
-  }
-}
-
-// rows_times_w with the weight streamed: store(r, n, v) for
-// v = sum_k x[r * ldx + k] * W(k, n) over k < K, where load(dst, k0, kt)
-// copies W's rows [k0, k0 + kt) (N columns) into dst with leading
-// dimension lds. Each output sums its stages' partial sums in stage order
-// in acc[r * lda + n] (which store may overwrite), so a repeat rounds
-// alike. x 16-byte aligned, ldx a multiple of 4.
-template <class Load, class Store>
-__device__ __forceinline__ void streamed_times_w(const float* x, int ldx, int rows, int K, int N,
-                                                 Load load, float* stage, int lds, float* acc,
-                                                 int lda, float* part, Store store) {
-  const int last = (K - 1) / kStreamDepth * kStreamDepth;
-  stream_stages(K, lds, stage, load, [&](const float* w, int k0, int kt) {
-    rows_times_w(x + k0, ldx, rows, kt, w, lds, N, part, [&](int r, int n, float v) {
-      float* a = acc + r * lda + n;
-      const float s = k0 == 0 ? v : *a + v;
-      if (k0 == last) {
-        store(r, n, s);
-      } else {
-        *a = s;
-      }
-    });
-  });
 }
 
 // ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 // the layout of the widths whose w_hh slices no cluster holds in shared
 // memory beside its tile (H = 384 and 512, the reference's own width).
 // gru_chain.cu runs both kernels; hier_tick_chain.cu runs the backward for
-// its tick loop's chains. The resident cluster kernels (gru_cluster.cuh)
-// keep the narrower widths.
+// its tick loop's chains, and builds its forward's wave layout from the
+// barrier, the 3xTF32 product and the cooperative launch below. The
+// resident cluster kernels (gru_cluster.cuh) keep the narrower widths.
 //
 // Replaces, at these widths, the Pallas TPU kernel pair of
 // arvae_tpu/ops/gru_pallas.py::gru_chain (_fwd_kernel :121, _bwd_kernel
@@ -214,17 +215,17 @@ __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
   return v;
 }
 
-// Barrier `pass` (0, 1, ...) of a cooperative launch, called alike by
-// every CTA: *count, zero before the launch, counts the arrivals of the
-// whole call; a CTA arrives with a release and leaves once every CTA has
-// arrived at this barrier, with an acquire, so the writes of every CTA
-// before it are seen by every CTA after it. A CTA that waits for more
-// than 2^34 cycles (about 10 s) traps, so that a fault surfaces as a
-// launch error and not as a hung card.
-__device__ __forceinline__ void grid_sync(unsigned* count, unsigned pass) {
+// Barrier `pass` (0, 1, ...) of `members` CTAs of a cooperative launch,
+// called alike by each of them: *count, zero before the launch, counts
+// their arrivals over the whole call; a CTA arrives with a release and
+// leaves once every member has arrived at this barrier, with an acquire,
+// so the writes of every member before it are seen by every member after
+// it. A CTA that waits for more than 2^34 cycles (about 10 s) traps, so
+// that a fault surfaces as a launch error and not as a hung card.
+__device__ __forceinline__ void group_sync(unsigned* count, unsigned members, unsigned pass) {
   __syncthreads();
   if (threadIdx.x == 0) {
-    const unsigned target = (pass + 1) * gridDim.x * gridDim.y * gridDim.z;
+    const unsigned target = (pass + 1) * members;
     asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(count) : "memory");
     const long long t0 = clock64();
     while (ld_acquire(count) < target) {
@@ -232,6 +233,11 @@ __device__ __forceinline__ void grid_sync(unsigned* count, unsigned pass) {
     }
   }
   __syncthreads();
+}
+
+// The barrier of the whole grid.
+__device__ __forceinline__ void grid_sync(unsigned* count, unsigned pass) {
+  group_sync(count, gridDim.x * gridDim.y * gridDim.z, pass);
 }
 
 // ---------------------------------------------------------------------------

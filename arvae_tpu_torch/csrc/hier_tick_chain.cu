@@ -18,17 +18,22 @@
 // with prev_emb = x0 at t = 0. The forward saves weights, samples (the fed
 // tokens) and every layer's hiddens for the backward.
 //
-// Forward. What bounds it: a 24-step chain of dependent small products
-// (L GRU layers of (rows x H) @ (H x 3H) and the (rows x H) @ (H x V)
-// head) with an argmax and a gather between steps: latency, not bytes or
-// arithmetic throughput. The step really is sequential (free-running, each
-// tick's argmax feeds the next). The design: a thread-block cluster of C
-// CTAs owns a tile of RB batch rows for the whole measure. In the resident
-// layout CTA c holds in shared memory, loaded once, the gate columns of
-// its H/C hidden units of w_ih0e and of every layer's w_hh and w_ih, its
-// ceil(V/C) columns of out_w and out_b, and a full copy of emb for the
-// gather (about 182 KB at H = 128, V = 130, C = 4, L = 2), so no tick
-// reads a weight from L2. A tick has L + 1 cluster barriers: one a layer
+// Forward. What bounds it: a T-step chain of dependent products (L GRU
+// layers of (rows x H) @ (H x 3H) and the (rows x H) @ (H x V) head) with
+// an argmax and a gather between steps: each tick's argmax feeds the
+// next, so the chain is sequential and every tick pays its products'
+// latency and the exchange of its hiddens. Two layouts, by the plan
+// (arvae_tpu_torch/ops/hier_decoder_kernel.py::hier_plan, which mirrors
+// fwd_layout and wave_layout below term for term; the entry refuses a
+// plan that does not fit).
+//
+// Resident (hier_fwd), where a cluster of at most 8 CTAs holds the
+// weights (H = 128 at L <= 3): a thread-block cluster of C CTAs owns a
+// tile of RB batch rows for the whole measure. CTA c holds in shared
+// memory, loaded once, the gate columns of its H/C hidden units of w_ih0e
+// and of every layer's w_hh and w_ih, its ceil(V/C) columns of out_w and
+// out_b, and a full copy of emb for the gather (about 182 KB at H = 128,
+// V = 130, C = 4, L = 2). A tick has L + 1 cluster barriers: one a layer
 // (own units, the new h_l and its dropout-masked copy, the next layer's
 // input, written into every peer's shared memory), and the head (the
 // CTA's V slice of the logits, a per-row partial (max, lowest index)
@@ -39,17 +44,39 @@
 // one (row, unit) of the cell math. The hiddens are double-buffered by
 // tick parity, and the layers' inputs by layer parity.
 //
-// Where no cluster of 8 CTAs holds those slices (H >= 256 at L = 2, or 4
-// layers at H = 128), the plan takes the streamed layout: the CTA keeps
-// only biases, emb and its tiles, and every product reads its weight
-// slice from L2 (about 9 MB of matrices at H = 512, L = 2; 21 MB at L = 4,
-// against 50 MB of L2) in stages of 32 rows, double-buffered with
-// cp.async, on the whole block, one product after the other (the
-// streamed products of gru_common.cuh: each output adds its stages'
-// partial sums in stage order). The plan (C, RB, shared memory, layout)
-// comes from arvae_tpu_torch/ops/hier_decoder_kernel.py::hier_plan, which
-// mirrors fwd_layout below term for term; the entry refuses a plan that
-// does not fit.
+// Wave (hier_wave_fwd), every other shape: the weights (9.76 MB at
+// H = 512, L = 2; 22.5 MB at L = 4) fit no cluster (at most 16 CTAs, 3.6
+// MB of shared memory) but fit the card's 132 SMs. One cooperative wave of
+// persistent CTAs of 256 threads (gru_wide.cuh's launch_wide: the runtime
+// refuses a grid the card cannot hold at once), at most one an SM. CTA
+// (unit group g, row group q) owns the U hidden units [g U, (g + 1) U) of
+// the R batch rows of row group q and holds in shared memory, read from
+// device memory once a call, its units' gate columns of w_ih0e and of the
+// 2L - 1 H x 3H matrices, and a slice of Vc columns of out_w and out_b
+// (V in nh slices, each on G / nh CTAs of a row group, a share of its
+// rows each). At (B, H, V, L) = (256, 512, 130, 2): U = 8, so 64 unit
+// groups x 2 row groups of 128 rows = 128 CTAs, 3 x 512 x 24 floats =
+// 147 KB of slices (U = 16 would be 295 KB), 17 slices of 8 columns on 3
+// CTAs of 43 rows each, 225,728 B of shared memory a CTA. Each CTA multiplies all of its rows
+// (in passes of P rows) by its slices on the tensor cores in 3xTF32
+// (gru_wide.cuh's wide_product: the operand's rows streamed from L2 in
+// chunks through three buffers, each weight float loaded from shared
+// memory serving the whole pass), each warp a 16-row m-tile of one 8-unit
+// tile's three gates, so that the warp holds gi and gh of its cells in
+// registers for the cell math; where a pass has fewer items than warps,
+// the depth is split over KS warps and added in split order. Hiddens are
+// exchanged through L2: a CTA writes its cells of h_l to the saved
+// h_all (and, with dropout, the masked copy the next layer reads) and the
+// row group meets at a barrier (group_sync, one counter a row group; row
+// groups never exchange). A tick has L + 1 barriers: one a layer, and one
+// after the head, whose CTAs write per-row partials (max, lowest index;
+// NaN -> (NaN, V)) of their V slice's scores (after the Gumbel noise in
+// multinomial mode), each combined from the slice's 8-column tiles; every
+// CTA of the row group then combines all nh partials alike (a commutative
+// combine, so one token whatever the order), selects the teacher's token,
+// clamps, and gathers the next tick's fed embedding from emb by token.
+// The argmax is taken over exactly the floats written to weights. Every
+// output sums in a fixed order, so a repeat is bitwise equal.
 //
 // Backward. The only dependence between ticks is the L hidden-gradient
 // carries, and they restart at every beat (routed to dtick_h0); tokens
@@ -195,25 +222,25 @@ struct FwdOut {
 };
 
 // ---------------------------------------------------------------------------
-// Forward: one cluster a tile of rows
+// Forward, resident layout: one cluster a tile of rows
 // ---------------------------------------------------------------------------
 
-// Shared-memory layout of one CTA of the forward, in floats; every array
-// starts on a 16-byte boundary. ops/hier_decoder_kernel.py::fwd_smem_floats
-// mirrors it term for term.
+// Shared-memory layout of one CTA of the resident forward, in floats;
+// every array starts on a 16-byte boundary. ops/hier_decoder_kernel.py::
+// fwd_smem_floats mirrors it term for term.
 struct FwdLayout {
   int hc, n3, vc;  // hidden units, gate columns, vocabulary columns owned
   int ldw, ldv, ldh, ldg, lde, ldl;
   int wsz;         // floats of one resident H x 3H slice
-  int w_ih0e;      // resident: w_ih0e's slice; streamed: the two stages
-  int wl;          // resident: the layers' slices, w_hh_0, then w_ih_l, w_hh_l for l >= 1
-  int out_w;       // resident: out_w's slice
+  int w_ih0e;      // w_ih0e's slice
+  int wl;          // the layers' slices, w_hh_0, then w_ih_l, w_hh_l for l >= 1
+  int out_w;       // out_w's slice
   int bl;          // bias slices: b_hh_0, then b_ih_l, b_hh_l for l >= 1
   int out_b, emb;  // out_b's slice, the whole table
   int h;           // hiddens of the tile: layer l's 2 buffers from h + 2 l RB ldh
   int x;           // the next layer's input: 1 buffer at L = 2, 2 by layer parity at L > 2
   int pe, ga, gb, lg;  // fed embedding, gates (input and hidden side), logits
-  int part, part_hi;   // partial sums: the head's; a layer's two halves (resident)
+  int part, part_hi;   // partial sums: the head's; a layer's two halves
   int pm, pi, tok;     // argmax partials [source CTA][row], fed tokens
   int total;
 
@@ -223,8 +250,7 @@ struct FwdLayout {
   __host__ __device__ int bih(int l) const { return bl + (2 * l - 1) * ldg; }
 };
 
-__host__ __device__ inline FwdLayout fwd_layout(int H, int E, int V, int C, int RB, int NL,
-                                                bool stream) {
+__host__ __device__ inline FwdLayout fwd_layout(int H, int E, int V, int C, int RB, int NL) {
   FwdLayout L;
   L.hc = H / C;
   L.n3 = 3 * L.hc;
@@ -241,14 +267,9 @@ __host__ __device__ inline FwdLayout fwd_layout(int H, int E, int V, int C, int 
     at = o;
     o += n;
   };
-  if (stream) {
-    take(L.w_ih0e, 2 * kStreamDepth * max(L.ldw, L.ldv));
-    L.wl = L.out_w = L.w_ih0e;
-  } else {
-    take(L.w_ih0e, E * L.ldw);
-    take(L.wl, (2 * NL - 1) * L.wsz);
-    take(L.out_w, H * L.ldv);
-  }
+  take(L.w_ih0e, E * L.ldw);
+  take(L.wl, (2 * NL - 1) * L.wsz);
+  take(L.out_w, H * L.ldv);
   take(L.bl, (2 * NL - 1) * L.ldg);
   take(L.out_b, L.ldl);
   take(L.emb, up4(V * E));
@@ -258,21 +279,12 @@ __host__ __device__ inline FwdLayout fwd_layout(int H, int E, int V, int C, int 
   take(L.ga, RB * L.ldg);
   take(L.gb, RB * L.ldg);
   take(L.lg, RB * L.ldl);
-  if (stream) {
-    // the products run one at a time on the whole block, a stage deep
-    const int depth = min(kStreamDepth, H);
-    take(L.part, up4(max(product_part_floats(RB, E, L.n3, kThreads),
-                         max(product_part_floats(RB, depth, L.n3, kThreads),
-                             product_part_floats(RB, depth, L.vc, kThreads)))));
-    L.part_hi = L.part;
-  } else {
-    // a layer's two products run at once, each on half the block with
-    // its own half of the scratch; the head on the whole
-    const int half = up4(max(product_part_floats(RB, E, L.n3, kThreads / 2),
-                             product_part_floats(RB, H, L.n3, kThreads / 2)));
-    take(L.part, max(2 * half, up4(product_part_floats(RB, H, L.vc, kThreads))));
-    L.part_hi = L.part + half;
-  }
+  // a layer's two products run at once, each on half the block with its
+  // own half of the scratch; the head on the whole
+  const int half = up4(max(product_part_floats(RB, E, L.n3, kThreads / 2),
+                           product_part_floats(RB, H, L.n3, kThreads / 2)));
+  take(L.part, max(2 * half, up4(product_part_floats(RB, H, L.vc, kThreads))));
+  L.part_hi = L.part + half;
   take(L.pm, up4(C * RB));
   take(L.pi, up4(C * RB));
   take(L.tok, up4(RB));
@@ -286,22 +298,6 @@ __device__ __forceinline__ void load_gate_slice(float* dst, const FwdLayout& L, 
   load_gate_rows(dst, L.ldw, w, H, L.hc, u0, 0, K);
 }
 
-// A streamed product's loader of the CTA's vocabulary columns [v0, v0 + nv)
-// of out_w (H, V), zeros in the slice's columns past V.
-struct VocabRows {
-  const float* w;
-  int V, v0, nv, vc, ldv;
-  __device__ void operator()(float* dst, int k0, int kt) const {
-    for (int i = threadIdx.x; i < kt * vc; i += blockDim.x) {
-      const int r = i / vc;
-      const int n = i - r * vc;
-      const bool in = n < nv;
-      cp_async4(dst + r * ldv + n, in ? w + static_cast<size_t>(k0 + r) * V + v0 + n : w, in);
-    }
-  }
-};
-
-template <bool kStream>
 __global__ void __launch_bounds__(kThreads)
 hier_fwd(Weights w, Dims dm, int RB, const int* __restrict__ teacher_ptr,
          const int* __restrict__ seed_ptr, const int* __restrict__ score, FwdOut out) {
@@ -310,8 +306,7 @@ hier_fwd(Weights w, Dims dm, int RB, const int* __restrict__ teacher_ptr,
   const int C = static_cast<int>(cluster.num_blocks());
   const int c = static_cast<int>(cluster.block_rank());
   const int T = dm.T, B = dm.B, H = dm.H, E = dm.E, V = dm.V, NL = dm.L, H3 = 3 * H;
-  const FwdLayout L = fwd_layout(H, E, V, C, RB, NL, kStream);
-  float* stage = smem + L.w_ih0e;  // streamed: the weight stages
+  const FwdLayout L = fwd_layout(H, E, V, C, RB, NL);
   float* s_ow = smem + L.out_w;
   float* s_ob = smem + L.out_b;
   float* s_emb = smem + L.emb;
@@ -338,24 +333,22 @@ hier_fwd(Weights w, Dims dm, int RB, const int* __restrict__ teacher_ptr,
   const int u = u0 + me.i;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  // resident: each layer's two products run at once on the two halves of the block
+  // each layer's two products run at once on the two halves of the block
   const bool lo = threadIdx.x < kThreads / 2;
   const ThreadGroup half = lo ? ThreadGroup{0, kThreads / 2, 1}
                               : ThreadGroup{kThreads / 2, kThreads / 2, 2};
 
-  // the weight slices, once for the whole measure (resident)
-  if (!kStream) {
-    load_gate_slice(smem + L.w_ih0e, L, w.w_ih0e, E, H, u0);
-    for (int l = 0; l < NL; ++l) {
-      load_gate_slice(smem + L.whh(l), L, w.w_hh[l], H, H, u0);
-      if (l > 0) load_gate_slice(smem + L.wih(l), L, w.w_ih[l], H, H, u0);
-    }
-    cp_async_commit();
-    for (int i = threadIdx.x; i < H * L.vc; i += blockDim.x) {
-      const int j = i / L.vc;
-      const int n = i - j * L.vc;
-      s_ow[j * L.ldv + n] = n < nv ? w.out_w[static_cast<size_t>(j) * V + v0 + n] : 0.f;
-    }
+  // the weight slices, once for the whole measure
+  load_gate_slice(smem + L.w_ih0e, L, w.w_ih0e, E, H, u0);
+  for (int l = 0; l < NL; ++l) {
+    load_gate_slice(smem + L.whh(l), L, w.w_hh[l], H, H, u0);
+    if (l > 0) load_gate_slice(smem + L.wih(l), L, w.w_ih[l], H, H, u0);
+  }
+  cp_async_commit();
+  for (int i = threadIdx.x; i < H * L.vc; i += blockDim.x) {
+    const int j = i / L.vc;
+    const int n = i - j * L.vc;
+    s_ow[j * L.ldv + n] = n < nv ? w.out_w[static_cast<size_t>(j) * V + v0 + n] : 0.f;
   }
   for (int i = threadIdx.x; i < L.n3; i += blockDim.x) {
     const int g = i / L.hc;
@@ -402,14 +395,7 @@ hier_fwd(Weights w, Dims dm, int RB, const int* __restrict__ teacher_ptr,
       // gi = in w_ih[:, own] (+ b_ih), gh = h w_hh[:, own] + b_hh
       auto ga_store = [&](int r, int n, float v) { s_ga[r * L.ldg + n] = l == 0 ? v : v + bi[n]; };
       auto gb_store = [&](int r, int n, float v) { s_gb[r * L.ldg + n] = v + bh[n]; };
-      if (kStream) {
-        const GateRows in_rows{l == 0 ? w.w_ih0e : w.w_ih[l], H, L.hc, u0, L.ldw};
-        const GateRows h_rows{w.w_hh[l], H, L.hc, u0, L.ldw};
-        streamed_times_w(in, ldin, RB, kin, L.n3, in_rows, stage, L.ldw, s_ga, L.ldg, part,
-                         ga_store);
-        streamed_times_w(hc, L.ldh, RB, H, L.n3, h_rows, stage, L.ldw, s_gb, L.ldg, part,
-                         gb_store);
-      } else if (lo) {
+      if (lo) {
         rows_times_w(in, ldin, RB, kin, smem + (l == 0 ? L.w_ih0e : L.wih(l)), L.ldw, L.n3, part,
                      ga_store, half);
       } else {
@@ -448,12 +434,7 @@ hier_fwd(Weights w, Dims dm, int RB, const int* __restrict__ teacher_ptr,
     // head: the CTA's V slice of the relu logits, then the sampling scores
     const float* top = smem + L.h + (2 * (NL - 1) + (cur ^ 1)) * hbuf;
     auto lg_store = [&](int r, int n, float v) { s_lg[r * L.ldl + n] = v + s_ob[n]; };
-    if (kStream) {
-      streamed_times_w(top, L.ldh, RB, H, L.vc, VocabRows{w.out_w, V, v0, nv, L.vc, L.ldv}, stage,
-                       L.ldv, s_lg, L.ldl, part, lg_store);
-    } else {
-      rows_times_w(top, L.ldh, RB, H, s_ow, L.ldv, L.vc, part, lg_store);
-    }
+    rows_times_w(top, L.ldh, RB, H, s_ow, L.ldv, L.vc, part, lg_store);
     __syncthreads();
     for (int i = threadIdx.x; i < RB * L.vc; i += blockDim.x) {
       const int r = i / L.vc;
@@ -537,15 +518,454 @@ hier_fwd(Weights w, Dims dm, int RB, const int* __restrict__ teacher_ptr,
   // the last writes precede the head's cluster barrier of tick T-1
 }
 
-// Refuses a forward plan the kernel cannot run: returns the shared-memory
-// bytes it needs, or 0.
-int fwd_checked_smem(int H, int E, int V, int C, int RB, int NL, bool stream, int smem_bytes) {
+// Refuses a resident forward plan the kernel cannot run: returns the
+// shared-memory bytes it needs, or 0.
+int fwd_checked_smem(int H, int E, int V, int C, int RB, int NL, int smem_bytes) {
   if (C < 1 || C > 8 || (C & (C - 1)) != 0 || H < 1 || H % C != 0 || E < 1 || V < 1) return 0;
   if (NL < 1 || NL > kMaxLayers) return 0;
   if (RB < kRowsPerThread || RB % kRowsPerThread != 0 || RB * (H / C) > kThreads) return 0;
-  const long long need = 4LL * fwd_layout(H, E, V, C, RB, NL, stream).total;
+  const long long need = 4LL * fwd_layout(H, E, V, C, RB, NL).total;
   if (need > kMaxSmem || smem_bytes < need || smem_bytes > kMaxSmem) return 0;
   return static_cast<int>(need);
+}
+
+// ---------------------------------------------------------------------------
+// Forward, wave layout: one cooperative wave of CTAs a call
+// ---------------------------------------------------------------------------
+
+// The row-combinable partial of an argmax: the max (NaN if any score is
+// NaN) and the lowest index holding it (V for NaN). combine() is
+// commutative and associative, so every CTA that combines the same
+// partials gets the same token whatever their order;
+// ops/hier_decoder_kernel.py::argmax_by_slices mirrors it.
+__device__ __forceinline__ void argmax_combine(float& m, int& idx, float m2, int i2) {
+  if (m != m) return;  // NaN already: stays (NaN, V)
+  if (m2 != m2 || m2 > m) {
+    m = m2;
+    idx = i2;
+  } else if (m2 == m) {
+    idx = min(idx, i2);
+  }
+}
+
+// Depth splits at most of a wave product (KS), the template instances.
+constexpr int kWaveMaxSplits = 4;
+
+// Shared-memory layout of one CTA of the wave forward, in floats. A CTA
+// owns U hidden units (unit tiles of 8: UT = max(1, U / 8); at U = 4 the
+// tile's columns past U are not the CTA's, their outputs unused) of a row
+// group of R rows, which it multiplies in passes of P rows; each slice is
+// stored column by column (ws[c * ld + k] = W[k, gate(c) H + u0 + unit(c)],
+// c = gate U + unit), zeros past the depth, ld = the depth in whole chunks
+// + 4 (4 mod 32: conflict-free fragment loads). A gate product's warp
+// items are (m-tile of 16 rows, unit tile) pairs, items = P / 16 * UT <= 8;
+// the depth is split over KS = min(4, 8 / items) warps an item. The head:
+// V in nh slices of Vc columns (whole n-tiles of 8, VT of them), each on
+// G / nh CTAs of the row group, a share of its rows each.
+// ops/hier_decoder_kernel.py::wave_smem_floats mirrors it term for term.
+struct WaveLayout {
+  int U, UT, P, items, KS;
+  int G, Vc, VT, nh;
+  int kh, ldk, ke, lde;  // the depths H and E in whole chunks; the slices' leading dimensions
+  int w_ih0e, wl, out_w, bl, out_b;
+  int xs;      // the chunk buffers (kWideStages x P x kWideLd); the depth splits' partial sums
+  int pm, pi;  // the head's per-row partials by n-tile (P x VT each)
+  int tok;     // the row group's fed tokens
+  int total;
+
+  __host__ __device__ int wsz() const { return 3 * U * ldk; }
+  __host__ __device__ int whh(int l) const { return wl + 2 * l * wsz(); }
+  __host__ __device__ int wih(int l) const { return wl + (2 * l - 1) * wsz(); }
+  __host__ __device__ int bhh(int l) const { return bl + 2 * l * up4(3 * U); }
+  __host__ __device__ int bih(int l) const { return bl + (2 * l - 1) * up4(3 * U); }
+};
+
+__host__ __device__ inline int chunks_of(int K) {
+  return (K + kWideDepth - 1) / kWideDepth * kWideDepth;
+}
+
+// The head's slices of V over the G = H / U unit groups: Vc columns each
+// (whole n-tiles of 8), nh of them.
+__host__ __device__ inline void wave_head(int H, int V, int U, int& Vc, int& nh) {
+  const int G = H / U;
+  Vc = ((V + G - 1) / G + 7) / 8 * 8;
+  nh = (V + Vc - 1) / Vc;
+}
+
+__host__ __device__ inline WaveLayout wave_layout(int H, int E, int V, int NL, int U, int R,
+                                                  int P) {
+  WaveLayout L;
+  L.U = U;
+  L.UT = U < 8 ? 1 : U / 8;
+  L.P = P;
+  L.items = P / 16 * L.UT;
+  L.KS = min(kWaveMaxSplits, 8 / L.items);
+  L.G = H / U;
+  wave_head(H, V, U, L.Vc, L.nh);
+  L.VT = L.Vc / 8;
+  L.kh = chunks_of(H);
+  L.ldk = L.kh + 4;
+  L.ke = chunks_of(E);
+  L.lde = L.ke + 4;
+  int o = 0;
+  auto take = [&](int& at, int n) {
+    at = o;
+    o += n;
+  };
+  take(L.w_ih0e, 3 * U * L.lde);
+  take(L.wl, (2 * NL - 1) * L.wsz());
+  take(L.out_w, L.Vc * L.ldk);
+  take(L.bl, (2 * NL - 1) * up4(3 * U));
+  take(L.out_b, L.Vc);
+  take(L.xs, max(kWideStages * P * kWideLd, (L.KS - 1) * L.items * 12 * 32));
+  take(L.pm, up4(P * L.VT));
+  take(L.pi, up4(P * L.VT));
+  take(L.tok, up4(R));
+  L.total = o;
+  return L;
+}
+
+// The wave forward's scratch in device memory: the row groups' barrier
+// counters, the head's partials [V slice][row] and, with dropout,
+// the masked inputs of layers 1 .. L-1 [gap][row][unit].
+struct WaveScratch {
+  unsigned* bar;
+  float* pm;
+  int* pi;
+  float* x;
+  long long floats;
+};
+
+WaveScratch wave_scratch(int B, int H, int V, int NL, int U, int R, float* base) {
+  int Vc, nh;
+  wave_head(H, V, U, Vc, nh);
+  WaveScratch s;
+  long long o = 0;
+  auto take = [&](long long n) {
+    float* p = base != nullptr ? base + o : nullptr;
+    o += (n + 3) & ~3LL;
+    return p;
+  };
+  s.bar = reinterpret_cast<unsigned*>(take((B + R - 1) / R));
+  s.pm = take(static_cast<long long>(nh) * B);
+  s.pi = reinterpret_cast<int*>(take(static_cast<long long>(nh) * B));
+  s.x = take(static_cast<long long>(NL - 1) * B * H);
+  s.floats = o;
+  return s;
+}
+
+// The CTA's gate columns of a (K, 3H) weight into ws (column by column,
+// zeros past K up to kpad), with cp.async.
+__device__ __forceinline__ void load_wave_slice(float* ws, int ld, const float* w, int K, int kpad,
+                                                int H, int U, int u0) {
+  const int n3 = 3 * U;
+  for (int idx = threadIdx.x; idx < n3 * kpad; idx += blockDim.x) {
+    const int k = idx / n3;
+    const int c = idx - k * n3;
+    const int gate = c / U;
+    const bool in = k < K;
+    const float* from = w + static_cast<size_t>(k) * 3 * H + gate * H + u0 + c - gate * U;
+    cp_async4(ws + c * ld + k, in ? from : w, in);
+  }
+}
+
+template <int KS>
+__global__ void __launch_bounds__(kWideThreads, 1)
+hier_wave_fwd(Weights w, Dims dm, int U, int R, int P, const int* __restrict__ teacher_ptr,
+              const int* __restrict__ seed_ptr, const int* __restrict__ score, FwdOut out,
+              WaveScratch s) {
+  extern __shared__ __align__(16) float smem[];
+  const int T = dm.T, B = dm.B, H = dm.H, E = dm.E, V = dm.V, NL = dm.L, H3 = 3 * H;
+  const WaveLayout L = wave_layout(H, E, V, NL, U, R, P);
+  const int Q = (B + R - 1) / R;
+  const int q = blockIdx.x % Q;
+  const int grp = blockIdx.x / Q;
+  const int u0 = grp * U;
+  const int row0 = q * R;
+  const int nrows = min(R, B - row0);
+  // the head: V slice grp % nh, on its share grp / nh of the row group's
+  // rows (each slice spread over S = G / nh CTAs)
+  const int shares = max(1, L.G / L.nh);
+  const bool head = grp < L.nh * shares;
+  const int vs = grp % L.nh;
+  const int v0 = vs * L.Vc;
+  const int nv = max(0, min(L.Vc, V - v0));
+  const int share = (nrows + shares - 1) / shares;
+  const int hrow0 = row0 + min(nrows, grp / L.nh * share);
+  const int hrows = min(share, row0 + nrows - hrow0);
+  float* xs = smem + L.xs;
+  float* s_pm = smem + L.pm;
+  int* s_pi = reinterpret_cast<int*>(smem + L.pi);
+  int* s_tok = reinterpret_cast<int*>(smem + L.tok);
+  const float* s_ob = smem + L.out_b;
+  const bool teacher = *teacher_ptr != 0;
+  const uint32_t seed = static_cast<uint32_t>(*seed_ptr);
+  unsigned* bar = s.bar + q;
+  unsigned passed = 0;  // the row group's barriers so far
+
+  // the weight slices, once for the whole call
+  load_wave_slice(smem + L.w_ih0e, L.lde, w.w_ih0e, E, L.ke, H, U, u0);
+  for (int l = 0; l < NL; ++l) {
+    load_wave_slice(smem + L.whh(l), L.ldk, w.w_hh[l], H, L.kh, H, U, u0);
+    if (l > 0) load_wave_slice(smem + L.wih(l), L.ldk, w.w_ih[l], H, L.kh, H, U, u0);
+  }
+  for (int idx = threadIdx.x; idx < L.Vc * L.kh; idx += blockDim.x) {
+    const int k = idx / L.Vc;
+    const int c = idx - k * L.Vc;
+    const bool in = k < H && c < nv;
+    cp_async4(smem + L.out_w + c * L.ldk + k,
+              in ? w.out_w + static_cast<size_t>(k) * V + v0 + c : w.out_w, in);
+  }
+  cp_async_commit();
+  for (int i = threadIdx.x; i < 3 * U; i += blockDim.x) {
+    const int gate = i / U;
+    const int col = gate * H + u0 + i - gate * U;
+    for (int l = 0; l < NL; ++l) {
+      smem[L.bhh(l) + i] = w.b_hh[l][col];
+      if (l > 0) smem[L.bih(l) + i] = w.b_ih[l][col];
+    }
+  }
+  for (int i = threadIdx.x; i < L.Vc; i += blockDim.x) {
+    smem[L.out_b + i] = i < nv ? w.out_b[v0 + i] : 0.f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the warps of a gate product: item (m-tile, unit tile), depth split ks
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int ks = warp % KS, item = warp / KS;
+  const bool worker = item < L.items;
+  const int mrow = worker ? 16 * (item / L.UT) : P;  // P: no rows, the warp idles
+  const int ut = item % L.UT;
+  // a dense operand's rows [r0, r0 + nr) (row stride H) in chunks
+  auto dense = [&](const float* src, int r0, int nr) {
+    return [=](float* dst, int k0) {
+      wide_chunk(dst, src + static_cast<size_t>(r0) * H, H, P, nr, H, k0, true);
+    };
+  };
+  // acc = the operand's rows times the CTA's slice of a matrix: the
+  // three gates of the warp's unit tile, the depth splits added in order
+  auto gate_product = [&](float (*acc)[3][4], const float* ws, int ld, int kpad, auto load,
+                          int nr) {
+#pragma unroll
+    for (int n = 0; n < 3; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[0][n][c] = 0.f;
+    wide_product<1, 3, KS>(acc, ws, ld, kpad, xs, P, mrow, ks, nr, load,
+                           [&](int n) { return n * U + 8 * ut; });
+    if (KS > 1) {
+      // split k > 0 hands its sums over through the freed chunk buffers,
+      // [k - 1][item][e][lane]; split 0 adds them in the order k = 1, 2, ...
+      if (worker && ks > 0) {
+#pragma unroll
+        for (int e = 0; e < 12; ++e) {
+          xs[(((ks - 1) * L.items + item) * 12 + e) * 32 + lane] = acc[0][e >> 2][e & 3];
+        }
+      }
+      __syncthreads();
+      if (worker && ks == 0) {
+        for (int k = 1; k < KS; ++k) {
+#pragma unroll
+          for (int e = 0; e < 12; ++e) {
+            acc[0][e >> 2][e & 3] += xs[(((k - 1) * L.items + item) * 12 + e) * 32 + lane];
+          }
+        }
+      }
+      __syncthreads();  // the buffers are the next product's
+    }
+  };
+
+  for (int t = 0; t < T; ++t) {
+    const int beat = t / dm.tpb;
+    const bool reset = t % dm.tpb == 0;
+    for (int l = 0; l < NL; ++l) {
+      // h_{t-1} of the layer (the beat's tick_h0 at a reset), h_t's rows
+      // in the saved hiddens, and the layer's input: the masked copy of
+      // h_{l-1} with dropout, else h_{l-1} itself
+      const float* hprev = reset ? w.tick_h0 + (static_cast<size_t>(beat) * NL + l) * B * H
+                                 : out.h_all[l] + chain_index(dm, t - 1, 0, 0, H);
+      float* hnew = out.h_all[l] + chain_index(dm, t, 0, 0, H);
+      const float* xin = l == 0 ? nullptr
+                         : dm.dropout ? s.x + static_cast<size_t>(l - 1) * B * H
+                                      : out.h_all[l - 1] + chain_index(dm, t, 0, 0, H);
+      const float* bi = l > 0 ? smem + L.bih(l) : nullptr;
+      const float* bh = smem + L.bhh(l);
+      for (int r0 = row0; r0 < row0 + nrows; r0 += P) {
+        const int nr = min(P, row0 + nrows - r0);
+        // the cells' h_{t-1} and (layer 0) gi_beat, in flight during the products
+        float hp[4], gb[3][4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int r = mrow + g8 + 8 * (c >> 1);
+          const int j = 8 * ut + 2 * t4 + (c & 1);
+          const bool live = worker && ks == 0 && r < nr && j < U;
+          const size_t row = r0 + r;
+          hp[c] = live ? __ldcg(hprev + row * H + u0 + j) : 0.f;
+#pragma unroll
+          for (int g = 0; g < 3; ++g) {
+            gb[g][c] = live && l == 0
+                           ? __ldg(w.gi_beat + (static_cast<size_t>(beat) * B + row) * H3 + g * H +
+                                   u0 + j)
+                           : 0.f;
+          }
+        }
+        float gi[1][3][4], gh[1][3][4];
+        if (l == 0) {
+          // the fed embedding (x0 at t = 0), gathered by token into the chunks
+          gate_product(gi, smem + L.w_ih0e, L.lde, L.ke, [&](float* dst, int k0) {
+            for (int idx = threadIdx.x; idx < P * kWideDepth; idx += kWideThreads) {
+              const int r = idx / kWideDepth;
+              const int c = idx - r * kWideDepth;
+              const int k = k0 + c;
+              const bool in = r < nr && k < E;
+              cp_async4(dst + r * kWideLd + c,
+                        !in      ? w.emb
+                        : t == 0 ? w.x0 + static_cast<size_t>(r0 + r) * E + k
+                                 : w.emb + static_cast<size_t>(s_tok[r0 - row0 + r]) * E + k,
+                        in);
+            }
+          }, nr);
+        } else {
+          gate_product(gi, smem + L.wih(l), L.ldk, L.kh, dense(xin, r0, nr), nr);
+        }
+        gate_product(gh, smem + L.whh(l), L.ldk, L.kh, dense(hprev, r0, nr), nr);
+        if (worker && ks == 0) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int r = mrow + g8 + 8 * (c >> 1);
+            const int j = 8 * ut + 2 * t4 + (c & 1);
+            if (r >= nr || j >= U) continue;
+            const int row = r0 + r;
+            const int u = u0 + j;
+            float ir = gi[0][0][c], iz = gi[0][1][c], in = gi[0][2][c];
+            if (l == 0) {
+              ir += gb[0][c], iz += gb[1][c], in += gb[2][c];
+            } else {
+              ir += bi[j], iz += bi[U + j], in += bi[2 * U + j];
+            }
+            const Gates G = gru_gates(ir, iz, in, gh[0][0][c] + bh[j], gh[0][1][c] + bh[U + j],
+                                      gh[0][2][c] + bh[2 * U + j]);
+            const float h = gru_out(G, hp[c]);
+            hnew[static_cast<size_t>(row) * H + u] = h;
+            if (dm.dropout && l + 1 < NL) {
+              s.x[(static_cast<size_t>(l) * B + row) * H + u] =
+                  h * dropout_mask(seed, t, l, dm.row_base + row, u, dm.keep, dm.scale);
+            }
+          }
+        }
+      }
+      group_sync(bar, L.G, passed++);  // the row group's h_t (and its masked copy) written
+    }
+
+    // head: the CTA's V slice of the relu logits of its rows, the scores,
+    // and a per-row partial of their argmax to the exchange
+    if (head) {
+      const float* top = out.h_all[NL - 1] + chain_index(dm, t, 0, 0, H);
+      const int items = P / 16 * L.VT;
+      for (int r0 = hrow0; r0 < hrow0 + hrows; r0 += P) {
+        const int nr = min(P, hrow0 + hrows - r0);
+        for (int it = 0; it < items; it += kWideThreads / 32) {
+          const int hi = it + warp;  // item (m-tile, n-tile), one a warp, the whole depth
+          const bool busy = hi < items;
+          const int hm = busy ? 16 * (hi / L.VT) : P;
+          const int hv = hi % L.VT;
+          float acc[1][1][4] = {{{0.f, 0.f, 0.f, 0.f}}};
+          wide_product<1, 1, 1>(acc, smem + L.out_w, L.ldk, L.kh, xs, P, hm, 0, nr,
+                                dense(top, r0, nr), [&](int) { return 8 * hv; });
+          if (busy) {
+            // rows hm + g8 and + 8, columns 8 hv + 2 t4 and + 1 of the slice
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int r = hm + g8 + 8 * half;
+              float m = -INFINITY;
+              int idx = V;
+#pragma unroll
+              for (int cc = 0; cc < 2; ++cc) {
+                const int col = 8 * hv + 2 * t4 + cc;
+                if (r >= nr || col >= nv) continue;
+                const int v = v0 + col;
+                const int row = r0 + r;
+                const float x = acc[0][0][2 * half + cc] + s_ob[col];
+                const float l = x < 0.f ? 0.f : x;  // relu, NaN passes through
+                out.weights[(static_cast<size_t>(t) * B + row) * V + v] = l;
+                const float sc =
+                    dm.multinomial
+                        ? l - logf(-logf(uniform01(seed, t, kSaltGumbel, dm.row_base + row, v)))
+                        : l;
+                argmax_combine(m, idx, sc, sc != sc ? V : v);
+              }
+#pragma unroll
+              for (int off = 1; off < 4; off <<= 1) {
+                const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
+                const int i2 = __shfl_xor_sync(0xffffffffu, idx, off);
+                argmax_combine(m, idx, m2, i2);
+              }
+              if (t4 == 0 && r < nr) {
+                s_pm[r * L.VT + hv] = m;
+                s_pi[r * L.VT + hv] = idx;
+              }
+            }
+          }
+        }
+        __syncthreads();
+        for (int r = threadIdx.x; r < nr; r += blockDim.x) {
+          float m = -INFINITY;
+          int idx = V;
+          for (int j = 0; j < L.VT; ++j) {
+            argmax_combine(m, idx, s_pm[r * L.VT + j], s_pi[r * L.VT + j]);
+          }
+          s.pm[static_cast<size_t>(vs) * B + r0 + r] = m;
+          s.pi[static_cast<size_t>(vs) * B + r0 + r] = idx;
+        }
+      }
+    }
+    group_sync(bar, L.G, passed++);  // every head CTA's partials written
+    // every CTA combines its rows' nh partials alike, then the teacher
+    // select and the clamp: the next tick's fed tokens
+    for (int r = threadIdx.x; r < nrows; r += blockDim.x) {
+      const size_t row = row0 + r;
+      float m = -INFINITY;
+      int idx = V;
+#pragma unroll 4
+      for (int j = 0; j < L.nh; ++j) {
+        argmax_combine(m, idx, __ldcg(s.pm + static_cast<size_t>(j) * B + row),
+                       __ldcg(s.pi + static_cast<size_t>(j) * B + row));
+      }
+      int tok = teacher ? score[static_cast<size_t>(t) * B + row] : idx;
+      tok = min(max(tok, 0), V - 1);
+      if (grp == 0) out.samples[static_cast<size_t>(t) * B + row] = tok;
+      s_tok[r] = tok;
+    }
+    __syncthreads();
+  }
+  // the padded ticks of a short last beat: zero hiddens for the backward
+  for (int t = T; t < dm.beats() * dm.tpb; ++t) {
+    for (int i = threadIdx.x; i < nrows * U; i += blockDim.x) {
+      const int r = i / U;
+      const int u = u0 + i - r * U;
+      for (int l = 0; l < NL; ++l) out.h_all[l][chain_index(dm, t, row0 + r, u, H)] = 0.f;
+    }
+  }
+}
+
+// Refuses a wave plan the kernel cannot run: returns the shared-memory
+// bytes it needs, or 0.
+int wave_checked_smem(int H, int E, int V, int NL, int U, int R, int P, int smem_bytes) {
+  if ((U != 4 && U != 8 && U != 16 && U != 32) || H < U || H % U != 0 || E < 1 || V < 1) return 0;
+  if (NL < 1 || NL > kMaxLayers || R < 1) return 0;
+  if ((P != 16 && P != 32 && P != 64 && P != 128) || P / 16 * (U < 8 ? 1 : U / 8) > 8) return 0;
+  const long long need = 4LL * wave_layout(H, E, V, NL, U, R, P).total;
+  if (need > kMaxSmem || smem_bytes < need || smem_bytes > kMaxSmem) return 0;
+  return static_cast<int>(need);
+}
+
+template <class... Args>
+cudaError_t launch_wave(int KS, int ctas, int smem, unsigned* bar, cudaStream_t st,
+                        Args... args) {
+  return KS == 1   ? launch_wide(hier_wave_fwd<1>, ctas, smem, bar, st, args...)
+         : KS == 2 ? launch_wide(hier_wave_fwd<2>, ctas, smem, bar, st, args...)
+                   : launch_wide(hier_wave_fwd<4>, ctas, smem, bar, st, args...);
 }
 
 // ---------------------------------------------------------------------------
@@ -779,20 +1199,41 @@ const char* hier_tick_chain_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Floats of shared memory a CTA of the forward plan (C, RB) needs for a
-// tick GRU of L layers, resident (stream 0) or streamed: the layout that
+// Floats of shared memory a CTA of the resident forward plan (C, RB)
+// needs for a tick GRU of L layers: the layout that
 // ops/hier_decoder_kernel.py::fwd_smem_floats mirrors.
-int hier_tick_chain_smem_floats(int H, int E, int V, int C, int RB, int L, int stream) {
-  return fwd_layout(H, E, V, C, RB, L, stream != 0).total;
+int hier_tick_chain_smem_floats(int H, int E, int V, int C, int RB, int L) {
+  return fwd_layout(H, E, V, C, RB, L).total;
 }
 
-// Clusters of C CTAs of the forward in the resident (stream 0) or
-// streamed layout, smem_bytes of dynamic shared memory each, that the card
-// can hold at once (cudaOccupancyMaxActiveClusters); a negative CUDA error
-// code when the query fails.
-int hier_tick_chain_resident_clusters(int stream, int C, int smem_bytes) {
-  return stream != 0 ? resident_clusters(hier_fwd<true>, C, smem_bytes)
-                     : resident_clusters(hier_fwd<false>, C, smem_bytes);
+// Clusters of C CTAs of the resident forward, smem_bytes of dynamic shared
+// memory each, that the card can hold at once
+// (cudaOccupancyMaxActiveClusters); a negative CUDA error code when the
+// query fails.
+int hier_tick_chain_resident_clusters(int C, int smem_bytes) {
+  return resident_clusters(hier_fwd, C, smem_bytes);
+}
+
+// Floats of shared memory a CTA of the wave forward plan (U units, R rows
+// a row group in passes of P) needs: the layout that
+// ops/hier_decoder_kernel.py::wave_smem_floats mirrors.
+int hier_tick_chain_wave_smem_floats(int H, int E, int V, int L, int U, int R, int P) {
+  return wave_layout(H, E, V, L, U, R, P).total;
+}
+
+// CTAs of the wave forward with KS depth splits, smem_bytes of dynamic
+// shared memory each, that the card holds at once (one cooperative wave
+// must fit in it); a negative CUDA error code when a query fails.
+int hier_tick_chain_wave_resident_ctas(int KS, int smem_bytes) {
+  return KS == 1   ? wide_resident_ctas(hier_wave_fwd<1>, smem_bytes)
+         : KS == 2 ? wide_resident_ctas(hier_wave_fwd<2>, smem_bytes)
+                   : wide_resident_ctas(hier_wave_fwd<4>, smem_bytes);
+}
+
+// Floats of the wave forward's scratch in device memory (its barrier
+// counters, the head's partials and the masked layer inputs).
+long long hier_tick_chain_wave_scratch_floats(int B, int H, int V, int L, int U, int R) {
+  return wave_scratch(B, H, V, L, U, R, nullptr).floats;
 }
 
 // Floats of the backward's scratch before the GEMMs' partial sums, its
@@ -805,9 +1246,12 @@ long long hier_tick_chain_bwd_scratch_floats(int T, int B, int H, int E, int V,
 
 // teacher, seed: (1,) i32 on the device; score (T, B) i32; the float
 // operands as in struct Weights, the layers' as host arrays of kMaxLayers
-// pointers; the plan: clusters of C CTAs of RB rows, smem_bytes of dynamic
-// shared memory each, the weights resident (streamed 0) or streamed;
-// row_base: the global batch row of row 0, for the random bits.
+// pointers; row_base: the global batch row of row 0, for the random bits;
+// the plan: wave 0, the resident layout, clusters of C CTAs of RB rows
+// (P unused); wave 1, the wave layout, C units a CTA and RB rows a row
+// group in passes of P rows, with `scratch` of
+// hier_tick_chain_wave_scratch_floats floats; smem_bytes of dynamic shared
+// memory a CTA.
 // Writes weights (T, B, V), samples (T, B) i32 and the L layers' hiddens
 // h_all[l] (ticks_per_beat, n_beats * B, H).
 int hier_tick_chain_fwd(const int* teacher, const int* seed, const int* score,
@@ -816,12 +1260,12 @@ int hier_tick_chain_fwd(const int* teacher, const int* seed, const int* score,
                         const float* const* b_hh, const float* const* w_ih,
                         const float* const* b_ih, const float* out_w, const float* out_b, int T,
                         int B, int H, int E, int V, int L, int ticks_per_beat, int dropout,
-                        float keep, float scale, int multinomial, int row_base, int C, int RB,
-                        int smem_bytes,
-                        int streamed, float* weights, int* samples, float* const* h_all,
-                        void* stream) {
-  if (fwd_checked_smem(H, E, V, C, RB, L, streamed != 0, smem_bytes) == 0 || T < 1 || B < 1 ||
-      ticks_per_beat < 1) {
+                        float keep, float scale, int multinomial, int row_base, int wave, int C,
+                        int RB, int P, int smem_bytes, float* weights, int* samples,
+                        float* const* h_all, float* scratch, void* stream) {
+  const bool ok = wave != 0 ? wave_checked_smem(H, E, V, L, C, RB, P, smem_bytes) != 0
+                            : fwd_checked_smem(H, E, V, C, RB, L, smem_bytes) != 0;
+  if (!ok || T < 1 || B < 1 || ticks_per_beat < 1 || (wave != 0 && scratch == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Weights w =
@@ -831,11 +1275,19 @@ int hier_tick_chain_fwd(const int* teacher, const int* seed, const int* score,
   out.weights = weights;
   out.samples = samples;
   for (int l = 0; l < L; ++l) out.h_all[l] = h_all[l];
-  const dim3 grid(C * ((B + RB - 1) / RB));
-  auto* kernel = streamed != 0 ? &hier_fwd<true> : &hier_fwd<false>;
-  return static_cast<int>(launch_cluster(kernel, C, grid, smem_bytes,
-                                         static_cast<cudaStream_t>(stream), w, dm, RB, teacher,
-                                         seed, score, out));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wave == 0) {
+    const dim3 grid(C * ((B + RB - 1) / RB));
+    return static_cast<int>(launch_cluster(hier_fwd, C, grid, smem_bytes, st, w, dm, RB, teacher,
+                                           seed, score, out));
+  }
+  const WaveScratch s = wave_scratch(B, H, V, L, C, RB, scratch);
+  const int groups = (B + RB - 1) / RB;
+  cudaError_t err = cudaMemsetAsync(s.bar, 0, sizeof(unsigned) * groups, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const WaveLayout lay = wave_layout(H, E, V, L, C, RB, P);
+  return static_cast<int>(launch_wave(lay.KS, lay.G * groups, smem_bytes, s.bar, st, w, dm, C,
+                                      RB, P, teacher, seed, score, out, s));
 }
 
 // The backward. h_all: the forward's L saved hiddens; the gradient

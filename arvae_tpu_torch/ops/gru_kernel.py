@@ -107,7 +107,6 @@ MAX_SMEM = 227 * 1024  # dynamic shared memory a CTA may use on Hopper
 SMS = 132              # streaming multiprocessors of an H100 SXM
 THREADS = 512          # threads of a cluster kernel's CTA: one a cell unit
 ROWS_PER_THREAD = 4    # a tile's rows are a multiple of it
-STREAM_DEPTH = 32      # weight rows a stage of the tick loop's streamed layout holds
 GEMM_TILE, GEMM_DEPTH = 64, 32
 
 # Clusters of C CTAs that an H100 SXM holds at once, by the CTAs an SM
@@ -118,7 +117,6 @@ GEMM_TILE, GEMM_DEPTH = 64, 32
 CLUSTERS_HELD = {1: {1: SMS, 2: 66, 4: 30, 8: 15}, 2: {1: 2 * SMS, 2: 132, 4: 62, 8: 30}}
 SM_SMEM = 228 * 1024     # shared memory of an SM
 CTA_RESERVED = 1024      # of it, the runtime's reserve for each CTA
-SM_REGISTERS = 65536
 
 # The wide layout (csrc/gru_wide.cuh): CTAs of WIDE_THREADS threads (8
 # warps), each warp a 16-row x 16-unit tile of 3xTF32 tensor-core
@@ -182,7 +180,6 @@ class ChainPlan:
     rows: int         # RB, batch rows a cluster owns
     smem_bytes: int   # dynamic shared memory of one CTA
     grid: Tuple[int, int]
-    streamed: bool = False  # the tick loop's forward only: weights read from L2 in stages
 
     @property
     def ctas(self) -> int:
@@ -206,13 +203,6 @@ class WidePlan:
     @property
     def passes(self) -> int:
         return -(-self.rows // self.pass_rows)
-
-
-def ctas_per_sm(smem_bytes: int, registers: int) -> int:
-    """CTAs of 512 threads an SM holds at once, by shared memory and
-    registers (at most 2: ``CLUSTERS_HELD``'s rows)."""
-    return max(1, min(2, SM_SMEM // (smem_bytes + CTA_RESERVED),
-                      SM_REGISTERS // (registers * THREADS)))
 
 
 def best_plan(plans):

@@ -11,8 +11,8 @@ backward. The JAX kernel runs 2 layers (other depths run on
 
 On a CUDA tensor, :func:`tick_chain` launches the kernels of
 ``csrc/hier_tick_chain.cu`` or raises: :func:`hier_plans` gives the
-forward plan (:func:`hier_plan`: the weight slices resident in shared
-memory where they fit, else streamed from L2) and the backward chain
+forward plan (:func:`hier_plan`: clusters holding the weight slices
+where they fit, else one cooperative wave of CTAs) and the backward chain
 plan (:func:`chain_plan`), and raises ``ValueError``, naming H and L,
 before any launch for a depth outside [1, ``MAX_LAYERS``] or a width no
 plan fits. On a CPU tensor it runs :func:`tick_chain_reference`, a
@@ -31,13 +31,17 @@ as ``row_base + b``, so a rank of a data-parallel step that holds rows
 Both draw the mask of the gap after layer l with salt l.
 
 What bounds it on the card: a 24-step chain of dependent small products
-with an argmax and a gather between steps, so latency. The forward runs
-on thread-block clusters: a cluster owns a tile of batch rows for the
-whole measure, each CTA keeping its slice of every weight in shared
-memory (or reading it from L2 in stages, where it does not fit) and
-exchanging hiddens and per-row argmax partials with its peers
-through distributed shared memory (:func:`hier_plan` picks the cluster
-size and the rows). The backward runs the beats in parallel: the hidden
+with an argmax and a gather between steps, so latency. Where a cluster
+holds the weights (H=128 at up to 3 layers) the forward runs on
+thread-block clusters: a cluster owns a tile of batch rows for the whole
+measure, each CTA keeping its slice of every weight in shared memory and
+exchanging hiddens and per-row argmax partials with its peers through
+distributed shared memory. Elsewhere (the reference's H=512, H=256 and
+384, 4 layers) it runs the wave layout: one cooperative wave of CTAs,
+each holding its units' slices of every weight for the whole call,
+multiplying all of its rows on the tensor cores in 3xTF32, exchanging
+hiddens and argmax partials through L2 with L + 1 barriers a tick
+(:func:`hier_plan` picks the layout and its shape). The backward runs the beats in parallel: the hidden
 carries restart at every beat, so each layer is ``n_beats`` independent
 chains of ``ticks_per_beat`` ticks, run by ``gru_chain``'s backward
 (its cluster kernel, or its wide layout at H=384 and 512, which first
@@ -52,15 +56,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from arvae_tpu_torch.ops import _build, gru_kernel
+from arvae_tpu_torch.ops import _build
 from arvae_tpu_torch.ops.gru import stacked_gru_step_from_gi
-from arvae_tpu_torch.ops.gru_kernel import (CLUSTERS_HELD, MAX_SMEM, ROWS_PER_THREAD,
-                                            STREAM_DEPTH, THREADS, ChainPlan, WidePlan,
+from arvae_tpu_torch.ops.gru_kernel import (CLUSTERS_HELD, MAX_SMEM, ROWS_PER_THREAD, SMS,
+                                            THREADS, WIDE_DEPTH, WIDE_MIN_ROWS, WIDE_STAGES,
+                                            WIDE_THREADS, ChainPlan, WidePlan,
                                             atb_scratch_floats, atb_splits, best_plan,
                                             gru_gates, gru_plan, slice_ld, up4,
                                             wide_atb_splits)
@@ -70,8 +76,10 @@ SALT_DROPOUT = 0
 SALT_GUMBEL = 3571
 SAMPLING = ("argmax", "multinomial")
 
-# Kernel launches by the wrapper, one per call of each direction.
+# Kernel launches by the wrapper, one per call of each direction; of the
+# forward's, those of the wave layout.
 LAUNCHES = {"fwd": 0, "bwd": 0}
+WAVE_LAUNCHES = {"fwd": 0}
 # Launches of gru_chain's backward by the backward: one a layer; of them,
 # those of its wide layout.
 CHAIN_LAUNCHES = {"bwd": 0, "wide": 0}
@@ -81,10 +89,9 @@ MAX_LAYERS = 4
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    for k in CHAIN_LAUNCHES:
-        CHAIN_LAUNCHES[k] = 0
+    for counts in (LAUNCHES, WAVE_LAUNCHES, CHAIN_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -342,30 +349,20 @@ def hier_tick_chain_bwd_by_beats(train, dropout_rate, ticks_per_beat, seed, samp
 # ---------------------------------------------------------------------------
 
 
-def fwd_smem_floats(H: int, E: int, V: int, C: int, RB: int, L: int = 2,
-                    streamed: bool = False) -> int:
-    """Floats of shared memory one CTA of the forward uses for a tick GRU
-    of L layers, its weight slices resident or streamed: ``fwd_layout``
-    in ``csrc/hier_tick_chain.cu``, term for term."""
+def fwd_smem_floats(H: int, E: int, V: int, C: int, RB: int, L: int = 2) -> int:
+    """Floats of shared memory one CTA of the resident forward uses for a
+    tick GRU of L layers: ``fwd_layout`` in ``csrc/hier_tick_chain.cu``,
+    term for term."""
     hc, vc = H // C, -(-V // C)
     n3 = 3 * hc
     ldw, ldv, ldh, ldg, lde, ldl = (slice_ld(n3), slice_ld(vc), up4(H), up4(n3), up4(E),
                                     up4(vc))
-    if streamed:
-        weights = 2 * STREAM_DEPTH * max(ldw, ldv)
-    else:
-        weights = E * ldw + (2 * L - 1) * H * ldw + H * ldv
+    weights = E * ldw + (2 * L - 1) * H * ldw + H * ldv
     biases = (2 * L - 1) * ldg + ldl + up4(V * E)
     tile = (2 * L + min(L - 1, 2)) * RB * ldh + RB * lde + 2 * RB * ldg + RB * ldl
-    if streamed:
-        depth = min(STREAM_DEPTH, H)
-        part = up4(max(product_part_floats(RB, E, n3, THREADS),
-                       product_part_floats(RB, depth, n3, THREADS),
-                       product_part_floats(RB, depth, vc, THREADS)))
-    else:
-        half = up4(max(product_part_floats(RB, E, n3, THREADS // 2),
-                       product_part_floats(RB, H, n3, THREADS // 2)))
-        part = max(2 * half, up4(product_part_floats(RB, H, vc, THREADS)))
+    half = up4(max(product_part_floats(RB, E, n3, THREADS // 2),
+                   product_part_floats(RB, H, n3, THREADS // 2)))
+    part = max(2 * half, up4(product_part_floats(RB, H, vc, THREADS)))
     return weights + biases + tile + part + 2 * up4(C * RB) + up4(RB)
 
 
@@ -384,52 +381,152 @@ def product_part_floats(rows: int, K: int, N: int, threads: int) -> int:
 # than half an SM's shared memory.
 RESIDENT_CLUSTERS = CLUSTERS_HELD[1]
 
+# The wave layout (``hier_wave_fwd``): CTAs of WIDE_THREADS threads (8
+# warps), U units a CTA (unit tiles of 8 columns a gate; at U = 4 half a
+# tile), passes of P rows; a gate product's warp items are (16-row m-tile,
+# unit tile) pairs, at most 8, the depth split over at most
+# WAVE_MAX_SPLITS warps an item where there are fewer.
+WAVE_UNITS = (32, 16, 8, 4)
+WAVE_PASS_ROWS = (128, 64, 32, 16)
+WAVE_MAX_SPLITS = 4
 
-# Registers a thread of the streamed forward, as ptxas builds it for
-# sm_90a (CUDA 12.8; chip_smoke.py's build phase prints them): with 64,
-# two CTAs of 512 threads would share an SM where their shared memory
-# allows.
-STREAMED_REGISTERS = 128
+
+@dataclass(frozen=True)
+class WavePlan:
+    """The wave layout's launch: CTA (g, q) owns hidden units
+    [g U, (g + 1) U) of batch rows [q rows, (q + 1) rows), which it
+    multiplies in passes of ``pass_rows``, and a share of those rows of
+    one slice of the head's columns (:func:`wave_head`)."""
+    units: int        # U
+    rows: int         # rows of a row group
+    pass_rows: int    # P
+    smem_bytes: int   # dynamic shared memory of one CTA
+    ctas: int         # H / U unit groups x ceil(B / rows) row groups, all on the card at once
+
+    @property
+    def unit_tiles(self) -> int:
+        return max(1, self.units // 8)
+
+    @property
+    def splits(self) -> int:
+        """KS: the warps an item's depth is split over."""
+        return wave_splits(self.units, self.pass_rows)
+
+    @property
+    def passes(self) -> int:
+        return -(-self.rows // self.pass_rows)
 
 
-def held_clusters(plan: ChainPlan) -> int:
-    """Clusters of the forward plan's size the card holds at once: a
-    resident plan's CTA takes more than half an SM; a streamed one's may
-    share it, as its shared memory and registers allow."""
-    per_sm = (gru_kernel.ctas_per_sm(plan.smem_bytes, STREAMED_REGISTERS) if plan.streamed
-              else 1)
-    return CLUSTERS_HELD[per_sm][plan.clusters]
+def wave_splits(U: int, P: int) -> int:
+    return min(WAVE_MAX_SPLITS, (WIDE_THREADS // 32) // (P // 16 * max(1, U // 8)))
+
+
+def wave_head(H: int, V: int, U: int) -> Tuple[int, int]:
+    """(Vc, nh): the head's V in nh slices of Vc columns, whole n-tiles
+    of 8, each on (H / U) // nh CTAs of a row group, a share of its rows
+    each."""
+    per_group = -(-V // (H // U))
+    vc = -(-per_group // 8) * 8
+    return vc, -(-V // vc)
+
+
+def wave_smem_floats(H: int, E: int, V: int, L: int, U: int, R: int, P: int) -> int:
+    """Floats of shared memory one CTA of the wave forward uses:
+    ``wave_layout`` in ``csrc/hier_tick_chain.cu``, term for term: the
+    slices of w_ih0e and of the 2L - 1 H x 3H matrices (3U columns each,
+    the depth in whole chunks + 4), of out_w (Vc columns) and the biases,
+    the chunk buffers (or the depth splits' partial sums), the head's
+    partials by n-tile and the row group's tokens."""
+    def ld(k):
+        return -(-k // WIDE_DEPTH) * WIDE_DEPTH + 4
+
+    items = P // 16 * max(1, U // 8)
+    vc, _ = wave_head(H, V, U)
+    slices = 3 * U * ld(E) + (2 * L - 1) * 3 * U * ld(H) + vc * ld(H)
+    biases = (2 * L - 1) * up4(3 * U) + vc
+    chunks = max(WIDE_STAGES * P * (WIDE_DEPTH + 4), (wave_splits(U, P) - 1) * items * 12 * 32)
+    return slices + biases + chunks + 2 * up4(P * vc // 8) + up4(R)
+
+
+def wave_plan(B: int, H: int, E: int, V: int, L: int) -> Optional[WavePlan]:
+    """The wave layout's plan, or None where none fits: for each U in
+    ``WAVE_UNITS`` that divides H, as many row groups (at least 16 rows
+    each) as keep every CTA on the card at once (one CTA an SM:
+    ``SMS``), and the largest pass of at most 128 / unit tiles rows, no
+    more than the row group needs, that fits 227 KB; of those, the plan
+    of the most CTAs, then the most units a CTA (the least hidden traffic:
+    each unit group reads its row group's whole h), then the largest
+    pass."""
+    plans = []
+    for u in WAVE_UNITS:
+        groups = H // u
+        if H % u or groups > SMS:
+            continue
+        row_groups = min(-(-B // WIDE_MIN_ROWS), SMS // groups)
+        rows = -(-B // row_groups)
+        need = -(-rows // 16) * 16
+        for p in WAVE_PASS_ROWS:
+            if p * max(1, u // 8) > 128 or (p > need and p > 16):
+                continue
+            smem = 4 * wave_smem_floats(H, E, V, L, u, rows, p)
+            if smem <= MAX_SMEM:
+                plan = WavePlan(u, rows, p, smem, groups * -(-B // rows))
+                plans.append((plan, (-plan.ctas, -u, -p)))
+                break
+    return best_plan(plans)
+
+
+def argmax_by_slices(scores: torch.Tensor, width: int) -> torch.Tensor:
+    """``argmax_lowest`` as the wave layout's head takes it: each slice of
+    ``width`` columns gives a partial (its max and the lowest index
+    holding it; NaN anywhere: (NaN, V)), and the partials are combined in
+    slice order by the kernel's ``argmax_combine``: NaN stays, a larger
+    max or a NaN replaces, an equal max keeps the lower index."""
+    v = scores.shape[-1]
+    m = torch.full(scores.shape[:-1], float("-inf"), dtype=scores.dtype, device=scores.device)
+    idx = torch.full(scores.shape[:-1], v, dtype=torch.long, device=scores.device)
+    for v0 in range(0, v, width):
+        part = scores[..., v0:v0 + width]
+        pm = part.amax(dim=-1)
+        iota = torch.arange(v0, v0 + part.shape[-1], device=scores.device)
+        pi = torch.where(part == pm[..., None], iota, v).amin(dim=-1)
+        pi = torch.where(torch.isnan(pm), v, pi)
+        take = ~torch.isnan(m) & (torch.isnan(pm) | (pm > m))
+        tie = ~torch.isnan(m) & (pm == m)
+        idx = torch.where(take, pi, torch.where(tie, torch.minimum(idx, pi), idx))
+        m = torch.where(take, pm, m)
+    return idx
 
 
 @functools.lru_cache(maxsize=256)
-def hier_plan(B: int, H: int, E: int, V: int, L: int = 2) -> ChainPlan:
+def hier_plan(B: int, H: int, E: int, V: int, L: int = 2):
     """The forward's plan for a tick GRU of L layers: the resident layout
-    wherever it fits, else the streamed one; of each, by ``gru_plan``'s
-    rule, the fewest waves of the card (clusters over the ones it holds
-    at once), then the most CTAs, then the fewest CTAs a cluster (the
-    fewest peers to exchange with), then the most rows a cluster;
-    clusters of 2, 4 or 8 CTAs, a single CTA only where no cluster fits.
-    A resident CTA holds its H/C units' gate columns of the 2L - 1 GRU
-    matrices and of w_ih0e, its ceil(V/C) columns of ``out_w`` and all
-    of ``emb``; a streamed one reads the matrices from L2 every tick.
-    Raises ValueError, naming H, V and L, when no plan fits 227 KB."""
-    for streamed in (False, True):
-        plans = []
-        for c in (2, 4, 8, 1):
-            for rb in range(32, 0, -ROWS_PER_THREAD):
-                if H % c or rb * (H // c) > THREADS:
-                    continue
-                smem = 4 * fwd_smem_floats(H, E, V, c, rb, L, streamed)
-                if smem > MAX_SMEM:
-                    continue
-                plan = ChainPlan(c, rb, smem, (c * -(-B // rb), 1), streamed)
-                waves = -(-(plan.grid[0] // c) // held_clusters(plan))
-                plans.append((plan, (c == 1, waves, -plan.ctas, c, -rb)))
-        best = best_plan(plans)
-        if best is not None:
-            return best
-    raise ValueError(f"H={H}, V={V}, L={L} are too wide: no cluster of at most 8 CTAs gives "
-                     "a 4-row tile one thread a unit and fits 227 KB of shared memory")
+    (a ``ChainPlan``) wherever it fits, else the wave layout (a
+    ``WavePlan``, :func:`wave_plan`). Resident, by ``gru_plan``'s rule:
+    the fewest waves of the card (clusters over the ones it holds at
+    once), then the most CTAs, then the fewest CTAs a cluster (the fewest
+    peers to exchange with), then the most rows a cluster; clusters of 2,
+    4 or 8 CTAs, a single CTA only where no cluster fits. A resident CTA
+    holds its H/C units' gate columns of the 2L - 1 GRU matrices and of
+    w_ih0e, its ceil(V/C) columns of ``out_w`` and all of ``emb``. Raises
+    ValueError, naming H, V and L, when no plan fits 227 KB."""
+    plans = []
+    for c in (2, 4, 8, 1):
+        for rb in range(32, 0, -ROWS_PER_THREAD):
+            if H % c or rb * (H // c) > THREADS:
+                continue
+            smem = 4 * fwd_smem_floats(H, E, V, c, rb, L)
+            if smem > MAX_SMEM:
+                continue
+            plan = ChainPlan(c, rb, smem, (c * -(-B // rb), 1))
+            waves = -(-(plan.grid[0] // c) // RESIDENT_CLUSTERS[c])
+            plans.append((plan, (c == 1, waves, -plan.ctas, c, -rb)))
+    best = best_plan(plans) or wave_plan(B, H, E, V, L)
+    if best is None:
+        raise ValueError(f"H={H}, V={V}, L={L} are too wide: neither a cluster of at most 8 "
+                         f"CTAs nor a wave of CTAs of {WAVE_UNITS} units holds the weight "
+                         "slices in 227 KB of shared memory")
+    return best
 
 
 def chain_plan(T: int, B: int, H: int, ticks_per_beat: int):
@@ -464,14 +561,20 @@ def _library() -> ctypes.CDLL:
     if not _bound:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         pp = ctypes.POINTER(ctypes.c_void_p)
-        lib.hier_tick_chain_smem_floats.argtypes = [i] * 7
+        lib.hier_tick_chain_smem_floats.argtypes = [i] * 6
         lib.hier_tick_chain_smem_floats.restype = i
-        lib.hier_tick_chain_resident_clusters.argtypes = [i] * 3
+        lib.hier_tick_chain_resident_clusters.argtypes = [i] * 2
         lib.hier_tick_chain_resident_clusters.restype = i
+        lib.hier_tick_chain_wave_smem_floats.argtypes = [i] * 7
+        lib.hier_tick_chain_wave_smem_floats.restype = i
+        lib.hier_tick_chain_wave_resident_ctas.argtypes = [i] * 2
+        lib.hier_tick_chain_wave_resident_ctas.restype = i
+        lib.hier_tick_chain_wave_scratch_floats.argtypes = [i] * 6
+        lib.hier_tick_chain_wave_scratch_floats.restype = ctypes.c_longlong
         lib.hier_tick_chain_bwd_scratch_floats.argtypes = [i] * 8
         lib.hier_tick_chain_bwd_scratch_floats.restype = ctypes.c_longlong
         lib.hier_tick_chain_fwd.argtypes = ([p] * 8 + [pp] * 4 + [p] * 2 + [i] * 8 + [f, f]
-                                            + [i] * 6 + [p, p, pp, p])
+                                            + [i] * 7 + [p, p, pp, p, p])
         lib.hier_tick_chain_fwd.restype = i
         lib.hier_tick_chain_bwd.argtypes = ([p, p, pp] + [p] * 7 + [pp] * 4 + [p] * 2
                                             + [i] * 8 + [f, f] + [i] * 5 + [p] * 5 + [pp] * 4
@@ -558,23 +661,29 @@ def hier_tick_chain_fwd_cuda(train, dropout_rate, ticks_per_beat, sampling,
     if teacher.numel() != 1 or seed.numel() != 1:
         raise ValueError("teacher and seed must be (1,) int32")
     plan = plan or hier_plan(B, H, E, V, L)
+    wave = isinstance(plan, WavePlan)
     lib = _library()
     nb = -(-T // ticks_per_beat)
     weights = torch.empty((T, B, V), dtype=torch.float32, device=dev)
     samples = torch.empty((T, B), dtype=torch.int32, device=dev)
     hiddens = [torch.empty((ticks_per_beat, nb * B, H), dtype=torch.float32, device=dev)
                for _ in range(L)]
+    scratch = (torch.empty(lib.hier_tick_chain_wave_scratch_floats(B, H, V, L, plan.units,
+                                                                     plan.rows),
+                           dtype=torch.float32, device=dev) if wave else None)
+    layout = ((1, plan.units, plan.rows, plan.pass_rows) if wave
+              else (0, plan.clusters, plan.rows, 0))
     dropout, keep, scale = _rate_args(train, dropout_rate)
     with torch.cuda.device(dev):
         err = lib.hier_tick_chain_fwd(
             teacher.data_ptr(), seed.data_ptr(), score.data_ptr(), *_operand_args(floats),
             T, B, H, E, V, L, ticks_per_beat, dropout, keep, scale,
-            int(sampling == "multinomial"), int(row_base), plan.clusters, plan.rows,
-            plan.smem_bytes,
-            int(plan.streamed), weights.data_ptr(), samples.data_ptr(), _pointers(hiddens),
-            _build.stream_of(score))
+            int(sampling == "multinomial"), int(row_base), *layout, plan.smem_bytes,
+            weights.data_ptr(), samples.data_ptr(), _pointers(hiddens),
+            None if scratch is None else scratch.data_ptr(), _build.stream_of(score))
     _build.raise_on(lib, _NAME, err, "hier_tick_chain_fwd")
     LAUNCHES["fwd"] += 1
+    WAVE_LAUNCHES["fwd"] += int(wave)
     return (weights, samples, *hiddens)
 
 

@@ -14,11 +14,12 @@ shared memory that the card holds at once
 (``cudaOccupancyMaxActiveClusters``), and its ms per call (CUDA events
 over 200 calls after 10 warm). Each plan's weights must match the
 default plan's within rtol 1e-4 / atol 1e-5 and its samples equal.
-Then :func:`held_report`: for every kernel and layout, at one and at two
+Then :func:`held_report`: for every cluster kernel, at one and at two
 CTAs an SM, the clusters of each size the card holds, beside
 ``gru_kernel.CLUSTERS_HELD``, and the plans of the wide and deep shapes
-with the clusters they assume. Prints the card's name and power limit
-on every line."""
+with the clusters (the wide and wave layouts: the CTAs of their
+cooperative wave) they assume beside the card's count. Prints the
+card's name and power limit on every line."""
 
 from __future__ import annotations
 
@@ -72,32 +73,35 @@ def _ms(fn, iters=200, warmup=10):
 
 # The wide and deep shapes' plans: gru_chain (D, B, H), among them the
 # tick loop's backward chains at H=512 (4 beats x 256 rows, one
-# direction), and the tick loop's forward (B, H, E, V, L)
+# direction), and the tick loop's forward (B, H, E, V, L), among them the
+# wave layout's at the analysis, eval-tail and data-parallel batches
 GRU_SHAPES = ((2, 256, 512), (1, 256, 512), (1, 256, 384), (2, 100, 512), (1, 1024, 512))
-HIER_SHAPES = ((256, 256, 10, 130, 2), (256, 512, 10, 130, 2), (256, 128, 10, 130, 1),
-               (256, 128, 10, 130, 3), (256, 128, 10, 130, 4))
+HIER_SHAPES = ((256, 256, 10, 130, 2), (256, 512, 10, 130, 2), (256, 384, 10, 130, 2),
+               (256, 512, 10, 130, 4), (256, 128, 10, 130, 1), (256, 128, 10, 130, 3),
+               (256, 128, 10, 130, 4), (1, 512, 10, 34, 2), (22, 512, 10, 34, 2),
+               (120, 512, 10, 34, 2), (128, 512, 10, 130, 2), (64, 512, 10, 130, 2))
 
 
 def held_report():
-    """Lines: the clusters of C CTAs each cluster kernel layout can keep
-    on the card at once (cudaOccupancyMaxActiveClusters) at one CTA an SM
+    """Lines: the clusters of C CTAs each cluster kernel can keep on the
+    card at once (cudaOccupancyMaxActiveClusters) at one CTA an SM
     (200,000 B of shared memory) and at two (100,000 B, where the
     kernel's registers allow it), beside ``CLUSTERS_HELD``; then each
     wide or deep shape's plan, the clusters (or, for the GRU chain's wide
-    layout, the CTAs of its cooperative wave) it assumes and the card's."""
+    layout and the tick loop's wave layout, the CTAs of its cooperative
+    wave) it assumes and the card's."""
     glib, hlib = gk._library(), hk._library()
-    kernels = {  # name: held(streamed, C, smem)
-        "gru_chain fwd": lambda st, c, b: glib.gru_chain_resident_clusters(0, c, b),
-        "gru_chain bwd": lambda st, c, b: glib.gru_chain_resident_clusters(1, c, b),
+    kernels = {  # name: held(C, smem)
+        "gru_chain fwd": lambda c, b: glib.gru_chain_resident_clusters(0, c, b),
+        "gru_chain bwd": lambda c, b: glib.gru_chain_resident_clusters(1, c, b),
         "hier_tick_chain fwd": hlib.hier_tick_chain_resident_clusters,
     }
     lines = []
     for name, held in kernels.items():
-        for stream in (0, 1) if name.startswith("hier") else (0,):
-            for smem in (200_000, 100_000):
-                got = {c: held(stream, c, smem) for c in (1, 2, 4, 8)}
-                lines.append(f"{name}, {'streamed' if stream else 'resident'}, {smem} B a CTA: "
-                             f"the card holds clusters of C CTAs {got}")
+        for smem in (200_000, 100_000):
+            got = {c: held(c, smem) for c in (1, 2, 4, 8)}
+            lines.append(f"{name}, resident, {smem} B a CTA: the card holds clusters of C "
+                         f"CTAs {got}")
     lines.append(f"the plans assume, by CTAs an SM: {gk.CLUSTERS_HELD}")
     for d, b, h in GRU_SHAPES:
         for backward in (False, True):
@@ -113,10 +117,15 @@ def held_report():
                          f"{p}; the plan assumes {held}")
     for b, h, e, v, layers in HIER_SHAPES:
         p = hk.hier_plan(b, h, e, v, layers)
-        got = hlib.hier_tick_chain_resident_clusters(int(p.streamed), p.clusters, p.smem_bytes)
+        if isinstance(p, hk.WavePlan):
+            got = hlib.hier_tick_chain_wave_resident_ctas(p.splits, p.smem_bytes)
+            held = f"its {p.ctas} CTAs at once (one CTA an SM), the card holds {got}"
+        else:
+            got = hlib.hier_tick_chain_resident_clusters(p.clusters, p.smem_bytes)
+            held = (f"{hk.RESIDENT_CLUSTERS[p.clusters]} clusters at once, the card holds "
+                    f"{got}")
         lines.append(f"hier_tick_chain fwd (B={b}, H={h}, E={e}, V={v}, L={layers}): {p}; "
-                     f"the plan assumes {hk.held_clusters(p)} clusters at once, the card "
-                     f"holds {got}")
+                     f"the plan assumes {held}")
     return lines
 
 
@@ -143,7 +152,7 @@ def main() -> int:
         torch.cuda.synchronize()
         ok = torch.equal(got[1], want[1]) and torch.allclose(got[0], want[0], 1e-4, 1e-5)
         ms = _ms(lambda: hk.hier_tick_chain_fwd_cuda(*cfg, *ints, score, *floats, plan=plan))
-        held = lib.hier_tick_chain_resident_clusters(0, c, smem)
+        held = lib.hier_tick_chain_resident_clusters(c, smem)
         print(f"C={c} RB={rb}: {plan.grid[0] // c} clusters, {plan.ctas} CTAs, {smem} B; "
               f"the card holds {held} such clusters at once; fwd {ms:.5f} ms; "
               f"matches the default plan: {ok} | {card}")

@@ -90,7 +90,8 @@ def short_name(name):
 # kernels a count), summed. The tick loop's backward runs each of its
 # layers through the GRU chain's backward (its ``CHAIN_LAUNCHES``); the
 # wide layout's calls (``WIDE_LAUNCHES``, ``CHAIN_LAUNCHES["wide"]``)
-# launch its kernels instead of the cluster kernels.
+# launch its kernels instead of the cluster kernels, and the tick loop's
+# wave layout's (``WAVE_LAUNCHES``) its forward instead of ``hier_fwd``.
 ENTRY_KERNELS = {
     "reg_fwd": (("reg_kernel", "fwd", 1),),
     "reg_bwd": (("reg_kernel", "bwd", 1),),
@@ -99,14 +100,15 @@ ENTRY_KERNELS = {
                 ("hier_decoder_kernel", "chains", 1), ("hier_decoder_kernel", "chains_wide", -1)),
     "gru_wide_fwd": (("gru_kernel", "wide_fwd", 1),),
     "gru_wide_bwd": (("gru_kernel", "wide_bwd", 1), ("hier_decoder_kernel", "chains_wide", 1)),
-    "hier_fwd": (("hier_decoder_kernel", "fwd", 1),),
+    "hier_fwd": (("hier_decoder_kernel", "fwd", 1), ("hier_decoder_kernel", "wave_fwd", -1)),
+    "hier_wave_fwd": (("hier_decoder_kernel", "wave_fwd", 1),),
     "hier_bwd_prep": (("hier_decoder_kernel", "bwd", 1),),
 }
 
 
 def _launch_counts():
     """{(module, key): count} of the port's wrapper launch counters (an
-    earlier checkout's lack the wide layout's: 0)."""
+    earlier checkout's lack the wide and wave layouts': 0)."""
     import importlib
 
     counts = {(m, k): v for m in ("reg_kernel", "gru_kernel", "hier_decoder_kernel")
@@ -117,6 +119,7 @@ def _launch_counts():
     hk = importlib.import_module("arvae_tpu_torch.ops.hier_decoder_kernel")
     counts[("hier_decoder_kernel", "chains")] = hk.CHAIN_LAUNCHES["bwd"]
     counts[("hier_decoder_kernel", "chains_wide")] = hk.CHAIN_LAUNCHES.get("wide", 0)
+    counts[("hier_decoder_kernel", "wave_fwd")] = getattr(hk, "WAVE_LAUNCHES", {}).get("fwd", 0)
     return counts
 
 

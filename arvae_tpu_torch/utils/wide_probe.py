@@ -14,10 +14,13 @@ It reaches the port only through entry points every version of it has
 ``step_probe.call_events``). Where the version's forward keeps the
 hidden-side pre-activations for its backward (``keep_gh``), the
 backward is timed with them, as a train step runs it. For each
-``gru_chain`` shape (T, D, B, H) and the tick loop at H=512 (B=256,
-V=130, 6 ticks a beat, 2 layers, dropout 0.5, free-running): ms a call
-by CUDA events over back-to-back calls, and the device µs a call of
-each kernel (``torch.profiler``, 5 calls). With ``--atb-splits`` it
+``gru_chain`` shape (T, D, B, H): ms a call by CUDA events over
+back-to-back calls, and the device µs a call of each kernel
+(``torch.profiler``, 5 calls). For the tick loop (B=256, E=10, V=130,
+T=24, 6 ticks a beat, dropout 0.5, free-running) at each (H, L) of
+``HIER_SHAPES``, the shapes where no cluster holds its weights: the
+forward's ms, its device µs by kernel and its fp32 and 3xTF32 bounds
+(``kernel_work``); at H=512, L=2 also the backward's. With ``--atb-splits`` it
 times the backward instead under each split count of its
 weight-gradient GEMM (``gru_kernel.atb_splits`` replaced for the run),
 at the reference's widths. Every line ends with the card's name and
@@ -35,11 +38,13 @@ import torch
 
 from arvae_tpu_torch.ops import gru_kernel as gk
 from arvae_tpu_torch.ops import hier_decoder_kernel as hk
+from arvae_tpu_torch.utils import kernel_work as kw
 from arvae_tpu_torch.utils.step_probe import call_events, card, short_name
 
 GRU_SHAPES = ((24, 2, 256, 512), (4, 1, 256, 512), (24, 1, 256, 384), (24, 2, 100, 512),
               (24, 2, 128, 512), (24, 2, 1, 512), (24, 2, 22, 512), (6, 1, 1024, 512))
-HIER = dict(B=256, H=512, E=10, V=130, T=24, tpb=6, L=2)
+HIER = dict(B=256, E=10, V=130, T=24, tpb=6)
+HIER_SHAPES = ((512, 2), (384, 2), (256, 2), (128, 4), (512, 4))
 
 
 def _ms(fn, iters, warmup=3):
@@ -111,8 +116,8 @@ def hier_inputs(dev, B, H, E, V, T, tpb, L, seed=8):
     return score, floats, ct
 
 
-def hier_row(dev):
-    p = HIER
+def hier_row(dev, h, layers, backward):
+    p = dict(HIER, H=h, L=layers)
     score, floats, ct = hier_inputs(dev, **p)
     teacher = torch.zeros(1, dtype=torch.int32, device=dev)
     seed = torch.full((1,), 5, dtype=torch.int32, device=dev)
@@ -125,8 +130,13 @@ def hier_row(dev):
                                            weights, ct, *floats)
 
     fwd = lambda: hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, score, *floats)  # noqa
-    return {"shape": dict(p), "fwd_ms": _ms(fwd, 20), "bwd_ms": _ms(bwd, 20),
-            "bwd_us_by_kernel": _split(bwd)}
+    work = kw.hier_tick_chain(p["T"], p["B"], h, p["E"], p["V"], p["tpb"], L=layers)
+    row = {"shape": p, "plan": str(hk.hier_plan(p["B"], h, p["E"], p["V"], layers)),
+           "fwd_ms": _ms(fwd, 20), "fwd_us_by_kernel": _split(fwd),
+           "fwd_bound_ms": work.bound_ms, "fwd_tf32x3_bound_ms": work.tf32x3_bound_ms}
+    if backward:
+        row.update(bwd_ms=_ms(bwd, 20), bwd_us_by_kernel=_split(bwd))
+    return row
 
 
 def atb_split_rows(dev, line, tag):
@@ -185,11 +195,15 @@ def main(argv=None):
               f"{row['bwd_ms']:.5f} ms (gh kept: {row['keeps_gh']}); device µs a call by "
               f"kernel, fwd {row['fwd_us_by_kernel']}, bwd {row['bwd_us_by_kernel']} | {line}",
               flush=True)
-    row = hier_row(dev)
-    rows.append(row)
-    print(f"[{args.tag}] hier_tick_chain {row['shape']}: fwd {row['fwd_ms']:.5f} ms, bwd "
-          f"{row['bwd_ms']:.5f} ms; bwd device µs a call by kernel {row['bwd_us_by_kernel']} "
-          f"| {line}", flush=True)
+    for h, layers in HIER_SHAPES:
+        row = hier_row(dev, h, layers, (h, layers) == (512, 2))
+        rows.append(row)
+        bwd = (f"; bwd {row['bwd_ms']:.5f} ms, device µs a call by kernel "
+               f"{row['bwd_us_by_kernel']}" if "bwd_ms" in row else "")
+        print(f"[{args.tag}] hier_tick_chain {row['shape']}: fwd {row['fwd_ms']:.5f} ms "
+              f"(bound {row['fwd_bound_ms']:.4f} fp32, {row['fwd_tf32x3_bound_ms']:.4f} "
+              f"3xTF32), device µs a call by kernel {row['fwd_us_by_kernel']}, plan "
+              f"{row['plan']}{bwd} | {line}", flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"tag": args.tag, "card": line, "rows": rows}, f, default=str)

@@ -40,11 +40,16 @@ and the script exits non-zero:
    mode (``train=False``, as GLSR's decodes run it) at 6 and 24 ticks a
    beat, where a dropout rate must change nothing, and two argmax edges
    (a tie across two CTAs' vocabulary slices, a NaN logit); then at the
-   widths and depths of ``WIDE_DEEP_HIER`` (H=256 and 512 with 2
+   widths and depths of ``WIDE_DEEP_HIER`` (H=256, 384 and 512 with 2
    layers, H=128 with 1, 3 and 4): teacher-forced, free-running with
    dropout 0.5 (every gap's mask bitwise), eval, and the SR decoder's
-   one beat of 24 ticks; every plan is printed with the clusters the
-   card holds at once beside the count the plan assumes;
+   one beat of 24 ticks; and where no cluster holds the weights, the
+   wave layout (``WAVE_HIER``: H=512 and 256 with 2 layers, H=128 with
+   4) at V=34 and 130 also teacher-forced, free-running with dropout
+   0.5, in eval at B = 1, 6, 22 and 120, at B=100 with 5 ticks a beat,
+   a tie across its head CTAs' slices and a NaN logit in the last; every
+   plan is printed with the clusters (wave: CTAs) the card holds at once
+   beside the count the plan assumes;
 4. slice 1: the dSprites training CLI in-process (short grid, B=128, 2
    epochs), twice: the loss must be finite and fall, the reg kernels
    must have launched once per forward and once per backward, the two
@@ -104,10 +109,12 @@ and the script exits non-zero:
    call of every step on a kernel (the launch counters; at the
    reference's widths every ``gru_chain`` call and every tick-loop
    backward chain on the wide layout, ``WIDE_LAUNCHES`` and
-   ``CHAIN_LAUNCHES``), a train step repeated bitwise, its device busy
+   ``CHAIN_LAUNCHES``, and every tick-loop forward on the wave layout,
+   ``WAVE_LAUNCHES``), a train step repeated bitwise, its device busy
    time and largest kernels, and the trained model against the CPU on a
-   val batch. The kernels line's ``gru_chain_wide_fwd`` / ``_bwd``
-   entries take their launches from the 512-wide run;
+   val batch. The kernels line's ``gru_chain_wide_fwd`` / ``_bwd`` and
+   ``hier_tick_chain_wave_fwd`` entries take their launches from the
+   512-wide run;
 9. slice 5 (evaluation): every CLI run of slices 1-4 now ends with the
    evaluation (the latent harvest, the test pass, the five metrics and
    ``results_dict.json``); each run's file must have the JAX package's
@@ -119,7 +126,7 @@ and the script exits non-zero:
    music CLI run, each distinct shape once, the shapes read from each
    trained model (``_eval_tail_shapes``): the encoder's and the beat
    GRU's layers at H=128 and 512, SRDecoderNoInput's layer, the tick
-   loop at H=128 and 512 (streamed) with 2 and 3 layers, and the SR
+   loop at H=128 and 512 (the wave layout) with 2 and 3 layers, and the SR
    decoder's one beat of 24 ticks; for every CLI run (dSprites, music,
    the three variants, the 512-wide and 3-layer runs): the harvest and
    the test pass on the card against a CPU trainer holding the same
@@ -329,9 +336,15 @@ HIER_VS = (34, 130)
 HIER_RAGGED_B = 100
 HIER_PADDED_TPB = 5
 # (H, tick-GRU layers) beyond the music step's (128, 2): the widths the
-# JAX package runs (256 fused on the TPU, 512 the reference's) and the
-# depths its lax.scan runs
-WIDE_DEEP_HIER = ((256, 2), (512, 2), (128, 1), (128, 3), (128, 4))
+# JAX package runs (256 fused on the TPU, 512 the reference's, 384
+# SRDecoderNoInput's) and the depths its lax.scan runs
+WIDE_DEEP_HIER = ((256, 2), (512, 2), (384, 2), (128, 1), (128, 3), (128, 4))
+# The tick loop's wave layout (no cluster holds the weights): its cases
+# beyond WIDE_DEEP_HIER's, at these (H, layers): the music CLI's V=34,
+# eval at the analysis and eval-tail batches, a ragged batch at 5 ticks a
+# beat, and the argmax edges across its head CTAs
+WAVE_HIER = ((512, 2), (256, 2), (128, 4))
+WAVE_EVAL_BATCHES = (1, 6, 22, 120)
 
 # One eval step of a trained model on the card against the same step on
 # the CPU (plain paths): float32 products and sums in another order, so
@@ -411,9 +424,9 @@ BF16_RTOL = 1e-2
 # n = 20); each is held against the same rows of a call at MUSIC_B.
 ANALYSIS_BATCHES = (1, 6, 10, 22)
 # gru_chain (T, D, H): the encoder layer, the beat GRU layer, and the
-# reference's 512-wide encoder layer (streamed); hier_tick_chain in eval
-# mode (H, tick-GRU layers): the CLI's default, the streamed H=512 and a
-# 3-layer tick GRU, at the music CLI's vocabulary
+# reference's 512-wide encoder layer (the wide layout); hier_tick_chain in
+# eval mode (H, tick-GRU layers): the CLI's default, H=512 (the wave
+# layout) and a 3-layer tick GRU, at the music CLI's vocabulary
 ANALYSIS_GRU = ((24, 2, 128), (4, 1, 128), (24, 2, 512))
 ANALYSIS_HIER = ((128, 2), (512, 2), (128, 3))
 ANALYSIS_V = 34
@@ -715,11 +728,30 @@ def _gru_inputs(t, d, b, h, dev, seed):
 
 
 def _plan_line(p, held, assumed):
-    """A launch plan: its layout, clusters, shared memory, and the clusters
-    the card holds at once beside the count the plan assumes."""
-    return (f"{'streamed' if p.streamed else 'resident'}, clusters of {p.clusters} CTAs x "
-            f"{p.rows} rows, {p.ctas} CTAs, {p.smem_bytes} B dynamic shared memory each; the "
-            f"card holds {held} such clusters at once (the plan assumes {assumed})")
+    """A resident launch plan: its clusters, shared memory, and the
+    clusters the card holds at once beside the count the plan assumes."""
+    return (f"resident, clusters of {p.clusters} CTAs x {p.rows} rows, {p.ctas} CTAs, "
+            f"{p.smem_bytes} B dynamic shared memory each; the card holds {held} such "
+            f"clusters at once (the plan assumes {assumed})")
+
+
+def _hier_plan_line(hk, p):
+    """A ``hier_tick_chain`` forward plan: resident (clusters) or wave (one
+    cooperative wave: the CTAs the card holds at once must cover it;
+    ptxas's registers and spills of its kernel)."""
+    lib = hk._library()
+    if isinstance(p, hk.WavePlan):
+        held = lib.hier_tick_chain_wave_resident_ctas(p.splits, p.smem_bytes)
+        if held < p.ctas:
+            raise AssertionError(f"wave plan {p}: the card holds only {held} such CTAs at once")
+        kernel = f"hier_wave_fwd<{p.splits}>"
+        return (f"wave, {p.units} units x {p.rows} rows a CTA ({p.passes} passes of "
+                f"{p.pass_rows}, depth split {p.splits}), {p.ctas} CTAs of 256 threads, "
+                f"{p.smem_bytes} B dynamic shared memory each; the card holds {held} such CTAs "
+                f"at once (one cooperative wave); {kernel}: "
+                f"{PTXAS.get(kernel, 'not built here')}")
+    held = lib.hier_tick_chain_resident_clusters(p.clusters, p.smem_bytes)
+    return _plan_line(p, held, hk.RESIDENT_CLUSTERS[p.clusters])
 
 
 def _gru_plan_line(gk, lib, p, backward):
@@ -868,13 +900,8 @@ def _hier_plans():
     for v in HIER_VS:
         for b in (HIER_B, HIER_RAGGED_B):
             p = hk.hier_plan(b, HIER_H, HIER_E, v)
-            held = lib.hier_tick_chain_resident_clusters(int(p.streamed), p.clusters,
-                                                         p.smem_bytes)
             print(f"[kernels] hier_tick_chain fwd plan at (B={b}, H={HIER_H}, E={HIER_E}, "
-                  f"V={v}): clusters of {p.clusters} CTAs x {p.rows} rows, {p.ctas} CTAs, "
-                  f"{p.smem_bytes} B dynamic shared memory each; the card holds {held} such "
-                  f"clusters at once (the plan assumes "
-                  f"{hk.RESIDENT_CLUSTERS[p.clusters]})")
+                  f"V={v}): {_hier_plan_line(hk, p)}")
     for v in HIER_VS:
         fwd, bwd = hk.hier_plans(HIER_T, HIER_B, HIER_H, HIER_E, v, 2, HIER_T)
         print(f"[kernels] SRDecoder's tick loop (B={HIER_B}, H={HIER_H}, E={HIER_E}, V={v}, one "
@@ -897,11 +924,9 @@ def _hier_wide_deep(dev, h, layers):
     from arvae_tpu_torch.ops import hier_decoder_kernel as hk
 
     v = HIER_VS[-1]
-    lib = hk._library()
     p = hk.hier_plan(HIER_B, h, HIER_E, v, layers)
-    held = lib.hier_tick_chain_resident_clusters(int(p.streamed), p.clusters, p.smem_bytes)
     print(f"[kernels] hier_tick_chain fwd plan at (B={HIER_B}, H={h}, L={layers}, E={HIER_E}, "
-          f"V={v}): {_plan_line(p, held, hk.held_clusters(p))}; bwd chain plan "
+          f"V={v}): {_hier_plan_line(hk, p)}; bwd chain plan "
           f"{hk.chain_plan(HIER_T, HIER_B, h, 6)}")
     shape = f"B={HIER_B}, H={h}, L={layers}, E={HIER_E}, V={v}, T={HIER_T}"
     errs = []
@@ -929,11 +954,71 @@ def _hier_wide_deep(dev, h, layers):
     return errs
 
 
+def _hier_wave_cases(dev, h, layers):
+    """The wave layout at (h, layers) beyond ``_hier_wide_deep``: at each V
+    where it plans, teacher-forced and free-running with dropout 0.5 (the
+    teacher trick, masks bitwise), eval free-running at B = 1, 6, 22, 120,
+    B=100 at 5 ticks a beat, a tie across its head CTAs and a NaN logit
+    → [(fwd, bwd) max abs err]."""
+    from arvae_tpu_torch.ops import hier_decoder_kernel as hk
+
+    errs = []
+    for v in HIER_VS:
+        p = hk.hier_plan(HIER_B, h, HIER_E, v, layers)
+        if not isinstance(p, hk.WavePlan):  # H=128, L=4 at V=34: a cluster holds it
+            print(f"[kernels] hier_tick_chain (H={h}, L={layers}, V={v}): "
+                  f"{_hier_plan_line(hk, p)}")
+            continue
+        shape = f"H={h}, L={layers}, E={HIER_E}, V={v}, T={HIER_T}, wave layout"
+        score, floats, ct = _hier_inputs(dev, 60 + layers, v, h=h, layers=layers)
+        forced = _ints(1, 3, dev) + (score,)
+        errs.append(_hier_compare(f"hier_tick_chain train teacher-forced (B={HIER_B}, {shape})",
+                                  (True, 0.0, "argmax"), forced, forced, floats, ct)[1:])
+        seed = torch.tensor([123457], dtype=torch.int32, device=dev)
+        free = (torch.zeros(1, dtype=torch.int32, device=dev), seed, score)
+        w_free, s_free = _hier_kernel_run("hier sampled", (True, 0.5, "argmax"), *free,
+                                          floats)[:2]
+        if not torch.equal(s_free, hk.argmax_lowest(w_free).clamp(0, v - 1).to(torch.int32)):
+            raise AssertionError(f"{shape}: free-running samples are not their logits' argmax")
+        errs.append(_hier_compare(
+            f"hier_tick_chain train free-running, dropout 0.5, masks bitwise (B={HIER_B}, "
+            f"{shape})", (True, 0.5, "argmax"), free, (torch.ones_like(free[0]), seed, s_free),
+            floats, ct)[1:])
+        for b in WAVE_EVAL_BATCHES:
+            score, floats, ct = _hier_inputs(dev, 90 + b, v, b=b, h=h, layers=layers)
+            free = _ints(0, 3, dev) + (score,)
+            s_eval = _hier_kernel_run("hier eval", (False, 0.5, "argmax"), *free, floats)[1]
+            errs.append(_hier_compare(
+                f"hier_tick_chain eval, free-running, teacher trick (B={b}, {shape}; "
+                f"{_plan_text(hk.hier_plan(b, h, HIER_E, v, layers))})",
+                (False, 0.5, "argmax"), free, _ints(1, 3, dev) + (s_eval,), floats, ct)[1:])
+        score, floats, ct = _hier_inputs(dev, 80 + layers, v, b=HIER_RAGGED_B,
+                                         tpb=HIER_PADDED_TPB, h=h, layers=layers)
+        forced = _ints(1, 3, dev) + (score,)
+        errs.append(_hier_compare(
+            f"hier_tick_chain teacher-forced (B={HIER_RAGGED_B}, {HIER_PADDED_TPB} ticks a "
+            f"beat, {shape})", (True, 0.0, "argmax", HIER_PADDED_TPB), forced, forced, floats,
+            ct)[1:])
+        edge, _ = hk.wave_head(h, v, p.units)  # head CTA 1's first column
+        _hier_argmax_edges(dev, v, edge, h, layers, nan_col=v - 2)  # the NaN in the last
+    return errs
+
+
 def _hier_kernels(dev):
+    from arvae_tpu_torch.ops import hier_decoder_kernel as hk
+
     _hier_plans()
     errs = [_hier_kernels_at(dev, v) for v in HIER_VS]
+    wave = []  # the wave layout's cases
     for h, layers in WIDE_DEEP_HIER:
-        errs += _hier_wide_deep(dev, h, layers)
+        e = _hier_wide_deep(dev, h, layers)
+        errs += e
+        if _layout(hk.hier_plan(HIER_B, h, HIER_E, HIER_VS[-1], layers)) == "wave":
+            wave += e
+    for h, layers in WAVE_HIER:
+        e = _hier_wave_cases(dev, h, layers)
+        errs += e
+        wave += e
     v = HIER_VS[-1]
     for b, tpb in ((HIER_RAGGED_B, HIER_TPB), (HIER_B, HIER_T), (HIER_B, HIER_PADDED_TPB)):
         score, floats, ct = _hier_inputs(dev, 5, v, b=b, tpb=tpb)
@@ -949,7 +1034,8 @@ def _hier_kernels(dev):
         for tpb in (HIER_TPB, HIER_T):
             errs.append(_hier_eval_case(dev, v, tpb))
     _hier_argmax_edges(dev, v)
-    return max(e[0] for e in errs), max(e[1] for e in errs)
+    # (fwd, bwd) max abs err over every case, then the wave layout's fwd
+    return max(e[0] for e in errs), max(e[1] for e in errs), max(e[0] for e in wave)
 
 
 def _hier_eval_case(dev, v, tpb):
@@ -975,18 +1061,21 @@ def _hier_eval_case(dev, v, tpb):
     return e
 
 
-def _hier_argmax_edges(dev, v):
+def _hier_argmax_edges(dev, v, edge=None, h=HIER_H, layers=2, nan_col=7):
     """Free-running argmax on flat logits (zero weights, so every row's
-    logits are out_b): a tie across two CTAs' vocabulary slices takes the
-    lower index, and a NaN logit gives V, clamped to V-1."""
+    logits are out_b): a tie across two CTAs' vocabulary slices (``edge``
+    the second's first column: the resident layout's at H=128 by default)
+    takes the lower index, and a NaN logit (at ``nan_col``) gives V,
+    clamped to V-1."""
     from arvae_tpu_torch.ops import hier_decoder_kernel as hk
 
-    edge = -(-v // hk.hier_plan(HIER_B, HIER_H, HIER_E, v).clusters)  # CTA 1's first column
+    if edge is None:  # the resident layout's CTA 1's first column
+        edge = -(-v // hk.hier_plan(HIER_B, h, HIER_E, v, layers).clusters)
     cfg = (True, 0.0, "argmax")
     free = _ints(0, 3, dev)
     for tag, peaks, nan, want in (("tie across CTAs", (edge - 1, edge), None, edge - 1),
-                                  ("NaN logit", (3,), 7, v - 1)):
-        score, floats, _ = _hier_inputs(dev, 10, v, zero=True)
+                                  ("NaN logit", (3,), nan_col, v - 1)):
+        score, floats, _ = _hier_inputs(dev, 10, v, zero=True, h=h, layers=layers)
         for col in peaks:
             floats[-1][col] = 5.0
         if nan is not None:
@@ -998,9 +1087,10 @@ def _hier_argmax_edges(dev, v):
                                  f"want {want} everywhere, as the plain version")
         torch.testing.assert_close(w_k, w_p, rtol=SEQ_FWD_RTOL, atol=SEQ_FWD_ATOL,
                                    equal_nan=True)
-        print(f"[kernels] hier_tick_chain {tag} (V={v}, out_b peaks at {list(peaks)}"
-              f"{f', NaN at {nan}' if nan is not None else ''}): every sample is {want}, "
-              f"as the plain version")
+        print(f"[kernels] hier_tick_chain {tag} (H={h}, L={layers}, V={v}, "
+              f"{_layout(hk.hier_plan(HIER_B, h, HIER_E, v, layers))}, out_b peaks at "
+              f"{list(peaks)}{f', NaN at {nan}' if nan is not None else ''}): every sample is "
+              f"{want}, as the plain version")
 
 
 def _hier_kernels_at(dev, v):
@@ -1586,6 +1676,12 @@ def _wide_deep_run(name, card_line):
                   "chains": {"bwd": layers * launches["hier"]["bwd"], "wide": 0}})
     _check_launches(f"music {name}, wide layout",
                     {k: launches[k] for k in wide_want}, wide_want)
+    # the tick loop's forward on the wave layout: every one at the
+    # reference's width, none at H=128
+    launches["wave"] = dict(hk.WAVE_LAUNCHES)
+    wave_want = {"fwd": launches["hier"]["fwd"] if model.decoder.rnn_tick.hidden_size >= 256
+                 else 0}
+    _check_launches(f"music {name}, wave layout", launches["wave"], wave_want)
     print(f"[wide] music CLI {' '.join(flags)} (H enc {model.encoder.lstm.hidden_size}, "
           f"dec {model.decoder.rnn_tick.hidden_size}, {model.decoder.rnn_tick.num_layers} "
           f"tick-GRU layers): 2 epochs in {seconds:.1f} s; train loss "
@@ -1739,11 +1835,16 @@ def _kernel_times(dev, card_line):
     for h, layers in WIDE_DEEP_HIER:
         row = _hier_times(dev, h, layers)
         times.setdefault("hier_wide", []).append(row)
+        fw, bw = row["fwd_work"], row["bwd_work"]
         print(f"[times] hier_tick_chain at B={HIER_B}, H={h}, L={layers}, E={HIER_E}, "
               f"V={MUSIC_BENCH_V}, T={HIER_T}, train with dropout 0.5, free-running (ms per "
-              f"call): fwd {row['fwd']:.5f} vs plain {row['fwd_plain']:.5f}, bound "
-              f"{row['fwd_work'].bound_ms:.5f}; bwd {row['bwd']:.5f} vs plain "
-              f"{row['bwd_plain']:.5f}, bound {row['bwd_work'].bound_ms:.5f} | {card_line}")
+              f"call): fwd ({row['plan']}) {row['fwd']:.5f} vs plain {row['fwd_plain']:.5f}, "
+              f"bound {fw.bound_ms:.5f} fp32 ({100 * fw.bound_ms / row['fwd']:.1f}% of it), "
+              f"{fw.tf32x3_bound_ms:.5f} 3xTF32; bwd {row['bwd']:.5f} vs plain "
+              f"{row['bwd_plain']:.5f}, bound {bw.bound_ms:.5f} fp32, {bw.tf32x3_bound_ms:.5f} "
+              f"3xTF32; device µs a call by kernel, fwd: " + "; ".join(
+                  f"{n} x{k:g} {us:.1f}" for n, (k, us) in row["fwd_split"])
+              + f" | {card_line}")
 
     score, floats, ct = _hier_inputs(dev, 8, MUSIC_BENCH_V)
     teacher, seed = _ints(0, 5, dev)
@@ -1827,10 +1928,15 @@ def _hier_times(dev, h, layers):
     n = 100 if h <= 128 else 20
     shape = dict(T=HIER_T, B=HIER_B, H=h, E=HIER_E, V=MUSIC_BENCH_V, ticks_per_beat=HIER_TPB,
                  L=layers)
+
+    def fwd():
+        return hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, score, *floats)
+
     return {
         "shape": (h, layers),
-        "fwd": _event_ms(lambda: hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, score,
-                                                             *floats), n),
+        "plan": _plan_text(hk.hier_plan(HIER_B, h, HIER_E, MUSIC_BENCH_V, layers)),
+        "fwd": _event_ms(fwd, n),
+        "fwd_split": _kernel_split(fwd, 5),
         "fwd_plain": _event_ms(lambda: hk.tick_chain_reference(
             *cfg, teacher, seed, score, *hk.chain_operands(floats)), 5, 1),
         "bwd": _event_ms(lambda: hk.hier_tick_chain_bwd_cuda(
@@ -2299,9 +2405,9 @@ def _eval_tail_kernels(dev, runs):
         score, floats, _ = _hier_inputs(dev, 21 + layers, v, b=b, tpb=tpb, h=h, layers=layers,
                                         e=e_dim)
         cfg = cfg_eval + (tpb,)
-        streamed = hk.hier_plan(b, h, e_dim, v, layers).streamed
+        layout = _layout(hk.hier_plan(b, h, e_dim, v, layers))
         tag = (f"hier_tick_chain fwd, eval mode, at the eval tail (B={b}, H={h}, L={layers}, "
-               f"{tpb} ticks a beat, E={e_dim}, V={v}, {'streamed' if streamed else 'resident'})")
+               f"{tpb} ticks a beat, E={e_dim}, V={v}, {layout})")
         with torch.no_grad():
             w_k, s_k = _hier_kernel_run(tag, cfg, *_ints(0, 3, dev), score, floats)[:2]
             if not torch.equal(s_k, hk.argmax_lowest(w_k).clamp(0, v - 1).to(torch.int32)):
@@ -2778,26 +2884,33 @@ def _check_rows_of_full(tag, own, under_full, full_rows, same_plan):
 
 def _same_layout(p, q):
     """Two launch plans that sum every output alike: cluster plans that
-    tile rows alike (their grids follow B), or wide plans of as many
-    units a CTA (their sums do not depend on the row tile)."""
+    tile rows alike (their grids follow B), wide plans of as many units a
+    CTA (their sums do not depend on the row tile), or wave plans of as
+    many units a CTA and depth splits."""
     from arvae_tpu_torch.ops.gru_kernel import WidePlan
+    from arvae_tpu_torch.ops.hier_decoder_kernel import WavePlan
 
     if isinstance(p, WidePlan) or isinstance(q, WidePlan):
         return type(p) is type(q) and p.units == q.units
-    return (p.clusters, p.rows, p.smem_bytes, p.streamed) == (q.clusters, q.rows, q.smem_bytes,
-                                                              q.streamed)
+    if isinstance(p, WavePlan) or isinstance(q, WavePlan):
+        return type(p) is type(q) and (p.units, p.splits) == (q.units, q.splits)
+    return (p.clusters, p.rows, p.smem_bytes) == (q.clusters, q.rows, q.smem_bytes)
 
 
 def _layout(p):
     from arvae_tpu_torch.ops.gru_kernel import WidePlan
+    from arvae_tpu_torch.ops.hier_decoder_kernel import WavePlan
 
-    return "wide" if isinstance(p, WidePlan) else "streamed" if p.streamed else "resident"
+    return "wide" if isinstance(p, WidePlan) else "wave" if isinstance(p, WavePlan) else "resident"
 
 
 def _plan_text(p):
     if _layout(p) == "wide":
         return f"wide, {p.units} units x {p.rows} rows a CTA, {p.ctas} CTAs"
-    return f"{_layout(p)}, {p.clusters} CTAs x {p.rows} rows a cluster, {p.ctas} CTAs"
+    if _layout(p) == "wave":
+        return (f"wave, {p.units} units x {p.rows} rows a CTA, depth split {p.splits}, "
+                f"{p.ctas} CTAs")
+    return f"resident, {p.clusters} CTAs x {p.rows} rows a cluster, {p.ctas} CTAs"
 
 
 def _cudnn_gru_ms(dev, t, d, b, h, width):
@@ -3519,12 +3632,14 @@ def _dp_plans():
         enc = gru_kernel.gru_plan(2, b, 128, False)
         beat = gru_kernel.gru_plan(1, b, 128, False)
         fwd, chain = hier_decoder_kernel.hier_plans(24, b, 128, 10, 130, 2, 6)
+        wide = hier_decoder_kernel.hier_plan(b, 512, 10, 130, 2)
         print(f"[data parallel] W={w}, B/W={b}: gru_chain (24, 2, {b}, 128) clusters of "
               f"{enc.clusters} x {enc.rows} rows ({enc.ctas} CTAs); (4, 1, {b}, 128) "
               f"{beat.clusters} x {beat.rows} ({beat.ctas}); hier_tick_chain fwd "
-              f"{fwd.clusters} x {fwd.rows} ({fwd.ctas}), bwd chains {chain.clusters} x "
-              f"{chain.rows} ({chain.ctas}); reg at the global (5, 128) "
-              f"{reg_kernel.reg_plan(5, 128).grid} and (4, 256) {reg_kernel.reg_plan(4, 256).grid}")
+              f"{_plan_text(fwd)}, bwd chains {chain.clusters} x "
+              f"{chain.rows} ({chain.ctas}); at H=512 its fwd {_plan_text(wide)}; reg at the "
+              f"global (5, 128) {reg_kernel.reg_plan(5, 128).grid} and (4, 256) "
+              f"{reg_kernel.reg_plan(4, 256).grid}")
 
 
 def _dp_rank(rank, world, store_path, out_path):
@@ -3629,46 +3744,73 @@ def _dp_two_cards(want, card_line):
 
 def _dp_row_base(dev, card_line):
     """The tick loop's ``row_base`` on the card, at the music step's
-    shapes in training with dropout 0.5 (teacher-forced): each of W = 2, 4
-    ranks' rows of the B=256 call, run with its first global row as
-    ``row_base`` under the B=256 call's plan, gives that call's rows
+    shapes in training with dropout 0.5 (teacher-forced), at H=128 (the
+    resident layout) and the reference's H=512 (the wave layout): each of
+    W = 2, 4 ranks' rows of the B=256 call, run with its first global row
+    as ``row_base`` under the B=256 call's plan, gives that call's rows
     bitwise (the dropout masks hashed by global row); under its own plan
     it matches the plain version at that ``row_base``; its backward gives
     the B=256 call's per-row gradients, and the ranks' weight gradients
     sum to that call's → the largest differences."""
+    errs = {"fwd_vs_plain": 0.0, "row_grads": 0.0, "weight_grads": 0.0}
+    for h in (HIER_H, 512):
+        _dp_row_base_at(dev, card_line, h, errs)
+    return errs
+
+
+def _dp_row_base_at(dev, card_line, h, errs):
+    """``_dp_row_base`` at width h. A rank's own plan may sum its products
+    in another order than the B=MUSIC_B call's (at H=512 the wave layout
+    splits the depth of a 64-row group, not of a 128-row one), so a logit
+    within rounding of the ReLU kink can land on the other side and route
+    a row's gradient differently: the cotangent is zeroed where a rank's
+    logits and that call's disagree on the sign, at most 1e-4 of them, as
+    ``_hier_compare`` does, and the B=MUSIC_B call's backward is taken
+    under the same cotangent."""
     from arvae_tpu_torch.ops import hier_decoder_kernel as hk
 
-    score, floats, ct = _hier_inputs(dev, 71, MUSIC_BENCH_V, b=MUSIC_B)
+    score, floats, ct = _hier_inputs(dev, 71, MUSIC_BENCH_V, b=MUSIC_B, h=h)
     teacher, seed = _ints(1, 5, dev)
     cfg = (True, 0.5, HIER_TPB, "argmax")
-    full_plan = hk.hier_plan(MUSIC_B, HIER_H, HIER_E, MUSIC_BENCH_V, 2)
+    full_plan = hk.hier_plan(MUSIC_B, h, HIER_E, MUSIC_BENCH_V, 2)
     w_full, s_full, *h_full = hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, score, *floats)
-    g_full = hk.hier_tick_chain_bwd_cuda(True, 0.5, HIER_TPB, seed, s_full, h_full, w_full, ct,
-                                         *floats)
-    errs = {"fwd_vs_plain": 0.0, "row_grads": 0.0, "weight_grads": 0.0}
+    flips = {}
     for world in (2, 4):
         b = MUSIC_B // world
-        sums = None
+        ranks = []
         for k in range(world):
             rows = slice(k * b, (k + 1) * b)
             sc = score[:, rows].contiguous()
             fl = [floats[0][:, rows].contiguous(), floats[1][:, :, rows].contiguous(),
                   floats[2][rows].contiguous()] + floats[3:]
-            tag = f"hier_tick_chain row_base={k * b}, rank {k} of {world}"
+            tag = f"hier_tick_chain H={h} row_base={k * b}, rank {k} of {world}"
             under = hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, sc, *fl, plan=full_plan,
                                                 row_base=k * b)
             if not (torch.equal(_bits(under[0]), _bits(w_full[:, rows]))
                     and torch.equal(under[1], s_full[:, rows])):
                 raise AssertionError(f"{tag}: under the B={MUSIC_B} plan not bitwise its rows")
-            w, s, *h = hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, sc, *fl, row_base=k * b)
+            w, s, *hid = hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, sc, *fl,
+                                                     row_base=k * b)
             w_p, s_p = hk.tick_chain_reference(*cfg, teacher, seed, sc, *hk.chain_operands(fl),
                                                row_base=k * b)
             if not torch.equal(s, s_p):
                 raise AssertionError(f"{tag}: samples differ from the plain version")
             errs["fwd_vs_plain"] = max(errs["fwd_vs_plain"], _check_close(
                 f"{tag} against the plain version", w, w_p, SEQ_FWD_RTOL, SEQ_FWD_ATOL))
-            g = hk.hier_tick_chain_bwd_cuda(True, 0.5, HIER_TPB, seed, s, h, w,
-                                            ct[:, rows].contiguous(), *fl, row_base=k * b)
+            ranks.append((tag, rows, fl, w, s, hid))
+        agree = torch.cat([(w > 0) == (w_full[:, rows] > 0) for _, rows, _, w, _, _ in ranks],
+                          dim=1)
+        flips[world] = int((~agree).sum())
+        if flips[world] > 1e-4 * agree.numel():
+            raise AssertionError(f"hier_tick_chain H={h}, {world} ranks: {flips[world]} logits "
+                                 f"change sign against the B={MUSIC_B} call")
+        ct_w = ct * agree
+        g_full = hk.hier_tick_chain_bwd_cuda(True, 0.5, HIER_TPB, seed, s_full, h_full, w_full,
+                                             ct_w, *floats)
+        sums = None
+        for k, (tag, rows, fl, w, s, hid) in enumerate(ranks):
+            g = hk.hier_tick_chain_bwd_cuda(True, 0.5, HIER_TPB, seed, s, hid, w,
+                                            ct_w[:, rows].contiguous(), *fl, row_base=k * b)
             for name, got, want in (("dgi_beat", g[0], g_full[0][:, rows]),
                                     ("dtick_h0", g[1], g_full[1][:, :, rows]),
                                     ("dx0", g[2], g_full[2][rows])):
@@ -3679,12 +3821,13 @@ def _dp_row_base(dev, card_line):
         for name, got, want in zip(names, sums, g_full[3:]):
             errs["weight_grads"] = max(errs["weight_grads"], _check_grad(
                 f"d{name}, the sum over {world} ranks' rows", got, want))
-    print(f"[data parallel] hier_tick_chain row_base (training, dropout 0.5, B={MUSIC_B} "
-          f"split over 2 and 4 ranks): each rank's rows under the B={MUSIC_B} plan bitwise "
-          f"that call's; against the plain version at its row_base max abs err "
-          f"{errs['fwd_vs_plain']:.3e}; per-row gradients {errs['row_grads']:.3e} and summed "
-          f"weight gradients {errs['weight_grads']:.3e} off the B={MUSIC_B} call's | {card_line}")
-    return errs
+    print(f"[data parallel] hier_tick_chain row_base at H={h} ({_plan_text(full_plan)}; "
+          f"training, dropout 0.5, B={MUSIC_B} split over 2 and 4 ranks): each rank's rows "
+          f"under the B={MUSIC_B} plan bitwise that call's; so far against the plain version "
+          f"at its row_base max abs err {errs['fwd_vs_plain']:.3e}; per-row gradients "
+          f"{errs['row_grads']:.3e} and summed weight gradients {errs['weight_grads']:.3e} off "
+          f"the B={MUSIC_B} call's (ReLU-kink sign flips masked, by ranks: {flips}) "
+          f"| {card_line}")
 
 
 def _dp_cli(card_line):
@@ -3982,12 +4125,37 @@ def main(argv=None) -> int:
                 "device_us_by_kernel": dict(row[f"{direction}_split"]),
                 "wide_shapes": shapes("gru", direction)}
 
+    def wave_entry():
+        """The tick loop's wave layout: launches from the 512-wide CLI run
+        (its main path), times at the 512-wide step's (B, H, V, L) = (256,
+        512, 130, 2)."""
+        counts, steps, busy = wide["512-wide"]
+        row = next(r for r in times["hier_wide"] if r["shape"] == (512, 2))
+        w = row["fwd_work"]
+        return {"name": "hier_tick_chain_wave_fwd", "layout": "wave", "route": "cuda",
+                "source": csrc + "hier_tick_chain.cu",
+                "replaces": "arvae_tpu/ops/hier_decoder_pallas.py:475",
+                "launches": counts["wave"]["fwd"],
+                "launches_per_train_step": counts["hier"]["bwd"] / steps,
+                "max_abs_err": errs["hier"][2], "shape": [HIER_B, 512, MUSIC_BENCH_V, 2],
+                "plan": row["plan"], "ms": row["fwd"], "plain_ms": row["fwd_plain"],
+                "bound_ms": w.bound_ms, "bound_by": w.bound_by,
+                "tf32x3_bound_ms": w.tf32x3_bound_ms, "library_ms": None,
+                "device_us_by_kernel": dict(row["fwd_split"]),
+                "step_device_busy_ms": busy,
+                "wave_shapes": [{"shape": r["shape"], "plan": r["plan"], "ms": r["fwd"],
+                                 "plain_ms": r["fwd_plain"],
+                                 "bound_ms": r["fwd_work"].bound_ms,
+                                 "tf32x3_bound_ms": r["fwd_work"].tf32x3_bound_ms,
+                                 "library_ms": None}
+                                for r in times["hier_wide"] if r["plan"].startswith("wave")]}
+
     kernels += [wide_entry("fwd", "arvae_tpu/ops/gru_pallas.py:144"),
-                wide_entry("bwd", "arvae_tpu/ops/gru_pallas.py:218")]
+                wide_entry("bwd", "arvae_tpu/ops/gru_pallas.py:218"), wave_entry()]
     for k in kernels:
         where = (f"{k['launches_per_train_step']:g} launches a train step of the 512-wide "
                  f"music CLI run ({k['launches']} in it), at {k['shape']}"
-                 if k["layout"] == "wide" else
+                 if k["layout"] in ("wide", "wave") else
                  f"{k['launches_per_step']:g} launches a step, "
                  f"{k['eval_launches_per_batch']['harvest']} a harvest batch and "
                  f"{k['eval_launches_per_batch']['test']} a test batch")

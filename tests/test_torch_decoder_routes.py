@@ -4,9 +4,9 @@ against the JAX package.
 On a CUDA tensor ``gru_chain`` and ``tick_chain`` launch their kernels,
 whose launch plans are pure functions of the shapes: the kernels plan
 every width up to the reference's H=512 (the weight slices resident in
-shared memory where they fit, streamed from L2 where they do not: the
-tick loop's forward; the GRU chain's wide layout, one wave of CTAs each
-holding a slice of w_hh, where no cluster holds them) and
+shared memory where they fit; where they do not, the tick loop's wave
+layout and the GRU chain's wide layout, each one wave of CTAs holding
+slices of the weights) and
 tick GRUs of 1 to 4 layers, at V=130 or 34, E=10. A depth outside that
 range raises ValueError naming H and L before any launch; these checks
 need no card. On a CPU tensor both ops run their plain loops at any
@@ -52,8 +52,9 @@ def test_kernels_plan_or_refuse_naming_the_width(h, layers):
             assert fwd == hk.hier_plan(256, h, 10, v, layers)
             assert bwd == hk.chain_plan(24, 256, h, tpb)
             assert max(fwd.smem_bytes, bwd.smem_bytes) <= gk.MAX_SMEM
-            # the resident layouts wherever they fit
-            assert fwd.streamed == ((h, layers) not in ((128, 2), (128, 3), (192, 2)))
+            # the resident layouts wherever they fit, else the wave layout
+            assert isinstance(fwd, hk.WavePlan) == ((h, layers) not in ((128, 2), (128, 3),
+                                                                        (192, 2)))
             assert isinstance(bwd, gk.WidePlan) == (h >= 384)
         # a depth outside the kernels' range is refused, naming H and L
         with pytest.raises(ValueError, match=f"H={h}, L={layers + 3}"):

@@ -12,7 +12,11 @@ logits must then match, and each of the port's own free-running samples
 must be the lowest-index argmax of its own logits, exactly. At H=256,
 the widest tick loop the TPU ran fused (its ``supports`` admits it at
 B=256) and one the card's kernels now plan, teacher-forced forward and
-gradients are held alike."""
+gradients are held alike. The wave layout's argmax over V slices
+(``argmax_by_slices``: per-slice partials combined as the kernel
+combines them) equals ``argmax_lowest`` on ties that straddle slices,
+all-equal rows and NaN rows, and takes the JAX kernel's token on a tie
+across the first slice edge."""
 
 import jax
 import jax.numpy as jnp
@@ -72,7 +76,8 @@ def _jax(teacher, score, floats, tpb=TPB, grad_ct=None):
 
 def test_wide_teacher_forced_forward_and_grads_match_jax():
     h = 256
-    assert hk.hier_plan(256, h, E, V).streamed  # the card's plan at the music step's B
+    # the card's plan at the music step's B: the wave layout
+    assert isinstance(hk.hier_plan(256, h, E, V), hk.WavePlan)
     score, floats = _operands(21, h=h)
     ct = np.random.RandomState(22).randn(T, B, V).astype(np.float32)
     w_got, s_got, g_got = _port(1, score, floats, TPB, grad_ct=ct)
@@ -119,6 +124,54 @@ def test_free_running_matches_jax_by_the_teacher_trick():
 def test_argmax_lowest_index_and_nan():
     scores = torch.tensor([[0.0, 0.0, 0.0], [1.0, 3.0, 3.0], [2.0, float("nan"), 5.0]])
     assert hk.argmax_lowest(scores).tolist() == [0, 1, 3]  # 3 = V: clamped by the caller
+
+
+def _argmax_edge_rows(v, width):
+    """Score rows at the edges of ``argmax_lowest``: ties that straddle a
+    slice edge (and ties inside a slice), all-equal rows, a NaN inside the
+    winning slice and one after it, a row of -inf, and random rows."""
+    rng = np.random.RandomState(v + width)
+    rows = [np.zeros(v), np.full(v, -np.inf)]
+    for edge in range(width, v, width):
+        r = rng.rand(v)
+        r[edge - 1] = r[edge] = 2.0  # the lower, in the earlier slice, wins
+        rows.append(r)
+        r = rng.rand(v)
+        r[edge] = r[min(edge + 1, v - 1)] = 2.0
+        rows.append(r)
+    r = rng.rand(v)
+    r[width + 1] = np.nan  # V, whatever comes before or after
+    rows.append(r)
+    r = rng.rand(v)
+    r[0], r[v - 1] = 3.0, np.nan
+    rows.append(r)
+    rows += list(rng.rand(8, v))
+    rows += list(np.round(rng.rand(8, v) * 3))  # many ties
+    return torch.tensor(np.array(rows), dtype=torch.float32)
+
+
+@pytest.mark.parametrize("v,width", [(130, 8), (34, 8), (130, 16), (130, 40), (34, 16)])
+def test_argmax_by_slices_is_argmax_lowest(v, width):
+    # the wave layout's head: a partial (max, lowest index) a slice of
+    # ``width`` columns, combined across slices as the kernel does
+    scores = _argmax_edge_rows(v, width)
+    got = hk.argmax_by_slices(scores, width)
+    assert torch.equal(got, hk.argmax_lowest(scores))
+    assert got[:2].tolist() == [0, 0] and got[2].item() == width - 1
+    assert int(got[-18]) == v and int(got[-17]) == v  # NaN rows give V
+
+
+def test_argmax_by_slices_takes_the_jax_kernels_token_on_a_tie():
+    # flat logits (zero weights, logits = out_b) peaked at two columns that
+    # straddle the first 8-column slice edge: the JAX Pallas kernel in
+    # interpret mode feeds the lower, as the slices' combine picks it
+    out_b = np.zeros(130, np.float32)
+    out_b[7] = out_b[8] = 5.0
+    score, floats = _flat_chain(out_b)
+    w_jax, s_jax, _ = _jax(0, score, floats)
+    assert (s_jax == 7).all()
+    by_slices = hk.argmax_by_slices(torch.tensor(w_jax), 8)
+    np.testing.assert_array_equal(by_slices.numpy(), s_jax)
 
 
 def _uniform_python(seed, t, salt, row, col):

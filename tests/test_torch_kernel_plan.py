@@ -4,7 +4,11 @@ the CPU from the shapes: each fits 227 KB of shared memory, fills the
 card at the music step's B=256, and a plan too wide raises. Every shape
 of the range the kernels take plans (H a multiple of 32 up to 512, tick
 GRUs of 1 to 4 layers), and the music step's H=128 plans are the ones
-the kernels have run since the resident layouts were designed. The GRU
+the kernels have run since the resident layouts were designed. The tick
+loop's forward where no cluster holds its weights (the wave layout)
+plans one cooperative wave of at most 132 CTAs whose row groups cover
+every row and whose unit groups cover every unit, its shared memory
+mirroring the kernel's layout term for term. The GRU
 chain's wide layout (H=384 and 512) plans one cooperative wave of CTAs
 that covers every row at each shape the card runs it at: chip_smoke.py's
 wide cases, the tick loop's backward chains, the analysis batches and a
@@ -105,13 +109,16 @@ def test_hier_plan_ragged_batch_covers_every_row():
 def test_hier_plan_too_wide_raises_naming_h_and_v(h):
     if h == 256:
         # the three H x 3H matrices alone take 2.4 MB, more than the 1.8 MB
-        # of shared memory of a cluster of 8 CTAs: the streamed layout
+        # of shared memory of a cluster of 8 CTAs: the wave layout, 16
+        # units a CTA (150 KB of slices) on 16 unit groups x 8 row groups
         plan = hk.hier_plan(B, h, E, 130)
-        assert plan.streamed and plan.smem_bytes <= gk.MAX_SMEM
-        assert plan.smem_bytes == 4 * hk.fwd_smem_floats(h, E, 130, plan.clusters, plan.rows,
-                                                         2, True)
+        assert isinstance(plan, hk.WavePlan) and plan.smem_bytes <= gk.MAX_SMEM
+        assert plan.smem_bytes == 4 * hk.wave_smem_floats(h, E, 130, 2, plan.units, plan.rows,
+                                                          plan.pass_rows)
+        assert (plan.units, plan.rows, plan.ctas) == (16, 32, 128)
         return
-    # a 4-row tile of 2048 / 8 units a CTA takes 1024 threads
+    # a 4-row tile of 2048 / 8 units a CTA takes 1024 threads, and 4
+    # units a CTA of the three matrices take 394 KB
     with pytest.raises(ValueError, match=f"H={h}, V=130"):
         hk.hier_plan(B, h, E, 130)
 
@@ -148,6 +155,29 @@ def _check_chain_plan(plan, backward, h, rows, d):
     assert plan.grid == (plan.clusters * -(-rows // plan.rows), d)
 
 
+def _check_wave_plan(plan, b, h, e, v, layers):
+    """One cooperative wave of at most SMS CTAs of 256 threads (one an SM
+    at most: every CTA on the card at once), whose row groups cover every
+    row with no idle group and whose unit groups cover every unit, within
+    227 KB of shared memory, the layout mirrored term for term."""
+    assert isinstance(plan, hk.WavePlan) and plan.units in hk.WAVE_UNITS
+    assert plan.smem_bytes == 4 * hk.wave_smem_floats(h, e, v, layers, plan.units, plan.rows,
+                                                      plan.pass_rows) <= gk.MAX_SMEM
+    groups, row_groups = h // plan.units, -(-b // plan.rows)
+    assert groups * plan.units == h  # the unit slices cover every unit, once
+    assert plan.ctas == groups * row_groups <= gk.SMS
+    assert row_groups * plan.rows >= b and (row_groups - 1) * plan.rows < b
+    # a pass holds whole m-tiles, at most 8 warp items, and a row group
+    # needs at most one partial pass
+    assert plan.pass_rows in hk.WAVE_PASS_ROWS
+    assert plan.pass_rows // 16 * plan.unit_tiles <= gk.WIDE_THREADS // 32
+    assert plan.passes * plan.pass_rows >= plan.rows
+    assert plan.pass_rows <= max(16, -(-plan.rows // 16) * 16)
+    # the head: whole n-tiles of 8 columns, on at most every unit group
+    vc, nh = hk.wave_head(h, v, plan.units)
+    assert vc % 8 == 0 and nh <= groups and nh * vc >= v > (nh - 1) * vc
+
+
 @pytest.mark.parametrize("layers", [1, 2, 3, 4])
 @pytest.mark.parametrize("h", RANGE_H)
 def test_every_shape_in_the_range_plans(h, layers):
@@ -155,12 +185,15 @@ def test_every_shape_in_the_range_plans(h, layers):
         for v in VS:
             for e in (10, 32):
                 plan = hk.hier_plan(b, h, e, v, layers)
-                assert plan.smem_bytes <= gk.MAX_SMEM
-                assert plan.smem_bytes == 4 * hk.fwd_smem_floats(
-                    h, e, v, plan.clusters, plan.rows, layers, plan.streamed)
-                assert h % plan.clusters == 0 and plan.rows % gk.ROWS_PER_THREAD == 0
-                assert plan.rows * h // plan.clusters <= gk.THREADS
-                assert plan.grid == (plan.clusters * -(-b // plan.rows), 1)
+                if isinstance(plan, hk.WavePlan):
+                    _check_wave_plan(plan, b, h, e, v, layers)
+                else:
+                    assert plan.smem_bytes <= gk.MAX_SMEM
+                    assert plan.smem_bytes == 4 * hk.fwd_smem_floats(
+                        h, e, v, plan.clusters, plan.rows, layers)
+                    assert h % plan.clusters == 0 and plan.rows % gk.ROWS_PER_THREAD == 0
+                    assert plan.rows * h // plan.clusters <= gk.THREADS
+                    assert plan.grid == (plan.clusters * -(-b // plan.rows), 1)
                 for t in (4, 24):
                     for tpb in (5, 6, 24):
                         fwd, bwd = hk.hier_plans(t, b, h, e, v, layers, tpb)
@@ -175,9 +208,9 @@ def test_every_shape_in_the_range_plans(h, layers):
 def test_music_step_plans_are_unchanged():
     # the H=128 plans of the music step (B=256) and of the ragged B=100,
     # field for field, as the resident layouts chose them before the
-    # streamed layouts existed
+    # streamed and wave layouts existed
     def plan(c, rb, smem, grid):
-        return ChainPlan(c, rb, smem, grid, False)
+        return ChainPlan(c, rb, smem, grid)
 
     assert hk.hier_plan(B, 128, E, 130) == plan(8, 20, 170928, (104, 1))
     assert hk.hier_plan(B, 128, E, 34) == plan(8, 20, 159584, (104, 1))
@@ -212,10 +245,72 @@ def test_wide_gru_chain_streams_its_weights(d, h, backward):
 
 
 def test_hier_plan_streams_only_where_nothing_resident_fits():
+    # the wave layout where no cluster holds the slices, the resident
+    # cluster layout everywhere else
     for h, layers in ((128, 1), (128, 2), (128, 3), (256, 1)):
-        assert not hk.hier_plan(B, h, E, 130, layers).streamed
+        assert isinstance(hk.hier_plan(B, h, E, 130, layers), ChainPlan)
     for h, layers in ((128, 4), (256, 2), (384, 2), (512, 2), (512, 4)):
-        assert hk.hier_plan(B, h, E, 130, layers).streamed
+        assert isinstance(hk.hier_plan(B, h, E, 130, layers), hk.WavePlan)
+
+
+# The tick loop's forward where no cluster holds the weights: the wave
+# layout, one cooperative wave of CTAs each holding its units' slices
+
+def test_wave_plan_at_the_512_wide_step():
+    # (B, H, V, L) = (256, 512, 130, 2): 8 units a CTA (16 would take 295
+    # KB of slices), 64 unit groups x 2 row groups of 128 rows in one pass,
+    # no depth split; 17 head CTAs of 8 columns a row group
+    for v in VS:
+        plan = hk.hier_plan(B, 512, E, v, 2)
+        assert plan == hk.WavePlan(8, 128, 128, 225728, 128)
+        assert (plan.unit_tiles, plan.splits, plan.passes) == (1, 1, 1)
+    assert hk.wave_head(512, 130, 8) == (8, 17)
+    assert hk.wave_head(512, 34, 8) == (8, 5)
+    assert 4 * hk.wave_smem_floats(512, E, 130, 2, 16, 128, 64) > gk.MAX_SMEM
+
+
+def test_wave_smem_mirrors_the_layout_term_for_term():
+    # wave_layout in csrc/hier_tick_chain.cu at the 512-wide step, region
+    # by region (floats): w_ih0e's 24 columns of E = 10 padded to a chunk
+    # of 32 (+4), three 512-deep matrices of 24 columns (+4), out_w's 8
+    # columns, 3 bias slices of 24, out_b's 8, three chunk buffers of 128
+    # rows x 36, the head's two per-row partials of 128 rows x 1 n-tile,
+    # 128 tokens
+    regions = [24 * 36, 3 * 24 * 516, 8 * 516, 3 * 24, 8, 3 * 128 * 36, 128, 128, 128]
+    assert hk.wave_smem_floats(512, 10, 130, 2, 8, 128, 128) == sum(regions) == 56432
+    # a depth split whose partial sums outgrow the chunk buffers: one
+    # 16-row pass of 2 unit tiles (U = 16), 4 splits an item, 2 items
+    assert hk.wave_splits(16, 16) == 4
+    floats = hk.wave_smem_floats(256, 10, 130, 2, 16, 16, 16)
+    slices = 48 * 36 + 3 * 48 * 260 + 16 * 260 + 3 * 48 + 16
+    assert floats == slices + 3 * 2 * 12 * 32 + 2 * 32 + 16
+    assert 3 * 2 * 12 * 32 > 3 * 16 * 36
+
+
+@pytest.mark.parametrize("b", RANGE_B + (6, 22, 120))
+@pytest.mark.parametrize("h,layers,vs", [(512, 2, VS), (384, 2, VS), (256, 2, VS),
+                                         (128, 4, (130,)), (512, 4, VS)])
+def test_wave_plan_is_one_wave_that_covers_every_row_and_unit(h, layers, vs, b):
+    # (H=128 at 4 layers and V=34 fits a cluster of 8 CTAs: resident)
+    for v in vs:
+        plan = hk.hier_plan(b, h, E, v, layers)
+        _check_wave_plan(plan, b, h, E, v, layers)
+        # as many row groups as fit: another would leave a group fewer
+        # than 16 rows or the card more CTAs than SMs
+        groups = h // plan.units
+        assert plan.rows <= 16 or (plan.ctas // groups + 1) * groups > gk.SMS
+
+
+def test_wave_plan_prefers_the_most_ctas_then_the_most_units():
+    # H=256, L=2: 16, 8 and 4 units all give 128 CTAs; the most units win
+    assert hk.hier_plan(B, 256, E, 130, 2).units == 16
+    # one row: the most unit groups (4 units, 128 CTAs) make each CTA's
+    # share of the chain the shortest
+    assert hk.hier_plan(1, 512, E, 34, 2) == hk.WavePlan(4, 1, 16, 99776, 128)
+    # a data-parallel rank's 128 rows at the 512-wide step: 2 row groups
+    # of 64 in one pass, the depth split over 2 warps
+    plan = hk.hier_plan(128, 512, E, 130, 2)
+    assert (plan.units, plan.rows, plan.pass_rows, plan.splits) == (8, 64, 64, 2)
 
 
 @pytest.mark.parametrize("layers", [0, 5])

@@ -24,7 +24,11 @@ recomputes them, and the tick loop's 6-tick chains on 1,024 rows), the
 tick loop at H=256 and 512 with 2 layers and at H=128 with 1, 3 and 4
 (teacher-forced, free-running with dropout 0.5, eval, and the SR
 decoder's one beat of 24 ticks), and decoders at those shapes launch
-their kernels; a depth outside 1 to 4 raises ValueError, naming H and
+their kernels. The tick loop's wave layout (H=512 and 256 at 2 layers,
+V=34 and 130, H=128 at 4) also runs Gumbel-max, B=100 at 5 ticks a
+beat, eval at B = 1, 6, 22 and 120, a head tie across its CTAs (the
+lower index) and a NaN logit (V, clamped), each call one launch counted
+by ``WAVE_LAUNCHES``; a depth outside 1 to 4 raises ValueError, naming H and
 L, before any launch. At the music analysis's batches (B = 1, 6, 10,
 22) the GRU chain and the eval-mode tick loop match their plain versions
 and the same rows of a B=256 call: bitwise under that call's plan,
@@ -309,16 +313,23 @@ def test_hier_multinomial_in_distribution(dev, v):
     assert int(counts.max()) < 2 * HT * HB // v
 
 
-@pytest.mark.parametrize("h,layers", [(HH, 2)] + WIDE_DEEP)
+@pytest.mark.parametrize("b", [HB, 1, 22, 120])
+@pytest.mark.parametrize("h,layers", [(HH, 2)] + WIDE_DEEP + [(384, 2), (512, 4)])
 @pytest.mark.parametrize("v", HVS)
-def test_hier_plan_mirrors_the_kernel_layout(dev, v, h, layers):
-    plan = hk.hier_plan(HB, h, HE, v, layers)
+def test_hier_plan_mirrors_the_kernel_layout(dev, v, h, layers, b):
+    plan = hk.hier_plan(b, h, HE, v, layers)
     lib = hk._library()
-    assert 4 * lib.hier_tick_chain_smem_floats(h, HE, v, plan.clusters, plan.rows, layers,
-                                               int(plan.streamed)) == plan.smem_bytes
+    if isinstance(plan, hk.WavePlan):
+        assert 4 * lib.hier_tick_chain_wave_smem_floats(
+            h, HE, v, layers, plan.units, plan.rows, plan.pass_rows) == plan.smem_bytes
+        # one wave: the card holds every CTA of the cooperative launch at once
+        assert lib.hier_tick_chain_wave_resident_ctas(plan.splits, plan.smem_bytes) >= plan.ctas
+        return
+    assert 4 * lib.hier_tick_chain_smem_floats(h, HE, v, plan.clusters, plan.rows,
+                                               layers) == plan.smem_bytes
     # the plan's count of the clusters the card holds at once is the card's
-    assert lib.hier_tick_chain_resident_clusters(int(plan.streamed), plan.clusters,
-                                                 plan.smem_bytes) == hk.held_clusters(plan)
+    assert lib.hier_tick_chain_resident_clusters(plan.clusters, plan.smem_bytes) \
+        == hk.RESIDENT_CLUSTERS[plan.clusters]
 
 
 def _flat(dev, v, peak_cols=(), nan_col=None):
@@ -408,6 +419,94 @@ def test_hier_wide_and_deep_match_plain(dev, h, layers):
     _compare((True, 0.0, HT, "argmax"), forced, forced, floats, ct)
 
 
+# The wave layout: the forward where no cluster holds the weights, at the
+# reference's H=512 and at H=256 (2 layers, V=34 and 130) and at H=128
+# with 4 layers (V=130; at V=34 a cluster holds them)
+WAVE_CASES = [(512, 2, 34), (512, 2, 130), (256, 2, 34), (256, 2, 130), (128, 4, 130)]
+
+
+@pytest.mark.parametrize("h,layers,v", WAVE_CASES)
+def test_wave_forward_matches_plain_in_every_mode(dev, h, layers, v):
+    """Teacher-forced; free-running with dropout 0.5 (the teacher trick:
+    every gap's mask bitwise equal); eval, free-running; Gumbel-max; and
+    the SR decoder's one beat of 24 ticks: each against the plain version,
+    repeated bitwise, every call one launch of the wave layout."""
+    assert isinstance(hk.hier_plan(HB, h, HE, v, layers), hk.WavePlan)
+    score, floats, ct = _hier_inputs(dev, 60 + layers, v, h=h, layers=layers)
+    hk.reset_launches()
+    forced = _ints(1, 3, dev) + (score,)
+    _, samples = _compare((True, 0.0, HTPB, "argmax"), forced, forced, floats, ct)
+    assert torch.equal(samples, score)
+    seed = torch.tensor([123457], dtype=torch.int32, device=dev)
+    free = (torch.zeros(1, dtype=torch.int32, device=dev), seed, score)
+    cfg = (True, 0.5, HTPB, "argmax")
+    w_k, s_k, _ = _kernel_run(cfg, *free, floats)
+    assert torch.equal(s_k, hk.argmax_lowest(w_k).clamp(0, v - 1).to(torch.int32))
+    _compare(cfg, free, (torch.ones_like(free[0]), seed, s_k), floats, ct)
+    cfg = (False, 0.5, HTPB, "argmax")
+    free = _ints(0, 3, dev) + (score,)
+    w_k, s_k, _ = _kernel_run(cfg, *free, floats)
+    assert torch.equal(s_k, hk.argmax_lowest(w_k).clamp(0, v - 1).to(torch.int32))
+    _compare(cfg, free, _ints(1, 3, dev) + (s_k,), floats, ct)
+    cfg = (True, 0.0, HTPB, "multinomial")
+    w_k, s_k, _ = _kernel_run(cfg, *free, floats)
+    _compare(cfg, free, _ints(1, 3, dev) + (s_k,), floats, ct)
+    # _compare launches each forward 4 times, _kernel_run twice
+    assert hk.LAUNCHES["fwd"] == hk.WAVE_LAUNCHES["fwd"] == 4 * 4 + 3 * 2
+    score, floats, ct = _hier_inputs(dev, 70 + layers, v, HT, h=h, layers=layers)
+    forced = _ints(1, 3, dev) + (score,)
+    _compare((True, 0.0, HT, "argmax"), forced, forced, floats, ct)
+
+
+@pytest.mark.parametrize("h,layers,v", WAVE_CASES)
+def test_wave_forward_ragged_batch_at_5_ticks_a_beat(dev, h, layers, v):
+    """B=100 (two row groups of 50, a partial pass) and 5 ticks a beat
+    (a short last beat: its padded ticks' saved hiddens zero)."""
+    score, floats, ct = _hier_inputs(dev, 80 + layers, v, 5, b=100, h=h, layers=layers)
+    assert isinstance(hk.hier_plan(100, h, HE, v, layers), hk.WavePlan)
+    inputs = _ints(1, 3, dev) + (score,)
+    _compare((True, 0.0, 5, "argmax"), inputs, inputs, floats, ct)
+    outs = hk.hier_tick_chain_fwd_cuda(True, 0.0, 5, "argmax", *inputs, *floats)
+    for hid in outs[2:]:  # tick 4 of the fifth beat is tick 24: padded
+        assert not bool(hid[4, 4 * 100:].any())
+
+
+@pytest.mark.parametrize("b", [1, 6, 22, 120])
+@pytest.mark.parametrize("h,layers,v", WAVE_CASES)
+def test_wave_forward_eval_at_the_analysis_and_tail_batches(dev, h, layers, v, b):
+    score, floats, ct = _hier_inputs(dev, 90 + layers, v, b=b, h=h, layers=layers)
+    assert isinstance(hk.hier_plan(b, h, HE, v, layers), hk.WavePlan)
+    cfg = (False, 0.5, HTPB, "argmax")
+    free = _ints(0, 3, dev) + (score,)
+    w_k, s_k, _ = _kernel_run(cfg, *free, floats)
+    assert torch.equal(s_k, hk.argmax_lowest(w_k).clamp(0, v - 1).to(torch.int32))
+    _compare(cfg, free, _ints(1, 3, dev) + (s_k,), floats, ct)
+
+
+@pytest.mark.parametrize("h,layers,v", WAVE_CASES)
+def test_wave_argmax_tie_across_head_ctas_takes_the_lower_index(dev, h, layers, v):
+    plan = hk.hier_plan(HB, h, HE, v, layers)
+    edge, _ = hk.wave_head(h, v, plan.units)  # head CTA 1's first column
+    score, floats, _ = _hier_inputs(dev, 10, v, zero=True, h=h, layers=layers)
+    floats[-1][edge - 1] = floats[-1][edge] = 5.0
+    cfg = (True, 0.0, HTPB, "argmax")
+    _, samples, _ = _kernel_run(cfg, *_ints(0, 3, dev), score, floats)
+    assert bool((samples == edge - 1).all())
+    assert torch.equal(samples, _plain_run(cfg, *_ints(0, 3, dev), score, floats)[1])
+
+
+@pytest.mark.parametrize("h,layers,v", WAVE_CASES)
+def test_wave_nan_logit_samples_the_last_token(dev, h, layers, v):
+    score, floats, _ = _hier_inputs(dev, 10, v, zero=True, h=h, layers=layers)
+    floats[-1][3], floats[-1][v - 2] = 5.0, float("nan")  # the NaN in the last head CTA
+    cfg = (True, 0.0, HTPB, "argmax")
+    w_k, s_k, _ = _kernel_run(cfg, *_ints(0, 3, dev), score, floats)
+    assert bool((s_k == v - 1).all())  # NaN row: index V, clamped to V-1
+    w_p, s_p, _ = _plain_run(cfg, *_ints(0, 3, dev), score, floats)
+    assert torch.equal(s_k, s_p)
+    torch.testing.assert_close(w_k, w_p, rtol=FWD_RTOL, atol=FWD_ATOL, equal_nan=True)
+
+
 @pytest.mark.parametrize("h,layers", [(512, 2), (512, 1), (384, 2)])
 def test_hier_wide_backward_chains_run_the_wide_layout(dev, h, layers):
     """The tick loop's backward at the reference's width: its chains (6
@@ -455,6 +554,8 @@ def test_wide_and_deep_decoders_launch_the_tick_loop_kernels(dev, h, layers):
     weights, _ = dec(zz, score, noise, train=True)
     weights.sum().backward()
     assert hk.LAUNCHES == {"fwd": 1, "bwd": 1}
+    assert hk.WAVE_LAUNCHES == {"fwd": int(isinstance(hk.hier_plan(HB, h, HE, HVS[0], layers),
+                                                      hk.WavePlan))}
     assert gk.LAUNCHES == {"fwd": layers, "bwd": layers}  # the beat GRU's layers
     assert bool(torch.isfinite(weights).all()) and bool(torch.isfinite(zz.grad).all())
 
@@ -482,9 +583,12 @@ SMALL_BATCHES = (1, 6, 10, 22)
 
 def _same_layout(p, q):
     """Whether two plans sum every output alike: the wide layout's sums do
-    not depend on its row tile."""
+    not depend on its row tile, the wave layout's on its units and depth
+    splits."""
     if isinstance(p, gk.WidePlan) or isinstance(q, gk.WidePlan):
         return type(p) is type(q) and p.units == q.units
+    if isinstance(p, hk.WavePlan) or isinstance(q, hk.WavePlan):
+        return type(p) is type(q) and (p.units, p.splits) == (q.units, q.splits)
     return (p.clusters, p.rows, p.smem_bytes) == (q.clusters, q.rows, q.smem_bytes)
 
 
