@@ -32,6 +32,7 @@ import torch
 from arvae_tpu_torch.data.device_data import DeviceSplit
 from arvae_tpu_torch.data.dsprites import datasets_root
 from arvae_tpu_torch.data.morphomnist import io as idx_io
+from arvae_tpu_torch.data.morphomnist import native
 from arvae_tpu_torch.data.morphomnist.measure import COLUMNS, measure_batch
 from arvae_tpu_torch.data.synthetic_digits import generate_digit_set
 
@@ -70,18 +71,23 @@ def _worker_env():
                 os.environ[k] = v
 
 
-def measure_images(imgs_u8: np.ndarray) -> np.ndarray:
-    """(n, 6) float32 morphometrics of uint8 images, measured by up to
-    one ``spawn`` worker a core when there are enough images. A spawned
-    worker imports the main module again, so a script that builds the
-    set guards its entry point (``if __name__ == "__main__":``); a worker
-    that cannot start raises ``BrokenProcessPool`` here."""
-    workers = min(os.cpu_count() or 1, -(-len(imgs_u8) // IMAGES_PER_WORKER))
+def measure_images(images: np.ndarray) -> np.ndarray:
+    """(n, 6) float64 morphometrics of (n, H, W) images (uint8, or floats
+    such as decoded digits), measured by up to one ``spawn`` worker a
+    core when there are enough images. The thinning backend
+    (``morphomnist/native.py``) is decided, and the native library built,
+    here before any worker starts; the workers, with the same
+    environment, make the same choice. A spawned worker imports the main
+    module again, so a script that builds the set guards its entry point
+    (``if __name__ == "__main__":``); a worker that cannot start raises
+    ``BrokenProcessPool`` here."""
+    native.backend()
+    workers = min(os.cpu_count() or 1, -(-len(images) // IMAGES_PER_WORKER))
     if workers <= 1:
-        return measure_batch(imgs_u8).astype(np.float32)
+        return measure_batch(images)
     ctx = multiprocessing.get_context(POOL_START)
     with _worker_env(), ProcessPoolExecutor(workers, mp_context=ctx) as pool:
-        return measure_batch(imgs_u8, pool=pool, chunksize=64).astype(np.float32)
+        return measure_batch(images, pool=pool, chunksize=64)
 
 
 def _read_csv(path: str) -> np.ndarray:
@@ -175,7 +181,8 @@ class MnistDataset:
         if morpho is None:
             print(f"measuring morphometrics for {kind} ({len(images)} images)...")
             measured = measure_images((images[:, 0] * 255).astype(np.uint8))
-            morpho = np.concatenate([labels[:, None].astype(np.float32), measured], 1)
+            morpho = np.concatenate([labels[:, None].astype(np.float32),
+                                     measured.astype(np.float32)], 1)
             _write_csv(mor_p, morpho)
         morpho = morpho.astype(np.float32)
         # the trainer's reg dims index the morphometrics as columns 1..6,

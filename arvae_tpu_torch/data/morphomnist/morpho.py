@@ -6,10 +6,10 @@ the Morpho-MNIST library without skimage:
 - upscaling: ``scipy.ndimage.zoom`` (cubic) + gaussian smoothing, the
   same smoothing window skimage's ``pyramid_expand`` uses
   (sigma = 2 * upscale / 6).
-- skeleton: Zhang–Suen thinning in numpy. The JAX package also has a
-  C++ batch thinning (``cpp/morpho_native.cpp``) that is bit-identical
-  to this numpy one (``tests/test_native_morpho.py``); the port carries
-  only the numpy path.
+- skeleton: Zhang–Suen thinning, by the process's backend
+  (:mod:`.native`): the C++ batch thinning of ``csrc/morpho_native.cpp``
+  where g++ builds it, else the numpy one here, which gives the same
+  skeleton bit for bit and is the tests' plain version.
 - distance map: ``scipy.ndimage.distance_transform_edt``.
 
 Measured quantities: area, stroke length, mean thickness, slant via
@@ -25,12 +25,22 @@ from typing import Tuple
 import numpy as np
 from scipy import ndimage
 
+from arvae_tpu_torch.data.morphomnist import native
+
 _SKEL_LEN_MASK = np.array(
     [[0.0, 0.0, 0.0], [0.0, 0.0, 1.0], [np.sqrt(2.0), 1.0, np.sqrt(2.0)]]
 )
 
 
 def zhang_suen_thin(img: np.ndarray, max_iter: int = 200) -> np.ndarray:
+    """Binary skeleton via Zhang–Suen thinning, by :func:`native.backend`:
+    the native batch thinning, or :func:`zhang_suen_thin_numpy`."""
+    if native.backend() == "native":
+        return native.zhang_suen_thin_batch(img[None], max_iter=max_iter)[0]
+    return zhang_suen_thin_numpy(img, max_iter)
+
+
+def zhang_suen_thin_numpy(img: np.ndarray, max_iter: int = 200) -> np.ndarray:
     """Binary skeleton via Zhang–Suen thinning (vectorized numpy)."""
     img = img.astype(bool).copy()
 

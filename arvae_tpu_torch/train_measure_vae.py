@@ -16,13 +16,17 @@ at B=256: the five disentanglement metrics, the test loss and accuracy
 and the protocol stamp are written to ``<run_dir>/results_dict.json``
 and printed (a results file already in the run dir is printed as it
 is). ``--skip_cached`` skips a seed whose run dir holds results stamped
-with the same epochs, batch size and dataset. What follows in the root
-CLI is left out: the 20-batch harvest and the latent interpolation
-plots it feeds need seaborn, pandas and music21. ``--log`` is accepted for
-the root CLI's sake and does nothing. Under ``torchrun --nproc_per_node N
--m arvae_tpu_torch.train_measure_vae ...`` the ranks train data-parallel,
+with the same epochs, batch size and dataset. After the evaluation, as in
+the root CLI, a harvest of 20 batches of the eval split (B=256) feeds,
+for each of the four attributes, the MIDI of the first five codes and of
+their 5-point traversals (``MeasureVAETrainer.plot_latent_interpolations``,
+under ``<run_dir>/results/``; the root CLI's pianoroll PNGs need
+matplotlib and are left out); each decode is one row on the recurrence
+kernels. ``--log`` is accepted for the root CLI's sake and does
+nothing. Under ``torchrun --nproc_per_node N -m
+arvae_tpu_torch.train_measure_vae ...`` the ranks train data-parallel,
 one card each, with ``--batch_size`` the global batch (as
-``train_image_vae``'s docstring says).
+``train_image_vae``'s docstring says); rank 0 writes the MIDI files.
 """
 
 from __future__ import annotations
@@ -250,6 +254,11 @@ def _train(args: argparse.Namespace, ctx: DataContext) -> List[MeasureVAETrainer
             trainer.load_model()
         metrics = trainer.compute_eval_metrics()
         trainer.say(json.dumps(metrics, indent=2))
+        if ctx.is_main:  # rank 0 writes the MIDI files alone, with no collective
+            latent_codes, _, _ = trainer.compute_representations(num_batches=20)
+            for attr in trainer.attr_dict:
+                trainer.plot_latent_interpolations(latent_codes, attr_str=attr, num_points=5)
+        ctx.barrier()  # the other ranks wait for it before the next seed or the end
         trainers.append(trainer)
     return trainers
 

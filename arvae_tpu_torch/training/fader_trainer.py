@@ -21,8 +21,10 @@ fader has no AR term, so its step launches none of the port's kernels.
 The evaluation harvests the deterministic codes (the mean head, eval
 mode) of the eval split with the normalised attributes and writes the
 five metrics and the protocol stamp: no test pass and no judge, as the
-JAX fader's ``results_dict.json`` has neither. Its TensorBoard hook and
-traversal grids are not ported (plots).
+JAX fader's ``results_dict.json`` has neither. A label traversal
+(:meth:`ImageFaderTrainer.compute_latent_interpolations`) decodes a code
+beside one attribute swept from 0 to 1; its TensorBoard hook is not
+ported.
 
 On a rank of a data-parallel step the masks are drawn for the global
 batch and the rank's rows taken, both losses are the global batch's,
@@ -46,6 +48,7 @@ from arvae_tpu_torch.models.image_vae import keep_masks
 from arvae_tpu_torch.ops.losses import pixel_accuracy, reconstruction_loss
 from arvae_tpu_torch.parallel import DataContext, RowShare
 from arvae_tpu_torch.training.image_trainer import MNIST_NORMALIZATION_FACTORS, ImageVAETrainer
+from arvae_tpu_torch.utils.plotting import make_grid
 
 # Each dSprites factor's (low, high)
 DSPRITES_NORMALIZATION_FACTORS = {
@@ -224,3 +227,17 @@ class ImageFaderTrainer(ImageVAETrainer):
         """The five metrics of the harvest. No test pass and no judge:
         ``batch_size`` is unused."""
         return self._metric_suite()
+
+    def compute_latent_interpolations(self, latent_code, labels, dim1: int = 1,
+                                      num_points: int = 11) -> np.ndarray:
+        """The decodes of the first code of ``latent_code`` beside its
+        normalised ``labels`` with attribute ``dim1`` swept from 0 to 1 in
+        ``num_points`` steps, tiled in one column."""
+        x1 = np.linspace(0.0, 1.0, num_points)
+        z = np.repeat(np.asarray(latent_code[:1]), num_points, axis=0)
+        l = np.repeat(np.asarray(labels[:1]), num_points, axis=0)
+        l[:, dim1] = x1
+        # the decoder takes [z ‖ labels]
+        outputs = self.decode(np.concatenate([z.astype(np.float32), l.astype(np.float32)],
+                                             axis=1))
+        return make_grid(outputs, nrow=1, pad_value=1.0)

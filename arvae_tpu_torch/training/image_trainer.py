@@ -13,8 +13,12 @@ generator with the reparametrisation's draws. The evaluation harvests
 the sampled ``z_tilde`` of the eval split against the attributes
 (``digit_identity`` and ``color`` left out) and tests the
 reconstruction loss and pixel accuracy; for MNIST it adds the ResNet
-judge's ``digit_pred_acc`` when a trained judge exists. The artifact
-plots are not ported.
+judge's ``digit_pred_acc`` when a trained judge exists. Latent codes
+decode to images (:meth:`ImageVAETrainer.decode`), the traversal grids
+of one or two dims come back as ``make_grid`` arrays, and decoded MNIST
+digits are measured again (``compute_mnist_morpho_labels``). The plots,
+the latent GIFs and the TensorBoard hook are not ported (matplotlib,
+PIL).
 
 On a rank of a data-parallel step the draws (ε, ε_prior, MnistVAE's
 dropout masks) are made for the global batch from the shared noise
@@ -36,6 +40,7 @@ import torch
 from arvae_tpu_torch.core.config import (TrainerHParams, normalize_reg_dim,
                                          trainer_config_string)
 from arvae_tpu_torch.data.device_data import Metrics
+from arvae_tpu_torch.data.mnist import measure_images
 from arvae_tpu_torch.models.image_vae import (DspritesVAE, MnistVAE, draw_noise,
                                              reparametrize)
 from arvae_tpu_torch.ops.losses import (kld_loss, pixel_accuracy,
@@ -43,6 +48,7 @@ from arvae_tpu_torch.ops.losses import (kld_loss, pixel_accuracy,
 from arvae_tpu_torch.parallel import DataContext, RowShare, sharded
 from arvae_tpu_torch.training.base import BaseTrainer
 from arvae_tpu_torch.training.resnet_judge import judge_accuracy, load_judge
+from arvae_tpu_torch.utils.plotting import make_grid
 
 MNIST_REG_TYPES = {
     "digit_identity": 0,
@@ -257,3 +263,47 @@ class ImageVAETrainer(BaseTrainer):
                   "(train one with test_mnist.py)")
             return None
         return judge_accuracy(self, judge)
+
+    # -- decoding latent codes ------------------------------------------------------
+
+    @torch.no_grad()
+    def decode(self, z) -> np.ndarray:
+        """The sigmoid of the decoder for latent codes (n, decoder inputs)
+        → (n, 1, H, W) float32: eval mode on the trainer's device, each
+        layer in the model's ``compute_dtype``."""
+        self.model.eval()
+        z = torch.as_tensor(np.asarray(z, np.float32), device=self.device)
+        return torch.sigmoid(self.model.decode(z)).cpu().numpy()
+
+    def compute_latent_interpolations(self, latent_code, dim1: int = 0,
+                                      num_points: int = 10) -> np.ndarray:
+        """The decodes of ``latent_code`` (1, z) with ``dim1`` swept over
+        [-4, 4] in ``num_points`` steps, tiled in one row."""
+        x1 = np.linspace(-4.0, 4.0, num_points)
+        z = np.repeat(np.asarray(latent_code), num_points, axis=0)
+        z[:, dim1] = x1
+        outputs = self.decode(z)
+        return make_grid(outputs, nrow=num_points, pad_value=1.0)
+
+    def compute_latent_interpolations2d(self, latent_code, dim1: int = 0, dim2: int = 1,
+                                        num_points: int = 10) -> np.ndarray:
+        """The decodes of ``latent_code`` (1, z) over the [-4, 4]² grid of
+        ``dim1`` (rows) and ``dim2`` (columns), ``num_points`` a side."""
+        x = np.linspace(-4.0, 4.0, num_points)
+        z1, z2 = np.meshgrid(x, x, indexing="ij")
+        total = num_points * num_points
+        z = np.repeat(np.asarray(latent_code), total, axis=0)
+        z[:, dim1] = z1.reshape(-1)
+        z[:, dim2] = z2.reshape(-1)
+        outputs = self.decode(z)
+        return make_grid(outputs, nrow=num_points, pad_value=1.0)
+
+    def compute_mnist_morpho_labels(self, outputs, morpho_attr_str: Optional[str] = None
+                                    ) -> np.ndarray:
+        """The six morphometrics of decoded digits (n, 1, 28, 28), measured
+        on the host (``data/mnist.py::measure_images``: spawn workers) →
+        (n, 6) float64, or the column of ``morpho_attr_str``."""
+        labels = measure_images(np.asarray(outputs).squeeze(axis=1))
+        if morpho_attr_str is not None:
+            labels = labels[:, self.attr_dict[morpho_attr_str] - 1]
+        return labels

@@ -14,8 +14,9 @@ encoder's sampled ``z_tilde`` of the eval split against the four
 attributes computed from the score on the device, and tests the token
 cross-entropy and accuracy of the eval-mode decode. Latent codes decode
 to token rows and a :class:`~arvae_tpu_torch.data.bar_dataset.Score`
-(``decode_latent_codes``, ``compute_latent_interpolations``); the plots
-are not ported.
+(``decode_latent_codes``, ``compute_latent_interpolations``), and
+``plot_latent_interpolations`` writes a code's traversal as MIDI with its
+attribute labels; the plots are not ported.
 
 On a rank of a data-parallel step the draws are the global batch's: ε
 and ε_prior drawn for it and the rank's rows taken, the coin and the
@@ -29,6 +30,7 @@ Precision: float32 throughout; TF32 is turned off for matmuls and cuDNN.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -255,3 +257,40 @@ class MeasureVAETrainer(BaseTrainer):
             tensors.append(tensor)
         scores[num_points // 2] = original_score
         return self.dataset.concatenate_scores(scores), np.concatenate(tensors, 0)
+
+    def plot_latent_interpolations(self, latent_codes, attr_str: str,
+                                   num_points: int = 10) -> np.ndarray:
+        """For each of the first ``min(num_points, n)`` codes of
+        ``latent_codes`` (n, z): the code's decode written as
+        ``original_{i}.mid`` and its 5-point traversal of ``attr_str``'s
+        interpretability dim as
+        ``latent_interpolations_{attr_str}_{i}.mid``, both into the run
+        dir's ``results/`` → the traversals' ``attr_str`` labels
+        (codes, 5), computed on the device from the decoded tokens. No
+        pianoroll image is written (the JAX method's PNG needs
+        matplotlib).
+
+        The dims come from the last evaluation (``self.metrics``), else
+        from the run dir's ``results_dict.json``, and are read without a
+        collective, so one rank of a process group may call this alone
+        (a single process with neither evaluates first)."""
+        n = min(num_points, latent_codes.shape[0])
+        metrics = self.metrics
+        if "interpretability" not in metrics:
+            metrics = (self._read_results() if self.ctx.distributed
+                       else self.compute_eval_metrics())
+        dim = metrics["interpretability"][attr_str][0]
+        save_dir = os.path.join(self.run_dir, "results")
+        os.makedirs(save_dir, exist_ok=True)
+        labels = []
+        for i in range(n):
+            original_score, _ = self.decode_latent_codes(latent_codes[i:i + 1])
+            original_score.write_midi(os.path.join(save_dir, f"original_{i}.mid"))
+            score, tensor_score = self.compute_latent_interpolations(
+                latent_codes[i:i + 1], original_score, dim, num_points=5)
+            tokens = torch.as_tensor(tensor_score, device=self.device)
+            labels.append(self.attrs.compute_labels(tokens, [attr_str]).cpu().numpy()
+                          .flatten())
+            score.write_midi(os.path.join(save_dir,
+                                          f"latent_interpolations_{attr_str}_{i}.mid"))
+        return np.stack(labels)

@@ -128,6 +128,21 @@ def _launch_counts():
 # only if it falls inside the host clock's window once converted, and a
 # kernel that ends just before the closing sync can land past it.
 PAD_CYCLES = 50_000_000
+# Short spin kernels (about 11 µs each) queued behind the opening one:
+# after a process has profiled for a while, CUPTI drops the records of
+# the first few kernels launched in each window (none in a fresh
+# process; ``utils/window_probe.py`` counts them on a card); these take
+# the loss in place of the calls'.
+OPENING_KERNELS, OPENING_CYCLES = 64, 20_000
+
+
+def open_window(kernels=OPENING_KERNELS):
+    """Opens a profiled window: the spin kernel and ``kernels`` short
+    ones, waited for. Their records are named ``spin_kernel``."""
+    torch.cuda._sleep(PAD_CYCLES)
+    for _ in range(kernels):
+        torch.cuda._sleep(OPENING_CYCLES)
+    torch.cuda.synchronize()
 
 
 def call_events(fn, calls, attempts=5):
@@ -136,16 +151,17 @@ def call_events(fn, calls, attempts=5):
     port's kernels (``ENTRY_KERNELS``) equal, kernel by kernel, what the
     wrappers' ``LAUNCHES`` counters say they launched in the same window.
     The calls run between two spin kernels (``PAD_CYCLES``), left out of
-    the events, so that none of theirs sits at an edge of the window.
-    CUPTI now and then loses records (a kernel seen 19 times in 20 calls)
-    but never adds one, so a run that disagrees is profiled again, up to
-    ``attempts`` runs; raises if none agrees."""
+    the events, so that none of theirs sits at an edge of the window; the
+    opening one is followed by short ones and waited for
+    (``open_window``). CUPTI loses records but never adds one, so a run
+    that disagrees is profiled again with four times as many short
+    kernels, up to ``attempts`` runs; raises if none agrees."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    seen = []
+    seen, opening = [], OPENING_KERNELS
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
@@ -153,7 +169,7 @@ def call_events(fn, calls, attempts=5):
             torch.cuda.synchronize()
             prof.step()
             before = _launch_counts()
-            torch.cuda._sleep(PAD_CYCLES)
+            open_window(opening)
             for _ in range(calls):
                 fn()
             torch.cuda._sleep(PAD_CYCLES)
@@ -172,6 +188,7 @@ def call_events(fn, calls, attempts=5):
         if events and recorded == expected:
             return events
         seen.append((recorded, expected))
+        opening *= 4
     raise AssertionError(f"no profiled run of {calls} calls recorded the port's kernels the "
                          f"launch counters count (recorded, counted): {seen}")
 

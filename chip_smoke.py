@@ -120,7 +120,8 @@ and the script exits non-zero:
    ``results_dict.json``); each run's file must have the JAX package's
    schema, finite values, the bounded scores in [0, 1] and the protocol
    stamp, and each run's launch counts gain one evaluation's forwards,
-   derived from the code (``_eval_launches``). Then ``gru_chain`` and
+   derived from the code (``_eval_launches``; a music CLI run's also
+   its tail's, ``_tail_launches``, slice 10). Then ``gru_chain`` and
    ``hier_tick_chain`` forwards (eval mode) against their plain versions
    at the test pass's tail batch (888 eval rows at B=256: 120) of every
    music CLI run, each distinct shape once, the shapes read from each
@@ -247,13 +248,39 @@ and the script exits non-zero:
    ``DP_CLI_RTOL``); one line says which of the checks ran. Each
    kernel's entry in the kernels line carries the launches and the
    shapes its wrapper was called with on a rank in each run
-   (``"data_parallel"``; null for a world that did not run).
+   (``"data_parallel"``; null for a world that did not run);
+14. slice 10 (the last modules; run before slice 9): the music CLI
+   (``TAIL_ARGS``: the ``--short`` corpus, 1 epoch) at H=128 and at the
+   reference's H=512 (``TAIL_WIDTHS``), whose tail after the evaluation
+   (as in every music CLI run above, whose counts include it) harvests
+   ``TAIL_BATCHES`` (+1) batches and writes, for each attribute, the
+   MIDI of the first ``TAIL_POINTS`` codes and of their traversals: the
+   run's launches the code's, then the tail again alone from the trained
+   state, its launches the code's (``_tail_launches``: at H=512 every
+   ``gru_chain`` call on the wide layout and every tick-loop forward on
+   the wave layout, one row each), its files the root CLI's names, each
+   read back to its Score, and its 120 decodes against a CPU copy of the
+   model (tokens on another path in at most ``EVAL_PATH_FLIPS`` of the
+   rows, labels within ``LABEL_ATOL``); the image and fader trainers'
+   decodes, 1-D and 2-D traversal grids and label traversals on the card
+   against CPU copies (``SLICE_RTOL``, ``ATOL``), no kernel launched, and
+   decoded MNIST digits measured again; the native thinning
+   (``csrc/morpho_native.cpp``, g++) built and its backend asserted
+   ``native``, a batch of ``THIN_IMAGES`` binary digits thinned by each
+   backend (bitwise, timed), and the full synthetic MNIST cache built
+   under each backend (timed; the morphometry files byte for byte
+   equal); ``utils/profiling.trace`` over ``TRACE_STEPS`` dSprites steps
+   (the trace file written, the reg kernels' records in it, the reg
+   launches the code's) and ``StepTimer``'s steps/s over them, traced
+   and untraced. Each kernel's entry in the kernels line carries the
+   tail's launches at each width (``"slice10_tail_launches"``).
 
 Launch counts are set to 0 just before each slice (and each variant of
-slices 3 and 4, and each CLI call of slices 5, 6, 7 and 8, each sweep
-cell, each tester call, each trainer's 3 steps of slice 9) and read
-just after it; the comparisons of phases 3, 9, 10, 12 and 13 do not
-count. The line before the last
+slices 3 and 4, and each CLI call of slices 5, 6, 7, 8 and 10, each sweep
+cell, each tester call, each trainer's 3 steps of slice 9, the tail run
+alone and the traced steps of slice 10) and read just after it; the
+comparisons of phases 3, 9, 10, 12, 13 and 14 do not count. The line
+before the last
 is the card's name and power limit as ``nvidia-smi`` prints them, the
 one before it a JSON object listing every kernel; the last line is a
 JSON object ``{"ok": true, "device": {...}}``.
@@ -365,6 +392,10 @@ MUSIC_BENCH_ROWS, MUSIC_BENCH_V = 65_536, 130
 # in a tail of 120 rows, a batch the training path never gives the
 # kernels.
 EVAL_CAP = 201
+# The music CLI's tail (the root CLI's): a harvest of TAIL_BATCHES (+1)
+# batches, then each attribute's traversals of TAIL_POINTS points for the
+# first TAIL_POINTS codes
+TAIL_BATCHES, TAIL_POINTS = 20, 5
 RESULT_KEYS = ["interpretability", "Corr_score", "modularity_score", "mig", "SAP_score",
                "test_loss", "test_acc", "protocol"]
 BOUNDED = ("Corr_score", "modularity_score", "mig", "SAP_score", "test_acc")
@@ -1222,10 +1253,31 @@ def _eval_launches(trainer, batch_size=None):
     return {k: harvest * per["harvest"][k] + test * per["test"][k] for k in per["test"]}
 
 
+def _tail_launches(trainer):
+    """The forward launches of the music CLI's tail after its evaluation,
+    by kernel, from the code: a harvest of the first ``min(n // B,
+    TAIL_BATCHES + 1)`` whole batches of the eval split (the encoder),
+    then for each attribute and each of the first ``min(TAIL_POINTS,
+    codes)`` codes one decode of the code and TAIL_POINTS of its
+    traversal, one row each (the decoder's GRU layers and tick loop);
+    none for an image trainer."""
+    per = _eval_per_batch(trainer.model)
+    if not hasattr(trainer.model, "encoder"):
+        return per["harvest"]
+    n = trainer.eval_split().n
+    b = min(trainer.EVAL_BATCH_SIZE, n)
+    batches = min(n // b, TAIL_BATCHES + 1)
+    decodes = len(trainer.attr_dict) * min(TAIL_POINTS, batches * b) * (1 + TAIL_POINTS)
+    return {k: batches * per["harvest"][k] + decodes * (per["test"][k] - per["harvest"][k])
+            for k in per["test"]}
+
+
 def _with_eval(want, trainer, batch_size=None):
-    """The training launches ``want`` plus one evaluation's."""
-    extra = _eval_launches(trainer, batch_size)
-    return {k: {"fwd": v["fwd"] + extra[k], "bwd": v["bwd"]} for k, v in want.items()}
+    """The training launches ``want`` plus one evaluation's and, for a
+    music CLI run, its tail's (``_tail_launches``)."""
+    extra, tail = _eval_launches(trainer, batch_size), _tail_launches(trainer)
+    return {k: {"fwd": v["fwd"] + extra[k] + tail[k], "bwd": v["bwd"]}
+            for k, v in want.items()}
 
 
 def _read_results(trainer):
@@ -2311,7 +2363,7 @@ def _cli_skip_and_test(tag, main, argv, trainer, batch_size):
     """In the CLI run's models dir (ARVAE_MODELS_DIR): ``--skip_cached``
     prints the skip line and launches nothing; ``--test``, the cache
     removed, re-evaluates from the checkpoint, launching one evaluation's
-    forwards, with the CLI's metrics."""
+    forwards (and a music run's tail's), with the CLI's metrics."""
     cli = _read_results(trainer)
     _reset_launches()
     out = io.StringIO()
@@ -2327,8 +2379,8 @@ def _cli_skip_and_test(tag, main, argv, trainer, batch_size):
     with contextlib.redirect_stdout(io.StringIO()):
         (tested,) = main(argv + ["--test"])
     launches = _read_launches()
-    _check_launches(f"{tag} --test", launches, {
-        k: {"fwd": v, "bwd": 0} for k, v in _eval_launches(tested, batch_size).items()})
+    _check_launches(f"{tag} --test", launches, _with_eval(
+        {k: {"fwd": 0, "bwd": 0} for k in launches}, tested, batch_size))
     again = _read_results(tested)
     if {k: v for k, v in again.items() if k != "protocol"} != \
             {k: v for k, v in cli.items() if k != "protocol"} or tested.history:
@@ -3072,11 +3124,22 @@ def _sweep_launches(tester, decodes):
                 + decodes * (whole[k] - enc[k]), "bwd": 0} for k in whole}
 
 
+def _check_reads_back(tag, path, score):
+    """The MIDI file at ``path`` reads back to ``score``'s sounding notes:
+    the pitches, and the times on the 480-a-quarter grid."""
+    from arvae_tpu_torch.utils.midi import read_midi
+
+    want = [n for n in sorted(score.notes, key=lambda n: n[1]) if n[0] >= 0 and n[2] > 0]
+    got = read_midi(path)
+    if [n[0] for n in got] != [n[0] for n in want] or not np.allclose(
+            [n[1:] for n in got], [n[1:] for n in want], rtol=0, atol=1e-9):
+        raise AssertionError(f"{tag}: {path} reads back other notes than its Score's")
+
+
 def _sweep_run(tag, argv, out_dir):
     """``python -m arvae_tpu_torch.run_tester_sweep`` in-process → (the
     tester, its JSON line, launches, seconds)."""
     from arvae_tpu_torch import run_tester_sweep
-    from arvae_tpu_torch.utils.midi import read_midi
 
     _reset_launches()
     t0 = time.perf_counter()
@@ -3087,11 +3150,7 @@ def _sweep_run(tag, argv, out_dir):
     launches = _read_launches()
     _check_launches(tag, launches, _sweep_launches(tester, len(written)))
     for path, score in written.items():
-        want = [n for n in sorted(score.notes, key=lambda n: n[1]) if n[0] >= 0 and n[2] > 0]
-        got = read_midi(path)
-        if [n[0] for n in got] != [n[0] for n in want] or not np.allclose(
-                [n[1:] for n in got], [n[1:] for n in want], rtol=0, atol=1e-9):
-            raise AssertionError(f"{tag}: {path} reads back other notes than its Score's")
+        _check_reads_back(tag, path, score)
     interp = result["interpretability"]
     print(f"[analysis] {tag}: {seconds:.1f} s; test loss {result['test_loss']:.6f}, acc "
           f"{result['test_acc']:.6f}; interpretability {interp}; {len(written)} MIDI files, "
@@ -3227,6 +3286,342 @@ def phase_analysis(card_line, music_trainer, music_dir, glsr_trainer):
         out["abc"] = _abc_ingest(os.path.join(tmp, "abc"))
     print(f"[analysis] the kernels' cases took {kernels_s:.1f} s")
     return out
+
+
+# Slice 10, the last modules: the music CLI's tail after a short
+# run (``--short`` corpus, 1 epoch) at the CLI's width and the reference's;
+# the image and fader trainers' decodes and traversal grids; the native
+# thinning and the synthetic MNIST cache under each backend; ``trace`` and
+# ``StepTimer`` over a few dSprites steps.
+TAIL_ARGS = ["--rand", "0", "-r", "all", "--num_epochs", "1", "--short"]
+TAIL_WIDTHS = {"H=128": [], "H=512": ["--encoder_hidden_size", "512",
+                                      "--decoder_hidden_size", "512"]}
+LABEL_ATOL = 1e-6
+IMAGE_DECODES = 16
+THIN_IMAGES = 128
+TRACE_STEPS = 3
+
+
+def _tail_rows(trainer, codes):
+    """The rows the tail decodes, code by code in its order: (attribute,
+    code index, interpretability dim, the code and its TAIL_POINTS-point
+    traversal as (1 + TAIL_POINTS, z))."""
+    interp = trainer.compute_eval_metrics()["interpretability"]
+    rows = []
+    for attr in trainer.attr_dict:
+        dim = interp[attr][0]
+        for i in range(min(TAIL_POINTS, len(codes))):
+            z = np.repeat(codes[i:i + 1], TAIL_POINTS, axis=0)
+            z[:, dim] = np.linspace(-4.0, 4.0, TAIL_POINTS)
+            rows.append((attr, i, dim, np.concatenate([codes[i:i + 1], z])))
+    return rows
+
+
+def _tail_vs_cpu(tag, trainer, codes, labels):
+    """Each file the tail wrote read back to its Score (decoded again on
+    the card), and every decode of the tail, one row at a time, on the
+    card against a CPU copy of the model: tokens on another path in at
+    most EVAL_PATH_FLIPS of the rows; where a code's rows all agree, its
+    traversal's labels within LABEL_ATOL of the CPU's → (flips, rows)."""
+    from arvae_tpu_torch.training.measure_trainer import MeasureVAETrainer
+
+    cpu = MeasureVAETrainer(trainer.dataset, copy.deepcopy(trainer.model).cpu(), "cpu",
+                            reg_type=trainer.hparams.reg_type, reg_dim=trainer.hparams.reg_dim,
+                            rand=trainer.hparams.rand)
+    folder = os.path.join(trainer.run_dir, "results")
+    flips = rows = 0
+    for attr, i, dim, z in _tail_rows(trainer, codes):
+        original, tokens = trainer.decode_latent_codes(z[:1])
+        _check_reads_back(tag, os.path.join(folder, f"original_{i}.mid"), original)
+        score, interp = trainer.compute_latent_interpolations(z[:1], original, dim,
+                                                              num_points=TAIL_POINTS)
+        _check_reads_back(tag, os.path.join(folder, f"latent_interpolations_{attr}_{i}.mid"),
+                          score)
+        card = np.concatenate([tokens, interp])
+        plain = np.concatenate([cpu.decode_latent_codes(r[None])[1] for r in z])
+        differ = int((card != plain).any(axis=1).sum())
+        flips, rows = flips + differ, rows + len(z)
+        if differ == 0:
+            want = cpu.attrs.compute_labels(torch.as_tensor(plain[1:]), [attr]).numpy().ravel()
+            _check_close(f"{tag} {attr} labels of code {i}", torch.from_numpy(labels[attr][i]),
+                         torch.from_numpy(want), 0.0, LABEL_ATOL)
+    if flips > EVAL_PATH_FLIPS * rows:
+        raise AssertionError(f"{tag}: {flips} of {rows} decodes on another token path")
+    return flips, rows
+
+
+def _tail_run(name, flags, card_line):
+    """The music CLI (``TAIL_ARGS`` + ``flags``) in a models dir of its
+    own: its launches the code's (training, evaluation and tail); then the
+    tail again from the trained state, alone: its launches the code's
+    (``_tail_launches``), at H=512 every ``gru_chain`` call on the wide
+    layout and every tick-loop forward on the wave layout, its files the
+    ones the root CLI writes, each read back, and its decodes against
+    the CPU → the launches, seconds and flips."""
+    from arvae_tpu_torch import train_measure_vae
+    from arvae_tpu_torch.ops import gru_kernel as gk
+    from arvae_tpu_torch.ops import hier_decoder_kernel as hk
+
+    tag = f"slice 10 music CLI tail, {name}"
+    with tempfile.TemporaryDirectory() as models_dir:
+        os.environ["ARVAE_MODELS_DIR"] = models_dir
+        _reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            (trainer,) = train_measure_vae.main(TAIL_ARGS + flags)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        cli = _read_launches()
+        hist, model = trainer.history, trainer.model
+        if len(hist) != 1 or not math.isfinite(hist[0]["train_loss"]):
+            raise AssertionError(f"{tag}: history {hist}")
+        n_train, n_val = hist[0]["train_steps"], hist[0]["val_steps"]
+        per_step = {"gru": model.encoder.lstm.num_layers + model.decoder.rnn_beat.num_layers,
+                    "hier": 1, "reg": 1}
+        _check_launches(f"{tag}, the CLI run", cli, _with_eval(
+            {k: {"fwd": n * (n_train + n_val), "bwd": n * n_train} for k, n in per_step.items()},
+            trainer))
+        folder = os.path.join(trainer.run_dir, "results")
+        written = sorted(os.listdir(folder))
+        _reset_launches()
+        t0 = time.perf_counter()
+        codes, _, _ = trainer.compute_representations(num_batches=TAIL_BATCHES)
+        labels = {attr: trainer.plot_latent_interpolations(codes, attr, num_points=TAIL_POINTS)
+                  for attr in trainer.attr_dict}
+        torch.cuda.synchronize()
+        tail_s = time.perf_counter() - t0
+        tail = _read_launches()
+        tail["gru_wide"], tail["wave"] = dict(gk.WIDE_LAUNCHES), dict(hk.WAVE_LAUNCHES)
+        want = {k: {"fwd": v, "bwd": 0} for k, v in _tail_launches(trainer).items()}
+        wide = model.encoder.lstm.hidden_size >= 384
+        want["gru_wide"] = want["gru"] if wide else {"fwd": 0, "bwd": 0}
+        want["wave"] = {"fwd": want["hier"]["fwd"] if model.decoder.rnn_tick.hidden_size >= 256
+                        else 0}
+        _check_launches(f"{tag}, the tail alone", tail, want)
+        n = min(TAIL_POINTS, len(codes))
+        names = sorted([f"original_{i}.mid" for i in range(n)]
+                       + [f"latent_interpolations_{a}_{i}.mid" for a in trainer.attr_dict
+                          for i in range(n)])
+        if written != names or sorted(os.listdir(folder)) != names:
+            raise AssertionError(f"{tag}: the CLI wrote {written}, the tail "
+                                 f"{sorted(os.listdir(folder))}, not {names}")
+        flips, rows = _tail_vs_cpu(tag, trainer, codes, labels)
+    print(f"[last] music CLI {' '.join(TAIL_ARGS + flags)}: {cli_s:.1f} s, train loss "
+          f"{hist[0]['train_loss']:.4f} ({n_train} + {n_val} steps), launches {cli} (training, "
+          f"evaluation and tail: the code's); the tail alone ({len(codes)} codes harvested, "
+          f"{len(names)} MIDI files, each read back to its Score) {tail_s:.2f} s, launches "
+          f"{tail} (the code's; gru_chain on the wide layout and the tick loop on the wave "
+          f"layout: {tail['gru_wide']['fwd']} / {tail['wave']['fwd']}); its {rows} decodes "
+          f"card vs CPU: {flips} on another token path (bound {EVAL_PATH_FLIPS:.0%}), labels "
+          f"within {LABEL_ATOL:g} | {card_line}")
+    return {"cli": cli, "tail": tail, "cli_s": cli_s, "tail_s": tail_s, "flips": flips,
+            "decodes": rows}
+
+
+def _image_decodes(card_line):
+    """The image and fader trainers' decodes and grids on the card against
+    CPU copies of the same models (random weights from a seed), within
+    SLICE_RTOL / ATOL; decoded MNIST digits measured again; none of the
+    port's kernels launched."""
+    from arvae_tpu_torch.models.image_fader import DspritesFaderNetwork, MnistFaderNetwork
+    from arvae_tpu_torch.models.image_vae import DspritesVAE, MnistVAE
+    from arvae_tpu_torch.training.fader_trainer import ImageFaderTrainer
+    from arvae_tpu_torch.training.image_trainer import ImageVAETrainer
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(12)
+
+    def pair(cls, model):
+        cpu_model = copy.deepcopy(model)
+        return cls(None, model, dev), cls(None, cpu_model, torch.device("cpu"))
+
+    def close(tag, got, want):
+        _check_close(tag, torch.from_numpy(got), torch.from_numpy(want), SLICE_RTOL, ATOL)
+        return float(np.abs(got - want).max())
+
+    _reset_launches()
+    errs, morpho = {}, None
+    for model in (DspritesVAE(seed=0), MnistVAE(seed=0)):
+        name = type(model).__name__
+        card, cpu = pair(ImageVAETrainer, model)
+        z = 2 * rng.randn(IMAGE_DECODES, model.z_dim).astype(np.float32)
+        code = rng.randn(1, model.z_dim).astype(np.float32)
+        decoded = card.decode(z)
+        errs[name] = [close(f"slice 10 {name} decode", decoded, cpu.decode(z)),
+                      close(f"slice 10 {name} 1-D grid",
+                            card.compute_latent_interpolations(code, dim1=1),
+                            cpu.compute_latent_interpolations(code, dim1=1)),
+                      close(f"slice 10 {name} 2-D grid",
+                            card.compute_latent_interpolations2d(code, dim1=0, dim2=2),
+                            cpu.compute_latent_interpolations2d(code, dim1=0, dim2=2))]
+        if name == "MnistVAE":
+            morpho = card.compute_mnist_morpho_labels(decoded)
+            if morpho.shape != (IMAGE_DECODES, 6) or not np.isfinite(morpho).all():
+                raise AssertionError(f"slice 10: decoded digits' morphometry {morpho}")
+    for model in (DspritesFaderNetwork(seed=0), MnistFaderNetwork(seed=0)):
+        name = type(model).__name__
+        card, cpu = pair(ImageFaderTrainer, model)
+        codes = rng.randn(2, model.z_dim).astype(np.float32)
+        labels = rng.rand(2, model.num_attributes).astype(np.float32)
+        errs[name] = [close(f"slice 10 {name} traversal of label {d}",
+                            card.compute_latent_interpolations(codes, labels, dim1=d),
+                            cpu.compute_latent_interpolations(codes, labels, dim1=d))
+                      for d in (0, model.num_attributes - 1)]
+    launches = _read_launches()
+    _check_no_launches("slice 10 image decodes", launches)
+    print(f"[last] image and fader decodes and grids (a 10-point 1-D traversal, a 10x10 2-D "
+          f"one, label traversals of 11), card vs CPU within rtol {SLICE_RTOL:g}, atol "
+          f"{ATOL:g}: max abs err {errs}; {IMAGE_DECODES} decoded MNIST digits measured again: "
+          f"area {morpho[:, 0].min():.2f}-{morpho[:, 0].max():.2f}; launches {launches} "
+          f"| {card_line}")
+    return errs
+
+
+def _native_thinning(card_line):
+    """The native thinning built from ``csrc/morpho_native.cpp`` and the
+    backend asserted ``native``; one batch of binary digits thinned by
+    each backend (bitwise, timed); then the full synthetic MNIST cache
+    (``MNIST_ARGS``' 8,192 + 2,048 digits) built under each backend, each
+    in a directory of its own, timed, the morphometry files byte for byte
+    equal → {backend: build seconds}."""
+    from arvae_tpu_torch.data import mnist
+    from arvae_tpu_torch.data.morphomnist import morpho, native
+    from arvae_tpu_torch.data.synthetic_digits import generate_digit_set
+
+    os.environ.pop(native.NO_NATIVE_ENV, None)
+    t0 = time.perf_counter()
+    backend = native.backend()
+    build_s = time.perf_counter() - t0
+    if backend != "native":
+        raise AssertionError(f"slice 10: the thinning backend is {backend!r}, not native")
+    gpp = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         check=True).stdout.splitlines()[0]
+    imgs, _ = generate_digit_set(THIN_IMAGES, seed=5)
+    bins = np.stack([morpho.ImageMorphology((im * 255).astype(np.uint8), scale=4).binary_image
+                     for im in imgs[:, 0]])
+    t0 = time.perf_counter()
+    got = native.zhang_suen_thin_batch(bins)
+    native_s = time.perf_counter() - t0
+    # one image a call, as the measuring path thins: no OpenMP team, one core
+    t0 = time.perf_counter()
+    one_by_one = np.concatenate([native.zhang_suen_thin_batch(b[None]) for b in bins])
+    native_one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = np.stack([morpho.zhang_suen_thin_numpy(b) for b in bins])
+    numpy_s = time.perf_counter() - t0
+    if not (np.array_equal(got, want) and np.array_equal(one_by_one, want)):
+        raise AssertionError("slice 10: the native skeletons are not the numpy ones")
+    # where a build's time goes: rendering the digits, and measuring one
+    # image in this process under each backend
+    t0 = time.perf_counter()
+    generate_digit_set(mnist.SYNTH_TRAIN, seed=0)
+    generate_digit_set(mnist.SYNTH_TEST, seed=1)
+    render_s = time.perf_counter() - t0
+    u8 = (imgs[:, 0] * 255).astype(np.uint8)
+    mnist.measure_images(u8[:4])  # first use
+    per_image = {}
+    for name in ("native", "numpy"):
+        if name == "numpy":
+            os.environ[native.NO_NATIVE_ENV] = "1"
+        try:
+            t0 = time.perf_counter()
+            mnist.measure_images(u8[:mnist.IMAGES_PER_WORKER])  # serially: one worker's share
+            per_image[name] = (time.perf_counter() - t0) / min(len(u8), mnist.IMAGES_PER_WORKER)
+        finally:
+            os.environ.pop(native.NO_NATIVE_ENV, None)
+    builds, files = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("native", "numpy"):
+            root = os.path.join(tmp, name, "mnist_data")
+            if name == "numpy":
+                os.environ[native.NO_NATIVE_ENV] = "1"
+            try:
+                if native.backend() != name:
+                    raise AssertionError(f"slice 10: backend {native.backend()} for {name}")
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    mnist.MorphoMnistDataset(root=root)
+                builds[name] = time.perf_counter() - t0
+            finally:
+                os.environ.pop(native.NO_NATIVE_ENV, None)
+            files[name] = {k: open(os.path.join(root, "plain", f"{k}-morpho.csv"), "rb").read()
+                           for k in ("train", "t10k")}
+    if files["native"] != files["numpy"]:
+        raise AssertionError("slice 10: the two backends measured other morphometry")
+    print(f"[last] native thinning: {native.library_path()} built and loaded in {build_s:.2f} s "
+          f"({gpp}); backend {backend!r}; {THIN_IMAGES} binary digits at scale 4 thinned in "
+          f"{native_s:.4f} s (one OpenMP batch, up to {os.cpu_count()} threads) and in "
+          f"{native_one_s:.4f} s one image a call (one thread, as the measuring path thins) "
+          f"against numpy's {numpy_s:.4f} s (one thread), bitwise equal | {card_line}")
+    print(f"[last] synthetic MNIST cache ({mnist.SYNTH_TRAIN} + {mnist.SYNTH_TEST} digits "
+          f"rendered, written and measured, spawn pools of up to {os.cpu_count()} workers): "
+          f"native thinning {builds['native']:.2f} s, numpy {builds['numpy']:.2f} s, the "
+          f"morphometry files byte for byte equal; of which rendering the digits "
+          f"{render_s:.2f} s (one process); one image measured in {1e3 * per_image['native']:.2f} "
+          f"ms (native) / {1e3 * per_image['numpy']:.2f} ms (numpy) on one core | {card_line}")
+    return {"build_s": build_s,
+            "thin_s": {"native": native_s, "native_one_by_one": native_one_s, "numpy": numpy_s},
+            "cache_s": builds, "render_s": render_s, "measure_ms": per_image}
+
+
+def _trace_steps(card_line):
+    """``trace`` around TRACE_STEPS dSprites AR steps (B=128, random packed
+    rows): one Chrome trace written, the reg kernels' records in it;
+    ``StepTimer``'s steps/s over the traced steps (warmup 1) and over the
+    same steps untraced → the rates."""
+    from arvae_tpu_torch.utils import step_probe
+    from arvae_tpu_torch.utils.profiling import StepTimer, trace
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(3)
+    packed = rng.randint(0, 256, (TRACE_STEPS * B_TRAIN, 512)).astype(np.uint8)
+    labels = rng.rand(TRACE_STEPS * B_TRAIN, 6).astype(np.float32)
+    trainer, split = step_probe.dsprites_trainer(dev, packed, labels)
+    batches = [split.gather_batch(torch.arange(i * B_TRAIN, (i + 1) * B_TRAIN, device=dev))
+               for i in range(TRACE_STEPS)]
+
+    def steps(timer):
+        for batch in batches:
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+            timer.tick()
+        return timer.steps_per_sec
+
+    steps(StepTimer(warmup=0))  # cuDNN's plans, the kernels' first calls
+    _reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            traced = steps(StepTimer(warmup=1))
+        launches = _read_launches()
+        (path,) = [os.path.join(tmp, f) for f in os.listdir(tmp) if f.endswith(".pt.trace.json")]
+        size = os.path.getsize(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    reg = {d: sum(f"reg_{d}" in k for k in kernels) for d in ("fwd", "bwd")}
+    _check_launches("slice 10 traced steps", launches["reg"],
+                    {"fwd": TRACE_STEPS, "bwd": TRACE_STEPS})
+    if not (reg["fwd"] and reg["bwd"]):
+        raise AssertionError(f"slice 10: no reg kernel in the trace ({len(kernels)} kernels)")
+    untraced = steps(StepTimer(warmup=1))
+    if not (math.isfinite(traced) and math.isfinite(untraced)):
+        raise AssertionError(f"slice 10: StepTimer read {traced}, {untraced}")
+    print(f"[last] trace over {TRACE_STEPS} dSprites steps: {os.path.basename(path)} "
+          f"({size} bytes, {len(kernels)} kernel records; reg_fwd {reg['fwd']}, reg_bwd "
+          f"{reg['bwd']} of {TRACE_STEPS} launches each); StepTimer (warmup 1): "
+          f"{traced:.2f} steps/s traced, {untraced:.2f} untraced | {card_line}")
+    return {"traced_steps_per_s": traced, "untraced_steps_per_s": untraced,
+            "reg_records": reg}
+
+
+def phase_last_modules(card_line):
+    """Slice 10 → {"tail": {width: _tail_run's}, "image": max abs errs,
+    "native": times, "trace": rates}."""
+    return {"tail": {name: _tail_run(name, flags, card_line)
+                     for name, flags in TAIL_WIDTHS.items()},
+            "image": _image_decodes(card_line),
+            "native": _native_thinning(card_line),
+            "trace": _trace_steps(card_line)}
 
 
 # Slice 9, data parallelism (``arvae_tpu_torch/parallel``): the dSprites
@@ -3603,16 +3998,18 @@ def _dp_device_us(fn, calls=20):
     wait for a peer that entered the profiled window later."""
     from torch.profiler import ProfilerActivity, profile
 
-    from arvae_tpu_torch.utils.step_probe import device_events, union_us
+    from arvae_tpu_torch.utils.step_probe import device_events, open_window, union_us
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        open_window()  # takes CUPTI's loss of a window's first records
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    events = sorted(device_events(prof), key=lambda e: e["ts"])
+    events = sorted((e for e in device_events(prof) if "spin_kernel" not in e["name"]),
+                    key=lambda e: e["ts"])
     per_call = len(events) // calls
     if per_call == 0:
         return 0.0, len(events) / calls
@@ -3978,6 +4375,7 @@ def main(argv=None) -> int:
         glsr = dict(variant_runs)["variant glsr"]
         analysis = _timed("slice 8 (music analysis)", phase_analysis, card_line, music[2],
                           music_dir, glsr)
+    last = _timed("slice 10 (the last modules)", phase_last_modules, card_line)
     dp = _timed("slice 9 (data parallel)", phase_data_parallel, card_line)
     print(f"[phase] total: {time.perf_counter() - t0:.1f} s")
 
@@ -4022,7 +4420,15 @@ def main(argv=None) -> int:
                     "glsr": analysis["sweep_glsr"][key]["fwd"]},
                     "abc_cli_launches": analysis["abc"][key]["fwd"]}
                    if key != "reg" and direction == "fwd" else {}),
-                "data_parallel": data_parallel(key, direction)}
+                "data_parallel": data_parallel(key, direction),
+                "slice10_tail_launches": tail_launches(key, direction)}
+
+    def tail_launches(key, direction, layout=None):
+        """Slice 10: the launches of the music CLI's tail alone, after a
+        short run at each width (``layout``: of them, the wide or wave
+        layout's)."""
+        return {width: run["tail"][layout or key][direction]
+                for width, run in last["tail"].items()}
 
     def data_parallel(key, direction):
         """Slice 9: the launches of its 3 steps a slice, over an NCCL group
@@ -4123,7 +4529,8 @@ def main(argv=None) -> int:
                 "bound_ms": w.bound_ms, "bound_by": w.bound_by,
                 "library_ms": row["cudnn"][direction],
                 "device_us_by_kernel": dict(row[f"{direction}_split"]),
-                "wide_shapes": shapes("gru", direction)}
+                "wide_shapes": shapes("gru", direction),
+                "slice10_tail_launches": tail_launches("gru", direction, "gru_wide")}
 
     def wave_entry():
         """The tick loop's wave layout: launches from the 512-wide CLI run
@@ -4143,6 +4550,7 @@ def main(argv=None) -> int:
                 "tf32x3_bound_ms": w.tf32x3_bound_ms, "library_ms": None,
                 "device_us_by_kernel": dict(row["fwd_split"]),
                 "step_device_busy_ms": busy,
+                "slice10_tail_launches": tail_launches("hier", "fwd", "wave"),
                 "wave_shapes": [{"shape": r["shape"], "plan": r["plan"], "ms": r["fwd"],
                                  "plain_ms": r["fwd_plain"],
                                  "bound_ms": r["fwd_work"].bound_ms,
@@ -4191,6 +4599,15 @@ def main(argv=None) -> int:
     print("[times] the AR term's device launches a call (profiler): " + "; ".join(
         f"{name} {kind} {n:g}" for (name, kind), n in times["ar_launches"].items())
         + f" | {card_line}")
+    tails = "; ".join(f"{w}: launches {r['tail']} in {r['tail_s']:.2f} s, {r['flips']} of "
+                      f"{r['decodes']} decodes on another path than the CPU's"
+                      for w, r in last["tail"].items())
+    nat = last["native"]
+    print(f"[times] slice 10: the music CLI tail alone, {tails}; the synthetic MNIST cache "
+          f"{nat['cache_s']['native']:.2f} s with the native thinning, "
+          f"{nat['cache_s']['numpy']:.2f} s with numpy's; StepTimer over {TRACE_STEPS} traced "
+          f"dSprites steps {last['trace']['traced_steps_per_s']:.2f} steps/s "
+          f"({last['trace']['untraced_steps_per_s']:.2f} untraced) | {card_line}")
     for name, ms in dp["step_ms"].items():
         print(f"[times] data parallel: {name} step ms, no group / NCCL group of one / group / "
               f"no group: {' / '.join(f'{x:.4f}' for x in ms)}; collectives a call (device "

@@ -76,7 +76,7 @@ def test_measure_images_pool_equals_serial(monkeypatch):
     monkeypatch.setattr(mnist.os, "cpu_count", lambda: 2)
     pooled = mnist.measure_images(u8)
     assert mnist.POOL_START in ("spawn", "forkserver")
-    assert serial.dtype == np.float32
+    assert serial.dtype == np.float64  # measure_batch's, as JAX's DataFrame holds
     np.testing.assert_array_equal(pooled, serial)
 
 

@@ -242,3 +242,25 @@ def gather_body(ctx, workdir: str) -> Dict[str, Any]:
 
 if __name__ == "__main__":
     sys.exit("a module of rank bodies for tests/test_torch_parallel_*.py")
+
+
+def music_cli_body(ctx, workdir: str) -> Dict[str, Any]:
+    """The music CLI (``music_cli.json``'s flags, one seed) on this rank,
+    in the group the harness made, with the MIDI tail's calls counted."""
+    import json
+
+    from arvae_tpu_torch import train_measure_vae
+    from arvae_tpu_torch.training.measure_trainer import MeasureVAETrainer
+
+    with open(os.path.join(workdir, "music_cli.json")) as fh:
+        argv = json.load(fh)
+    calls = []
+    plot = MeasureVAETrainer.plot_latent_interpolations
+
+    def counted(self, latent_codes, attr_str, num_points=10):
+        calls.append(attr_str)
+        return plot(self, latent_codes, attr_str, num_points)
+
+    MeasureVAETrainer.plot_latent_interpolations = counted
+    (trainer,) = train_measure_vae.main(argv)
+    return {"calls": calls, "run_dir": trainer.run_dir, "metrics": trainer.metrics}
