@@ -54,9 +54,10 @@
 // writes the part owned by CTA o into o's slot c (reduce-scatter through
 // distributed shared memory, double-buffered by step); the owner adds its
 // C slots in the fixed order c = 0 .. C-1. dW_hh and db_hh sum over
-// (t, b) across clusters: the tiled GEMM of gru_common.cuh reads
-// h_{t-1} in place and dgh from the sequential launch, in a fixed order.
-// No float atomics anywhere, so repeats are bitwise equal.
+// (t, b) across clusters: tc_gemm.cuh's 3xTF32 tensor-core A^T X GEMM
+// reads h_{t-1} in place and dgh from the sequential launch, in a fixed
+// order (both layouts). No float atomics anywhere, so repeats are bitwise
+// equal.
 //
 // The backward's cluster kernel and its layout live in gru_cluster.cuh,
 // which hier_tick_chain.cu includes too: the tick loop's backward runs
@@ -134,6 +135,15 @@ gru_fwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
     cluster.sync();
   }
 }
+
+// The row products' plain store: out[m * ld + n].
+struct TcStore {
+  float* out;
+  int ld;
+  __device__ void operator()(int m, int n, float v) const {
+    out[static_cast<size_t>(m) * ld + n] = v;
+  }
+};
 
 }  // namespace
 
@@ -234,23 +244,89 @@ int gru_chain_wide_fwd(const float* gi, const float* w_hh, const float* b_hh, co
                                T, D, B, H, rows, outs, gh, bar);
 }
 
-// The wide layout's backward, as gru_chain_bwd: gh is the forward's
-// (recompute 0) or scratch of its shape that the kernel fills first
-// (recompute 1); bar: 2 unsigned of scratch.
-int gru_chain_wide_bwd(const float* gi, float* gh, int recompute, const float* w_hh,
-                       const float* b_hh, const float* h0, const float* outs,
-                       const float* douts, int T, int D, int B, int H, int U, int rows,
-                       int smem_bytes, int splits, float* dgi, float* dh0, float* dw, float* db,
-                       float* dgh, float* red, unsigned* bar, void* stream) {
-  if (wide_checked_smem(true, H, U, rows, smem_bytes) == 0 || T < 1 || B < 1) {
+// The wide layout's backward, as gru_chain_bwd: gh is the wide
+// forward's (T, D, B, 3H) kept pre-activations; bar: 2 unsigned of scratch.
+int gru_chain_wide_bwd(const float* gi, const float* gh, const float* w_hh, const float* h0,
+                       const float* outs, const float* douts, int T, int D, int B, int H, int U,
+                       int rows, int smem_bytes, int splits, float* dgi, float* dh0, float* dw,
+                       float* db, float* dgh, float* red, unsigned* bar, void* stream) {
+  if (wide_checked_smem(true, H, U, rows, smem_bytes) == 0 || T < 1 || B < 1 ||
+      gh == nullptr) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_wide_bwd(gi, gh, recompute != 0, w_hh, b_hh, h0, outs, douts, T, D,
-                                    B, H, U, rows, smem_bytes, dgi, dh0, dgh, bar, st);
+  cudaError_t err = launch_wide_bwd(gi, gh, w_hh, h0, outs, douts, T, D, B, H, U, rows,
+                                    smem_bytes, dgi, dh0, dgh, bar, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
       weight_grads(h0, outs, dgh, T, D, B, H, splits, dw, db, red, st));
+}
+
+// The weight-gradient GEMM alone (tc_gemm.cuh's A^T X form), to hold it
+// against its plain version and time it; no recurrence calls it:
+//   out (D, M, N) = sum_{t, b} A(d, t, b, :)^T x(d, t, b, :),
+//   bias (D, N) = sum_{t, b} x(d, t, b, :)   (where bias is not null),
+// x (T, D, B, N); A dense a (T, D, B, M), or with a0 (D, B, M) the state
+// one step back (a[t - 1], a0 at t = 0), or with tokens (T B,) the one-hot
+// of tokens[s - tok_shift] (-1 for none, and the first tok_shift terms;
+// D = 1). splits: the plan's (ops/gru_kernel.py::atb_splits); scratch
+// holds atb_scratch_floats.
+int gru_chain_atb(const float* a, const float* a0, const int* tokens, int tok_shift, int M,
+                  const float* x, int N, int T, int D, int B, int splits, float* out,
+                  float* bias, float* scratch, void* stream) {
+  if ((tokens == nullptr) == (a == nullptr) || (tokens != nullptr && D != 1) ||
+      (splits > 1 && scratch == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  const long long bm = static_cast<long long>(B) * M, bn = static_cast<long long>(B) * N;
+  const Operand A{a, a0, bm, D * bm, M, a0 != nullptr ? T : 1, 0};
+  const Operand X{x, nullptr, bn, D * bn, N, 1, 0};
+  return static_cast<int>(launch_atb(A, tokens, tok_shift, M, X, N, T, B, D, splits, out, bias,
+                                     scratch, static_cast<cudaStream_t>(stream)));
+}
+
+// A row product alone (tc_gemm.cuh's second form), likewise: out (M, N) =
+// A (M, K, row stride lda) times W (K, N, row stride ldw), or with trans
+// times W^T (W (N, K)).
+int gru_chain_rows(const float* A, int lda, const float* W, int ldw, int M, int K, int N,
+                   int trans, float* out, void* stream) {
+  const TcStore store{out, N};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(trans != 0 ? launch_row_gemm<true>(A, lda, W, ldw, M, K, N, store, st)
+                                     : launch_row_gemm<false>(A, lda, W, ldw, M, K, N, store, st));
+}
+
+// Dynamic shared memory of the engine's CTA (tc_gemm.cuh) by form (0: A^T
+// X, 1: A W, 2: A W^T) and tile (TcTile), which ops/gru_kernel.py::
+// tc_smem_bytes mirrors.
+int gru_chain_tc_smem_bytes(int form, int tile) {
+  auto of = [&](auto shape) {
+    using S = decltype(shape);
+    return form == 0 ? tc_smem_bytes<S, true, true>()
+           : form == 1 ? tc_smem_bytes<S, false, true>()
+                       : tc_smem_bytes<S, false, false>();
+  };
+  return tile == kTcBig       ? of(TcBig{})
+         : tile == kTcNarrowM ? of(TcNarrowM{})
+         : tile == kTcNarrowN ? of(TcNarrowN{})
+                              : of(TcMid{});
+}
+
+// CTAs of the A^T X kernel of a tile that one SM holds at once (with its
+// shared memory); a negative CUDA error code when a query fails.
+int gru_chain_atb_ctas_an_sm(int tile) {
+  auto query = [](auto kernel, int smem) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    int n = 0;
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kTcThreads, smem);
+    }
+    return err == cudaSuccess ? n : -static_cast<int>(err);
+  };
+  return tile == kTcBig       ? query(atb_tc<TcBig>, tc_smem_bytes<TcBig, true, true>())
+         : tile == kTcNarrowM ? query(atb_tc<TcNarrowM>, tc_smem_bytes<TcNarrowM, true, true>())
+                              : query(atb_tc<TcNarrowN>, tc_smem_bytes<TcNarrowN, true, true>());
 }
 
 }  // extern "C"

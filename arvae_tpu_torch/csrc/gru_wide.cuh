@@ -62,13 +62,11 @@
 // dh_{t-1} = dh z + dgh_t w_hh^T for its own units: the sum over all 3H
 // gate columns stays inside the CTA, in a fixed order, because the CTA
 // holds w_hh's rows of its units. The carry lives in dh0, which holds the
-// answer after step 0. Where the caller has no gh (the tick loop's
-// chains), the kernel first recomputes it for its own cells over all
-// steps at once, with the forward's slice in the same shared memory, and
-// no grid barrier: every later read of gh is of the CTA's own cells.
-// dW_hh and db_hh then come from gru_common.cuh's fixed-order A^T X GEMM
-// over (t, b), as in the cluster layout, each split summing at most 1,024
-// terms (ops/gru_kernel.py::wide_atb_splits).
+// answer after step 0. gh is always the forward's: gru_chain's wide
+// forward keeps it for a backward that autograd records, and the tick
+// loop's chains read its wave forward's. dW_hh and db_hh then come
+// from tc_gemm.cuh's fixed-order A^T X GEMM
+// over (t, b), as in the cluster layout (ops/gru_kernel.py::atb_splits).
 //
 // The launch plan (U, rows a CTA, shared memory) comes from
 // arvae_tpu_torch/ops/gru_kernel.py::gru_plan, which mirrors wide_layout
@@ -81,6 +79,7 @@
 #include <cuda_runtime.h>
 
 #include "gru_common.cuh"
+#include "tc_gemm.cuh"
 
 namespace arvae {
 
@@ -111,9 +110,7 @@ __host__ __device__ inline WideLayout wide_layout(bool bwd, int H, int U) {
   L.ldf = L.kf + 4;
   L.kb = (3 * H + kWideDepth - 1) / kWideDepth * kWideDepth;
   L.ldb = L.kb + 4;
-  int w = 3 * U * L.ldf;
-  // the backward holds its own slice, or first the forward's to recompute gh
-  if (bwd && U * L.ldb > w) w = U * L.ldb;
+  const int w = bwd ? U * L.ldb : 3 * U * L.ldf;
   L.x = w;
   L.total = w + kWideStages * L.P * kWideLd;
   return L;
@@ -243,21 +240,6 @@ __device__ __forceinline__ void grid_sync(unsigned* count, unsigned pass) {
 // ---------------------------------------------------------------------------
 // The streamed 3xTF32 product of a pass
 // ---------------------------------------------------------------------------
-
-// x as a TF32 part and the rest of its remainder (whose bits below TF32's
-// the tensor cores drop).
-__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& rest) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(big) : "f"(x));
-  rest = __float_as_uint(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // Chunk [k0, k0 + kWideDepth) of the pass's P rows of a (rows, K) operand
 // (row r at src + r * lds) into dst (P x kWideLd) with cp.async (the caller
@@ -521,13 +503,12 @@ gru_wide_fwd(const float* __restrict__ gi, const float* __restrict__ w_hh,
 // Backward
 // ---------------------------------------------------------------------------
 
-// dgi (T, D, B, 3H), dh0 (D, B, H) and dgh (T, D, B, 3H) from gi, gh (or,
-// with recompute, gh written first: its own cells, all steps), w_hh, b_hh,
-// h0, outs, douts; dh0 carries dh between steps.
+// dgi (T, D, B, 3H), dh0 (D, B, H) and dgh (T, D, B, 3H) from gi, the
+// forward's gh, w_hh, h0, outs, douts; dh0 carries dh between steps.
 template <int U>
 __global__ void __launch_bounds__(kWideThreads, 1)
-gru_wide_bwd(const float* __restrict__ gi, float* gh, int recompute,
-             const float* __restrict__ w_hh, const float* __restrict__ b_hh,
+gru_wide_bwd(const float* __restrict__ gi, const float* __restrict__ gh,
+             const float* __restrict__ w_hh,
              const float* __restrict__ h0, const float* __restrict__ outs,
              const float* __restrict__ douts, int T, int D, int B, int H, int rows,
              float* __restrict__ dgi, float* dh0, float* dgh, unsigned* bar) {
@@ -545,33 +526,6 @@ gru_wide_bwd(const float* __restrict__ gi, float* gh, int recompute,
   };
 
   const bool vec = H % 4 == 0;
-  if (recompute != 0) {
-    // gh of the CTA's own cells at every step: no step waits for another
-    const float* bd = b_hh + d * H3;
-    wide_load_fwd_slice(ws, L, wd, H, cta.u0);
-    __syncthreads();
-    for (int t = 0; t < T; ++t) {
-      const float* hprev = hprev_of(t);
-      const size_t step = (static_cast<size_t>(t) * D + d) * B;
-      for (int r0 = cta.row0; r0 < cta.row0 + cta.nrows; r0 += L.P) {
-        const int nr = min(L.P, cta.row0 + cta.nrows - r0);
-        const float* gs = wide_gate_product(ws, L, xs, hprev, r0, nr, H, vec);
-        __syncthreads();
-#pragma unroll
-        for (int j = 0; j < kWideQuads; ++j) {
-          const Quad x = wide_quad(j, U, nr, cta.u0, H);
-          if (!x.live) continue;
-          float q[3][4];
-          quad_gates(gs, bd, x, U, cta.u0, H, q);
-#pragma unroll
-          for (int g = 0; g < 3; ++g) {
-            quad_store(gh + (step + r0 + x.r) * H3 + g * H + x.u, x.u, H, vec, q[g]);
-          }
-        }
-        __syncthreads();  // the staging buffers are the next product's
-      }
-    }
-  }
   // the backward's slice: w_hh's rows of the own units, zeros past 3H and H
   for (int idx = threadIdx.x; idx < U * L.kb / 4; idx += kWideThreads) {
     const int j = idx / (L.kb / 4);
@@ -613,7 +567,7 @@ gru_wide_bwd(const float* __restrict__ gi, float* gh, int recompute,
 #pragma unroll
         for (int g = 0; g < 3; ++g) {
           quad_load<1>(gi + row * H3 + g * H + x.u, x.u, H, vec, in_i[j][g]);
-          quad_load<0>(gh + row * H3 + g * H + x.u, x.u, H, vec, in_h[j][g]);
+          quad_load<1>(gh + row * H3 + g * H + x.u, x.u, H, vec, in_h[j][g]);
         }
         quad_load<1>(douts + row * H + x.u, x.u, H, vec, dh[j]);
         quad_load<1>(hprev + (r0 + x.r) * static_cast<size_t>(H) + x.u, x.u, H, vec, hp[j]);
@@ -757,19 +711,17 @@ inline cudaError_t launch_wide(void (*kernel)(Params...), int ctas, int smem, un
 }
 
 // The wide backward chain: plan (U, rows a CTA, smem bytes); gh the
-// forward's hidden-side pre-activations, or scratch of the same shape
-// that the kernel fills first (recompute). Returns cudaGetLastError().
-inline cudaError_t launch_wide_bwd(const float* gi, float* gh, bool recompute,
-                                   const float* w_hh, const float* b_hh, const float* h0,
-                                   const float* outs, const float* douts, int T, int D, int B,
-                                   int H, int U, int rows, int smem, float* dgi, float* dh0,
-                                   float* dgh, unsigned* bar, cudaStream_t st) {
+// forward's hidden-side pre-activations. Returns cudaGetLastError().
+inline cudaError_t launch_wide_bwd(const float* gi, const float* gh, const float* w_hh,
+                                   const float* h0, const float* outs, const float* douts,
+                                   int T, int D, int B, int H, int U, int rows, int smem,
+                                   float* dgi, float* dh0, float* dgh, unsigned* bar,
+                                   cudaStream_t st) {
   const int ctas = wide_ctas(D, B, H, U, rows);
-  const int rc = recompute ? 1 : 0;
-  return U == 32 ? launch_wide(gru_wide_bwd<32>, ctas, smem, bar, st, gi, gh, rc, w_hh, b_hh,
-                               h0, outs, douts, T, D, B, H, rows, dgi, dh0, dgh, bar)
-                 : launch_wide(gru_wide_bwd<16>, ctas, smem, bar, st, gi, gh, rc, w_hh, b_hh,
-                               h0, outs, douts, T, D, B, H, rows, dgi, dh0, dgh, bar);
+  return U == 32 ? launch_wide(gru_wide_bwd<32>, ctas, smem, bar, st, gi, gh, w_hh, h0, outs,
+                               douts, T, D, B, H, rows, dgi, dh0, dgh, bar)
+                 : launch_wide(gru_wide_bwd<16>, ctas, smem, bar, st, gi, gh, w_hh, h0, outs,
+                               douts, T, D, B, H, rows, dgi, dh0, dgh, bar);
 }
 
 }  // namespace arvae

@@ -75,27 +75,33 @@
 // CTA of the row group then combines all nh partials alike (a commutative
 // combine, so one token whatever the order), selects the teacher's token,
 // clamps, and gathers the next tick's fed embedding from emb by token.
-// The argmax is taken over exactly the floats written to weights. Every
+// The argmax is taken over exactly the floats written to weights. For a
+// caller that trains where the backward's chains take the wide layout
+// (H = 384, 512), each CTA also writes the hidden-side pre-activations of
+// its cells, gh_t = h_{t-1} w_hh + b_hh (the floats its gate math took),
+// to a (ticks_per_beat, n_beats * B, 3H) buffer a layer, with zeros on
+// the padded ticks, which the backward's wide chains read. Every
 // output sums in a fixed order, so a repeat is bitwise equal.
 //
 // Backward. The only dependence between ticks is the L hidden-gradient
 // carries, and they restart at every beat (routed to dtick_h0); tokens
 // carry no gradient. So it is n_beats independent chains of
 // ticks_per_beat ticks a layer. Everything that does not touch a carry
-// runs over all T x B rows at once through the tiled fixed-order row GEMM
-// of gru_common.cuh: the recomputed gi_l, dlog @ out_w^T,
-// dgi_l @ w_ih_l^T (masked by gap l-1's dropout) and dgi_0 @ w_ih0e^T;
-// the ReLU's mask is the forward's own (weights > 0), so the backward
-// agrees with it at the kink. The layers run from the top down: each
-// layer's chain is the GRU chain's backward (the cluster kernel of
-// gru_cluster.cuh where its slices fit, else the wide layout of
-// gru_wide.cuh, which first recomputes the chain's hidden-side gates; as
-// gru_plan gives it) over ticks_per_beat steps on n_beats x B rows,
-// followed by its weight gradients. Chain operands use the layout (tick in beat, beat * B + b);
+// runs over all T x B rows at once through the row products of
+// tc_gemm.cuh's 3xTF32 tensor-core engine: the recomputed gi_l, dlog @
+// out_w^T, dgi_l @ w_ih_l^T (masked by gap l-1's dropout) and dgi_0 @
+// w_ih0e^T; the ReLU's mask is the forward's own (weights > 0), so the
+// backward agrees with it at the kink. The layers run from the top down:
+// each layer's chain is the GRU chain's backward (the cluster kernel of
+// gru_cluster.cuh where its slices fit, which recomputes its gates step by
+// step, else the wide layout of gru_wide.cuh, from the wave forward's kept
+// hidden-side gates; as gru_plan gives it) over ticks_per_beat steps on
+// n_beats x B rows, followed by its weight gradients. Chain operands use
+// the layout (tick in beat, beat * B + b);
 // the forward saves the hiddens in it, with zero rows for the padded
 // ticks of a short last beat (T not a multiple of ticks_per_beat), whose
 // gi and douts are zero too. The 2L + 2 weight and embedding gradients go
-// through the A^T X GEMM of gru_common.cuh. All of it launches from the
+// through the engine's A^T X GEMM. All of it launches from the
 // one C entry, in a fixed order on one stream; no float atomics, so
 // repeats are bitwise equal.
 //
@@ -219,6 +225,7 @@ struct FwdOut {
   float* weights;               // (T, B, V) relu logits
   int* samples;                 // (T, B) fed tokens
   float* h_all[kMaxLayers];     // (tpb, n_beats * B, H) each, chain layout
+  float* gh[kMaxLayers];        // (tpb, n_beats * B, 3H) each, or null: the wave layout's kept gh
 };
 
 // ---------------------------------------------------------------------------
@@ -844,10 +851,15 @@ hier_wave_fwd(Weights w, Dims dm, int U, int R, int P, const int* __restrict__ t
             } else {
               ir += bi[j], iz += bi[U + j], in += bi[2 * U + j];
             }
-            const Gates G = gru_gates(ir, iz, in, gh[0][0][c] + bh[j], gh[0][1][c] + bh[U + j],
-                                      gh[0][2][c] + bh[2 * U + j]);
+            const float hr = gh[0][0][c] + bh[j], hz = gh[0][1][c] + bh[U + j],
+                        hn = gh[0][2][c] + bh[2 * U + j];
+            const Gates G = gru_gates(ir, iz, in, hr, hz, hn);
             const float h = gru_out(G, hp[c]);
             hnew[static_cast<size_t>(row) * H + u] = h;
+            if (out.gh[l] != nullptr) {
+              float* keep = out.gh[l] + chain_index(dm, t, row, u, H3);
+              keep[0] = hr, keep[H] = hz, keep[2 * H] = hn;
+            }
             if (dm.dropout && l + 1 < NL) {
               s.x[(static_cast<size_t>(l) * B + row) * H + u] =
                   h * dropout_mask(seed, t, l, dm.row_base + row, u, dm.keep, dm.scale);
@@ -944,7 +956,11 @@ hier_wave_fwd(Weights w, Dims dm, int U, int R, int P, const int* __restrict__ t
     for (int i = threadIdx.x; i < nrows * U; i += blockDim.x) {
       const int r = i / U;
       const int u = u0 + i - r * U;
-      for (int l = 0; l < NL; ++l) out.h_all[l][chain_index(dm, t, row0 + r, u, H)] = 0.f;
+      for (int l = 0; l < NL; ++l) {
+        out.h_all[l][chain_index(dm, t, row0 + r, u, H)] = 0.f;
+        if (out.gh[l] == nullptr) continue;
+        for (int g = 0; g < 3; ++g) out.gh[l][chain_index(dm, t, row0 + r, g * H + u, H3)] = 0.f;
+      }
     }
   }
 }
@@ -995,12 +1011,11 @@ struct BwdScratch {
   float* dgi;     // (R, 3H)
   float* dgh;     // (R, 3H)
   float* dpe;     // (R, E)
-  float* gh;      // (R, 3H) the wide chains' recomputed hidden-side gates (wide only)
   unsigned* bar;  // the wide chains' grid barrier
   long long floats;  // the floats taken; the GEMMs' partial sums follow
 };
 
-BwdScratch carve(const Dims& dm, float* base, bool wide) {
+BwdScratch carve(const Dims& dm, float* base) {
   const long long bc = static_cast<long long>(dm.beats()) * dm.B;
   const long long R = dm.tpb * bc, H = dm.H, H3 = 3LL * dm.H;
   BwdScratch s;
@@ -1021,7 +1036,6 @@ BwdScratch carve(const Dims& dm, float* base, bool wide) {
   s.dgi = take(R * H3);
   s.dgh = take(R * H3);
   s.dpe = take(R * dm.E);
-  s.gh = wide ? take(R * H3) : nullptr;
   s.bar = reinterpret_cast<unsigned*>(take(1));
   s.floats = o;
   return s;
@@ -1236,12 +1250,12 @@ long long hier_tick_chain_wave_scratch_floats(int B, int H, int V, int L, int U,
   return wave_scratch(B, H, V, L, U, R, nullptr).floats;
 }
 
-// Floats of the backward's scratch before the GEMMs' partial sums, its
-// chains in the cluster (wide 0) or the wide layout.
+// Floats of the backward's scratch before the GEMMs' partial sums (ops/
+// hier_decoder_kernel.py::bwd_scratch_floats mirrors it).
 long long hier_tick_chain_bwd_scratch_floats(int T, int B, int H, int E, int V,
-                                              int ticks_per_beat, int L, int wide) {
+                                              int ticks_per_beat, int L) {
   const Dims dm{T, B, H, E, V, ticks_per_beat, L, 0, 1.f, 1.f, 0, 0};
-  return carve(dm, nullptr, wide != 0).floats;
+  return carve(dm, nullptr).floats;
 }
 
 // teacher, seed: (1,) i32 on the device; score (T, B) i32; the float
@@ -1253,7 +1267,9 @@ long long hier_tick_chain_bwd_scratch_floats(int T, int B, int H, int E, int V,
 // hier_tick_chain_wave_scratch_floats floats; smem_bytes of dynamic shared
 // memory a CTA.
 // Writes weights (T, B, V), samples (T, B) i32 and the L layers' hiddens
-// h_all[l] (ticks_per_beat, n_beats * B, H).
+// h_all[l] (ticks_per_beat, n_beats * B, H); where gh is not null (the
+// wave layout only), the L layers' hidden-side pre-activations gh[l]
+// (ticks_per_beat, n_beats * B, 3H) for the backward's wide chains.
 int hier_tick_chain_fwd(const int* teacher, const int* seed, const int* score,
                         const float* gi_beat, const float* tick_h0, const float* x0,
                         const float* emb, const float* w_ih0e, const float* const* w_hh,
@@ -1262,10 +1278,11 @@ int hier_tick_chain_fwd(const int* teacher, const int* seed, const int* score,
                         int B, int H, int E, int V, int L, int ticks_per_beat, int dropout,
                         float keep, float scale, int multinomial, int row_base, int wave, int C,
                         int RB, int P, int smem_bytes, float* weights, int* samples,
-                        float* const* h_all, float* scratch, void* stream) {
+                        float* const* h_all, float* const* gh, float* scratch, void* stream) {
   const bool ok = wave != 0 ? wave_checked_smem(H, E, V, L, C, RB, P, smem_bytes) != 0
                             : fwd_checked_smem(H, E, V, C, RB, L, smem_bytes) != 0;
-  if (!ok || T < 1 || B < 1 || ticks_per_beat < 1 || (wave != 0 && scratch == nullptr)) {
+  if (!ok || T < 1 || B < 1 || ticks_per_beat < 1 || (wave != 0 && scratch == nullptr) ||
+      (wave == 0 && gh != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Weights w =
@@ -1274,7 +1291,10 @@ int hier_tick_chain_fwd(const int* teacher, const int* seed, const int* score,
   FwdOut out = {};
   out.weights = weights;
   out.samples = samples;
-  for (int l = 0; l < L; ++l) out.h_all[l] = h_all[l];
+  for (int l = 0; l < L; ++l) {
+    out.h_all[l] = h_all[l];
+    out.gh[l] = gh != nullptr ? gh[l] : nullptr;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wave == 0) {
     const dim3 grid(C * ((B + RB - 1) / RB));
@@ -1295,7 +1315,8 @@ int hier_tick_chain_fwd(const int* teacher, const int* seed, const int* score,
 // kMaxLayers pointers; row_base as in the forward; chain_C, chain_RB, chain_smem, chain_wide:
 // gru_plan's plan of the chain backward on n_beats * B rows (chain_wide 0:
 // clusters of chain_C CTAs of chain_RB rows; 1: the wide layout, chain_C
-// units and chain_RB rows a CTA); scratch:
+// units and chain_RB rows a CTA, whose chains read gh: the L layers'
+// hidden-side pre-activations the wave forward kept); scratch:
 // hier_tick_chain_bwd_scratch_floats floats, then the GEMMs' partial sums;
 // splits: the split of the terms of each of the 2L + 2 weight-gradient
 // GEMMs, in the order they run below (ops/hier_decoder_kernel.py::
@@ -1308,7 +1329,8 @@ int hier_tick_chain_bwd(const int* seed, const int* samples, const float* const*
                         const float* out_b, int T, int B, int H, int E, int V, int L,
                         int ticks_per_beat, int dropout, float keep, float scale, int row_base,
                         int chain_C,
-                        int chain_RB, int chain_smem, int chain_wide, float* dgi_beat,
+                        int chain_RB, int chain_smem, int chain_wide,
+                        const float* const* gh, float* dgi_beat,
                         float* dtick_h0, float* dx0, float* demb, float* dw_ih0e,
                         float* const* dw_hh, float* const* db_hh, float* const* dw_ih,
                         float* const* db_ih, float* dout_w, float* dout_b, float* scratch,
@@ -1316,7 +1338,8 @@ int hier_tick_chain_bwd(const int* seed, const int* samples, const float* const*
   const Dims dm{T, B, H, E, V, ticks_per_beat, L, dropout, keep, scale, 0, row_base};
   if (T < 1 || B < 1 || ticks_per_beat < 1 || L < 1 || L > kMaxLayers ||
       (chain_wide != 0 ? wide_checked_smem(true, H, chain_C, chain_RB, chain_smem)
-                       : chain_checked_smem(true, H, chain_C, chain_RB, chain_smem)) == 0) {
+                       : chain_checked_smem(true, H, chain_C, chain_RB, chain_smem)) == 0 ||
+      (chain_wide != 0 && gh == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int bc = dm.beats() * B;
@@ -1328,7 +1351,7 @@ int hier_tick_chain_bwd(const int* seed, const int* samples, const float* const*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Weights w =
       make_weights(gi_beat, tick_h0, x0, emb, w_ih0e, w_hh, b_hh, w_ih, b_ih, out_w, out_b, L);
-  const BwdScratch s = carve(dm, scratch, chain_wide != 0);
+  const BwdScratch s = carve(dm, scratch);
   float* red = scratch + s.floats;
   const dim3 chain_grid(chain_C * ((bc + chain_RB - 1) / chain_RB));
 
@@ -1374,9 +1397,9 @@ int hier_tick_chain_bwd(const int* seed, const int* samples, const float* const*
     // its chains, one a beat
     float* dinit = s.dinit + static_cast<size_t>(l) * bc * H;
     if (err == cudaSuccess && chain_wide != 0) {
-      err = launch_wide_bwd(s.gi, s.gh, true, w_hh[l], b_hh[l], init, h_all[l], s.dh,
-                            ticks_per_beat, 1, bc, H, chain_C, chain_RB, chain_smem, s.dgi, dinit,
-                            s.dgh, s.bar, st);
+      // the wave forward's gh
+      err = launch_wide_bwd(s.gi, gh[l], w_hh[l], init, h_all[l], s.dh, ticks_per_beat, 1, bc,
+                            H, chain_C, chain_RB, chain_smem, s.dgi, dinit, s.dgh, s.bar, st);
     } else if (err == cudaSuccess) {
       err = launch_cluster(gru_bwd, chain_C, chain_grid, chain_smem, st, s.gi, w_hh[l], b_hh[l],
                            init, h_all[l], s.dh, ticks_per_beat, 1, bc, H, chain_RB, s.dgi, dinit,

@@ -32,16 +32,20 @@ wave of CTAs, each keeping a U-unit slice of ``w_hh`` in shared memory
 for the whole call and multiplying on the tensor cores in 3xTF32 (about
 fp32's accuracy), with a grid barrier a step; its forward keeps the hidden-side
 pre-activations ``gh`` for its backward when the caller trains. Both
-backwards sum dW_hh / db_hh with the tiled fixed-order GEMM of
-``csrc/gru_common.cuh``, so their results repeat bitwise. See the
-sources' headers for the designs.
+backwards sum dW_hh / db_hh with the fixed-order 3xTF32 tensor-core
+A^T X GEMM of ``csrc/tc_gemm.cuh``, so their results repeat bitwise.
+See the sources' headers for the designs. :func:`atb_cuda` launches
+that GEMM alone and :func:`rows_cuda` the engine's row product (to hold
+them against :func:`atb_reference` and :func:`rows_reference` and time
+them; no recurrence calls them).
 
 The launch plans are decided here, in Python, when a kernel is called:
 :func:`gru_plan` (a :class:`ChainPlan` of C, RB, shared-memory bytes and
 grid, or a :class:`WidePlan` of U, rows a CTA and shared memory) mirrors
 the kernels' shared-memory layouts (:func:`chain_smem_floats`,
-:func:`wide_smem_floats`), and :func:`atb_splits` fixes the
-weight-gradient GEMM's split of the (t, b) terms; the kernels check the
+:func:`wide_smem_floats`), and :func:`atb_tile` and :func:`atb_splits`
+fix the weight-gradient GEMM's tile and split of the (t, b) terms
+(:func:`tc_smem_bytes` mirrors its shared memory); the kernels check the
 plan and refuse one that does not fit.
 """
 
@@ -62,10 +66,17 @@ _NAME = "gru_chain"
 # them those of the wide layout.
 LAUNCHES = {"fwd": 0, "bwd": 0}
 WIDE_LAUNCHES = {"fwd": 0, "bwd": 0}
+# Launches of the tensor-core GEMM engine (csrc/tc_gemm.cuh): "atb" its
+# weight-gradient GEMMs and "rows" its row products, counted by the
+# backward wrappers whose C entries launch them (gru_chain's one GEMM a
+# call, the tick loop's 2L + 2 GEMMs and 2L + 1 row products), and
+# "atb_alone" and "rows_alone" those :func:`atb_cuda` and :func:`rows_cuda`
+# launch alone.
+GEMM_LAUNCHES = {"atb": 0, "rows": 0, "atb_alone": 0, "rows_alone": 0}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, WIDE_LAUNCHES):
+    for counts in (LAUNCHES, WIDE_LAUNCHES, GEMM_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -107,7 +118,6 @@ MAX_SMEM = 227 * 1024  # dynamic shared memory a CTA may use on Hopper
 SMS = 132              # streaming multiprocessors of an H100 SXM
 THREADS = 512          # threads of a cluster kernel's CTA: one a cell unit
 ROWS_PER_THREAD = 4    # a tile's rows are a multiple of it
-GEMM_TILE, GEMM_DEPTH = 64, 32
 
 # Clusters of C CTAs that an H100 SXM holds at once, by the CTAs an SM
 # holds (cudaOccupancyMaxActiveClusters on an NVIDIA H100 80GB HBM3 at
@@ -162,15 +172,12 @@ def wide_smem_floats(backward: bool, H: int, U: int) -> int:
     """Floats of shared memory one CTA of the wide layout uses:
     ``wide_layout`` in ``csrc/gru_wide.cuh``, term for term. The forward
     holds the CTA's 3U gate columns of ``w_hh`` (H terms each, padded to
-    whole chunks), the backward its U rows (3H terms) or, to recompute
-    ``gh`` first, the forward's slice, whichever is larger; then
+    whole chunks), the backward its U rows (3H terms); then
     ``WIDE_STAGES`` chunks of a pass's rows."""
     def padded(k):
         return -(-k // WIDE_DEPTH) * WIDE_DEPTH + 4
 
-    w = 3 * U * padded(H)
-    if backward:
-        w = max(w, U * padded(3 * H))
+    w = U * padded(3 * H) if backward else 3 * U * padded(H)
     return w + WIDE_STAGES * wide_pass_rows(U) * (WIDE_DEPTH + 4)
 
 
@@ -264,27 +271,83 @@ def gru_plan(D: int, B: int, H: int, backward: bool):
     return best
 
 
+# The tensor-core GEMM engine (csrc/tc_gemm.cuh): CTAs of TC_THREADS
+# threads (8 warps) walk the depth in K tiles of TC_DEPTH terms through
+# TC_STAGES shared-memory stages; a CTA's output tile (BM, BN) by name,
+# in the order of the source's TcTile.
+TC_THREADS, TC_DEPTH, TC_STAGES = 256, 32, 3
+# CTAs of the engine an SM holds at once (its kernels' launch bounds; the
+# shared memory of two fits an SM's 228 KB)
+TC_CTAS_AN_SM = 2
+TC_TILES = {"big": (128, 128), "narrow_m": (16, 128), "narrow_n": (128, 16), "mid": (64, 64)}
+# Operand tiles of each form: whether A's and B's are held term-major
+# ([k][c]), else row by row ([c][k]): A^T X, A W, A W^T.
+TC_FORMS = {"atb": (True, True), "a_w": (False, True), "a_wt": (False, False)}
+# A split of a weight-gradient GEMM sums at least ATB_MIN_TERMS terms (2 K
+# tiles, so that the ring's prologue is a small share), and at most
+# ATB_MAX_TERMS.
+ATB_MIN_TERMS, ATB_MAX_TERMS = 64, 1024
+
+
+def atb_tile(M: int, N: int) -> str:
+    """The tile of an (M, N) weight gradient: 128 x 16 for at most 16
+    columns, 16 x 128 for at most 16 rows, else 128 x 128 (``tc_tile`` in
+    the source)."""
+    return "narrow_n" if N <= 16 else "narrow_m" if M <= 16 else "big"
+
+
+def row_tile(M: int, N: int) -> str:
+    """The tile of an M-row, N-column row product (``tc_row_tile`` in the
+    source): 128 x 16 for at most 16 columns, 64 x 64 where 128 x 128 tiles
+    would be fewer than the card's SMs (the products at H=128), else 128 x
+    128."""
+    if N <= 16:
+        return "narrow_n"
+    return "mid" if -(-M // 128) * -(-N // 128) < SMS else "big"
+
+
+def tc_smem_bytes(form: str, tile: str) -> int:
+    """Dynamic shared memory of one CTA of the engine: ``tc_smem_bytes``
+    in the source, term for term: TC_STAGES stages of an A tile (BM
+    columns) and a B tile (BN), a term-major tile TC_DEPTH x (width + 8)
+    floats, a row-major one width x (TC_DEPTH + 4)."""
+    bm, bn = TC_TILES[tile]
+
+    def floats(term_major, width):
+        return TC_DEPTH * (width + 8) if term_major else width * (TC_DEPTH + 4)
+
+    a, b = TC_FORMS[form]
+    return 4 * TC_STAGES * (floats(a, bm) + floats(b, bn))
+
+
 @functools.lru_cache(maxsize=256)
-def atb_splits(M: int, bias: bool, N: int, K: int, D: int = 1) -> int:
+def atb_splits(M: int, N: int, K: int, D: int = 1) -> int:
     """Splits of the K = T·B terms for the weight-gradient GEMM of an
-    (M (+1 bias row), N) output over D slices: about four 64x64-tile
-    blocks an SM, so that the card's SMs end close together, and at
-    least one 32-term K tile a split."""
-    tiles = D * -(-(M + int(bias)) // GEMM_TILE) * -(-N // GEMM_TILE)
-    return max(1, min(-(-K // GEMM_DEPTH), -(-4 * SMS // tiles)))
+    (M, N) output over D slices (the bias, when there is one, is summed
+    from the X tiles and takes no tile): of the split counts that give
+    each split between ``ATB_MIN_TERMS`` and ``ATB_MAX_TERMS`` terms (as
+    near as K allows), the fewest whose waves of the card
+    (``TC_CTAS_AN_SM`` CTAs an SM) a unit of work are within 10% of the
+    least: so that the SMs end close together, with the fewest partial
+    sums to add."""
+    bm, bn = TC_TILES[atb_tile(M, N)]
+    tiles = D * -(-M // bm) * -(-N // bn)
+    lo = -(-K // ATB_MAX_TERMS)
+    # every split holds terms (the chunks are whole K tiles)
+    counts = [s for s in range(lo, max(lo, -(-K // ATB_MIN_TERMS)) + 1)
+              if (s - 1) * atb_chunk(K, s) < K] or [1]
+
+    def waves_a_split(s):
+        return -(-tiles * s // (SMS * TC_CTAS_AN_SM)) / s
+
+    best = min(waves_a_split(s) for s in counts)
+    return next(s for s in counts if waves_a_split(s) <= 1.1 * best)
 
 
-# The wide layout's weight-gradient GEMMs sum at most this many (t, b)
-# terms a split: at (24, 2, 256, 512) two splits of 3,072 terms took the
-# GEMM 912 µs, six of 1,024 754 µs (utils/wide_probe.py --atb-splits on
-# an NVIDIA H100 80GB HBM3 at 700 W).
-WIDE_ATB_TERMS = 1024
-
-
-def wide_atb_splits(M: int, bias: bool, N: int, K: int, D: int = 1) -> int:
-    """:func:`atb_splits` for the wide layout's GEMMs: at least
-    K / ``WIDE_ATB_TERMS`` splits."""
-    return max(atb_splits(M, bias, N, K, D), -(-K // WIDE_ATB_TERMS))
+def atb_chunk(K: int, splits: int) -> int:
+    """Terms each split of the GEMM sums, the last the rest: whole K tiles
+    (``gemm_chunk`` in the source)."""
+    return -(-(-(-K // splits)) // TC_DEPTH) * TC_DEPTH
 
 
 def atb_scratch_floats(M: int, bias: bool, N: int, D: int, splits: int) -> int:
@@ -319,8 +382,16 @@ def _library() -> ctypes.CDLL:
         lib.gru_chain_bwd.restype = i
         lib.gru_chain_wide_fwd.argtypes = [p] * 4 + [i] * 7 + [p] * 4
         lib.gru_chain_wide_fwd.restype = i
-        lib.gru_chain_wide_bwd.argtypes = [p, p, i] + [p] * 5 + [i] * 8 + [p] * 8
+        lib.gru_chain_wide_bwd.argtypes = [p] * 6 + [i] * 8 + [p] * 8
         lib.gru_chain_wide_bwd.restype = i
+        lib.gru_chain_atb.argtypes = [p, p, p, i, i, p] + [i] * 5 + [p] * 4
+        lib.gru_chain_atb.restype = i
+        lib.gru_chain_rows.argtypes = [p, i, p] + [i] * 5 + [p, p]
+        lib.gru_chain_rows.restype = i
+        lib.gru_chain_tc_smem_bytes.argtypes = [i, i]
+        lib.gru_chain_tc_smem_bytes.restype = i
+        lib.gru_chain_atb_ctas_an_sm.argtypes = [i]
+        lib.gru_chain_atb_ctas_an_sm.restype = i
         _bound = True
     return lib
 
@@ -352,16 +423,28 @@ def _barrier(dev: torch.device) -> torch.Tensor:
     return torch.empty(1, dtype=torch.int32, device=dev)
 
 
+def fwd_plan(D: int, B: int, H: int, keep_gh: bool = False):
+    """The forward's plan: :func:`gru_plan`'s, except where the forward
+    keeps ``gh`` for a backward that runs the wide layout while a cluster
+    holds only the forward's slices (H=252, 360): there the wide one, so
+    that the wide backward reads the gh it keeps."""
+    plan = gru_plan(D, B, H, False)
+    if keep_gh and not isinstance(plan, WidePlan) \
+            and isinstance(gru_plan(D, B, H, True), WidePlan):
+        return wide_plan(D, B, H, False)
+    return plan
+
+
 def gru_chain_fwd_cuda(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                        h0: torch.Tensor, plan=None, keep_gh: bool = False):
     """Launches the forward kernel → outs (T, D, B, H). ``plan``: the
-    launch plan, :func:`gru_plan`'s by default. With ``keep_gh`` →
+    launch plan, :func:`fwd_plan`'s by default. With ``keep_gh`` →
     (outs, gh): the wide layout's hidden-side pre-activations
-    h_{t-1} w_hh + b_hh (T, D, B, 3H) for its backward, None for the
-    resident layout (whose backward recomputes them)."""
+    h_{t-1} w_hh + b_hh (T, D, B, 3H), which its backward reads, None for
+    the resident layout (whose backward recomputes them step by step)."""
     t, d, b, h = _dims(gi, w_hh, b_hh, h0)
     _check((("gi", gi), ("w_hh", w_hh), ("b_hh", b_hh), ("h0", h0)), gi.device)
-    plan = plan or gru_plan(d, b, h, backward=False)
+    plan = plan or fwd_plan(d, b, h, keep_gh)
     wide = isinstance(plan, WidePlan)
     lib = _library()
     outs = torch.empty((t, d, b, h), dtype=torch.float32, device=gi.device)
@@ -388,8 +471,8 @@ def gru_chain_bwd_cuda(
     outs: torch.Tensor, douts: torch.Tensor, gh: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launches the backward kernels → (dgi, dw_hh, db_hh, dh0). ``gh``:
-    the wide forward's kept pre-activations; without them the wide
-    backward recomputes them for all steps at once before its chain."""
+    the pre-activations the forward kept (``keep_gh``), which the wide
+    backward reads and the resident one does not take."""
     t, d, b, h = _dims(gi, w_hh, b_hh, h0)
     _check((("gi", gi), ("w_hh", w_hh), ("b_hh", b_hh), ("h0", h0),
             ("outs", outs), ("douts", douts)), gi.device)
@@ -397,11 +480,14 @@ def gru_chain_bwd_cuda(
         raise ValueError(f"outs and douts must be {(t, d, b, h)}")
     plan = gru_plan(d, b, h, backward=True)
     wide = isinstance(plan, WidePlan)
+    if wide != (gh is not None):
+        raise ValueError(f"H={h}: the {'wide' if wide else 'resident'} backward "
+                         f"{'reads' if wide else 'takes no'} gh (the forward's keep_gh)")
     if gh is not None:
         _check((("gh", gh),), gi.device)
-        if not wide or gh.shape != gi.shape:
+        if gh.shape != gi.shape:
             raise ValueError(f"gh is the wide layout's (T, D, B, 3H) = {tuple(gi.shape)}")
-    splits = (wide_atb_splits if wide else atb_splits)(h, True, 3 * h, t * b, d)
+    splits = atb_splits(h, 3 * h, t * b, d)
     lib = _library()
     dgi = torch.empty_like(gi)
     dh0 = torch.empty_like(h0)
@@ -413,12 +499,9 @@ def gru_chain_bwd_cuda(
                       dtype=torch.float32, device=gi.device)
     with torch.cuda.device(gi.device):
         if wide:
-            recompute = gh is None
-            if recompute:
-                gh = torch.empty_like(gi)
             err = lib.gru_chain_wide_bwd(
-                gi.data_ptr(), gh.data_ptr(), int(recompute), w_hh.data_ptr(),
-                b_hh.data_ptr(), h0.data_ptr(), outs.data_ptr(), douts.data_ptr(), t, d, b, h,
+                gi.data_ptr(), gh.data_ptr(), w_hh.data_ptr(), h0.data_ptr(), outs.data_ptr(),
+                douts.data_ptr(), t, d, b, h,
                 plan.units, plan.rows, plan.smem_bytes, splits, dgi.data_ptr(), dh0.data_ptr(),
                 dw.data_ptr(), db.data_ptr(), dgh.data_ptr(), red.data_ptr(),
                 _barrier(gi.device).data_ptr(), _build.stream_of(gi))
@@ -432,7 +515,105 @@ def gru_chain_bwd_cuda(
     _build.raise_on(lib, _NAME, err, "gru_chain_bwd")
     LAUNCHES["bwd"] += 1
     WIDE_LAUNCHES["bwd"] += int(wide)
+    GEMM_LAUNCHES["atb"] += 1
     return dgi, dw, db, dh0
+
+
+# ---------------------------------------------------------------------------
+# The weight-gradient GEMM alone
+# ---------------------------------------------------------------------------
+
+
+def atb_operand(x: torch.Tensor, a: Optional[torch.Tensor] = None,
+                a0: Optional[torch.Tensor] = None, tokens: Optional[torch.Tensor] = None,
+                tok_shift: int = 0, M: Optional[int] = None) -> torch.Tensor:
+    """The A operand (T, D, B, M) of :func:`atb_reference` in full: ``a``
+    itself; with ``a0`` (D, B, M) the state one step back (``a0`` at t = 0,
+    ``a[t - 1]`` after); with ``tokens`` the one-hot (M columns) of token
+    ``tokens[s - tok_shift]`` at term s = t·B + b (none for the first
+    ``tok_shift`` terms and for a token of -1)."""
+    T, D, B, _ = x.shape
+    if tokens is not None:
+        tok = torch.full((T * B,), -1, dtype=torch.long, device=x.device)
+        tok[tok_shift:] = tokens.reshape(-1)[:T * B - tok_shift].long()
+        hot = tok[:, None] == torch.arange(M, device=x.device)
+        return hot.to(x.dtype).reshape(T, D, B, M)
+    if a0 is not None:
+        return torch.cat([a0[None], a[:-1]])
+    return a
+
+
+def atb_reference(x: torch.Tensor, a: Optional[torch.Tensor] = None,
+                  a0: Optional[torch.Tensor] = None, tokens: Optional[torch.Tensor] = None,
+                  tok_shift: int = 0, M: Optional[int] = None, bias: bool = False):
+    """Plain version of the weight-gradient GEMM: x (T, D, B, N) and the
+    A operand (:func:`atb_operand`) → (out (D, M, N) = sum over (t, b) of
+    A^T x, the bias (D, N) = sum over (t, b) of x, or None)."""
+    A = atb_operand(x, a, a0, tokens, tok_shift, M)
+    out = torch.einsum("tdbm,tdbn->dmn", A, x)
+    return out, (x.sum((0, 2)) if bias else None)
+
+
+def atb_cuda(x: torch.Tensor, a: Optional[torch.Tensor] = None,
+             a0: Optional[torch.Tensor] = None, tokens: Optional[torch.Tensor] = None,
+             tok_shift: int = 0, M: Optional[int] = None, bias: bool = False):
+    """Launches the engine's A^T X GEMM alone on the operands of
+    :func:`atb_reference` (float32 on one card, contiguous; tokens int32,
+    D = 1), in :func:`atb_splits`'s splits → (out, bias or None)."""
+    if x.ndim != 4:
+        raise ValueError(f"x must be (T, D, B, N), got {tuple(x.shape)}")
+    T, D, B, N = x.shape
+    if (a is None) == (tokens is None):
+        raise ValueError("give exactly one of a (with or without a0) and tokens")
+    named = [("x", x)] + [(n, v) for n, v in (("a", a), ("a0", a0)) if v is not None]
+    _check(named, x.device)
+    if tokens is not None:
+        if D != 1 or M is None or tokens.dtype != torch.int32 or not tokens.is_contiguous() \
+                or tokens.device != x.device or tokens.numel() < T * B - tok_shift:
+            raise ValueError("tokens: contiguous int32 on x's card, T·B - tok_shift of them, "
+                             "with M and D = 1")
+    else:
+        M = a.shape[-1]
+        if a.shape != (T, D, B, M) or (a0 is not None and a0.shape != (D, B, M)):
+            raise ValueError(f"a must be (T, D, B, M) = {(T, D, B, M)}, a0 (D, B, M)")
+    splits = atb_splits(M, N, T * B, D)
+    lib = _library()
+    out = torch.empty((D, M, N), dtype=torch.float32, device=x.device)
+    db = torch.empty((D, N), dtype=torch.float32, device=x.device) if bias else None
+    red = torch.empty(max(1, atb_scratch_floats(M, bias, N, D, splits)), dtype=torch.float32,
+                      device=x.device)
+    ptr = (lambda v: None if v is None else v.data_ptr())
+    with torch.cuda.device(x.device):
+        err = lib.gru_chain_atb(ptr(a), ptr(a0), ptr(tokens), tok_shift, M, x.data_ptr(), N,
+                                T, D, B, splits, out.data_ptr(), ptr(db), red.data_ptr(),
+                                _build.stream_of(x))
+    _build.raise_on(lib, _NAME, err, "gru_chain_atb")
+    GEMM_LAUNCHES["atb_alone"] += 1
+    return out, db
+
+
+def rows_reference(a: torch.Tensor, w: torch.Tensor, trans: bool) -> torch.Tensor:
+    """Plain version of the engine's row product: a (M, K) times w (K, N),
+    or with ``trans`` times w^T (w (N, K))."""
+    return a @ (w.T if trans else w)
+
+
+def rows_cuda(a: torch.Tensor, w: torch.Tensor, trans: bool) -> torch.Tensor:
+    """Launches the engine's row product alone (the tick loop's backward
+    runs it with its own epilogues) → :func:`rows_reference`'s (M, N)."""
+    _check((("a", a), ("w", w)), a.device)
+    if a.ndim != 2 or w.ndim != 2 or (w.shape[1] if trans else w.shape[0]) != a.shape[1]:
+        raise ValueError(f"a (M, K) and w ({'(N, K)' if trans else '(K, N)'}) do not chain: "
+                         f"{tuple(a.shape)}, {tuple(w.shape)}")
+    (M, K), N = a.shape, w.shape[0] if trans else w.shape[1]
+    lib = _library()
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = lib.gru_chain_rows(a.data_ptr(), K, w.data_ptr(), w.shape[1], M, K, N, int(trans),
+                                 out.data_ptr(), _build.stream_of(a))
+    _build.raise_on(lib, _NAME, err, "gru_chain_rows")
+    GEMM_LAUNCHES["rows_alone"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -440,24 +621,30 @@ def gru_chain_bwd_cuda(
 # ---------------------------------------------------------------------------
 
 
+def records_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on these inputs: grad mode on and
+    one of them requiring a gradient. (Inside an autograd Function's
+    forward grad mode is off, and ``ctx.needs_input_grad`` holds under
+    ``no_grad`` too, so the caller decides.)"""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 class GruChainFn(torch.autograd.Function):
-    """The recurrence with the kernel backward (CUDA tensors only). The
-    wide layout's forward keeps ``gh`` for the backward when an input
-    needs a gradient."""
+    """The recurrence with the kernel backward (CUDA tensors only). With
+    ``keep_gh`` (the caller records a gradient) the wide layout's forward
+    keeps ``gh`` for the backward."""
 
     @staticmethod
-    def forward(ctx, gi, w_hh, b_hh, h0):
-        if any(ctx.needs_input_grad):
-            outs, gh = gru_chain_fwd_cuda(gi, w_hh, b_hh, h0, keep_gh=True)
-        else:
-            outs, gh = gru_chain_fwd_cuda(gi, w_hh, b_hh, h0), None
+    def forward(ctx, keep_gh, gi, w_hh, b_hh, h0):
+        out = gru_chain_fwd_cuda(gi, w_hh, b_hh, h0, keep_gh=keep_gh)
+        outs, gh = out if keep_gh else (out, None)
         ctx.save_for_backward(gi, w_hh, b_hh, h0, outs, gh)
         return outs
 
     @staticmethod
     def backward(ctx, douts):
         gi, w_hh, b_hh, h0, outs, gh = ctx.saved_tensors
-        return gru_chain_bwd_cuda(gi, w_hh, b_hh, h0, outs, douts.contiguous(), gh)
+        return (None, *gru_chain_bwd_cuda(gi, w_hh, b_hh, h0, outs, douts.contiguous(), gh))
 
 
 def gru_chain(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
@@ -465,11 +652,14 @@ def gru_chain(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     """Runs the full T-step recurrence → outs (T, D, B, H): the kernels
     for CUDA tensors, the plain loop for CPU tensors. On a CUDA tensor
     both directions' plans are made first, so a width no plan fits raises
-    before any launch."""
+    before any launch; the forward keeps ``gh`` only where autograd
+    records the call (:func:`records_grad`), on the wide layout wherever
+    the backward runs it (:func:`fwd_plan`)."""
     if gi.is_cuda:
         _, d, b, h = _dims(gi, w_hh, b_hh, h0)
         gru_plan(d, b, h, backward=False)
         gru_plan(d, b, h, backward=True)
-        return GruChainFn.apply(gi.float().contiguous(), w_hh.float().contiguous(),
-                                b_hh.float().contiguous(), h0.float().contiguous())
+        return GruChainFn.apply(records_grad(gi, w_hh, b_hh, h0), gi.float().contiguous(),
+                                w_hh.float().contiguous(), b_hh.float().contiguous(),
+                                h0.float().contiguous())
     return gru_chain_reference(gi, w_hh, b_hh, h0)

@@ -44,12 +44,14 @@ hiddens and argmax partials through L2 with L + 1 barriers a tick
 (:func:`hier_plan` picks the layout and its shape). The backward runs the beats in parallel: the hidden
 carries restart at every beat, so each layer is ``n_beats`` independent
 chains of ``ticks_per_beat`` ticks, run by ``gru_chain``'s backward
-(its cluster kernel, or its wide layout at H=384 and 512, which first
-recomputes the chains' hidden-side gates), and every product that
-touches no carry runs over all T·B rows at once (:func:`hier_tick_chain_bwd_by_beats` is the same decomposition
-in plain PyTorch). The saved hiddens use the chains' layout
-``(ticks_per_beat, n_beats·B, H)``. See the source's header for the
-design.
+(its cluster kernel, or its wide layout at H=384 and 512, which reads the
+chains' hidden-side gates ``gh`` that the wave forward kept for a caller
+that trains), and every product that touches no carry runs over all T·B
+rows at once on the 3xTF32 tensor-core engine of ``csrc/tc_gemm.cuh``,
+as do the weight gradients (:func:`hier_tick_chain_bwd_by_beats` is the
+same decomposition in plain PyTorch). The saved hiddens (and ``gh``) use
+the chains' layout ``(ticks_per_beat, n_beats·B, H)``. See the source's
+header for the design.
 """
 
 from __future__ import annotations
@@ -64,12 +66,11 @@ import torch.nn.functional as F
 
 from arvae_tpu_torch.ops import _build
 from arvae_tpu_torch.ops.gru import stacked_gru_step_from_gi
-from arvae_tpu_torch.ops.gru_kernel import (CLUSTERS_HELD, MAX_SMEM, ROWS_PER_THREAD, SMS,
-                                            THREADS, WIDE_DEPTH, WIDE_MIN_ROWS, WIDE_STAGES,
-                                            WIDE_THREADS, ChainPlan, WidePlan,
-                                            atb_scratch_floats, atb_splits, best_plan,
-                                            gru_gates, gru_plan, slice_ld, up4,
-                                            wide_atb_splits)
+from arvae_tpu_torch.ops.gru_kernel import (CLUSTERS_HELD, GEMM_LAUNCHES, MAX_SMEM,
+                                            ROWS_PER_THREAD, SMS, THREADS, WIDE_DEPTH,
+                                            WIDE_MIN_ROWS, WIDE_STAGES, WIDE_THREADS, ChainPlan,
+                                            WidePlan, atb_scratch_floats, atb_splits, best_plan,
+                                            gru_gates, gru_plan, records_grad, slice_ld, up4)
 
 _NAME = "hier_tick_chain"
 SALT_DROPOUT = 0
@@ -547,6 +548,34 @@ def hier_plans(T: int, B: int, H: int, E: int, V: int, L: int, ticks_per_beat: i
     return hier_plan(B, H, E, V, L), chain_plan(T, B, H, ticks_per_beat)
 
 
+def keeps_gh(T: int, B: int, H: int, E: int, V: int, L: int, ticks_per_beat: int) -> bool:
+    """Whether a forward that trains keeps the hidden-side pre-activations
+    ``gh`` for its backward: where the forward runs the wave layout and the
+    backward's chains the wide one (H=384, 512), which read them."""
+    fwd, chain = hier_plans(T, B, H, E, V, L, ticks_per_beat)
+    return isinstance(fwd, WavePlan) and isinstance(chain, WidePlan)
+
+
+def gh_shape(T: int, B: int, H: int, L: int, ticks_per_beat: int) -> Tuple[int, ...]:
+    """The kept ``gh``: the L layers' (ticks_per_beat, n_beats·B, 3H), the
+    chains' layout, zeros on the padded ticks of a short last beat."""
+    return (L, ticks_per_beat, -(-T // ticks_per_beat) * B, 3 * H)
+
+
+def bwd_scratch_floats(T: int, B: int, H: int, E: int, V: int, ticks_per_beat: int,
+                       L: int) -> int:
+    """Floats of the backward's scratch before the GEMMs' partial sums:
+    ``carve`` in ``csrc/hier_tick_chain.cu``, term for term (each region
+    rounded up to 16 bytes): the fed tokens and embeddings, dlog, the
+    chains' initial hiddens and their gradients, the layer's input, gates,
+    incoming gradient, dgi, dgh, dpe, and the wide chains' barrier."""
+    bc = -(-T // ticks_per_beat) * B
+    R = ticks_per_beat * bc
+    regions = [R, R * E, R * V, L * bc * H, L * bc * H, R * H, R * 3 * H, R * H, R * 3 * H,
+               R * 3 * H, R * E, 1]
+    return sum(up4(n) for n in regions)
+
+
 # ---------------------------------------------------------------------------
 # Build and bind
 # ---------------------------------------------------------------------------
@@ -571,13 +600,14 @@ def _library() -> ctypes.CDLL:
         lib.hier_tick_chain_wave_resident_ctas.restype = i
         lib.hier_tick_chain_wave_scratch_floats.argtypes = [i] * 6
         lib.hier_tick_chain_wave_scratch_floats.restype = ctypes.c_longlong
-        lib.hier_tick_chain_bwd_scratch_floats.argtypes = [i] * 8
+        lib.hier_tick_chain_bwd_scratch_floats.argtypes = [i] * 7
         lib.hier_tick_chain_bwd_scratch_floats.restype = ctypes.c_longlong
         lib.hier_tick_chain_fwd.argtypes = ([p] * 8 + [pp] * 4 + [p] * 2 + [i] * 8 + [f, f]
-                                            + [i] * 7 + [p, p, pp, p, p])
+                                            + [i] * 7 + [p, p, pp, pp, p, p])
         lib.hier_tick_chain_fwd.restype = i
         lib.hier_tick_chain_bwd.argtypes = ([p, p, pp] + [p] * 7 + [pp] * 4 + [p] * 2
-                                            + [i] * 8 + [f, f] + [i] * 5 + [p] * 5 + [pp] * 4
+                                            + [i] * 8 + [f, f] + [i] * 5 + [pp] + [p] * 5
+                                            + [pp] * 4
                                             + [p] * 3 + [ctypes.POINTER(i), p])
         lib.hier_tick_chain_bwd.restype = i
         _bound = True
@@ -645,12 +675,15 @@ def _operand_args(floats: Sequence[torch.Tensor]) -> Tuple:
 
 
 def hier_tick_chain_fwd_cuda(train, dropout_rate, ticks_per_beat, sampling,
-                             teacher, seed, score, *floats, plan=None, row_base=0):
+                             teacher, seed, score, *floats, plan=None, row_base=0,
+                             keep_gh=False):
     """Launches the forward kernel → (weights, samples, *hiddens), the L
     layers' hiddens in the chain layout (ticks_per_beat, n_beats·B, H).
     ``floats``: the float operands (:func:`float_operands`); ``plan``: the
     launch plan, :func:`hier_plan`'s by default; ``row_base``: the global
-    batch row of row 0, for the random bits."""
+    batch row of row 0, for the random bits. Returns (that tuple, gh): with
+    ``keep_gh``, where the backward reads them (:func:`keeps_gh`), the
+    hidden-side pre-activations (:func:`gh_shape`), else None."""
     if sampling not in SAMPLING:
         raise NotImplementedError(f"sampling={sampling!r}; use {SAMPLING}")
     T, B, H, E, V, L = _dims(ticks_per_beat, score, floats)
@@ -671,6 +704,9 @@ def hier_tick_chain_fwd_cuda(train, dropout_rate, ticks_per_beat, sampling,
     scratch = (torch.empty(lib.hier_tick_chain_wave_scratch_floats(B, H, V, L, plan.units,
                                                                      plan.rows),
                            dtype=torch.float32, device=dev) if wave else None)
+    gh = None
+    if keep_gh and wave and keeps_gh(T, B, H, E, V, L, ticks_per_beat):
+        gh = torch.empty(gh_shape(T, B, H, L, ticks_per_beat), dtype=torch.float32, device=dev)
     layout = ((1, plan.units, plan.rows, plan.pass_rows) if wave
               else (0, plan.clusters, plan.rows, 0))
     dropout, keep, scale = _rate_args(train, dropout_rate)
@@ -680,18 +716,21 @@ def hier_tick_chain_fwd_cuda(train, dropout_rate, ticks_per_beat, sampling,
             T, B, H, E, V, L, ticks_per_beat, dropout, keep, scale,
             int(sampling == "multinomial"), int(row_base), *layout, plan.smem_bytes,
             weights.data_ptr(), samples.data_ptr(), _pointers(hiddens),
+            None if gh is None else _pointers(list(gh)),
             None if scratch is None else scratch.data_ptr(), _build.stream_of(score))
     _build.raise_on(lib, _NAME, err, "hier_tick_chain_fwd")
     LAUNCHES["fwd"] += 1
     WAVE_LAUNCHES["fwd"] += int(wave)
-    return (weights, samples, *hiddens)
+    return (weights, samples, *hiddens), gh
 
 
 def hier_tick_chain_bwd_cuda(train, dropout_rate, ticks_per_beat, seed, samples, hiddens,
-                             weights, dweights, *floats, row_base=0):
+                             weights, dweights, *floats, row_base=0, gh=None):
     """Launches the backward kernels → the float operands' gradients.
     ``hiddens`` are the forward's L saved hiddens, ``weights`` its relu
-    logits (the ReLU's mask), ``row_base`` the forward's."""
+    logits (the ReLU's mask), ``row_base`` the forward's, ``gh`` the
+    pre-activations it kept (``keep_gh``), which the wide chains read and
+    the cluster chains do not take."""
     T, B, H, E, V, L = _dims(ticks_per_beat, samples, floats)
     dev = samples.device
     _check_device((("seed", seed), ("samples", samples)), dev, torch.int32)
@@ -705,15 +744,21 @@ def hier_tick_chain_bwd_cuda(train, dropout_rate, ticks_per_beat, seed, samples,
         raise ValueError(f"hiddens must be {L} of {saved}, weights and dweights {(T, B, V)}")
     chain = chain_plan(T, B, H, ticks_per_beat)
     wide = isinstance(chain, WidePlan)
+    if wide != (gh is not None):
+        raise ValueError(f"H={H}: the {'wide' if wide else 'cluster'} chains "
+                         f"{'read' if wide else 'take no'} gh (the forward's keep_gh)")
+    if gh is not None:
+        _check_device([("gh", gh)], dev, torch.float32)
+        if gh.shape != gh_shape(T, B, H, L, ticks_per_beat):
+            raise ValueError(f"gh must be {gh_shape(T, B, H, L, ticks_per_beat)}")
     lib = _library()
     grads = [torch.empty_like(x) for x in floats]
     shapes = gemm_shapes(H, E, V, L)
     terms = ticks_per_beat * nb * B
-    splits = [(wide_atb_splits if wide else atb_splits)(m, bias, n, terms)
-              for m, bias, n in shapes]
+    splits = [atb_splits(m, n, terms) for m, _, n in shapes]
     partial = max(atb_scratch_floats(m, bias, n, 1, k) for (m, bias, n), k in zip(shapes, splits))
     scratch = torch.empty(
-        lib.hier_tick_chain_bwd_scratch_floats(T, B, H, E, V, ticks_per_beat, L, int(wide))
+        lib.hier_tick_chain_bwd_scratch_floats(T, B, H, E, V, ticks_per_beat, L)
         + max(1, partial), dtype=torch.float32, device=dev)
     dropout, keep, scale = _rate_args(train, dropout_rate)
     with torch.cuda.device(dev):
@@ -721,12 +766,15 @@ def hier_tick_chain_bwd_cuda(train, dropout_rate, ticks_per_beat, seed, samples,
             seed.data_ptr(), samples.data_ptr(), _pointers(hiddens), weights.data_ptr(),
             dweights.data_ptr(), *_operand_args(floats), T, B, H, E, V, L, ticks_per_beat,
             dropout, keep, scale, int(row_base), chain.units if wide else chain.clusters,
-            chain.rows, chain.smem_bytes, int(wide), *_operand_args(grads), scratch.data_ptr(),
-            (ctypes.c_int * len(splits))(*splits), _build.stream_of(samples))
+            chain.rows, chain.smem_bytes, int(wide), None if gh is None else _pointers(list(gh)),
+            *_operand_args(grads), scratch.data_ptr(), (ctypes.c_int * len(splits))(*splits),
+            _build.stream_of(samples))
     _build.raise_on(lib, _NAME, err, "hier_tick_chain_bwd")
     LAUNCHES["bwd"] += 1
     CHAIN_LAUNCHES["bwd"] += L
     CHAIN_LAUNCHES["wide"] += L * int(wide)
+    GEMM_LAUNCHES["atb"] += len(shapes)
+    GEMM_LAUNCHES["rows"] += 2 * L + 1
     return tuple(grads)
 
 
@@ -737,28 +785,31 @@ def hier_tick_chain_bwd_cuda(train, dropout_rate, ticks_per_beat, seed, samples,
 
 class HierTickChainFn(torch.autograd.Function):
     """The tick loop with the kernel backward (CUDA tensors only). The
-    samples carry no gradient; neither do teacher, seed and score."""
+    samples carry no gradient; neither do teacher, seed and score. With
+    ``keep_gh`` (the caller records a gradient) the forward keeps ``gh``
+    for the backward's wide chains (:func:`keeps_gh`)."""
 
     @staticmethod
-    def forward(ctx, train, dropout_rate, ticks_per_beat, sampling, row_base, teacher, seed,
-                score, *floats):
-        weights, samples, *hiddens = hier_tick_chain_fwd_cuda(
-            train, dropout_rate, ticks_per_beat, sampling, teacher, seed, score,
-            *floats, row_base=row_base)
+    def forward(ctx, train, dropout_rate, ticks_per_beat, sampling, row_base, keep_gh, teacher,
+                seed, score, *floats):
+        (weights, samples, *hiddens), gh = hier_tick_chain_fwd_cuda(
+            train, dropout_rate, ticks_per_beat, sampling, teacher, seed, score, *floats,
+            row_base=row_base, keep_gh=keep_gh)
         ctx.cfg = (train, dropout_rate, ticks_per_beat)
         ctx.row_base = row_base
         ctx.layers = len(hiddens)
-        ctx.save_for_backward(seed, samples, weights, *hiddens, *floats)
+        ctx.save_for_backward(seed, samples, weights, gh, *hiddens, *floats)
         ctx.mark_non_differentiable(samples)
         return weights, samples
 
     @staticmethod
     def backward(ctx, dweights, _dsamples):
-        seed, samples, weights, *rest = ctx.saved_tensors
+        seed, samples, weights, gh, *rest = ctx.saved_tensors
         hiddens, floats = rest[:ctx.layers], rest[ctx.layers:]
         grads = hier_tick_chain_bwd_cuda(*ctx.cfg, seed, samples, hiddens, weights,
-                                         dweights.contiguous(), *floats, row_base=ctx.row_base)
-        return (None,) * 8 + grads
+                                         dweights.contiguous(), *floats, row_base=ctx.row_base,
+                                         gh=gh)
+        return (None,) * 9 + grads
 
 
 def tick_chain(seq_len: int, train: bool, dropout_rate: float, ticks_per_beat: int,
@@ -774,7 +825,9 @@ def tick_chain(seq_len: int, train: bool, dropout_rate: float, ticks_per_beat: i
     (T, B, V) relu logits, samples (T, B) int32 fed tokens): the kernels
     for CUDA tensors, the plain loop for CPU tensors. On a CUDA tensor
     :func:`hier_plans` runs first, so shapes the kernels do not run raise
-    before any launch."""
+    before any launch. The forward keeps ``gh`` only where autograd
+    records the call (:func:`~arvae_tpu_torch.ops.gru_kernel.records_grad`):
+    not under ``no_grad``, as the evaluation and the decodes run it."""
     if score.shape[0] != seq_len:
         raise ValueError(f"score has {score.shape[0]} steps, seq_len is {seq_len}")
     if score.is_cuda:
@@ -784,8 +837,9 @@ def tick_chain(seq_len: int, train: bool, dropout_rate: float, ticks_per_beat: i
         floats = flat_operands(gi_beat, tick_h0, x0, emb, w_ih0e, layers, out_w, out_b)
         ints = (t.to(torch.int32).reshape(-1) for t in (teacher, seed))
         return HierTickChainFn.apply(
-            bool(train), float(dropout_rate), int(ticks_per_beat), sampling, int(row_base), *ints,
-            score.to(torch.int32).contiguous(), *(x.float().contiguous() for x in floats))
+            bool(train), float(dropout_rate), int(ticks_per_beat), sampling, int(row_base),
+            records_grad(*floats), *ints, score.to(torch.int32).contiguous(),
+            *(x.float().contiguous() for x in floats))
     return tick_chain_reference(train, dropout_rate, ticks_per_beat, sampling, teacher,
                                 seed, score, gi_beat, tick_h0, x0, emb, w_ih0e, layers,
                                 out_w, out_b, row_base=row_base)

@@ -78,6 +78,8 @@ def run(dev, saved=None):
         seed = torch.tensor([77], dtype=torch.int32, device=dev)
         fwd = hk.hier_tick_chain_fwd_cuda(True, 0.5, tpb, "argmax", teacher, seed, score,
                                           *floats)
+        if "keep_gh" in inspect.signature(hk.hier_tick_chain_fwd_cuda).parameters:
+            fwd = fwd[0]  # a version that returns (outputs, gh)
         src = fwd if saved is None else saved[name][:4]
         res[name] = [*fwd, *_hier_bwd((True, 0.5, tpb), seed, src[1], list(src[2:4]), src[0],
                                       ct, floats)]

@@ -17,6 +17,13 @@ Counts:
   layers: ``2·E·3H + (2L−1)·2·H·3H + 2·H·V`` (the fed embedding's
   product, the 2L−1 H×3H products, the head); the backward three times
   that (recompute, transposed products, weight gradients).
+- the backwards' weight-gradient GEMM (``csrc/tc_gemm.cuh``'s A^T X):
+  ``2·D·M·N·K`` over K = T·B terms; it reads A (K, M) and X (K, N) of
+  each slice and writes the (M, N) output (and the bias's N). Where A is
+  the one-hot of K int32 tokens (the embedding's gradient), it reads the
+  K tokens, not a K×M matrix, and its work is a scatter-add: N additions
+  for each term whose token lands in the M rows. The row product:
+  ``2·M·K·N``, reading A (M, K) and W, writing (M, N).
 - ``fused_reg_loss`` forward: ``R·B²`` pair terms, each counted as its
   elementwise operations with ``tanh`` as one: 8 for the loss, 7 more
   for the gradient factors G and D when a gradient is wanted. The
@@ -107,6 +114,24 @@ def hier_tick_chain(T: int, B: int, H: int, E: int, V: int, ticks_per_beat: int,
     if not backward:
         return Work(flop, WORD * (2 + tb + floats + tb * V + tb + L * tb * H))
     return Work(3 * flop, WORD * (1 + tb + L * tb * H + tb * V + 2 * floats))
+
+
+def atb(M: int, N: int, K: int, D: int = 1, bias: bool = False,
+        tokens: int | None = None) -> Work:
+    """out (D, M, N) = sum over K terms of A^T X, A (D, K, M), X (D, K,
+    N); with ``bias`` also the (D, N) column sums of X. With ``tokens``
+    (the count of the K terms whose token lands in the M rows; D = 1), A
+    is the one-hot of K int32 tokens: K words read for A and ``tokens·N``
+    additions."""
+    a, flop = K * M, 2 * D * M * N * K
+    if tokens is not None:
+        a, flop = K, D * N * tokens
+    return Work(flop, WORD * D * (a + K * N + M * N + (N if bias else 0)))
+
+
+def row_product(M: int, K: int, N: int) -> Work:
+    """out (M, N) = A (M, K) times W (K, N) (or W^T)."""
+    return Work(2 * M * K * N, WORD * (M * K + K * N + M * N))
 
 
 def reg_loss(R: int, B: int, backward: bool = False, factors: bool = True,

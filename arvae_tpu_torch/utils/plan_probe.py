@@ -138,7 +138,7 @@ def main() -> int:
     cfg = (True, 0.5, TPB, "argmax")
     lib = hk._library()
     default = hk.hier_plan(B, H, E, V)
-    want = hk.hier_tick_chain_fwd_cuda(*cfg, *ints, score, *floats)
+    want, _ = hk.hier_tick_chain_fwd_cuda(*cfg, *ints, score, *floats)
     print(f"default plan {default} | {card}")
     for line in held_report():
         print(f"{line} | {card}")
@@ -148,7 +148,7 @@ def main() -> int:
             print(f"C={c} RB={rb}: {smem} B does not fit | {card}")
             continue
         plan = ChainPlan(c, rb, smem, (c * -(-B // rb), 1))
-        got = hk.hier_tick_chain_fwd_cuda(*cfg, *ints, score, *floats, plan=plan)
+        got, _ = hk.hier_tick_chain_fwd_cuda(*cfg, *ints, score, *floats, plan=plan)
         torch.cuda.synchronize()
         ok = torch.equal(got[1], want[1]) and torch.allclose(got[0], want[0], 1e-4, 1e-5)
         ms = _ms(lambda: hk.hier_tick_chain_fwd_cuda(*cfg, *ints, score, *floats, plan=plan))

@@ -92,6 +92,8 @@ def short_name(name):
 # wide layout's calls (``WIDE_LAUNCHES``, ``CHAIN_LAUNCHES["wide"]``)
 # launch its kernels instead of the cluster kernels, and the tick loop's
 # wave layout's (``WAVE_LAUNCHES``) its forward instead of ``hier_fwd``.
+# The backwards' tensor-core engine counts its GEMMs and row products
+# (``GEMM_LAUNCHES``), launched within or without a backward.
 ENTRY_KERNELS = {
     "reg_fwd": (("reg_kernel", "fwd", 1),),
     "reg_bwd": (("reg_kernel", "bwd", 1),),
@@ -103,12 +105,14 @@ ENTRY_KERNELS = {
     "hier_fwd": (("hier_decoder_kernel", "fwd", 1), ("hier_decoder_kernel", "wave_fwd", -1)),
     "hier_wave_fwd": (("hier_decoder_kernel", "wave_fwd", 1),),
     "hier_bwd_prep": (("hier_decoder_kernel", "bwd", 1),),
+    "atb_tc": (("gru_kernel", "gemm_atb", 1), ("gru_kernel", "gemm_atb_alone", 1)),
+    "rows_tc": (("gru_kernel", "gemm_rows", 1), ("gru_kernel", "gemm_rows_alone", 1)),
 }
 
 
 def _launch_counts():
     """{(module, key): count} of the port's wrapper launch counters (an
-    earlier checkout's lack the wide and wave layouts': 0)."""
+    earlier checkout's lack the wide and wave layouts' and the engine's: 0)."""
     import importlib
 
     counts = {(m, k): v for m in ("reg_kernel", "gru_kernel", "hier_decoder_kernel")
@@ -116,6 +120,8 @@ def _launch_counts():
     gk = importlib.import_module("arvae_tpu_torch.ops.gru_kernel")
     for k in ("fwd", "bwd"):
         counts[("gru_kernel", f"wide_{k}")] = getattr(gk, "WIDE_LAUNCHES", {}).get(k, 0)
+    for k in ("atb", "rows", "atb_alone", "rows_alone"):
+        counts[("gru_kernel", f"gemm_{k}")] = getattr(gk, "GEMM_LAUNCHES", {}).get(k, 0)
     hk = importlib.import_module("arvae_tpu_torch.ops.hier_decoder_kernel")
     counts[("hier_decoder_kernel", "chains")] = hk.CHAIN_LAUNCHES["bwd"]
     counts[("hier_decoder_kernel", "chains_wide")] = hk.CHAIN_LAUNCHES.get("wide", 0)
@@ -312,18 +318,19 @@ class TokenCorpus:
         return MusicAttributes(self.index2note_dicts, device)
 
 
-def music_trainer(dev, rows, ctx=None):
-    """The music step's trainer (H=128, z=32, V=130, ``-r all``) and its
-    split, on ``rows`` (N, 24) random tokens, over the data axis ``ctx``
-    (the trainer's default: ``init_data_parallel``'s)."""
+def music_trainer(dev, rows, ctx=None, hidden=128):
+    """The music step's trainer (H=128, or ``hidden`` for the encoder and
+    the decoder, z=32, V=130, ``-r all``) and its split, on ``rows`` (N,
+    24) random tokens, over the data axis ``ctx`` (the trainer's default:
+    ``init_data_parallel``'s)."""
     from arvae_tpu_torch.data.device_data import DeviceSplit
     from arvae_tpu_torch.models.measure_vae import MeasureVAE
     from arvae_tpu_torch.training.measure_trainer import MeasureVAETrainer
 
     corpus = TokenCorpus(rows, bench_vocab(MUSIC_V))
     trainer = MeasureVAETrainer(
-        corpus, MeasureVAE(MUSIC_V, encoder_hidden_size=128, latent_space_dim=32,
-                           decoder_hidden_size=128, seed=0),
+        corpus, MeasureVAE(MUSIC_V, encoder_hidden_size=hidden, latent_space_dim=32,
+                           decoder_hidden_size=hidden, seed=0),
         dev, reg_type=("all",), reg_dim=(0, 1, 2, 3), rand=0, ctx=ctx)
     return trainer, DeviceSplit(rows, None, (24,), "tokens", dev, trainer.ctx)
 

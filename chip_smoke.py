@@ -29,8 +29,8 @@ and the script exits non-zero:
    no cluster holds: the wide layout (``WIDE_GRU_CASES``: H=512 and
    384, and the tick loop's 6-tick chains on 1,024 rows), each with its
    plan (CTAs, the CTAs the card holds at once, shared memory, ptxas's
-   registers and spills), its backward from the forward's kept ``gh``
-   bitwise its backward that recomputes them;
+   registers and spills), its backward reading the forward's kept
+   ``gh`` (the wide backward runs only so);
    ``hier_tick_chain`` forward and backward at V=34 (the music CLI's
    corpus) and V=130 (the step-rate cell), teacher-forced, free-running
    (teacher trick), training with dropout 0.5 (the case matches only if
@@ -49,7 +49,15 @@ and the script exits non-zero:
    0.5, in eval at B = 1, 6, 22 and 120, at B=100 with 5 ticks a beat,
    a tie across its head CTAs' slices and a NaN logit in the last; every
    plan is printed with the clusters (wave: CTAs) the card holds at once
-   beside the count the plan assumes;
+   beside the count the plan assumes; every tick-loop backward runs from
+   the forward's kept ``gh`` where its chains are wide (H=384, 512);
+   then the backwards' tensor-core engine alone (``csrc/tc_gemm.cuh``):
+   its weight-gradient GEMM in every operand form and its row products at
+   every shape a train step gives them at H=512 and 128
+   (``atb_step_shapes``, ``row_step_shapes``), each with its plan, against
+   its plain version within the gradient tolerance and twice, bitwise,
+   and its shared memory and the tick loop's scratch against their Python
+   mirrors;
 4. slice 1: the dSprites training CLI in-process (short grid, B=128, 2
    epochs), twice: the loss must be finite and fall, the reg kernels
    must have launched once per forward and once per backward, the two
@@ -102,6 +110,10 @@ and the script exits non-zero:
    the wide layout's plan, its fwd / bwd ms as a train step runs them
    (the forward keeping ``gh``), cuDNN's ``torch.nn.GRU`` layer there,
    the plain version, the bound, and each call's device µs by kernel;
+   the engine's GEMM and row products alone at every step shape, each
+   against its plain version, cuBLAS's one call for the same product
+   (TF32 off) and its fp32 and 3xTF32 bounds; every tick-loop width's
+   backward split by kernel;
 8. slice 4: the music CLI at the reference's widths
    (``--encoder_hidden_size 512 --decoder_hidden_size 512``) and with
    ``--num_decoder_layers 3``, 2 epochs each on the ``--full`` corpus
@@ -112,9 +124,12 @@ and the script exits non-zero:
    ``CHAIN_LAUNCHES``, and every tick-loop forward on the wave layout,
    ``WAVE_LAUNCHES``), a train step repeated bitwise, its device busy
    time and largest kernels, and the trained model against the CPU on a
-   val batch. The kernels line's ``gru_chain_wide_fwd`` / ``_bwd`` and
-   ``hier_tick_chain_wave_fwd`` entries take their launches from the
-   512-wide run;
+   val batch; in it and in slice 2 the engine's launches
+   (``GEMM_LAUNCHES``) equal the code's: one GEMM a ``gru_chain``
+   backward, 2L + 2 GEMMs and 2L + 1 row products a tick-loop backward.
+   The kernels line's ``gru_chain_wide_fwd`` / ``_bwd``,
+   ``hier_tick_chain_wave_fwd``, ``tc_gemm_atb`` and ``tc_gemm_rows``
+   entries take their launches from the 512-wide run;
 9. slice 5 (evaluation): every CLI run of slices 1-4 now ends with the
    evaluation (the latent harvest, the test pass, the five metrics and
    ``results_dict.json``); each run's file must have the JAX package's
@@ -372,6 +387,77 @@ WIDE_DEEP_HIER = ((256, 2), (512, 2), (384, 2), (128, 1), (128, 3), (128, 4))
 # beat, and the argmax edges across its head CTAs
 WAVE_HIER = ((512, 2), (256, 2), (128, 4))
 WAVE_EVAL_BATCHES = (1, 6, 22, 120)
+
+# The tensor-core engine's two forms alone (csrc/tc_gemm.cuh) at every
+# shape a train step gives them, at H=512 and H=128.
+# The weight-gradient GEMM (name, T, D, B, M, N, A's form, bias): the
+# encoder's dW_hh (24 steps, both directions, h_{t-1} with h0), the beat
+# GRU's (4 steps), the tick loop's dW_hh (6 ticks on 4 beats x 256 rows,
+# the chains' initial hiddens) and dW_ih (the layer's input), dW_ih0e (E
+# rows), the embedding's (the one-hot fed tokens, -1 for none) and out_w's
+# (dlog's V columns: rows not 16-byte aligned).
+def atb_step_shapes(h):
+    return (("encoder dW_hh", 24, 2, 256, h, 3 * h, "prev", True),
+            ("beat dW_hh", 4, 1, 256, h, 3 * h, "prev", True),
+            ("tick dW_hh", HIER_TPB, 1, 4 * 256, h, 3 * h, "prev", True),
+            ("tick dW_ih", HIER_TPB, 1, 4 * 256, h, 3 * h, "dense", True),
+            ("tick dW_ih0e", HIER_TPB, 1, 4 * 256, HIER_E, 3 * h, "dense", False),
+            ("tick demb", HIER_TPB, 1, 4 * 256, MUSIC_BENCH_V, HIER_E, "tokens", False),
+            ("tick dout_w", HIER_TPB, 1, 4 * 256, h, MUSIC_BENCH_V, "dense", True))
+
+
+# The tick loop's row products (name, M rows, K, N, W transposed) on its
+# 6 x 4 x 256 chain rows: dlog out_w^T (K = V: rows not 16-byte aligned),
+# the recomputed gates of layer 1 and of layer 0 (K = E), and the input
+# gradients of layer 1 and of the fed embedding (N = E).
+def row_step_shapes(h):
+    rows = HIER_TPB * 4 * 256
+    return (("dlog out_w^T", rows, MUSIC_BENCH_V, h, True),
+            ("inter w_ih", rows, h, 3 * h, False),
+            ("pe w_ih0e", rows, HIER_E, 3 * h, False),
+            ("dgi w_ih^T", rows, 3 * h, h, True),
+            ("dgi w_ih0e^T", rows, 3 * h, HIER_E, True))
+
+
+ENGINE_WIDTHS = (512, 128)
+
+
+def atb_inputs(shape, dev, seed):
+    """x and the A operand's keywords of ``gru_kernel.atb_cuda`` at an
+    ``atb_step_shapes`` shape, from a seed (tokens: -1 in about one in
+    ten, as at the beats' first ticks)."""
+    _, t, d, b, m, n, form, _ = shape
+    rng = np.random.RandomState(seed)
+
+    def f(*dims):
+        return torch.tensor(rng.randn(*dims) * 0.5, dtype=torch.float32, device=dev)
+
+    x = f(t, d, b, n)
+    if form == "tokens":
+        tok = rng.randint(0, m, t * b)
+        tok[rng.rand(t * b) < 0.1] = -1
+        return x, {"tokens": torch.tensor(tok, dtype=torch.int32, device=dev), "M": m}
+    return x, {"a": f(t, d, b, m), **({"a0": f(d, b, m)} if form == "prev" else {})}
+
+
+def _landing(kws, m):
+    """The terms whose token lands in the one-hot's ``m`` rows, for
+    ``kernel_work.atb``'s token form; None for a dense A operand."""
+    if "tokens" not in kws:
+        return None
+    tok = kws["tokens"]
+    return int(((tok >= 0) & (tok < m)).sum())
+
+
+def row_inputs(shape, dev, seed):
+    """(a, w) of ``gru_kernel.rows_cuda`` at a ``row_step_shapes`` shape."""
+    _, m, k, n, trans = shape
+    rng = np.random.RandomState(seed)
+    a = torch.tensor(rng.randn(m, k) * 0.5, dtype=torch.float32, device=dev)
+    w = torch.tensor(rng.randn(*((n, k) if trans else (k, n))) / np.sqrt(k), dtype=torch.float32,
+                     device=dev)
+    return a, w
+
 
 # One eval step of a trained model on the card against the same step on
 # the CPU (plain paths): float32 products and sums in another order, so
@@ -815,16 +901,12 @@ def _gru_kernels(dev):
         args, ct = _gru_inputs(t, d, b, h, dev, seed=t * 1000 + b)
         runs = []
         for _ in range(2):
-            outs = gk.gru_chain_fwd_cuda(*args)
-            runs.append((outs,) + gk.gru_chain_bwd_cuda(*args, outs, ct))
+            # as a train step runs it: the wide forward keeps gh, its backward reads it
+            outs, gh = gk.gru_chain_fwd_cuda(*args, keep_gh=True)
+            runs.append((outs,) + gk.gru_chain_bwd_cuda(*args, outs, ct, gh=gh))
         torch.cuda.synchronize()
         tag = f"gru_chain (T={t}, D={d}, B={b}, H={h})"
         _check_repeat(tag, *runs)
-        if (t, d, b, h) in WIDE_GRU_CASES:
-            # as a train step runs it: the forward keeps gh, the backward reads it
-            outs, gh = gk.gru_chain_fwd_cuda(*args, keep_gh=True)
-            _check_repeat(f"{tag} with gh kept", runs[0],
-                          (outs,) + gk.gru_chain_bwd_cuda(*args, outs, ct, gh=gh))
         leaves = [a.clone().requires_grad_(True) for a in args]
         want = gk.gru_chain_reference(*leaves)
         (want * ct).sum().backward()
@@ -873,10 +955,11 @@ def _hier_kernel_run(tag, cfg, teacher, seed, score, floats, ct=None):
     train, rate, sampling, tpb = (*cfg, HIER_TPB)[:4]
     runs = []
     for _ in range(2):
-        weights, samples, *hiddens = hk.hier_tick_chain_fwd_cuda(
-            train, rate, tpb, sampling, teacher, seed, score, *floats)
+        # as a train step runs it: the forward keeps gh where the wide chains read it
+        (weights, samples, *hiddens), gh = hk.hier_tick_chain_fwd_cuda(
+            train, rate, tpb, sampling, teacher, seed, score, *floats, keep_gh=True)
         grads = () if ct is None else hk.hier_tick_chain_bwd_cuda(
-            train, rate, tpb, seed, samples, hiddens, weights, ct, *floats)
+            train, rate, tpb, seed, samples, hiddens, weights, ct, *floats, gh=gh)
         runs.append((weights, samples) + tuple(grads))
     torch.cuda.synchronize()
     _check_repeat(tag, *runs)
@@ -1178,10 +1261,97 @@ def _hier_kernels_at(dev, v):
     return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
+def _engine_plan_line(gk, shape):
+    """The weight-gradient GEMM's plan at an ``atb_step_shapes`` shape:
+    its tile, splits, CTAs, shared memory, and the CTAs an SM holds."""
+    _, t, d, b, m, n, _, _ = shape
+    tile = gk.atb_tile(m, n)
+    (bm, bn), splits = gk.TC_TILES[tile], gk.atb_splits(m, n, t * b, d)
+    ctas = d * -(-m // bm) * -(-n // bn) * splits
+    held = gk._library().gru_chain_atb_ctas_an_sm(list(gk.TC_TILES).index(tile))
+    return (f"{bm} x {bn} tiles, {splits} splits of {t * b} terms, {ctas} CTAs of "
+            f"{gk.TC_THREADS} threads, {gk.tc_smem_bytes('atb', tile)} B shared memory each, "
+            f"{held} an SM (the plan counts {gk.TC_CTAS_AN_SM})")
+
+
+def _engine_kernels(dev):
+    """The backward's tensor-core engine alone at every shape a train step
+    gives it, at H=512 and 128: the weight-gradient GEMM (every operand
+    form) and the row products against their plain versions within the
+    gradient tolerance, twice each, bitwise; the shared memory and the tick
+    loop's scratch the Python plans mirror; the forward keeping gh where
+    the backward's wide chains read it → max abs err (atb, rows)."""
+    from arvae_tpu_torch.ops import gru_kernel as gk
+    from arvae_tpu_torch.ops import hier_decoder_kernel as hk
+
+    lib = gk._library()
+    for form_id, form in enumerate(gk.TC_FORMS):
+        for tile_id, tile in enumerate(gk.TC_TILES):
+            if lib.gru_chain_tc_smem_bytes(form_id, tile_id) != gk.tc_smem_bytes(form, tile):
+                raise AssertionError(f"tc_smem_bytes({form}, {tile}) mirrors the source wrongly")
+    for h, layers in ((512, 2), (HIER_H, 2), (HIER_H, 4)):
+        got = hk._library().hier_tick_chain_bwd_scratch_floats(HIER_T, HIER_B, h, HIER_E,
+                                                               MUSIC_BENCH_V, HIER_TPB, layers)
+        if got != hk.bwd_scratch_floats(HIER_T, HIER_B, h, HIER_E, MUSIC_BENCH_V, HIER_TPB,
+                                        layers):
+            raise AssertionError(f"bwd_scratch_floats at H={h}, L={layers} mirrors wrongly")
+    errs = {"atb": 0.0, "rows": 0.0}
+    for h in ENGINE_WIDTHS:
+        for k, shape in enumerate(atb_step_shapes(h)):
+            name, t, d, b, m, n, form, bias = shape
+            x, kw = atb_inputs(shape, dev, seed=h + k)
+            first, second = gk.atb_cuda(x, **kw, bias=bias), gk.atb_cuda(x, **kw, bias=bias)
+            torch.cuda.synchronize()
+            tag = (f"weight-gradient GEMM H={h} {name} (M={m}, N={n}, T={t}, D={d}, B={b}, "
+                   f"{form}{', bias' if bias else ''})")
+            _check_repeat(tag, [y for y in first if y is not None],
+                          [y for y in second if y is not None])
+            for got, want in zip(first, gk.atb_reference(x, **kw, bias=bias)):
+                if want is not None:
+                    errs["atb"] = max(errs["atb"], _check_grad(tag, got, want))
+            print(f"[kernels] {tag}: {_engine_plan_line(gk, shape)}; matches the plain "
+                  f"version, bitwise repeatable")
+        for k, shape in enumerate(row_step_shapes(h)):
+            name, m, kk, n, trans = shape
+            a, w = row_inputs(shape, dev, seed=h + k)
+            first, second = gk.rows_cuda(a, w, trans), gk.rows_cuda(a, w, trans)
+            torch.cuda.synchronize()
+            tag = f"row product H={h} {name} (M={m}, K={kk}, N={n})"
+            _check_repeat(tag, [first], [second])
+            errs["rows"] = max(errs["rows"], _check_grad(tag, first,
+                                                         gk.rows_reference(a, w, trans)))
+            print(f"[kernels] {tag}: {gk.TC_TILES[gk.row_tile(m, n)]} tiles, "
+                  f"{gk.tc_smem_bytes('a_wt' if trans else 'a_w', gk.row_tile(m, n))} B shared "
+                  f"memory a CTA; matches the plain version, bitwise repeatable")
+    for h, layers in WIDE_DEEP_HIER:
+        keeps = hk.keeps_gh(HIER_T, HIER_B, h, HIER_E, MUSIC_BENCH_V, layers, HIER_TPB)
+        if keeps != (h >= 384):
+            raise AssertionError(f"hier_tick_chain H={h}, L={layers}: keeps gh {keeps}")
+    print(f"[kernels] the tick loop's wave forward keeps gh {hk.gh_shape(HIER_T, HIER_B, 512, 2, HIER_TPB)} "
+          f"at H=512 and 384 (the backward's chains wide, reading it), nowhere else; "
+          f"engine max abs err: GEMM {errs['atb']:.3e}, row products {errs['rows']:.3e}")
+    return errs["atb"], errs["rows"]
+
+
 def phase_kernels():
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    return {"reg": _reg_kernels(dev), "gru": _gru_kernels(dev), "hier": _hier_kernels(dev)}
+    return {"reg": _reg_kernels(dev), "gru": _gru_kernels(dev), "hier": _hier_kernels(dev),
+            "engine": _engine_kernels(dev)}
+
+
+def _check_engine_launches(tag, launches, layers):
+    """The tensor-core engine's launches in a run (``gru_kernel.
+    GEMM_LAUNCHES``) against the code's: a GEMM for each ``gru_chain``
+    backward, 2L + 2 GEMMs and 2L + 1 row products for each tick-loop
+    backward, none alone → the counts."""
+    from arvae_tpu_torch.ops import gru_kernel as gk
+
+    hier = launches["hier"]["bwd"]
+    want = {"atb": launches["gru"]["bwd"] + (2 * layers + 2) * hier,
+            "rows": (2 * layers + 1) * hier, "atb_alone": 0, "rows_alone": 0}
+    _check_launches(f"{tag}, the tensor-core engine", dict(gk.GEMM_LAUNCHES), want)
+    return want
 
 
 def _launch_counters():
@@ -1519,6 +1689,7 @@ def phase_music_slice(models_dir):
         "reg": {"fwd": n_train + n_val, "bwd": n_train},
         "gru": {"fwd": 4 * (n_train + n_val), "bwd": 4 * n_train},
         "hier": {"fwd": n_train + n_val, "bwd": n_train}}, trainer))
+    launches["engine"] = _check_engine_launches("music slice", launches, 2)
     print(f"[music] 2 epochs in {seconds:.1f} s (corpus build included); train loss "
           f"{hist[0]['train_loss']:.4f} -> {hist[1]['train_loss']:.4f}; val loss "
           f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f}; train steps "
@@ -1734,6 +1905,7 @@ def _wide_deep_run(name, card_line):
     wave_want = {"fwd": launches["hier"]["fwd"] if model.decoder.rnn_tick.hidden_size >= 256
                  else 0}
     _check_launches(f"music {name}, wave layout", launches["wave"], wave_want)
+    launches["engine"] = _check_engine_launches(f"music {name}", launches, layers)
     print(f"[wide] music CLI {' '.join(flags)} (H enc {model.encoder.lstm.hidden_size}, "
           f"dec {model.decoder.rnn_tick.hidden_size}, {model.decoder.rnn_tick.num_layers} "
           f"tick-GRU layers): 2 epochs in {seconds:.1f} s; train loss "
@@ -1896,13 +2068,14 @@ def _kernel_times(dev, card_line):
               f"{row['bwd_plain']:.5f}, bound {bw.bound_ms:.5f} fp32, {bw.tf32x3_bound_ms:.5f} "
               f"3xTF32; device µs a call by kernel, fwd: " + "; ".join(
                   f"{n} x{k:g} {us:.1f}" for n, (k, us) in row["fwd_split"])
+              + "; bwd: " + "; ".join(f"{n} x{k:g} {us:.1f}" for n, (k, us) in row["bwd_split"])
               + f" | {card_line}")
 
     score, floats, ct = _hier_inputs(dev, 8, MUSIC_BENCH_V)
     teacher, seed = _ints(0, 5, dev)
     cfg = (True, 0.5, HIER_TPB, "argmax")
-    weights, samples, h0_all, h1_all = hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, score,
-                                                                   *floats)
+    (weights, samples, h0_all, h1_all), _ = hk.hier_tick_chain_fwd_cuda(
+        *cfg, teacher, seed, score, *floats)
     leaves = [x.clone().requires_grad_(True) for x in floats]
     ref = hk.tick_chain_reference(*cfg, teacher, seed, score, *hk.chain_operands(leaves))[0]
     times["hier"] = {
@@ -1925,6 +2098,55 @@ def _kernel_times(dev, card_line):
     print("[times] hier_tick_chain bwd, device µs a call by kernel (profiler, 20 calls): "
           + "; ".join(f"{n} x{k:g} {us:.1f}" for n, (k, us) in split))
     return times
+
+
+def _engine_times(dev, card_line):
+    """The tensor-core engine alone at each step shape (H=512 and 128):
+    ms a call (CUDA events, the split GEMMs' fixed-order sum included),
+    its plain version's, cuBLAS's one call for the same product with TF32
+    off (``torch.bmm`` / ``torch.matmul`` on the operands as they stand;
+    the library yardstick, which the port never calls), and its fp32 and
+    3xTF32 bounds (``kernel_work.atb``, ``row_product``) → [rows]."""
+    from arvae_tpu_torch.ops import gru_kernel as gk
+    from arvae_tpu_torch.utils import kernel_work as kw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for h in ENGINE_WIDTHS:
+        for k, shape in enumerate(atb_step_shapes(h)):
+            name, t, d, b, m, n, form, bias = shape
+            x, kws = atb_inputs(shape, dev, seed=h + k)
+            a = gk.atb_operand(x, **kws).permute(1, 0, 2, 3).reshape(d, t * b, m).contiguous()
+            xs = x.permute(1, 0, 2, 3).reshape(d, t * b, n).contiguous()
+            iters = 50 if h > 128 else 200
+            rows.append({
+                "form": "atb", "width": h, "name": name, "shape": [m, n, t * b, d],
+                "splits": gk.atb_splits(m, n, t * b, d), "tile": gk.TC_TILES[gk.atb_tile(m, n)],
+                "ms": _event_ms(lambda: gk.atb_cuda(x, **kws, bias=bias), iters),
+                "plain_ms": _event_ms(lambda: gk.atb_reference(x, **kws, bias=bias), iters),
+                "library_ms": _event_ms(lambda: torch.bmm(a.transpose(1, 2), xs), iters),
+                "work": kw.atb(m, n, t * b, d, bias, tokens=_landing(kws, m))})
+        for k, shape in enumerate(row_step_shapes(h)):
+            name, m, kk, n, trans = shape
+            a, w = row_inputs(shape, dev, seed=h + k)
+            iters = 50 if h > 128 else 200
+            rows.append({
+                "form": "rows", "width": h, "name": name, "shape": [m, kk, n],
+                "tile": gk.TC_TILES[gk.row_tile(m, n)],
+                "ms": _event_ms(lambda: gk.rows_cuda(a, w, trans), iters),
+                "plain_ms": _event_ms(lambda: gk.rows_reference(a, w, trans), iters),
+                "library_ms": _event_ms(lambda: torch.matmul(a, w.T if trans else w), iters),
+                "work": kw.row_product(m, kk, n)})
+    for r in rows:
+        w = r["work"]
+        print(f"[times] tensor-core engine, {'weight-gradient GEMM' if r['form'] == 'atb' else 'row product'} "
+              f"H={r['width']} {r['name']} {r['shape']} ({r['tile'][0]} x {r['tile'][1]} tiles"
+              + (f", {r['splits']} splits" if "splits" in r else "") + f"): {r['ms']:.5f} ms, "
+              f"plain {r['plain_ms']:.5f}, cuBLAS {r['library_ms']:.5f} (TF32 off); bound "
+              f"{w.bound_ms:.5f} fp32 ({w.bound_by}, {100 * w.bound_ms / r['ms']:.1f}% of it), "
+              f"{w.tf32x3_bound_ms:.5f} 3xTF32 ({100 * w.tf32x3_bound_ms / r['ms']:.1f}%), "
+              f"{w.flop / r['ms'] / 1e9:.1f} TFLOP/s | {card_line}")
+    return rows
 
 
 def _cudnn_layer_ms(dev, t, d, b, h, width):
@@ -1973,8 +2195,8 @@ def _hier_times(dev, h, layers):
     score, floats, ct = _hier_inputs(dev, 8, MUSIC_BENCH_V, h=h, layers=layers)
     teacher, seed = _ints(0, 5, dev)
     cfg = (True, 0.5, HIER_TPB, "argmax")
-    weights, samples, *hiddens = hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, score,
-                                                             *floats)
+    (weights, samples, *hiddens), gh = hk.hier_tick_chain_fwd_cuda(
+        *cfg, teacher, seed, score, *floats, keep_gh=True)
     leaves = [x.clone().requires_grad_(True) for x in floats]
     ref = hk.tick_chain_reference(*cfg, teacher, seed, score, *hk.chain_operands(leaves))[0]
     n = 100 if h <= 128 else 20
@@ -1982,7 +2204,12 @@ def _hier_times(dev, h, layers):
                  L=layers)
 
     def fwd():
-        return hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, score, *floats)
+        # as a train step runs it: keeping gh where the backward's wide chains read it
+        return hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, score, *floats, keep_gh=True)
+
+    def bwd():
+        return hk.hier_tick_chain_bwd_cuda(True, 0.5, HIER_TPB, seed, samples, hiddens, weights,
+                                           ct, *floats, gh=gh)
 
     return {
         "shape": (h, layers),
@@ -1991,8 +2218,8 @@ def _hier_times(dev, h, layers):
         "fwd_split": _kernel_split(fwd, 5),
         "fwd_plain": _event_ms(lambda: hk.tick_chain_reference(
             *cfg, teacher, seed, score, *hk.chain_operands(floats)), 5, 1),
-        "bwd": _event_ms(lambda: hk.hier_tick_chain_bwd_cuda(
-            True, 0.5, HIER_TPB, seed, samples, hiddens, weights, ct, *floats), n),
+        "bwd": _event_ms(bwd, n),
+        "bwd_split": _kernel_split(bwd, 3),
         "bwd_plain": _event_ms(
             lambda: torch.autograd.grad(ref, leaves, ct, retain_graph=True), 5, 1),
         "fwd_work": kw.hier_tick_chain(**shape), "bwd_work": kw.hier_tick_chain(**shape,
@@ -2130,7 +2357,7 @@ def _device_busy(tag, trainer, split, batch, card_line):
 
     rows = split.gather_batch(torch.arange(batch, device=split.device))
     busy_ms, events, step_ms, by_name = step_profile(lambda: trainer.train_step(rows))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:16]
     print(f"[times] {tag} step, profiled: device busy {busy_ms:.3f} ms a step over 50 "
           f"steps ({events:.0f} device events a step); 50 unprofiled steps just before: "
           f"{step_ms:.3f} ms a step, device idle {100 * (1 - busy_ms / step_ms):.1f}% "
@@ -2169,6 +2396,7 @@ def phase_times(card_line):
 
     dev = torch.device("cuda")
     times = _kernel_times(dev, card_line)
+    times["engine"] = _engine_times(dev, card_line)
     times["ar_launches"] = _ar_term_launches(dev, card_line)
 
     rng = np.random.RandomState(0)
@@ -3034,7 +3262,7 @@ def _analysis_hier(dev, card_line, h, layers):
 
     def fwd(sc, fl, plan=None):
         return tuple(hk.hier_tick_chain_fwd_cuda(False, 0.5, HIER_TPB, "argmax", teacher, seed,
-                                                 sc, *fl, plan=plan)[:2])
+                                                 sc, *fl, plan=plan)[0][:2])
 
     out = []
     with torch.no_grad():
@@ -4170,7 +4398,8 @@ def _dp_row_base_at(dev, card_line, h, errs):
     teacher, seed = _ints(1, 5, dev)
     cfg = (True, 0.5, HIER_TPB, "argmax")
     full_plan = hk.hier_plan(MUSIC_B, h, HIER_E, MUSIC_BENCH_V, 2)
-    w_full, s_full, *h_full = hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, score, *floats)
+    (w_full, s_full, *h_full), gh_full = hk.hier_tick_chain_fwd_cuda(
+        *cfg, teacher, seed, score, *floats, keep_gh=True)
     flips = {}
     for world in (2, 4):
         b = MUSIC_B // world
@@ -4181,21 +4410,21 @@ def _dp_row_base_at(dev, card_line, h, errs):
             fl = [floats[0][:, rows].contiguous(), floats[1][:, :, rows].contiguous(),
                   floats[2][rows].contiguous()] + floats[3:]
             tag = f"hier_tick_chain H={h} row_base={k * b}, rank {k} of {world}"
-            under = hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, sc, *fl, plan=full_plan,
-                                                row_base=k * b)
+            under, _ = hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, sc, *fl, plan=full_plan,
+                                                   row_base=k * b)
             if not (torch.equal(_bits(under[0]), _bits(w_full[:, rows]))
                     and torch.equal(under[1], s_full[:, rows])):
                 raise AssertionError(f"{tag}: under the B={MUSIC_B} plan not bitwise its rows")
-            w, s, *hid = hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, sc, *fl,
-                                                     row_base=k * b)
+            (w, s, *hid), gh = hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, sc, *fl,
+                                                           row_base=k * b, keep_gh=True)
             w_p, s_p = hk.tick_chain_reference(*cfg, teacher, seed, sc, *hk.chain_operands(fl),
                                                row_base=k * b)
             if not torch.equal(s, s_p):
                 raise AssertionError(f"{tag}: samples differ from the plain version")
             errs["fwd_vs_plain"] = max(errs["fwd_vs_plain"], _check_close(
                 f"{tag} against the plain version", w, w_p, SEQ_FWD_RTOL, SEQ_FWD_ATOL))
-            ranks.append((tag, rows, fl, w, s, hid))
-        agree = torch.cat([(w > 0) == (w_full[:, rows] > 0) for _, rows, _, w, _, _ in ranks],
+            ranks.append((tag, rows, fl, w, s, hid, gh))
+        agree = torch.cat([(w > 0) == (w_full[:, rows] > 0) for _, rows, _, w, *_ in ranks],
                           dim=1)
         flips[world] = int((~agree).sum())
         if flips[world] > 1e-4 * agree.numel():
@@ -4203,11 +4432,12 @@ def _dp_row_base_at(dev, card_line, h, errs):
                                  f"change sign against the B={MUSIC_B} call")
         ct_w = ct * agree
         g_full = hk.hier_tick_chain_bwd_cuda(True, 0.5, HIER_TPB, seed, s_full, h_full, w_full,
-                                             ct_w, *floats)
+                                             ct_w, *floats, gh=gh_full)
         sums = None
-        for k, (tag, rows, fl, w, s, hid) in enumerate(ranks):
+        for k, (tag, rows, fl, w, s, hid, gh) in enumerate(ranks):
             g = hk.hier_tick_chain_bwd_cuda(True, 0.5, HIER_TPB, seed, s, hid, w,
-                                            ct_w[:, rows].contiguous(), *fl, row_base=k * b)
+                                            ct_w[:, rows].contiguous(), *fl, row_base=k * b,
+                                            gh=gh)
             for name, got, want in (("dgi_beat", g[0], g_full[0][:, rows]),
                                     ("dtick_h0", g[1], g_full[1][:, :, rows]),
                                     ("dx0", g[2], g_full[2][rows])):
@@ -4558,12 +4788,42 @@ def main(argv=None) -> int:
                                  "library_ms": None}
                                 for r in times["hier_wide"] if r["plan"].startswith("wave")]}
 
+    def engine_entry(form, name, main_shape, replaces):
+        """The backward's tensor-core engine (its weight-gradient GEMM, or its
+        row products): launches from the 512-wide CLI run's backwards (its
+        main path; the music CLI run's beside them), times of the call alone
+        at the 512-wide step's ``main_shape``, every step shape after it."""
+        counts, steps, _ = wide["512-wide"]
+        rows = [r for r in times["engine"] if r["form"] == form]
+        main = next(r for r in rows if r["width"] == 512 and r["name"] == main_shape)
+        w = main["work"]
+
+        def fields(r):
+            return {"ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["work"].bound_ms,
+                    "bound_by": r["work"].bound_by, "tf32x3_bound_ms": r["work"].tf32x3_bound_ms,
+                    "library_ms": r["library_ms"]}
+
+        return {"name": name, "layout": "engine", "route": "cuda",
+                "source": csrc + "tc_gemm.cuh", "replaces": replaces,
+                "launches": counts["engine"][form],
+                "launches_per_train_step": counts["engine"][form] / steps,
+                "music_cli_launches": music[0]["engine"][form],
+                "max_abs_err": errs["engine"][form == "rows"], "shape": main["shape"],
+                **fields(main),
+                "step_shapes": [{"width": r["width"], "name": r["name"], "shape": r["shape"],
+                                 **fields(r)} for r in rows]}
+
     kernels += [wide_entry("fwd", "arvae_tpu/ops/gru_pallas.py:144"),
-                wide_entry("bwd", "arvae_tpu/ops/gru_pallas.py:218"), wave_entry()]
+                wide_entry("bwd", "arvae_tpu/ops/gru_pallas.py:218"), wave_entry(),
+                engine_entry("atb", "tc_gemm_atb", "encoder dW_hh",
+                             "arvae_tpu/ops/gru_pallas.py:198-203; "
+                             "arvae_tpu/ops/hier_decoder_pallas.py:385-410 (_matT_a_b :167)"),
+                engine_entry("rows", "tc_gemm_rows", "dgi w_ih^T",
+                             "arvae_tpu/ops/hier_decoder_pallas.py:385-410 (_a_bT :175)")]
     for k in kernels:
         where = (f"{k['launches_per_train_step']:g} launches a train step of the 512-wide "
                  f"music CLI run ({k['launches']} in it), at {k['shape']}"
-                 if k["layout"] in ("wide", "wave") else
+                 if "launches_per_train_step" in k else
                  f"{k['launches_per_step']:g} launches a step, "
                  f"{k['eval_launches_per_batch']['harvest']} a harvest batch and "
                  f"{k['eval_launches_per_batch']['test']} a test batch")

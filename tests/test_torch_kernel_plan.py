@@ -16,6 +16,7 @@ data-parallel rank's rows. The AR regulariser's forward plan (a cluster
 a dim) covers every row in whole passes and runs in one wave of the
 clusters the card holds at once."""
 
+import numpy as np
 import pytest
 
 import chip_smoke
@@ -23,10 +24,15 @@ from arvae_tpu_torch.ops import gru_kernel as gk
 from arvae_tpu_torch.ops.gru_kernel import ChainPlan
 from arvae_tpu_torch.ops import hier_decoder_kernel as hk
 from arvae_tpu_torch.ops import reg_kernel as rk
+from arvae_tpu_torch.utils import wide_probe
 
 HS = (64, 128, 256)
 VS = (34, 130)
 B, T, E = 256, 24, 10
+# (M, N, K, D) of the weight-gradient GEMMs at HS x VS that fewer than 100
+# CTAs run even at their least split; timed alone by ``wide_probe.py
+# --atb-splits`` (PERF.md §6)
+FEW_CTA_GEMMS = {(m, n, t * b, d) for _, _, t, d, b, m, n, _ in wide_probe.FEW_CTA_GEMMS}
 
 
 @pytest.mark.parametrize("v", VS)
@@ -42,14 +48,21 @@ def test_plans_fit_and_fill_the_card(h, v):
             assert plan.clusters > 1 and plan.rows * h // plan.clusters <= gk.THREADS
             assert plan.ctas >= 100, (d, backward, plan)
             assert plan.grid == (plan.clusters * -(-B // plan.rows), d)
-    # the GEMMs: gru_chain's dW_hh at both layer shapes, the tick loop's six
-    gemms = [(h, True, 3 * h, T * B, 2), (h, True, 3 * h, 4 * B, 1)]
-    gemms += [(m, bias, n, T * B, 1) for m, bias, n in hk.gemm_shapes(h, E, v)]
-    for m, bias, n, k, d in gemms:
-        splits = gk.atb_splits(m, bias, n, k, d)
-        assert 1 <= splits <= -(-k // gk.GEMM_DEPTH)
-        tiles = d * -(-(m + bias) // gk.GEMM_TILE) * -(-n // gk.GEMM_TILE)
-        assert tiles * splits >= 100, (m, bias, n, k, d)
+    # the GEMMs: gru_chain's dW_hh at both layer shapes, the tick loop's six;
+    # each fills the card (100 CTAs) but the named few whose least split
+    # (ATB_MIN_TERMS terms) still leaves fewer: they take that split
+    gemms = [(h, 3 * h, T * B, 2), (h, 3 * h, 4 * B, 1)]
+    gemms += [(m, n, T * B, 1) for m, _, n in hk.gemm_shapes(h, E, v)]
+    for m, n, k, d in gemms:
+        splits = gk.atb_splits(m, n, k, d)
+        assert 1 <= splits <= -(-k // gk.TC_DEPTH)
+        bm, bn = gk.TC_TILES[gk.atb_tile(m, n)]
+        tiles = d * -(-m // bm) * -(-n // bn)
+        if (m, n, k, d) in FEW_CTA_GEMMS:
+            assert tiles * splits < 100 and gk.atb_chunk(k, splits) == gk.ATB_MIN_TERMS
+            assert splits == k // gk.ATB_MIN_TERMS, (m, n, k, d)
+        else:
+            assert tiles * splits >= 100, (m, n, k, d)
 
 
 def test_music_step_plan_is_one_wave_of_one_cta_an_sm():
@@ -402,9 +415,131 @@ def test_a_width_no_wide_plan_fits_raises_naming_h(d, h):
 @pytest.mark.parametrize("t,d,b,h", chip_smoke.WIDE_GRU_CASES)
 def test_the_wide_weight_gradient_sums_at_most_1024_terms_a_split(t, d, b, h):
     k = t * b
-    splits = gk.wide_atb_splits(h, True, 3 * h, k, d)
-    assert splits >= gk.atb_splits(h, True, 3 * h, k, d)
-    # each split's terms: gemm_chunk in csrc/gru_common.cuh, whole 32-term K tiles
-    chunk = -(-(-(-k // splits)) // gk.GEMM_DEPTH) * gk.GEMM_DEPTH
-    assert chunk <= max(gk.WIDE_ATB_TERMS, gk.GEMM_DEPTH)
-    assert splits <= -(-k // gk.GEMM_DEPTH)
+    splits = gk.atb_splits(h, 3 * h, k, d)
+    # each split's terms: gemm_chunk in csrc/tc_gemm.cuh, whole 32-term K tiles
+    chunk = -(-(-(-k // splits)) // gk.TC_DEPTH) * gk.TC_DEPTH
+    assert gk.ATB_MAX_TERMS == 1024
+    assert chunk <= max(gk.ATB_MAX_TERMS, gk.TC_DEPTH)
+    assert splits <= -(-k // gk.TC_DEPTH)
+
+
+# ---------------------------------------------------------------------------
+# The backwards' tensor-core engine (csrc/tc_gemm.cuh): the Python mirrors of
+# its tiles, splits and shared memory, and of the tick loop's scratch and kept gh
+# ---------------------------------------------------------------------------
+
+
+def _engine_gemms(h):
+    """(M, N, K, D) of every weight-gradient GEMM of a train step at width h:
+    gru_chain's dW_hh (encoder, beat GRU), the tick loop's 2L + 2."""
+    return ([(h, 3 * h, T * B, 2), (h, 3 * h, 4 * B, 1)]
+            + [(m, n, T * B, 1) for m, _, n in hk.gemm_shapes(h, E, 130)])
+
+
+@pytest.mark.parametrize("h", (64, 128, 256, 384, 512))
+def test_the_weight_gradient_splits_cover_the_terms_in_order(h):
+    for m, n, k, d in _engine_gemms(h):
+        splits = gk.atb_splits(m, n, k, d)
+        chunk = gk.atb_chunk(k, splits)
+        assert chunk % gk.TC_DEPTH == 0 and 1 <= splits <= -(-k // gk.TC_DEPTH)
+        bounds = [(i * chunk, min((i + 1) * chunk, k)) for i in range(splits)]
+        assert bounds[0][0] == 0 and bounds[-1][1] == k
+        assert all(lo < hi for lo, hi in bounds), (m, n, k, d, splits)
+        assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+        assert chunk <= gk.ATB_MAX_TERMS
+
+
+def test_the_engines_tiles_by_shape():
+    assert gk.atb_tile(512, 1536) == gk.atb_tile(512, 130) == "big"
+    assert gk.atb_tile(10, 1536) == "narrow_m"  # dW_ih0e at E = 10
+    assert gk.atb_tile(130, 10) == gk.atb_tile(6144, 10) == "narrow_n"  # demb, dpe
+    # the 512-wide encoder's dW_hh: 4 x 12 tiles of both directions, in 8
+    # splits of 768 terms: 768 CTAs, a whole number of the card's waves near
+    assert gk.atb_splits(512, 1536, 24 * 256, 2) == 8
+
+
+def test_the_row_products_tiles_by_shape():
+    rows = 6 * 4 * 256  # the tick loop's chain rows at B=256
+    assert gk.row_tile(rows, 10) == "narrow_n"  # dpe
+    # H=512: 48 x 12 and 48 x 4 tiles of 128 x 128 fill the card's 132 SMs
+    assert gk.row_tile(rows, 1536) == gk.row_tile(rows, 512) == "big"
+    # H=128: 48 tiles of 128 x 128 would leave SMs idle
+    assert gk.row_tile(rows, 128) == gk.row_tile(rows, 130) == "mid"
+    assert gk.TC_TILES["mid"] == (64, 64)
+
+
+@pytest.mark.parametrize("form", list(gk.TC_FORMS))
+@pytest.mark.parametrize("tile", list(gk.TC_TILES))
+def test_the_engines_shared_memory_fits_227_kb(form, tile):
+    smem = gk.tc_smem_bytes(form, tile)
+    assert 0 < smem <= gk.MAX_SMEM
+    bm, bn = gk.TC_TILES[tile]
+    # three stages of an A and a B tile: term-major (32 x (width + 8)) or
+    # row-major (width x 36) floats
+    a_term, b_term = gk.TC_FORMS[form]
+    a = 32 * (bm + 8) if a_term else bm * 36
+    b = 32 * (bn + 8) if b_term else bn * 36
+    assert smem == 4 * 3 * (a + b)
+
+
+def test_the_big_tiles_leading_dimensions_keep_fragment_loads_conflict_free():
+    # lane (g, t) of a warp reads row t, column g of a term-major tile and
+    # row g, term t of a row-major one: 32 distinct banks
+    for width in (16, 128):
+        ld = width + 8
+        assert len({(t * ld + g) % 32 for g in range(8) for t in range(4)}) == 32
+    assert len({(g * 36 + t) % 32 for g in range(8) for t in range(4)}) == 32
+
+
+@pytest.mark.parametrize("h,layers,keeps", [(512, 2, True), (384, 2, True), (512, 1, True),
+                                            (256, 2, False), (128, 4, False), (128, 2, False)])
+def test_the_forward_keeps_gh_where_the_wide_chains_read_it(h, layers, keeps):
+    assert hk.keeps_gh(T, B, h, E, 130, layers, 6) is keeps
+    if keeps:  # the wave forward, wide chains
+        assert isinstance(hk.hier_plan(B, h, E, 130, layers), hk.WavePlan)
+        assert isinstance(hk.chain_plan(T, B, h, 6), gk.WidePlan)
+    # the chains' layout: 6 ticks on 4 beats x 256 rows; a padded last beat
+    assert hk.gh_shape(T, B, h, layers, 6) == (layers, 6, 4 * B, 3 * h)
+    assert hk.gh_shape(T, B, h, layers, 5) == (layers, 5, 5 * B, 3 * h)
+    # 37.7 MB a layer at B=256, H=512
+    if h == 512:
+        assert 4 * np.prod(hk.gh_shape(T, B, h, 1, 6)) == 24 * 256 * 1536 * 4
+
+
+def test_the_tick_loops_backward_scratch_mirror():
+    # R = 6 x 4 x 256 chain rows, one region each, rounded to 16 bytes
+    R, bc, h, v = 6 * 4 * B, 4 * B, 512, 130
+    want = (R + R * E + R * v + 2 * 2 * bc * h + R * h + 3 * R * h + R * h + 2 * 3 * R * h
+            + R * E + 4)
+    assert hk.bwd_scratch_floats(T, B, h, E, v, 6, 2) == want
+    # no gh region: the wide chains read the forward's
+    assert hk.bwd_scratch_floats(T, B, h, E, v, 6, 2) - hk.bwd_scratch_floats(
+        T, B, h, E, v, 6, 1) == 2 * bc * h
+
+
+@pytest.mark.parametrize("h", [252, 360])
+def test_a_forward_that_keeps_gh_runs_wide_where_only_the_backward_is_wide(h):
+    # a cluster holds the forward's slices of w_hh but not the backward's:
+    # the forward that keeps gh for the wide backward runs wide too
+    for d, b in ((2, 256), (1, 1), (2, 119)):
+        assert isinstance(gk.gru_plan(d, b, h, False), ChainPlan)
+        assert isinstance(gk.gru_plan(d, b, h, True), gk.WidePlan)
+        assert gk.fwd_plan(d, b, h) == gk.gru_plan(d, b, h, False)
+        assert gk.fwd_plan(d, b, h, keep_gh=True) == gk.wide_plan(d, b, h, False)
+
+
+def test_a_forward_that_keeps_gh_plans_as_before_across_the_range():
+    for h in range(32, 513, 32):
+        for d in (1, 2):
+            for b in (1, 120, 256, 1024):
+                assert gk.fwd_plan(d, b, h, keep_gh=True) == gk.gru_plan(d, b, h, False)
+
+
+@pytest.mark.parametrize("h", [384, 512])
+def test_the_wide_backward_holds_only_its_own_rows_of_w_hh(h):
+    # U rows of 3H terms, padded to whole 32-term chunks plus 4, then three
+    # chunk buffers of a pass's rows: no room for the forward's slice
+    for u in gk.WIDE_UNITS:
+        stages = 3 * gk.wide_pass_rows(u) * (32 + 4)
+        assert gk.wide_smem_floats(True, h, u) == u * (-(-3 * h // 32) * 32 + 4) + stages
+        assert gk.wide_smem_floats(False, h, u) == 3 * u * (-(-h // 32) * 32 + 4) + stages

@@ -52,6 +52,24 @@ CASES = {
                            24 * 256 * (2 * 10 * 1536 + 3 * 2 * 512 * 1536 + 2 * 512 * 130)),
     "hier_fwd_flop_h512_L3": (lambda: _hier(H=512, L=3).flop,
                               24 * 256 * (2 * 10 * 1536 + 5 * 2 * 512 * 1536 + 2 * 512 * 130)),
+    # the backwards' weight-gradient GEMM: 2·D·M·N·K, A and X read once, the
+    # output (and the bias) written once; the row product 2·M·K·N
+    "atb_flop_encoder_h512": (lambda: kw.atb(512, 1536, 6144, 2, True).flop,
+                              2 * 2 * 512 * 1536 * 6144),
+    "atb_bytes_encoder_h512": (lambda: kw.atb(512, 1536, 6144, 2, True).bytes,
+                               4 * 2 * (6144 * 512 + 6144 * 1536 + 512 * 1536 + 1536)),
+    # the embedding's gradient: A the one-hot of 6144 int32 tokens, a
+    # scatter-add of N = 10 floats for each token that lands
+    "atb_flop_demb": (lambda: kw.atb(130, 10, 6144, tokens=6144).flop, 10 * 6144),
+    "atb_flop_demb_tokens_that_land": (lambda: kw.atb(130, 10, 6144, tokens=5500).flop,
+                                       10 * 5500),
+    "atb_bytes_demb": (lambda: kw.atb(130, 10, 6144, tokens=5500).bytes,
+                       4 * (6144 + 6144 * 10 + 130 * 10)),
+    "atb_bytes_no_bias": (lambda: kw.atb(10, 1536, 6144).bytes,
+                          4 * (6144 * 10 + 6144 * 1536 + 10 * 1536)),
+    "row_product_flop": (lambda: kw.row_product(6144, 1536, 512).flop, 2 * 6144 * 1536 * 512),
+    "row_product_bytes": (lambda: kw.row_product(6144, 10, 1536).bytes,
+                          4 * (6144 * 10 + 10 * 1536 + 6144 * 1536)),
     "reg_pairs": (lambda: kw.reg_loss(4, 256, factors=False).flop,
                   kw.REG_FWD_OPS_PER_PAIR * 4 * 256 ** 2),
     "reg_fwd_with_factors": (lambda: kw.reg_loss(4, 256).flop,
@@ -118,3 +136,25 @@ def test_the_wide_layouts_tf32x3_bound_is_three_tf32_products_an_operation(shape
         tf32_ms = 1e3 * 3 * w.flop / 495e12
         assert w.tf32x3_bound_ms == pytest.approx(max(tf32_ms, w.bytes_ms), rel=1e-12)
         assert w.bytes_ms <= w.tf32x3_bound_ms < w.bound_ms
+
+
+def test_the_512_wide_steps_weight_gradients_are_bound_by_operations():
+    # the encoder's two biGRU layers, the beat GRU's two, the tick loop's
+    # six: about 72 GFLOP a step, 1.07 ms at the fp32 rate, 0.43 in 3xTF32
+    gemms = ([kw.atb(512, 1536, 6144, 2, True)] * 2 + [kw.atb(512, 1536, 1024, 1, True)] * 2
+             + [kw.atb(512, 1536, 6144, 1, True)] * 3
+             + [kw.atb(10, 1536, 6144), kw.atb(130, 10, 6144, tokens=6144),
+                kw.atb(512, 130, 6144, 1, True)])
+    assert sum(w.flop for w in gemms) / 1e9 == pytest.approx(71.7, rel=0.01)
+    flop = sum(w.flop for w in gemms)
+    assert 1e3 * flop / kw.PEAK_FP32_FLOP_PER_S == pytest.approx(1.07, rel=0.01)
+    assert 1e3 * 3 * flop / kw.PEAK_TF32_FLOP_PER_S == pytest.approx(0.43, rel=0.02)
+    # the bounds add the tiny GEMMs' bytes
+    assert sum(w.bound_ms for w in gemms) == pytest.approx(1.08, rel=0.01)
+    assert sum(w.tf32x3_bound_ms for w in gemms) == pytest.approx(0.447, rel=0.01)
+    assert kw.atb(512, 1536, 6144, 2, True).bound_by == "operations"
+    # the tiny ones move more bytes than they compute; the embedding's
+    # gradient reads its tokens, not a dense 6144 x 130 one-hot
+    demb = kw.atb(130, 10, 6144, tokens=6144)
+    assert demb.bound_by == "bytes" and demb.bytes < kw.atb(130, 10, 6144).bytes / 12
+    assert demb.tf32x3_bound_ms == demb.bound_ms == demb.bytes_ms

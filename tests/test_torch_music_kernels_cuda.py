@@ -19,8 +19,9 @@ V=130 (the step-rate cell), and at a ragged B=100, and in eval mode
 (``train=False``, as GLSR's decodes run it) at 6 and 24 ticks a beat.
 The reference's own widths and the tick GRU's other depths run on the
 kernels too: ``gru_chain`` at H=384 and 512 (the wide layout, whose
-backward with the forward's kept ``gh`` is bitwise its backward that
-recomputes them, and the tick loop's 6-tick chains on 1,024 rows), the
+backward reads the forward's kept ``gh`` and refuses to run without it,
+and the tick loop's 6-tick chains on 1,024 rows), H=252 and 360 (where
+only the backward is wide, so a recorded forward runs wide too), the
 tick loop at H=256 and 512 with 2 layers and at H=128 with 1, 3 and 4
 (teacher-forced, free-running with dropout 0.5, eval, and the SR
 decoder's one beat of 24 ticks), and decoders at those shapes launch
@@ -104,8 +105,9 @@ def _gru_inputs(t, d, b, h, dev, seed=0):
 @pytest.mark.parametrize("t,d,b,h", GRU_CASES)
 def test_gru_chain_matches_plain_and_repeats_bitwise(dev, t, d, b, h):
     args, ct = _gru_inputs(t, d, b, h, dev, seed=t * 1000 + b)
-    runs = [(gk.gru_chain_fwd_cuda(*args),) for _ in range(2)]
-    runs = [r + gk.gru_chain_bwd_cuda(*args, r[0], ct) for r in runs]
+    # as a train step runs it: the wide forward keeps gh, its backward reads it
+    runs = [gk.gru_chain_fwd_cuda(*args, keep_gh=True) for _ in range(2)]
+    runs = [(outs,) + gk.gru_chain_bwd_cuda(*args, outs, ct, gh=gh) for outs, gh in runs]
     torch.cuda.synchronize()
     for x, y in zip(*runs):
         assert torch.equal(x, y)
@@ -132,19 +134,47 @@ def test_gru_chain_autograd_launches_kernels(dev):
 
 @pytest.mark.parametrize("t,d,b,h", WIDE_GRU_CASES)
 def test_wide_gru_chain_backward_from_the_kept_gh_is_bitwise_the_recomputed(dev, t, d, b, h):
+    # the wide backward reads only the kept gh (its recomputing path is
+    # gone): the gradients from it match the plain backward, it refuses to
+    # run without gh, and the forward's outputs do not depend on keeping it
     args, ct = _gru_inputs(t, d, b, h, dev, seed=t * 1000 + b)
     outs, gh = gk.gru_chain_fwd_cuda(*args, keep_gh=True)
     gk.reset_launches()
-    kept = gk.gru_chain_bwd_cuda(*args, outs, ct, gh=gh)
-    recomputed = gk.gru_chain_bwd_cuda(*args, outs, ct)
+    grads = gk.gru_chain_bwd_cuda(*args, outs, ct, gh=gh)
+    with pytest.raises(ValueError, match="reads gh"):
+        gk.gru_chain_bwd_cuda(*args, outs, ct)
     torch.cuda.synchronize()
     assert torch.equal(outs, gk.gru_chain_fwd_cuda(*args))
-    for x, y in zip(kept, recomputed):
-        assert torch.equal(x, y)
-    assert gk.WIDE_LAUNCHES == {"fwd": 1, "bwd": 2} and gk.LAUNCHES == {"fwd": 1, "bwd": 2}
+    assert gk.WIDE_LAUNCHES == {"fwd": 1, "bwd": 1} and gk.LAUNCHES == {"fwd": 1, "bwd": 1}
     hprev = torch.cat([args[3][None], outs[:-1]])
     want = torch.einsum("tdbh,dhk->tdbk", hprev, args[1]) + args[2][None, :, None]
     _close(gh, want, FWD_RTOL, FWD_ATOL, "gh")
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    (gk.gru_chain_reference(*leaves) * ct).sum().backward()
+    for g, leaf, name in zip(grads, leaves, ("dgi", "dw_hh", "db_hh", "dh0")):
+        _close_grad(g, leaf.grad, name)
+
+
+@pytest.mark.parametrize("h", [252, 360])
+def test_the_forward_keeps_gh_on_the_wide_layout_where_only_the_backward_is_wide(dev, h):
+    # a cluster holds the forward's slices but not the backward's: a
+    # recorded call runs the wide forward, whose gh the wide backward reads
+    args, ct = _gru_inputs(24, 2, 64, h, dev, seed=h)
+    assert isinstance(gk.gru_plan(2, 64, h, False), gk.ChainPlan)
+    assert isinstance(gk.gru_plan(2, 64, h, True), gk.WidePlan)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    gk.reset_launches()
+    (gk.gru_chain(*leaves) * ct).sum().backward()
+    assert gk.WIDE_LAUNCHES == {"fwd": 1, "bwd": 1}
+    with torch.no_grad():
+        resident = gk.gru_chain(*args)
+    assert gk.WIDE_LAUNCHES == {"fwd": 1, "bwd": 1} and gk.LAUNCHES["fwd"] == 2
+    ref = [a.clone().requires_grad_(True) for a in args]
+    want = gk.gru_chain_reference(*ref)
+    (want * ct).sum().backward()
+    _close(resident, want.detach(), FWD_RTOL, FWD_ATOL, "outs")
+    for a, r in zip(leaves, ref):
+        _close_grad(a.grad, r.grad)
 
 
 @pytest.mark.parametrize("backward", [False, True])
@@ -206,10 +236,11 @@ def _kernel_run(cfg, teacher, seed, score, floats, ct=None):
     train, rate, tpb, sampling = cfg
     runs = []
     for _ in range(2):
-        weights, samples, *hiddens = hk.hier_tick_chain_fwd_cuda(
-            train, rate, tpb, sampling, teacher, seed, score, *floats)
+        # as a train step runs it: the forward keeps gh where the wide chains read it
+        (weights, samples, *hiddens), gh = hk.hier_tick_chain_fwd_cuda(
+            train, rate, tpb, sampling, teacher, seed, score, *floats, keep_gh=True)
         grads = () if ct is None else hk.hier_tick_chain_bwd_cuda(
-            train, rate, tpb, seed, samples, hiddens, weights, ct, *floats)
+            train, rate, tpb, seed, samples, hiddens, weights, ct, *floats, gh=gh)
         runs.append((weights, samples) + tuple(grads))
     torch.cuda.synchronize()
     for x, y in zip(*runs):  # bitwise, so that a NaN repeats equal to itself
@@ -466,7 +497,7 @@ def test_wave_forward_ragged_batch_at_5_ticks_a_beat(dev, h, layers, v):
     assert isinstance(hk.hier_plan(100, h, HE, v, layers), hk.WavePlan)
     inputs = _ints(1, 3, dev) + (score,)
     _compare((True, 0.0, 5, "argmax"), inputs, inputs, floats, ct)
-    outs = hk.hier_tick_chain_fwd_cuda(True, 0.0, 5, "argmax", *inputs, *floats)
+    outs, _ = hk.hier_tick_chain_fwd_cuda(True, 0.0, 5, "argmax", *inputs, *floats)
     for hid in outs[2:]:  # tick 4 of the fifth beat is tick 24: padded
         assert not bool(hid[4, 4 * 100:].any())
 
@@ -624,7 +655,7 @@ def test_hier_eval_small_batches_match_plain_and_the_full_calls_rows(dev, h, lay
     full_plan = hk.hier_plan(HB, h, HE, v, layers)
 
     def fwd(s, f, plan=None):
-        return hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, s, *f, plan=plan)[:2]
+        return hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, s, *f, plan=plan)[0][:2]
 
     with torch.no_grad():
         w_full, s_full = (x[:, :b] for x in fwd(score, floats))
@@ -640,3 +671,103 @@ def test_hier_eval_small_batches_match_plain_and_the_full_calls_rows(dev, h, lay
     _close(w_k, w_full, FWD_RTOL, FWD_ATOL, "rows of the B=256 call")
     if _same_layout(hk.hier_plan(b, h, HE, v, layers), full_plan):
         assert torch.equal(w_k, w_full)
+
+
+# ---------------------------------------------------------------------------
+# The backward's tensor-core engine (csrc/tc_gemm.cuh) alone at every shape a
+# train step gives it (chip_smoke.atb_step_shapes, row_step_shapes), at
+# H=512 and 128: within the gradient tolerance of its plain version (the
+# weight gradients sum T·B terms, in 3xTF32 on the tensor cores against
+# cuBLAS's fp32), and bitwise on a repeat; then the tick loop's backward
+# from the wave forward's kept gh, and a 512-wide train step twice.
+# ---------------------------------------------------------------------------
+
+import chip_smoke  # noqa: E402  (the shapes and inputs chip_smoke.py holds the engine at)
+
+
+@pytest.mark.parametrize("h", chip_smoke.ENGINE_WIDTHS)
+@pytest.mark.parametrize("k", range(len(chip_smoke.atb_step_shapes(128))))
+def test_the_weight_gradient_gemm_matches_plain_at_the_step_shapes(dev, h, k):
+    shape = chip_smoke.atb_step_shapes(h)[k]
+    x, kw = chip_smoke.atb_inputs(shape, dev, seed=h + k)
+    bias = shape[-1]
+    gk.reset_launches()
+    first = gk.atb_cuda(x, **kw, bias=bias)
+    second = gk.atb_cuda(x, **kw, bias=bias)
+    assert gk.GEMM_LAUNCHES["atb_alone"] == 2
+    want = gk.atb_reference(x, **kw, bias=bias)
+    for got, again, ref in zip(first, second, want):
+        if ref is None:
+            assert got is None and again is None
+            continue
+        assert torch.equal(got, again)
+        _close_grad(got, ref, shape[0])
+
+
+@pytest.mark.parametrize("h", chip_smoke.ENGINE_WIDTHS)
+@pytest.mark.parametrize("k", range(len(chip_smoke.row_step_shapes(128))))
+def test_the_row_product_matches_plain_at_the_step_shapes(dev, h, k):
+    shape = chip_smoke.row_step_shapes(h)[k]
+    a, w = chip_smoke.row_inputs(shape, dev, seed=h + k)
+    got, again = gk.rows_cuda(a, w, shape[-1]), gk.rows_cuda(a, w, shape[-1])
+    assert torch.equal(got, again)
+    _close_grad(got, gk.rows_reference(a, w, shape[-1]), shape[0])
+
+
+def test_the_engines_shared_memory_and_scratch_mirror_the_sources(dev):
+    lib = gk._library()
+    for form_id, form in enumerate(gk.TC_FORMS):
+        for tile_id, tile in enumerate(gk.TC_TILES):
+            assert lib.gru_chain_tc_smem_bytes(form_id, tile_id) == gk.tc_smem_bytes(form, tile)
+    for h, layers in ((512, 2), (128, 2), (128, 4), (390, 1)):
+        want = hk._library().hier_tick_chain_bwd_scratch_floats(HT, HB, h, HE, 130, 5, layers)
+        assert want == hk.bwd_scratch_floats(HT, HB, h, HE, 130, 5, layers)
+
+
+@pytest.mark.parametrize("h,layers", [(512, 2), (256, 2), (128, 4)])
+def test_the_tick_loop_backward_from_the_kept_gh_matches_plain(dev, h, layers):
+    """The wave forward keeps gh where the backward's chains are wide (H=512),
+    and not elsewhere; the backward from it matches the plain version
+    (teacher-forced, dropout 0.5) within the gradient tolerance."""
+    v = HVS[-1]
+    score, floats, ct = _hier_inputs(dev, 70 + layers, v, h=h, layers=layers)
+    forced = _ints(1, 3, dev) + (score,)
+    cfg = (True, 0.5, HTPB, "argmax")
+    (weights, samples, *hiddens), gh = hk.hier_tick_chain_fwd_cuda(
+        True, 0.5, HTPB, "argmax", *forced, *floats, keep_gh=True)
+    assert isinstance(hk.hier_plan(HB, h, HE, v, layers), hk.WavePlan)
+    assert (gh is not None) == (h == 512) == hk.keeps_gh(HT, HB, h, HE, v, layers, HTPB)
+    if gh is not None:
+        assert gh.shape == hk.gh_shape(HT, HB, h, layers, HTPB)
+        assert bool(torch.isfinite(gh).all())
+    _compare(cfg, forced, forced, floats, ct)
+
+
+def test_the_wave_forward_keeps_no_gh_under_no_grad(dev, monkeypatch):
+    dec, z, score, noise = _decoder(dev, 512, 2)
+    kept = []
+    real = hk.hier_tick_chain_fwd_cuda
+
+    def spy(*args, **kwargs):
+        kept.append(kwargs.get("keep_gh", False))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(hk, "hier_tick_chain_fwd_cuda", spy)
+    with torch.no_grad():
+        dec(z, score, noise, train=False)
+    weights, _ = dec(z, score, noise, train=True)
+    weights.sum().backward()
+    assert kept == [False, True]
+
+
+def test_a_512_wide_train_step_repeats_bitwise(dev):
+    from arvae_tpu_torch.utils import step_probe
+
+    rows = np.random.RandomState(5).randint(0, 130, (512, 24)).astype(np.int32)
+    trainer, split = step_probe.music_trainer(dev, rows, hidden=512)
+    gk.reset_launches()
+    hk.reset_launches()
+    chip_smoke._step_repeats("512-wide music step", trainer,
+                             split.gather_batch(torch.arange(HB, device=dev)))
+    assert gk.WIDE_LAUNCHES["bwd"] == 2 * 4 and hk.CHAIN_LAUNCHES["wide"] == 2 * 2
+    assert gk.GEMM_LAUNCHES["atb"] == 2 * (4 + 6) and gk.GEMM_LAUNCHES["rows"] == 2 * 5
