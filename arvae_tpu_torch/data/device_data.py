@@ -33,6 +33,7 @@ import torch
 import torch.distributed as dist
 
 from arvae_tpu_torch.parallel import DataContext
+from arvae_tpu_torch.utils import profiling
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -195,13 +196,18 @@ class DeviceEpochRunner:
         the device."""
         sp, b = self.train_split, self.batch_size
         steps = sp.num_batches(b)
-        perm = torch.randperm(sp.n, generator=self.perm_generator,
-                              device=sp.device)
+        with profiling.span("shuffle"):
+            perm = torch.randperm(sp.n, generator=self.perm_generator,
+                                  device=sp.device)
         totals = None
         for i in range(steps):
-            metrics = self.train_step(sp.gather_batch(perm[i * b:(i + 1) * b]),
-                                      **_share(sp, b))
-            totals = _accumulate(totals, metrics)
+            with profiling.span("step"):
+                with profiling.span("gather"):
+                    batch = sp.gather_batch(perm[i * b:(i + 1) * b])
+                with profiling.span("train_step"):
+                    metrics = self.train_step(batch, **_share(sp, b))
+                with profiling.span("accumulate"):
+                    totals = _accumulate(totals, metrics)
         return totals, steps
 
     def eval_epoch(self) -> Tuple[Optional[Metrics], int]:

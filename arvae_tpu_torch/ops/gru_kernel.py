@@ -59,6 +59,7 @@ from typing import Optional, Tuple
 import torch
 
 from arvae_tpu_torch.ops import _build
+from arvae_tpu_torch.utils import profiling
 
 _NAME = "gru_chain"
 
@@ -435,6 +436,7 @@ def fwd_plan(D: int, B: int, H: int, keep_gh: bool = False):
     return plan
 
 
+@profiling.spanned("op:gru_chain.fwd")
 def gru_chain_fwd_cuda(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                        h0: torch.Tensor, plan=None, keep_gh: bool = False):
     """Launches the forward kernel → outs (T, D, B, H). ``plan``: the
@@ -466,6 +468,7 @@ def gru_chain_fwd_cuda(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     return (outs, gh) if keep_gh else outs
 
 
+@profiling.spanned("op:gru_chain.bwd")
 def gru_chain_bwd_cuda(
     gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, h0: torch.Tensor,
     outs: torch.Tensor, douts: torch.Tensor, gh: Optional[torch.Tensor] = None,
@@ -554,6 +557,7 @@ def atb_reference(x: torch.Tensor, a: Optional[torch.Tensor] = None,
     return out, (x.sum((0, 2)) if bias else None)
 
 
+@profiling.spanned("op:gemm.atb")
 def atb_cuda(x: torch.Tensor, a: Optional[torch.Tensor] = None,
              a0: Optional[torch.Tensor] = None, tokens: Optional[torch.Tensor] = None,
              tok_shift: int = 0, M: Optional[int] = None, bias: bool = False):
@@ -598,6 +602,7 @@ def rows_reference(a: torch.Tensor, w: torch.Tensor, trans: bool) -> torch.Tenso
     return a @ (w.T if trans else w)
 
 
+@profiling.spanned("op:gemm.rows")
 def rows_cuda(a: torch.Tensor, w: torch.Tensor, trans: bool) -> torch.Tensor:
     """Launches the engine's row product alone (the tick loop's backward
     runs it with its own epilogues) → :func:`rows_reference`'s (M, N)."""

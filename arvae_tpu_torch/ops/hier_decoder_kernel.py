@@ -71,6 +71,7 @@ from arvae_tpu_torch.ops.gru_kernel import (CLUSTERS_HELD, GEMM_LAUNCHES, MAX_SM
                                             WIDE_MIN_ROWS, WIDE_STAGES, WIDE_THREADS, ChainPlan,
                                             WidePlan, atb_scratch_floats, atb_splits, best_plan,
                                             gru_gates, gru_plan, records_grad, slice_ld, up4)
+from arvae_tpu_torch.utils import profiling
 
 _NAME = "hier_tick_chain"
 SALT_DROPOUT = 0
@@ -674,6 +675,7 @@ def _operand_args(floats: Sequence[torch.Tensor]) -> Tuple:
             out_w.data_ptr(), out_b.data_ptr())
 
 
+@profiling.spanned("op:hier_tick_chain.fwd")
 def hier_tick_chain_fwd_cuda(train, dropout_rate, ticks_per_beat, sampling,
                              teacher, seed, score, *floats, plan=None, row_base=0,
                              keep_gh=False):
@@ -724,6 +726,7 @@ def hier_tick_chain_fwd_cuda(train, dropout_rate, ticks_per_beat, sampling,
     return (weights, samples, *hiddens), gh
 
 
+@profiling.spanned("op:hier_tick_chain.bwd")
 def hier_tick_chain_bwd_cuda(train, dropout_rate, ticks_per_beat, seed, samples, hiddens,
                              weights, dweights, *floats, row_base=0, gh=None):
     """Launches the backward kernels → the float operands' gradients.

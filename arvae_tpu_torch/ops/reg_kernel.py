@@ -54,6 +54,7 @@ import torch
 
 from arvae_tpu_torch.ops import _build
 from arvae_tpu_torch.ops.hier_decoder_kernel import RESIDENT_CLUSTERS
+from arvae_tpu_torch.utils import profiling
 
 # Kernel launches by the wrappers, one per forward and one per backward.
 LAUNCHES = {"fwd": 0, "bwd": 0}
@@ -253,6 +254,7 @@ def _on_card(name: str, t: torch.Tensor, dev: torch.device) -> None:
         raise ValueError(f"{name} must be float32, got {t.dtype}")
 
 
+@profiling.spanned("op:reg.fwd")
 def reg_fwd_cuda(z: torch.Tensor, labels: torch.Tensor, dims: Dims,
                  delta: torch.Tensor, factors: bool = True
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
@@ -286,6 +288,7 @@ def reg_fwd_cuda(z: torch.Tensor, labels: torch.Tensor, dims: Dims,
     return loss, g, d
 
 
+@profiling.spanned("op:reg.bwd")
 def reg_bwd_cuda(g: torch.Tensor, d: torch.Tensor, ct: torch.Tensor, dims: Dims,
                  z_dims: int, col_major: bool = False, ddelta: bool = True
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:

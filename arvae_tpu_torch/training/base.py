@@ -51,6 +51,7 @@ from arvae_tpu_torch.eval.metrics import compute_all
 from arvae_tpu_torch.parallel import (DataContext, RowShare, all_reduce_grads,
                                       check_replicated, init_data_parallel)
 from arvae_tpu_torch.parallel.collectives import differs_from_main
+from arvae_tpu_torch.utils import profiling
 from arvae_tpu_torch.utils.profiling import assert_tensors_finite
 
 # Offset of the permutation generator's seed from the noise generator's.
@@ -137,7 +138,19 @@ class BaseTrainer(abc.ABC):
         """Over a process group, sums the gradients of ``params`` over the
         ranks (each rank's holds its rows' part of the global loss's)."""
         if self.ctx.distributed:
-            all_reduce_grads(params, self.ctx.group)
+            with profiling.span("sync_grads"):
+                all_reduce_grads(params, self.ctx.group)
+
+    def update(self, loss: torch.Tensor) -> None:
+        """The step's update of the model from ``loss``: ``zero_grad``,
+        the backward (the gradients summed over a process group), Adam."""
+        with profiling.span("optimizer"):
+            self.optimizer.zero_grad(set_to_none=True)
+        with profiling.span("backward"):
+            loss.backward()
+            self.sync_grads(self.model.parameters())
+        with profiling.span("optimizer"):
+            self.optimizer.step()
 
     def note_draws(self, draws: Iterable[torch.Tensor]) -> None:
         """Over a process group, counts on the device (no host read) a

@@ -31,6 +31,7 @@ from arvae_tpu_torch.models.measure_vae import (MEASURE_SEQ_LEN, MeasureNoise,
 from arvae_tpu_torch.ops.losses import kld_loss, token_accuracy, token_cross_entropy_loss
 from arvae_tpu_torch.parallel import DataContext, RowShare
 from arvae_tpu_torch.training.measure_trainer import MeasureVAETrainer
+from arvae_tpu_torch.utils import profiling
 
 GLSR_REG_TYPES = ("rhy_complexity", "num_notes")
 PRIOR_MEAN = 100.0
@@ -100,21 +101,23 @@ class MeasureVAETrainerGLSR(MeasureVAETrainer):
                  share: Optional[RowShare] = None):
         score, _ = batch
         hy = self.hyper
-        if noise is None:
-            rows = score.shape[0] if share is None else share.total
-            measure = draw_measure_noise(rows, self.model.latent_space_dim,
-                                         self.noise_generator, self.device)
-            u = torch.rand(rows, generator=self.noise_generator, device=self.device)
-            noise = GLSRNoise(measure, u)
-        measure = self.step_noise(score, noise.measure, share)
-        noise = GLSRNoise(measure, noise.u if share is None else share.take(noise.u))
-        out = self.model(score, noise.measure)
-        recons_loss = token_cross_entropy_loss(out.weights, score)
-        accuracy = token_accuracy(out.weights, score)
-        if share is not None:
-            recons_loss, accuracy = share.mean(recons_loss), share.mean(accuracy)
-        dist_loss = kld_loss(out.z_mean, out.z_log_std, hy["beta"], hy["capacity"], share)
-        glsr_loss = hy["gamma"] * self.compute_glsr_loss(out.z_tilde, noise, share)
-        loss = recons_loss + dist_loss + glsr_loss
+        with profiling.span("forward"):
+            if noise is None:
+                rows = score.shape[0] if share is None else share.total
+                measure = draw_measure_noise(rows, self.model.latent_space_dim,
+                                             self.noise_generator, self.device)
+                u = torch.rand(rows, generator=self.noise_generator, device=self.device)
+                noise = GLSRNoise(measure, u)
+            measure = self.step_noise(score, noise.measure, share)
+            noise = GLSRNoise(measure, noise.u if share is None else share.take(noise.u))
+            out = self.model(score, noise.measure)
+        with profiling.span("loss"):
+            recons_loss = token_cross_entropy_loss(out.weights, score)
+            accuracy = token_accuracy(out.weights, score)
+            if share is not None:
+                recons_loss, accuracy = share.mean(recons_loss), share.mean(accuracy)
+            dist_loss = kld_loss(out.z_mean, out.z_log_std, hy["beta"], hy["capacity"], share)
+            glsr_loss = hy["gamma"] * self.compute_glsr_loss(out.z_tilde, noise, share)
+            loss = recons_loss + dist_loss + glsr_loss
         return loss, {"loss": loss, "recons_loss": recons_loss, "dist_loss": dist_loss,
                       "reg_loss": glsr_loss, "accuracy": accuracy}

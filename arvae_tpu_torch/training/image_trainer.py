@@ -48,6 +48,7 @@ from arvae_tpu_torch.ops.losses import (kld_loss, pixel_accuracy,
 from arvae_tpu_torch.parallel import DataContext, RowShare, sharded
 from arvae_tpu_torch.training.base import BaseTrainer
 from arvae_tpu_torch.training.resnet_judge import judge_accuracy, load_judge
+from arvae_tpu_torch.utils import profiling
 from arvae_tpu_torch.utils.plotting import make_grid
 
 MNIST_REG_TYPES = {
@@ -155,25 +156,30 @@ class ImageVAETrainer(BaseTrainer):
 
     # -- loss ---------------------------------------------------------------------
 
-    def _loss_fn(self, batch, noise: Noise, share: Optional[RowShare] = None):
+    def _loss_fn(self, batch, noise: Optional[Noise], share: Optional[RowShare], draw):
+        """(loss, metrics) of a batch; the draws are ``noise`` or
+        ``draw(rows)``'s (:meth:`_noise`)."""
         inputs, labels = batch
         h, hy = self.hparams, self.hyper
-        out = self.model(inputs, *noise)
-        recons_loss = reconstruction_loss(out.logits, inputs, h.dec_dist)
-        accuracy = pixel_accuracy(torch.sigmoid(out.logits), inputs)
-        if share is not None:
-            recons_loss, accuracy = share.mean(recons_loss), share.mean(accuracy)
-        dist_loss = kld_loss(out.z_mean, out.z_log_std, hy["beta"],
-                             hy["capacity"], share)
-        loss = recons_loss + dist_loss
-        metrics = {"recons_loss": recons_loss, "dist_loss": dist_loss}
-        if h.use_reg_loss:
-            reg_loss = total_reg_loss(out.z_tilde, labels, self.reg_pairs,
-                                      hy["gamma"], hy["delta"], share)
-            loss = loss + reg_loss
-            metrics["reg_loss"] = reg_loss
-        metrics["loss"] = loss
-        metrics["accuracy"] = accuracy
+        with profiling.span("forward"):
+            noise = self._noise(batch, noise, share, draw)
+            out = self.model(inputs, *noise)
+        with profiling.span("loss"):
+            recons_loss = reconstruction_loss(out.logits, inputs, h.dec_dist)
+            accuracy = pixel_accuracy(torch.sigmoid(out.logits), inputs)
+            if share is not None:
+                recons_loss, accuracy = share.mean(recons_loss), share.mean(accuracy)
+            dist_loss = kld_loss(out.z_mean, out.z_log_std, hy["beta"],
+                                 hy["capacity"], share)
+            loss = recons_loss + dist_loss
+            metrics = {"recons_loss": recons_loss, "dist_loss": dist_loss}
+            if h.use_reg_loss:
+                reg_loss = total_reg_loss(out.z_tilde, labels, self.reg_pairs,
+                                          hy["gamma"], hy["delta"], share)
+                loss = loss + reg_loss
+                metrics["reg_loss"] = reg_loss
+            metrics["loss"] = loss
+            metrics["accuracy"] = accuracy
         return loss, metrics
 
     def _noise(self, batch, noise, share: Optional[RowShare], draw):
@@ -193,12 +199,8 @@ class ImageVAETrainer(BaseTrainer):
         Over a process group ``batch`` is this rank's rows of the global
         batch, ``share`` says which, and ``noise`` is the global batch's."""
         self.model.train()
-        noise = self._noise(batch, noise, share, self.draw_train_noise)
-        loss, metrics = self._loss_fn(batch, noise, share)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self.sync_grads(self.model.parameters())
-        self.optimizer.step()
+        loss, metrics = self._loss_fn(batch, noise, share, self.draw_train_noise)
+        self.update(loss)
         self.step += 1
         return {k: v.detach() for k, v in metrics.items()}
 
@@ -209,9 +211,8 @@ class ImageVAETrainer(BaseTrainer):
         eps_prior) overrides the generator's draws (``share`` as for
         :meth:`train_step`)."""
         self.model.eval()
-        noise = self._noise(batch, noise, share, lambda b: draw_noise(
-            b, self.model.z_dim, self.noise_generator, self.device))
-        return self._loss_fn(batch, noise, share)[1]
+        return self._loss_fn(batch, noise, share, lambda b: draw_noise(
+            b, self.model.z_dim, self.noise_generator, self.device))[1]
 
     # -- evaluation ---------------------------------------------------------------
 

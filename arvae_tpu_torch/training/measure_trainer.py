@@ -47,6 +47,7 @@ from arvae_tpu_torch.ops.losses import (kld_loss, token_accuracy,
                                         token_cross_entropy_loss, total_reg_loss)
 from arvae_tpu_torch.parallel import DataContext, RowShare, sharded
 from arvae_tpu_torch.training.base import BaseTrainer
+from arvae_tpu_torch.utils import profiling
 
 # The run-dir tag of each decoder type.
 DECODER_TAGS = {"hier": "", "sr": "_SRDecoder", "sr-no-input": "_SRDecoderNoInput"}
@@ -142,23 +143,26 @@ class MeasureVAETrainer(BaseTrainer):
                  share: Optional[RowShare] = None):
         score, _ = batch
         hy = self.hyper
-        noise = self.step_noise(score, noise, share)
-        out = self.model(score, noise)
-        recons_loss = token_cross_entropy_loss(out.weights, score)
-        accuracy = token_accuracy(out.weights, score)
-        if share is not None:
-            recons_loss, accuracy = share.mean(recons_loss), share.mean(accuracy)
-        dist_loss = kld_loss(out.z_mean, out.z_log_std, hy["beta"], hy["capacity"], share)
-        loss = recons_loss + dist_loss
-        metrics = {"recons_loss": recons_loss, "dist_loss": dist_loss}
-        if self.hparams.use_reg_loss:
-            labels = self.attrs.compute_labels(score)
-            reg_loss = total_reg_loss(out.z_tilde, labels, self.reg_pairs,
-                                      hy["gamma"], hy["delta"], share)
-            loss = loss + reg_loss
-            metrics["reg_loss"] = reg_loss
-        metrics["loss"] = loss
-        metrics["accuracy"] = accuracy
+        with profiling.span("forward"):
+            noise = self.step_noise(score, noise, share)
+            out = self.model(score, noise)
+        with profiling.span("loss"):
+            recons_loss = token_cross_entropy_loss(out.weights, score)
+            accuracy = token_accuracy(out.weights, score)
+            if share is not None:
+                recons_loss, accuracy = share.mean(recons_loss), share.mean(accuracy)
+            dist_loss = kld_loss(out.z_mean, out.z_log_std, hy["beta"], hy["capacity"], share)
+            loss = recons_loss + dist_loss
+            metrics = {"recons_loss": recons_loss, "dist_loss": dist_loss}
+            if self.hparams.use_reg_loss:
+                with profiling.span("labels"):
+                    labels = self.attrs.compute_labels(score)
+                reg_loss = total_reg_loss(out.z_tilde, labels, self.reg_pairs,
+                                          hy["gamma"], hy["delta"], share)
+                loss = loss + reg_loss
+                metrics["reg_loss"] = reg_loss
+            metrics["loss"] = loss
+            metrics["accuracy"] = accuracy
         return loss, metrics
 
     # -- steps --------------------------------------------------------------------
@@ -171,10 +175,7 @@ class MeasureVAETrainer(BaseTrainer):
         says which, and ``noise`` is the global batch's."""
         self.model.train()
         loss, metrics = self._loss_fn(batch, noise, share)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self.sync_grads(self.model.parameters())
-        self.optimizer.step()
+        self.update(loss)
         self.step += 1
         return {k: v.detach() for k, v in metrics.items()}
 
