@@ -1,5 +1,5 @@
-"""Abstract trainer: the epoch loop over eager PyTorch steps, and the
-evaluation that follows it.
+"""Abstract trainer: the epoch loop over training steps replayed as one
+CUDA graph, and the evaluation that follows it.
 
 Counterpart of ``arvae_tpu/training/base.py``: the same epoch loop
 (train pass, val pass, stdout stats, numerics guard, per-epoch
@@ -9,6 +9,26 @@ device, both seeded from ``rand``: one draws each epoch's permutation,
 the other the reparametrisation noise. The loss-scale hyperparameters
 live on the device as 0-d tensors, so a step reads none of them from
 the host.
+
+On a card, :meth:`BaseTrainer.train_step` records its whole step (the
+draws, the forward, the loss, ``zero_grad``, the backward and Adam's
+update) into a ``torch.cuda.CUDAGraph`` once ``WARMUP_STEPS`` eager steps
+of the batch's shape have run, and from then on copies each batch into
+the graph's input and replays it: the host issues one launch a step in
+place of a few hundred. Adam is ``fused`` and ``capturable`` on a card
+(one kernel updates every parameter; its step count on the device), in
+eager steps too, so both paths run one update. The noise generator, the
+one a step draws from, is registered with the graph, so a replay draws
+what an eager step would draw at that point of its stream. A step
+runs eagerly where the code can see that a graph cannot stand for it
+(:meth:`BaseTrainer.eager_reason`): off a card, over a process group,
+with injected draws or a share, while a module of the step has a hook,
+or for a batch of another shape than the graph's. ``GRAPH_STEPS`` and
+``EAGER_STEPS`` count the steps each way. The kernels' launch counters
+count what their wrappers launch: an eager step's kernels and the
+capture's, none on a replay, whose kernels only the profiler's records
+show. Restoring a state drops the graph, whose nodes hold the replaced
+tensors by address.
 
 The evaluation runs over the dataset's device-resident eval split: the
 latent harvest (at most ``num_batches + 1`` whole batches, in order,
@@ -38,7 +58,8 @@ import abc
 import json
 import os
 import time
-from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterable, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -60,6 +81,80 @@ _PERM_SEED_OFFSET = 1 << 30
 # constants the JAX trainers fold into their key for the same passes).
 _HARVEST_SEED_OFFSET = 7_000_000
 _TEST_SEED_OFFSET = 9_000_000
+
+# Training steps by how train_step ran them: recorded into the trainer's
+# CUDA graph ("captured"), run as a replay of it ("replayed", the
+# captured step's own replay included), or eagerly, by the reason
+# (BaseTrainer.eager_reason; "warmup": the eager steps of a batch's
+# shape before its capture).
+GRAPH_STEPS = {"captured": 0, "replayed": 0}
+EAGER_STEPS = {"distributed": 0, "injected": 0, "hook": 0, "cpu": 0, "shape": 0, "warmup": 0}
+# Eager steps of a batch's shape before the step is captured: they build
+# the kernels' libraries, cuBLAS's and cuDNN's plans and Adam's state.
+WARMUP_STEPS = 2
+
+
+def reset_step_counts() -> None:
+    for counts in (GRAPH_STEPS, EAGER_STEPS):
+        for k in counts:
+            counts[k] = 0
+
+
+def make_adam(params: Iterable[torch.nn.Parameter], lr: float,
+              device: torch.device) -> torch.optim.Adam:
+    """``torch.optim.Adam(lr)``; on a CUDA device ``fused`` (one kernel
+    updates every parameter, its bias corrections in double as the host
+    computes them) and ``capturable``, so that a CUDA graph can hold its
+    update."""
+    if torch.device(device).type != "cuda":
+        return torch.optim.Adam(params, lr=lr)
+    return torch.optim.Adam(params, lr=lr, fused=True, capturable=True)
+
+
+def load_adam_state(optimizer: torch.optim.Adam, state: Dict[str, Any]) -> None:
+    """``optimizer.load_state_dict(state)``, keeping the optimizer's own
+    ``fused`` and ``capturable`` (a state saved with other settings holds
+    its step count on another device)."""
+    kept = [{k: g[k] for k in ("fused", "capturable")} for g in optimizer.param_groups]
+    optimizer.load_state_dict(state)
+    for group, own in zip(optimizer.param_groups, kept):
+        group.update(own)
+        if not (own["fused"] or own["capturable"]):
+            continue  # a step count on the parameters' device serves as well
+        for p in group["params"]:
+            slot = optimizer.state.get(p)
+            if slot and "step" in slot:
+                slot["step"] = slot["step"].to(p.device, torch.float32)
+
+
+def _hooked(modules: Iterable[torch.nn.Module]) -> bool:
+    """Whether a module hook (forward or backward, global or on any
+    submodule of ``modules``) would run Python in a step."""
+    from torch.nn.modules import module as nn_module
+    if (nn_module._global_forward_hooks or nn_module._global_forward_pre_hooks
+            or nn_module._global_backward_hooks or nn_module._global_backward_pre_hooks):
+        return True
+    return any(m._forward_hooks or m._forward_pre_hooks or m._backward_hooks
+               or m._backward_pre_hooks for root in modules for m in root.modules())
+
+
+def _signature(batch: Sequence[torch.Tensor]) -> Tuple:
+    """What a graph fixes of a batch: each tensor's shape, dtype and
+    device, and which earlier entry it is (music steps take (score,
+    score))."""
+    first = {}
+    return tuple((tuple(x.shape), x.dtype, x.device, first.setdefault(id(x), i))
+                 for i, x in enumerate(batch))
+
+
+class _StepGraph(NamedTuple):
+    """A captured training step."""
+
+    graph: torch.cuda.CUDAGraph
+    signature: Tuple  # _signature of the batches it takes
+    inputs: Tuple[torch.Tensor, ...]  # its static batch, entry for entry
+    outputs: Metrics  # its static metrics, detached
+    step_outputs: Metrics  # its static BaseTrainer.step_outputs
 
 
 def _means(totals: Optional[Metrics], n: int) -> Tuple[float, float]:
@@ -90,7 +185,7 @@ class BaseTrainer(abc.ABC):
         # steps whose per-step draws differed from rank 0's (note_draws)
         self._draw_faults = torch.zeros((), dtype=torch.int64, device=self.device)
         self.hparams = hparams
-        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=hparams.lr)
+        self.optimizer = make_adam(self.model.parameters(), hparams.lr, self.device)
         self.step = 0
         self.noise_generator = torch.Generator(self.device).manual_seed(hparams.rand)
         self.perm_generator = torch.Generator(self.device).manual_seed(
@@ -106,6 +201,16 @@ class BaseTrainer(abc.ABC):
         self._eval_split: Optional[DeviceSplit] = None
         # The last evaluation's results (compute_eval_metrics)
         self.metrics: Dict[str, Any] = {}
+        # The last training step's outputs beyond its metrics, for a check
+        # that judges them without a hook (the music trainers' decoder:
+        # ``samples``, the tokens it fed back, and ``weights``, its ReLU
+        # head); a replayed step's are the graph's, which the next replay
+        # overwrites
+        self.step_outputs: Metrics = {}
+        # The captured training step, and the shape and count of the eager
+        # steps that warm up its capture
+        self._graph: Optional[_StepGraph] = None
+        self._warm: Tuple[Optional[Tuple], int] = (None, 0)
 
     @abc.abstractmethod
     def model_repr(self) -> str:
@@ -175,9 +280,85 @@ class BaseTrainer(abc.ABC):
         if self.ctx.is_main:
             print(*args, flush=True)
 
+    # -- training steps ---------------------------------------------------------
+
+    def train_step(self, batch, noise=None, share: Optional[RowShare] = None) -> Metrics:
+        """One optimizer step on (inputs, labels); returns detached
+        metrics. ``noise`` (the trainer's draws of a step) overrides the
+        generator's draws (tests inject the JAX side's). Over a process
+        group ``batch`` is this rank's rows of the global batch, ``share``
+        says which, and ``noise`` is the global batch's.
+
+        Replayed from the trainer's CUDA graph unless :meth:`eager_reason`
+        gives a reason (the module's docstring); a replayed step's metrics
+        are the graph's outputs, which the next replay overwrites."""
+        self.model.train()
+        reason = self.eager_reason(batch, noise, share)
+        if reason is None:
+            metrics = self._replay(batch)
+        else:
+            EAGER_STEPS[reason] += 1
+            metrics = {k: v.detach() for k, v in self._step(batch, noise, share).items()}
+        self.step += 1
+        return metrics
+
     @abc.abstractmethod
-    def train_step(self, batch) -> Metrics:
-        """One optimizer step on (images, labels); returns detached metrics."""
+    def _step(self, batch, noise, share: Optional[RowShare]) -> Metrics:
+        """The step's work, as one eager call or one capture: its draws
+        (``noise`` if given), forward, loss and update → its metrics."""
+
+    def step_modules(self) -> Tuple[torch.nn.Module, ...]:
+        """The modules a training step runs (whose hooks keep it eager)."""
+        return (self.model,)
+
+    def eager_reason(self, batch, noise, share: Optional[RowShare]) -> Optional[str]:
+        """Why this step runs eagerly (a key of ``EAGER_STEPS``), or None
+        to replay it; a step that warms up a capture counts towards it."""
+        if self.ctx.distributed:
+            return "distributed"
+        if noise is not None or share is not None:
+            return "injected"
+        if _hooked(self.step_modules()):
+            return "hook"
+        if self.device.type != "cuda" or not all(x.is_cuda for x in batch):
+            return "cpu"
+        sig = _signature(batch)
+        if self._graph is not None:
+            return None if sig == self._graph.signature else "shape"
+        shape, count = self._warm if self._warm[0] == sig else (sig, 0)
+        if count < WARMUP_STEPS:
+            self._warm = (shape, count + 1)
+            return "warmup"
+        return None
+
+    def _replay(self, batch) -> Metrics:
+        """Copies ``batch`` into the graph's input (capturing the graph
+        first if there is none) and replays it."""
+        if self._graph is None:
+            self._graph = self._capture(batch)
+            GRAPH_STEPS["captured"] += 1
+        g = self._graph
+        with profiling.span("graph_replay"):
+            for i, (dst, src) in enumerate(zip(g.inputs, batch)):
+                if g.signature[i][3] == i:  # not an alias of an earlier entry
+                    dst.copy_(src)
+            g.graph.replay()
+        GRAPH_STEPS["replayed"] += 1
+        self.step_outputs = g.step_outputs
+        return g.outputs
+
+    def _capture(self, batch) -> _StepGraph:
+        """Records one step on ``batch``'s shape into a CUDA graph; the
+        device runs nothing of it until the graph is replayed."""
+        first: Dict[int, torch.Tensor] = {}
+        inputs = tuple(first.setdefault(id(x), x.clone()) for x in batch)
+        graph = torch.cuda.CUDAGraph()
+        # a replay draws on from the generator's state as it then stands (the
+        # epoch's permutation is drawn outside the step)
+        graph.register_generator_state(self.noise_generator)
+        with torch.cuda.graph(graph):
+            outputs = {k: v.detach() for k, v in self._step(inputs, None, None).items()}
+        return _StepGraph(graph, _signature(batch), inputs, outputs, dict(self.step_outputs))
 
     @abc.abstractmethod
     def eval_step(self, batch) -> Metrics:
@@ -249,9 +430,14 @@ class BaseTrainer(abc.ABC):
         self.restore_state(Checkpointer(self.run_dir).restore(self.device))
 
     def restore_state(self, state: Dict[str, Any]) -> None:
-        """Model, Adam state and step from a ``checkpoint_state`` dict."""
+        """Model, Adam state and step from a ``checkpoint_state`` dict;
+        drops the captured step (Adam's state tensors are replaced), so
+        the next steps warm up a new one."""
+        if self._graph is not None:
+            torch.cuda.synchronize(self.device)  # no replay may still run
+        self._graph, self._warm = None, (None, 0)
         self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        load_adam_state(self.optimizer, state["optimizer"])
         self.step = int(state["step"])
 
     def maybe_resume(self) -> bool:

@@ -47,6 +47,7 @@ from arvae_tpu_torch.models.image_fader import (DspritesFaderNetwork,
 from arvae_tpu_torch.models.image_vae import keep_masks
 from arvae_tpu_torch.ops.losses import pixel_accuracy, reconstruction_loss
 from arvae_tpu_torch.parallel import DataContext, RowShare
+from arvae_tpu_torch.training.base import load_adam_state, make_adam
 from arvae_tpu_torch.training.image_trainer import MNIST_NORMALIZATION_FACTORS, ImageVAETrainer
 from arvae_tpu_torch.utils.plotting import make_grid
 
@@ -93,7 +94,7 @@ class ImageFaderTrainer(ImageVAETrainer):
         self.disc = disc_model.to(self.device)
         self.check_replicated(self.disc.state_dict().values(),
                               "the discriminator's initial parameters")
-        self.disc_optimizer = torch.optim.Adam(self.disc.parameters(), lr=lr)
+        self.disc_optimizer = make_adam(self.disc.parameters(), lr, self.device)
         self._fader_params = list(self.model.parameters())
         if self.dataset_type == "mnist":
             factors = [v for k, v in MNIST_NORMALIZATION_FACTORS.items()
@@ -149,14 +150,13 @@ class ImageFaderTrainer(ImageVAETrainer):
         return loss, {"loss": loss, "accuracy": accuracy,
                       "recons_loss": recons_loss, "adv_loss": adv_loss}
 
-    def train_step(self, batch, noise: Optional[FaderNoise] = None,
-                   share: Optional[RowShare] = None) -> Metrics:
-        """The discriminator's step, then the fader's; ``noise``
-        (``draw_train_noise``'s) overrides the generator's draws. Over a
-        process group ``batch`` is this rank's rows of the global batch,
-        ``share`` says which, and ``noise`` is the global batch's."""
+    def step_modules(self):
+        return (self.model, self.disc)
+
+    def _step(self, batch, noise: Optional[FaderNoise], share: Optional[RowShare]) -> Metrics:
+        """The discriminator's step, then the fader's; ``noise``:
+        ``draw_train_noise``'s."""
         inputs, labels = batch
-        self.model.train()
         self.disc.train()
         noise = self._noise(batch, noise, share, self.draw_train_noise)
         norm_labels = self.normalize_labels(labels)
@@ -177,9 +177,8 @@ class ImageFaderTrainer(ImageVAETrainer):
         loss.backward(inputs=self._fader_params)
         self.sync_grads(self._fader_params)
         self.optimizer.step()
-        self.step += 1
         metrics["disc_loss"] = disc_loss
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     @torch.no_grad()
     def eval_step(self, batch, share: Optional[RowShare] = None) -> Metrics:
@@ -200,7 +199,7 @@ class ImageFaderTrainer(ImageVAETrainer):
     def restore_state(self, state: Dict) -> None:
         super().restore_state(state)
         self.disc.load_state_dict(state["disc"])
-        self.disc_optimizer.load_state_dict(state["disc_optimizer"])
+        load_adam_state(self.disc_optimizer, state["disc_optimizer"])
 
     # -- evaluation ---------------------------------------------------------------
 

@@ -111,6 +111,7 @@ class MeasureVAETrainerGLSR(MeasureVAETrainer):
             measure = self.step_noise(score, noise.measure, share)
             noise = GLSRNoise(measure, noise.u if share is None else share.take(noise.u))
             out = self.model(score, noise.measure)
+            self.keep_outputs(out)
         with profiling.span("loss"):
             recons_loss = token_cross_entropy_loss(out.weights, score)
             accuracy = token_accuracy(out.weights, score)

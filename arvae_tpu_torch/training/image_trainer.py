@@ -192,17 +192,11 @@ class ImageVAETrainer(BaseTrainer):
 
     # -- steps --------------------------------------------------------------------
 
-    def train_step(self, batch, noise: Optional[Noise] = None,
-                   share: Optional[RowShare] = None) -> Metrics:
-        """One Adam step; ``noise`` (``draw_train_noise``'s tuple)
-        overrides the generator's draws (tests inject the JAX side's).
-        Over a process group ``batch`` is this rank's rows of the global
-        batch, ``share`` says which, and ``noise`` is the global batch's."""
-        self.model.train()
+    def _step(self, batch, noise: Optional[Noise], share: Optional[RowShare]) -> Metrics:
+        """One Adam step; ``noise``: ``draw_train_noise``'s tuple."""
         loss, metrics = self._loss_fn(batch, noise, share, self.draw_train_noise)
         self.update(loss)
-        self.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     @torch.no_grad()
     def eval_step(self, batch, noise: Optional[Noise] = None,

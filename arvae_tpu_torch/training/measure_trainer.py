@@ -139,6 +139,13 @@ class MeasureVAETrainer(BaseTrainer):
         self.note_draws((noise.teacher, noise.seed))
         return sharded(noise, share)._replace(rows=share)
 
+    def keep_outputs(self, out) -> None:
+        """A training forward's decoder outputs, as ``step_outputs``: the
+        tokens it fed back (``samples``) and its ReLU head (``weights``)."""
+        if self.model.training:
+            self.step_outputs = {"samples": out.samples.detach(),
+                                 "weights": out.weights.detach()}
+
     def _loss_fn(self, batch, noise: Optional[MeasureNoise] = None,
                  share: Optional[RowShare] = None):
         score, _ = batch
@@ -146,6 +153,7 @@ class MeasureVAETrainer(BaseTrainer):
         with profiling.span("forward"):
             noise = self.step_noise(score, noise, share)
             out = self.model(score, noise)
+            self.keep_outputs(out)
         with profiling.span("loss"):
             recons_loss = token_cross_entropy_loss(out.weights, score)
             accuracy = token_accuracy(out.weights, score)
@@ -167,17 +175,12 @@ class MeasureVAETrainer(BaseTrainer):
 
     # -- steps --------------------------------------------------------------------
 
-    def train_step(self, batch, noise: Optional[MeasureNoise] = None,
-                   share: Optional[RowShare] = None) -> Metrics:
-        """One Adam step on (score, score); ``noise`` overrides the
-        generator's draws (tests inject the JAX side's). Over a process
-        group ``batch`` is this rank's rows of the global batch, ``share``
-        says which, and ``noise`` is the global batch's."""
-        self.model.train()
+    def _step(self, batch, noise: Optional[MeasureNoise],
+              share: Optional[RowShare]) -> Metrics:
+        """One Adam step on (score, score); ``noise``: a MeasureNoise."""
         loss, metrics = self._loss_fn(batch, noise, share)
         self.update(loss)
-        self.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     @torch.no_grad()
     def eval_step(self, batch, noise: Optional[MeasureNoise] = None,

@@ -22,8 +22,11 @@ training step holding ``gather``, ``train_step`` and ``accumulate``
 step's draws and the model), ``loss`` (the objective, holding ``labels``
 where the music step computes them), ``backward`` (holding
 ``sync_grads`` over a process group) and ``optimizer`` (``zero_grad``,
-then Adam's step) (``training/``); ``op:<kernel>.<pass>`` around each
-CUDA wrapper (``ops/``).
+then Adam's step) (``training/``), each opened by an eager step or by
+the capture of a CUDA graph; ``graph_replay`` around each replay of a
+captured step, its input copy and its launch (``training/base.py``),
+which holds all of a replayed step's device work;
+``op:<kernel>.<pass>`` around each CUDA wrapper (``ops/``).
 """
 
 from __future__ import annotations

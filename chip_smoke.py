@@ -284,17 +284,22 @@ and the script exits non-zero:
    ``native``, a batch of ``THIN_IMAGES`` binary digits thinned by each
    backend (bitwise, timed), and the full synthetic MNIST cache built
    under each backend (timed; the morphometry files byte for byte
-   equal); ``utils/profiling.trace`` over ``TRACE_STEPS`` dSprites steps
-   (the trace file written, the reg kernels' records in it, the reg
-   launches the code's) and ``StepTimer``'s steps/s over them, traced
-   and untraced. Each kernel's entry in the kernels line carries the
+   equal); ``utils/profiling.trace`` over ``TRACE_STEPS`` dSprites steps,
+   each a replay of the step's CUDA graph (the trace file written, one
+   reg pair's records in it a step, none launched by the wrappers) and
+   ``StepTimer``'s steps/s over them, traced and untraced. Each kernel's entry in the kernels line carries the
    tail's launches at each width (``"slice10_tail_launches"``).
 
 Launch counts are set to 0 just before each slice (and each variant of
 slices 3 and 4, and each CLI call of slices 5, 6, 7, 8 and 10, each sweep
 cell, each tester call, each trainer's 3 steps of slice 9, the tail run
 alone and the traced steps of slice 10) and read just after it; the
-comparisons of phases 3, 9, 10, 12, 13 and 14 do not count. The line
+comparisons of phases 3, 9, 10, 12, 13 and 14 do not count. The counters
+count what the kernels' wrappers launch: a training step replayed from
+its CUDA graph launches none, so a run's training launches are those of
+its eager steps and its captures (``_launched_steps``, which also checks
+that every train step was one or a replay), and slice 10 reads a
+replay's kernels from the profiler's records. The line
 before the last
 is the card's name and power limit as ``nvidia-smi`` prints them, the
 one before it a JSON object listing every kernel; the last line is a
@@ -1361,8 +1366,27 @@ def _launch_counters():
 
 
 def _reset_launches():
+    """Zeroes the kernels' launch counters and the trainers' step counters."""
+    from arvae_tpu_torch.training import base
+
     for mod in _launch_counters().values():
         mod.reset_launches()
+    base.reset_step_counts()
+
+
+def _launched_steps(tag, n_train):
+    """Of ``n_train`` train steps since ``_reset_launches``, those whose
+    kernels the wrappers launched and counted: the eager steps and each
+    capture of a step's CUDA graph (a replay launches the graph alone;
+    slice 10 reads a replay's kernels from the profiler's records). Every
+    step must be eager or a replay."""
+    from arvae_tpu_torch.training import base
+
+    eager, graph = sum(base.EAGER_STEPS.values()), base.GRAPH_STEPS
+    if eager + graph["replayed"] != n_train:
+        raise AssertionError(f"{tag}: {n_train} train steps, eager {base.EAGER_STEPS}, "
+                             f"graph {graph}")
+    return eager + graph["captured"]
 
 
 def _read_launches():
@@ -1529,15 +1553,17 @@ def phase_slice(models_dir):
           f"torch.backends.cudnn.deterministic={torch.backends.cudnn.deterministic}")
     hist = trainer.history
     n_train, n_val = _check_history("slice", hist, ckpt_ok)
+    n_host = _launched_steps("slice", n_train)
     # the evaluation launches none of the port's kernels on dSprites
     _check_launches("slice", launches, _with_eval({
-        "reg": {"fwd": n_train + n_val, "bwd": n_train},
+        "reg": {"fwd": n_host + n_val, "bwd": n_host},
         "gru": {"fwd": 0, "bwd": 0}, "hier": {"fwd": 0, "bwd": 0}}, trainer, B_TRAIN))
     print(f"[slice] 2 epochs in {seconds:.1f} s; train loss "
           f"{hist[0]['train_loss']:.4f} -> {hist[1]['train_loss']:.4f}; val loss "
           f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f}; "
           f"reg launches fwd={launches['reg']['fwd']} bwd={launches['reg']['bwd']} "
-          f"(train steps {n_train}, val steps {n_val})")
+          f"(train steps {n_train}, {n_host} of them launched from the host, val steps "
+          f"{n_val})")
     # a second run of the CLI in this call: the same trained model, so
     # the same val losses to the last bit
     with tempfile.TemporaryDirectory() as other:
@@ -1569,7 +1595,7 @@ def phase_slice(models_dir):
     print(f"[slice] trained model, one batch, card vs CPU plain path: loss "
           f"{float(got['loss']):.6f} vs {float(want['loss']):.6f}, reg "
           f"{float(got['reg_loss']):.6f} vs {float(want['reg_loss']):.6f}")
-    return launches, {"fwd": n_train + n_val, "bwd": n_train}, trainer
+    return launches, {"fwd": n_host + n_val, "bwd": n_host}, trainer
 
 
 def _teacher_forced_metrics(trainer, batch, noise):
@@ -1685,15 +1711,17 @@ def phase_music_slice(models_dir):
     _check_results("slice 2 (music)", trainer, _read_results(trainer), MUSIC_B)
     hist = trainer.history
     n_train, n_val = _check_history("music slice", hist, ckpt_ok)
+    n_host = _launched_steps("music slice", n_train)
     _check_launches("music slice", launches, _with_eval({
-        "reg": {"fwd": n_train + n_val, "bwd": n_train},
-        "gru": {"fwd": 4 * (n_train + n_val), "bwd": 4 * n_train},
-        "hier": {"fwd": n_train + n_val, "bwd": n_train}}, trainer))
+        "reg": {"fwd": n_host + n_val, "bwd": n_host},
+        "gru": {"fwd": 4 * (n_host + n_val), "bwd": 4 * n_host},
+        "hier": {"fwd": n_host + n_val, "bwd": n_host}}, trainer))
     launches["engine"] = _check_engine_launches("music slice", launches, 2)
     print(f"[music] 2 epochs in {seconds:.1f} s (corpus build included); train loss "
           f"{hist[0]['train_loss']:.4f} -> {hist[1]['train_loss']:.4f}; val loss "
           f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f}; train steps "
-          f"{n_train}, val steps {n_val}; launches gru {launches['gru']} hier "
+          f"{n_train} ({n_host} launched from the host), val steps {n_val}; launches gru "
+          f"{launches['gru']} hier "
           f"{launches['hier']} reg {launches['reg']}")
 
     # the trained model on one val batch, teacher-forced with injected
@@ -1719,7 +1747,7 @@ def phase_music_slice(models_dir):
           f"path: loss {float(got['loss']):.6f} vs {float(want['loss']):.6f}, recons "
           f"{float(got['recons_loss']):.6f} vs {float(want['recons_loss']):.6f}, reg "
           f"{float(got['reg_loss']):.6f} vs {float(want['reg_loss']):.6f}")
-    return launches, {"fwd": n_train + n_val, "bwd": n_train}, trainer
+    return launches, {"fwd": n_host + n_val, "bwd": n_host}, trainer
 
 
 # Slice 3: the music CLI with each other decoder and with GLSR, at its
@@ -1778,8 +1806,9 @@ def _variant_run(name):
         _check_results(f"variant {name} ({run_dir})", trainer, _read_results(trainer), MUSIC_B)
     hist = trainer.history
     n_train, n_val = _check_history(f"variant {name}", hist, ckpt_ok)
+    n_host = _launched_steps(f"variant {name}", n_train)
     per_step = VARIANT_LAUNCHES[name]
-    want = {k: {"fwd": n * (n_train + n_val), "bwd": n * n_train} for k, n in per_step.items()}
+    want = {k: {"fwd": n * (n_host + n_val), "bwd": n * n_host} for k, n in per_step.items()}
     _check_launches(f"variant {name}", launches, _with_eval(want, trainer))
     print(f"[variants] {name} ({run_dir}): 2 epochs in {seconds:.1f} s; train loss "
           f"{hist[0]['train_loss']:.4f} -> {hist[1]['train_loss']:.4f}; val loss "
@@ -1882,7 +1911,8 @@ def _wide_deep_run(name, card_line):
     # and the beat GRU's layers; one tick loop; one AR term
     grus = model.encoder.lstm.num_layers + model.decoder.rnn_beat.num_layers
     per_step = {"gru": grus, "hier": 1, "reg": 1}
-    want = {k: {"fwd": n * (n_train + n_val), "bwd": n * n_train} for k, n in per_step.items()}
+    n_host = _launched_steps(f"music {name}", n_train)
+    want = {k: {"fwd": n * (n_host + n_val), "bwd": n * n_host} for k, n in per_step.items()}
     _check_launches(f"music {name}", launches, _with_eval(want, trainer))
     # of them, the GRU chain's wide layout's: every one at the reference's
     # width, the tick loop's backward chains too (one a tick-GRU layer)
@@ -1912,7 +1942,8 @@ def _wide_deep_run(name, card_line):
           f"{hist[0]['train_loss']:.4f} -> {hist[1]['train_loss']:.4f}; val loss "
           f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f}; launches a train step "
           f"gru {grus} fwd + {grus} bwd, hier 1 + 1, reg 1 + 1, every one a kernel "
-          f"({launches} over {n_train} train and {n_val} val steps and one evaluation, "
+          f"({launches} over {n_host} train steps launched from the host of {n_train}, "
+          f"{n_val} val steps and one evaluation, "
           f"whose forwards are {_eval_launches(trainer)})")
     dev = trainer.device
     train_split, _ = trainer.dataset.device_splits(dev)
@@ -2863,13 +2894,14 @@ def phase_mnist(card_line, data_dir):
                                  f"the JAX name {MNIST_RUN}")
         hist = trainer.history
         n_train, n_val = _check_history(tag, hist, ckpt_ok)
+        n_host = _launched_steps(tag, n_train)
         # the evaluation (harvest, test pass, judge) launches none of the
         # port's kernels on MNIST: reg once a forward, once a backward
         _check_launches(tag, launches, _with_eval({
-            "reg": {"fwd": n_train + n_val, "bwd": n_train},
+            "reg": {"fwd": n_host + n_val, "bwd": n_host},
             "gru": {"fwd": 0, "bwd": 0}, "hier": {"fwd": 0, "bwd": 0}}, trainer, B_TRAIN))
         out["launches"] = launches["reg"]
-        out["steps"] = {"fwd": n_train + n_val, "bwd": n_train}
+        out["steps"] = {"fwd": n_host + n_val, "bwd": n_host}
         results = _read_results(trainer)
         _check_results(tag, trainer, results, B_TRAIN, MNIST_RESULT_KEYS)
         judged = results["digit_pred_acc"]
@@ -3036,7 +3068,7 @@ def _fader_run(tag, models_dir, argv):
 def _sweep_corners():
     """Two sweep cells through ``run_cell`` on the --short grid, 1 epoch
     each: a finite row, the reg pair once a forward and once a backward
-    → {cell: (launches, train steps, val steps, row)}."""
+    → {cell: (launches, train steps launched from the host, val steps, row)}."""
     from arvae_tpu_torch import script_hyper_param_exp as sweep
 
     data = sweep.sweep_data("dsprites", True)
@@ -3054,15 +3086,17 @@ def _sweep_corners():
         n_train, n_val = h["train_steps"], h["val_steps"]
         if not math.isfinite(h["train_loss"]):
             raise AssertionError(f"{tag}: train loss {h['train_loss']}")
+        n_host = _launched_steps(tag, n_train)
         # the evaluation launches none of the port's kernels on dSprites
-        _check_launches(tag, launches, {"reg": {"fwd": n_train + n_val, "bwd": n_train},
+        _check_launches(tag, launches, {"reg": {"fwd": n_host + n_val, "bwd": n_host},
                                         "gru": {"fwd": 0, "bwd": 0},
                                         "hier": {"fwd": 0, "bwd": 0}})
-        print(f"[sweep] {tag}: 1 epoch ({n_train} train + {n_val} val steps), train loss "
+        print(f"[sweep] {tag}: 1 epoch ({n_train} train steps, {n_host} launched from the "
+              f"host, + {n_val} val steps), train loss "
               f"{h['train_loss']:.4f}; reg launches fwd={launches['reg']['fwd']} "
               f"bwd={launches['reg']['bwd']} (1 + 1 a train step); row "
               + json.dumps(dict(zip(sweep.COLUMNS, row))))
-        out[(gamma, delta)] = (launches, n_train, n_val, row)
+        out[(gamma, delta)] = (launches, n_host, n_val, row)
     return out
 
 
@@ -3070,7 +3104,8 @@ def _bf16_run(models_dir, card_line):
     """The image CLI with --bf16: the loss finite and falling, the reg
     pair 1 + 1 a train step, the trained model on a val batch against a
     CPU bfloat16 copy from the checkpoint within BF16_RTOL, and its train
-    step's device busy → (launches, train steps, val steps, busy ms)."""
+    step's device busy → (launches, train steps launched from the host, val steps, busy
+    ms)."""
     from arvae_tpu_torch.models.image_vae import DspritesVAE, draw_noise
     from arvae_tpu_torch.training.image_trainer import ImageVAETrainer
 
@@ -3080,7 +3115,8 @@ def _bf16_run(models_dir, card_line):
         raise AssertionError(f"{tag}: the model computes in {trainer.model.compute_dtype}")
     hist = trainer.history
     n_train, n_val = _check_history(tag, hist, ckpt_ok)
-    _check_launches(tag, launches, {"reg": {"fwd": n_train + n_val, "bwd": n_train},
+    n_host = _launched_steps(tag, n_train)
+    _check_launches(tag, launches, {"reg": {"fwd": n_host + n_val, "bwd": n_host},
                                     "gru": {"fwd": 0, "bwd": 0}, "hier": {"fwd": 0, "bwd": 0}})
     h, dev = trainer.hparams, trainer.device
     cpu = ImageVAETrainer(trainer.dataset, DspritesVAE(compute_dtype=torch.bfloat16), "cpu",
@@ -3097,13 +3133,13 @@ def _bf16_run(models_dir, card_line):
     print(f"[bf16] {tag} {' '.join(BF16_ARGS)}: 2 epochs in {seconds:.1f} s; train loss "
           f"{hist[0]['train_loss']:.4f} -> {hist[1]['train_loss']:.4f}; val loss "
           f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f}; reg launches "
-          f"fwd={launches['reg']['fwd']} bwd={launches['reg']['bwd']} ({n_train} train + {n_val} "
-          f"val steps); a val batch card vs CPU (both bfloat16): loss {float(got['loss']):.6f} "
+          f"fwd={launches['reg']['fwd']} bwd={launches['reg']['bwd']} ({n_host} of {n_train} train "
+          f"steps launched from the host + {n_val} val steps); a val batch card vs CPU (both bfloat16): loss {float(got['loss']):.6f} "
           f"vs {float(want['loss']):.6f}, abs errs {errs}")
     train_split, _ = trainer.dataset.device_splits(dev)
     busy = _device_busy("dSprites --bf16 (DspritesVAE, B=128, -r all)", trainer, train_split,
                         B_TRAIN, card_line)
-    return launches, n_train, n_val, busy
+    return launches, n_host, n_val, busy
 
 
 def phase_fader(card_line, mnist_data_dir):
@@ -3473,10 +3509,11 @@ def _abc_ingest(tmp):
     if len(listed) != n_valid or len(hist) != 1 or not math.isfinite(hist[0]["train_loss"]):
         raise AssertionError(f"slice 8 .abc: {len(listed)} of {n_valid} valid files listed, "
                              f"history {hist}")
+    n_host = _launched_steps("slice 8 .abc", n_train)
     _check_launches("slice 8 .abc", launches, _with_eval({
-        "reg": {"fwd": n_train + n_val, "bwd": n_train},
-        "gru": {"fwd": 4 * (n_train + n_val), "bwd": 4 * n_train},
-        "hier": {"fwd": n_train + n_val, "bwd": n_train}}, trainer))
+        "reg": {"fwd": n_host + n_val, "bwd": n_host},
+        "gru": {"fwd": 4 * (n_host + n_val), "bwd": 4 * n_host},
+        "hier": {"fwd": n_host + n_val, "bwd": n_host}}, trainer))
     rows = len(trainer.dataset.get_dataset()[0])
     print(f"[analysis] .abc ingest: {len(listed)} valid tunes of {len(listed) + len(ABC_INVALID)}"
           f" listed, {rows} measures (V={len(trainer.dataset.note2index_dicts)}); the music CLI "
@@ -3604,10 +3641,11 @@ def _tail_run(name, flags, card_line):
         if len(hist) != 1 or not math.isfinite(hist[0]["train_loss"]):
             raise AssertionError(f"{tag}: history {hist}")
         n_train, n_val = hist[0]["train_steps"], hist[0]["val_steps"]
+        n_host = _launched_steps(f"{tag}, the CLI run", n_train)
         per_step = {"gru": model.encoder.lstm.num_layers + model.decoder.rnn_beat.num_layers,
                     "hier": 1, "reg": 1}
         _check_launches(f"{tag}, the CLI run", cli, _with_eval(
-            {k: {"fwd": n * (n_train + n_val), "bwd": n * n_train} for k, n in per_step.items()},
+            {k: {"fwd": n * (n_host + n_val), "bwd": n * n_host} for k, n in per_step.items()},
             trainer))
         folder = os.path.join(trainer.run_dir, "results")
         written = sorted(os.listdir(folder))
@@ -3794,9 +3832,12 @@ def _native_thinning(card_line):
 
 def _trace_steps(card_line):
     """``trace`` around TRACE_STEPS dSprites AR steps (B=128, random packed
-    rows): one Chrome trace written, the reg kernels' records in it;
+    rows), each a replay of the step's CUDA graph: one Chrome trace
+    written, in it each replay's reg pair (one ``reg_fwd`` and one
+    ``reg_bwd`` record a step), none launched by the wrappers;
     ``StepTimer``'s steps/s over the traced steps (warmup 1) and over the
     same steps untraced → the rates."""
+    from arvae_tpu_torch.training import base
     from arvae_tpu_torch.utils import step_probe
     from arvae_tpu_torch.utils.profiling import StepTimer, trace
 
@@ -3815,28 +3856,29 @@ def _trace_steps(card_line):
             timer.tick()
         return timer.steps_per_sec
 
-    steps(StepTimer(warmup=0))  # cuDNN's plans, the kernels' first calls
+    steps(StepTimer(warmup=0))  # cuDNN's plans, the kernels' first calls, the capture
     _reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
         with trace(tmp):
             traced = steps(StepTimer(warmup=1))
-        launches = _read_launches()
+        launches, graph = _read_launches(), dict(base.GRAPH_STEPS)
         (path,) = [os.path.join(tmp, f) for f in os.listdir(tmp) if f.endswith(".pt.trace.json")]
         size = os.path.getsize(path)
         with open(path) as fh:
             events = json.load(fh)["traceEvents"]
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
     reg = {d: sum(f"reg_{d}" in k for k in kernels) for d in ("fwd", "bwd")}
-    _check_launches("slice 10 traced steps", launches["reg"],
+    if graph != {"captured": 0, "replayed": TRACE_STEPS}:
+        raise AssertionError(f"slice 10: the traced steps were not all replays: {graph}")
+    _check_launches("slice 10 traced steps, the wrappers", launches["reg"], {"fwd": 0, "bwd": 0})
+    _check_launches(f"slice 10 traced steps, the trace's records of {len(kernels)} kernels", reg,
                     {"fwd": TRACE_STEPS, "bwd": TRACE_STEPS})
-    if not (reg["fwd"] and reg["bwd"]):
-        raise AssertionError(f"slice 10: no reg kernel in the trace ({len(kernels)} kernels)")
     untraced = steps(StepTimer(warmup=1))
     if not (math.isfinite(traced) and math.isfinite(untraced)):
         raise AssertionError(f"slice 10: StepTimer read {traced}, {untraced}")
     print(f"[last] trace over {TRACE_STEPS} dSprites steps: {os.path.basename(path)} "
-          f"({size} bytes, {len(kernels)} kernel records; reg_fwd {reg['fwd']}, reg_bwd "
-          f"{reg['bwd']} of {TRACE_STEPS} launches each); StepTimer (warmup 1): "
+          f"({size} bytes, {len(kernels)} kernel records; {TRACE_STEPS} replays, their reg_fwd "
+          f"{reg['fwd']}, reg_bwd {reg['bwd']} records); StepTimer (warmup 1): "
           f"{traced:.2f} steps/s traced, {untraced:.2f} untraced | {card_line}")
     return {"traced_steps_per_s": traced, "untraced_steps_per_s": untraced,
             "reg_records": reg}
