@@ -246,16 +246,22 @@ class BaseTrainer(abc.ABC):
             with profiling.span("sync_grads"):
                 all_reduce_grads(params, self.ctx.group)
 
-    def update(self, loss: torch.Tensor) -> None:
-        """The step's update of the model from ``loss``: ``zero_grad``,
-        the backward (the gradients summed over a process group), Adam."""
+    def update(self, loss: torch.Tensor, optimizer: Optional[torch.optim.Optimizer] = None,
+               params: Optional[Iterable[torch.nn.Parameter]] = None,
+               inputs: Optional[Sequence[torch.Tensor]] = None) -> None:
+        """One update from ``loss``: ``zero_grad``, the backward (the
+        gradients of ``params`` summed over a process group), Adam's step.
+        ``optimizer`` and ``params`` are the model's Adam and parameters
+        unless given; ``inputs`` limits the backward to those leaves (the
+        fader's update reaches no discriminator weight)."""
+        optimizer = self.optimizer if optimizer is None else optimizer
         with profiling.span("optimizer"):
-            self.optimizer.zero_grad(set_to_none=True)
+            optimizer.zero_grad(set_to_none=True)
         with profiling.span("backward"):
-            loss.backward()
-            self.sync_grads(self.model.parameters())
+            loss.backward(inputs=inputs)
+            self.sync_grads(self.model.parameters() if params is None else params)
         with profiling.span("optimizer"):
-            self.optimizer.step()
+            optimizer.step()
 
     def note_draws(self, draws: Iterable[torch.Tensor]) -> None:
         """Over a process group, counts on the device (no host read) a

@@ -26,6 +26,11 @@ JAX fader's ``results_dict.json`` has neither. A label traversal
 beside one attribute swept from 0 to 1; its TensorBoard hook is not
 ported.
 
+Each update opens the phase spans the other trainers open (``forward``,
+``loss``, then :meth:`BaseTrainer.update`'s ``optimizer``, ``backward``,
+``optimizer``); inside the forward, ``encode`` holds step 1's no-grad
+encode and ``disc`` each discriminator forward.
+
 On a rank of a data-parallel step the masks are drawn for the global
 batch and the rank's rows taken, both losses are the global batch's,
 and each of the two updates sums its own network's gradients over the
@@ -49,6 +54,7 @@ from arvae_tpu_torch.ops.losses import pixel_accuracy, reconstruction_loss
 from arvae_tpu_torch.parallel import DataContext, RowShare
 from arvae_tpu_torch.training.base import load_adam_state, make_adam
 from arvae_tpu_torch.training.image_trainer import MNIST_NORMALIZATION_FACTORS, ImageVAETrainer
+from arvae_tpu_torch.utils import profiling
 from arvae_tpu_torch.utils.plotting import make_grid
 
 # Each dSprites factor's (low, high)
@@ -137,16 +143,19 @@ class ImageFaderTrainer(ImageVAETrainer):
         """The fader's loss (reconstruction + β·disc loss on the flipped
         attributes) and its metrics, the global batch's given a rank's
         ``share``."""
-        logits, z = self.model(inputs, norm_labels, masks)
-        pred = self.disc(z, disc_masks)
-        recons_loss = reconstruction_loss(logits, inputs, self.hparams.dec_dist)
-        disc_loss = self.compute_disc_loss(pred, 1.0 - norm_labels)
-        accuracy = pixel_accuracy(torch.sigmoid(logits), inputs)
-        if share is not None:
-            recons_loss, disc_loss, accuracy = (share.mean(x) for x in
-                                                (recons_loss, disc_loss, accuracy))
-        adv_loss = self.hyper["beta"] * disc_loss
-        loss = recons_loss + adv_loss
+        with profiling.span("forward"):
+            logits, z = self.model(inputs, norm_labels, masks)
+            with profiling.span("disc"):
+                pred = self.disc(z, disc_masks)
+        with profiling.span("loss"):
+            recons_loss = reconstruction_loss(logits, inputs, self.hparams.dec_dist)
+            disc_loss = self.compute_disc_loss(pred, 1.0 - norm_labels)
+            accuracy = pixel_accuracy(torch.sigmoid(logits), inputs)
+            if share is not None:
+                recons_loss, disc_loss, accuracy = (share.mean(x) for x in
+                                                    (recons_loss, disc_loss, accuracy))
+            adv_loss = self.hyper["beta"] * disc_loss
+            loss = recons_loss + adv_loss
         return loss, {"loss": loss, "accuracy": accuracy,
                       "recons_loss": recons_loss, "adv_loss": adv_loss}
 
@@ -158,25 +167,22 @@ class ImageFaderTrainer(ImageVAETrainer):
         ``draw_train_noise``'s."""
         inputs, labels = batch
         self.disc.train()
-        noise = self._noise(batch, noise, share, self.draw_train_noise)
-        norm_labels = self.normalize_labels(labels)
-
-        with torch.no_grad():
-            z = self.model.encode_deterministic(inputs, noise.enc)
-        disc_loss = self.compute_disc_loss(self.disc(z, noise.disc), norm_labels)
-        if share is not None:
-            disc_loss = share.mean(disc_loss)
-        self.disc_optimizer.zero_grad(set_to_none=True)
-        disc_loss.backward()
-        self.sync_grads(self.disc.parameters())
-        self.disc_optimizer.step()
+        with profiling.span("forward"):
+            noise = self._noise(batch, noise, share, self.draw_train_noise)
+            norm_labels = self.normalize_labels(labels)
+            with profiling.span("encode"), torch.no_grad():
+                z = self.model.encode_deterministic(inputs, noise.enc)
+            with profiling.span("disc"):
+                pred = self.disc(z, noise.disc)
+        with profiling.span("loss"):
+            disc_loss = self.compute_disc_loss(pred, norm_labels)
+            if share is not None:
+                disc_loss = share.mean(disc_loss)
+        self.update(disc_loss, self.disc_optimizer, self.disc.parameters())
 
         loss, metrics = self._fader_losses(inputs, norm_labels, noise.fader,
                                            noise.fader_disc, share)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward(inputs=self._fader_params)
-        self.sync_grads(self._fader_params)
-        self.optimizer.step()
+        self.update(loss, params=self._fader_params, inputs=self._fader_params)
         metrics["disc_loss"] = disc_loss
         return metrics
 

@@ -22,10 +22,12 @@ training step holding ``gather``, ``train_step`` and ``accumulate``
 step's draws and the model), ``loss`` (the objective, holding ``labels``
 where the music step computes them), ``backward`` (holding
 ``sync_grads`` over a process group) and ``optimizer`` (``zero_grad``,
-then Adam's step) (``training/``), each opened by an eager step or by
-the capture of a CUDA graph; ``graph_replay`` around each replay of a
-captured step, its input copy and its launch (``training/base.py``),
-which holds all of a replayed step's device work;
+then Adam's step) (``training/``; the fader's step opens the four for
+each of its two updates, with ``encode``, its no-grad encode, and
+``disc``, each discriminator forward, inside ``forward``), each opened
+by an eager step or by the capture of a CUDA graph; ``graph_replay``
+around each replay of a captured step, its input copy and its launch
+(``training/base.py``), which holds all of a replayed step's device work;
 ``op:<kernel>.<pass>`` around each CUDA wrapper (``ops/``).
 """
 

@@ -18,9 +18,9 @@ launch: on the graph path the warm-up's and the capture's steps, none a
 replay, each step's counts those of an eager step; the profiler's kernel
 records show what a replay runs. The cases: the three trainers of
 the benchmark's cells (the music model at H=128, z=32 and at H=512,
-z=256, B=256, V=130; dSprites at B=128), and trainers in no cell (GLSR,
-the SR decoder, Morpho-MNIST's model in bfloat16, the fader with its two
-optimisers) at small batches. A state restored after a capture drops
+z=256, B=256, V=130; dSprites at B=128), and at small batches trainers in
+no cell (GLSR, the SR decoder, Morpho-MNIST's model in bfloat16) and the
+fader with its two optimisers. A state restored after a capture drops
 the graph and gives the eager run's next steps; in each cell's trainer a
 replay is one ``graph_replay`` span, launches no kernel from its
 wrapper, and its kernels are the eager step's, in order, after the fills
