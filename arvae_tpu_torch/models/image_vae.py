@@ -30,8 +30,11 @@ with ``dtype=jnp.bfloat16`` does, layer by layer (``torch.autocast``
 would pick other ops); the parameters stay float32, the ``enc_mean`` and
 ``enc_log_std`` heads compute in float32 on the promoted hidden state,
 and the logits leave as float32. At the default float32 every layer is
-called as it is. ``decoder_in`` widens the decoder's first linear layer
-(default ``z_dim``): the fader networks decode ``[z ‖ attributes]``.
+called as it is, a convolution on a card with its weight gradient from
+the hand-written kernel of ``ops/conv_wgrad_kernel.py`` (the same
+forward, input and bias gradients). ``decoder_in`` widens the decoder's
+first linear layer (default ``z_dim``): the fader networks decode
+``[z ‖ attributes]``.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from arvae_tpu_torch.ops import conv_wgrad_kernel
 
 
 class VAEOutput(NamedTuple):
@@ -89,7 +94,8 @@ def keep_masks(batch: int, shapes: Sequence[Tuple[int, ...]], rate: float,
                  for shape in shapes)
 
 
-_COMPUTE_LAYERS = (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)
+_CONV_LAYERS = (nn.Conv2d, nn.ConvTranspose2d)
+_COMPUTE_LAYERS = (nn.Linear, *_CONV_LAYERS)
 _SELU_ALPHA = 1.6732632423543772848170429916717
 _SELU_SCALE = 1.0507009873554804934193349852946
 
@@ -107,11 +113,16 @@ class _ComputeDtype(nn.Module):
     """Runs the conv and hidden linear layers in ``self.compute_dtype``."""
 
     def _apply_layer(self, layer: nn.Module, h: torch.Tensor) -> torch.Tensor:
-        """``layer(h)``; below float32, a conv or linear layer computes in
+        """``layer(h)``; at float32 a conv layer through
+        ``conv_wgrad_kernel.conv_layer`` (its weight gradient from the
+        hand-written kernel on a card, where the layer's shape allows);
+        below float32, a conv or linear layer computes in
         ``compute_dtype`` with its input, weight and bias cast to it, and
         SELU as Flax computes it there."""
         dt = self.compute_dtype
         if dt == torch.float32:
+            if isinstance(layer, _CONV_LAYERS):
+                return conv_wgrad_kernel.conv_layer(layer, h)
             return layer(h)
         if isinstance(layer, nn.SELU):
             return _selu_as_flax(h)

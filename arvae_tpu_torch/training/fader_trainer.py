@@ -16,7 +16,9 @@ Each step's dropout masks are drawn from the trainer's noise generator
 as one :class:`FaderNoise`: as many independent masks as the JAX step
 draws from its keys (the encoder's and the discriminator's in step 1;
 the encoder's, the discriminator's and the decoder's in step 3). The
-fader has no AR term, so its step launches none of the port's kernels.
+fader has no AR term, so its step launches no reg kernel; on a card its
+convolutions' weight gradients (step 3's backward) take the kernel of
+``ops/conv_wgrad_kernel.py``.
 
 The evaluation harvests the deterministic codes (the mean head, eval
 mode) of the eval split with the normalised attributes and writes the

@@ -29,6 +29,10 @@ Counts:
   for the gradient factors G and D when a gradient is wanted. The
   backward scales the factors by the cotangent: ``R·B`` products and
   ``2R`` for ddelta.
+- the image convolutions' weight gradient (``csrc/conv_wgrad.cu``):
+  ``2·M·16C·K`` over the K = B·Hs·Ws positions of the small map; it
+  reads the small map (B, M, Hs, Ws) and the large map (B, C, Hl, Wl)
+  once and writes dW (M, 16C).
 """
 
 from __future__ import annotations
@@ -146,3 +150,10 @@ def reg_loss(R: int, B: int, backward: bool = False, factors: bool = True,
         return Work(ops * R * B * B, WORD * (2 * R * B + 1 + out))
     Z = R if Z is None else Z
     return Work(R * B + 2 * R, WORD * (R * B + 2 * R + B * Z + 1))
+
+
+def conv_wgrad(B: int, M: int, Hs: int, Ws: int, C: int, Hl: int, Wl: int) -> Work:
+    """dW (M, C, 4, 4) = the sum over the small map's B·Hs·Ws positions of
+    its M values times the large map's C·16 values under the window."""
+    k, n = B * Hs * Ws, 16 * C
+    return Work(2 * M * n * k, WORD * (B * M * Hs * Ws + B * C * Hl * Wl + M * n))

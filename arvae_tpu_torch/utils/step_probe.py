@@ -93,7 +93,9 @@ def short_name(name):
 # launch its kernels instead of the cluster kernels, and the tick loop's
 # wave layout's (``WAVE_LAUNCHES``) its forward instead of ``hier_fwd``.
 # The backwards' tensor-core engine counts its GEMMs and row products
-# (``GEMM_LAUNCHES``), launched within or without a backward.
+# (``GEMM_LAUNCHES``), launched within or without a backward. The
+# convolutions' weight gradient counts its first pass (its second runs
+# only where the plan splits the sum).
 ENTRY_KERNELS = {
     "reg_fwd": (("reg_kernel", "fwd", 1),),
     "reg_bwd": (("reg_kernel", "bwd", 1),),
@@ -107,6 +109,7 @@ ENTRY_KERNELS = {
     "hier_bwd_prep": (("hier_decoder_kernel", "bwd", 1),),
     "atb_tc": (("gru_kernel", "gemm_atb", 1), ("gru_kernel", "gemm_atb_alone", 1)),
     "rows_tc": (("gru_kernel", "gemm_rows", 1), ("gru_kernel", "gemm_rows_alone", 1)),
+    "conv_wgrad_partial": (("conv_wgrad_kernel", "wgrad", 1),),
 }
 
 
@@ -126,6 +129,8 @@ def _launch_counts():
     counts[("hier_decoder_kernel", "chains")] = hk.CHAIN_LAUNCHES["bwd"]
     counts[("hier_decoder_kernel", "chains_wide")] = hk.CHAIN_LAUNCHES.get("wide", 0)
     counts[("hier_decoder_kernel", "wave_fwd")] = getattr(hk, "WAVE_LAUNCHES", {}).get("fwd", 0)
+    cw = importlib.import_module("arvae_tpu_torch.ops.conv_wgrad_kernel")
+    counts[("conv_wgrad_kernel", "wgrad")] = cw.LAUNCHES["wgrad"]
     return counts
 
 

@@ -5,13 +5,14 @@ Run from the repository root:
 
     python3 chip_smoke.py                          # every phase, one card
     python3 chip_smoke.py --data-parallel-only     # device, build, slice 9
+    python3 chip_smoke.py --conv-wgrad-only        # device, build, conv_wgrad
 
 Phases, each printing its own lines and its seconds; any failure raises
 and the script exits non-zero:
 
 1. device: requires CUDA (never falls back to the CPU); prints the
    card's name and power limit and the two TF32 flags;
-2. build: compiles the three CUDA sources in ``arvae_tpu_torch/csrc/``
+2. build: compiles the four CUDA sources in ``arvae_tpu_torch/csrc/``
    for sm_90a, one ``nvcc`` each, all started together, and prints
    ptxas's registers and spills for every kernel;
 3. kernels: every kernel against its plain PyTorch version on the card,
@@ -58,9 +59,18 @@ and the script exits non-zero:
    its plain version within the gradient tolerance and twice, bitwise,
    and its shared memory and the tick loop's scratch against their Python
    mirrors;
+   then the convolutions' weight gradient (``csrc/conv_wgrad.cu``, alone
+   with ``--conv-wgrad-only``) at every conv layer of DspritesVAE and
+   MnistVAE at B=128 (``phase_conv_wgrad``): its plan, against its plain
+   version and repeated bitwise, its ms, bound, plain ms and cuDNN's
+   deterministic weight gradient, and an eager MNIST and dSprites step's
+   device busy ms with cuDNN's weight gradient and with the kernel (its
+   launches a step counted: ``CONV_WGRADS`` and 0);
 4. slice 1: the dSprites training CLI in-process (short grid, B=128, 2
    epochs), twice: the loss must be finite and fall, the reg kernels
-   must have launched once per forward and once per backward, the two
+   must have launched once per forward and once per backward and the
+   convolutions' weight gradient 8 times a train step launched from the
+   host (``CONV_WGRADS``; none in the evaluation), the two
    runs must give the same val losses to the last digit, one train step
    repeated from the same state must be bitwise equal (and the
    gradients that differ with cuDNN free to pick nondeterministic
@@ -171,7 +181,8 @@ and the script exits non-zero:
    protocol's judge (each epoch's scores printed; the t10k accuracy must
    reach ``JUDGE_BAR``); the MNIST CLI
    (``MNIST_ARGS``): the loss finite and falling, the run dir named as
-   the JAX trainer's under ``<models_root>/torch/``, the reg launches 1 + 1 a train step and none in the
+   the JAX trainer's under ``<models_root>/torch/``, the reg launches 1 + 1 a train step and
+   the convolutions' 6 weight gradients (``CONV_WGRADS``), none in the
    evaluation, ``results_dict.json`` with the JAX schema and
    ``digit_pred_acc``; a second CLI run's val losses and a train step
    from one state twice, each reported as bitwise equal or not;
@@ -187,7 +198,9 @@ and the script exits non-zero:
    MnistVAE's width, dropout 0.5, B=128, 2 epochs) and on the --short
    dSprites grid (``FADER_DSPRITES_ARGS``), each: the losses finite and
    falling, a val batch's reconstruction below the initial weights',
-   **no** launch of the port's kernels (training and evaluation), a
+   **no** launch of the reg and recurrence kernels and the
+   convolutions' weight gradients ``CONV_WGRADS`` a train step launched
+   from the host (none in the evaluation), a
    checkpoint with both networks and both Adam states, the five metrics
    and the stamp in ``results_dict.json`` without ``test_loss`` or
    ``test_acc``, the trained fader against the CPU from the CLI's
@@ -295,7 +308,8 @@ slices 3 and 4, and each CLI call of slices 5, 6, 7, 8 and 10, each sweep
 cell, each tester call, each trainer's 3 steps of slice 9, the tail run
 alone and the traced steps of slice 10) and read just after it; the
 comparisons of phases 3, 9, 10, 12, 13 and 14 do not count. The counters
-count what the kernels' wrappers launch: a training step replayed from
+count what the kernels' wrappers launch (and, for the convolutions'
+weight gradient, the forwards routed through its Functions, as "fwd"): a training step replayed from
 its CUDA graph launches none, so a run's training launches are those of
 its eager steps and its captures (``_launched_steps``, which also checks
 that every train step was one or a replay), and slice 10 reads a
@@ -324,7 +338,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-LIBRARIES = ("reg_loss", "gru_chain", "hier_tick_chain")
+LIBRARIES = ("reg_loss", "gru_chain", "hier_tick_chain", "conv_wgrad")
 
 R_TRAIN, B_TRAIN = 5, 128
 # (R, B): the dSprites step's (5, 128), the music step's (4, 256), then
@@ -517,11 +531,19 @@ MNIST_RESULT_KEYS = RESULT_KEYS[:-1] + ["digit_pred_acc", "protocol"]
 JUDGE_BAR = 0.96
 JUDGE_EPOCHS = 20
 
+# The convolutions' weight gradients a train step at float32 on the card,
+# one a conv layer (``ops/conv_wgrad_kernel.py``), the VAEs' and the
+# faders' alike: counted in every image CLI run, sweep cell and
+# data-parallel step of slices 1, 6, 7 and 9, none in an evaluation.
+CONV_WGRADS = {"dSprites": 8, "MNIST": 6}
+
 # Slice 7, the fader baseline and the γ×δ sweep. The fader CLI at its
 # defaults (β=4, rand 0) but 2 epochs: MNIST on slice 6's synthetic set
 # (MnistFaderNetwork at MnistVAE's width, z=16, dropout 0.5, B=128) and
 # the --short dSprites grid, then one more dSprites epoch by --resume.
-# The fader has no AR term: its path launches none of the port's kernels.
+# The fader has no AR term: its path launches none of the reg and
+# recurrence kernels, only its convolutions' weight gradients (the
+# launches counted here).
 FADER_MNIST_ARGS = ["-d", "mnist", "--num_epochs", "2", "--batch_size", "128"]
 FADER_DSPRITES_ARGS = ["-d", "dsprites", "--short", "--num_epochs", "2", "--batch_size",
                        "128"]
@@ -1345,6 +1367,146 @@ def phase_kernels():
             "engine": _engine_kernels(dev)}
 
 
+def _conv_step_ms(trainer, batch, card_line, tag):
+    """An eager step's device busy ms (``step_probe.step_profile``; a
+    no-op hook on the model keeps every step eager): with the
+    convolutions' weight gradient from cuDNN (the route off), then from
+    the kernel."""
+    from arvae_tpu_torch.ops import conv_wgrad_kernel as cw
+    from arvae_tpu_torch.utils.step_probe import step_profile
+
+    hook = trainer.model.register_forward_hook(lambda *args: None)
+    kernel_route = cw.conv_layer
+    convs = CONV_WGRADS[tag]
+    busy = {}
+    try:
+        for route in ("cudnn", "kernel"):
+            cw.conv_layer = kernel_route if route == "kernel" else (lambda layer, h: layer(h))
+            cw.reset_launches()
+            trainer.train_step(batch)
+            want = convs if route == "kernel" else 0
+            if cw.LAUNCHES["wgrad"] != want or cw.ROUTES["kernel"] != want:
+                raise AssertionError(f"conv_wgrad: an eager {tag} step with the weight "
+                                     f"gradient from {route}: {cw.LAUNCHES}, routes "
+                                     f"{cw.ROUTES}, want {want}")
+            busy[route], events, step_ms, by_name = step_profile(
+                lambda: trainer.train_step(batch))
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            print(f"[conv_wgrad] {tag} eager step, weight gradient from {route}: device busy "
+                  f"{busy[route]:.3f} ms, {events:.0f} device events, host {step_ms:.3f} ms a "
+                  f"step; µs a step: " + "; ".join(f"{n} {us:.1f}" for n, us in top)
+                  + f" | {card_line}")
+    finally:
+        cw.conv_layer = kernel_route
+        hook.remove()
+    return busy
+
+
+def phase_conv_wgrad(card_line):
+    """The convolutions' weight-gradient kernel at every conv layer of
+    ``DspritesVAE`` and ``MnistVAE`` at B=128: its plan (and the library's
+    count of its shared memory), the kernel against the plain version in
+    float64 (within 1e-5 of the largest entry) and twice, bitwise; its
+    card ms (CUDA events over 50 calls, both passes), device µs by kernel
+    (profiler), bound (``kernel_work.conv_wgrad``), the plain version's
+    ms and cuDNN's deterministic weight gradient (``library_ms``,
+    ``aten.convolution_backward`` with the weight mask alone, a yardstick
+    the port no longer calls), with the dSprites layers' sums; then an
+    eager MNIST VAE step's and an eager dSprites step's device busy ms with
+    cuDNN's weight gradient and with the kernel, the kernel's no higher."""
+    from arvae_tpu_torch.models.image_vae import DspritesVAE, MnistVAE
+    from arvae_tpu_torch.ops import conv_wgrad_kernel as cw
+    from arvae_tpu_torch.training.image_trainer import ImageVAETrainer
+    from arvae_tpu_torch.utils import kernel_work as kw
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    rows, sums = [], {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    for model_name, cls, size in (("dSprites", DspritesVAE, 64), ("MNIST", MnistVAE, 28)):
+        net = cls(seed=0)
+        z = torch.zeros(B_TRAIN, net.z_dim)
+        for i, (name, layer, x_shape) in enumerate(
+                cw.conv_inputs(net, torch.zeros(B_TRAIN, 1, size, size), z, z)):
+            small, large = cw.layer_maps(layer, x_shape)
+            stride, pad = layer.stride, layer.padding
+            plan = cw.conv_wgrad_plan(small, large, stride, pad)
+            if cw.smem_bytes(small[3], stride[0], plan) != plan.smem:
+                raise AssertionError(f"conv_wgrad {name}: the library's shared memory "
+                                     f"differs from the plan's {plan.smem}")
+            g = torch.Generator(device=dev).manual_seed(i)
+            s = torch.randn(small, device=dev, generator=g)
+            big = torch.randn(large, device=dev, generator=g)
+            cw.reset_launches()
+            first = cw.conv_wgrad_cuda(s, big, stride, pad)
+            second = cw.conv_wgrad_cuda(s, big, stride, pad)
+            torch.cuda.synchronize()
+            if cw.LAUNCHES["wgrad"] != 2:
+                raise AssertionError(f"conv_wgrad {model_name} {name}: two calls counted "
+                                     f"{cw.LAUNCHES}")
+            _check_repeat(f"conv_wgrad {model_name} {name}", (first,), (second,))
+            want = cw.conv_wgrad_reference(s.double(), big.double(), stride, pad)
+            scale = float(want.abs().max())
+            err = float((first.double() - want).abs().max()) / scale
+            transposed = isinstance(layer, torch.nn.ConvTranspose2d)
+            x, gy = (s, big) if transposed else (big, s)
+            weight = layer.weight.detach().to(dev)
+
+            def library():
+                return torch.ops.aten.convolution_backward(
+                    gy, x, weight, None, list(stride), list(pad), [1, 1], transposed, [0, 0],
+                    1, [False, True, False])[1]
+
+            lib_err = float((library().double() - want).abs().max()) / scale
+            if err > 1e-5 or lib_err > 1e-5:
+                raise AssertionError(f"conv_wgrad {model_name} {name}: relative error "
+                                     f"{err:.3e} (cuDNN's {lib_err:.3e})")
+            row = {"model": model_name, "layer": name, "small": small, "large": large,
+                   "plan": plan, "err": err,
+                   "ms": _event_ms(lambda: cw.conv_wgrad_cuda(s, big, stride, pad), 50),
+                   "plain_ms": _event_ms(lambda: cw.conv_wgrad_reference(s, big, stride, pad),
+                                         10, 2),
+                   "library_ms": _event_ms(library, 20, 3),
+                   "split": _kernel_split(lambda: cw.conv_wgrad_cuda(s, big, stride, pad)),
+                   "work": kw.conv_wgrad(*small, *large[1:])}
+            rows.append(row)
+            w = row["work"]
+            print(f"[conv_wgrad] {model_name} {name} ({'transposed' if transposed else 'conv'}"
+                  f", small {small}, large {large}): plan mt={plan.m_tile} ct={plan.c_tile} "
+                  f"G={plan.groups} R={plan.rows} stages={plan.stages} splits={plan.splits} "
+                  f"({plan.ctas} CTAs, "
+                  f"{plan.smem} B shared); {row['ms']:.5f} ms, bound {w.bound_ms:.5f} ms "
+                  f"({w.bound_by}, {100 * w.bound_ms / row['ms']:.1f}% of it), plain "
+                  f"{row['plain_ms']:.5f} ms, cuDNN deterministic {row['library_ms']:.5f} ms; "
+                  f"device µs by kernel {row['split']}; rel err {err:.2e} (cuDNN's "
+                  f"{lib_err:.2e}) | {card_line}")
+            if model_name == "dSprites":
+                sums["ms"] += row["ms"]
+                sums["bound_ms"] += w.bound_ms
+                sums["plain_ms"] += row["plain_ms"]
+                sums["library_ms"] += row["library_ms"]
+    print(f"[conv_wgrad] dSprites' 8 weight gradients at B={B_TRAIN}: {sums['ms']:.5f} ms, "
+          f"bound {sums['bound_ms']:.5f} ms ({100 * sums['bound_ms'] / sums['ms']:.1f}% of it), "
+          f"plain {sums['plain_ms']:.5f} ms, cuDNN deterministic {sums['library_ms']:.5f} ms "
+          f"| {card_line}")
+
+    g = torch.Generator().manual_seed(5)
+    steps = {}
+    for model_name, cls, size, nl, kw_args in (
+            ("MNIST", MnistVAE, 28, 7, dict(reg_type=("area", "slant"), reg_dim=(1, 4))),
+            ("dSprites", DspritesVAE, 64, 6, dict(reg_type=("all",),
+                                                 reg_dim=(1, 2, 3, 4, 5)))):
+        trainer = ImageVAETrainer(None, cls(seed=0), dev, rand=0, **kw_args)
+        batch = ((torch.rand((B_TRAIN, 1, size, size), generator=g) < 0.5).float().to(dev),
+                 torch.rand((B_TRAIN, nl), generator=g).to(dev))
+        steps[model_name] = _conv_step_ms(trainer, batch, card_line, model_name)
+        if steps[model_name]["kernel"] > steps[model_name]["cudnn"]:
+            raise AssertionError(f"conv_wgrad: the eager {model_name} step is slower with the "
+                                 f"kernel: {steps[model_name]}")
+    return {"rows": rows, "dsprites": sums, "steps": steps}
+
+
 def _check_engine_launches(tag, launches, layers):
     """The tensor-core engine's launches in a run (``gru_kernel.
     GEMM_LAUNCHES``) against the code's: a GEMM for each ``gru_chain``
@@ -1360,9 +1522,10 @@ def _check_engine_launches(tag, launches, layers):
 
 
 def _launch_counters():
-    from arvae_tpu_torch.ops import gru_kernel, hier_decoder_kernel, reg_kernel
+    from arvae_tpu_torch.ops import conv_wgrad_kernel, gru_kernel, hier_decoder_kernel, reg_kernel
 
-    return {"reg": reg_kernel, "gru": gru_kernel, "hier": hier_decoder_kernel}
+    return {"reg": reg_kernel, "gru": gru_kernel, "hier": hier_decoder_kernel,
+            "conv": conv_wgrad_kernel}
 
 
 def _reset_launches():
@@ -1390,7 +1553,23 @@ def _launched_steps(tag, n_train):
 
 
 def _read_launches():
-    return {k: dict(mod.LAUNCHES) for k, mod in _launch_counters().items()}
+    """{kernel: {"fwd": n, "bwd": n}}; for "conv" (the convolutions'
+    weight gradient) "fwd" counts the forwards routed through the kernel's
+    autograd Functions (``ROUTES["kernel"]``) and "bwd" the weight
+    gradients launched."""
+    counts = _launch_counters()
+    conv = counts.pop("conv")
+    out = {k: dict(mod.LAUNCHES) for k, mod in counts.items()}
+    out["conv"] = {"fwd": conv.ROUTES["kernel"], "bwd": conv.LAUNCHES["wgrad"]}
+    return out
+
+
+def _conv_launches(per_step, n_host):
+    """The convolutions' launches over ``n_host`` train steps launched from
+    the host (eager or captured): each of the model's ``per_step`` conv
+    layers (CONV_WGRADS) once through the kernel's Function and once a
+    weight gradient; an evaluation adds none (no backward, no grad)."""
+    return {"fwd": per_step * n_host, "bwd": per_step * n_host}
 
 
 def _check_history(tag, hist, ckpt_ok):
@@ -1413,8 +1592,15 @@ def _check_float_labels(tag, labels):
 
 
 def _check_launches(tag, launches, want):
+    """``launches`` == ``want``; a ``want`` that names no "conv" wants no
+    convolution through the weight-gradient kernel."""
+    if "conv" in launches and "conv" not in want:
+        want = dict(want, conv={"fwd": 0, "bwd": 0})
     if launches != want:
-        raise AssertionError(f"{tag}: kernel launches {launches} != {want}")
+        from arvae_tpu_torch.ops import conv_wgrad_kernel as cw
+
+        raise AssertionError(f"{tag}: kernel launches {launches} != {want} (the "
+                             f"convolutions' routes {cw.ROUTES})")
 
 
 def _eval_batches(trainer, batch_size=None):
@@ -1429,8 +1615,10 @@ def _eval_batches(trainer, batch_size=None):
 def _eval_per_batch(model):
     """Forward launches of a harvest batch (the encoder's biGRU layers)
     and of a test batch (the whole model in eval mode), by kernel, from
-    the code; the DspritesVAE launches none of the port's kernels."""
-    zero = {"reg": 0, "gru": 0, "hier": 0}
+    the code; an image model launches none of the counted kernels (an
+    evaluation runs without grad: no convolution through the weight-gradient
+    kernel's Function, no weight gradient)."""
+    zero = {"reg": 0, "gru": 0, "hier": 0, "conv": 0}
     if not hasattr(model, "encoder"):
         return {"harvest": zero, "test": zero}
     enc = model.encoder.lstm.num_layers
@@ -1557,11 +1745,13 @@ def phase_slice(models_dir):
     # the evaluation launches none of the port's kernels on dSprites
     _check_launches("slice", launches, _with_eval({
         "reg": {"fwd": n_host + n_val, "bwd": n_host},
-        "gru": {"fwd": 0, "bwd": 0}, "hier": {"fwd": 0, "bwd": 0}}, trainer, B_TRAIN))
+        "gru": {"fwd": 0, "bwd": 0}, "hier": {"fwd": 0, "bwd": 0},
+        "conv": _conv_launches(CONV_WGRADS["dSprites"], n_host)}, trainer, B_TRAIN))
     print(f"[slice] 2 epochs in {seconds:.1f} s; train loss "
           f"{hist[0]['train_loss']:.4f} -> {hist[1]['train_loss']:.4f}; val loss "
           f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f}; "
-          f"reg launches fwd={launches['reg']['fwd']} bwd={launches['reg']['bwd']} "
+          f"reg launches fwd={launches['reg']['fwd']} bwd={launches['reg']['bwd']}, "
+          f"conv weight gradients {launches['conv']['bwd']} "
           f"(train steps {n_train}, {n_host} of them launched from the host, val steps "
           f"{n_val})")
     # a second run of the CLI in this call: the same trained model, so
@@ -2899,8 +3089,10 @@ def phase_mnist(card_line, data_dir):
         # port's kernels on MNIST: reg once a forward, once a backward
         _check_launches(tag, launches, _with_eval({
             "reg": {"fwd": n_host + n_val, "bwd": n_host},
-            "gru": {"fwd": 0, "bwd": 0}, "hier": {"fwd": 0, "bwd": 0}}, trainer, B_TRAIN))
+            "gru": {"fwd": 0, "bwd": 0}, "hier": {"fwd": 0, "bwd": 0},
+            "conv": _conv_launches(CONV_WGRADS["MNIST"], n_host)}, trainer, B_TRAIN))
         out["launches"] = launches["reg"]
+        out["conv_launches"] = launches["conv"]["bwd"]
         out["steps"] = {"fwd": n_host + n_val, "bwd": n_host}
         results = _read_results(trainer)
         _check_results(tag, trainer, results, B_TRAIN, MNIST_RESULT_KEYS)
@@ -2912,8 +3104,10 @@ def phase_mnist(card_line, data_dir):
         print(f"[mnist] CLI {' '.join(MNIST_ARGS)}: 2 epochs in {seconds:.1f} s; train loss "
               f"{hist[0]['train_loss']:.4f} -> {hist[1]['train_loss']:.4f}; val loss "
               f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f}; run dir {MNIST_RUN}; "
-              f"reg launches fwd={launches['reg']['fwd']} bwd={launches['reg']['bwd']} (train "
-              f"steps {n_train}, val steps {n_val}: 1 + 1 a train step, 0 an eval batch); "
+              f"reg launches fwd={launches['reg']['fwd']} bwd={launches['reg']['bwd']}, conv "
+              f"weight gradients {launches['conv']['bwd']} (train steps {n_train}, {n_host} "
+              f"launched from the host, val steps {n_val}: reg 1 + 1 and "
+              f"{CONV_WGRADS['MNIST']} conv a train step, 0 an eval batch); "
               f"digit_pred_acc {judged}")
         _check_float_labels(tag, trainer.eval_split().gather_batch(
             torch.arange(B_TRAIN, device=trainer.device))[1])
@@ -2986,8 +3180,7 @@ def _fader_cli_run(models_dir, argv):
 
 def _check_no_launches(tag, launches):
     if any(v for counts in launches.values() for v in counts.values()):
-        raise AssertionError(f"{tag}: the port's kernels launched on the fader path: "
-                             f"{launches}")
+        raise AssertionError(f"{tag}: the port's kernels launched: {launches}")
 
 
 def _check_fader_checkpoint(tag, trainer):
@@ -3023,17 +3216,30 @@ def _check_fader_results(tag, trainer, batch_size, epochs):
     return results
 
 
-def _fader_run(tag, models_dir, argv):
-    """One fader CLI run: finite losses falling, no kernel launched, the
-    checkpoint, the results, the reconstruction of a val batch below the
-    initial weights', card against CPU from the CLI's checkpoint, and a
-    two-optimiser step repeated bitwise → the trainer."""
+def _check_fader_launches(tag, launches, n_train, convs):
+    """A fader CLI run launches no reg, GRU or tick-loop kernel, and
+    ``convs`` convolutions' weight gradients a train step launched from
+    the host (the fader update's; the discriminator's update encodes
+    without grad) → the steps launched from the host."""
+    n_host = _launched_steps(tag, n_train)
+    _check_launches(tag, launches, {"reg": {"fwd": 0, "bwd": 0}, "gru": {"fwd": 0, "bwd": 0},
+                                    "hier": {"fwd": 0, "bwd": 0},
+                                    "conv": _conv_launches(convs, n_host)})
+    return n_host
+
+
+def _fader_run(tag, models_dir, argv, convs):
+    """One fader CLI run: finite losses falling, the kernels' launches
+    (``_check_fader_launches``), the checkpoint, the results, the
+    reconstruction of a val batch below the initial weights', card against
+    CPU from the CLI's checkpoint, and a two-optimiser step repeated
+    bitwise → the trainer."""
     from arvae_tpu_torch.training.fader_trainer import ImageFaderTrainer
 
     trainer, launches, seconds, ckpt_ok = _fader_cli_run(models_dir, argv)
-    _check_no_launches(tag, launches)
     hist = trainer.history
     n_train, n_val = _check_history(tag, hist, ckpt_ok)
+    _check_fader_launches(tag, launches, n_train, convs)
     _check_fader_checkpoint(tag, trainer)
     _check_fader_results(tag, trainer, B_TRAIN, 2)
     dev, h = trainer.device, trainer.hparams
@@ -3090,7 +3296,9 @@ def _sweep_corners():
         # the evaluation launches none of the port's kernels on dSprites
         _check_launches(tag, launches, {"reg": {"fwd": n_host + n_val, "bwd": n_host},
                                         "gru": {"fwd": 0, "bwd": 0},
-                                        "hier": {"fwd": 0, "bwd": 0}})
+                                        "hier": {"fwd": 0, "bwd": 0},
+                                        "conv": _conv_launches(CONV_WGRADS["dSprites"],
+                                                               n_host)})
         print(f"[sweep] {tag}: 1 epoch ({n_train} train steps, {n_host} launched from the "
               f"host, + {n_val} val steps), train loss "
               f"{h['train_loss']:.4f}; reg launches fwd={launches['reg']['fwd']} "
@@ -3116,8 +3324,11 @@ def _bf16_run(models_dir, card_line):
     hist = trainer.history
     n_train, n_val = _check_history(tag, hist, ckpt_ok)
     n_host = _launched_steps(tag, n_train)
+    # below float32 the layers compute in bfloat16 and cuDNN takes their
+    # weight gradients: no convolution through the kernel
     _check_launches(tag, launches, {"reg": {"fwd": n_host + n_val, "bwd": n_host},
-                                    "gru": {"fwd": 0, "bwd": 0}, "hier": {"fwd": 0, "bwd": 0}})
+                                    "gru": {"fwd": 0, "bwd": 0}, "hier": {"fwd": 0, "bwd": 0},
+                                    "conv": {"fwd": 0, "bwd": 0}})
     h, dev = trainer.hparams, trainer.device
     cpu = ImageVAETrainer(trainer.dataset, DspritesVAE(compute_dtype=torch.bfloat16), "cpu",
                           reg_type=h.reg_type, reg_dim=h.reg_dim, beta=h.beta, gamma=h.gamma,
@@ -3150,18 +3361,19 @@ def phase_fader(card_line, mnist_data_dir):
     out = {"fader_launches": {}}
     with tempfile.TemporaryDirectory() as models_dir:
         with _datasets_dir(mnist_data_dir):
-            mnist, out["fader_launches"]["mnist"] = _fader_run("fader MNIST", models_dir,
-                                                               FADER_MNIST_ARGS)
+            mnist, out["fader_launches"]["mnist"] = _fader_run(
+                "fader MNIST", models_dir, FADER_MNIST_ARGS, CONV_WGRADS["MNIST"])
             train_split, _ = mnist.dataset.device_splits(mnist.device)
             out["mnist_busy_ms"] = _device_busy(
                 "fader MNIST (MnistFaderNetwork, B=128, dropout 0.5, two Adam steps)", mnist,
                 train_split, B_TRAIN, card_line)
-        dsp, out["fader_launches"]["dsprites"] = _fader_run("fader dSprites", models_dir,
-                                                            FADER_DSPRITES_ARGS)
+        dsp, out["fader_launches"]["dsprites"] = _fader_run(
+            "fader dSprites", models_dir, FADER_DSPRITES_ARGS, CONV_WGRADS["dSprites"])
         steps = dsp.step
         resumed, launches, _, _ = _fader_cli_run(
             models_dir, FADER_DSPRITES_ARGS + ["--num_epochs", "1", "--resume"])
-        _check_no_launches("fader dSprites --resume", launches)
+        _check_fader_launches("fader dSprites --resume", launches,
+                              resumed.history[0]["train_steps"], CONV_WGRADS["dSprites"])
         out["fader_launches"]["dsprites --resume"] = launches
         if resumed.step != steps + resumed.history[0]["train_steps"] or \
                 resumed.history[0]["step"] != resumed.step:
@@ -3905,9 +4117,11 @@ DP_STEPS = 3
 DP_ROWS = 4096
 # launches a train step by the code, (fwd, bwd): the AR term's reg pair;
 # the music step's gru_chain (the encoder's two biGRU layers, the beat
-# GRU's two) and one tick loop
-DP_LAUNCHES = {"dSprites": {"reg": (1, 1), "gru": (0, 0), "hier": (0, 0)},
-               "music": {"reg": (1, 1), "gru": (4, 4), "hier": (1, 1)}}
+# GRU's two) and one tick loop; the dSprites VAE's convolutions (forwards
+# through the weight-gradient kernel's Function, weight gradients)
+DP_LAUNCHES = {"dSprites": {"reg": (1, 1), "gru": (0, 0), "hier": (0, 0),
+                            "conv": (CONV_WGRADS["dSprites"],) * 2},
+               "music": {"reg": (1, 1), "gru": (4, 4), "hier": (1, 1), "conv": (0, 0)}}
 DP_LOSS_RTOL, DP_GRAD_RTOL, DP_PARAM_ATOL = 1e-5, 2e-3, 5e-4
 # Each leaf of the summed gradient against the one-card gradient's leaf:
 # the norm of the difference within DP_GRAD_RTOL of the leaf's norm, not
@@ -4617,17 +4831,22 @@ def _last_lines(card_line):
 
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else list(argv)
-    if args not in ([], ["--data-parallel-only"]):
-        raise SystemExit(f"usage: chip_smoke.py [--data-parallel-only], not {args}")
+    if args not in ([], ["--data-parallel-only"], ["--conv-wgrad-only"]):
+        raise SystemExit("usage: chip_smoke.py [--data-parallel-only | --conv-wgrad-only], "
+                         f"not {args}")
     t0 = time.perf_counter()
     card_line = _timed("device", phase_device)
     _timed("build", phase_build)
     if args:
-        _timed("slice 9 (data parallel)", phase_data_parallel, card_line)
+        if args == ["--conv-wgrad-only"]:
+            _timed("conv_wgrad", phase_conv_wgrad, card_line)
+        else:
+            _timed("slice 9 (data parallel)", phase_data_parallel, card_line)
         print(f"[phase] total: {time.perf_counter() - t0:.1f} s")
         _last_lines(card_line)
         return 0
     errs = _timed("kernels", phase_kernels)
+    conv = _timed("conv_wgrad", phase_conv_wgrad, card_line)
     # slices 1 and 2's run dirs, kept for slice 5 and (music) slice 8
     with tempfile.TemporaryDirectory() as kept:
         image_dir, music_dir = os.path.join(kept, "dsprites"), os.path.join(kept, "music")
@@ -4914,6 +5133,31 @@ def main(argv=None) -> int:
         print(f"[times] data parallel: {name} step ms, no group / NCCL group of one / group / "
               f"no group: {' / '.join(f'{x:.4f}' for x in ms)}; collectives a call (device "
               f"µs, events, µs by CUDA events) {dp['collective_us']} | {card_line}")
+    # the convolutions' weight gradient: the dSprites VAE's 8 layers summed
+    kernels.append({
+        "name": "conv_wgrad", "route": "cuda", "source": csrc + "conv_wgrad.cu",
+        "replaces": None,
+        # measured: slice 1's dSprites CLI run, slice 6's MNIST one, and
+        # slice 7's fader runs (per train step launched from the host)
+        "launches_per_step": image[0]["conv"]["bwd"] / image[1]["bwd"],
+        "mnist_launches_per_step": mnist["conv_launches"] / mnist["steps"]["bwd"],
+        "fader_launches": {run: c["conv"]["bwd"] for run, c in fader["fader_launches"].items()},
+        "eval_launches_per_batch": {p: evaluation["dSprites launches"]["per_batch"][p]["conv"]
+                                    for p in ("harvest", "test")},
+        **conv["dsprites"],
+        "shapes": [{"model": r["model"], "layer": r["layer"], "small": r["small"],
+                    "large": r["large"], "ms": r["ms"], "bound_ms": r["work"].bound_ms,
+                    "bound_by": r["work"].bound_by, "plain_ms": r["plain_ms"],
+                    "library_ms": r["library_ms"], "max_rel_err": r["err"]}
+                   for r in conv["rows"]],
+        "eager_step_busy_ms": conv["steps"]})
+    k = kernels[-1]
+    print(f"[times] conv_wgrad: the dSprites VAE's 8 layers {k['ms']:.5f} ms, bound "
+          f"{k['bound_ms']:.3g} ms ({100 * k['bound_ms'] / k['ms']:.1f}% of it), cuDNN "
+          f"deterministic {k['library_ms']:.5f} ms; {k['launches_per_step']:g} launches a "
+          f"dSprites train step, {k['mnist_launches_per_step']:g} an MNIST one, "
+          f"{k['eval_launches_per_batch']} an evaluation batch; the fader runs' "
+          f"{k['fader_launches']} | {card_line}")
     print(json.dumps({"kernels": kernels}))
     _last_lines(card_line)
     return 0

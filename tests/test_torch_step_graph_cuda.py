@@ -37,7 +37,7 @@ from arvae_tpu_torch.data.device_data import DeviceSplit
 from arvae_tpu_torch.models.image_fader import DspritesFaderNetwork
 from arvae_tpu_torch.models.image_vae import DspritesVAE, MnistVAE
 from arvae_tpu_torch.models.measure_vae import MeasureVAE
-from arvae_tpu_torch.ops import gru_kernel, hier_decoder_kernel, reg_kernel
+from arvae_tpu_torch.ops import conv_wgrad_kernel, gru_kernel, hier_decoder_kernel, reg_kernel
 from arvae_tpu_torch.training import base
 from arvae_tpu_torch.training.fader_trainer import ImageFaderTrainer
 from arvae_tpu_torch.training.glsr_trainer import MeasureVAETrainerGLSR
@@ -120,7 +120,8 @@ def _launches():
     return [dict(c) for c in (gru_kernel.LAUNCHES, gru_kernel.WIDE_LAUNCHES,
                               gru_kernel.GEMM_LAUNCHES, hier_decoder_kernel.LAUNCHES,
                               hier_decoder_kernel.WAVE_LAUNCHES,
-                              hier_decoder_kernel.CHAIN_LAUNCHES, reg_kernel.LAUNCHES)]
+                              hier_decoder_kernel.CHAIN_LAUNCHES, reg_kernel.LAUNCHES,
+                              conv_wgrad_kernel.LAUNCHES)]
 
 
 def _reset():
@@ -128,6 +129,7 @@ def _reset():
     gru_kernel.reset_launches()
     hier_decoder_kernel.reset_launches()
     reg_kernel.reset_launches()
+    conv_wgrad_kernel.reset_launches()
 
 
 def _params(tr):
@@ -220,7 +222,7 @@ CELL_KERNELS = {"music_h128": ("gru_fwd", "gru_bwd", "hier_fwd", "hier_bwd_prep"
                                "rows_tc", "reg_fwd", "reg_bwd"),
                 "music_h512": ("gru_wide", "hier_wave_fwd", "hier_bwd_prep", "atb_tc",
                                "rows_tc", "reg_fwd", "reg_bwd"),
-                "dsprites": ("reg_fwd", "reg_bwd")}
+                "dsprites": ("reg_fwd", "reg_bwd", "conv_wgrad_partial", "conv_wgrad_sum")}
 
 
 @pytest.mark.parametrize("name", list(CELL_KERNELS))
