@@ -122,8 +122,8 @@ ROWS_PER_THREAD = 4    # a tile's rows are a multiple of it
 
 # Clusters of C CTAs that an H100 SXM holds at once, by the CTAs an SM
 # holds (cudaOccupancyMaxActiveClusters on an NVIDIA H100 80GB HBM3 at
-# 700 W, arvae_tpu_torch/utils/plan_probe.py): clusters live inside one
-# GPC, and the GPCs' SM counts leave some SMs over, so 32 clusters of 4
+# 700 W; chip_smoke.py's kernels phase prints the card's count beside
+# each plan's): clusters live inside one GPC, and the GPCs' SM counts leave some SMs over, so 32 clusters of 4
 # CTAs (128 SMs) do not fit at once.
 CLUSTERS_HELD = {1: {1: SMS, 2: 66, 4: 30, 8: 15}, 2: {1: 2 * SMS, 2: 132, 4: 62, 8: 30}}
 SM_SMEM = 228 * 1024     # shared memory of an SM

@@ -1,4 +1,3 @@
-#!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one CUDA card.
 
 Run from the repository root:
@@ -7,8 +6,11 @@ Run from the repository root:
     python3 chip_smoke.py --data-parallel-only     # device, build, slice 9
     python3 chip_smoke.py --conv-wgrad-only        # device, build, conv_wgrad
 
-Phases, each printing its own lines and its seconds; any failure raises
-and the script exits non-zero:
+It checks; it does not time: the port is measured by ``port_bench``
+(``python3 -m port_bench.run``; ``python3 -m port_bench.spans`` charges
+device time to each ``op:`` span of a step). Phases, each announced by a
+``[phase]`` line and printing its own lines; any failure raises and the
+script exits non-zero:
 
 1. device: requires CUDA (never falls back to the CPU); prints the
    card's name and power limit and the two TF32 flags;
@@ -58,14 +60,24 @@ and the script exits non-zero:
    (``atb_step_shapes``, ``row_step_shapes``), each with its plan, against
    its plain version within the gradient tolerance and twice, bitwise,
    and its shared memory and the tick loop's scratch against their Python
-   mirrors;
+   mirrors; the reg wrappers in place at the dSprites, music and MNIST
+   steps' shapes (``AR_SHAPES``), one device kernel a call each way, and
+   the AR term's device kernels a train and an eval step there (one reg
+   kernel each way, no stack, cast or scatter left), both named from
+   ``torch.profiler``'s records; the port's GRU layers against cuDNN's
+   ``torch.nn.GRU`` with the same weights, TF32 off, outputs within rtol
+   1e-4 (the music step's four layers at H=128 and at H=512,
+   SRDecoderNoInput's at H=384); one epoch of the music step (B=256,
+   V=130, a 65,536-row random token corpus) and of the dSprites step
+   (B=128, a 128,000-row random packed split), each loss finite;
    then the convolutions' weight gradient (``csrc/conv_wgrad.cu``, alone
    with ``--conv-wgrad-only``) at every conv layer of DspritesVAE and
    MnistVAE at B=128 (``phase_conv_wgrad``): its plan, against its plain
-   version and repeated bitwise, its ms, bound, plain ms and cuDNN's
-   deterministic weight gradient, and an eager MNIST and dSprites step's
-   device busy ms with cuDNN's weight gradient and with the kernel (its
-   launches a step counted: ``CONV_WGRADS`` and 0);
+   version in float64 (cuDNN's deterministic weight gradient too) and
+   repeated bitwise, and an eager MNIST and dSprites step's device busy
+   ms with cuDNN's weight gradient and with the kernel, the kernel's no
+   higher (the one timed check: no ``port_bench`` cell runs MNIST), its
+   launches a step counted (``CONV_WGRADS`` and 0);
 4. slice 1: the dSprites training CLI in-process (short grid, B=128, 2
    epochs), twice: the loss must be finite and fall, the reg kernels
    must have launched once per forward and once per backward and the
@@ -90,41 +102,13 @@ and the script exits non-zero:
    CLI's default width: the loss must be finite and fall, a checkpoint
    must be written, every kernel must have launched the counts a step
    the code gives (``VARIANT_LAUNCHES``), one train step run twice from
-   the same state and draws must repeat bitwise; each variant's train
-   step is timed and profiled, and then the model the CLI trained, on
-   one val batch, teacher-forced, must match the CPU plain path (for
-   GLSR also its term row by row within ``GLSR_ROW_RTOL``); the
+   the same state and draws must repeat bitwise; then the model the CLI
+   trained, on one val batch, teacher-forced, must match the CPU plain
+   path (for GLSR also its term row by row within ``GLSR_ROW_RTOL``); the
    encoder's embedding gradient, as ``nn.Embedding`` and as the one-hot
    product the encoder uses, is run five times (the product must repeat
    bitwise);
-7. times: each kernel against its plain version (CUDA events) at the
-   slices' shapes and the new widths and depths, with each one's bound,
-   and each reg direction's device time from ``torch.profiler`` (the
-   events follow the host there), at the dSprites, music and MNIST
-   steps' shapes and at (R, B) = (2, 8192); the AR term's device
-   launches a train and an eval step at those three steps' shapes
-   (profiler: one reg kernel each way, no stack, cast or scatter left);
-   warm music train steps/s at B=256 on a 65,536-row random token
-   corpus with V=130, then the music step's device busy time and
-   largest kernels from ``torch.profiler`` over 50 steps; the tick loop
-   backward's device time by kernel (profiler); the library yardstick
-   for ``gru_chain``: each of the music step's four GRU layers as the
-   port computes it and as cuDNN's ``torch.nn.GRU`` does (same weights,
-   TF32 off, outputs held within rtol 1e-4), device time from the
-   profiler, at H=128, at H=512 and SRDecoderNoInput's layer at H=384;
-   warm dSprites train steps/s at B=128 over 1,000 steps and the
-   dSprites step's device busy time, with cuDNN free to pick its
-   algorithms and as the trainer sets it (deterministic). Each kernel's
-   bound (``arvae_tpu_torch/utils/kernel_work.py``) and launches per
-   step are printed beside its time. At each ``WIDE_GRU_CASES`` shape
-   the wide layout's plan, its fwd / bwd ms as a train step runs them
-   (the forward keeping ``gh``), cuDNN's ``torch.nn.GRU`` layer there,
-   the plain version, the bound, and each call's device µs by kernel;
-   the engine's GEMM and row products alone at every step shape, each
-   against its plain version, cuBLAS's one call for the same product
-   (TF32 off) and its fp32 and 3xTF32 bounds; every tick-loop width's
-   backward split by kernel;
-8. slice 4: the music CLI at the reference's widths
+7. slice 4: the music CLI at the reference's widths
    (``--encoder_hidden_size 512 --decoder_hidden_size 512``) and with
    ``--num_decoder_layers 3``, 2 epochs each on the ``--full`` corpus
    (``WIDE_DEEP_ARGS``): the loss finite and falling, every recurrence
@@ -132,15 +116,15 @@ and the script exits non-zero:
    reference's widths every ``gru_chain`` call and every tick-loop
    backward chain on the wide layout, ``WIDE_LAUNCHES`` and
    ``CHAIN_LAUNCHES``, and every tick-loop forward on the wave layout,
-   ``WAVE_LAUNCHES``), a train step repeated bitwise, its device busy
-   time and largest kernels, and the trained model against the CPU on a
-   val batch; in it and in slice 2 the engine's launches
-   (``GEMM_LAUNCHES``) equal the code's: one GEMM a ``gru_chain``
-   backward, 2L + 2 GEMMs and 2L + 1 row products a tick-loop backward.
+   ``WAVE_LAUNCHES``), a train step repeated bitwise, and the trained
+   model against the CPU on a val batch; in it and in slice 2 the
+   engine's launches (``GEMM_LAUNCHES``) equal the code's: one GEMM a
+   ``gru_chain`` backward, 2L + 2 GEMMs and 2L + 1 row products a
+   tick-loop backward.
    The kernels line's ``gru_chain_wide_fwd`` / ``_bwd``,
    ``hier_tick_chain_wave_fwd``, ``tc_gemm_atb`` and ``tc_gemm_rows``
    entries take their launches from the 512-wide run;
-9. slice 5 (evaluation): every CLI run of slices 1-4 now ends with the
+8. slice 5 (evaluation): every CLI run of slices 1-4 now ends with the
    evaluation (the latent harvest, the test pass, the five metrics and
    ``results_dict.json``); each run's file must have the JAX package's
    schema, finite values, the bounded scores in [0, 1] and the protocol
@@ -163,18 +147,15 @@ and the script exits non-zero:
    its batches (equal to the code's forwards a batch), and the metric
    suite twice on one harvest (identical); for the dSprites and music
    runs also ``compute_eval_metrics`` twice from the trained state (both
-   files byte for byte the CLI's), the two passes' times (CUDA events
-   and the profiler's device busy), the CLI again with ``--skip_cached``
+   files byte for byte the CLI's), the CLI again with ``--skip_cached``
    (skips, no launch) and with ``--test`` (the cache removed: one
-   evaluation's launches, counted, and the same metrics); and the metric
-   suite's host seconds at the paper's protocol size (201 x 128 rows of
-   the full dSprites grid's eval split, 10 random codes). The kernels
+   evaluation's launches, counted, and the same metrics). The kernels
    line's ``eval_launches`` are the ``--test`` runs' counts and its
    ``eval_launches_per_batch`` the counts a harvest and a test batch;
-10. slice 6 (Morpho-MNIST): the synthetic MNIST cache built at full size
+9. slice 6 (Morpho-MNIST): the synthetic MNIST cache built at full size
    (8,192 + 2,048 digits, their IDX archives and measured morphometry)
-   in a temporary ``ARVAE_DATASETS_DIR``, timed, with the measuring
-   pool's start method, and read back as the same arrays; the reg pair
+   in a temporary ``ARVAE_DATASETS_DIR``, with the measuring pool's
+   start method, and read back as the same arrays; the reg pair
    in place on a (128, 16) latent and the set's (128, 7) morphometry, on
    dims 1-6, against its plain version and repeated bitwise; ``python -m
    arvae_tpu_torch.test_mnist`` at its defaults but 20 epochs, the JAX
@@ -188,11 +169,9 @@ and the script exits non-zero:
    from one state twice, each reported as bitwise equal or not;
    re-evaluations byte for byte the CLI's, ``--skip_cached`` and
    ``--test``; the harvest and the test pass against the CPU from the
-   CLI's checkpoint; the MNIST step's device busy, events, idle share
-   and largest kernels over 50 profiled steps. The kernels line's reg
-   entries carry the MNIST shape's time, bound and launches
-   (``"mnist"``);
-11. slice 7 (fader and sweep): the fader CLI (``python -m
+   CLI's checkpoint. The kernels line's reg entries carry the MNIST
+   shape's launches (``"mnist"``);
+10. slice 7 (fader and sweep): the fader CLI (``python -m
    arvae_tpu_torch.train_image_fader``) in-process on slice 6's
    synthetic MNIST set (``FADER_MNIST_ARGS``: MnistFaderNetwork at
    MnistVAE's width, dropout 0.5, B=128, 2 epochs) and on the --short
@@ -205,8 +184,7 @@ and the script exits non-zero:
    and the stamp in ``results_dict.json`` without ``test_loss`` or
    ``test_acc``, the trained fader against the CPU from the CLI's
    checkpoint, and one two-optimiser step repeated bitwise; the dSprites
-   run continued by ``--resume`` (the step count goes on); both fader
-   steps' device busy, events and idle share (profiler); two γ×δ sweep
+   run continued by ``--resume`` (the step count goes on); two γ×δ sweep
    cells at the grid's corners (``SWEEP_CORNERS``) through
    ``script_hyper_param_exp.run_cell``, 1 epoch each: a finite row and
    the reg pair 1 + 1 a train step; the image CLI with ``--bf16``
@@ -214,7 +192,7 @@ and the script exits non-zero:
    1 + 1 a train step, and a val batch against a CPU bfloat16 copy from
    the checkpoint within ``BF16_RTOL``. Each kernel's entry in the
    kernels line carries these launches (``"slice7_launches"``);
-12. slice 8 (music analysis), last, on slice 2's run dir, kept for it:
+11. slice 8 (music analysis), last, on slice 2's run dir, kept for it:
    the recurrence kernels' forwards at the analysis's batches
    (``ANALYSIS_BATCHES``: 1, 6, 10, 22), ``gru_chain`` at (24, 2, B,
    128), (4, 1, B, 128) and (24, 2, B, 512) and ``hier_tick_chain`` in
@@ -223,8 +201,7 @@ and the script exits non-zero:
    B=256 call's plan and then bitwise equal to that call's rows (the
    masked rows of a tile change nothing), and under its own plan held
    to those rows within the forward tolerance (bitwise where the two
-   plans are one); each one's plan, card ms (CUDA events), bound and
-   plain ms, and cuDNN's ``torch.nn.GRU`` at B=1; the run dirs: slice
+   plans are one), each with its plan; the run dirs: slice
    2's under ``<models_root>/torch/``, and a JAX-named
    ``results_dict.json`` at ``<models_root>/<repr>/`` neither read nor
    removed by the port; ``python -m arvae_tpu_torch.run_tester_sweep``
@@ -241,7 +218,7 @@ and the script exits non-zero:
    (``ABC_ARGS``): the loss finite, the launches the code's. The
    kernels line's music kernels carry their rows
    (``"analysis_shapes"``);
-13. slice 9 (data parallel, ``arvae_tpu_torch/parallel``), last: the
+12. slice 9 (data parallel, ``arvae_tpu_torch/parallel``), last: the
    tick loop's ``row_base`` (training, dropout 0.5, teacher-forced): each
    of 2 and 4 ranks' rows of a B=256 call, run at its first global row
    under that call's plan, bitwise that call's rows, under its own plan
@@ -256,11 +233,8 @@ and the script exits non-zero:
    trainer over a real NCCL group of one rank (a ``FileStore`` in a
    temporary directory) bitwise those of the same trainer with no group
    (every step's metrics, the first step's gradients, the parameters),
-   the launches of each run equal to the code's (``DP_LAUNCHES``); each
-   step's host ms with and without the group, in turns; NCCL's device µs
-   for an all-reduce of DspritesVAE's 0.50 M, MeasureVAE's 17.7 M (its
-   default widths) and the music step's 1.11 M float32 parameters and for
-   ``gather_rows`` of (256, 32) latents; the plans each rank's shape gets
+   the launches of each run equal to the code's (``DP_LAUNCHES``); the
+   plans each rank's shape gets
    at W = 1, 2, 4; and where the machine has two cards, the same steps
    on two NCCL ranks spawned on cuda:0 and cuda:1 against the one-card
    steps within ``DP_LOSS_RTOL``, ``DP_ACC_ATOL``, ``DP_GRAD_RTOL`` (of
@@ -270,14 +244,14 @@ and the script exits non-zero:
    gather whose backward reduces, half the batch left out), each of
    which must read above ``DP_GRAD_RTOL`` on that measure; a batch's
    gather from the row-sharded split against a local ``index_select``
-   of the whole split (bitwise, and each timed); then the image CLI
+   of the whole split (bitwise); then the image CLI
    under ``torchrun`` on two cards against one process, one epoch of the
    ``--short`` grid (rank 0 alone prints; the losses within
    ``DP_CLI_RTOL``); one line says which of the checks ran. Each
    kernel's entry in the kernels line carries the launches and the
    shapes its wrapper was called with on a rank in each run
    (``"data_parallel"``; null for a world that did not run);
-14. slice 10 (the last modules; run before slice 9): the music CLI
+13. slice 10 (the last modules; run before slice 9): the music CLI
    (``TAIL_ARGS``: the ``--short`` corpus, 1 epoch) at H=128 and at the
    reference's H=512 (``TAIL_WIDTHS``), whose tail after the evaluation
    (as in every music CLI run above, whose counts include it) harvests
@@ -295,29 +269,30 @@ and the script exits non-zero:
    decoded MNIST digits measured again; the native thinning
    (``csrc/morpho_native.cpp``, g++) built and its backend asserted
    ``native``, a batch of ``THIN_IMAGES`` binary digits thinned by each
-   backend (bitwise, timed), and the full synthetic MNIST cache built
-   under each backend (timed; the morphometry files byte for byte
-   equal); ``utils/profiling.trace`` over ``TRACE_STEPS`` dSprites steps,
-   each a replay of the step's CUDA graph (the trace file written, one
-   reg pair's records in it a step, none launched by the wrappers) and
-   ``StepTimer``'s steps/s over them, traced and untraced. Each kernel's entry in the kernels line carries the
-   tail's launches at each width (``"slice10_tail_launches"``).
+   backend (bitwise), and the full synthetic MNIST cache built under
+   each backend (the morphometry files byte for byte equal);
+   ``utils/profiling.trace`` over ``TRACE_STEPS`` dSprites steps, each a
+   replay of the step's CUDA graph (the trace file written, one reg
+   pair's records in it a step, none launched by the wrappers) and
+   ``StepTimer``'s steps/s over them, traced and untraced, finite. Each
+   kernel's entry in the kernels line carries the tail's launches at
+   each width (``"slice10_tail_launches"``).
 
 Launch counts are set to 0 just before each slice (and each variant of
 slices 3 and 4, and each CLI call of slices 5, 6, 7, 8 and 10, each sweep
 cell, each tester call, each trainer's 3 steps of slice 9, the tail run
 alone and the traced steps of slice 10) and read just after it; the
-comparisons of phases 3, 9, 10, 12, 13 and 14 do not count. The counters
+comparisons of phases 3, 8, 9, 11, 12 and 13 do not count. The counters
 count what the kernels' wrappers launch (and, for the convolutions'
-weight gradient, the forwards routed through its Functions, as "fwd"): a training step replayed from
-its CUDA graph launches none, so a run's training launches are those of
-its eager steps and its captures (``_launched_steps``, which also checks
-that every train step was one or a replay), and slice 10 reads a
-replay's kernels from the profiler's records. The line
-before the last
-is the card's name and power limit as ``nvidia-smi`` prints them, the
-one before it a JSON object listing every kernel; the last line is a
-JSON object ``{"ok": true, "device": {...}}``.
+weight gradient, the forwards routed through its Functions, as "fwd"): a
+training step replayed from its CUDA graph launches none, so a run's
+training launches are those of its eager steps and its captures
+(``_launched_steps``, which also checks that every train step was one or
+a replay), and slice 10 reads a replay's kernels from the profiler's
+records. The line before the last is the card's name and power limit as
+``nvidia-smi`` prints them, the one before it a JSON object listing every
+kernel with its launches and its largest error against its plain
+version; the last line is a JSON object ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -337,6 +312,16 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+# the shapes, fixtures and checks this script shares with the card tests
+sys.path.insert(0, os.path.join(REPO, "tests"))
+from torch_card_cases import (ABC_INVALID, AR_SHAPES, DSPRITES_B, ENGINE_WIDTHS,  # noqa: E402
+                              HIER_B, HIER_E, HIER_H, HIER_T, HIER_TPB, MUSIC_B, MUSIC_V,
+                              WIDE_DEEP_HIER, WIDE_GRU_CASES, ar_term_kernels, atb_inputs,
+                              atb_step_shapes, call_events, dsprites_trainer, kernels_a_call,
+                              music_trainer, row_inputs, row_step_shapes, step_repeats,
+                              write_abc_corpus)
 
 LIBRARIES = ("reg_loss", "gru_chain", "hier_tick_chain", "conv_wgrad")
 
@@ -379,16 +364,9 @@ SEQ_GRAD_RTOL, SEQ_GRAD_ATOL_FRAC = 1e-4, 1e-5
 # width (the cluster kernels split H over their CTAs)
 GRU_CASES = [(24, 2, 256, 128), (4, 1, 256, 128), (24, 1, 256, 128), (24, 2, 100, 128),
              (24, 2, 256, 64), (4, 1, 256, 64)]
-# the reference's own widths, whose w_hh slices no cluster holds (the
-# wide layout): the 512-wide encoder layer and beat GRU layer,
-# SRDecoderNoInput's layer at H=384, a ragged batch, and the tick loop's
-# backward chains at H=512 (6 ticks on 4 beats x 256 rows)
-WIDE_GRU_CASES = [(24, 2, 256, 512), (4, 1, 256, 512), (24, 1, 256, 384), (24, 2, 100, 512),
-                  (6, 1, 1024, 512)]
 # V=34 is the music CLI's synthetic folk corpus, V=130 the step-rate
 # cell's vocabulary: V sets the kernels' shared-memory layout, the argmax
 # loop and the output-layer and embedding weight-gradient GEMM tiles.
-HIER_B, HIER_H, HIER_E, HIER_T, HIER_TPB = 256, 128, 10, 24, 6
 HIER_VS = (34, 130)
 # a ragged batch (not a multiple of any row tile), one beat of T ticks
 # (the SR decoder's use), and 5 ticks a beat (T is no multiple of it: the
@@ -396,87 +374,12 @@ HIER_VS = (34, 130)
 # tick_h0 resets and the chain layout
 HIER_RAGGED_B = 100
 HIER_PADDED_TPB = 5
-# (H, tick-GRU layers) beyond the music step's (128, 2): the widths the
-# JAX package runs (256 fused on the TPU, 512 the reference's, 384
-# SRDecoderNoInput's) and the depths its lax.scan runs
-WIDE_DEEP_HIER = ((256, 2), (512, 2), (384, 2), (128, 1), (128, 3), (128, 4))
 # The tick loop's wave layout (no cluster holds the weights): its cases
 # beyond WIDE_DEEP_HIER's, at these (H, layers): the music CLI's V=34,
 # eval at the analysis and eval-tail batches, a ragged batch at 5 ticks a
 # beat, and the argmax edges across its head CTAs
 WAVE_HIER = ((512, 2), (256, 2), (128, 4))
 WAVE_EVAL_BATCHES = (1, 6, 22, 120)
-
-# The tensor-core engine's two forms alone (csrc/tc_gemm.cuh) at every
-# shape a train step gives them, at H=512 and H=128.
-# The weight-gradient GEMM (name, T, D, B, M, N, A's form, bias): the
-# encoder's dW_hh (24 steps, both directions, h_{t-1} with h0), the beat
-# GRU's (4 steps), the tick loop's dW_hh (6 ticks on 4 beats x 256 rows,
-# the chains' initial hiddens) and dW_ih (the layer's input), dW_ih0e (E
-# rows), the embedding's (the one-hot fed tokens, -1 for none) and out_w's
-# (dlog's V columns: rows not 16-byte aligned).
-def atb_step_shapes(h):
-    return (("encoder dW_hh", 24, 2, 256, h, 3 * h, "prev", True),
-            ("beat dW_hh", 4, 1, 256, h, 3 * h, "prev", True),
-            ("tick dW_hh", HIER_TPB, 1, 4 * 256, h, 3 * h, "prev", True),
-            ("tick dW_ih", HIER_TPB, 1, 4 * 256, h, 3 * h, "dense", True),
-            ("tick dW_ih0e", HIER_TPB, 1, 4 * 256, HIER_E, 3 * h, "dense", False),
-            ("tick demb", HIER_TPB, 1, 4 * 256, MUSIC_BENCH_V, HIER_E, "tokens", False),
-            ("tick dout_w", HIER_TPB, 1, 4 * 256, h, MUSIC_BENCH_V, "dense", True))
-
-
-# The tick loop's row products (name, M rows, K, N, W transposed) on its
-# 6 x 4 x 256 chain rows: dlog out_w^T (K = V: rows not 16-byte aligned),
-# the recomputed gates of layer 1 and of layer 0 (K = E), and the input
-# gradients of layer 1 and of the fed embedding (N = E).
-def row_step_shapes(h):
-    rows = HIER_TPB * 4 * 256
-    return (("dlog out_w^T", rows, MUSIC_BENCH_V, h, True),
-            ("inter w_ih", rows, h, 3 * h, False),
-            ("pe w_ih0e", rows, HIER_E, 3 * h, False),
-            ("dgi w_ih^T", rows, 3 * h, h, True),
-            ("dgi w_ih0e^T", rows, 3 * h, HIER_E, True))
-
-
-ENGINE_WIDTHS = (512, 128)
-
-
-def atb_inputs(shape, dev, seed):
-    """x and the A operand's keywords of ``gru_kernel.atb_cuda`` at an
-    ``atb_step_shapes`` shape, from a seed (tokens: -1 in about one in
-    ten, as at the beats' first ticks)."""
-    _, t, d, b, m, n, form, _ = shape
-    rng = np.random.RandomState(seed)
-
-    def f(*dims):
-        return torch.tensor(rng.randn(*dims) * 0.5, dtype=torch.float32, device=dev)
-
-    x = f(t, d, b, n)
-    if form == "tokens":
-        tok = rng.randint(0, m, t * b)
-        tok[rng.rand(t * b) < 0.1] = -1
-        return x, {"tokens": torch.tensor(tok, dtype=torch.int32, device=dev), "M": m}
-    return x, {"a": f(t, d, b, m), **({"a0": f(d, b, m)} if form == "prev" else {})}
-
-
-def _landing(kws, m):
-    """The terms whose token lands in the one-hot's ``m`` rows, for
-    ``kernel_work.atb``'s token form; None for a dense A operand."""
-    if "tokens" not in kws:
-        return None
-    tok = kws["tokens"]
-    return int(((tok >= 0) & (tok < m)).sum())
-
-
-def row_inputs(shape, dev, seed):
-    """(a, w) of ``gru_kernel.rows_cuda`` at a ``row_step_shapes`` shape."""
-    _, m, k, n, trans = shape
-    rng = np.random.RandomState(seed)
-    a = torch.tensor(rng.randn(m, k) * 0.5, dtype=torch.float32, device=dev)
-    w = torch.tensor(rng.randn(*((n, k) if trans else (k, n))) / np.sqrt(k), dtype=torch.float32,
-                     device=dev)
-    return a, w
-
 
 # One eval step of a trained model on the card against the same step on
 # the CPU (plain paths): float32 products and sums in another order, so
@@ -486,9 +389,9 @@ SLICE_ARGS = ["-d", "dsprites", "--short", "--rand", "0", "-r", "all",
               "--beta", "1.0", "--gamma", "10", "--delta", "1",
               "--batch_size", "128", "--num_epochs", "2"]
 MUSIC_ARGS = ["--rand", "0", "-r", "all", "--num_epochs", "2"]
-MUSIC_B = 256
-BENCH_ROWS = 128_000  # 1,000 steps at B=128
-MUSIC_BENCH_ROWS, MUSIC_BENCH_V = 65_536, 130
+# The kernels phase's epochs: 1,000 dSprites steps at B=128, 256 music
+# steps at B=256
+DSPRITES_EPOCH_ROWS, MUSIC_EPOCH_ROWS = 128_000, 65_536
 
 # Slice 5, the evaluation. Every CLI run now ends with it: the latent
 # harvest (at most 201 whole batches of the eval split) and the test pass
@@ -513,8 +416,6 @@ EVAL_PATH_FLIPS = 0.01
 # The latent codes (N(0, 1)-sized) within SLICE_RTOL and an absolute
 # floor of 1e-5, as the recurrence kernels' forward (SEQ_FWD_ATOL).
 EVAL_Z_ATOL = 1e-5
-# The paper's protocol on the full dSprites grid: 201 harvest batches of 128
-FULL_PROTOCOL_ROWS = EVAL_CAP * 128
 
 # Slice 6, Morpho-MNIST: the README's first command cut to 2 epochs, at
 # the reference's width (MnistVAE, z=16, dropout 0.5), B=128, on the
@@ -577,83 +478,6 @@ ANALYSIS_V = 34
 # The music CLI on the .abc corpus: 1 epoch at B=64 (its 31 tunes make a
 # few thousand measures with their transpositions)
 ABC_ARGS = ["--rand", "0", "-r", "all", "--num_epochs", "1", "--batch_size", "64"]
-
-# The .abc corpus of slice 8 (and of tests/test_torch_abc_ingest.py):
-# fixture tunes of tests/test_abc_parser.py, one below the transposition
-# range, tunes generated from a seed, and invalid ones the filter drops.
-_ABC_SIMPLE = "X:1\nT:Test Tune\nM:4/4\nL:1/4\nK:C\nCDEF|GABc|\n"
-ABC_VALID = {
-    "simple": _ABC_SIMPLE,
-    "endings": "X:4\nT:Endings\nM:4/4\nL:1/4\nK:C\n|:CDEF|1GGGG:|2AAAA|\n",
-    "triplet": "X:6\nT:Triplets\nM:4/4\nL:1/8\nK:C\n(3CDE (3CDE C2C2 z4|\n",
-    "tie_across_bar": _ABC_SIMPLE.replace("CDEF|GABc|", "CDEE-|EGGc|"),
-    # below the transposition range: its untransposed bars grow the vocabulary
-    "low": _ABC_SIMPLE.replace("CDEF|GABc|", "C,D,E,F,|G,A,B,C|"),
-}
-ABC_INVALID = {
-    "chords": _ABC_SIMPLE.replace("CDEF", '"C"CDEF'),
-    "six_eight": _ABC_SIMPLE.replace("M:4/4", "M:6/8"),
-    "no_title": _ABC_SIMPLE.replace("T:Test Tune\n", ""),
-    "second_voice": _ABC_SIMPLE + "V:2\nCCCC|\n",
-    "meter_change": _ABC_SIMPLE.replace("CDEF|GABc|", "CDEF|\nM:6/8\nGAB|"),
-}
-ABC_GENERATED = 26
-_ABC_KEYS = ["C", "G", "D", "A", "F", "Bb", "Ador", "Em", "Dmix", "Bm", "Gm", "Edor"]
-
-
-def _abc_bar(rng, letters):
-    """One 4/4 bar at L:1/8: eight eighths' worth, every onset on the tick grid."""
-    def pick():
-        return letters[rng.randint(len(letters))]
-
-    kind = rng.randint(6)
-    if kind == 0:
-        return "".join(pick() for _ in range(8))
-    if kind == 1:
-        return "".join(pick() + "2" for _ in range(4))
-    if kind == 2:  # a triplet of eighths in a quarter's time, then six eighths
-        return "(3" + "".join(pick() for _ in range(9))
-    if kind == 3:  # sixteenths, a dotted quarter, a rest
-        return pick() + "/" + pick() + "/" + pick() + "3" + "z2" + pick() + pick()
-    if kind == 4:  # accidentals, and a tie into the next bar
-        return ("^" + pick() + pick() + "_" + pick() + pick() + "=" + pick()
-                + "".join(pick() for _ in range(3)) + "-")
-    return pick() + "4" + pick() + "2" + pick() + pick()
-
-
-def abc_tune(i, rng, letters="DEFGABcdefg"):
-    """Tune ``i``: 4-8 bars, some under a repeat or first and second
-    endings, some in common time (``M:C``), the keys in turn."""
-    bars = [_abc_bar(rng, letters) for _ in range(rng.randint(4, 9))]
-    body = "|".join(bars) + "|"
-    if i % 3 == 0:
-        body = "|:" + body + ":|"
-    if i % 4 == 1:
-        body = "|:" + "|".join(bars[:2]) + "|1" + bars[2] + ":|2" + bars[3] + "|"
-    meter = "C" if i % 5 == 2 else "4/4"
-    return f"X:{i}\nT:Tune {i}\nM:{meter}\nL:1/8\nK:{_ABC_KEYS[i % len(_ABC_KEYS)]}\n{body}\n"
-
-
-def write_abc_corpus(raw, narrow=None):
-    """``ABC_GENERATED`` tunes from ``RandomState(0)``, ``ABC_VALID`` and
-    ``ABC_INVALID`` as ``.abc`` files and a README in ``raw``; with
-    ``narrow``, 3 tunes of four pitches there. → the valid tunes."""
-    rng = np.random.RandomState(0)
-    files = {f"gen_{i:02d}.abc": abc_tune(i, rng) for i in range(ABC_GENERATED)}
-    files.update({f"fixture_{k}.abc": v for k, v in ABC_VALID.items()})
-    files.update({f"invalid_{k}.abc": v for k, v in ABC_INVALID.items()})
-    files["README.txt"] = "not a tune\n"
-    os.makedirs(raw)
-    for name, text in files.items():
-        with open(os.path.join(raw, name), "w") as fh:
-            fh.write(text)
-    if narrow is not None:
-        os.makedirs(narrow)
-        for i in range(3):
-            with open(os.path.join(narrow, f"narrow_{i}.abc"), "w") as fh:
-                fh.write(abc_tune(100 + i, rng, letters="FGAB"))
-    return ABC_GENERATED + len(ABC_VALID)
-REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def card() -> str:
@@ -721,13 +545,10 @@ def _ptxas_summary(log: str) -> str:
 def phase_build():
     from arvae_tpu_torch.ops import _build
 
-    t0 = time.perf_counter()
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:
         built = list(pool.map(_build.build, LIBRARIES))
-    for name, (path, seconds, log) in zip(LIBRARIES, built):
-        print(f"[build] {name}: {path} in {seconds:.2f} s; ptxas: {_ptxas_summary(log)}")
-    print(f"[build] {len(LIBRARIES)} libraries, nvcc in parallel: "
-          f"{time.perf_counter() - t0:.2f} s")
+    for name, (path, _, log) in zip(LIBRARIES, built):
+        print(f"[build] {name}: {path}; ptxas: {_ptxas_summary(log)}")
 
 
 def _case_inputs(r, b, seed, dev):
@@ -1318,8 +1139,8 @@ def _engine_kernels(dev):
                 raise AssertionError(f"tc_smem_bytes({form}, {tile}) mirrors the source wrongly")
     for h, layers in ((512, 2), (HIER_H, 2), (HIER_H, 4)):
         got = hk._library().hier_tick_chain_bwd_scratch_floats(HIER_T, HIER_B, h, HIER_E,
-                                                               MUSIC_BENCH_V, HIER_TPB, layers)
-        if got != hk.bwd_scratch_floats(HIER_T, HIER_B, h, HIER_E, MUSIC_BENCH_V, HIER_TPB,
+                                                               MUSIC_V, HIER_TPB, layers)
+        if got != hk.bwd_scratch_floats(HIER_T, HIER_B, h, HIER_E, MUSIC_V, HIER_TPB,
                                         layers):
             raise AssertionError(f"bwd_scratch_floats at H={h}, L={layers} mirrors wrongly")
     errs = {"atb": 0.0, "rows": 0.0}
@@ -1351,7 +1172,7 @@ def _engine_kernels(dev):
                   f"{gk.tc_smem_bytes('a_wt' if trans else 'a_w', gk.row_tile(m, n))} B shared "
                   f"memory a CTA; matches the plain version, bitwise repeatable")
     for h, layers in WIDE_DEEP_HIER:
-        keeps = hk.keeps_gh(HIER_T, HIER_B, h, HIER_E, MUSIC_BENCH_V, layers, HIER_TPB)
+        keeps = hk.keeps_gh(HIER_T, HIER_B, h, HIER_E, MUSIC_V, layers, HIER_TPB)
         if keeps != (h >= 384):
             raise AssertionError(f"hier_tick_chain H={h}, L={layers}: keeps gh {keeps}")
     print(f"[kernels] the tick loop's wave forward keeps gh {hk.gh_shape(HIER_T, HIER_B, 512, 2, HIER_TPB)} "
@@ -1360,20 +1181,147 @@ def _engine_kernels(dev):
     return errs["atb"], errs["rows"]
 
 
+def _reg_one_kernel(dev):
+    """The reg wrappers in place at the AR term's shapes on the steps
+    (``AR_SHAPES``: z_tilde and labels read in place): each direction one
+    device kernel, launched once a call (the profiler's records)."""
+    from arvae_tpu_torch.ops import reg_kernel as rk
+
+    for name, ((b, zd), nl, dims) in AR_SHAPES.items():
+        rng = np.random.RandomState(11)
+        z = torch.tensor(rng.randn(b, zd), dtype=torch.float32, device=dev)
+        labels = torch.tensor(rng.randint(0, 4, (b, nl)), dtype=torch.float32, device=dev)
+        ct = torch.tensor(rng.randn(len(dims)), dtype=torch.float32, device=dev)
+        d = torch.tensor(1.0, device=dev)
+        _, g, dd = rk.reg_fwd_cuda(z, labels, dims, d)
+        for direction, fn in (("fwd", lambda: rk.reg_fwd_cuda(z, labels, dims, d)),
+                              ("bwd", lambda: rk.reg_bwd_cuda(g, dd, ct, dims, zd))):
+            kernels = kernels_a_call(fn)
+            if len(kernels) != 1 or next(iter(kernels.values())) != 1:
+                raise AssertionError(f"reg {direction} at {name}: device kernels {kernels}")
+        print(f"[kernels] reg in place at the {name} step's shape (R={len(dims)}, B={b}, "
+              f"z_tilde {b}x{zd}): one device kernel a call each way")
+
+
+def _ar_term_launches(dev):
+    """The device kernels the AR term (``total_reg_loss``) launches in a
+    train and an eval step at each slice's shapes (profiler): one reg
+    kernel each way, and no stack, cast or slice-scatter left."""
+    for name, (shape, nl, dims) in AR_SHAPES.items():
+        for kind, names in ar_term_kernels(dev, shape, nl, dims).items():
+            fwd = sum(k for n, k in names.items() if "reg_fwd" in n)
+            bwd = sum(k for n, k in names.items() if "reg_bwd" in n)
+            if (fwd, bwd) != ((1, 1) if kind == "train" else (1, 0)):
+                raise AssertionError(f"AR term, {name} {kind} step: reg kernels {names}")
+            left = [n for n in names if re.search(r"Cat|[Cc]opy|Fill|[Ss]catter|[Ii]ndex", n)]
+            if left:
+                raise AssertionError(f"AR term, {name} {kind} step launches {left}")
+            print(f"[kernels] AR term, {name} {kind} step: {sum(names.values()):g} device "
+                  f"launches a call ({', '.join(f'{n} x{k:g}' for n, k in sorted(names.items()))})")
+
+
+# The music step's four GRU layers (name, input width, T, bidirectional)
+# at hidden width H, B=256: the encoder's two biGRU layers and the beat
+# GRU's two layers; at H=384 SRDecoderNoInput's layer (input width H, 24
+# steps)
+def _music_gru_layers(h):
+    return (("encoder layer 0", 10, 24, True), ("encoder layer 1", 2 * h, 24, True),
+            ("beat layer 0", 1, 4, False), ("beat layer 1", h, 4, False))
+
+
+GRU_LAYERS = {128: _music_gru_layers(128), 512: _music_gru_layers(512),
+              384: (("sr-no-input layer", 384, 24, False),)}
+
+
+def _gru_layers_vs_cudnn(dev):
+    """Each of ``GRU_LAYERS``' layers as the port computes it (cuBLAS input
+    projection + ``gru_chain``) and as cuDNN's ``torch.nn.GRU`` does (which
+    the port never calls), from the same weights, TF32 off, with autograd
+    recording as in a train step: the outputs within the recurrence
+    kernels' forward tolerance."""
+    from arvae_tpu_torch.ops.gru import GRU
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for h, layers in GRU_LAYERS.items():
+        rng = np.random.RandomState(23)
+        for tag, width, t, bidir in layers:
+            port = GRU(width, h, 1, bidirectional=bidir)
+            with torch.no_grad():
+                for p in port.parameters():
+                    p.copy_(torch.tensor(rng.randn(*p.shape) / np.sqrt(h), dtype=torch.float32))
+            port = port.to(dev)
+            lib = torch.nn.GRU(width, h, 1, batch_first=True, bidirectional=bidir).to(dev)
+            lib.load_state_dict(port.state_dict())
+            lib.flatten_parameters()
+            dirs = 2 if bidir else 1
+            xs = torch.tensor(rng.randn(MUSIC_B, t, width), dtype=torch.float32, device=dev,
+                              requires_grad=True)
+            h0 = torch.tensor(rng.randn(dirs, MUSIC_B, h) * 0.3, dtype=torch.float32, device=dev)
+            err = _check_close(f"cuDNN vs port, {tag} at H={h}", lib(xs, h0)[0].detach(),
+                               port(xs, h0)[0].detach(), SEQ_FWD_RTOL, SEQ_FWD_ATOL)
+            print(f"[kernels] GRU {tag} (I={width}, T={t}, B={MUSIC_B}, H={h}, "
+                  f"{'bi' if bidir else 'uni'}directional): the port's outputs within rtol "
+                  f"{SEQ_FWD_RTOL} of cuDNN's torch.nn.GRU's (max abs err {err:.3e})")
+
+
+def _finite_epoch(trainer, split, batch, tag):
+    """One epoch of ``trainer`` on ``split`` at ``batch`` rows a step
+    (``DeviceEpochRunner``): its mean loss finite."""
+    from arvae_tpu_torch.data.device_data import DeviceEpochRunner
+
+    runner = DeviceEpochRunner(split, split, batch, trainer.train_step,
+                               trainer.eval_step, trainer.perm_generator)
+    totals, steps = runner.train_epoch()
+    loss = float(totals["loss"]) / steps
+    if not math.isfinite(loss):
+        raise AssertionError(f"{tag} epoch loss {loss}")
+    print(f"[kernels] {tag}: one epoch of {steps} train steps at B={batch}, mean loss "
+          f"{loss:.4f}")
+
+
+def _finite_epochs(dev):
+    """An epoch of the music step on a random token corpus and of the
+    dSprites step on a random packed split."""
+    rng = np.random.RandomState(0)
+    rows = rng.randint(0, MUSIC_V, (MUSIC_EPOCH_ROWS, 24)).astype(np.int32)
+    _finite_epoch(*music_trainer(dev, rows), MUSIC_B,
+                  f"MeasureVAE (H=128, z=32, V={MUSIC_V}, -r all, {MUSIC_EPOCH_ROWS}-row random "
+                  f"token corpus)")
+    packed = rng.randint(0, 256, (DSPRITES_EPOCH_ROWS, 512)).astype(np.uint8)
+    labels = rng.rand(DSPRITES_EPOCH_ROWS, 6).astype(np.float32)
+    _finite_epoch(*dsprites_trainer(dev, packed, labels), B_TRAIN,
+                  f"DspritesVAE ({DSPRITES_EPOCH_ROWS}-row random packed split)")
+
+
 def phase_kernels():
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    return {"reg": _reg_kernels(dev), "gru": _gru_kernels(dev), "hier": _hier_kernels(dev),
+    errs = {"reg": _reg_kernels(dev), "gru": _gru_kernels(dev), "hier": _hier_kernels(dev),
             "engine": _engine_kernels(dev)}
+    _reg_one_kernel(dev)
+    _ar_term_launches(dev)
+    _gru_layers_vs_cudnn(dev)
+    _finite_epochs(dev)
+    return errs
+
+
+def _busy_ms(fn, calls=50):
+    """Device busy ms a call of ``fn``: the union of the intervals of the
+    device events of ``calls`` calls (``call_events``)."""
+    busy, end = 0.0, -math.inf
+    for start, stop in sorted((ev["ts"], ev["ts"] + ev["dur"]) for ev in call_events(fn, calls)):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1e3 / calls
 
 
 def _conv_step_ms(trainer, batch, card_line, tag):
-    """An eager step's device busy ms (``step_probe.step_profile``; a
-    no-op hook on the model keeps every step eager): with the
-    convolutions' weight gradient from cuDNN (the route off), then from
-    the kernel."""
+    """An eager step's device busy ms (a no-op hook on the model keeps
+    every step eager): with the convolutions' weight gradient from cuDNN
+    (the route off), then from the kernel."""
     from arvae_tpu_torch.ops import conv_wgrad_kernel as cw
-    from arvae_tpu_torch.utils.step_probe import step_profile
 
     hook = trainer.model.register_forward_hook(lambda *args: None)
     kernel_route = cw.conv_layer
@@ -1389,13 +1337,9 @@ def _conv_step_ms(trainer, batch, card_line, tag):
                 raise AssertionError(f"conv_wgrad: an eager {tag} step with the weight "
                                      f"gradient from {route}: {cw.LAUNCHES}, routes "
                                      f"{cw.ROUTES}, want {want}")
-            busy[route], events, step_ms, by_name = step_profile(
-                lambda: trainer.train_step(batch))
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            busy[route] = _busy_ms(lambda: trainer.train_step(batch))
             print(f"[conv_wgrad] {tag} eager step, weight gradient from {route}: device busy "
-                  f"{busy[route]:.3f} ms, {events:.0f} device events, host {step_ms:.3f} ms a "
-                  f"step; µs a step: " + "; ".join(f"{n} {us:.1f}" for n, us in top)
-                  + f" | {card_line}")
+                  f"{busy[route]:.3f} ms a step | {card_line}")
     finally:
         cw.conv_layer = kernel_route
         hook.remove()
@@ -1406,24 +1350,20 @@ def phase_conv_wgrad(card_line):
     """The convolutions' weight-gradient kernel at every conv layer of
     ``DspritesVAE`` and ``MnistVAE`` at B=128: its plan (and the library's
     count of its shared memory), the kernel against the plain version in
-    float64 (within 1e-5 of the largest entry) and twice, bitwise; its
-    card ms (CUDA events over 50 calls, both passes), device µs by kernel
-    (profiler), bound (``kernel_work.conv_wgrad``), the plain version's
-    ms and cuDNN's deterministic weight gradient (``library_ms``,
-    ``aten.convolution_backward`` with the weight mask alone, a yardstick
-    the port no longer calls), with the dSprites layers' sums; then an
-    eager MNIST VAE step's and an eager dSprites step's device busy ms with
-    cuDNN's weight gradient and with the kernel, the kernel's no higher."""
+    float64 (within 1e-5 of the largest entry, as cuDNN's deterministic
+    weight gradient, ``aten.convolution_backward`` with the weight mask
+    alone) and twice, bitwise; then an eager MNIST VAE step's and an eager
+    dSprites step's device busy ms with cuDNN's weight gradient and with
+    the kernel, the kernel's no higher."""
     from arvae_tpu_torch.models.image_vae import DspritesVAE, MnistVAE
     from arvae_tpu_torch.ops import conv_wgrad_kernel as cw
     from arvae_tpu_torch.training.image_trainer import ImageVAETrainer
-    from arvae_tpu_torch.utils import kernel_work as kw
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
-    rows, sums = [], {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    rows = []
     for model_name, cls, size in (("dSprites", DspritesVAE, 64), ("MNIST", MnistVAE, 28)):
         net = cls(seed=0)
         z = torch.zeros(B_TRAIN, net.z_dim)
@@ -1451,48 +1391,22 @@ def phase_conv_wgrad(card_line):
             err = float((first.double() - want).abs().max()) / scale
             transposed = isinstance(layer, torch.nn.ConvTranspose2d)
             x, gy = (s, big) if transposed else (big, s)
-            weight = layer.weight.detach().to(dev)
-
-            def library():
-                return torch.ops.aten.convolution_backward(
-                    gy, x, weight, None, list(stride), list(pad), [1, 1], transposed, [0, 0],
-                    1, [False, True, False])[1]
-
-            lib_err = float((library().double() - want).abs().max()) / scale
+            library = torch.ops.aten.convolution_backward(
+                gy, x, layer.weight.detach().to(dev), None, list(stride), list(pad), [1, 1],
+                transposed, [0, 0], 1, [False, True, False])[1]
+            lib_err = float((library.double() - want).abs().max()) / scale
             if err > 1e-5 or lib_err > 1e-5:
                 raise AssertionError(f"conv_wgrad {model_name} {name}: relative error "
                                      f"{err:.3e} (cuDNN's {lib_err:.3e})")
-            row = {"model": model_name, "layer": name, "small": small, "large": large,
-                   "plan": plan, "err": err,
-                   "ms": _event_ms(lambda: cw.conv_wgrad_cuda(s, big, stride, pad), 50),
-                   "plain_ms": _event_ms(lambda: cw.conv_wgrad_reference(s, big, stride, pad),
-                                         10, 2),
-                   "library_ms": _event_ms(library, 20, 3),
-                   "split": _kernel_split(lambda: cw.conv_wgrad_cuda(s, big, stride, pad)),
-                   "work": kw.conv_wgrad(*small, *large[1:])}
-            rows.append(row)
-            w = row["work"]
+            rows.append({"model": model_name, "layer": name, "small": small, "large": large,
+                         "max_rel_err": err})
             print(f"[conv_wgrad] {model_name} {name} ({'transposed' if transposed else 'conv'}"
                   f", small {small}, large {large}): plan mt={plan.m_tile} ct={plan.c_tile} "
                   f"G={plan.groups} R={plan.rows} stages={plan.stages} splits={plan.splits} "
-                  f"({plan.ctas} CTAs, "
-                  f"{plan.smem} B shared); {row['ms']:.5f} ms, bound {w.bound_ms:.5f} ms "
-                  f"({w.bound_by}, {100 * w.bound_ms / row['ms']:.1f}% of it), plain "
-                  f"{row['plain_ms']:.5f} ms, cuDNN deterministic {row['library_ms']:.5f} ms; "
-                  f"device µs by kernel {row['split']}; rel err {err:.2e} (cuDNN's "
-                  f"{lib_err:.2e}) | {card_line}")
-            if model_name == "dSprites":
-                sums["ms"] += row["ms"]
-                sums["bound_ms"] += w.bound_ms
-                sums["plain_ms"] += row["plain_ms"]
-                sums["library_ms"] += row["library_ms"]
-    print(f"[conv_wgrad] dSprites' 8 weight gradients at B={B_TRAIN}: {sums['ms']:.5f} ms, "
-          f"bound {sums['bound_ms']:.5f} ms ({100 * sums['bound_ms'] / sums['ms']:.1f}% of it), "
-          f"plain {sums['plain_ms']:.5f} ms, cuDNN deterministic {sums['library_ms']:.5f} ms "
-          f"| {card_line}")
+                  f"({plan.ctas} CTAs, {plan.smem} B shared); rel err {err:.2e} (cuDNN's "
+                  f"{lib_err:.2e}), bitwise repeatable")
 
     g = torch.Generator().manual_seed(5)
-    steps = {}
     for model_name, cls, size, nl, kw_args in (
             ("MNIST", MnistVAE, 28, 7, dict(reg_type=("area", "slant"), reg_dim=(1, 4))),
             ("dSprites", DspritesVAE, 64, 6, dict(reg_type=("all",),
@@ -1500,11 +1414,12 @@ def phase_conv_wgrad(card_line):
         trainer = ImageVAETrainer(None, cls(seed=0), dev, rand=0, **kw_args)
         batch = ((torch.rand((B_TRAIN, 1, size, size), generator=g) < 0.5).float().to(dev),
                  torch.rand((B_TRAIN, nl), generator=g).to(dev))
-        steps[model_name] = _conv_step_ms(trainer, batch, card_line, model_name)
-        if steps[model_name]["kernel"] > steps[model_name]["cudnn"]:
+        busy = _conv_step_ms(trainer, batch, card_line, model_name)
+        # the one timed check: MNIST runs in no benchmark cell
+        if busy["kernel"] > busy["cudnn"]:
             raise AssertionError(f"conv_wgrad: the eager {model_name} step is slower with the "
-                                 f"kernel: {steps[model_name]}")
-    return {"rows": rows, "dsprites": sums, "steps": steps}
+                                 f"kernel: {busy}")
+    return rows
 
 
 def _check_engine_launches(tag, launches, layers):
@@ -1693,18 +1608,16 @@ def _check_results(tag, trainer, results, batch_size, keys=RESULT_KEYS):
 
 def _image_cli_run(models_dir, argv=SLICE_ARGS):
     """The image CLI with ``argv`` (the dSprites slice's by default), its
-    run dir under ``models_dir`` → (trainer, launches, seconds,
-    checkpoint written)."""
+    run dir under ``models_dir`` → (trainer, launches, checkpoint
+    written)."""
     from arvae_tpu_torch import train_image_vae
 
     os.environ["ARVAE_MODELS_DIR"] = models_dir
     _reset_launches()
-    t0 = time.perf_counter()
     (trainer,) = train_image_vae.main(argv)
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     launches = _read_launches()
-    return trainer, launches, seconds, os.path.isfile(os.path.join(trainer.run_dir, "ckpt.pt"))
+    return trainer, launches, os.path.isfile(os.path.join(trainer.run_dir, "ckpt.pt"))
 
 
 def _image_step_repeats(trainer):
@@ -1717,14 +1630,14 @@ def _image_step_repeats(trainer):
     batch = train_split.gather_batch(torch.arange(B_TRAIN, device=dev))
     chosen = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = False
-    differ = _step_repeats("slice 1 (dSprites), cuDNN free", trainer, batch, must=False)
+    differ = step_repeats("slice 1 (dSprites), cuDNN free", trainer, batch, must=False)
     print(f"[repeat] slice 1 (dSprites) with torch.backends.cudnn.deterministic=False: "
           f"the gradients that differ between two runs: {differ or 'none this time'}")
     torch.backends.cudnn.deterministic = chosen
     if not chosen:
         raise AssertionError("the image trainer leaves cuDNN free to pick nondeterministic "
                              "algorithms")
-    _step_repeats("slice 1 (dSprites), torch.backends.cudnn.deterministic=True", trainer, batch)
+    step_repeats("slice 1 (dSprites), torch.backends.cudnn.deterministic=True", trainer, batch)
 
 
 def phase_slice(models_dir):
@@ -1733,7 +1646,7 @@ def phase_slice(models_dir):
     from arvae_tpu_torch.models.image_vae import draw_noise
     from arvae_tpu_torch.training.image_trainer import ImageVAETrainer
 
-    trainer, launches, seconds, ckpt_ok = _image_cli_run(models_dir)
+    trainer, launches, ckpt_ok = _image_cli_run(models_dir)
     _check_results("slice 1 (dSprites)", trainer, _read_results(trainer), B_TRAIN)
     print(f"[slice] TF32 flags: torch.backends.cuda.matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32} "
@@ -1747,7 +1660,7 @@ def phase_slice(models_dir):
         "reg": {"fwd": n_host + n_val, "bwd": n_host},
         "gru": {"fwd": 0, "bwd": 0}, "hier": {"fwd": 0, "bwd": 0},
         "conv": _conv_launches(CONV_WGRADS["dSprites"], n_host)}, trainer, B_TRAIN))
-    print(f"[slice] 2 epochs in {seconds:.1f} s; train loss "
+    print(f"[slice] 2 epochs; train loss "
           f"{hist[0]['train_loss']:.4f} -> {hist[1]['train_loss']:.4f}; val loss "
           f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f}; "
           f"reg launches fwd={launches['reg']['fwd']} bwd={launches['reg']['bwd']}, "
@@ -1803,60 +1716,6 @@ def _teacher_forced_metrics(trainer, batch, noise):
         return trainer._loss_fn(batch, noise)[1]
 
 
-def _trainer_state(trainer):
-    """A copy of the trainer's checkpoint state: parameters, Adam states
-    and step count (the fader's discriminator and its Adam too)."""
-    return copy.deepcopy(trainer.checkpoint_state())
-
-
-def _load_trainer_state(trainer, state):
-    # a copy: Adam then updates its moments in place, and would update
-    # the ones in ``state``
-    trainer.restore_state(copy.deepcopy(state))
-
-
-def _step_repeats(tag, trainer, batch, must=True):
-    """One train step twice from the same parameters, Adam state and
-    draws (the fader's: both networks' and both Adam states): the loss,
-    every gradient and every updated parameter must be
-    bitwise equal (with ``must``; else the names that differ are
-    returned). Leaves the trainer as it found it."""
-    from arvae_tpu_torch.models.measure_vae import draw_measure_noise
-    from arvae_tpu_torch.training.glsr_trainer import GLSRNoise, MeasureVAETrainerGLSR
-    from arvae_tpu_torch.training.image_trainer import ImageVAETrainer
-
-    dev, b = trainer.device, batch[0].shape[0]
-    state = _trainer_state(trainer)
-    runs = []
-    for _ in range(2):
-        _load_trainer_state(trainer, state)
-        gen = torch.Generator(dev).manual_seed(11)
-        if isinstance(trainer, ImageVAETrainer):  # MnistVAE's dropout masks too
-            noise = trainer.draw_train_noise(b, gen)
-        else:
-            noise = draw_measure_noise(b, trainer.model.latent_space_dim, gen, dev)
-        if isinstance(trainer, MeasureVAETrainerGLSR):
-            noise = GLSRNoise(noise, torch.rand(b, generator=gen, device=dev))
-        out = {"loss": trainer.train_step(batch, noise)["loss"]}
-        nets = {"": trainer.model, **({"disc.": trainer.disc} if hasattr(trainer, "disc")
-                                      else {})}
-        for prefix, net in nets.items():
-            for n, p in net.named_parameters():
-                out[f"d{prefix}{n}"] = p.grad.clone()
-                out[prefix + n] = p.detach().clone()
-        runs.append(out)
-    _load_trainer_state(trainer, state)
-    differ = [k for k in runs[0] if not torch.equal(runs[0][k], runs[1][k])]
-    if not must:
-        return differ
-    if differ:
-        raise AssertionError(f"{tag}: one train step from the same state gave other bits "
-                             f"in a second run: {differ}")
-    print(f"[repeat] {tag}: one train step from the same parameters, Adam state and draws, "
-          f"twice: the loss, all {(len(runs[0]) - 1) // 2} gradients and updated parameters "
-          f"bitwise equal")
-
-
 def _embedding_repeats(dev, num_notes):
     """The encoder's embedding at the music step's shape, (B, 24) ids into
     a (V, 10) table, backward five times under one cotangent, as
@@ -1892,10 +1751,8 @@ def phase_music_slice(models_dir):
 
     os.environ["ARVAE_MODELS_DIR"] = models_dir
     _reset_launches()
-    t0 = time.perf_counter()
     (trainer,) = train_measure_vae.main(MUSIC_ARGS)
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     launches = _read_launches()
     ckpt_ok = os.path.isfile(os.path.join(trainer.run_dir, "ckpt.pt"))
     _check_results("slice 2 (music)", trainer, _read_results(trainer), MUSIC_B)
@@ -1907,7 +1764,7 @@ def phase_music_slice(models_dir):
         "gru": {"fwd": 4 * (n_host + n_val), "bwd": 4 * n_host},
         "hier": {"fwd": n_host + n_val, "bwd": n_host}}, trainer))
     launches["engine"] = _check_engine_launches("music slice", launches, 2)
-    print(f"[music] 2 epochs in {seconds:.1f} s (corpus build included); train loss "
+    print(f"[music] 2 epochs; train loss "
           f"{hist[0]['train_loss']:.4f} -> {hist[1]['train_loss']:.4f}; val loss "
           f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f}; train steps "
           f"{n_train} ({n_host} launched from the host), val steps {n_val}; launches gru "
@@ -1918,7 +1775,7 @@ def phase_music_slice(models_dir):
     # draws: card (kernels) vs CPU (plain loops)
     dev = trainer.device
     train_split, val = trainer.dataset.device_splits(dev)
-    _step_repeats("music", trainer, train_split.gather_batch(torch.arange(MUSIC_B, device=dev)))
+    step_repeats("music", trainer, train_split.gather_batch(torch.arange(MUSIC_B, device=dev)))
     batch = val.gather_batch(torch.arange(MUSIC_B, device=dev))
     _check_float_labels("music", trainer.attrs.compute_labels(batch[0]))
     noise = draw_measure_noise(MUSIC_B, trainer.model.latent_space_dim,
@@ -1984,11 +1841,9 @@ def _variant_run(name):
     with tempfile.TemporaryDirectory() as models_dir:
         os.environ["ARVAE_MODELS_DIR"] = models_dir
         _reset_launches()
-        t0 = time.perf_counter()
         (trainer,) = train_measure_vae.main(["--rand", "0", "--num_epochs", "2"]
                                             + VARIANT_ARGS[name])
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
         launches = _read_launches()
         ckpt_ok = os.path.isfile(os.path.join(trainer.run_dir, "ckpt.pt"))
         run_dir = os.path.basename(trainer.run_dir)
@@ -2000,7 +1855,7 @@ def _variant_run(name):
     per_step = VARIANT_LAUNCHES[name]
     want = {k: {"fwd": n * (n_host + n_val), "bwd": n * n_host} for k, n in per_step.items()}
     _check_launches(f"variant {name}", launches, _with_eval(want, trainer))
-    print(f"[variants] {name} ({run_dir}): 2 epochs in {seconds:.1f} s; train loss "
+    print(f"[variants] {name} ({run_dir}): 2 epochs; train loss "
           f"{hist[0]['train_loss']:.4f} -> {hist[1]['train_loss']:.4f}; val loss "
           f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f}; train steps {n_train}, val "
           f"steps {n_val}; launches {launches}")
@@ -2075,22 +1930,20 @@ def _variant_vs_cpu(name, trainer):
           f"{float(rows_k.mean()):.4f} vs {float(rows_p.mean()):.4f}")
 
 
-def _wide_deep_run(name, card_line):
+def _wide_deep_run(name):
     """The music CLI at a width or depth beyond its default, 2 epochs on
     the --full corpus: the loss finite and falling, every recurrence call
     of every step on a kernel (the launch counters), one train step
     repeated bitwise, and the trained model against the CPU on a val
-    batch → (trainer, launches, device busy ms a train step)."""
+    batch → (trainer, launches)."""
     from arvae_tpu_torch import train_measure_vae
 
     flags = WIDE_DEEP_ARGS[name]
     with tempfile.TemporaryDirectory() as models_dir:
         os.environ["ARVAE_MODELS_DIR"] = models_dir
         _reset_launches()
-        t0 = time.perf_counter()
         (trainer,) = train_measure_vae.main(MUSIC_ARGS + ["--full"] + flags)
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
         launches = _read_launches()
         ckpt_ok = os.path.isfile(os.path.join(trainer.run_dir, "ckpt.pt"))
         _check_results(f"music {name}", trainer, _read_results(trainer), MUSIC_B)
@@ -2128,7 +1981,7 @@ def _wide_deep_run(name, card_line):
     launches["engine"] = _check_engine_launches(f"music {name}", launches, layers)
     print(f"[wide] music CLI {' '.join(flags)} (H enc {model.encoder.lstm.hidden_size}, "
           f"dec {model.decoder.rnn_tick.hidden_size}, {model.decoder.rnn_tick.num_layers} "
-          f"tick-GRU layers): 2 epochs in {seconds:.1f} s; train loss "
+          f"tick-GRU layers): 2 epochs; train loss "
           f"{hist[0]['train_loss']:.4f} -> {hist[1]['train_loss']:.4f}; val loss "
           f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f}; launches a train step "
           f"gru {grus} fwd + {grus} bwd, hier 1 + 1, reg 1 + 1, every one a kernel "
@@ -2137,16 +1990,13 @@ def _wide_deep_run(name, card_line):
           f"whose forwards are {_eval_launches(trainer)})")
     dev = trainer.device
     train_split, _ = trainer.dataset.device_splits(dev)
-    _step_repeats(f"music {name}", trainer,
-                  train_split.gather_batch(torch.arange(MUSIC_B, device=dev)))
-    trained = _trainer_state(trainer)
-    busy = _device_busy(f"music {name}", trainer, train_split, MUSIC_B, card_line)
-    _load_trainer_state(trainer, trained)
+    step_repeats(f"music {name}", trainer,
+                 train_split.gather_batch(torch.arange(MUSIC_B, device=dev)))
     _variant_vs_cpu(name, trainer)
-    return trainer, launches, busy
+    return trainer, launches
 
 
-def phase_music_variants(card_line):
+def phase_music_variants():
     """→ ({variant: its launches}, [(tag, the trainer)])."""
     dev = torch.device("cuda")
     launches, trainers = {}, []
@@ -2155,499 +2005,22 @@ def phase_music_variants(card_line):
         trainers.append((f"variant {name}", trainer))
         train_split, _ = trainer.dataset.device_splits(dev)
         rows = train_split.gather_batch(torch.arange(MUSIC_B, device=dev))
-        _step_repeats(f"variant {name}", trainer, rows)
-        trained = _trainer_state(trainer)
-        _device_busy(f"music {name}", trainer, train_split, MUSIC_B, card_line)
-        # the timing trains on: the comparison is of the model the CLI
-        # trained, and sets every dropout rate to 0, so it comes last
-        _load_trainer_state(trainer, trained)
+        step_repeats(f"variant {name}", trainer, rows)
+        # the comparison sets every dropout rate to 0, so it comes last
         _variant_vs_cpu(name, trainer)
     _embedding_repeats(dev, trainer.model.num_notes)
     return launches, trainers
 
 
-def phase_wide_deep(card_line):
+def phase_wide_deep():
     """The music CLI at the reference's widths and with a 3-layer tick GRU
-    → ({run: (its launches, train steps, device busy ms a train step)},
-    [(tag, the trainer)])."""
+    → ({run: (its launches, train steps)}, [(tag, the trainer)])."""
     wide, trainers = {}, []
     for name in WIDE_DEEP_ARGS:
-        trainer, counts, busy = _wide_deep_run(name, card_line)
-        wide[name] = (counts, sum(h["train_steps"] for h in trainer.history), busy)
+        trainer, counts = _wide_deep_run(name)
+        wide[name] = (counts, sum(h["train_steps"] for h in trainer.history))
         trainers.append((f"music {name}", trainer))
     return wide, trainers
-
-
-def _event_ms(fn, iters, warmup=10):
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _kernel_times(dev, card_line):
-    from arvae_tpu_torch.ops import gru_kernel as gk
-    from arvae_tpu_torch.ops import hier_decoder_kernel as hk
-    from arvae_tpu_torch.ops import reg_kernel as rk
-    from arvae_tpu_torch.utils import kernel_work as kw
-    from arvae_tpu_torch.utils import step_probe
-
-    times = {}
-    for name, ((b, zd), nl, dims) in step_probe.AR_SHAPES.items():
-        # the AR term's shapes on the step: z_tilde and labels read in place
-        rng = np.random.RandomState(11)
-        z = torch.tensor(rng.randn(b, zd), dtype=torch.float32, device=dev)
-        labels = torch.tensor(rng.randint(0, 4, (b, nl)), dtype=torch.float32, device=dev)
-        ct = torch.tensor(rng.randn(len(dims)), dtype=torch.float32, device=dev)
-        d = torch.tensor(1.0, device=dev)
-        _, g, dd = rk.reg_fwd_cuda(z, labels, dims, d)
-        fns = {
-            "fwd": lambda: rk.reg_fwd_cuda(z, labels, dims, d),
-            "fwd_plain": lambda: rk.reg_fwd_factors_reference(
-                *rk.stack_columns(z, labels, dims), d),
-            "bwd": lambda: rk.reg_bwd_cuda(g, dd, ct, dims, zd),
-            "bwd_plain": lambda: rk.scatter_columns(
-                rk.reg_bwd_scale_reference(g, dd, ct)[0], dims, zd),
-        }
-        row = {k: _event_ms(fn, 1000, 50) for k, fn in fns.items()}
-        for direction in ("fwd", "bwd"):
-            # the kernel's own duration: one device kernel a call
-            split = _kernel_split(fns[direction])
-            if len(split) != 1 or split[0][1][0] != 1:
-                raise AssertionError(f"reg {direction} at {name}: device kernels {split}")
-            row[f"{direction}_events"] = row[direction]
-            row[direction] = split[0][1][1] / 1e3
-            row[f"{direction}_work"] = kw.reg_loss(len(dims), b, direction == "bwd", Z=zd)
-        times.setdefault("reg", row)  # the dSprites step's shape goes into the JSON
-        times.setdefault("reg_at", {})[name] = row  # and the MNIST step's, beside it
-        print(f"[times] reg at the {name} step's shape (R={len(dims)}, B={b}, z_tilde "
-              f"{b}x{zd}), ms per call: fwd {row['fwd']:.5f} device (profiler), "
-              f"{row['fwd_events']:.5f} CUDA events over 1000 calls, plain "
-              f"{row['fwd_plain']:.5f}, bound {row['fwd_work'].bound_ms:.7f}; bwd "
-              f"{row['bwd']:.5f} device, {row['bwd_events']:.5f} events, plain "
-              f"{row['bwd_plain']:.5f}, bound {row['bwd_work'].bound_ms:.7f} | {card_line}")
-    z, a, _ = _case_inputs(2, 8192, 11, dev)
-    d = torch.tensor([1.0], device=dev)
-    (name, (_, us)), = _kernel_split(lambda: rk.reg_fwd_cuda(z.t(), a.t(), ((0, 0), (1, 1)), d))
-    print(f"[times] reg fwd with factors at (R, B) = (2, 8192), off the path: {us / 1e3:.5f} "
-          f"ms device ({name}, plan {rk.reg_plan(2, 8192)}) | {card_line}")
-
-    for t, dd, b, h in GRU_CASES + WIDE_GRU_CASES:
-        args, ct = _gru_inputs(t, dd, b, h, dev, seed=17)
-        wide = (t, dd, b, h) in WIDE_GRU_CASES
-        # as a train step runs them: the wide forward keeps gh for its backward
-        outs, gh = gk.gru_chain_fwd_cuda(*args, keep_gh=True)
-        leaves = [x.clone().requires_grad_(True) for x in args]
-        ref = gk.gru_chain_reference(*leaves)
-        n = 200 if h <= 128 else 50  # the wide chains take up to a millisecond a call
-
-        def fwd():
-            return gk.gru_chain_fwd_cuda(*args, keep_gh=True)
-
-        def bwd():
-            return gk.gru_chain_bwd_cuda(*args, outs, ct, gh=gh)
-
-        row = {
-            "fwd": _event_ms(fwd, n),
-            "fwd_plain": _event_ms(lambda: gk.gru_chain_reference(*args), 50),
-            "bwd": _event_ms(bwd, n),
-            "bwd_plain": _event_ms(
-                lambda: torch.autograd.grad(ref, leaves, ct, retain_graph=True), 50),
-        }
-        times.setdefault("gru", row)  # the encoder's shape goes into the JSON
-        if wide:
-            row["shape"] = (t, dd, b, h)
-            row["fwd_work"], row["bwd_work"] = (kw.gru_chain(t, dd, b, h, backward=bwd)
-                                                for bwd in (False, True))
-            row["plans"] = [gk.gru_plan(dd, b, h, bwd) for bwd in (False, True)]
-            # device µs a call by kernel (profiler): the chain, the weight gradient's GEMM
-            row["fwd_split"], row["bwd_split"] = _kernel_split(fwd, 5), _kernel_split(bwd, 5)
-            row["cudnn"] = _cudnn_layer_ms(dev, t, dd, b, h, 1 if t == 4 else 10)
-            times.setdefault("gru_wide", []).append(row)
-        print(f"[times] gru_chain at T={t}, D={dd}, B={b}, H={h} (ms per call): fwd "
-              f"{row['fwd']:.5f} vs plain {row['fwd_plain']:.5f}, bound "
-              f"{kw.gru_chain(t, dd, b, h).bound_ms:.5f}; bwd {row['bwd']:.5f} vs plain "
-              f"(autograd through the loop) {row['bwd_plain']:.5f}, bound "
-              f"{kw.gru_chain(t, dd, b, h, backward=True).bound_ms:.5f} | {card_line}")
-
-    for h, layers in WIDE_DEEP_HIER:
-        row = _hier_times(dev, h, layers)
-        times.setdefault("hier_wide", []).append(row)
-        fw, bw = row["fwd_work"], row["bwd_work"]
-        print(f"[times] hier_tick_chain at B={HIER_B}, H={h}, L={layers}, E={HIER_E}, "
-              f"V={MUSIC_BENCH_V}, T={HIER_T}, train with dropout 0.5, free-running (ms per "
-              f"call): fwd ({row['plan']}) {row['fwd']:.5f} vs plain {row['fwd_plain']:.5f}, "
-              f"bound {fw.bound_ms:.5f} fp32 ({100 * fw.bound_ms / row['fwd']:.1f}% of it), "
-              f"{fw.tf32x3_bound_ms:.5f} 3xTF32; bwd {row['bwd']:.5f} vs plain "
-              f"{row['bwd_plain']:.5f}, bound {bw.bound_ms:.5f} fp32, {bw.tf32x3_bound_ms:.5f} "
-              f"3xTF32; device µs a call by kernel, fwd: " + "; ".join(
-                  f"{n} x{k:g} {us:.1f}" for n, (k, us) in row["fwd_split"])
-              + "; bwd: " + "; ".join(f"{n} x{k:g} {us:.1f}" for n, (k, us) in row["bwd_split"])
-              + f" | {card_line}")
-
-    score, floats, ct = _hier_inputs(dev, 8, MUSIC_BENCH_V)
-    teacher, seed = _ints(0, 5, dev)
-    cfg = (True, 0.5, HIER_TPB, "argmax")
-    (weights, samples, h0_all, h1_all), _ = hk.hier_tick_chain_fwd_cuda(
-        *cfg, teacher, seed, score, *floats)
-    leaves = [x.clone().requires_grad_(True) for x in floats]
-    ref = hk.tick_chain_reference(*cfg, teacher, seed, score, *hk.chain_operands(leaves))[0]
-    times["hier"] = {
-        "fwd": _event_ms(lambda: hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, score,
-                                                             *floats), 200),
-        "fwd_plain": _event_ms(lambda: hk.tick_chain_reference(
-            *cfg, teacher, seed, score, *hk.chain_operands(floats)), 10, 2),
-        "bwd": _event_ms(lambda: hk.hier_tick_chain_bwd_cuda(
-            True, 0.5, HIER_TPB, seed, samples, (h0_all, h1_all), weights, ct, *floats), 100),
-        "bwd_plain": _event_ms(
-            lambda: torch.autograd.grad(ref, leaves, ct, retain_graph=True), 10, 2),
-    }
-    row = times["hier"]
-    print(f"[times] hier_tick_chain at B={HIER_B}, H={HIER_H}, E={HIER_E}, V={MUSIC_BENCH_V}, "
-          f"T={HIER_T}, train with dropout 0.5, free-running (ms per call): fwd "
-          f"{row['fwd']:.5f} vs plain {row['fwd_plain']:.5f}; bwd {row['bwd']:.5f} vs "
-          f"plain (autograd through the loop) {row['bwd_plain']:.5f} | {card_line}")
-    split = _kernel_split(lambda: hk.hier_tick_chain_bwd_cuda(
-        True, 0.5, HIER_TPB, seed, samples, (h0_all, h1_all), weights, ct, *floats))
-    print("[times] hier_tick_chain bwd, device µs a call by kernel (profiler, 20 calls): "
-          + "; ".join(f"{n} x{k:g} {us:.1f}" for n, (k, us) in split))
-    return times
-
-
-def _engine_times(dev, card_line):
-    """The tensor-core engine alone at each step shape (H=512 and 128):
-    ms a call (CUDA events, the split GEMMs' fixed-order sum included),
-    its plain version's, cuBLAS's one call for the same product with TF32
-    off (``torch.bmm`` / ``torch.matmul`` on the operands as they stand;
-    the library yardstick, which the port never calls), and its fp32 and
-    3xTF32 bounds (``kernel_work.atb``, ``row_product``) → [rows]."""
-    from arvae_tpu_torch.ops import gru_kernel as gk
-    from arvae_tpu_torch.utils import kernel_work as kw
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    rows = []
-    for h in ENGINE_WIDTHS:
-        for k, shape in enumerate(atb_step_shapes(h)):
-            name, t, d, b, m, n, form, bias = shape
-            x, kws = atb_inputs(shape, dev, seed=h + k)
-            a = gk.atb_operand(x, **kws).permute(1, 0, 2, 3).reshape(d, t * b, m).contiguous()
-            xs = x.permute(1, 0, 2, 3).reshape(d, t * b, n).contiguous()
-            iters = 50 if h > 128 else 200
-            rows.append({
-                "form": "atb", "width": h, "name": name, "shape": [m, n, t * b, d],
-                "splits": gk.atb_splits(m, n, t * b, d), "tile": gk.TC_TILES[gk.atb_tile(m, n)],
-                "ms": _event_ms(lambda: gk.atb_cuda(x, **kws, bias=bias), iters),
-                "plain_ms": _event_ms(lambda: gk.atb_reference(x, **kws, bias=bias), iters),
-                "library_ms": _event_ms(lambda: torch.bmm(a.transpose(1, 2), xs), iters),
-                "work": kw.atb(m, n, t * b, d, bias, tokens=_landing(kws, m))})
-        for k, shape in enumerate(row_step_shapes(h)):
-            name, m, kk, n, trans = shape
-            a, w = row_inputs(shape, dev, seed=h + k)
-            iters = 50 if h > 128 else 200
-            rows.append({
-                "form": "rows", "width": h, "name": name, "shape": [m, kk, n],
-                "tile": gk.TC_TILES[gk.row_tile(m, n)],
-                "ms": _event_ms(lambda: gk.rows_cuda(a, w, trans), iters),
-                "plain_ms": _event_ms(lambda: gk.rows_reference(a, w, trans), iters),
-                "library_ms": _event_ms(lambda: torch.matmul(a, w.T if trans else w), iters),
-                "work": kw.row_product(m, kk, n)})
-    for r in rows:
-        w = r["work"]
-        print(f"[times] tensor-core engine, {'weight-gradient GEMM' if r['form'] == 'atb' else 'row product'} "
-              f"H={r['width']} {r['name']} {r['shape']} ({r['tile'][0]} x {r['tile'][1]} tiles"
-              + (f", {r['splits']} splits" if "splits" in r else "") + f"): {r['ms']:.5f} ms, "
-              f"plain {r['plain_ms']:.5f}, cuBLAS {r['library_ms']:.5f} (TF32 off); bound "
-              f"{w.bound_ms:.5f} fp32 ({w.bound_by}, {100 * w.bound_ms / r['ms']:.1f}% of it), "
-              f"{w.tf32x3_bound_ms:.5f} 3xTF32 ({100 * w.tf32x3_bound_ms / r['ms']:.1f}%), "
-              f"{w.flop / r['ms'] / 1e9:.1f} TFLOP/s | {card_line}")
-    return rows
-
-
-def _cudnn_layer_ms(dev, t, d, b, h, width):
-    """cuDNN's ``torch.nn.GRU`` layer (input projection of ``width`` inputs
-    included) at (T, D, B, H), the library yardstick at a wide shape:
-    device ms a call (profiler), forward with autograd recording and the
-    backward alone, TF32 off → {"fwd", "bwd"}."""
-    torch.backends.cudnn.allow_tf32 = False
-    rng = np.random.RandomState(29)
-    lib = torch.nn.GRU(width, h, 1, batch_first=True, bidirectional=d == 2).to(dev)
-    xs = torch.tensor(rng.randn(b, t, width), dtype=torch.float32, device=dev,
-                      requires_grad=True)
-    h0 = torch.tensor(rng.randn(d, b, h) * 0.3, dtype=torch.float32, device=dev)
-    ct = torch.tensor(rng.randn(b, t, d * h), dtype=torch.float32, device=dev)
-    leaves = [xs, *lib.parameters()]
-    y = lib(xs, h0)[0]
-    return {"fwd": _device_ms(lambda: lib(xs, h0)),
-            "bwd": _device_ms(lambda: torch.autograd.grad(y, leaves, ct, retain_graph=True))}
-
-
-def _wide_report(times, card_line):
-    """Each wide shape's plan, its kernels' ms beside cuDNN's, the plain
-    version's and the bound, and each call's device split by kernel."""
-    for row in times["gru_wide"]:
-        t, d, b, h = row["shape"]
-        for direction, plan in zip(("fwd", "bwd"), row["plans"]):
-            w = row[f"{direction}_work"]
-            print(f"[times] gru_chain wide layout {direction} at (T={t}, D={d}, B={b}, H={h}): "
-                  f"{_plan_text(plan)}, {plan.smem_bytes} B shared memory a CTA; "
-                  f"{row[direction]:.5f} ms (CUDA events), cuDNN torch.nn.GRU "
-                  f"{row['cudnn'][direction]:.5f} (device, its input projection included), "
-                  f"plain {row[f'{direction}_plain']:.5f}, bound {w.bound_ms:.5f} "
-                  f"({w.bound_by}, {100 * w.bound_ms / row[direction]:.1f}% of it); device µs "
-                  f"a call by kernel: " + "; ".join(
-                      f"{n} x{k:g} {us:.1f}" for n, (k, us) in row[f"{direction}_split"])
-                  + f" | {card_line}")
-
-
-def _hier_times(dev, h, layers):
-    """The tick loop's ms a call at B=256, V=130, 6 ticks a beat, training
-    with dropout 0.5, free-running: kernels (CUDA events) and plain loop,
-    with each direction's work."""
-    from arvae_tpu_torch.ops import hier_decoder_kernel as hk
-    from arvae_tpu_torch.utils import kernel_work as kw
-
-    score, floats, ct = _hier_inputs(dev, 8, MUSIC_BENCH_V, h=h, layers=layers)
-    teacher, seed = _ints(0, 5, dev)
-    cfg = (True, 0.5, HIER_TPB, "argmax")
-    (weights, samples, *hiddens), gh = hk.hier_tick_chain_fwd_cuda(
-        *cfg, teacher, seed, score, *floats, keep_gh=True)
-    leaves = [x.clone().requires_grad_(True) for x in floats]
-    ref = hk.tick_chain_reference(*cfg, teacher, seed, score, *hk.chain_operands(leaves))[0]
-    n = 100 if h <= 128 else 20
-    shape = dict(T=HIER_T, B=HIER_B, H=h, E=HIER_E, V=MUSIC_BENCH_V, ticks_per_beat=HIER_TPB,
-                 L=layers)
-
-    def fwd():
-        # as a train step runs it: keeping gh where the backward's wide chains read it
-        return hk.hier_tick_chain_fwd_cuda(*cfg, teacher, seed, score, *floats, keep_gh=True)
-
-    def bwd():
-        return hk.hier_tick_chain_bwd_cuda(True, 0.5, HIER_TPB, seed, samples, hiddens, weights,
-                                           ct, *floats, gh=gh)
-
-    return {
-        "shape": (h, layers),
-        "plan": _plan_text(hk.hier_plan(HIER_B, h, HIER_E, MUSIC_BENCH_V, layers)),
-        "fwd": _event_ms(fwd, n),
-        "fwd_split": _kernel_split(fwd, 5),
-        "fwd_plain": _event_ms(lambda: hk.tick_chain_reference(
-            *cfg, teacher, seed, score, *hk.chain_operands(floats)), 5, 1),
-        "bwd": _event_ms(bwd, n),
-        "bwd_split": _kernel_split(bwd, 3),
-        "bwd_plain": _event_ms(
-            lambda: torch.autograd.grad(ref, leaves, ct, retain_graph=True), 5, 1),
-        "fwd_work": kw.hier_tick_chain(**shape), "bwd_work": kw.hier_tick_chain(**shape,
-                                                                               backward=True),
-    }
-
-
-def _kernel_split(fn, iters=20):
-    """[(kernel, (launches a call, device µs a call))], largest first, from
-    a profiled run whose records of the port's kernels match the launch
-    counters (``step_probe.call_events``)."""
-    from arvae_tpu_torch.utils.step_probe import call_events, short_name
-
-    by_name = {}
-    for e in call_events(fn, iters):
-        k, us = by_name.get(short_name(e["name"]), (0, 0.0))
-        by_name[short_name(e["name"])] = (k + 1, us + e["dur"])
-    return sorted(((n, (k / iters, us / iters)) for n, (k, us) in by_name.items()),
-                  key=lambda kv: -kv[1][1])
-
-
-# The music step's four GRU layers (input width, T, bidirectional) at
-# hidden width H: the encoder's two biGRU layers and the beat GRU's two
-# layers, at B=256. Each is timed as the port computes it (cuBLAS input
-# projection + gru_chain) and as cuDNN does (torch.nn.GRU, the library
-# yardstick, which the port never calls), with the same weights and TF32
-# off; at H=384 SRDecoderNoInput's layer (input width H, 24 steps).
-def gru_layers(h):
-    return (("encoder layer 0", 10, 24, True), ("encoder layer 1", 2 * h, 24, True),
-            ("beat layer 0", 1, 4, False), ("beat layer 1", h, 4, False))
-
-
-GRU_LAYERS = gru_layers(HIER_H)
-SR_NO_INPUT_LAYER = (("sr-no-input layer", 384, 24, False),)
-
-
-def _device_ms(fn, iters=20, warmup=5):
-    """Device time per call: the union of the device intervals that
-    ``torch.profiler`` records over ``iters`` calls. A call whose host
-    work outlasts its device work (an autograd backward of many small
-    launches) has gaps that CUDA events would count; this does not."""
-    from arvae_tpu_torch.utils.step_probe import call_events, union_us
-
-    for _ in range(warmup):
-        fn()
-    events = call_events(fn, iters)
-    return union_us([(e["ts"], e["ts"] + e["dur"]) for e in events]) / 1e3 / iters
-
-
-def _gru_layer_times(dev, card_line, h=HIER_H, layers=GRU_LAYERS):
-    """{layer: {port_fwd, port_bwd, cudnn_fwd, cudnn_bwd}} at hidden width
-    h: device ms per call (profiler), the forward with autograd
-    recording, as in a train step, and the backward alone (the graph
-    retained); the host-clock (CUDA event) ms per call beside them under
-    ``*_wall``."""
-    from arvae_tpu_torch.ops.gru import GRU
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    rng = np.random.RandomState(23)
-    out = {}
-    for tag, width, t, bidir in layers:
-        port = GRU(width, h, 1, bidirectional=bidir)
-        with torch.no_grad():
-            for p in port.parameters():
-                p.copy_(torch.tensor(rng.randn(*p.shape) / np.sqrt(h), dtype=torch.float32))
-        port = port.to(dev)
-        lib = torch.nn.GRU(width, h, 1, batch_first=True, bidirectional=bidir).to(dev)
-        lib.load_state_dict(port.state_dict())
-        lib.flatten_parameters()
-        dirs = 2 if bidir else 1
-        xs = torch.tensor(rng.randn(MUSIC_B, t, width), dtype=torch.float32, device=dev)
-        h0 = torch.tensor(rng.randn(dirs, MUSIC_B, h) * 0.3, dtype=torch.float32, device=dev)
-        ct = torch.tensor(rng.randn(MUSIC_B, t, dirs * h), dtype=torch.float32, device=dev)
-        xs.requires_grad_(True)
-        row = {}
-        for name, mod in (("port", port), ("cudnn", lib)):
-            leaves = [xs, *mod.parameters()]
-            y = mod(xs, h0)[0]
-
-            def fwd():
-                return mod(xs, h0)
-
-            def bwd():
-                return torch.autograd.grad(y, leaves, ct, retain_graph=True)
-
-            row[f"{name}_fwd"] = _device_ms(fwd)
-            row[f"{name}_bwd"] = _device_ms(bwd)
-            row[f"{name}_fwd_wall"] = _event_ms(fwd, 50)
-            row[f"{name}_bwd_wall"] = _event_ms(bwd, 50)
-            row[f"{name}_out"] = y.detach()
-        _check_close(f"cuDNN vs port, {tag}", row.pop("cudnn_out"), row.pop("port_out"),
-                     SEQ_FWD_RTOL, SEQ_FWD_ATOL)
-        out[tag] = row
-        print(f"[times] GRU {tag} (I={width}, T={t}, B={MUSIC_B}, H={h}, "
-              f"{'bi' if bidir else 'uni'}directional), device ms per call: port fwd "
-              f"{row['port_fwd']:.5f} bwd {row['port_bwd']:.5f}; cuDNN fwd "
-              f"{row['cudnn_fwd']:.5f} bwd {row['cudnn_bwd']:.5f} (host clock: port "
-              f"{row['port_fwd_wall']:.5f} / {row['port_bwd_wall']:.5f}, cuDNN "
-              f"{row['cudnn_fwd_wall']:.5f} / {row['cudnn_bwd_wall']:.5f}); outputs agree "
-              f"within rtol {SEQ_FWD_RTOL} | {card_line}")
-    total = {k: sum(r[k] for r in out.values()) for k in next(iter(out.values()))}
-    print(f"[times] GRU layers at H={h} ({', '.join(out)}), device ms summed: port fwd "
-          f"{total['port_fwd']:.5f} bwd {total['port_bwd']:.5f}; cuDNN fwd "
-          f"{total['cudnn_fwd']:.5f} bwd {total['cudnn_bwd']:.5f} | {card_line}")
-    return out
-
-
-def _steps_per_second(trainer, split, batch, tag, card_line):
-    from arvae_tpu_torch.data.device_data import DeviceEpochRunner
-
-    runner = DeviceEpochRunner(split, split, batch, trainer.train_step,
-                               trainer.eval_step, trainer.perm_generator)
-    warm = torch.arange(batch, device=split.device)
-    for _ in range(50):
-        trainer.train_step(split.gather_batch(warm))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    totals, steps = runner.train_epoch()
-    loss = float(totals["loss"]) / steps
-    seconds = time.perf_counter() - t0
-    if not math.isfinite(loss):
-        raise AssertionError(f"{tag} bench loss {loss}")
-    print(f"[times] {tag}: {steps / seconds:.1f} warm train steps/s at B={batch} "
-          f"({steps} steps in {seconds:.3f} s, {1e3 * seconds / steps:.4f} ms/step) "
-          f"| {card_line}")
-
-
-def _device_busy(tag, trainer, split, batch, card_line):
-    """Device busy per train step (``step_probe.step_profile``: the union
-    of the profiler's kernel, memcpy and memset intervals over 50 warm
-    steps) against the host-clock time of 50 unprofiled steps just
-    before; prints the busy time, the idle share and the largest kernels."""
-    from arvae_tpu_torch.utils.step_probe import step_profile
-
-    rows = split.gather_batch(torch.arange(batch, device=split.device))
-    busy_ms, events, step_ms, by_name = step_profile(lambda: trainer.train_step(rows))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:16]
-    print(f"[times] {tag} step, profiled: device busy {busy_ms:.3f} ms a step over 50 "
-          f"steps ({events:.0f} device events a step); 50 unprofiled steps just before: "
-          f"{step_ms:.3f} ms a step, device idle {100 * (1 - busy_ms / step_ms):.1f}% "
-          f"| {card_line}")
-    print(f"[times] {tag} step, device µs a step by kernel: "
-          + "; ".join(f"{n} {us:.1f}" for n, us in top))
-    return busy_ms
-
-
-def _ar_term_launches(dev, card_line):
-    """The device kernels the AR term (``total_reg_loss``) launches in a
-    train and an eval step at each slice's shapes (profiler): one reg
-    kernel each way, and no stack, cast or slice-scatter left."""
-    from arvae_tpu_torch.utils.step_probe import AR_SHAPES, ar_term_profile
-
-    out = {}
-    for name, (shape, nl, dims) in AR_SHAPES.items():
-        for kind, (events, names, dev_us, host_us) in ar_term_profile(
-                dev, shape, nl, dims).items():
-            fwd = sum(k for n, k in names.items() if "reg_fwd" in n)
-            bwd = sum(k for n, k in names.items() if "reg_bwd" in n)
-            if (fwd, bwd) != ((1, 1) if kind == "train" else (1, 0)):
-                raise AssertionError(f"AR term, {name} {kind} step: reg kernels {names}")
-            left = [n for n in names if re.search(r"Cat|[Cc]opy|Fill|[Ss]catter|[Ii]ndex", n)]
-            if left:
-                raise AssertionError(f"AR term, {name} {kind} step launches {left}")
-            out[(name, kind)] = events
-            print(f"[times] AR term, {name} {kind} step: {events:g} device launches a call "
-                  f"({', '.join(f'{n} x{k:g}' for n, k in sorted(names.items()))}); device "
-                  f"{dev_us:.2f} µs, host {host_us:.2f} µs a call | {card_line}")
-    return out
-
-
-def phase_times(card_line):
-    from arvae_tpu_torch.utils import step_probe
-
-    dev = torch.device("cuda")
-    times = _kernel_times(dev, card_line)
-    times["engine"] = _engine_times(dev, card_line)
-    times["ar_launches"] = _ar_term_launches(dev, card_line)
-
-    rng = np.random.RandomState(0)
-    rows = rng.randint(0, MUSIC_BENCH_V, (MUSIC_BENCH_ROWS, 24)).astype(np.int32)
-    trainer, split = step_probe.music_trainer(dev, rows)
-    _steps_per_second(trainer, split, MUSIC_B,
-                      f"MeasureVAE (H=128, z=32, V={MUSIC_BENCH_V}, -r all, "
-                      f"{MUSIC_BENCH_ROWS}-row random token corpus)", card_line)
-    times["music_busy_ms"] = _device_busy("music", trainer, split, MUSIC_B, card_line)
-    times["gru_layers"] = _gru_layer_times(dev, card_line)
-    times["gru_layers_512"] = _gru_layer_times(dev, card_line, 512, gru_layers(512))
-    times["gru_layers_384"] = _gru_layer_times(dev, card_line, 384, SR_NO_INPUT_LAYER)
-    _wide_report(times, card_line)
-
-    packed = rng.randint(0, 256, (BENCH_ROWS, 512)).astype(np.uint8)
-    labels = rng.rand(BENCH_ROWS, 6).astype(np.float32)
-    trainer, split = step_probe.dsprites_trainer(dev, packed, labels)
-    _steps_per_second(trainer, split, B_TRAIN,
-                      f"DspritesVAE ({BENCH_ROWS}-row random packed split)", card_line)
-    # the dSprites step's device busy with cuDNN free to pick its fastest,
-    # nondeterministic convolution algorithms, then as the trainer sets it
-    torch.backends.cudnn.deterministic = False
-    times["dsprites_busy_free_ms"] = _device_busy(
-        "dSprites (torch.backends.cudnn.deterministic=False)", trainer, split, B_TRAIN,
-        card_line)
-    torch.backends.cudnn.deterministic = True
-    times["dsprites_busy_ms"] = _device_busy(
-        "dSprites (torch.backends.cudnn.deterministic=True)", trainer, split, B_TRAIN,
-        card_line)
-    return times
 
 
 def _eval_draws(cpu, batch_size):
@@ -2699,7 +2072,8 @@ def _test_rows(trainer, noise):
 def _eval_vs_cpu(tag, trainer, cpu, batch_size):
     """The harvest and the test pass on the card against a CPU trainer that
     loaded the same checkpoint, with the same injected draws; the metric
-    suite on the card's harvest twice. → (the card's harvest, suite s)."""
+    suite on the card's harvest twice. → the launches a batch
+    (``_launches_per_batch``)."""
     from arvae_tpu_torch.eval.metrics import compute_all
 
     dev = trainer.device
@@ -2741,14 +2115,12 @@ def _eval_vs_cpu(tag, trainer, cpu, batch_size):
             _check_close(f"{tag} {k}", torch.tensor(got[k]), torch.tensor(want[k]),
                          SLICE_RTOL, 0.0)
     print(line)
-    t0 = time.perf_counter()
     first = json.dumps(compute_all(z_k, l_k, names, np.random.RandomState(0)))
-    suite_s = time.perf_counter() - t0
     if json.dumps(compute_all(z_k, l_k, names, np.random.RandomState(0))) != first:
         raise AssertionError(f"{tag}: the metric suite gave other numbers on the same harvest")
     print(f"[eval] {tag}: the metric suite twice on the card's harvest ({z_k.shape[0]} x "
-          f"{z_k.shape[1]} codes, {len(names)} attributes): identical; {suite_s:.3f} s host")
-    return suite_s, per_batch
+          f"{z_k.shape[1]} codes, {len(names)} attributes): identical")
+    return per_batch
 
 
 def _launches_per_batch(tag, trainer, launches):
@@ -2784,28 +2156,6 @@ def _eval_repeats(tag, trainer, batch_size):
                                      f"another results_dict.json than the CLI")
     print(f"[repeat] {tag}: compute_eval_metrics twice from the trained state: "
           f"results_dict.json byte for byte the CLI's ({len(cli)} bytes)")
-
-
-def _pass_times(tag, trainer, batch_size, card_line):
-    """The harvest's and the test pass's ms: CUDA events around one pass
-    (its host read included) and the device busy time (profiler)."""
-    out = {}
-    for name, fn in (("harvest", lambda: trainer.compute_representations(
-            batch_size=batch_size)), ("test pass", lambda: trainer.test_model(
-            batch_size=batch_size))):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        out[name] = (start.elapsed_time(end), _device_ms(fn, iters=3, warmup=1))
-    h, t = _eval_batches(trainer, batch_size)
-    print(f"[times] {tag} evaluation ({trainer.eval_split().n} eval rows, B={batch_size}): "
-          f"harvest ({h} batches) {out['harvest'][0]:.3f} ms CUDA events, "
-          f"{out['harvest'][1]:.3f} ms device busy; test pass ({t} batches) "
-          f"{out['test pass'][0]:.3f} ms events, {out['test pass'][1]:.3f} ms busy | {card_line}")
-    return out
 
 
 def _cli_skip_and_test(tag, main, argv, trainer, batch_size):
@@ -2924,41 +2274,19 @@ def _eval_tail_kernels(dev, runs):
     return err
 
 
-def _full_protocol_suite(card_line):
-    """The metric suite's host seconds at the paper's protocol size: 201
-    harvest batches of 128 rows of the full dSprites grid's eval split
-    (its real attribute columns), random codes of 10 dims."""
-    from arvae_tpu_torch.data.dsprites import FULL_FACTOR_SIZES, _factor_values
-    from arvae_tpu_torch.eval.metrics import compute_all
-
-    grids = np.meshgrid(*_factor_values(FULL_FACTOR_SIZES), indexing="ij")
-    latents = np.stack([g.reshape(-1) for g in grids], axis=1).astype(np.float32)
-    n = len(latents)
-    rows = np.random.RandomState(0).permutation(n)[int(sum((0.80, 0.15)) * n):]
-    attrs = latents[rows[:FULL_PROTOCOL_ROWS], 1:]  # color left out
-    codes = np.random.RandomState(1).randn(FULL_PROTOCOL_ROWS, 10).astype(np.float32)
-    t0 = time.perf_counter()
-    res = compute_all(codes, attrs, ["shape", "scale", "orientation", "posx", "posy"],
-                      np.random.RandomState(0))
-    seconds = time.perf_counter() - t0
-    print(f"[times] metric suite at the full dSprites protocol size ({FULL_PROTOCOL_ROWS} x 10 "
-          f"random codes, the full grid's eval attributes): {seconds:.2f} s host, mig "
-          f"{res['mig']:.6f} | {card_line}")
-    return seconds
-
-
-def phase_eval(image_trainer, image_dir, music_trainer, music_dir, others, card_line):
+def phase_eval(image_trainer, image_dir, music_trainer, music_dir, others):
     """Slice 5: the evaluation of the dSprites and music CLI runs of slices
     1 and 2, whose models dirs are kept, and of the other music CLI runs
-    ``others`` [(tag, trainer)] of slices 3 and 4 → the times and the
-    launches measured."""
+    ``others`` [(tag, trainer)] of slices 3 and 4 → the launches
+    counted."""
     from arvae_tpu_torch import train_image_vae, train_measure_vae
     from arvae_tpu_torch.models.image_vae import DspritesVAE
     from arvae_tpu_torch.training.image_trainer import ImageVAETrainer
     from arvae_tpu_torch.training.measure_trainer import MeasureVAETrainer
 
     dev = torch.device("cuda")
-    times = {"tail_err": _eval_tail_kernels(dev, [("music", music_trainer)] + others)}
+    _eval_tail_kernels(dev, [("music", music_trainer)] + others)
+    out = {}
     cases = (("dSprites", image_trainer, image_dir, B_TRAIN, train_image_vae.main, SLICE_ARGS),
              ("music", music_trainer, music_dir, MUSIC_B, train_measure_vae.main, MUSIC_ARGS))
     for tag, trainer, models_dir, b, main, argv in cases:
@@ -2976,47 +2304,40 @@ def phase_eval(image_trainer, image_dir, music_trainer, music_dir, others, card_
         if cpu.run_dir != trainer.run_dir:
             raise AssertionError(f"{tag}: the CPU trainer's run dir {cpu.run_dir}")
         cpu.load_model()  # the CLI's checkpoint
-        times[f"{tag} suite_s"], per_batch = _eval_vs_cpu(tag, trainer, cpu, b)
+        per_batch = _eval_vs_cpu(tag, trainer, cpu, b)
         _eval_repeats(tag, trainer, b)
-        times[tag] = _pass_times(tag, trainer, b, card_line)
-        times[f"{tag} launches"] = {"per_batch": per_batch, "evaluation": _cli_skip_and_test(
+        out[f"{tag} launches"] = {"per_batch": per_batch, "evaluation": _cli_skip_and_test(
             tag, main, argv, trainer, b)}
     # the other runs' models as their CLI trained them (their run dirs are
     # gone): the harvest and the test pass against a CPU copy
     for tag, trainer in others:
         _eval_vs_cpu(tag, trainer, _cpu_twin(trainer), MUSIC_B)
-    times["full_suite_s"] = _full_protocol_suite(card_line)
-    return times
+    return out
 
 
-def _mnist_data(root, card_line):
+def _mnist_data(root):
     """Builds the synthetic MNIST cache at full size under ``root`` (the
     digits, their IDX archives and the measured morphometry), then reads
-    it back: the same arrays. → (the dataset, build seconds)."""
+    it back: the same arrays. → the dataset."""
     from arvae_tpu_torch.data import mnist
 
     os.environ["ARVAE_DATASETS_DIR"] = root
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         ds = mnist.MorphoMnistDataset()
-    build_s = time.perf_counter() - t0
     workers = [min(os.cpu_count() or 1, -(-n // mnist.IMAGES_PER_WORKER))
                for n in (mnist.SYNTH_TRAIN, mnist.SYNTH_TEST)]
     print(f"[mnist] data: {mnist.SYNTH_TRAIN} + {mnist.SYNTH_TEST} synthetic digits rendered, "
-          f"written as IDX archives and measured (7 morphometry columns) in {build_s:.2f} s; "
+          f"written as IDX archives and measured (7 morphometry columns); "
           f"measuring pools of {workers[0]} and {workers[1]} workers started by "
-          f"{mnist.POOL_START!r} ({os.cpu_count()} host cores) | {card_line}")
-    t0 = time.perf_counter()
+          f"{mnist.POOL_START!r} ({os.cpu_count()} host cores)")
     again = mnist.MorphoMnistDataset()
-    read_s = time.perf_counter() - t0
     for kind in ("train", "t10k"):
         for a, b in zip(ds._full(kind), again._full(kind)):
             if a.dtype != b.dtype or not np.array_equal(a, b):
                 raise AssertionError(f"MNIST {kind}: the cache read back other arrays")
-    print(f"[mnist] data: a second construction read the cache in {read_s:.2f} s: the same "
-          f"images, digits and float32 morphometry ({ds.train_arrays[2].shape}, "
-          f"{ds.val_arrays[2].shape})")
-    return ds, build_s
+    print(f"[mnist] data: a second construction read the cache: the same images, digits and "
+          f"float32 morphometry ({ds.train_arrays[2].shape}, {ds.val_arrays[2].shape})")
+    return ds
 
 
 def _mnist_reg(rk, ds, dev):
@@ -3032,15 +2353,12 @@ def _mnist_reg(rk, ds, dev):
 
 def _mnist_judge(models_dir, datasets_dir):
     """``python -m arvae_tpu_torch.test_mnist --num_epochs 20`` → the
-    final t10k accuracy, which must reach ``JUDGE_BAR``, and the
-    process's seconds."""
+    final t10k accuracy, which must reach ``JUDGE_BAR``."""
     env = dict(os.environ, ARVAE_MODELS_DIR=models_dir, ARVAE_DATASETS_DIR=datasets_dir,
                PYTHONPATH=REPO)
-    t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "arvae_tpu_torch.test_mnist", "--num_epochs",
                           str(JUDGE_EPOCHS)], cwd=REPO, env=env, capture_output=True,
                          text=True, timeout=900)
-    seconds = time.perf_counter() - t0
     if out.returncode != 0:
         raise AssertionError(f"test_mnist exited {out.returncode}: {out.stderr[-2000:]}")
     epochs = [ln for ln in out.stdout.splitlines() if ln.startswith("epoch ")]
@@ -3052,18 +2370,17 @@ def _mnist_judge(models_dir, datasets_dir):
                              f"epochs, short of {JUDGE_BAR}")
     if not os.path.isfile(os.path.join(models_dir, "torch", "MnistRESNET", "ckpt.pt")):
         raise AssertionError("test_mnist wrote no judge checkpoint")
-    print(f"[mnist] judge: {JUDGE_EPOCHS} epochs (B=256, Adadelta 0.5, the defaults) in "
-          f"{seconds:.1f} s (the process's start included); final t10k accuracy {acc} >= "
-          f"{JUDGE_BAR}")
-    return acc, seconds
+    print(f"[mnist] judge: {JUDGE_EPOCHS} epochs (B=256, Adadelta 0.5, the defaults); final "
+          f"t10k accuracy {acc} >= {JUDGE_BAR}")
+    return acc
 
 
-def phase_mnist(card_line, data_dir):
+def phase_mnist(data_dir):
     """Slice 6: the synthetic Morpho-MNIST set built under ``data_dir``
     (kept for slice 7), the reg pair at the MNIST shapes, the judge
     trained by its CLI, the MNIST CLI run twice, its evaluation checked,
-    repeated and held against the CPU, and its train step profiled → the
-    numbers the kernels line and PERF.md take."""
+    repeated and held against the CPU → the numbers the kernels line
+    takes."""
     from arvae_tpu_torch import train_image_vae
     from arvae_tpu_torch.models.image_vae import MnistVAE
     from arvae_tpu_torch.ops import reg_kernel as rk
@@ -3073,11 +2390,11 @@ def phase_mnist(card_line, data_dir):
     before = os.environ.get("ARVAE_DATASETS_DIR")
     with tempfile.TemporaryDirectory() as tmp:
         models_dir = os.path.join(tmp, "models")
-        ds, out["data_s"] = _mnist_data(data_dir, card_line)
+        ds = _mnist_data(data_dir)
         out["reg_err"] = _mnist_reg(rk, ds, torch.device("cuda"))
-        out["judge_acc"], out["judge_s"] = _mnist_judge(models_dir, data_dir)
+        _mnist_judge(models_dir, data_dir)
 
-        trainer, launches, seconds, ckpt_ok = _image_cli_run(models_dir, MNIST_ARGS)
+        trainer, launches, ckpt_ok = _image_cli_run(models_dir, MNIST_ARGS)
         tag = "slice 6 (MNIST)"
         if trainer.run_dir != os.path.join(models_dir, "torch", MNIST_RUN):
             raise AssertionError(f"{tag}: run dir {trainer.run_dir}, not the port's one of "
@@ -3100,8 +2417,7 @@ def phase_mnist(card_line, data_dir):
         if list(judged) != ["inputs", "recons", "interp"] or not all(
                 0.0 <= v <= 1.0 for v in judged.values()):
             raise AssertionError(f"{tag}: digit_pred_acc {judged}")
-        out["digit_pred_acc"] = judged
-        print(f"[mnist] CLI {' '.join(MNIST_ARGS)}: 2 epochs in {seconds:.1f} s; train loss "
+        print(f"[mnist] CLI {' '.join(MNIST_ARGS)}: 2 epochs; train loss "
               f"{hist[0]['train_loss']:.4f} -> {hist[1]['train_loss']:.4f}; val loss "
               f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f}; run dir {MNIST_RUN}; "
               f"reg launches fwd={launches['reg']['fwd']} bwd={launches['reg']['bwd']}, conv "
@@ -3117,14 +2433,12 @@ def phase_mnist(card_line, data_dir):
                 again = _image_cli_run(other, MNIST_ARGS)[0].history
         os.environ["ARVAE_MODELS_DIR"] = models_dir
         vals = [h["val_loss"] for h in hist], [h["val_loss"] for h in again]
-        out["cli_repeats"] = vals[0] == vals[1]
         print(f"[repeat] {tag}: a second run of the CLI gives the val losses {vals[1]!r} "
               f"against {vals[0]!r}: "
-              + ("the same to the last digit" if out["cli_repeats"] else "NOT the same bits"))
+              + ("the same to the last digit" if vals[0] == vals[1] else "NOT the same bits"))
         train_split, _ = trainer.dataset.device_splits(trainer.device)
         batch = train_split.gather_batch(torch.arange(B_TRAIN, device=trainer.device))
-        differ = _step_repeats(tag, trainer, batch, must=False)
-        out["step_repeats"] = not differ
+        differ = step_repeats(tag, trainer, batch, must=False)
         print(f"[repeat] {tag}: one train step (dropout masks and draws from one seed) twice "
               f"from the same state: " + ("the loss, every gradient and updated parameter "
                                           "bitwise equal" if not differ else
@@ -3137,11 +2451,7 @@ def phase_mnist(card_line, data_dir):
                               reg_dim=h.reg_dim, beta=h.beta, gamma=h.gamma,
                               capacity=h.capacity, delta=h.delta, rand=h.rand)
         cpu.load_model()  # the CLI's checkpoint
-        out["suite_s"], _ = _eval_vs_cpu("MNIST", trainer, cpu, B_TRAIN)
-        out["passes"] = _pass_times("MNIST", trainer, B_TRAIN, card_line)
-        # last: 50 + 50 more train steps on the trained model
-        out["busy_ms"] = _device_busy("MNIST (MnistVAE, B=128, -r all, dropout 0.5)",
-                                      trainer, train_split, B_TRAIN, card_line)
+        _eval_vs_cpu("MNIST", trainer, cpu, B_TRAIN)
     if before is None:
         os.environ.pop("ARVAE_DATASETS_DIR", None)
     else:
@@ -3164,18 +2474,14 @@ def _datasets_dir(path):
 
 
 def _fader_cli_run(models_dir, argv):
-    """The fader CLI in-process → (trainer, launches, seconds, checkpoint
-    written)."""
+    """The fader CLI in-process → (trainer, launches, checkpoint written)."""
     from arvae_tpu_torch import train_image_fader
 
     os.environ["ARVAE_MODELS_DIR"] = models_dir
     _reset_launches()
-    t0 = time.perf_counter()
     trainer = train_image_fader.main(argv)
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    return (trainer, _read_launches(), seconds,
-            os.path.isfile(os.path.join(trainer.run_dir, "ckpt.pt")))
+    return trainer, _read_launches(), os.path.isfile(os.path.join(trainer.run_dir, "ckpt.pt"))
 
 
 def _check_no_launches(tag, launches):
@@ -3236,7 +2542,7 @@ def _fader_run(tag, models_dir, argv, convs):
     bitwise → the trainer."""
     from arvae_tpu_torch.training.fader_trainer import ImageFaderTrainer
 
-    trainer, launches, seconds, ckpt_ok = _fader_cli_run(models_dir, argv)
+    trainer, launches, ckpt_ok = _fader_cli_run(models_dir, argv)
     hist = trainer.history
     n_train, n_val = _check_history(tag, hist, ckpt_ok)
     _check_fader_launches(tag, launches, n_train, convs)
@@ -3252,7 +2558,7 @@ def _fader_run(tag, models_dir, argv, convs):
     if not float(after["recons_loss"]) < float(before["recons_loss"]):
         raise AssertionError(f"{tag}: the reconstruction did not fall: "
                              f"{float(before['recons_loss'])} -> {float(after['recons_loss'])}")
-    print(f"[fader] {tag} CLI {' '.join(argv)}: 2 epochs in {seconds:.1f} s ({n_train} train + "
+    print(f"[fader] {tag} CLI {' '.join(argv)}: 2 epochs ({n_train} train + "
           f"{n_val} val steps); train loss {hist[0]['train_loss']:.4f} -> "
           f"{hist[1]['train_loss']:.4f}; val batch recons_loss {float(before['recons_loss']):.4f} "
           f"(initial weights) -> {float(after['recons_loss']):.4f}, adv_loss "
@@ -3266,7 +2572,7 @@ def _fader_run(tag, models_dir, argv, convs):
     print(f"[fader] {tag}: the trained fader on a val batch, card vs CPU plain path: loss "
           f"{float(after['loss']):.6f} vs {float(want['loss']):.6f}, adv_loss "
           f"{float(after['adv_loss']):.6f} vs {float(want['adv_loss']):.6f}")
-    _step_repeats(f"slice 7 ({tag})", trainer,
+    step_repeats(f"slice 7 ({tag})", trainer,
                   train_split.gather_batch(torch.arange(B_TRAIN, device=dev)))
     return trainer, launches
 
@@ -3308,17 +2614,16 @@ def _sweep_corners():
     return out
 
 
-def _bf16_run(models_dir, card_line):
+def _bf16_run(models_dir):
     """The image CLI with --bf16: the loss finite and falling, the reg
-    pair 1 + 1 a train step, the trained model on a val batch against a
-    CPU bfloat16 copy from the checkpoint within BF16_RTOL, and its train
-    step's device busy → (launches, train steps launched from the host, val steps, busy
-    ms)."""
+    pair 1 + 1 a train step, and the trained model on a val batch against
+    a CPU bfloat16 copy from the checkpoint within BF16_RTOL → (launches,
+    train steps launched from the host, val steps)."""
     from arvae_tpu_torch.models.image_vae import DspritesVAE, draw_noise
     from arvae_tpu_torch.training.image_trainer import ImageVAETrainer
 
     tag = "--bf16 image CLI"
-    trainer, launches, seconds, ckpt_ok = _image_cli_run(models_dir, BF16_ARGS)
+    trainer, launches, ckpt_ok = _image_cli_run(models_dir, BF16_ARGS)
     if trainer.model.compute_dtype != torch.bfloat16:
         raise AssertionError(f"{tag}: the model computes in {trainer.model.compute_dtype}")
     hist = trainer.history
@@ -3341,36 +2646,28 @@ def _bf16_run(models_dir, card_line):
     want = cpu.eval_step(tuple(t.cpu() for t in batch), noise)
     errs = {k: _check_close(f"{tag} {k}", got[k].cpu(), want[k], BF16_RTOL, ATOL)
             for k in ("loss", "recons_loss", "dist_loss", "reg_loss")}
-    print(f"[bf16] {tag} {' '.join(BF16_ARGS)}: 2 epochs in {seconds:.1f} s; train loss "
+    print(f"[bf16] {tag} {' '.join(BF16_ARGS)}: 2 epochs; train loss "
           f"{hist[0]['train_loss']:.4f} -> {hist[1]['train_loss']:.4f}; val loss "
           f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f}; reg launches "
           f"fwd={launches['reg']['fwd']} bwd={launches['reg']['bwd']} ({n_host} of {n_train} train "
           f"steps launched from the host + {n_val} val steps); a val batch card vs CPU (both bfloat16): loss {float(got['loss']):.6f} "
           f"vs {float(want['loss']):.6f}, abs errs {errs}")
-    train_split, _ = trainer.dataset.device_splits(dev)
-    busy = _device_busy("dSprites --bf16 (DspritesVAE, B=128, -r all)", trainer, train_split,
-                        B_TRAIN, card_line)
-    return launches, n_host, n_val, busy
+    return launches, n_host, n_val
 
 
-def phase_fader(card_line, mnist_data_dir):
+def phase_fader(mnist_data_dir):
     """Slice 7: the fader CLI on MNIST (slice 6's synthetic set) and on
     --short dSprites, --resume, two sweep corner cells and a --bf16 image
-    CLI run, each checked; the fader steps profiled → the numbers the
-    kernels line and PERF.md take."""
+    CLI run, each checked → the launches the kernels line takes."""
     out = {"fader_launches": {}}
     with tempfile.TemporaryDirectory() as models_dir:
         with _datasets_dir(mnist_data_dir):
-            mnist, out["fader_launches"]["mnist"] = _fader_run(
+            _, out["fader_launches"]["mnist"] = _fader_run(
                 "fader MNIST", models_dir, FADER_MNIST_ARGS, CONV_WGRADS["MNIST"])
-            train_split, _ = mnist.dataset.device_splits(mnist.device)
-            out["mnist_busy_ms"] = _device_busy(
-                "fader MNIST (MnistFaderNetwork, B=128, dropout 0.5, two Adam steps)", mnist,
-                train_split, B_TRAIN, card_line)
         dsp, out["fader_launches"]["dsprites"] = _fader_run(
             "fader dSprites", models_dir, FADER_DSPRITES_ARGS, CONV_WGRADS["dSprites"])
         steps = dsp.step
-        resumed, launches, _, _ = _fader_cli_run(
+        resumed, launches, _ = _fader_cli_run(
             models_dir, FADER_DSPRITES_ARGS + ["--num_epochs", "1", "--resume"])
         _check_fader_launches("fader dSprites --resume", launches,
                               resumed.history[0]["train_steps"], CONV_WGRADS["dSprites"])
@@ -3382,11 +2679,8 @@ def phase_fader(card_line, mnist_data_dir):
         _check_fader_checkpoint("fader dSprites --resume", resumed)
         print(f"[fader] --resume: the dSprites run continued from step {steps} to "
               f"{resumed.step}, train loss {resumed.history[0]['train_loss']:.4f}")
-        train_split, _ = dsp.dataset.device_splits(dsp.device)
-        out["dsprites_busy_ms"] = _device_busy("fader dSprites (B=128, two Adam steps)", dsp,
-                                               train_split, B_TRAIN, card_line)
         out["sweep"] = _sweep_corners()
-        out["bf16"] = _bf16_run(models_dir, card_line)
+        out["bf16"] = _bf16_run(models_dir)
     return out
 
 
@@ -3441,21 +2735,9 @@ def _plan_text(p):
     return f"resident, {p.clusters} CTAs x {p.rows} rows a cluster, {p.ctas} CTAs"
 
 
-def _cudnn_gru_ms(dev, t, d, b, h, width):
-    """cuDNN's ``torch.nn.GRU`` forward of one layer (input projection
-    included) at (T, D, B, H) on ``width`` inputs, CUDA events, TF32 off."""
-    torch.backends.cudnn.allow_tf32 = False
-    lib = torch.nn.GRU(width, h, 1, batch_first=True, bidirectional=d == 2).to(dev)
-    xs = torch.randn(b, t, width, device=dev)
-    h0 = torch.zeros(d, b, h, device=dev)
-    with torch.no_grad():
-        return _event_ms(lambda: lib(xs, h0), 50, 5)
-
-
-def _analysis_gru(dev, card_line, t, d, h):
+def _analysis_gru(dev, t, d, h):
     """``gru_chain`` forward at (t, d, B, h) for each analysis batch → rows."""
     from arvae_tpu_torch.ops import gru_kernel as gk
-    from arvae_tpu_torch.utils import kernel_work as kw
 
     args, _ = _gru_inputs(t, d, MUSIC_B, h, dev, seed=t * 100 + h)
     full_plan = gk.gru_plan(d, MUSIC_B, h, False)
@@ -3475,33 +2757,21 @@ def _analysis_gru(dev, card_line, t, d, h):
             bitwise, row_err = _check_rows_of_full(tag, runs[0], under_full,
                                                    (full[:, :, :b],),
                                                    _same_layout(plan, full_plan))
-            w = kw.gru_chain(t, d, b, h)
-            row = {"shape": [t, d, b, h], "plan": _plan_text(plan),
-                   "ms": _event_ms(lambda: gk.gru_chain_fwd_cuda(*sub), 50, 5),
-                   "plain_ms": _event_ms(lambda: gk.gru_chain_reference(*sub), 5, 1),
-                   "bound_ms": w.bound_ms, "bound_by": w.bound_by,
-                   "library_ms": _cudnn_gru_ms(dev, t, d, b, h, 1 if t == 4 else 10)
-                   if b == 1 else None,
-                   "max_abs_err": err, "rows_of_full_bitwise": bitwise,
-                   "rows_of_full_err": row_err}
+            row = {"shape": [t, d, b, h], "plan": _plan_text(plan), "max_abs_err": err,
+                   "rows_of_full_bitwise": bitwise, "rows_of_full_err": row_err}
             out.append(row)
             print(f"[analysis] {tag}: {row['plan']} (B={MUSIC_B}: {_plan_text(full_plan)}); "
                   f"matches plain (max abs err {err:.3e}), bitwise repeatable; under the "
                   f"B={MUSIC_B} plan bitwise its rows; under its own plan "
-                  f"{'bitwise' if bitwise else f'within {row_err:.3e} of'} its rows; "
-                  f"{row['ms']:.5f} ms, plain {row['plain_ms']:.5f}, bound "
-                  f"{w.bound_ms:.3g} ({w.bound_by})"
-                  + (f", cuDNN torch.nn.GRU {row['library_ms']:.5f}" if b == 1 else "")
-                  + f" | {card_line}")
+                  f"{'bitwise' if bitwise else f'within {row_err:.3e} of'} its rows")
     return out
 
 
-def _analysis_hier(dev, card_line, h, layers):
+def _analysis_hier(dev, h, layers):
     """``hier_tick_chain`` forward in eval mode at (h, layers) for each
     analysis batch → rows. The plain version runs on the kernel's tokens
     (the teacher trick); each kernel token is its own logits' argmax."""
     from arvae_tpu_torch.ops import hier_decoder_kernel as hk
-    from arvae_tpu_torch.utils import kernel_work as kw
 
     score, floats, _ = _hier_inputs(dev, 40 + layers, ANALYSIS_V, b=MUSIC_B, h=h, layers=layers)
     cfg = (False, 0.5, "argmax", HIER_TPB)
@@ -3531,23 +2801,15 @@ def _analysis_hier(dev, card_line, h, layers):
             bitwise, row_err = _check_rows_of_full(
                 tag, (w_k, s_k), fwd(sc, fl, full_plan), (full[0][:, :b], full[1][:, :b]),
                 _same_layout(plan, full_plan))
-            w = kw.hier_tick_chain(HIER_T, b, h, HIER_E, ANALYSIS_V, HIER_TPB, L=layers)
             row = {"shape": {"B": b, "H": h, "L": layers, "V": ANALYSIS_V},
-                   "plan": _plan_text(plan),
-                   "ms": _event_ms(lambda: fwd(sc, fl), 20, 3),
-                   "plain_ms": _event_ms(lambda: hk.tick_chain_reference(
-                       False, 0.5, HIER_TPB, "argmax", teacher, seed, sc,
-                       *hk.chain_operands(fl)), 3, 1),
-                   "bound_ms": w.bound_ms, "bound_by": w.bound_by, "library_ms": None,
-                   "max_abs_err": err, "rows_of_full_bitwise": bitwise,
-                   "rows_of_full_err": row_err}
+                   "plan": _plan_text(plan), "max_abs_err": err,
+                   "rows_of_full_bitwise": bitwise, "rows_of_full_err": row_err}
             out.append(row)
             print(f"[analysis] {tag}: {row['plan']} (B={MUSIC_B}: {_plan_text(full_plan)}); "
                   f"the plain version on its tokens matches (max abs err {err:.3e}), bitwise "
                   f"repeatable; under the B={MUSIC_B} plan bitwise its rows; under its own "
                   f"plan {'bitwise' if bitwise else f'within {row_err:.3e} of'} its rows "
-                  f"(the same tokens); {row['ms']:.5f} ms, plain {row['plain_ms']:.5f}, "
-                  f"bound {w.bound_ms:.3g} ({w.bound_by}) | {card_line}")
+                  f"(the same tokens)")
     return out
 
 
@@ -3613,25 +2875,23 @@ def _check_reads_back(tag, path, score):
 
 
 def _sweep_run(tag, argv, out_dir):
-    """``python -m arvae_tpu_torch.run_tester_sweep`` in-process → (the
-    tester, its JSON line, launches, seconds)."""
+    """``python -m arvae_tpu_torch.run_tester_sweep`` in-process → (its
+    JSON line, launches)."""
     from arvae_tpu_torch import run_tester_sweep
 
     _reset_launches()
-    t0 = time.perf_counter()
     tester, result, written = run_tester_sweep.main(argv + ["--device", "cuda", "--out",
                                                             out_dir])
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     launches = _read_launches()
     _check_launches(tag, launches, _sweep_launches(tester, len(written)))
     for path, score in written.items():
         _check_reads_back(tag, path, score)
     interp = result["interpretability"]
-    print(f"[analysis] {tag}: {seconds:.1f} s; test loss {result['test_loss']:.6f}, acc "
+    print(f"[analysis] {tag}: test loss {result['test_loss']:.6f}, acc "
           f"{result['test_acc']:.6f}; interpretability {interp}; {len(written)} MIDI files, "
           f"each read back to its Score's notes; launches {launches} (the code's)")
-    return tester, result, launches, seconds
+    return result, launches
 
 
 def _tester_vs_cpu(trainer, tmp):
@@ -3691,7 +2951,7 @@ def _tester_vs_cpu(trainer, tmp):
 def _abc_ingest(tmp):
     """The music CLI (``ABC_ARGS``) on the .abc corpus in ``tmp``'s
     folk_raw_data/ (the run's working directory), its data and models
-    under ``tmp`` → (launches, the trainer)."""
+    under ``tmp`` → its launches."""
     from arvae_tpu_torch import train_measure_vae
 
     n_valid = write_abc_corpus(os.path.join(tmp, "folk_raw_data"))
@@ -3702,10 +2962,8 @@ def _abc_ingest(tmp):
     os.chdir(tmp)
     try:
         _reset_launches()
-        t0 = time.perf_counter()
         (trainer,) = train_measure_vae.main(ABC_ARGS)
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
         launches = _read_launches()
         with open(os.path.join(tmp, "datasets", "4by4valid_filelist.txt")) as fh:
             listed = fh.read().split()
@@ -3729,39 +2987,35 @@ def _abc_ingest(tmp):
     rows = len(trainer.dataset.get_dataset()[0])
     print(f"[analysis] .abc ingest: {len(listed)} valid tunes of {len(listed) + len(ABC_INVALID)}"
           f" listed, {rows} measures (V={len(trainer.dataset.note2index_dicts)}); the music CLI "
-          f"1 epoch at B=64 in {seconds:.1f} s: train loss {hist[0]['train_loss']:.4f}, val "
+          f"1 epoch at B=64: train loss {hist[0]['train_loss']:.4f}, val "
           f"loss {hist[0]['val_loss']:.4f}, {n_train} + {n_val} steps; launches {launches} "
           f"(the code's, the evaluation's included)")
     return launches
 
 
-def phase_analysis(card_line, music_trainer, music_dir, glsr_trainer):
+def phase_analysis(music_trainer, music_dir, glsr_trainer):
     """Slice 8: the music analysis on slice 2's kept run dir and slice 3's
     GLSR model → {"gru": rows, "hier": rows, "sweep": launches, ...}."""
     from arvae_tpu_torch.core.checkpoint import Checkpointer
 
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    out = {"gru": [r for t, d, h in ANALYSIS_GRU for r in _analysis_gru(dev, card_line, t, d, h)],
-           "hier": [r for h, layers in ANALYSIS_HIER
-                    for r in _analysis_hier(dev, card_line, h, layers)]}
-    kernels_s = time.perf_counter() - t0
+    out = {"gru": [r for t, d, h in ANALYSIS_GRU for r in _analysis_gru(dev, t, d, h)],
+           "hier": [r for h, layers in ANALYSIS_HIER for r in _analysis_hier(dev, h, layers)]}
     os.environ["ARVAE_MODELS_DIR"] = music_dir
     _analysis_run_dirs(music_trainer, music_dir)
     with tempfile.TemporaryDirectory() as tmp:
-        _, result, out["sweep"], _ = _sweep_run("run_tester_sweep on slice 2's run",
-                                                MUSIC_ARGS, os.path.join(tmp, "ar"))
+        result, out["sweep"] = _sweep_run("run_tester_sweep on slice 2's run", MUSIC_ARGS,
+                                          os.path.join(tmp, "ar"))
         if result["run_dir"] != music_trainer.run_dir:
             raise AssertionError(f"slice 8: the sweep read {result['run_dir']}")
         # slice 3's GLSR model, its run dir gone with its call: saved anew
         os.environ["ARVAE_MODELS_DIR"] = os.path.join(tmp, "glsr_models")
         Checkpointer(glsr_trainer.run_dir).save(glsr_trainer.checkpoint_state())
-        _, _, out["sweep_glsr"], _ = _sweep_run(
+        _, out["sweep_glsr"] = _sweep_run(
             "run_tester_sweep --glsr on slice 3's GLSR run",
             ["--rand", "0"] + VARIANT_ARGS["glsr"], os.path.join(tmp, "glsr"))
         out["flips"] = _tester_vs_cpu(music_trainer, tmp)
         out["abc"] = _abc_ingest(os.path.join(tmp, "abc"))
-    print(f"[analysis] the kernels' cases took {kernels_s:.1f} s")
     return out
 
 
@@ -3834,7 +3088,7 @@ def _tail_run(name, flags, card_line):
     (``_tail_launches``), at H=512 every ``gru_chain`` call on the wide
     layout and every tick-loop forward on the wave layout, its files the
     ones the root CLI writes, each read back, and its decodes against
-    the CPU → the launches, seconds and flips."""
+    the CPU → the launches and flips."""
     from arvae_tpu_torch import train_measure_vae
     from arvae_tpu_torch.ops import gru_kernel as gk
     from arvae_tpu_torch.ops import hier_decoder_kernel as hk
@@ -3843,11 +3097,9 @@ def _tail_run(name, flags, card_line):
     with tempfile.TemporaryDirectory() as models_dir:
         os.environ["ARVAE_MODELS_DIR"] = models_dir
         _reset_launches()
-        t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             (trainer,) = train_measure_vae.main(TAIL_ARGS + flags)
         torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
         cli = _read_launches()
         hist, model = trainer.history, trainer.model
         if len(hist) != 1 or not math.isfinite(hist[0]["train_loss"]):
@@ -3862,12 +3114,10 @@ def _tail_run(name, flags, card_line):
         folder = os.path.join(trainer.run_dir, "results")
         written = sorted(os.listdir(folder))
         _reset_launches()
-        t0 = time.perf_counter()
         codes, _, _ = trainer.compute_representations(num_batches=TAIL_BATCHES)
         labels = {attr: trainer.plot_latent_interpolations(codes, attr, num_points=TAIL_POINTS)
                   for attr in trainer.attr_dict}
         torch.cuda.synchronize()
-        tail_s = time.perf_counter() - t0
         tail = _read_launches()
         tail["gru_wide"], tail["wave"] = dict(gk.WIDE_LAUNCHES), dict(hk.WAVE_LAUNCHES)
         want = {k: {"fwd": v, "bwd": 0} for k, v in _tail_launches(trainer).items()}
@@ -3884,16 +3134,15 @@ def _tail_run(name, flags, card_line):
             raise AssertionError(f"{tag}: the CLI wrote {written}, the tail "
                                  f"{sorted(os.listdir(folder))}, not {names}")
         flips, rows = _tail_vs_cpu(tag, trainer, codes, labels)
-    print(f"[last] music CLI {' '.join(TAIL_ARGS + flags)}: {cli_s:.1f} s, train loss "
+    print(f"[last] music CLI {' '.join(TAIL_ARGS + flags)}: train loss "
           f"{hist[0]['train_loss']:.4f} ({n_train} + {n_val} steps), launches {cli} (training, "
           f"evaluation and tail: the code's); the tail alone ({len(codes)} codes harvested, "
-          f"{len(names)} MIDI files, each read back to its Score) {tail_s:.2f} s, launches "
+          f"{len(names)} MIDI files, each read back to its Score), launches "
           f"{tail} (the code's; gru_chain on the wide layout and the tick loop on the wave "
           f"layout: {tail['gru_wide']['fwd']} / {tail['wave']['fwd']}); its {rows} decodes "
           f"card vs CPU: {flips} on another token path (bound {EVAL_PATH_FLIPS:.0%}), labels "
           f"within {LABEL_ATOL:g} | {card_line}")
-    return {"cli": cli, "tail": tail, "cli_s": cli_s, "tail_s": tail_s, "flips": flips,
-            "decodes": rows}
+    return {"cli": cli, "tail": tail, "flips": flips, "decodes": rows}
 
 
 def _image_decodes(card_line):
@@ -3955,21 +3204,19 @@ def _image_decodes(card_line):
     return errs
 
 
-def _native_thinning(card_line):
+def _native_thinning():
     """The native thinning built from ``csrc/morpho_native.cpp`` and the
     backend asserted ``native``; one batch of binary digits thinned by
-    each backend (bitwise, timed); then the full synthetic MNIST cache
+    each backend, bitwise equal; then the full synthetic MNIST cache
     (``MNIST_ARGS``' 8,192 + 2,048 digits) built under each backend, each
-    in a directory of its own, timed, the morphometry files byte for byte
-    equal → {backend: build seconds}."""
+    in a directory of its own, the morphometry files byte for byte
+    equal."""
     from arvae_tpu_torch.data import mnist
     from arvae_tpu_torch.data.morphomnist import morpho, native
     from arvae_tpu_torch.data.synthetic_digits import generate_digit_set
 
     os.environ.pop(native.NO_NATIVE_ENV, None)
-    t0 = time.perf_counter()
     backend = native.backend()
-    build_s = time.perf_counter() - t0
     if backend != "native":
         raise AssertionError(f"slice 10: the thinning backend is {backend!r}, not native")
     gpp = subprocess.run(["g++", "--version"], capture_output=True, text=True,
@@ -3977,37 +3224,13 @@ def _native_thinning(card_line):
     imgs, _ = generate_digit_set(THIN_IMAGES, seed=5)
     bins = np.stack([morpho.ImageMorphology((im * 255).astype(np.uint8), scale=4).binary_image
                      for im in imgs[:, 0]])
-    t0 = time.perf_counter()
     got = native.zhang_suen_thin_batch(bins)
-    native_s = time.perf_counter() - t0
     # one image a call, as the measuring path thins: no OpenMP team, one core
-    t0 = time.perf_counter()
     one_by_one = np.concatenate([native.zhang_suen_thin_batch(b[None]) for b in bins])
-    native_one_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     want = np.stack([morpho.zhang_suen_thin_numpy(b) for b in bins])
-    numpy_s = time.perf_counter() - t0
     if not (np.array_equal(got, want) and np.array_equal(one_by_one, want)):
         raise AssertionError("slice 10: the native skeletons are not the numpy ones")
-    # where a build's time goes: rendering the digits, and measuring one
-    # image in this process under each backend
-    t0 = time.perf_counter()
-    generate_digit_set(mnist.SYNTH_TRAIN, seed=0)
-    generate_digit_set(mnist.SYNTH_TEST, seed=1)
-    render_s = time.perf_counter() - t0
-    u8 = (imgs[:, 0] * 255).astype(np.uint8)
-    mnist.measure_images(u8[:4])  # first use
-    per_image = {}
-    for name in ("native", "numpy"):
-        if name == "numpy":
-            os.environ[native.NO_NATIVE_ENV] = "1"
-        try:
-            t0 = time.perf_counter()
-            mnist.measure_images(u8[:mnist.IMAGES_PER_WORKER])  # serially: one worker's share
-            per_image[name] = (time.perf_counter() - t0) / min(len(u8), mnist.IMAGES_PER_WORKER)
-        finally:
-            os.environ.pop(native.NO_NATIVE_ENV, None)
-    builds, files = {}, {}
+    files = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name in ("native", "numpy"):
             root = os.path.join(tmp, name, "mnist_data")
@@ -4016,30 +3239,19 @@ def _native_thinning(card_line):
             try:
                 if native.backend() != name:
                     raise AssertionError(f"slice 10: backend {native.backend()} for {name}")
-                t0 = time.perf_counter()
                 with contextlib.redirect_stdout(io.StringIO()):
                     mnist.MorphoMnistDataset(root=root)
-                builds[name] = time.perf_counter() - t0
             finally:
                 os.environ.pop(native.NO_NATIVE_ENV, None)
             files[name] = {k: open(os.path.join(root, "plain", f"{k}-morpho.csv"), "rb").read()
                            for k in ("train", "t10k")}
     if files["native"] != files["numpy"]:
         raise AssertionError("slice 10: the two backends measured other morphometry")
-    print(f"[last] native thinning: {native.library_path()} built and loaded in {build_s:.2f} s "
-          f"({gpp}); backend {backend!r}; {THIN_IMAGES} binary digits at scale 4 thinned in "
-          f"{native_s:.4f} s (one OpenMP batch, up to {os.cpu_count()} threads) and in "
-          f"{native_one_s:.4f} s one image a call (one thread, as the measuring path thins) "
-          f"against numpy's {numpy_s:.4f} s (one thread), bitwise equal | {card_line}")
-    print(f"[last] synthetic MNIST cache ({mnist.SYNTH_TRAIN} + {mnist.SYNTH_TEST} digits "
-          f"rendered, written and measured, spawn pools of up to {os.cpu_count()} workers): "
-          f"native thinning {builds['native']:.2f} s, numpy {builds['numpy']:.2f} s, the "
-          f"morphometry files byte for byte equal; of which rendering the digits "
-          f"{render_s:.2f} s (one process); one image measured in {1e3 * per_image['native']:.2f} "
-          f"ms (native) / {1e3 * per_image['numpy']:.2f} ms (numpy) on one core | {card_line}")
-    return {"build_s": build_s,
-            "thin_s": {"native": native_s, "native_one_by_one": native_one_s, "numpy": numpy_s},
-            "cache_s": builds, "render_s": render_s, "measure_ms": per_image}
+    print(f"[last] native thinning: {native.library_path()} built and loaded ({gpp}); backend "
+          f"{backend!r}; {THIN_IMAGES} binary digits at scale 4 thinned in one OpenMP batch and "
+          f"one image a call, bitwise numpy's; the synthetic MNIST cache ({mnist.SYNTH_TRAIN} + "
+          f"{mnist.SYNTH_TEST} digits) built under each backend: the morphometry files byte for "
+          "byte equal")
 
 
 def _trace_steps(card_line):
@@ -4050,14 +3262,13 @@ def _trace_steps(card_line):
     ``StepTimer``'s steps/s over the traced steps (warmup 1) and over the
     same steps untraced → the rates."""
     from arvae_tpu_torch.training import base
-    from arvae_tpu_torch.utils import step_probe
     from arvae_tpu_torch.utils.profiling import StepTimer, trace
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(3)
     packed = rng.randint(0, 256, (TRACE_STEPS * B_TRAIN, 512)).astype(np.uint8)
     labels = rng.rand(TRACE_STEPS * B_TRAIN, 6).astype(np.float32)
-    trainer, split = step_probe.dsprites_trainer(dev, packed, labels)
+    trainer, split = dsprites_trainer(dev, packed, labels)
     batches = [split.gather_batch(torch.arange(i * B_TRAIN, (i + 1) * B_TRAIN, device=dev))
                for i in range(TRACE_STEPS)]
 
@@ -4097,18 +3308,17 @@ def _trace_steps(card_line):
 
 
 def phase_last_modules(card_line):
-    """Slice 10 → {"tail": {width: _tail_run's}, "image": max abs errs,
-    "native": times, "trace": rates}."""
-    return {"tail": {name: _tail_run(name, flags, card_line)
-                     for name, flags in TAIL_WIDTHS.items()},
-            "image": _image_decodes(card_line),
-            "native": _native_thinning(card_line),
-            "trace": _trace_steps(card_line)}
+    """Slice 10 → {width: _tail_run's}."""
+    tails = {name: _tail_run(name, flags, card_line) for name, flags in TAIL_WIDTHS.items()}
+    _image_decodes(card_line)
+    _native_thinning()
+    _trace_steps(card_line)
+    return tails
 
 
 # Slice 9, data parallelism (``arvae_tpu_torch/parallel``): the dSprites
 # AR step (B=128) and the music step (B=256, H=128, z=32, V=130, ``-r
-# all``) of ``utils/step_probe.py``'s trainers, on 4,096 random rows, 3
+# all``) of ``torch_card_cases``' trainers, on 4,096 random rows, 3
 # Adam steps each with the trainers' own draws, through the data-parallel
 # trainer over a real NCCL group of one rank against the same trainer
 # with no group (bitwise), and where the machine has two cards over two
@@ -4145,29 +3355,22 @@ DP_CLI_RTOL = 1e-3
 # run at B/W rows). At most 1e-3 of the elements may.
 DP_ACC_ATOL = 1e-3
 DP_WORLD = 2
-DP_TIMED_STEPS = 30
-DP_REDUCE_ITERS = 50
 
 
 def _dp_data():
     """The slices' DP_ROWS random rows: (packed images, labels, tokens)."""
-    from arvae_tpu_torch.utils import step_probe
-
     rng = np.random.RandomState(0)
     packed = rng.randint(0, 256, (DP_ROWS, 512)).astype(np.uint8)
     labels = rng.rand(DP_ROWS, 6).astype(np.float32)
-    tokens = rng.randint(0, step_probe.MUSIC_V, (DP_ROWS, 24)).astype(np.int32)
+    tokens = rng.randint(0, MUSIC_V, (DP_ROWS, 24)).astype(np.int32)
     return packed, labels, tokens
 
 
 def _dp_trainers(dev, ctx, slices=("dSprites", "music")):
     """{slice: (trainer, split, global batch)} over the data axis ``ctx``."""
-    from arvae_tpu_torch.utils import step_probe
-
     packed, labels, tokens = _dp_data()
-    make = {"dSprites": lambda: (*step_probe.dsprites_trainer(dev, packed, labels, ctx),
-                                 step_probe.DSPRITES_B),
-            "music": lambda: (*step_probe.music_trainer(dev, tokens, ctx), step_probe.MUSIC_B)}
+    make = {"dSprites": lambda: (*dsprites_trainer(dev, packed, labels, ctx), DSPRITES_B),
+            "music": lambda: (*music_trainer(dev, tokens, ctx), MUSIC_B)}
     return {name: make[name]() for name in slices}
 
 
@@ -4391,72 +3594,16 @@ def _dp_compare(tag, got, want, bitwise):
     return worst
 
 
-def _dp_step_ms(trainer, split, b):
-    """Host ms a warm train step, over DP_TIMED_STEPS synchronised steps."""
-    kw = _dp_kwargs(trainer, b)
-    rows = split.gather_batch(torch.arange(b, device=split.device))
-    for _ in range(5):
-        trainer.train_step(rows, **kw)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(DP_TIMED_STEPS):
-        trainer.train_step(rows, **kw)
-    torch.cuda.synchronize()
-    return 1e3 * (time.perf_counter() - t0) / DP_TIMED_STEPS
-
-
-def _dp_collective_us(dev, ctx):
-    """The all-reduce at the parameter counts of DspritesVAE, of
-    MeasureVAE at its default widths (V=130) and of the music step's
-    model, and ``gather_rows`` on the music step's (256, 32) latents →
-    {call: (device µs a call from the profiler, device events a call, µs a
-    call by CUDA events over back-to-back calls, which the host sets where
-    it launches more slowly than the device runs)}."""
-    import torch.distributed as dist
-
-    from arvae_tpu_torch.models.image_vae import DspritesVAE
-    from arvae_tpu_torch.models.measure_vae import MeasureVAE
-    from arvae_tpu_torch.parallel import gather_rows
-
-    counts = {"DspritesVAE": sum(p.numel() for p in DspritesVAE().parameters()),
-              "MeasureVAE default widths": sum(p.numel() for p in MeasureVAE(130).parameters()),
-              "MeasureVAE H=128 (the music step)": sum(p.numel() for p in MeasureVAE(
-                  130, encoder_hidden_size=128, latent_space_dim=32,
-                  decoder_hidden_size=128).parameters())}
-    calls = {}
-    for name, n in counts.items():
-        buf = torch.zeros(n, device=dev)
-        calls[f"all_reduce {name} ({n} float32)"] = (
-            lambda buf=buf: dist.all_reduce(buf, group=ctx.group))
-    z = torch.randn(256, 32, device=dev)
-    share = ctx.share(256 * ctx.n_data)
-    calls["gather_rows (256, 32) a rank"] = lambda: gather_rows(z, share)
-    out = {}
-    for name, fn in calls.items():
-        # every rank starts each measurement together: a collective's
-        # kernel waits for its peers, and its time would hold their skew
-        dist.barrier(group=ctx.group)
-        device = _dp_device_us(fn)
-        dist.barrier(group=ctx.group)
-        out[name] = (*device, 1e3 * _event_ms(fn, DP_REDUCE_ITERS, 5))
-    return out
-
-
-def _dp_gather_us(dev, ctx):
+def _dp_gather(dev, ctx):
     """A batch's gather on this rank from the row-sharded split (the
     masked take and its ``reduce_scatter``) against this rank's rows by a
     local ``index_select`` of the whole split, as a replicated split
-    gathers them: bitwise equal, then each timed by CUDA events →
-    {slice: (row-sharded µs, whole-split µs) a call}."""
-    import torch.distributed as dist
-
+    gathers them: bitwise equal."""
     from arvae_tpu_torch.data.device_data import DeviceSplit
-    from arvae_tpu_torch.utils import step_probe
 
     packed, labels, tokens = _dp_data()
-    cases = {"dSprites": (packed, labels, (1, 64, 64), "packed", step_probe.DSPRITES_B),
-             "music": (tokens, None, (24,), "tokens", step_probe.MUSIC_B)}
-    out = {}
+    cases = {"dSprites": (packed, labels, (1, 64, 64), "packed", DSPRITES_B),
+             "music": (tokens, None, (24,), "tokens", MUSIC_B)}
     for name, (rows, labs, shape, kind, b) in cases.items():
         sharded = DeviceSplit(rows, labs, shape, kind, dev, ctx)
         whole = DeviceSplit(rows, labs, shape, kind, dev)
@@ -4467,39 +3614,6 @@ def _dp_gather_us(dev, ctx):
             if not torch.equal(got, want):
                 raise AssertionError(f"data parallel, {name}: the row-sharded gather is not "
                                      "the whole split's rows")
-        times = []
-        for fn in (lambda: sharded.gather_batch(idx), lambda: whole.gather_batch(local)):
-            dist.barrier(group=ctx.group)
-            times.append(1e3 * _event_ms(fn, DP_REDUCE_ITERS, 5))
-        out[name] = tuple(times)
-    return out
-
-
-def _dp_device_us(fn, calls=20):
-    """(device µs a call: the median over ``calls`` calls of ``fn`` of each
-    call's union of the profiler's device intervals, 0 where it records
-    none; device events a call). The median leaves out the first calls'
-    wait for a peer that entered the profiled window later."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from arvae_tpu_torch.utils.step_probe import device_events, open_window, union_us
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        open_window()  # takes CUPTI's loss of a window's first records
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = sorted((e for e in device_events(prof) if "spin_kernel" not in e["name"]),
-                    key=lambda e: e["ts"])
-    per_call = len(events) // calls
-    if per_call == 0:
-        return 0.0, len(events) / calls
-    spans = [union_us([(e["ts"], e["ts"] + e["dur"])
-                       for e in events[i * per_call:(i + 1) * per_call]]) for i in range(calls)]
-    return float(np.median(spans)), len(events) / calls
 
 
 def _dp_plans():
@@ -4526,7 +3640,7 @@ def _dp_plans():
 def _dp_rank(rank, world, store_path, out_path):
     """One rank of the two-card check: NCCL over a file store, the steps
     of ``_dp_steps`` on this rank's rows, the planted faults' gradients,
-    the step's, collectives' and gathers' times."""
+    and a batch's row-sharded gather (``_dp_gather``)."""
     import datetime
 
     import torch.distributed as dist
@@ -4544,9 +3658,7 @@ def _dp_rank(rank, world, store_path, out_path):
         res["randperm"] = torch.randperm(DP_ROWS, generator=torch.Generator(dev).manual_seed(1),
                                          device=dev)
         res["faults"] = _dp_fault_grads(dev, ctx)
-        res["step_ms"] = {name: _dp_step_ms(*t) for name, t in trainers.items()}
-        res["collective_us"] = _dp_collective_us(dev, ctx)
-        res["gather_us"] = _dp_gather_us(dev, ctx)
+        _dp_gather(dev, ctx)
         torch.save(_to_cpu(res), out_path % rank)
     finally:
         dist.destroy_process_group()
@@ -4574,9 +3686,9 @@ def _dp_two_cards(want, card_line):
                                                     out_path)) for r in range(DP_WORLD)]
         for p in procs:
             p.start()
-        deadline = time.perf_counter() + 120
+        deadline = time.monotonic() + 120  # the ranks' joint time limit
         for p in procs:
-            p.join(max(0.0, deadline - time.perf_counter()))
+            p.join(max(0.0, deadline - time.monotonic()))
         alive = [p for p in procs if p.is_alive()]
         for p in alive:
             p.kill()
@@ -4615,10 +3727,8 @@ def _dp_two_cards(want, card_line):
           f"leaf's norm, parameter {worst['param']:.3e}; parameters bitwise equal on "
           f"both ranks; one seed's randperm equal on both cards; launches a rank "
           f"{ {n: ranks[0][n]['launches'] for n in want} }, the wrappers' shapes on rank 0 "
-          f"{ {n: ranks[0][n]['shapes'] for n in want} }; step ms a rank "
-          f"{ranks[0]['step_ms']}; collectives a call (device µs, events, µs by CUDA "
-          f"events) {ranks[0]['collective_us']}; a batch's gather µs a call, row-sharded / "
-          f"local index_select of the whole split {ranks[0]['gather_us']} | {card_line}")
+          f"{ {n: ranks[0][n]['shapes'] for n in want} }; a batch's row-sharded gather "
+          f"bitwise a local index_select of the whole split | {card_line}")
     ranks[0]["fault_readings"] = faults
     return ranks[0]
 
@@ -4650,10 +3760,10 @@ def _dp_row_base_at(dev, card_line, h, errs):
     under the same cotangent."""
     from arvae_tpu_torch.ops import hier_decoder_kernel as hk
 
-    score, floats, ct = _hier_inputs(dev, 71, MUSIC_BENCH_V, b=MUSIC_B, h=h)
+    score, floats, ct = _hier_inputs(dev, 71, MUSIC_V, b=MUSIC_B, h=h)
     teacher, seed = _ints(1, 5, dev)
     cfg = (True, 0.5, HIER_TPB, "argmax")
-    full_plan = hk.hier_plan(MUSIC_B, h, HIER_E, MUSIC_BENCH_V, 2)
+    full_plan = hk.hier_plan(MUSIC_B, h, HIER_E, MUSIC_V, 2)
     (w_full, s_full, *h_full), gh_full = hk.hier_tick_chain_fwd_cuda(
         *cfg, teacher, seed, score, *floats, keep_gh=True)
     flips = {}
@@ -4731,7 +3841,6 @@ def _dp_cli(card_line):
                                 "MASTER_PORT")}
             env.update(ARVAE_MODELS_DIR=os.path.join(tmp, name.replace(" ", "_")),
                        PYTHONPATH=os.getcwd())
-            t0 = time.perf_counter()
             out = subprocess.run(prefix + args, env=env, capture_output=True, text=True,
                                  timeout=600)
             if out.returncode != 0:
@@ -4741,9 +3850,8 @@ def _dp_cli(card_line):
                 raise AssertionError(f"data parallel, the image CLI ({name}) printed "
                                      f"{out.stdout.count('Train Epoch: 1/1')} epoch lines")
             runs[name] = ([float(x.split()[0]) for x in out.stdout.split("Train Loss: ")[1:]]
-                          + [float(x.split()[0]) for x in out.stdout.split("Valid Loss: ")[1:]],
-                          time.perf_counter() - t0)
-    (got, s_two), (want, s_one) = runs["torchrun"], runs["one process"]
+                          + [float(x.split()[0]) for x in out.stdout.split("Valid Loss: ")[1:]])
+    got, want = runs["torchrun"], runs["one process"]
     rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
     if len(got) != 2 or len(want) != 2 or not all(math.isfinite(x) for x in got):
         raise AssertionError(f"data parallel, the image CLI under torchrun: losses {got}, "
@@ -4752,10 +3860,10 @@ def _dp_cli(card_line):
         raise AssertionError(f"data parallel, the image CLI: train / val loss under torchrun "
                              f"{got}, in one process {want}: {rel} apart, over {DP_CLI_RTOL:g}")
     print(f"[data parallel] the image CLI, 1 epoch of --short dSprites at B=128: under torchrun "
-          f"on {DP_WORLD} cards train / val loss {got[0]} / {got[1]} in {s_two:.1f} s, in one "
-          f"process {want[0]} / {want[1]} in {s_one:.1f} s (relative differences "
-          f"{rel[0]:.2e} / {rel[1]:.2e}); rank 0 alone printed the epoch | {card_line}")
-    return {"losses": got, "one_process": want, "seconds": (s_two, s_one)}
+          f"on {DP_WORLD} cards train / val loss {got[0]} / {got[1]}, in one process "
+          f"{want[0]} / {want[1]} (relative differences {rel[0]:.2e} / {rel[1]:.2e}); rank 0 "
+          f"alone printed the epoch | {card_line}")
+    return {"losses": got, "one_process": want}
 
 
 def phase_data_parallel(card_line):
@@ -4786,19 +3894,8 @@ def phase_data_parallel(card_line):
                   f"trainer with no group (metrics, gradients, parameters); launches "
                   f"{ {n: got[n]['launches'] for n in got} }, the code's; the wrappers' "
                   f"shapes { {n: got[n]['shapes'] for n in got} }")
-            step_ms = {}
-            for name in grouped:  # in turns: no group, group, group, no group
-                step_ms[name] = [_dp_step_ms(*t) for t in (plain[name], grouped[name],
-                                                           grouped[name], plain[name])]
-            collective = _dp_collective_us(dev, ctx)
         finally:
             dist.destroy_process_group()
-    for name, ms in step_ms.items():
-        print(f"[data parallel] {name} step ms, no group / NCCL group of one / group / no "
-              f"group: {' / '.join(f'{x:.4f}' for x in ms)} | {card_line}")
-    print("[data parallel] NCCL at one rank, a call: " + "; ".join(
-        f"{k}: device {d:.2f} µs ({e:g} device events), {w:.2f} µs by CUDA events"
-        for k, (d, e, w) in collective.items()) + f" | {card_line}")
     _dp_plans()
     two = None
     if torch.cuda.device_count() >= DP_WORLD:
@@ -4810,16 +3907,13 @@ def phase_data_parallel(card_line):
         print(f"[data parallel] ran: the one-rank NCCL check only ({torch.cuda.device_count()} "
               f"card; the {DP_WORLD}-card check needs {DP_WORLD})")
     return {"launches": {n: got[n]["launches"] for n in got},
-            "shapes": {n: got[n]["shapes"] for n in got}, "step_ms": step_ms,
-            "collective_us": collective, "two": two, "row_base": row_base,
+            "shapes": {n: got[n]["shapes"] for n in got}, "two": two, "row_base": row_base,
             "split_noise": noise}
 
 
-def _timed(name, fn, *args):
-    t0 = time.perf_counter()
-    out = fn(*args)
-    print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
-    return out
+def _phase(name, fn, *args):
+    print(f"[phase] {name}", flush=True)
+    return fn(*args)
 
 
 def _last_lines(card_line):
@@ -4834,62 +3928,45 @@ def main(argv=None) -> int:
     if args not in ([], ["--data-parallel-only"], ["--conv-wgrad-only"]):
         raise SystemExit("usage: chip_smoke.py [--data-parallel-only | --conv-wgrad-only], "
                          f"not {args}")
-    t0 = time.perf_counter()
-    card_line = _timed("device", phase_device)
-    _timed("build", phase_build)
+    card_line = _phase("device", phase_device)
+    _phase("build", phase_build)
     if args:
         if args == ["--conv-wgrad-only"]:
-            _timed("conv_wgrad", phase_conv_wgrad, card_line)
+            _phase("conv_wgrad", phase_conv_wgrad, card_line)
         else:
-            _timed("slice 9 (data parallel)", phase_data_parallel, card_line)
-        print(f"[phase] total: {time.perf_counter() - t0:.1f} s")
+            _phase("slice 9 (data parallel)", phase_data_parallel, card_line)
         _last_lines(card_line)
         return 0
-    errs = _timed("kernels", phase_kernels)
-    conv = _timed("conv_wgrad", phase_conv_wgrad, card_line)
+    errs = _phase("kernels", phase_kernels)
+    conv = _phase("conv_wgrad", phase_conv_wgrad, card_line)
     # slices 1 and 2's run dirs, kept for slice 5 and (music) slice 8
     with tempfile.TemporaryDirectory() as kept:
         image_dir, music_dir = os.path.join(kept, "dsprites"), os.path.join(kept, "music")
-        image = _timed("slice 1 (dSprites)", phase_slice, image_dir)
-        music = _timed("slice 2 (music)", phase_music_slice, music_dir)
-        variants, variant_runs = _timed("slice 3 (music variants)", phase_music_variants,
-                                        card_line)
-        times = _timed("times", phase_times, card_line)
-        wide, wide_runs = _timed("slice 4 (the reference's widths, a 3-layer tick GRU)",
-                                 phase_wide_deep, card_line)
-        evaluation = _timed("slice 5 (evaluation)", phase_eval, image[2], image_dir, music[2],
-                            music_dir, variant_runs + wide_runs, card_line)
+        image = _phase("slice 1 (dSprites)", phase_slice, image_dir)
+        music = _phase("slice 2 (music)", phase_music_slice, music_dir)
+        variants, variant_runs = _phase("slice 3 (music variants)", phase_music_variants)
+        wide, wide_runs = _phase("slice 4 (the reference's widths, a 3-layer tick GRU)",
+                                 phase_wide_deep)
+        evaluation = _phase("slice 5 (evaluation)", phase_eval, image[2], image_dir, music[2],
+                            music_dir, variant_runs + wide_runs)
         with tempfile.TemporaryDirectory() as mnist_tmp:  # slice 6's data, for slice 7
             mnist_data = os.path.join(mnist_tmp, "datasets")
-            mnist = _timed("slice 6 (Morpho-MNIST)", phase_mnist, card_line, mnist_data)
-            fader = _timed("slice 7 (fader and sweep)", phase_fader, card_line, mnist_data)
+            mnist = _phase("slice 6 (Morpho-MNIST)", phase_mnist, mnist_data)
+            fader = _phase("slice 7 (fader and sweep)", phase_fader, mnist_data)
         glsr = dict(variant_runs)["variant glsr"]
-        analysis = _timed("slice 8 (music analysis)", phase_analysis, card_line, music[2],
-                          music_dir, glsr)
-    last = _timed("slice 10 (the last modules)", phase_last_modules, card_line)
-    dp = _timed("slice 9 (data parallel)", phase_data_parallel, card_line)
-    print(f"[phase] total: {time.perf_counter() - t0:.1f} s")
+        analysis = _phase("slice 8 (music analysis)", phase_analysis, music[2], music_dir, glsr)
+    tails = _phase("slice 10 (the last modules)", phase_last_modules, card_line)
+    dp = _phase("slice 9 (data parallel)", phase_data_parallel, card_line)
 
-    from arvae_tpu_torch.utils import kernel_work as kw
-
-    hier_shape = dict(T=HIER_T, B=HIER_B, H=HIER_H, E=HIER_E, V=MUSIC_BENCH_V,
-                      ticks_per_beat=HIER_TPB)
-    # the work of each kernel at the shape its "ms" was timed at
-    work = {"reg": lambda bwd: times["reg"]["bwd_work" if bwd else "fwd_work"],
-            "gru": lambda bwd: kw.gru_chain(*GRU_CASES[0], backward=bwd),
-            "hier": lambda bwd: kw.hier_tick_chain(**hier_shape, backward=bwd)}
-    # cuDNN's GRU layer whose projection is smallest (I=10) beside gru_chain
-    cudnn = times["gru_layers"]["encoder layer 0"]
+    from arvae_tpu_torch.ops import hier_decoder_kernel as hk
 
     def entry(name, key, direction, source, replaces, slice_run, eval_of):
-        t = times[key]
         counts, steps, _ = slice_run
         launches = counts[key][direction]
         # the CLI run's launches include one evaluation's forwards, as
         # the --test run of slice 5 counted them
         measured = evaluation[f"{eval_of} launches"]
         evals = measured["evaluation"][key][direction]
-        w = work[key](direction == "bwd")
         by_variant = {v: counts[key][direction] for v, counts in variants.items()}
         return {"name": name, "layout": "resident" if key == "gru" else None,
                 "route": "cuda", "source": source, "replaces": replaces,
@@ -4900,12 +3977,8 @@ def main(argv=None) -> int:
                 "slice3_launches": by_variant,
                 "slice7_launches": slice7(key, direction),
                 "max_abs_err": errs[key][direction == "bwd"],
-                "ms": t[direction], "plain_ms": t[f"{direction}_plain"],
-                "bound_ms": w.bound_ms, "bound_by": w.bound_by,
-                "library_ms": cudnn[f"cudnn_{direction}"] if key == "gru" else None,
-                **({"events_ms": t[f"{direction}_events"],
-                    "mnist": mnist_reg(direction)} if key == "reg" else {}),
-                **({"wide_deep_shapes": shapes(key, direction)} if key != "reg" else {}),
+                **({"mnist": mnist_reg(direction)} if key == "reg" else {}),
+                **({"wide_deep_shapes": shapes(key)} if key != "reg" else {}),
                 **({"analysis_shapes": analysis[key], "sweep_launches": {
                     "ar": analysis["sweep"][key]["fwd"],
                     "glsr": analysis["sweep_glsr"][key]["fwd"]},
@@ -4918,8 +3991,7 @@ def main(argv=None) -> int:
         """Slice 10: the launches of the music CLI's tail alone, after a
         short run at each width (``layout``: of them, the wide or wave
         layout's)."""
-        return {width: run["tail"][layout or key][direction]
-                for width, run in last["tail"].items()}
+        return {width: run["tail"][layout or key][direction] for width, run in tails.items()}
 
     def data_parallel(key, direction):
         """Slice 9: the launches of its 3 steps a slice, over an NCCL group
@@ -4945,47 +4017,31 @@ def main(argv=None) -> int:
         return {"fader": {run: c[key][direction] for run, c in fader["fader_launches"].items()},
                 "sweep_cells_per_step": {f"gamma={g} delta={d}": per_step(c, nt, nv)
                                          for (g, d), (c, nt, nv, _) in fader["sweep"].items()},
-                "bf16_per_step": per_step(*fader["bf16"][:3])}
+                "bf16_per_step": per_step(*fader["bf16"])}
 
     def mnist_reg(direction):
         """The reg kernel at the MNIST step's shapes: (R, B) = (6, 128),
         z_tilde 128x16, labels 128x7; launches from slice 6's CLI run."""
-        row, bwd = times["reg_at"]["MNIST"], direction == "bwd"
-        w = row[f"{direction}_work"]
         return {"shape": {"R": 6, "B": B_TRAIN, "z_tilde": [B_TRAIN, 16],
                           "labels": [B_TRAIN, 7]},
                 "launches": mnist["launches"][direction],
                 "launches_per_step": mnist["launches"][direction] / mnist["steps"][direction],
-                "max_abs_err": mnist["reg_err"][bwd], "ms": row[direction],
-                "events_ms": row[f"{direction}_events"], "plain_ms": row[f"{direction}_plain"],
-                "bound_ms": w.bound_ms, "bound_by": w.bound_by, "library_ms": None}
+                "max_abs_err": mnist["reg_err"][direction == "bwd"]}
 
     # the new shapes: the reference's widths and the tick GRU's depths,
     # each with its launches a train step in the wide or deep CLI run
     # that reaches it (None where no CLI run does)
     run_of = {(512, 2): "512-wide", (128, 3): "3-layer decoder"}
 
-    def per_train_step(run, key):
-        if run is None:
-            return None
-        counts, steps, _ = wide[run]
-        return counts[key]["bwd"] / steps
-
-    def shapes(key, direction):
+    def shapes(key):
         rows = []
-        for row in times[f"{key}_wide"]:
-            w = row[f"{direction}_work"]
+        for shape in WIDE_GRU_CASES if key == "gru" else WIDE_DEEP_HIER:
             if key == "gru":
-                lib = {f"cudnn_{k}": v for k, v in row["cudnn"].items()}
-                run = "512-wide" if row["shape"][-1] == 512 and row["shape"][2] == 256 else None
+                run = "512-wide" if shape[-1] == 512 and shape[2] == 256 else None
             else:
-                lib, run = None, run_of.get(row["shape"])
-            rows.append({"shape": row["shape"], "ms": row[direction],
-                         "plain_ms": row[f"{direction}_plain"], "bound_ms": w.bound_ms,
-                         "bound_by": w.bound_by,
-                         "library_ms": lib[f"cudnn_{direction}"] if lib else None,
-                         "cli_run": run,
-                         "cli_launches_per_train_step": per_train_step(run, key)})
+                run = run_of.get(shape)
+            rows.append({"shape": shape, "cli_run": run, "cli_launches_per_train_step":
+                         None if run is None else wide[run][0][key]["bwd"] / wide[run][1]})
         return rows
 
     csrc = "arvae_tpu_torch/csrc/"
@@ -5006,73 +4062,58 @@ def main(argv=None) -> int:
 
     def wide_entry(direction, replaces):
         """gru_chain's wide layout: launches from the 512-wide CLI run (its
-        main path), times at the 512-wide encoder layer's (24, 2, 256, 512)."""
-        counts, steps, _ = wide["512-wide"]
-        row, bwd = times["gru_wide"][0], direction == "bwd"
-        w = row[f"{direction}_work"]
+        main path), its shape the 512-wide encoder layer's (24, 2, 256, 512)."""
+        counts, steps = wide["512-wide"]
+        bwd = direction == "bwd"
         return {"name": f"gru_chain_wide_{direction}", "layout": "wide", "route": "cuda",
                 "source": csrc + "gru_wide.cuh", "replaces": replaces,
                 "launches": counts["gru_wide"][direction],
                 "launches_per_train_step": counts["gru_wide"]["bwd"] / steps,
                 **({"tick_loop_chain_launches": counts["chains"]["wide"]} if bwd else {}),
-                "max_abs_err": errs["gru"][3 if bwd else 2], "shape": row["shape"],
-                "ms": row[direction], "plain_ms": row[f"{direction}_plain"],
-                "bound_ms": w.bound_ms, "bound_by": w.bound_by,
-                "library_ms": row["cudnn"][direction],
-                "device_us_by_kernel": dict(row[f"{direction}_split"]),
-                "wide_shapes": shapes("gru", direction),
+                "max_abs_err": errs["gru"][3 if bwd else 2], "shape": WIDE_GRU_CASES[0],
+                "wide_shapes": shapes("gru"),
                 "slice10_tail_launches": tail_launches("gru", direction, "gru_wide")}
+
+    def wave_plan(h, layers):
+        return _plan_text(hk.hier_plan(HIER_B, h, HIER_E, MUSIC_V, layers))
 
     def wave_entry():
         """The tick loop's wave layout: launches from the 512-wide CLI run
-        (its main path), times at the 512-wide step's (B, H, V, L) = (256,
+        (its main path), its shape the 512-wide step's (B, H, V, L) = (256,
         512, 130, 2)."""
-        counts, steps, busy = wide["512-wide"]
-        row = next(r for r in times["hier_wide"] if r["shape"] == (512, 2))
-        w = row["fwd_work"]
+        counts, steps = wide["512-wide"]
         return {"name": "hier_tick_chain_wave_fwd", "layout": "wave", "route": "cuda",
                 "source": csrc + "hier_tick_chain.cu",
                 "replaces": "arvae_tpu/ops/hier_decoder_pallas.py:475",
                 "launches": counts["wave"]["fwd"],
                 "launches_per_train_step": counts["hier"]["bwd"] / steps,
-                "max_abs_err": errs["hier"][2], "shape": [HIER_B, 512, MUSIC_BENCH_V, 2],
-                "plan": row["plan"], "ms": row["fwd"], "plain_ms": row["fwd_plain"],
-                "bound_ms": w.bound_ms, "bound_by": w.bound_by,
-                "tf32x3_bound_ms": w.tf32x3_bound_ms, "library_ms": None,
-                "device_us_by_kernel": dict(row["fwd_split"]),
-                "step_device_busy_ms": busy,
+                "max_abs_err": errs["hier"][2], "shape": [HIER_B, 512, MUSIC_V, 2],
+                "plan": wave_plan(512, 2),
                 "slice10_tail_launches": tail_launches("hier", "fwd", "wave"),
-                "wave_shapes": [{"shape": r["shape"], "plan": r["plan"], "ms": r["fwd"],
-                                 "plain_ms": r["fwd_plain"],
-                                 "bound_ms": r["fwd_work"].bound_ms,
-                                 "tf32x3_bound_ms": r["fwd_work"].tf32x3_bound_ms,
-                                 "library_ms": None}
-                                for r in times["hier_wide"] if r["plan"].startswith("wave")]}
+                "wave_shapes": [{"shape": shape, "plan": wave_plan(*shape)}
+                                for shape in WIDE_DEEP_HIER
+                                if wave_plan(*shape).startswith("wave")]}
 
     def engine_entry(form, name, main_shape, replaces):
         """The backward's tensor-core engine (its weight-gradient GEMM, or its
         row products): launches from the 512-wide CLI run's backwards (its
-        main path; the music CLI run's beside them), times of the call alone
-        at the 512-wide step's ``main_shape``, every step shape after it."""
-        counts, steps, _ = wide["512-wide"]
-        rows = [r for r in times["engine"] if r["form"] == form]
+        main path; the music CLI run's beside them), its shape the 512-wide
+        step's ``main_shape``, every step shape after it."""
+        counts, steps = wide["512-wide"]
+        if form == "atb":
+            rows = [{"width": h, "name": n, "shape": [m, nn, t * b, d]} for h in ENGINE_WIDTHS
+                    for n, t, d, b, m, nn, _, _ in atb_step_shapes(h)]
+        else:
+            rows = [{"width": h, "name": n, "shape": [m, k, nn]} for h in ENGINE_WIDTHS
+                    for n, m, k, nn, _ in row_step_shapes(h)]
         main = next(r for r in rows if r["width"] == 512 and r["name"] == main_shape)
-        w = main["work"]
-
-        def fields(r):
-            return {"ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["work"].bound_ms,
-                    "bound_by": r["work"].bound_by, "tf32x3_bound_ms": r["work"].tf32x3_bound_ms,
-                    "library_ms": r["library_ms"]}
-
         return {"name": name, "layout": "engine", "route": "cuda",
                 "source": csrc + "tc_gemm.cuh", "replaces": replaces,
                 "launches": counts["engine"][form],
                 "launches_per_train_step": counts["engine"][form] / steps,
                 "music_cli_launches": music[0]["engine"][form],
                 "max_abs_err": errs["engine"][form == "rows"], "shape": main["shape"],
-                **fields(main),
-                "step_shapes": [{"width": r["width"], "name": r["name"], "shape": r["shape"],
-                                 **fields(r)} for r in rows]}
+                "step_shapes": rows}
 
     kernels += [wide_entry("fwd", "arvae_tpu/ops/gru_pallas.py:144"),
                 wide_entry("bwd", "arvae_tpu/ops/gru_pallas.py:218"), wave_entry(),
@@ -5081,83 +4122,18 @@ def main(argv=None) -> int:
                              "arvae_tpu/ops/hier_decoder_pallas.py:385-410 (_matT_a_b :167)"),
                 engine_entry("rows", "tc_gemm_rows", "dgi w_ih^T",
                              "arvae_tpu/ops/hier_decoder_pallas.py:385-410 (_a_bT :175)")]
-    for k in kernels:
-        where = (f"{k['launches_per_train_step']:g} launches a train step of the 512-wide "
-                 f"music CLI run ({k['launches']} in it), at {k['shape']}"
-                 if "launches_per_train_step" in k else
-                 f"{k['launches_per_step']:g} launches a step, "
-                 f"{k['eval_launches_per_batch']['harvest']} a harvest batch and "
-                 f"{k['eval_launches_per_batch']['test']} a test batch")
-        print(f"[times] {k['name']}: {k['ms']:.5f} ms, bound {k['bound_ms']:.3g} ms "
-              f"({k['bound_by']}, {100 * k['bound_ms'] / k['ms']:.1f}% of it), {where} "
-              f"| {card_line}")
-    print(f"[times] metric suite host s: dSprites eval split {evaluation['dSprites suite_s']:.3f}, "
-          f"music eval split {evaluation['music suite_s']:.3f}, full dSprites protocol size "
-          f"{evaluation['full_suite_s']:.2f} | {card_line}")
-    for name, (counts, steps, busy) in wide.items():
-        print(f"[times] music {name} run: launches {counts} over {steps} train steps; device "
-              f"busy {busy:.3f} ms a train step | {card_line}")
-    for k in kernels[:2]:
-        m = k["mnist"]
-        print(f"[times] {k['name']} at the MNIST step's shape (R=6, B=128, z_tilde 128x16, "
-              f"labels 128x7): {m['ms']:.5f} ms device, plain {m['plain_ms']:.5f}, bound "
-              f"{m['bound_ms']:.3g} ms ({m['bound_by']}), {m['launches_per_step']:g} launches "
-              f"a step ({m['launches']} in the MNIST CLI run), max abs err "
-              f"{m['max_abs_err']:.3e} | {card_line}")
-    print(f"[times] MNIST: data build {mnist['data_s']:.2f} s, judge t10k accuracy "
-          f"{mnist['judge_acc']} ({mnist['judge_s']:.1f} s), digit_pred_acc "
-          f"{mnist['digit_pred_acc']}, step device busy {mnist['busy_ms']:.3f} ms, CLI val "
-          f"loss repeats: {mnist['cli_repeats']}, step repeats: {mnist['step_repeats']} "
-          f"| {card_line}")
-    print(f"[times] fader step device busy: MNIST {fader['mnist_busy_ms']:.3f} ms, dSprites "
-          f"{fader['dsprites_busy_ms']:.3f} ms; the --bf16 dSprites step {fader['bf16'][3]:.3f} "
-          f"ms; the port's kernels launched on the fader path: "
-          f"{fader['fader_launches']}; reg a train step in the sweep cells and the --bf16 run: "
-          f"{kernels[0]['slice7_launches']} / {kernels[1]['slice7_launches']} | {card_line}")
-    print(f"[times] dSprites step device busy: {times['dsprites_busy_free_ms']:.3f} ms with "
-          f"cuDNN free to pick nondeterministic algorithms, {times['dsprites_busy_ms']:.3f} ms "
-          f"with torch.backends.cudnn.deterministic=True | {card_line}")
-    print("[times] the AR term's device launches a call (profiler): " + "; ".join(
-        f"{name} {kind} {n:g}" for (name, kind), n in times["ar_launches"].items())
-        + f" | {card_line}")
-    tails = "; ".join(f"{w}: launches {r['tail']} in {r['tail_s']:.2f} s, {r['flips']} of "
-                      f"{r['decodes']} decodes on another path than the CPU's"
-                      for w, r in last["tail"].items())
-    nat = last["native"]
-    print(f"[times] slice 10: the music CLI tail alone, {tails}; the synthetic MNIST cache "
-          f"{nat['cache_s']['native']:.2f} s with the native thinning, "
-          f"{nat['cache_s']['numpy']:.2f} s with numpy's; StepTimer over {TRACE_STEPS} traced "
-          f"dSprites steps {last['trace']['traced_steps_per_s']:.2f} steps/s "
-          f"({last['trace']['untraced_steps_per_s']:.2f} untraced) | {card_line}")
-    for name, ms in dp["step_ms"].items():
-        print(f"[times] data parallel: {name} step ms, no group / NCCL group of one / group / "
-              f"no group: {' / '.join(f'{x:.4f}' for x in ms)}; collectives a call (device "
-              f"µs, events, µs by CUDA events) {dp['collective_us']} | {card_line}")
-    # the convolutions' weight gradient: the dSprites VAE's 8 layers summed
+    # the convolutions' weight gradient: measured in slice 1's dSprites CLI
+    # run, slice 6's MNIST one, and slice 7's fader runs (per train step
+    # launched from the host)
     kernels.append({
         "name": "conv_wgrad", "route": "cuda", "source": csrc + "conv_wgrad.cu",
         "replaces": None,
-        # measured: slice 1's dSprites CLI run, slice 6's MNIST one, and
-        # slice 7's fader runs (per train step launched from the host)
         "launches_per_step": image[0]["conv"]["bwd"] / image[1]["bwd"],
         "mnist_launches_per_step": mnist["conv_launches"] / mnist["steps"]["bwd"],
         "fader_launches": {run: c["conv"]["bwd"] for run, c in fader["fader_launches"].items()},
         "eval_launches_per_batch": {p: evaluation["dSprites launches"]["per_batch"][p]["conv"]
                                     for p in ("harvest", "test")},
-        **conv["dsprites"],
-        "shapes": [{"model": r["model"], "layer": r["layer"], "small": r["small"],
-                    "large": r["large"], "ms": r["ms"], "bound_ms": r["work"].bound_ms,
-                    "bound_by": r["work"].bound_by, "plain_ms": r["plain_ms"],
-                    "library_ms": r["library_ms"], "max_rel_err": r["err"]}
-                   for r in conv["rows"]],
-        "eager_step_busy_ms": conv["steps"]})
-    k = kernels[-1]
-    print(f"[times] conv_wgrad: the dSprites VAE's 8 layers {k['ms']:.5f} ms, bound "
-          f"{k['bound_ms']:.3g} ms ({100 * k['bound_ms'] / k['ms']:.1f}% of it), cuDNN "
-          f"deterministic {k['library_ms']:.5f} ms; {k['launches_per_step']:g} launches a "
-          f"dSprites train step, {k['mnist_launches_per_step']:g} an MNIST one, "
-          f"{k['eval_launches_per_batch']} an evaluation batch; the fader runs' "
-          f"{k['fader_launches']} | {card_line}")
+        "shapes": conv})
     print(json.dumps({"kernels": kernels}))
     _last_lines(card_line)
     return 0

@@ -5,7 +5,7 @@ from a ``folk_raw_data/`` directory.
 
 Each fixture text gives the port the JAX parser's headers and notes and
 its validity verdict. Then the corpus ``chip_smoke.py``'s slice 8 trains
-on (``write_abc_corpus``), in a temporary ``folk_raw_data/``: 31 valid
+on (``torch_card_cases.write_abc_corpus``), in a temporary ``folk_raw_data/``: 31 valid
 tunes (26 generated from a seed with numpy, 4 fixtures and one below the
 transposition range, which grows the vocabulary; with repeats, endings,
 ties, triplets, accidentals and several keys), 5 invalid ones (chords, a
@@ -21,9 +21,7 @@ byte for byte equal. Everything compares exactly: there is no float
 arithmetic past the parser's fractions.
 """
 
-import importlib.util
 import os
-import pathlib
 import shutil
 
 import numpy as np
@@ -34,6 +32,7 @@ from arvae_tpu.data.bar_dataset import FolkBarDataset as JaxFolkBar
 from arvae_tpu.data.bar_dataset import FolkNBarDataset as JaxFolkNBar
 from arvae_tpu_torch.data import abc_parser as abc
 from arvae_tpu_torch.data.bar_dataset import FolkBarDataset, FolkNBarDataset, Score
+from torch_card_cases import write_abc_corpus
 
 SIMPLE = """X:1
 T:Test Tune
@@ -155,19 +154,10 @@ def test_key_accidentals_are_jaxs(key):
 # -- the corpus ------------------------------------------------------------------------
 
 
-def _chip_smoke():
-    """The repository's chip_smoke.py, whose slice 8 trains on this corpus."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
 def _write_corpus(raw):
-    """The corpus of chip_smoke's slice 8 in ``raw``, and a narrow-range
+    """The corpus of chip_smoke.py's slice 8 in ``raw``, and a narrow-range
     subset of 3 tunes in ``raw``_narrow for the seed vocabulary."""
-    return _chip_smoke().write_abc_corpus(raw, raw + "_narrow")
+    return write_abc_corpus(raw, raw + "_narrow")
 
 
 def _vocab_text(datasets_root):

@@ -10,29 +10,31 @@ plans one cooperative wave of at most 132 CTAs whose row groups cover
 every row and whose unit groups cover every unit, its shared memory
 mirroring the kernel's layout term for term. The GRU
 chain's wide layout (H=384 and 512) plans one cooperative wave of CTAs
-that covers every row at each shape the card runs it at: chip_smoke.py's
-wide cases, the tick loop's backward chains, the analysis batches and a
-data-parallel rank's rows. The AR regulariser's forward plan (a cluster
+that covers every row at each shape the card runs it at: the wide cases
+of ``torch_card_cases``, the tick loop's backward chains, the analysis
+batches and a data-parallel rank's rows. The AR regulariser's forward plan (a cluster
 a dim) covers every row in whole passes and runs in one wave of the
 clusters the card holds at once."""
 
 import numpy as np
 import pytest
 
-import chip_smoke
+import torch_card_cases as cases
 from arvae_tpu_torch.ops import gru_kernel as gk
 from arvae_tpu_torch.ops.gru_kernel import ChainPlan
 from arvae_tpu_torch.ops import hier_decoder_kernel as hk
 from arvae_tpu_torch.ops import reg_kernel as rk
-from arvae_tpu_torch.utils import wide_probe
 
 HS = (64, 128, 256)
 VS = (34, 130)
 B, T, E = 256, 24, 10
 # (M, N, K, D) of the weight-gradient GEMMs at HS x VS that fewer than 100
-# CTAs run even at their least split; timed alone by ``wide_probe.py
-# --atb-splits`` (PERF.md §6)
-FEW_CTA_GEMMS = {(m, n, t * b, d) for _, _, t, d, b, m, n, _ in wide_probe.FEW_CTA_GEMMS}
+# CTAs run even at their least split (``gru_kernel.ATB_MIN_TERMS`` terms):
+# (name, T, D, B, M, N), T·B terms
+FEW_CTA_GEMMS = {(m, n, t * b, d) for _, t, d, b, m, n in (
+    ("beat dW_hh H=64", 4, 1, 256, 64, 192), ("beat dW_hh H=128", 4, 1, 256, 128, 384),
+    ("demb V=34", 6, 1, 1024, 34, 10), ("dout_w H=64 V=34", 6, 1, 1024, 64, 34),
+    ("dout_w H=128 V=34", 6, 1, 1024, 128, 34))}
 
 
 @pytest.mark.parametrize("v", VS)
@@ -377,15 +379,15 @@ def test_reg_plan_refuses_what_the_kernel_does_not_take(r, b):
         rk.reg_plan(r, b)
 
 
-# The wide layout at every shape the card runs it at: chip_smoke.py's wide
-# cases, the tick loop's backward chains (n_beats x B rows, one direction)
+# The wide layout at every shape the card runs it at: torch_card_cases'
+# wide cases, the tick loop's backward chains (n_beats x B rows, one direction)
 # of its wide and deep shapes, the analysis batches and a data-parallel
 # rank's B/W rows, both directions
 
 WIDE_CASES = sorted(
-    {(d, b, h) for _, d, b, h in chip_smoke.WIDE_GRU_CASES}
-    | {(1, -(-chip_smoke.HIER_T // tpb) * b, h)
-       for h, _ in chip_smoke.WIDE_DEEP_HIER for tpb in (6, 24, 5) for b in (256, 128, 64)}
+    {(d, b, h) for _, d, b, h in cases.WIDE_GRU_CASES}
+    | {(1, -(-cases.HIER_T // tpb) * b, h)
+       for h, _ in cases.WIDE_DEEP_HIER for tpb in (6, 24, 5) for b in (256, 128, 64)}
     | {(d, b, 512) for d in (1, 2) for b in (1, 6, 10, 22, 120)}
     | {(d, 256 // w, h) for d in (1, 2) for w in (2, 4) for h in (384, 512)})
 
@@ -412,7 +414,7 @@ def test_a_width_no_wide_plan_fits_raises_naming_h(d, h):
             gk.gru_plan(d, B, h, backward)
 
 
-@pytest.mark.parametrize("t,d,b,h", chip_smoke.WIDE_GRU_CASES)
+@pytest.mark.parametrize("t,d,b,h", cases.WIDE_GRU_CASES)
 def test_the_wide_weight_gradient_sums_at_most_1024_terms_a_split(t, d, b, h):
     k = t * b
     splits = gk.atb_splits(h, 3 * h, k, d)

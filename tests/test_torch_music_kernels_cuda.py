@@ -675,21 +675,21 @@ def test_hier_eval_small_batches_match_plain_and_the_full_calls_rows(dev, h, lay
 
 # ---------------------------------------------------------------------------
 # The backward's tensor-core engine (csrc/tc_gemm.cuh) alone at every shape a
-# train step gives it (chip_smoke.atb_step_shapes, row_step_shapes), at
+# train step gives it (torch_card_cases.atb_step_shapes, row_step_shapes), at
 # H=512 and 128: within the gradient tolerance of its plain version (the
 # weight gradients sum T·B terms, in 3xTF32 on the tensor cores against
 # cuBLAS's fp32), and bitwise on a repeat; then the tick loop's backward
 # from the wave forward's kept gh, and a 512-wide train step twice.
 # ---------------------------------------------------------------------------
 
-import chip_smoke  # noqa: E402  (the shapes and inputs chip_smoke.py holds the engine at)
+import torch_card_cases as cases  # noqa: E402  (the shapes and inputs chip_smoke.py shares)
 
 
-@pytest.mark.parametrize("h", chip_smoke.ENGINE_WIDTHS)
-@pytest.mark.parametrize("k", range(len(chip_smoke.atb_step_shapes(128))))
+@pytest.mark.parametrize("h", cases.ENGINE_WIDTHS)
+@pytest.mark.parametrize("k", range(len(cases.atb_step_shapes(128))))
 def test_the_weight_gradient_gemm_matches_plain_at_the_step_shapes(dev, h, k):
-    shape = chip_smoke.atb_step_shapes(h)[k]
-    x, kw = chip_smoke.atb_inputs(shape, dev, seed=h + k)
+    shape = cases.atb_step_shapes(h)[k]
+    x, kw = cases.atb_inputs(shape, dev, seed=h + k)
     bias = shape[-1]
     gk.reset_launches()
     first = gk.atb_cuda(x, **kw, bias=bias)
@@ -704,11 +704,11 @@ def test_the_weight_gradient_gemm_matches_plain_at_the_step_shapes(dev, h, k):
         _close_grad(got, ref, shape[0])
 
 
-@pytest.mark.parametrize("h", chip_smoke.ENGINE_WIDTHS)
-@pytest.mark.parametrize("k", range(len(chip_smoke.row_step_shapes(128))))
+@pytest.mark.parametrize("h", cases.ENGINE_WIDTHS)
+@pytest.mark.parametrize("k", range(len(cases.row_step_shapes(128))))
 def test_the_row_product_matches_plain_at_the_step_shapes(dev, h, k):
-    shape = chip_smoke.row_step_shapes(h)[k]
-    a, w = chip_smoke.row_inputs(shape, dev, seed=h + k)
+    shape = cases.row_step_shapes(h)[k]
+    a, w = cases.row_inputs(shape, dev, seed=h + k)
     got, again = gk.rows_cuda(a, w, shape[-1]), gk.rows_cuda(a, w, shape[-1])
     assert torch.equal(got, again)
     _close_grad(got, gk.rows_reference(a, w, shape[-1]), shape[0])
@@ -761,13 +761,11 @@ def test_the_wave_forward_keeps_no_gh_under_no_grad(dev, monkeypatch):
 
 
 def test_a_512_wide_train_step_repeats_bitwise(dev):
-    from arvae_tpu_torch.utils import step_probe
-
     rows = np.random.RandomState(5).randint(0, 130, (512, 24)).astype(np.int32)
-    trainer, split = step_probe.music_trainer(dev, rows, hidden=512)
+    trainer, split = cases.music_trainer(dev, rows, hidden=512)
     gk.reset_launches()
     hk.reset_launches()
-    chip_smoke._step_repeats("512-wide music step", trainer,
-                             split.gather_batch(torch.arange(HB, device=dev)))
+    cases.step_repeats("512-wide music step", trainer,
+                       split.gather_batch(torch.arange(HB, device=dev)))
     assert gk.WIDE_LAUNCHES["bwd"] == 2 * 4 and hk.CHAIN_LAUNCHES["wide"] == 2 * 2
     assert gk.GEMM_LAUNCHES["atb"] == 2 * (4 + 6) and gk.GEMM_LAUNCHES["rows"] == 2 * 5

@@ -1,7 +1,8 @@
 """The port imports on a machine without jax: every ``arvae_tpu_torch``
 module imports in a subprocess where ``import jax`` fails, and no
-module of the port, nor ``chip_smoke.py``, names jax or the JAX package
-in an import. The probe also blocks scikit-learn, pandas, click,
+module of the port, nor ``chip_smoke.py``, nor the cases it shares with
+the card tests (``tests/torch_card_cases.py``), names jax or the JAX
+package in an import. The probe also blocks scikit-learn, pandas, click,
 matplotlib and music21, which the card's machine lacks too, so an import
 of any of them in the port (a plot creeping into the tester, say) fails
 here and not first on the card."""
@@ -46,7 +47,7 @@ def test_every_module_imports_without_jax():
 def test_no_jax_or_reference_package_imports():
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|arvae_tpu)\b",
                      re.M)
-    files = _module_files() + [REPO / "chip_smoke.py"]
+    files = _module_files() + [REPO / "chip_smoke.py", REPO / "tests" / "torch_card_cases.py"]
     offenders = [str(p) for p in files if pat.search(p.read_text())]
     assert not offenders
 

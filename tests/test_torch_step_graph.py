@@ -28,7 +28,7 @@ from arvae_tpu_torch.training.fader_trainer import ImageFaderTrainer
 from arvae_tpu_torch.training.glsr_trainer import MeasureVAETrainerGLSR
 from arvae_tpu_torch.training.image_trainer import ImageVAETrainer
 from arvae_tpu_torch.training.measure_trainer import MeasureVAETrainer
-from arvae_tpu_torch.utils.step_probe import TokenCorpus, bench_vocab
+from torch_card_cases import TokenCorpus, bench_vocab
 
 CPU, B = torch.device("cpu"), 4
 

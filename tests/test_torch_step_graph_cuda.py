@@ -44,7 +44,7 @@ from arvae_tpu_torch.training.glsr_trainer import MeasureVAETrainerGLSR
 from arvae_tpu_torch.training.image_trainer import ImageVAETrainer
 from arvae_tpu_torch.training.measure_trainer import MeasureVAETrainer
 from arvae_tpu_torch.utils import profiling
-from arvae_tpu_torch.utils.step_probe import TokenCorpus, bench_vocab
+from torch_card_cases import TokenCorpus, bench_vocab
 
 pytestmark = pytest.mark.gpu
 
